@@ -1,0 +1,578 @@
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (any failure exits nonzero; nothing is caught and passed over):
+
+1. build   — compile every CUDA kernel from `verbatim_rag_tpu_torch/csrc`
+             (one nvcc per source, started together); print the card's name
+             and power limit;
+2. kernels — each kernel against its plain PyTorch version on the card at
+             the main path's shapes, with timings, bounds and the library
+             yardstick:
+             flash attention, ModernBERT-base heads (B=8, H=12, D=64, bf16),
+             S ∈ {512, 8192}, global and window=128, ragged lengths with a
+             zero-length row; each live attention row (b, q, h) held to its
+             own scale: max|out − plain| over D within 2e-2 of max|plain|
+             plus half a bf16 ulp of that max (both round probabilities to
+             bf16, at different points, and the output is bf16). At S=8192
+             global two planted faults (the last key tile dropped, one row's
+             length mask dropped) must fail that check;
+             exact rescore at B=512, C=256, m=128, qm=32 over a 1M-row
+             forward index with missing (−1) candidates; rtol 1e-5;
+3. flow    — the offline quickstart through the user entry points:
+             `VerbatimIndex.add_documents` on `examples/example_docs` with the
+             hashed providers, then `VerbatimRAG.query` with the full-width
+             ModernBERT-base extractor (22 layers, random weights from the
+             seed) for 3 questions; every highlight must index its chunk
+             verbatim, every store tensor and parameter must be on the card;
+4. store   — a 1M-chunk store (dense 384 bf16, sketch 768, forward index
+             128 nnz) filled through `add_vectors`, then 512-query hybrid
+             batches through `query_batch`; rows checked against the same
+             store with the plain rescore on every query (a query may differ
+             only where its sparse arm's exact scores tie within 1e-6);
+5. long    — one ~20k-token document through the full-width extractor
+             (3 windows at S=8192 through all 22 layers).
+
+Each main-path phase (3-5) sets the kernels' launch counts to 0 just before
+it and reads them just after; a kernel of the path launched no time fails.
+Phases 4 and 5 then run one more call under `torch.profiler` and print the
+kernels that took the most device time and the device's idle share.
+The last lines are the card's name and power limit, one JSON object with a
+row per kernel, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM published peaks (dense): bf16 tensor cores, FP32 CUDA cores, HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
+
+#: The store phase's serving point (`bench.py`'s): 1M chunks, 8 timed batches.
+STORE_ROWS = 1_000_000
+STORE_BATCHES = 8
+
+#: bf16 flash check: per-row relative limit (see `flash_row_check`).
+FLASH_RTOL = 2e-2
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"FAILED: {what}")
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn()`` in ms (CUDA events around ``reps`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: wall ms, summed kernel ms,
+    idle share of the device, and the kernels that took the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [  # kernels only: an op's row repeats the time of the kernels it launched
+        (e.key, e.count, e.self_device_time_total / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(r[2] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    return dict(
+        wall_ms=wall_ms,
+        kernel_ms=busy_ms,
+        idle_share=max(0.0, 1.0 - busy_ms / wall_ms),
+        top=[dict(kernel=k[:90], calls=c, ms=ms) for k, c, ms in rows[:top]],
+    )
+
+
+def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = ops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 2: kernels against their plain versions -------------------------------------
+
+
+def attention_pairs(lengths, seq: int, window) -> int:
+    """Unmasked (query, key) pairs: every query row of [0, S) against keys
+    below its row's length and, on local layers, inside the band."""
+    total = 0
+    for n in lengths:
+        n = int(n)
+        if n <= 0:
+            continue
+        if window is None:
+            total += seq * n
+            continue
+        half = window // 2
+        q = range(seq)
+        total += sum(max(0, min(n - 1, i + half) - max(0, i - half) + 1) for i in q)
+    return total
+
+
+def flash_row_check(out, ref, live) -> tuple[float, float]:
+    """Hold each live attention row (b, q, h) to its own scale.
+
+    A row's limit is FLASH_RTOL·max|ref| plus half a bf16 ulp of that max,
+    both over D; an output element has std ≈ sqrt(e/n) for n live keys, so a
+    flat limit would be loose on long rows. Returns (max abs error, worst
+    error / limit) over the live rows."""
+    import torch
+
+    err = (out.float() - ref).abs().amax(dim=-1)  # [B, S, H]
+    scale = ref.abs().amax(dim=-1)
+    _, exponent = torch.frexp(scale)
+    limit = FLASH_RTOL * scale + torch.ldexp(torch.ones_like(scale), exponent - 9)
+    return float(err[live].max()), float((err / limit)[live].max())
+
+
+def check_flash(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    B, H, D = 8, 12, 64
+    cases = []
+    headline = None
+    for seq in (512, 8192):
+        lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q, k, v = (
+            torch.randn(B, seq, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(3)
+        )
+        live = torch.arange(seq, device="cuda")[None, :] < lens[:, None]
+        for window in (None, 128):
+            outs = {"kernel": fa.flash_attention_cuda(q, k, v, lens, window)}
+            if seq == 8192 and window is None:
+                # Planted faults the check must catch, each held to the true
+                # lengths: the kernel run without each row's last key tile
+                # (rows longer than one tile), and without row 2's length mask.
+                cut = torch.where(lens > 64, (lens - 1) // 64 * 64, lens)
+                unmasked = lens.clone()
+                unmasked[2] = seq
+                outs["fault: last key tile dropped"] = fa.flash_attention_cuda(q, k, v, cut, None)
+                outs["fault: row 2 length mask dropped"] = fa.flash_attention_cuda(
+                    q, k, v, unmasked, None
+                )
+            torch.cuda.synchronize()
+            err = {name: 0.0 for name in outs}
+            ratio = {name: 0.0 for name in outs}
+            rows = 1 if seq > 1024 else B  # plain version per batch row at long S
+            for b0 in range(0, B, rows):
+                sl = slice(b0, b0 + rows)
+                if not bool(live[sl].any()):
+                    continue
+                ref = fa.attention_reference(q[sl], k[sl], v[sl], lens[sl], window)
+                for name, o in outs.items():
+                    e, r = flash_row_check(o[sl], ref, live[sl])
+                    err[name], ratio[name] = max(err[name], e), max(ratio[name], r)
+                del ref
+            out, max_err, worst = outs.pop("kernel"), err.pop("kernel"), ratio.pop("kernel")
+            require(bool((out[1] == 0).all()), f"flash S={seq} w={window}: zero-length row not 0")
+            require(
+                math.isfinite(worst) and worst <= 1.0,
+                f"flash S={seq} w={window}: max abs err {max_err}, worst row at {worst} of its limit",
+            )
+            for name, r in ratio.items():
+                require(r > 1.0, f"flash S={seq}: {name} passes the check ({r} of the limit)")
+            del outs, out
+            ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, lens, window), reps=5)
+
+            def plain():
+                for b0 in range(0, B, rows):
+                    sl = slice(b0, b0 + rows)
+                    fa.attention_reference(q[sl], k[sl], v[sl], lens[sl], window)
+
+            plain_ms = cuda_ms(plain, reps=2)
+            # Library yardstick: SDPA with the equivalent boolean mask ([B,H,S,D]).
+            kidx = torch.arange(seq, device="cuda")
+            allowed = (kidx[None, None, :] < lens[:, None, None]).expand(B, seq, seq)
+            if window is not None:
+                allowed = allowed & ((kidx[:, None] - kidx[None, :]).abs() <= window // 2)[None]
+            mask = allowed[:, None]
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            library_ms = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3
+            )
+            del qt, kt, vt, mask, allowed
+            pairs = attention_pairs(lengths, seq, window)
+            b_ms, b_by = bound(4 * B * seq * H * D * 2 + 4 * B, 4 * H * D * pairs, PEAK_BF16_FLOPS)
+            case = dict(
+                seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            )
+            if ratio:
+                case["planted_faults_worst_row_of_limit"] = ratio
+            log("flash", json.dumps(case))
+            cases.append(case)
+            if seq == 8192 and window is None:
+                headline = case
+        del q, k, v
+        torch.cuda.empty_cache()
+    return dict(headline, cases=cases)
+
+
+def check_rescore(gen) -> dict:
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import rescore as rs
+
+    B, C, N, m, qm, vocab = 512, 256, 1_000_000, 128, 32, 30522
+    sp_ids = torch.randint(1, vocab, (N, m), generator=gen, device="cuda", dtype=torch.int32)
+    sp_w = torch.rand((N, m), generator=gen, device="cuda")
+    nnz = torch.randint(1, m + 1, (N, 1), generator=gen, device="cuda")
+    pad = torch.arange(m, device="cuda")[None, :] >= nnz
+    sp_ids[pad] = 0
+    sp_w[pad] = 0.0
+    cand = torch.randint(0, N, (B, C), generator=gen, device="cuda", dtype=torch.int32)
+    cand[:, -5:] = -1
+    cand[::7, :20] = -1
+    # Half the query terms come from candidate rows so scores are not all 0.
+    q_ids = torch.randint(1, vocab, (B, qm), generator=gen, device="cuda", dtype=torch.int32)
+    src = cand[:, : qm // 2].clamp(min=0).long()
+    q_ids[:, : qm // 2] = sp_ids[src, torch.arange(qm // 2, device="cuda")[None, :]]
+    q_w = torch.rand((B, qm), generator=gen, device="cuda")
+
+    got = rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w)
+    torch.cuda.synchronize()
+    ref = rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w)
+    valid = cand >= 0
+    require(bool(((got <= -1e29) == ~valid).all()), "rescore: -1 rows differ")
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
+    err = float((got - ref)[valid].abs().max())
+    require(bool((rel <= 1e-5).all()), f"rescore: max rel err {float(rel.max())}")
+    require(float((got[valid] > 0).float().mean()) > 0.05, "rescore: too few matches to check")
+    ms = cuda_ms(lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), reps=20)
+    plain_ms = cuda_ms(lambda: rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w), reps=3)
+    n_valid = int(valid.sum())
+    b_ms, b_by = bound(
+        n_valid * m * 8 + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm, PEAK_FP32_OPS
+    )
+    result = dict(
+        max_abs_err=err, max_rel_err=float(rel.max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log("rescore", json.dumps(result))
+    return result
+
+
+# -- phases 3-5: the main path ------------------------------------------------------------
+
+
+def reset_counts() -> None:
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa, rescore as rs
+
+    fa.launches = 0
+    rs.launches = 0
+
+
+def read_counts() -> dict:
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa, rescore as rs
+
+    return {"flash_attention": fa.launches, "rescore": rs.launches}
+
+
+def run_flow(seed: int, card: str):
+    import torch
+
+    from verbatim_rag_tpu_torch.engine import (
+        HashedBowDenseProvider,
+        HashedSparseProvider,
+        VerbatimIndex,
+    )
+    from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor, modernbert_base_config
+    from verbatim_rag_tpu_torch.rag import VerbatimRAG
+
+    docs = sorted((ROOT / "examples" / "example_docs").glob("*.md"))
+    questions = [
+        "How efficient are solar panels?",
+        "Why do offshore wind farms produce more energy?",
+        "How is solar energy stored for the night?",
+    ]
+    extractor = ModelSpanExtractor(config=modernbert_base_config(), seed=seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    index = VerbatimIndex(dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider())
+    index.add_documents([DocumentSchema.from_file(str(p)) for p in docs])
+    rag = VerbatimRAG(index, extractor=extractor)
+    ingest_s = time.perf_counter() - t0
+    times, n_highlights = [], 0
+    for q in questions:
+        t0 = time.perf_counter()
+        response = rag.query(q)
+        times.append(time.perf_counter() - t0)
+        require(bool(response.documents), f"flow: no documents for {q!r}")
+        for doc in response.documents:
+            for h in doc.highlights:
+                require(doc.content[h.start : h.end] == h.text, "flow: highlight not verbatim")
+                n_highlights += 1
+    counts = read_counts()
+    require(n_highlights > 0, "flow: no highlights")
+    require(counts["flash_attention"] > 0 and counts["rescore"] > 0, f"flow: launches {counts}")
+    store = index.store
+    for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj", "_valid_dev"):
+        require(getattr(store, name).is_cuda, f"flow: store.{name} not on cuda")
+    require(all(p.is_cuda for p in extractor.model.parameters()), "flow: parameter not on cuda")
+    result = dict(
+        card=card, ingest_s=ingest_s, query_s=times, highlights=n_highlights, launches=counts,
+        answer_head=response.answer[:120],
+    )
+    log("flow", json.dumps(result))
+    return extractor, result
+
+
+def run_store(seed: int, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    dim, nnz, vocab, batch, qm, top_k = 384, 128, 30522, 512, 32, 10
+    n_rows, n_batches = STORE_ROWS, STORE_BATCHES
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n_rows, dim), dtype=np.float32)
+    ids = rng.integers(1, vocab, size=(n_rows, nnz), dtype=np.int32)
+    weights = rng.random((n_rows, nnz), dtype=np.float32)
+    records = [
+        {"id": str(i), "dense": dense[i], "sparse_arrays": (ids[i], weights[i])}
+        for i in range(n_rows)
+    ]
+    store = DeviceVectorStore(dense_dim=dim, sparse_vocab=vocab, sparse_max_nnz=nnz)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.add_vectors(records)
+    store.flush()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    del records
+    state_gb = sum(
+        t.numel() * t.element_size()
+        for t in (store._dense, store._sp_ids, store._sp_w, store._sp_proj, store._valid_dev)
+    ) / 1e9
+
+    def queries(i):
+        r = np.random.default_rng(seed + 1 + i)
+        src = r.integers(0, n_rows, size=batch)
+        q_dense = dense[src] + 0.5 * r.standard_normal((batch, dim), dtype=np.float32)
+        q_ids = ids[src, :qm].copy()
+        q_ids[:, qm // 2 :] = r.integers(1, vocab, size=(batch, qm - qm // 2))
+        q_w = r.random((batch, qm), dtype=np.float32)
+        return q_dense, (q_ids, q_w), src
+
+    q_dense, q_sparse, src = queries(0)
+    first = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    require(len(first) == batch and all(len(r) == top_k for r in first), "store: result shape")
+    require(all(math.isfinite(h.score) and h.score > 0 for r in first for h in r), "store: scores")
+    hit = np.mean([str(s) in {h.id for h in r} for s, r in zip(src, first)])
+
+    batches = [queries(i) for i in range(1, n_batches + 1)]
+    times = []
+    for b_dense, b_sparse, _ in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = store.query_batch(dense_queries=b_dense, sparse_queries=b_sparse, top_k=top_k)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(len(out) == batch, "store: batch size")
+    counts = read_counts()
+    require(counts["rescore"] == n_batches + 1, f"store: launches {counts}")
+
+    # The first batch with the plain rescore must give the same rows on every
+    # query. A query may differ only where the rescore's float32 sums, taken
+    # in another order, reorder a near-tie: its sparse arm (the sparse-only
+    # query at the hybrid's fetch depth, 2·top_k) must then differ, and only
+    # at positions whose exact scores tie within 1e-6 relative.
+    kernel_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    store.rescore_impl = "oneshot"
+    plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    plain_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    store.rescore_impl = "pallas"
+    differ = 0
+    for b in range(batch):
+        if [h.id for h in first[b]] == [h.id for h in plain[b]]:
+            continue
+        differ += 1
+        pairs = list(zip(kernel_sparse[b], plain_sparse[b]))
+        require(
+            len(kernel_sparse[b]) == len(plain_sparse[b])
+            and any(x.id != y.id for x, y in pairs)
+            and all(
+                x.id == y.id or abs(x.score - y.score) <= 1e-6 * max(x.score, y.score)
+                for x, y in pairs
+            ),
+            f"store: query {b} rows differ from the plain rescore's without a score tie",
+        )
+    q_dense, q_sparse, _ = batches[0]
+    profile = device_profile(
+        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    )
+    log("store profile", json.dumps(profile))
+    ms = float(np.median(times))
+    result = dict(
+        card=card, rows=n_rows, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
+        batch=batch, batch_ms_median=ms, batch_ms=times, qps=batch / ms * 1e3,
+        source_row_in_top10=float(hit), queries_differing_from_plain_on_a_tie=differ,
+        launches=counts,
+    )
+    log("store", json.dumps(result))
+    del store
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_long(extractor, seed: int, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    words = (ROOT / "examples" / "example_docs" / "solar.md").read_text().split()
+    words += (ROOT / "examples" / "example_docs" / "wind.md").read_text().split()
+    rng = np.random.default_rng(seed)
+    text = " ".join(rng.choice(words, size=19000))
+    plan = extractor._plan("How do solar panels store energy?", text)
+    require(len(plan["rows"]) == 3, f"long: {len(plan['rows'])} windows, expected 3")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spans = extractor.process("How do solar panels store energy?", text)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    require(counts["flash_attention"] == extractor.config.num_layers, f"long: launches {counts}")
+    profile = device_profile(lambda: extractor.process("How do solar panels store energy?", text))
+    log("long profile", json.dumps(profile))
+    require(all(0 <= s < e <= len(text) for s, e in spans), "long: span offsets")
+    result = dict(
+        card=card, tokens=plan["n_tokens"], windows=len(plan["rows"]), seconds=seconds,
+        spans=len(spans), launches=counts,
+    )
+    log("long", json.dumps(result))
+    return result
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: no CUDA device; this script runs only on a GPU\n")
+        raise SystemExit(2)
+    if not (ROOT / "verbatim_rag_tpu_torch" / "csrc").is_dir():
+        sys.stderr.write("chip_smoke: run it from a checkout of the repository\n")
+        raise SystemExit(3)
+    sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from verbatim_rag_tpu_torch.ops import cuda_build
+
+    card = gpu_name_and_limit()
+    log("card:", card, "| torch", torch.__version__, "cuda", torch.version.cuda)
+    t0 = time.perf_counter()
+    build_logs = cuda_build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    flash = check_flash(gen)
+    rescore = check_rescore(gen)
+    torch.cuda.empty_cache()
+
+    extractor, flow = run_flow(args.seed, card)
+    store = run_store(args.seed, card)
+    long_ctx = run_long(extractor, args.seed, card)
+
+    launches = {
+        k: flow["launches"][k] + store["launches"][k] + long_ctx["launches"][k]
+        for k in flow["launches"]
+    }
+    kernels = [
+        dict(
+            name="flash_attention_fwd",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
+            launches=launches["flash_attention"],
+            **flash,
+        ),
+        dict(
+            name="sparse_rescore",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/rescore.cu",
+            replaces="verbatim_rag_tpu/ops/rescore.py:41",
+            launches=launches["rescore"],
+            **rescore,
+        ),
+    ]
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(
+        json.dumps(
+            {
+                "ok": True,
+                "device": {
+                    "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0),
+                    "count": torch.cuda.device_count(),
+                },
+            }
+        )
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,192 @@
+"""Each module the PyTorch port copies from the JAX package, pinned to its
+original: same outputs on the same inputs (bit-equal where the copy is
+numpy or pure Python)."""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import enum
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from verbatim_rag_tpu.core.models import Highlight as JaxHighlight
+from verbatim_rag_tpu.core.response_builder import ResponseBuilder as JaxResponseBuilder
+from verbatim_rag_tpu.core.templates import TemplateManager as JaxTemplateManager
+from verbatim_rag_tpu.engine import embedding_providers as jax_providers
+from verbatim_rag_tpu.engine import filters as jax_filters
+from verbatim_rag_tpu.engine import store as jax_store
+from verbatim_rag_tpu.engine.search_result import SearchResult as JaxSearchResult
+from verbatim_rag_tpu.ingestion import chunkers as jax_chunkers
+from verbatim_rag_tpu.ingestion.schema import DocumentSchema as JaxSchema
+from verbatim_rag_tpu.models import config as jax_config
+from verbatim_rag_tpu.models import tokenizer as jax_tokenizer
+from verbatim_rag_tpu.ops import sparse_projected as jax_sp
+from verbatim_rag_tpu_torch.core.models import Highlight
+from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
+from verbatim_rag_tpu_torch.core.templates import TemplateManager
+from verbatim_rag_tpu_torch.engine import embedding_providers as providers
+from verbatim_rag_tpu_torch.engine import filters
+from verbatim_rag_tpu_torch.engine import store
+from verbatim_rag_tpu_torch.engine.search_result import SearchResult
+from verbatim_rag_tpu_torch.ingestion import chunkers
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.models import config
+from verbatim_rag_tpu_torch.models import tokenizer
+from verbatim_rag_tpu_torch.ops import sparse_projected as sp
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples" / "example_docs"
+TEXTS = [
+    "Solar panels convert sunlight, efficiently (about 22%)!",
+    "",
+    "Ünïcode wörds and ASCII words — mixed; punctuation...",
+    " ".join(["wind"] * 700),
+]
+
+
+@pytest.mark.parametrize("vocab,d_p,seed", [(30522, 768, 0), (1000, 32, 7)])
+def test_projection_matrix_bit_equal(vocab, d_p, seed):
+    np.testing.assert_array_equal(
+        sp.projection_matrix(vocab, d_p, seed), jax_sp.projection_matrix(vocab, d_p, seed)
+    )
+
+
+def test_project_sparse_queries_bit_equal():
+    proj = sp.projection_matrix(500, 16, 1)
+    rows = [{3: 1.5, 499: 0.25, 7: 2.0}, {}, {1000: 3.0, 0: 1.0}]
+    np.testing.assert_array_equal(
+        sp.project_sparse_queries(rows, proj), jax_sp.project_sparse_queries(rows, proj)
+    )
+
+
+def test_project_rows_matches_jax():
+    import torch
+
+    rng = np.random.default_rng(0)
+    proj = sp.projection_matrix(300, 24, 2)
+    ids = rng.integers(0, 300, size=(10, 6)).astype(np.int32)
+    w = rng.random((10, 6), dtype=np.float32)
+    w[:, -2:] = 0.0
+    got = sp.project_rows(torch.from_numpy(ids), torch.from_numpy(w), torch.from_numpy(proj))
+    np.testing.assert_allclose(got.numpy(), jax_sp.project_rows(ids, w, proj), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("text", TEXTS)
+@pytest.mark.parametrize("max_length", [16, 512])
+def test_hash_tokenizer_ids_and_offsets_equal(text, max_length):
+    ours = tokenizer.HashTokenizer(vocab_size=5000)
+    theirs = jax_tokenizer.HashTokenizer(vocab_size=5000)
+    a = ours.encode_batch([text, "a pair"], max_length=max_length, with_offsets=True)
+    b = theirs.encode_batch([text, "a pair"], max_length=max_length, with_offsets=True)
+    np.testing.assert_array_equal(a.input_ids, b.input_ids)
+    np.testing.assert_array_equal(a.attention_mask, b.attention_mask)
+    assert a.offsets == b.offsets
+    assert ours.tokenize_with_offsets(text) == theirs.tokenize_with_offsets(text)
+    pair_a = ours.encode_batch([text], max_length=max_length, pair=["question words"])
+    pair_b = theirs.encode_batch([text], max_length=max_length, pair=["question words"])
+    np.testing.assert_array_equal(pair_a.input_ids, pair_b.input_ids)
+
+
+@pytest.mark.parametrize("n", [1, 64, 65, 8192, 8193, 20000])
+def test_bucket_length_equal(n):
+    assert tokenizer.bucket_length(n) == jax_tokenizer.bucket_length(n)
+    assert tokenizer.DEFAULT_BUCKETS == jax_tokenizer.DEFAULT_BUCKETS
+
+
+@pytest.mark.parametrize("text", TEXTS)
+def test_hashed_providers_equal(text):
+    np.testing.assert_array_equal(
+        providers.HashedBowDenseProvider(dim=96).embed_text(text),
+        jax_providers.HashedBowDenseProvider(dim=96).embed_text(text),
+    )
+    assert providers.HashedSparseProvider(2048).embed_text(text) == (
+        jax_providers.HashedSparseProvider(2048).embed_text(text)
+    )
+    assert providers.HashedSparseProvider().describe() == jax_providers.HashedSparseProvider().describe()
+
+
+@pytest.mark.parametrize("value", ["abc", 17, 3.5, None, True, ("a", 1)])
+def test_stable_hash_equal(value):
+    assert filters.stable_hash64(value) == jax_filters.stable_hash64(value)
+
+
+@pytest.mark.parametrize(
+    "flt",
+    [None, {"document_id": "d1"}, {"user_id": "u2", "tag": "x"}, "tag == 'x' and year >= 2020"],
+)
+def test_compile_filter_equal(flt):
+    meta = [
+        {"document_id": f"d{i % 3}", "user_id": f"u{i % 2}", "tag": "xy"[i % 2], "year": 2015 + i}
+        for i in range(8)
+    ]
+    promoted = {
+        f: np.array([filters.stable_hash64(m.get(f)) if m.get(f) else 0 for m in meta], np.int64)
+        for f in filters.PROMOTED_FIELDS
+    }
+    a = filters.compile_filter(flt, len(meta), promoted, meta)
+    b = jax_filters.compile_filter(flt, len(meta), promoted, meta)
+    assert (a is None and b is None) or np.array_equal(a, b)
+
+
+def test_config_presets_equal():
+    for name in ("tiny_test_config", "modernbert_base_config", "demo_highlighter_config"):
+        ours, theirs = getattr(config, name)(), getattr(jax_config, name)()
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert config.modernbert_base_config().head_dim == 64
+
+
+@pytest.mark.parametrize("path", sorted(EXAMPLES.glob("*.md")), ids=lambda p: p.name)
+def test_schema_and_chunkers_equal(path):
+    ours, theirs = DocumentSchema.from_file(str(path)), JaxSchema.from_file(str(path))
+    assert ours.model_dump() == theirs.model_dump()
+    for kwargs in (dict(split_level=2, min_chunk_size=64), dict(split_level=1, max_chunk_size=80)):
+        assert chunkers.MarkdownChunkerProvider(**kwargs).chunk(ours.content) == (
+            jax_chunkers.MarkdownChunkerProvider(**kwargs).chunk(theirs.content)
+        )
+    assert chunkers.SimpleChunkerProvider(chunk_size=50, overlap=10).chunk(ours.content) == (
+        jax_chunkers.SimpleChunkerProvider(chunk_size=50, overlap=10).chunk(theirs.content)
+    )
+
+
+def test_response_builder_and_templates_equal():
+    content = "Solar panels work. Solar panels are efficient. Wind too."
+    spans = {content: ["Solar panels", "Wind too."]}
+    results = [SearchResult(id="a", text=content, metadata={"title": "t"})]
+    jax_results = [JaxSearchResult(id="a", text=content, metadata={"title": "t"})]
+    display = [{"text": "Solar panels", "doc_text": content}]
+    citation = [{"text": "Wind too.", "doc_text": content}]
+    answer = TemplateManager().process("q?", display, citation)
+    assert answer == JaxTemplateManager().process("q?", display, citation)
+    ours = ResponseBuilder().build_response("q?", answer, results, spans, display_span_count=1)
+    theirs = JaxResponseBuilder().build_response("q?", answer, jax_results, spans, display_span_count=1)
+    assert ours.model_dump() == theirs.model_dump()
+    assert ResponseBuilder().clean_answer('"a  b\\n"') == JaxResponseBuilder().clean_answer('"a  b\\n"')
+    assert Highlight(text="x", start=0, end=1).model_dump() == JaxHighlight(text="x", start=0, end=1).model_dump()
+
+
+class _Color(enum.Enum):
+    RED = "red"
+
+
+@pytest.mark.parametrize(
+    "value",
+    [datetime.date(2024, 1, 2), _Color.RED, {3, 1, 2}, np.int64(5), Path("x/y")],
+)
+def test_store_helpers_equal(value):
+    assert store.json_safe(value) == jax_store.json_safe(value)
+
+
+@pytest.mark.parametrize("entries,nnz", [({5: 1.0, 2: 0.0, 9: -3.0}, 2), ([(1, 0.5)], 4), ({}, 3)])
+def test_pad_sparse_equal(entries, nnz):
+    for a, b in zip(store._pad_sparse(entries, nnz), jax_store._pad_sparse(entries, nnz)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize(
+    "payload",
+    [(np.zeros((2, 3)), np.zeros((2, 3))), [{1: 1.0}], ({1: 1.0}, {2: 1.0}), (np.zeros(3), np.zeros(3))],
+)
+def test_is_sparse_arrays_equal(payload):
+    assert store._is_sparse_arrays(payload) == jax_store._is_sparse_arrays(payload)

@@ -1,0 +1,161 @@
+"""Span extractor in the PyTorch port vs the JAX package.
+
+Both extractors get one JAX parameter tree (the port through
+`params_from_jax`) and a tiny ModernBERT-style config. Token probabilities
+are compared at rtol/atol 5e-4; char spans must be equal, on the
+single-window path, the multi-window path (max_length far below the
+document), and the >512-row path (bursts scored in 512-row slices). The
+span threshold is placed in a wide gap of the JAX probabilities, so the
+comparison of spans cannot hinge on a probability within the tolerance of
+the threshold.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from verbatim_rag_tpu.models.config import tiny_test_config as jax_tiny_config
+from verbatim_rag_tpu.models.highlighter import (
+    ModelSpanExtractor as JaxExtractor,
+    init_highlighter_params as jax_init,
+    token_relevance_probs as jax_probs,
+)
+from verbatim_rag_tpu_torch.models.config import tiny_test_config
+from verbatim_rag_tpu_torch.models.highlighter import (
+    HighlighterModel,
+    ModelSpanExtractor,
+    params_from_jax,
+    token_relevance_probs,
+)
+
+OVERRIDES = dict(
+    vocab_size=512,
+    hidden_size=32,
+    num_heads=2,
+    num_layers=3,
+    intermediate_size=32,
+    max_position_embeddings=4096,
+    position_embedding_type="rope",
+    norm_location="pre",
+    activation="geglu",
+    use_bias=False,
+    final_norm=True,
+    type_vocab_size=0,
+    first_layer_no_attn_norm=True,
+    layer_norm_eps=1e-5,
+    local_attention_window=16,
+    use_flash_attention=True,
+)
+
+WORDS = (
+    "solar panels convert sunlight into electricity using photovoltaic cells while "
+    "wind turbines harvest kinetic energy and batteries store the surplus for night "
+    "grids balance supply against demand with markets reserves and careful planning"
+).split()
+
+
+def _doc(n_words, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.choice(WORDS, size=n_words)
+    return ". ".join(" ".join(words[i : i + 9]) for i in range(0, n_words, 9)) + "."
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    params = jax_init(jax.random.PRNGKey(7), jax_tiny_config(**OVERRIDES))
+    return params, params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def test_token_probs_match_jax(jax_params):
+    params, state = jax_params
+    rng = np.random.default_rng(0)
+    ids = rng.integers(3, 512, size=(3, 64)).astype(np.int32)
+    mask = (np.arange(64)[None, :] < np.array([[64], [41], [9]])).astype(np.int32)
+    expected = np.asarray(
+        jax_probs(params, jax_tiny_config(**OVERRIDES), jnp.asarray(ids), jnp.asarray(mask))
+    )
+    model = HighlighterModel(tiny_test_config(**OVERRIDES))
+    model.load_state_dict(state)
+    with torch.no_grad():
+        got = token_relevance_probs(model, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, expected, rtol=5e-4, atol=5e-4)
+    assert (got[mask == 0] == 0).all()
+
+
+def _threshold_in_gap(extractor, question, contexts):
+    """A threshold in the widest gap of the JAX probabilities (middle half)."""
+    probs = []
+    original = extractor._forward_probs
+
+    def spy(ids, mask):
+        out = original(ids, mask)
+        probs.append(out[mask.astype(bool)])
+        return out
+
+    extractor._forward_probs = spy
+    extractor.process_batch(question, contexts)
+    extractor._forward_probs = original
+    values = np.sort(np.concatenate(probs))
+    lo, hi = len(values) // 4, 3 * len(values) // 4
+    gaps = np.diff(values[lo:hi])
+    i = int(np.argmax(gaps))
+    assert gaps[i] > 2e-3
+    return float((values[lo + i] + values[lo + i + 1]) / 2)
+
+
+CASES = {
+    # name: (n_docs, words per doc, max_length, doc_stride)
+    "single_window": (3, 60, 8192, 256),
+    "multi_window": (2, 400, 96, 24),
+    "over_512_rows": (520, 12, 8192, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_spans_match_jax(jax_params, case):
+    params, state = jax_params
+    n_docs, n_words, max_length, stride = CASES[case]
+    contexts = [_doc(n_words, seed) for seed in range(n_docs)]
+    question = "how do solar panels store energy for the grid at night"
+    kwargs = dict(max_length=max_length, doc_stride=stride, min_span_chars=10)
+    jax_ex = JaxExtractor(params=params, config=jax_tiny_config(**OVERRIDES), **kwargs)
+    threshold = _threshold_in_gap(jax_ex, question, contexts[:8])
+    jax_ex.threshold = threshold
+    port_ex = ModelSpanExtractor(
+        params=state, config=tiny_test_config(**OVERRIDES), threshold=threshold,
+        device="cpu", **kwargs,
+    )
+    expected = jax_ex.process_batch(question, contexts)
+    got = port_ex.process_batch(question, contexts)
+    assert got == expected
+    assert any(spans for spans in got)
+    if case == "multi_window":
+        assert len(port_ex._plan(question, contexts[0])["rows"]) > 1
+
+
+def test_extract_spans_returns_verbatim_substrings(jax_params):
+    _, state = jax_params
+    extractor = ModelSpanExtractor(
+        params=state, config=tiny_test_config(**OVERRIDES), device="cpu", min_span_chars=5
+    )
+
+    class Result:
+        def __init__(self, text):
+            self.text = text
+
+    docs = [_doc(50, 11), "", _doc(30, 12)]
+    spans = extractor.extract_spans("solar energy", [Result(t) for t in docs])
+    assert spans[""] == []
+    for text in docs:
+        assert all(span in text for span in spans[text])
+
+
+def test_default_config_is_the_demo_highlighter():
+    extractor = ModelSpanExtractor(device="cpu")
+    assert extractor.config.hidden_size == 256 and extractor.config.num_layers == 4
+    assert next(extractor.model.parameters()).device.type == "cpu"

@@ -1,0 +1,73 @@
+"""The PyTorch port runs its main path without JAX or the JAX package.
+
+A fresh interpreter ingests the example documents, answers a question with
+the default extractor on the CPU, and then must hold no ``jax`` module and
+no ``verbatim_rag_tpu`` module. The same holds for every module of the
+port imported on its own.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+FLOW = """
+import json, sys
+from pathlib import Path
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, VerbatimIndex
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.rag import VerbatimRAG
+
+index = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu"
+)
+index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+response = VerbatimRAG(index).query("How efficient are solar panels?")
+ok = all(d.content[h.start:h.end] == h.text for d in response.documents for h in d.highlights)
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+    "docs": len(response.documents),
+    "verbatim": ok,
+}))
+"""
+
+IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import verbatim_rag_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({
+    "modules": len(names),
+    "jax": [m for m in sys.modules if m == "jax" or m.startswith("jax.")],
+    "reference": [m for m in sys.modules if m.startswith("verbatim_rag_tpu.") or m == "verbatim_rag_tpu"],
+}))
+"""
+
+
+def _run(code: str) -> dict:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300, check=True,
+    )
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_main_path_loads_no_jax():
+    result = _run(FLOW)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["docs"] > 0 and result["verbatim"]
+
+
+def test_every_port_module_imports_without_jax():
+    result = _run(IMPORT_ALL)
+    assert result["modules"] >= 20
+    assert result["jax"] == [] and result["reference"] == []

@@ -1,0 +1,204 @@
+"""Device store in the PyTorch port vs the JAX package.
+
+Both stores take the same records (hashed providers over a small corpus that
+holds exact duplicates, so dense, sparse and RRF scores all tie) and answer
+the same batched queries with exact selection (``approx_topk=False``; the
+port always selects exactly, lowest index first among ties like
+``lax.top_k``). Hybrid results must be equal: same rows in the same order,
+bit-equal RRF scores. Dense and sparse scores are float32 dots summed in
+another order: same rows, scores at rtol 1e-6.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from verbatim_rag_tpu.engine.embedding_providers import (
+    HashedBowDenseProvider,
+    HashedSparseProvider,
+)
+from verbatim_rag_tpu.engine.store import DeviceVectorStore as JaxStore
+from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+TEXTS = [
+    "solar panels convert sunlight into electricity",
+    "wind turbines convert wind into electricity",
+    "solar panels convert sunlight into electricity",  # exact duplicate
+    "battery storage smooths solar output at night",
+    "offshore wind farms see steadier wind",
+    "hydro power stores energy in reservoirs",
+    "solar panels",
+    "wind wind wind turbines",
+    "grid operators balance supply and demand",
+    "battery storage smooths solar output at night",  # exact duplicate
+    "geothermal plants tap heat from the earth",
+    "panels and turbines both feed the grid",
+]
+QUERIES = [
+    "solar panels electricity",
+    "wind turbines",
+    "battery storage at night",
+    "nothing matches this query zzz",
+    "grid supply",
+]
+
+DENSE = HashedBowDenseProvider(dim=64)
+SPARSE = HashedSparseProvider(vocab_size=4096)
+
+
+def _records(texts, start=0):
+    dense = DENSE.embed_batch(texts)
+    sparse = SPARSE.embed_batch(texts)
+    return [
+        {
+            "id": f"r{start + i}",
+            "text": t,
+            "metadata": {"document_id": f"d{(start + i) % 3}"},
+            "dense": dense[i],
+            "sparse": sparse[i],
+        }
+        for i, t in enumerate(texts)
+    ]
+
+
+def _stores(block=16, flushes=(5, 4, 3)):
+    kwargs = dict(
+        dense_dim=64, sparse_vocab=4096, sparse_max_nnz=8, projection_dim=32,
+        block=block, approx_topk=False,
+    )
+    jax_store, port_store = JaxStore(**kwargs), DeviceVectorStore(device="cpu", **kwargs)
+    start = 0
+    for n in flushes:
+        for store in (jax_store, port_store):
+            store.add_vectors(_records(TEXTS[start : start + n], start))
+            store.flush()
+        start += n
+    assert port_store._capacity == jax_store._capacity
+    return jax_store, port_store
+
+
+def _query(store, search_type, **kwargs):
+    dense = DENSE.embed_batch(QUERIES) if search_type in ("hybrid", "dense") else None
+    sparse = SPARSE.embed_batch(QUERIES) if search_type in ("hybrid", "sparse") else None
+    return store.query_batch(
+        dense_queries=dense, sparse_queries=sparse,
+        search_type=None if search_type == "hybrid" else search_type, **kwargs,
+    )
+
+
+def _assert_same(got, expected, exact_scores):
+    assert [[h.id for h in row] for row in got] == [[h.id for h in row] for row in expected]
+    for g_row, e_row in zip(got, expected):
+        g = np.array([h.score for h in g_row], np.float32)
+        e = np.array([h.score for h in e_row], np.float32)
+        if exact_scores:
+            np.testing.assert_array_equal(g, e)
+        else:
+            np.testing.assert_allclose(g, e, rtol=1e-6, atol=1e-7)
+        for gh, eh in zip(g_row, e_row):
+            assert (gh.text, gh.metadata) == (eh.text, eh.metadata)
+
+
+@pytest.mark.parametrize("top_k", [1, 3, 5, 20])
+@pytest.mark.parametrize("search_type", ["hybrid", "dense", "sparse"])
+def test_query_batch_matches_jax(search_type, top_k):
+    jax_store, port_store = _stores()
+    expected = _query(jax_store, search_type, top_k=top_k)
+    got = _query(port_store, search_type, top_k=top_k)
+    assert any(got)
+    _assert_same(got, expected, exact_scores=search_type == "hybrid")
+
+
+@pytest.mark.parametrize("search_type", ["hybrid", "dense", "sparse"])
+def test_filters_and_deletes_match_jax(search_type):
+    jax_store, port_store = _stores()
+    for store in (jax_store, port_store):
+        store.delete(["r0", "r7"])
+    for flt in (None, {"document_id": "d1"}):
+        expected = _query(jax_store, search_type, top_k=4, filter=flt)
+        got = _query(port_store, search_type, top_k=4, filter=flt)
+        _assert_same(got, expected, exact_scores=search_type == "hybrid")
+        assert all(h.id not in ("r0", "r7") for row in got for h in row)
+    assert port_store.count() == jax_store.count() == len(TEXTS) - 2
+
+
+def test_hybrid_weights_and_depth_match_jax():
+    jax_store, port_store = _stores(block=8192, flushes=(12,))
+    kwargs = dict(
+        top_k=4, hybrid_weights={"dense": 0.3, "sparse": 0.7}, rrf_k=10,
+        search_params={"rescore_depth": 64},
+    )
+    _assert_same(
+        _query(port_store, "hybrid", **kwargs), _query(jax_store, "hybrid", **kwargs), True
+    )
+
+
+def test_sparse_query_arrays_match_dicts():
+    _, port_store = _stores()
+    q_ids, q_w = port_store._pad_sparse_queries(SPARSE.embed_batch(QUERIES))
+    dense = DENSE.embed_batch(QUERIES)
+    from_arrays = port_store.query_batch(dense_queries=dense, sparse_queries=(q_ids, q_w), top_k=3)
+    from_dicts = _query(port_store, "hybrid", top_k=3)
+    assert [[h.id for h in r] for r in from_arrays] == [[h.id for h in r] for r in from_dicts]
+
+
+def test_browsing_and_empty_store():
+    _, port_store = _stores()
+    assert port_store.get("r3").text == TEXTS[3]
+    assert port_store.get("missing") is None
+    assert [r.id for r in port_store.get_by_filter({"document_id": "d2"}, limit=2)] == ["r2", "r5"]
+    assert port_store.size == len(TEXTS)
+    empty = DeviceVectorStore(dense_dim=64, sparse_vocab=4096, device="cpu")
+    assert empty.query_batch(dense_queries=DENSE.embed_batch(QUERIES[:2])) == [[], []]
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        dict(dense_dtype="int8"),
+        dict(sketch_dtype="int4"),
+        dict(candidate_impl="section"),
+        dict(enable_full_text=True),
+        dict(sparse_mode="exact"),
+        dict(sparse_ids_dtype="int16"),
+        dict(sparse_weight_dtype="float16"),
+        dict(mesh=object()),
+    ],
+)
+def test_options_of_later_slices_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        DeviceVectorStore(device="cpu", **kwargs)
+
+
+def test_persistence_raises():
+    store = DeviceVectorStore(device="cpu")
+    for call in (lambda: store.save("x"), store.compact, lambda: DeviceVectorStore.load("x")):
+        with pytest.raises(NotImplementedError):
+            call()
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert DeviceVectorStore().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DeviceVectorStore()
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("k", [1, 4, 17])
+def test_topk_matches_lax_top_k_with_ties(seed, k):
+    import jax
+
+    from verbatim_rag_tpu_torch.ops.dense import topk
+
+    rng = np.random.default_rng(seed)
+    scores = rng.integers(-3, 4, size=(5, 40)).astype(np.float32)  # many ties
+    scores[1, 10:] = -1e30  # a masked tail ties at the boundary
+    scores[2] = 0.5  # the whole row ties
+    expected_vals, expected_pos = jax.lax.top_k(scores, k)
+    vals, pos = topk(torch.from_numpy(scores), k)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(expected_pos))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(expected_vals))

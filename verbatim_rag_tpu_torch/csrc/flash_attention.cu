@@ -1,0 +1,446 @@
+// Flash-attention forward for the encoder stack, hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `verbatim_rag_tpu/ops/flash_attention.py::_flash_kernel`
+// (pallas_call in `_flash_forward`, entry `flash_attention_tpu`), forward only
+// and without the logsumexp output.
+//
+// Computes, per batch row b and head h:
+//     o[q] = softmax_k(q·k/sqrt(D) + mask)·v
+// with keys k >= lengths[b] masked and, when window >= 0, keys with
+// |q - k| > window/2 masked too. A row whose keys are all masked writes 0,
+// like the TPU kernel. Inputs and output are [B, S, H, D] contiguous with
+// D = 64, in bfloat16 or float32; scores, softmax statistics and accumulators are
+// float32. Any S is taken: the ragged edge is masked here, nothing is padded
+// by the caller. Key tiles past lengths[b], or outside the band on local
+// layers, are never loaded, so local layers cost O(S·window).
+//
+// Two kernels, one per input type, both one thread block per (64-row q tile,
+// b·h) with 64-key K/V tiles in shared memory and an online softmax (running
+// max and normaliser in registers):
+//
+//   bf16 — the encoder's compute type: tensor cores through mma.sync
+//          m16n8k16 (bf16 in, f32 accumulate). 4 warps, 16 q rows each; Q
+//          stays in registers as A fragments, S = Q·Kᵀ lands in registers in
+//          exactly the layout of the A fragments of P·V, so P never touches
+//          shared memory (FlashAttention-2's register reuse). V is stored
+//          transposed in shared memory so every B fragment is one 32-bit
+//          load. P is rounded to bf16 for the P·V product (the plain version
+//          rounds the normalised probabilities to bf16 too).
+//   f32  — plain FMA on the CUDA cores, 4 threads per q row, p passed to the
+//          P·V loop by warp shuffle.
+//
+// Bound on an H100 SXM: global layers are compute-bound (4·B·H·S²·D FLOP;
+// 618 GFLOP at B=3, S=8192, H=12, D=64, i.e. 0.63 ms at 989 TFLOP/s bf16);
+// local layers are memory-bound (q, k, v and o read or written once). The
+// bf16 kernel loads each tile synchronously (no cp.async/TMA pipeline) and
+// uses mma.sync, not wgmma, so it is still far from that bound; a pipelined
+// wgmma kernel is the next step.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int D = 64;  // head dim: ModernBERT's 12 × 64 heads
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreadsPerRow = 4;
+constexpr int kThreads = kBlockQ * kThreadsPerRow;  // 256
+constexpr int kKeysPerThread = kBlockK / kThreadsPerRow;  // 16
+constexpr float kNegInf = -1e30f;
+
+// Key tiles [begin, end) that a q tile starting at q_start can see: keys below
+// len and, for window >= 0, within window/2 of some row of the tile.
+__device__ __forceinline__ void key_tile_range(int q_start, int len, int window, int* begin,
+                                               int* end) {
+  int k_lo = 0;
+  int k_hi = len;
+  if (window >= 0) {
+    const int half = window / 2;
+    k_lo = q_start - half > 0 ? q_start - half : 0;
+    const int hi = q_start + kBlockQ + half;  // exclusive
+    k_hi = hi < len ? hi : len;
+  }
+  *begin = k_lo / kBlockK;
+  *end = k_hi > k_lo ? (k_hi + kBlockK - 1) / kBlockK : *begin;
+}
+
+// ---- float32: FMA on the CUDA cores ------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ lengths,
+                 float* __restrict__ out, int seq, int heads, int window, float scale) {
+  constexpr int kChunks = D / (4 * kThreadsPerRow);  // float4 output chunks per thread
+  constexpr int kPad = D + 4;                          // K row stride in floats (bank spread)
+
+  __shared__ __align__(16) float k_tile[kBlockK][kPad];
+  __shared__ __align__(16) float v_tile[kBlockK][D];
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q_start = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x;
+  const int row = tid / kThreadsPerRow;
+  const int sub = tid % kThreadsPerRow;
+  const int lane = tid & 31;
+  const int row_lane0 = lane & ~(kThreadsPerRow - 1);
+  const int qi = q_start + row;
+  const int half = window / 2;
+
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > seq ? seq : len);
+
+  const long long tok_stride = (long long)heads * D;
+  const long long base = (long long)b * seq * tok_stride + (long long)h * D;
+
+  float qr[D];
+  if (qi < seq) {
+    const float* qp = q + base + (long long)qi * tok_stride;
+#pragma unroll
+    for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) qr[d] = 0.f;
+  }
+
+  float acc[4 * kChunks];
+#pragma unroll
+  for (int i = 0; i < 4 * kChunks; ++i) acc[i] = 0.f;
+  float m_run = kNegInf;
+  float l_run = 0.f;
+
+  int kt_begin, kt_end;
+  key_tile_range(q_start, len, window, &kt_begin, &kt_end);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile has been consumed
+    for (int i = tid; i < kBlockK * D; i += kThreads) {
+      const int kk = i / D;
+      const int d = i - kk * D;
+      const int key = k0 + kk;
+      float kv = 0.f, vv = 0.f;
+      if (key < seq) {
+        const long long off = base + (long long)key * tok_stride + d;
+        kv = k[off];
+        vv = v[off];
+      }
+      k_tile[kk][d] = kv;
+      v_tile[kk][d] = vv;
+    }
+    __syncthreads();
+
+    // Scores for keys kk = sub + kThreadsPerRow * j.
+    float p[kKeysPerThread];
+    unsigned valid_bits = 0u;
+    float tile_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      const int kk = sub + kThreadsPerRow * j;
+      const int key = k0 + kk;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 kv = *reinterpret_cast<const float4*>(&k_tile[kk][d]);
+        dot = fmaf(qr[d], kv.x, dot);
+        dot = fmaf(qr[d + 1], kv.y, dot);
+        dot = fmaf(qr[d + 2], kv.z, dot);
+        dot = fmaf(qr[d + 3], kv.w, dot);
+      }
+      const int dist = qi > key ? qi - key : key - qi;
+      const bool ok = key < len && (window < 0 || dist <= half);
+      p[j] = ok ? dot : kNegInf;
+      valid_bits |= ok ? (1u << j) : 0u;
+      tile_max = fmaxf(tile_max, p[j]);
+    }
+#pragma unroll
+    for (int o = 1; o < kThreadsPerRow; o <<= 1)
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, o));
+
+    const float m_new = fmaxf(m_run, tile_max);
+    const float corr = expf(m_run - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeysPerThread; ++j) {
+      p[j] = (valid_bits >> j) & 1u ? expf(p[j] - m_new) : 0.f;
+      psum += p[j];
+    }
+#pragma unroll
+    for (int o = 1; o < kThreadsPerRow; o <<= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, o);
+    l_run = l_run * corr + psum;
+    m_run = m_new;
+#pragma unroll
+    for (int i = 0; i < 4 * kChunks; ++i) acc[i] *= corr;
+
+    // acc += p · V over the tile; key kk's p lives in lane row_lane0 + kk % 4.
+#pragma unroll
+    for (int kk = 0; kk < kBlockK; ++kk) {
+      const float pk =
+          __shfl_sync(0xffffffffu, p[kk / kThreadsPerRow], row_lane0 + kk % kThreadsPerRow);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int d = (sub + kThreadsPerRow * c) * 4;
+        const float4 vv = *reinterpret_cast<const float4*>(&v_tile[kk][d]);
+        acc[4 * c] = fmaf(pk, vv.x, acc[4 * c]);
+        acc[4 * c + 1] = fmaf(pk, vv.y, acc[4 * c + 1]);
+        acc[4 * c + 2] = fmaf(pk, vv.z, acc[4 * c + 2]);
+        acc[4 * c + 3] = fmaf(pk, vv.w, acc[4 * c + 3]);
+      }
+    }
+  }
+
+  if (qi < seq) {
+    const float denom = fmaxf(l_run, 1e-20f);
+    float* op = out + base + (long long)qi * tok_stride;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int d = (sub + kThreadsPerRow * c) * 4;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) op[d + e] = acc[4 * c + e] / denom;
+    }
+  }
+}
+
+// ---- bf16: tensor cores through mma.sync -------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;  // 16 q rows per warp
+constexpr int kSmemPad = 8;                  // bf16 padding per shared row (bank spread)
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A (16×16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2 (g, 2t+8..),
+//                         reg3 (g+8, 2t+8..)
+//   B (16×8, k × n):      reg0 (k = 2t..2t+1, n = g), reg1 (k = 2t+8..2t+9, n = g)
+//   C (16×8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+                     __nv_bfloat16* __restrict__ out, int seq, int heads, int window,
+                     float scale) {
+  constexpr int kDSteps = D / 16;        // k-steps of Q·Kᵀ
+  constexpr int kDTiles = D / 8;         // n-tiles of O
+  constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
+  constexpr int kKeySteps = kBlockK / 16;  // k-steps of P·V
+  constexpr int kKStride = D + kSmemPad;
+  constexpr int kVStride = kBlockK + kSmemPad;
+
+  __shared__ __align__(16) __nv_bfloat16 k_tile[kBlockK * kKStride];  // [key][d]
+  __shared__ __align__(16) __nv_bfloat16 vt_tile[D * kVStride];       // [d][key]
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q_start = blockIdx.x * kBlockQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q_start + (tid / 32) * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int row1 = row0 + 8;
+  const int half = window / 2;
+
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > seq ? seq : len);
+
+  const long long tok_stride = (long long)heads * D;
+  const long long base = (long long)b * seq * tok_stride + (long long)h * D;
+
+  unsigned qa[kDSteps][4];
+#pragma unroll
+  for (int kc = 0; kc < kDSteps; ++kc) {
+    const int d = kc * 16 + 2 * t;
+    const __nv_bfloat16* q0 = q + base + (long long)row0 * tok_stride + d;
+    const __nv_bfloat16* q1 = q + base + (long long)row1 * tok_stride + d;
+    qa[kc][0] = row0 < seq ? load_u32(q0) : 0u;
+    qa[kc][1] = row1 < seq ? load_u32(q1) : 0u;
+    qa[kc][2] = row0 < seq ? load_u32(q0 + 8) : 0u;
+    qa[kc][3] = row1 < seq ? load_u32(q1 + 8) : 0u;
+  }
+
+  float o[kDTiles][4];
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  int kt_begin, kt_end;
+  key_tile_range(q_start, len, window, &kt_begin, &kt_end);
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBlockK;
+    __syncthreads();  // the previous tile has been consumed
+    constexpr int kChunks = D / 8;  // 16-byte chunks per key row
+    for (int i = tid; i < kBlockK * kChunks; i += kMmaThreads) {
+      const int kk = i / kChunks;
+      const int c = (i - kk * kChunks) * 8;
+      const int key = k0 + kk;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      if (key < seq) {
+        const long long off = base + (long long)key * tok_stride + c;
+        kv = *reinterpret_cast<const uint4*>(k + off);
+        vv = *reinterpret_cast<const uint4*>(v + off);
+      }
+      *reinterpret_cast<uint4*>(&k_tile[kk * kKStride + c]) = kv;
+      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vt_tile[(c + e) * kVStride + kk] = ve[e];
+    }
+    __syncthreads();
+
+    // S = Q·Kᵀ: 8 n-tiles of 8 keys.
+    float s[kKeyTiles][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kDSteps; ++kc) {
+        const __nv_bfloat16* kp = &k_tile[(j * 8 + g) * kKStride + kc * 16 + 2 * t];
+        mma_bf16(s[j], qa[kc], load_u32(kp), load_u32(kp + 8));
+      }
+    }
+
+    // Scale, mask, row max (each row's 64 scores live in the 4 lanes of a quad).
+    unsigned valid = 0u;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + 2 * t + (e & 1);
+        const int row = e < 2 ? row0 : row1;
+        const int dist = row > key ? row - key : key - row;
+        const bool ok = key < len && (window < 0 || dist <= half);
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        valid |= ok ? (1u << (j * 4 + e)) : 0u;
+        if (e < 2)
+          mx0 = fmaxf(mx0, s[j][e]);
+        else
+          mx1 = fmaxf(mx1, s[j][e]);
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+    }
+    const float new0 = fmaxf(m0, mx0);
+    const float new1 = fmaxf(m1, mx1);
+    const float corr0 = expf(m0 - new0);
+    const float corr1 = expf(m1 - new1);
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float m_row = e < 2 ? new0 : new1;
+        s[j][e] = (valid >> (j * 4 + e)) & 1u ? expf(s[j][e] - m_row) : 0.f;
+        if (e < 2)
+          ps0 += s[j][e];
+        else
+          ps1 += s[j][e];
+      }
+    }
+#pragma unroll
+    for (int o_ = 1; o_ < 4; o_ <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o_);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o_);
+    }
+    l0 = l0 * corr0 + ps0;
+    l1 = l1 * corr1 + ps1;
+    m0 = new0;
+    m1 = new1;
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      o[j][0] *= corr0;
+      o[j][1] *= corr0;
+      o[j][2] *= corr1;
+      o[j][3] *= corr1;
+    }
+
+    // O += P·V: P's A fragments are S's accumulators of n-tiles 2kc, 2kc+1.
+#pragma unroll
+    for (int kc = 0; kc < kKeySteps; ++kc) {
+      const unsigned pa[4] = {
+          pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+          pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+          pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+          pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]),
+      };
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j) {
+        const __nv_bfloat16* vp = &vt_tile[(j * 8 + g) * kVStride + kc * 16 + 2 * t];
+        mma_bf16(o[j], pa, load_u32(vp), load_u32(vp + 8));
+      }
+    }
+  }
+
+  const float den0 = fmaxf(l0, 1e-20f);
+  const float den1 = fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (row0 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row0 * tok_stride + d) =
+          __floats2bfloat162_rn(o[j][0] / den0, o[j][1] / den0);
+    if (row1 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row1 * tok_stride + d) =
+          __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
+  }
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                       dim3 grid, int seq, int heads, int window, float scale, cudaStream_t s) {
+  flash_fwd_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      lengths, static_cast<float*>(out), seq, heads, window, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
+                        void* out, dim3 grid, int seq, int heads, int window, float scale,
+                        cudaStream_t s) {
+  flash_fwd_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), seq,
+      heads, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. window < 0 means global attention.
+// head_dim must be 64. Returns the CUDA error code of the launch (0 on success).
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   const void* lengths, void* out, int batch, int seq, int heads,
+                                   int head_dim, int window, int dtype, void* stream) {
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaSuccess;
+  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
+  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
+  if (dtype == 0) return (int)launch_f32(q, k, v, len, out, grid, seq, heads, window, scale, s);
+  if (dtype == 1) return (int)launch_bf16(q, k, v, len, out, grid, seq, heads, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

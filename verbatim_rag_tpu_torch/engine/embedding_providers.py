@@ -1,0 +1,94 @@
+"""Embedding providers: text → dense vectors / sparse term-weight dicts.
+
+Copy of `verbatim_rag_tpu/engine/embedding_providers.py`, trimmed to the two
+provider contracts and the deterministic, model-free providers (hashed
+bag-of-words dense; hashed tf sparse) that the offline path uses. Outputs are
+identical to the original (pinned by `tests/test_torch_copies.py`). Neural
+providers come with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import re
+from abc import ABC, abstractmethod
+from typing import Sequence
+
+import numpy as np
+
+from .filters import stable_hash64
+
+_WORD_RE = re.compile(r"[a-z0-9]+")
+
+
+class DenseEmbeddingProvider(ABC):
+    @abstractmethod
+    def embed_text(self, text: str) -> np.ndarray:
+        """Embed one text → [d] float32."""
+
+    def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
+        """Embed many texts → [n, d]; override for true batching."""
+        return np.stack([self.embed_text(t) for t in texts])
+
+    @abstractmethod
+    def get_dimension(self) -> int: ...
+
+    def describe(self) -> dict:
+        """JSON-safe identity of the vector space this provider builds."""
+        return {"class": type(self).__name__}
+
+
+class SparseEmbeddingProvider(ABC):
+    @abstractmethod
+    def embed_text(self, text: str) -> dict[int, float]:
+        """Embed one text → {token_id: weight}."""
+
+    def embed_batch(self, texts: Sequence[str]) -> list[dict[int, float]]:
+        return [self.embed_text(t) for t in texts]
+
+    @abstractmethod
+    def get_dimension(self) -> int: ...
+
+    def describe(self) -> dict:
+        """JSON-safe identity of the vector space this provider builds."""
+        return {"class": type(self).__name__}
+
+
+class HashedBowDenseProvider(DenseEmbeddingProvider):
+    """Deterministic dense embeddings: L2-normalized hashed bag of words."""
+
+    def __init__(self, dim: int = 384):
+        self.dim = dim
+
+    def embed_text(self, text: str) -> np.ndarray:
+        vec = np.zeros(self.dim, np.float32)
+        for tok in _WORD_RE.findall(text.lower()):
+            h = int(stable_hash64(tok))
+            vec[h % self.dim] += 1.0 if (h >> 32) % 2 else -1.0
+        norm = np.linalg.norm(vec)
+        return vec / norm if norm > 0 else vec
+
+    def get_dimension(self) -> int:
+        return self.dim
+
+    def describe(self) -> dict:
+        return {"class": "HashedBowDenseProvider", "dim": self.dim}
+
+
+class HashedSparseProvider(SparseEmbeddingProvider):
+    """Deterministic sparse embeddings: log-scaled hashed term frequencies."""
+
+    def __init__(self, vocab_size: int = 30522):
+        self.vocab_size = vocab_size
+
+    def embed_text(self, text: str) -> dict[int, float]:
+        counts: dict[int, int] = {}
+        for tok in _WORD_RE.findall(text.lower()):
+            slot = (int(stable_hash64(tok)) % (self.vocab_size - 1)) + 1
+            counts[slot] = counts.get(slot, 0) + 1
+        return {t: float(np.log1p(c)) for t, c in counts.items()}
+
+    def get_dimension(self) -> int:
+        return self.vocab_size
+
+    def describe(self) -> dict:
+        return {"class": "HashedSparseProvider", "vocab_size": self.vocab_size}

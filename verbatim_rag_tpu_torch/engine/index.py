@@ -1,0 +1,330 @@
+"""VerbatimIndex — ingest + retrieval orchestration over the device store
+(port of `verbatim_rag_tpu/engine/index.py`).
+
+Documents are chunked, embedded in batches by the providers, and appended to
+the port's `DeviceVectorStore`; queries resolve their search type (hybrid
+iff both providers) and run one batched store query.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable, Mapping, Sequence
+
+import numpy as np
+
+from verbatim_rag_tpu_torch.ingestion.chunkers import ChunkerProvider, MarkdownChunkerProvider
+from verbatim_rag_tpu_torch.ingestion.document import Chunk, Document
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+
+from .embedding_providers import DenseEmbeddingProvider, SparseEmbeddingProvider
+from .filters import FilterSpec
+from .search_result import SearchResult
+from .store import DeviceVectorStore, VectorStore
+
+
+class VerbatimIndex:
+    """Hybrid retrieval index: chunk → encode → device arrays → fused search."""
+
+    def __init__(
+        self,
+        dense_provider: DenseEmbeddingProvider | None = None,
+        sparse_provider: SparseEmbeddingProvider | None = None,
+        chunker: ChunkerProvider | None = None,
+        store: VectorStore | None = None,
+        enable_full_text: bool = False,
+        db_path: str | None = None,
+        mesh=None,
+        dense_dtype: str = "bfloat16",
+        sketch_dtype: str | None = None,
+        device=None,
+        **store_kwargs,
+    ):
+        self.dense_provider = dense_provider
+        self.sparse_provider = sparse_provider
+        self.chunker = chunker or MarkdownChunkerProvider(split_level=2, min_chunk_size=64)
+        self.enable_full_text = enable_full_text
+        self.db_path = db_path
+        if store is not None:
+            if store_kwargs:
+                raise TypeError(
+                    "store kwargs and an explicit store are mutually exclusive: "
+                    f"{sorted(store_kwargs)}"
+                )
+            self.store = store
+        else:
+            self.store = DeviceVectorStore(
+                dense_dim=dense_provider.get_dimension() if dense_provider else None,
+                sparse_vocab=sparse_provider.get_dimension() if sparse_provider else None,
+                enable_full_text=enable_full_text,
+                mesh=mesh,
+                dense_dtype=dense_dtype,
+                sketch_dtype=sketch_dtype,
+                device=device,
+                **store_kwargs,
+            )
+        #: The device the store's arrays live on; the default extractor of
+        #: `VerbatimRAG` follows it.
+        self.device = getattr(self.store, "device", None)
+        #: document_id → {title, source, metadata, num_chunks}
+        self.documents: dict[str, dict[str, Any]] = {}
+
+    # -- ingest --------------------------------------------------------------------
+
+    def add_documents(self, docs: Sequence[DocumentSchema | Document | dict]) -> list[str]:
+        """Per-document ingest; returns document ids."""
+        ids = []
+        for doc in docs:
+            document = self._coerce_document(doc)
+            self._ingest_chunk_batch(self._prepare_document(document))
+            ids.append(document.id)
+        self.store.flush()
+        return ids
+
+    def add_document(self, doc: DocumentSchema | Document | dict) -> str:
+        return self.add_documents([doc])[0]
+
+    def add_documents_bulk(
+        self,
+        docs: Iterable[DocumentSchema | Document | dict],
+        chunk_batch_size: int = 2000,
+        doc_batch_size: int = 500,
+    ) -> list[str]:
+        """Bulk ingest with cross-document chunk batching: chunks accumulate
+        across documents and are embedded every ``chunk_batch_size`` chunks /
+        ``doc_batch_size`` docs."""
+        ids: list[str] = []
+        pending: list[dict[str, Any]] = []
+        docs_in_batch = 0
+        for doc in docs:
+            document = self._coerce_document(doc)
+            pending.extend(self._prepare_document(document))
+            ids.append(document.id)
+            docs_in_batch += 1
+            if len(pending) >= chunk_batch_size or docs_in_batch >= doc_batch_size:
+                self._ingest_chunk_batch(pending)
+                pending, docs_in_batch = [], 0
+        if pending:
+            self._ingest_chunk_batch(pending)
+        self.store.flush()
+        return ids
+
+    def _coerce_document(self, doc: DocumentSchema | Document | dict) -> Document:
+        if isinstance(doc, Document):
+            return doc
+        if isinstance(doc, DocumentSchema):
+            return doc.to_document()
+        if isinstance(doc, dict):
+            return DocumentSchema(**doc).to_document()
+        raise TypeError(f"Cannot ingest {type(doc)!r}")
+
+    def _prepare_document(self, document: Document) -> list[dict[str, Any]]:
+        """Chunk a document and assemble un-embedded store records."""
+        pairs = self.chunker.chunk(document.content)
+        footer = self._document_footer(document)
+        records = []
+        chunks: list[Chunk] = []
+        for i, (raw, enhanced) in enumerate(pairs):
+            if not raw.strip():
+                continue
+            chunk = Chunk(text=raw, enhanced_text=enhanced + footer)
+            # System fields last: user metadata must not shadow them.
+            metadata = {
+                **document.metadata,
+                "document_id": document.id,
+                "title": document.title or document.metadata.get("title", ""),
+                "source": document.source or document.metadata.get("source", ""),
+                "chunk_index": i,
+            }
+            records.append(
+                {
+                    "id": chunk.id,
+                    "text": chunk.text,
+                    "enhanced_text": chunk.enhanced_text,
+                    "metadata": metadata,
+                }
+            )
+            chunks.append(chunk)
+        document.chunks = chunks
+        self.documents[document.id] = {
+            "title": document.title,
+            "source": document.source,
+            "metadata": document.metadata,
+            "num_chunks": len(records),
+        }
+        return records
+
+    @staticmethod
+    def _document_footer(document: Document) -> str:
+        """Title/source/metadata footer appended to enhanced text only."""
+        parts = []
+        if document.title:
+            parts.append(f"Document: {document.title}")
+        if document.source:
+            parts.append(f"Source: {document.source}")
+        for key, value in document.metadata.items():
+            if isinstance(value, (str, int, float, bool)):
+                parts.append(f"{key}: {value}")
+        if not parts:
+            return ""
+        return "\n\n[" + " | ".join(parts) + "]"
+
+    def _ingest_chunk_batch(self, records: list[dict[str, Any]]) -> None:
+        if not records:
+            return
+        enhanced = [r["enhanced_text"] for r in records]
+        if self.dense_provider is not None:
+            dense = np.asarray(self.dense_provider.embed_batch(enhanced), np.float32)
+            for rec, vec in zip(records, dense):
+                rec["dense"] = vec
+        if self.sparse_provider is not None:
+            for rec, sparse in zip(records, self.sparse_provider.embed_batch(enhanced)):
+                rec["sparse"] = sparse
+        self.store.add_vectors(records)
+
+    # -- query ----------------------------------------------------------------------
+
+    def query(
+        self,
+        text: str | None = None,
+        k: int = 5,
+        filter: FilterSpec = None,
+        search_type: str | None = None,
+        hybrid_weights: Mapping[str, float] | None = None,
+        rrf_k: int = 60,
+        search_params: Mapping[str, Any] | None = None,
+    ) -> list[SearchResult]:
+        return self.query_batch(
+            [text] if text is not None else None,
+            k=k,
+            filter=filter,
+            search_type=search_type,
+            hybrid_weights=hybrid_weights,
+            rrf_k=rrf_k,
+            search_params=search_params,
+        )[0]
+
+    def query_batch(
+        self,
+        texts: Sequence[str] | None,
+        k: int = 5,
+        filter: FilterSpec = None,
+        search_type: str | None = None,
+        hybrid_weights: Mapping[str, float] | None = None,
+        rrf_k: int = 60,
+        search_params: Mapping[str, Any] | None = None,
+    ) -> list[list[SearchResult]]:
+        """Batched retrieval. Search-type resolution:
+
+        - ``filter`` with no text → filter-only browse;
+        - explicit ``hybrid_weights`` → weighted hybrid over the named methods;
+        - explicit ``search_type`` in {dense, sparse, hybrid, full_text};
+        - otherwise auto: hybrid when both providers exist, else whichever
+          single provider is configured.
+        """
+        if texts is None:
+            return self.store.query_batch(top_k=k, filter=filter)
+
+        resolved = self._resolve_search_type(search_type, hybrid_weights)
+        methods = (
+            set(hybrid_weights)
+            if hybrid_weights
+            else {"dense", "sparse"}
+            if resolved == "hybrid"
+            else {resolved}
+        )
+        if hybrid_weights or search_type == "hybrid":
+            # An explicit hybrid request must not silently degrade.
+            available = {
+                "dense": self.dense_provider is not None,
+                "sparse": self.sparse_provider is not None,
+                "full_text": self.enable_full_text,
+            }
+            missing = sorted(m for m in methods if not available.get(m, False))
+            if missing:
+                raise ValueError(
+                    f"Hybrid query requests {missing} but this index has no "
+                    "matching provider/full-text config; configure the "
+                    "provider or drop the method from the request"
+                )
+
+        dense_q = None
+        if "dense" in methods and self.dense_provider is not None:
+            dense_q = np.asarray(self.dense_provider.embed_batch(list(texts)), np.float32)
+        sparse_q = None
+        if "sparse" in methods and self.sparse_provider is not None:
+            sparse_q = self.sparse_provider.embed_batch(list(texts))
+        text_q = list(texts) if "full_text" in methods and self.enable_full_text else None
+
+        return self.store.query_batch(
+            dense_queries=dense_q,
+            sparse_queries=sparse_q,
+            text_queries=text_q,
+            top_k=k,
+            filter=filter,
+            search_type=None if len(methods) > 1 else next(iter(methods)),
+            hybrid_weights=hybrid_weights,
+            rrf_k=rrf_k,
+            search_params=search_params,
+        )
+
+    def _resolve_search_type(
+        self, search_type: str | None, hybrid_weights: Mapping[str, float] | None
+    ) -> str:
+        if hybrid_weights:
+            return "hybrid"
+        if search_type:
+            return search_type
+        if self.dense_provider is not None and self.sparse_provider is not None:
+            return "hybrid"
+        if self.dense_provider is not None:
+            return "dense"
+        if self.sparse_provider is not None:
+            return "sparse"
+        if self.enable_full_text:
+            return "full_text"
+        raise ValueError("No embedding providers configured")
+
+    # -- browsing --------------------------------------------------------------------
+
+    def get_document(self, document_id: str) -> dict[str, Any] | None:
+        return self.documents.get(document_id)
+
+    def get_all_documents(self) -> list[dict[str, Any]]:
+        return [{"id": doc_id, **info} for doc_id, info in self.documents.items()]
+
+    def get_all_chunks(self, limit: int = 100) -> list[SearchResult]:
+        return self.store.get_by_filter(None, limit=limit)
+
+    def get_chunks_by_document(self, document_id: str, limit: int = 1000) -> list[SearchResult]:
+        return self.store.get_by_filter({"document_id": document_id}, limit=limit)
+
+    def delete_document(self, document_id: str) -> None:
+        self.store.delete_document(document_id)
+        self.documents.pop(document_id, None)
+
+    def inspect(self) -> dict[str, Any]:
+        """Index statistics."""
+        return {
+            "num_documents": len(self.documents),
+            "num_chunks": self.store.count(),
+            "dense": self.dense_provider is not None,
+            "sparse": self.sparse_provider is not None,
+            "full_text": self.enable_full_text,
+            "dense_dim": self.dense_provider.get_dimension() if self.dense_provider else None,
+            "sparse_vocab": (
+                self.sparse_provider.get_dimension() if self.sparse_provider else None
+            ),
+        }
+
+    # -- persistence (later slice) -------------------------------------------------------
+
+    def save(self, path: str | None = None) -> None:
+        raise NotImplementedError(
+            "VerbatimIndex.save is not ported yet (the persistence and BM25 slice)"
+        )
+
+    @classmethod
+    def load(cls, path: str, **kwargs) -> "VerbatimIndex":
+        raise NotImplementedError(
+            "VerbatimIndex.load is not ported yet (the persistence and BM25 slice)"
+        )

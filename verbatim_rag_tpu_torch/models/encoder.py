@@ -1,0 +1,200 @@
+"""Transformer encoder (BERT + ModernBERT families) as an ``nn.Module``
+(port of `verbatim_rag_tpu/models/encoder.py`).
+
+Parameters keep the JAX package's names and layouts — dense kernels are
+``[in, out]``, one submodule per layer instead of a stacked leading axis —
+so a JAX parameter tree converts with a reshape (`highlighter.params_from_jax`).
+
+Numerics follow the JAX forward:
+
+- parameters live in float32; matmul operands are cast to
+  ``config.compute_dtype`` and the product is float32 (`ops.dense.matmul_f32`),
+  so the residual stream stays float32;
+- layer norms (population variance) and softmax run in float32;
+- RoPE is the half-split convention with float32 angles and the rotation in
+  the compute dtype; global layers use ``global_rope_theta``, local layers
+  ``local_rope_theta`` and a ``local_attention_window`` band;
+- GELU is the exact erf form;
+- every attention layer goes through `ops.flash_attention.flash_attention`:
+  the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from verbatim_rag_tpu_torch.ops.dense import matmul_f32
+from verbatim_rag_tpu_torch.ops.flash_attention import flash_attention
+
+from .config import EncoderConfig
+
+
+def compute_dtype(config: EncoderConfig) -> torch.dtype:
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+
+
+def _normal(shape, generator, scale=0.02) -> nn.Parameter:
+    return nn.Parameter(torch.randn(*shape, generator=generator) * scale)
+
+
+class Dense(nn.Module):
+    """``y = x @ kernel (+ bias)`` with a float32 result; kernel is [in, out]."""
+
+    def __init__(self, d_in: int, d_out: int, use_bias: bool, generator=None):
+        super().__init__()
+        self.kernel = _normal((d_in, d_out), generator)
+        self.bias = nn.Parameter(torch.zeros(d_out)) if use_bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        lead = x.shape[:-1]
+        y = matmul_f32(x.reshape(-1, x.shape[-1]).to(dtype), self.kernel.to(dtype))
+        y = y.reshape(*lead, -1)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, use_bias: bool = True):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        x = x.float()
+        mu = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, unbiased=False, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + eps) * self.scale
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+def rope(x: torch.Tensor, theta: float, positions: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding over head_dim of [B, S, H, D] (half-split convention)."""
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) * 2.0 / head_dim
+    denom = torch.tensor(theta, dtype=torch.float32, device=x.device) ** exponent
+    freq = positions[:, None].float() / denom  # [S, half]
+    cos = torch.cos(freq).to(x.dtype)[None, :, None, :]
+    sin = torch.sin(freq).to(x.dtype)[None, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, config: EncoderConfig, generator=None):
+        super().__init__()
+        h = config.hidden_size
+        bias = config.use_bias
+        ln_bias = config.use_bias or config.norm_location == "post"
+        wi_out = 2 * config.intermediate_size if config.activation == "geglu" else config.intermediate_size
+        self.attn = nn.ModuleDict(
+            {name: Dense(h, h, bias, generator) for name in ("q", "k", "v", "o")}
+        )
+        self.attn_ln = LayerNorm(h, ln_bias)
+        self.mlp = nn.ModuleDict(
+            {
+                "wi": Dense(h, wi_out, bias, generator),
+                "wo": Dense(config.intermediate_size, h, bias, generator),
+            }
+        )
+        self.mlp_ln = LayerNorm(h, ln_bias)
+
+    def mlp_forward(self, x, activation: str, dtype) -> torch.Tensor:
+        up = self.mlp["wi"](x, dtype)
+        if activation == "geglu":
+            gate, val = up.chunk(2, dim=-1)
+            hidden = F.gelu(gate.to(dtype), approximate="none") * val.to(dtype)
+        else:
+            hidden = F.gelu(up.to(dtype), approximate="none")
+        return self.mlp["wo"](hidden, dtype)
+
+
+class Encoder(nn.Module):
+    """Encoder stack: embeddings → layers → optional final LayerNorm.
+
+    ``forward(input_ids [B, S], attention_mask [B, S])`` → hidden states
+    [B, S, hidden] float32. The attention mask must be a prefix mask (valid
+    tokens first), as the tokenizers produce.
+    """
+
+    def __init__(self, config: EncoderConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        embeddings = {"word": _normal((config.vocab_size, h), generator)}
+        if config.position_embedding_type == "absolute":
+            embeddings["position"] = _normal((config.max_position_embeddings, h), generator)
+        if config.type_vocab_size:
+            embeddings["token_type"] = _normal((config.type_vocab_size, h), generator)
+        self.embeddings = nn.ParameterDict(embeddings)
+        self.embeddings_ln = (
+            LayerNorm(h, config.use_bias or config.norm_location == "post")
+            if config.embedding_norm
+            else None
+        )
+        self.layers = nn.ModuleList(
+            [EncoderLayer(config, generator) for _ in range(config.num_layers)]
+        )
+        self.final_ln = LayerNorm(h, config.use_bias) if config.final_norm else None
+
+    def embed(self, input_ids, token_type_ids=None) -> torch.Tensor:
+        config = self.config
+        emb = self.embeddings["word"][input_ids]
+        if config.position_embedding_type == "absolute":
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+            emb = emb + self.embeddings["position"][positions][None]
+        if config.type_vocab_size and "token_type" in self.embeddings:
+            if token_type_ids is None:
+                token_type_ids = torch.zeros_like(input_ids)
+            emb = emb + self.embeddings["token_type"][token_type_ids]
+        if self.embeddings_ln is not None:
+            emb = self.embeddings_ln(emb, config.layer_norm_eps)
+        return emb
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
+        config = self.config
+        dtype = compute_dtype(config)
+        batch, seq_len = input_ids.shape
+        heads, head_dim = config.num_heads, config.head_dim
+        pre_ln = config.norm_location == "pre"
+        eps = config.layer_norm_eps
+        use_rope = config.position_embedding_type == "rope"
+        positions = torch.arange(seq_len, device=input_ids.device)
+        lengths = attention_mask.sum(dim=1).to(torch.int32)
+
+        h = self.embed(input_ids.long(), token_type_ids)
+        for i, layer in enumerate(self.layers):
+            is_global = config.is_global_layer(i)
+            if pre_ln and not (i == 0 and config.first_layer_no_attn_norm):
+                a_in = layer.attn_ln(h, eps)
+            else:
+                a_in = h
+            q, k, v = (
+                layer.attn[name](a_in, dtype).reshape(batch, seq_len, heads, head_dim)
+                for name in ("q", "k", "v")
+            )
+            if use_rope:
+                theta = config.global_rope_theta if is_global else config.local_rope_theta
+                q = rope(q.to(dtype), theta, positions)
+                k = rope(k.to(dtype), theta, positions)
+            window = None if is_global or not use_rope else config.local_attention_window
+            ctx = flash_attention(
+                q.to(dtype).contiguous(), k.to(dtype).contiguous(),
+                v.to(dtype).contiguous(), lengths, window,
+            )
+            h = h + layer.attn["o"](ctx.reshape(batch, seq_len, -1), dtype)
+            if not pre_ln:
+                h = layer.attn_ln(h, eps)
+            m_in = layer.mlp_ln(h, eps) if pre_ln else h
+            h = h + layer.mlp_forward(m_in, config.activation, dtype)
+            if not pre_ln:
+                h = layer.mlp_ln(h, eps)
+
+        if self.final_ln is not None:
+            h = self.final_ln(h, eps)
+        return h.float()

@@ -1,0 +1,378 @@
+"""Neural span extraction: query-conditioned token classification (port of
+`verbatim_rag_tpu/models/highlighter.py`).
+
+A token-classification head on the encoder scores every context token for
+relevance to the question; char spans are cut where the token probability
+crosses a threshold, merged across small gaps, and length-filtered. Long
+contexts use sliding windows with stride overlap; overlapping probabilities
+are max-aggregated. Windows of every document run in one padded forward
+(row counts bucketed to powers of two, bursts scored in 512-row slices).
+
+The host-side planning, batching and decode are the JAX package's, unchanged;
+:meth:`ModelSpanExtractor._forward_probs` is the one model seam.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
+from verbatim_rag_tpu_torch.device import resolve_device
+
+from .config import EncoderConfig, demo_highlighter_config
+from .encoder import Dense, Encoder, LayerNorm, compute_dtype
+from .tokenizer import HashTokenizer, Tokenizer, bucket_length
+
+
+class HighlighterModel(Encoder):
+    """Encoder + 2-label token classifier, with the optional ModernBERT
+    prediction head (dense → GELU → LayerNorm) before it."""
+
+    def __init__(
+        self,
+        config: EncoderConfig,
+        generator: torch.Generator | None = None,
+        cls_head_biases: tuple[bool, bool] | None = None,
+    ):
+        """``cls_head_biases``: ``None`` for no prediction head, else whether
+        its dense layer and its LayerNorm carry biases."""
+        super().__init__(config, generator)
+        h = config.hidden_size
+        self.classifier = Dense(h, 2, True, generator)
+        self.cls_head = None
+        if cls_head_biases is not None:
+            dense_bias, norm_bias = cls_head_biases
+            self.cls_head = nn.ModuleDict(
+                {"dense": Dense(h, h, dense_bias, generator), "norm": LayerNorm(h, norm_bias)}
+            )
+
+    def classifier_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        dtype = compute_dtype(self.config)
+        if self.cls_head is not None:
+            hidden = self.cls_head["dense"](hidden, dtype)
+            hidden = F.gelu(hidden.float(), approximate="none")
+            hidden = self.cls_head["norm"](hidden, self.config.layer_norm_eps)
+        return self.classifier(hidden, dtype)  # [B, S, 2]
+
+
+def init_highlighter_params(
+    config: EncoderConfig, seed: int = 0, device=None
+) -> HighlighterModel:
+    """Random-init the highlighter from an explicit ``torch.Generator`` seed
+    (normal·0.02 kernels and embeddings, zero biases, unit LayerNorms)."""
+    generator = torch.Generator().manual_seed(seed)
+    return HighlighterModel(config, generator).to(resolve_device(device))
+
+
+def token_relevance_probs(model: HighlighterModel, input_ids, attention_mask) -> torch.Tensor:
+    """P(token is part of an answer span) per token — [B, S] float32."""
+    hidden = model(input_ids, attention_mask)
+    logits = model.classifier_logits(hidden)
+    probs = torch.softmax(logits.float(), dim=-1)[..., 1]
+    return probs * attention_mask.float()
+
+
+def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX highlighter parameter tree (numpy leaves) → the port's state_dict.
+
+    JAX stacks layers on a leading axis (``params["layers"]`` leaves are
+    ``[L, ...]``); kernels are ``[in, out]`` on both sides; ``cls_head`` is
+    optional.
+    """
+    out: dict[str, torch.Tensor] = {}
+
+    def put(key, value):
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+
+    for name, value in params_np["embeddings"].items():
+        if name == "ln":
+            for leaf, arr in value.items():
+                put(f"embeddings_ln.{leaf}", arr)
+        else:
+            put(f"embeddings.{name}", value)
+
+    def walk(prefix, tree, index):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(f"{prefix}{name}.", value, index)
+            else:
+                put(f"{prefix}{name}", np.asarray(value)[index])
+
+    n_layers = int(np.asarray(params_np["layers"]["attn"]["q"]["kernel"]).shape[0])
+    for i in range(n_layers):
+        walk(f"layers.{i}.", params_np["layers"], i)
+
+    for top in ("final_ln", "classifier", "cls_head"):
+        if top in params_np:
+            walk(f"{top}.", params_np[top], slice(None))
+    return out
+
+
+def select_spans_from_token_probs(
+    probs: np.ndarray,  # [T] per-context-token probabilities
+    offsets: list[tuple[int, int]],  # [T] char offsets into the document
+    threshold: float = 0.2,
+    min_span_chars: int = 30,
+    merge_gap_chars: int = 20,
+) -> list[tuple[int, int]]:
+    """Token probabilities → merged, filtered char spans: contiguous
+    above-threshold tokens become a region; regions whose char gap ≤
+    ``merge_gap_chars`` merge; regions shorter than ``min_span_chars`` drop."""
+    regions: list[list[int]] = []  # [start_char, end_char]
+    current: list[int] | None = None
+    for p, (start, end) in zip(probs, offsets):
+        if end <= start:  # special / empty token
+            continue
+        if p >= threshold:
+            if current is None:
+                current = [start, end]
+            elif start - current[1] > merge_gap_chars:
+                regions.append(current)
+                current = [start, end]
+            else:
+                current[1] = max(current[1], end)
+        else:
+            if current is not None:
+                regions.append(current)
+                current = None
+    if current is not None:
+        regions.append(current)
+
+    merged: list[list[int]] = []
+    for region in regions:
+        if merged and region[0] - merged[-1][1] <= merge_gap_chars:
+            merged[-1][1] = max(merged[-1][1], region[1])
+        else:
+            merged.append(region)
+
+    return [(s, e) for s, e in merged if e - s >= min_span_chars]
+
+
+class ModelSpanExtractor(SpanExtractor):
+    """Neural extractor backed by the PyTorch token classifier.
+
+    ``params`` is a state_dict for :class:`HighlighterModel` (for example
+    from :func:`params_from_jax`); without it the model is random-initialized
+    from ``seed``. The model lives on ``device`` (``None`` → ``cuda``).
+    """
+
+    def __init__(
+        self,
+        params: Mapping[str, torch.Tensor] | None = None,
+        config: EncoderConfig | None = None,
+        tokenizer: Tokenizer | None = None,
+        model_path: str | None = None,
+        threshold: float = 0.2,
+        min_span_chars: int = 30,
+        merge_gap_chars: int = 20,
+        max_length: int = 8192,
+        doc_stride: int = 256,
+        seed: int = 0,
+        sp_mesh=None,
+        device=None,
+    ):
+        if model_path is not None:
+            raise NotImplementedError(
+                "checkpoint loading is not ported yet (the extractor checkpoint slice)"
+            )
+        if sp_mesh is not None:
+            raise NotImplementedError(
+                "sequence-parallel extraction is not ported yet (the parallel slice)"
+            )
+        self.threshold = threshold
+        self.min_span_chars = min_span_chars
+        self.merge_gap_chars = merge_gap_chars
+        self.max_length = max_length
+        self.doc_stride = doc_stride
+        self.device = resolve_device(device)
+        self.config = config or demo_highlighter_config()
+        if params is None:
+            self.model = init_highlighter_params(self.config, seed, self.device)
+        else:
+            head = (
+                ("cls_head.dense.bias" in params, "cls_head.norm.bias" in params)
+                if any(key.startswith("cls_head.") for key in params)
+                else None
+            )
+            self.model = HighlighterModel(self.config, cls_head_biases=head)
+            self.model.load_state_dict(params)
+            self.model.to(self.device)
+        self.model.eval()
+        self.tokenizer = tokenizer or HashTokenizer(vocab_size=self.config.vocab_size)
+
+    # -- SpanExtractor interface ------------------------------------------------
+
+    def extract_spans(self, question: str, search_results: list[Any]) -> dict[str, list[str]]:
+        """All documents' windows run in one padded forward."""
+        texts = [getattr(r, "text", "") for r in search_results]
+        span_lists = self.process_batch(question, texts)
+        return {
+            text: [text[s:e] for s, e in spans]
+            for text, spans in zip(texts, span_lists)
+        }
+
+    # -- core ---------------------------------------------------------------------
+
+    def process(self, question: str, context: str) -> list[tuple[int, int]]:
+        """Score a (question, context) pair → char spans in ``context``."""
+        return self.process_batch(question, [context])[0]
+
+    def extract_spans_multi(
+        self, pairs: list[tuple[str, list[Any]]]
+    ) -> list[dict[str, list[str]]]:
+        """Many (question, results) jobs in one padded forward."""
+        flat_pairs: list[tuple[str, str]] = []
+        shapes: list[list[str]] = []
+        for question, results in pairs:
+            texts = [getattr(r, "text", "") for r in results]
+            shapes.append(texts)
+            flat_pairs.extend((question, t) for t in texts)
+        span_lists = self._process_pairs(flat_pairs)
+        out: list[dict[str, list[str]]] = []
+        cursor = 0
+        for texts in shapes:
+            spans_for_q: dict[str, list[str]] = {}
+            for text in texts:
+                spans = span_lists[cursor]
+                cursor += 1
+                spans_for_q[text] = [text[s:e] for s, e in spans]
+            out.append(spans_for_q)
+        return out
+
+    def process_batch(
+        self, question: str, contexts: list[str]
+    ) -> list[list[tuple[int, int]]]:
+        """Batched scoring: one padded forward over every context's windows."""
+        return self._process_pairs([(question, c) for c in contexts])
+
+    def _process_pairs(
+        self, pairs: list[tuple[str, str]]
+    ) -> list[list[tuple[int, int]]]:
+        plans = [self._plan(q, c) for q, c in pairs]
+        rows: list[list[int]] = []
+        for plan in plans:
+            if plan is not None:
+                rows.extend(plan["rows"])
+        if not rows:
+            return [[] for _ in pairs]
+
+        seq = min(bucket_length(max(len(r) for r in rows)), self.max_length)
+        # Row counts are bucketed to powers of two (then multiples of 512),
+        # as in the JAX package; pad rows are all-pad and sliced off.
+        n_real = len(rows)
+        n_padded = next(
+            (b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512) if b >= n_real),
+            -(-n_real // 512) * 512,
+        )
+        ids = np.full((n_padded, seq), self.tokenizer.pad_id, np.int32)
+        mask = np.zeros((n_padded, seq), np.int32)
+        for i, row in enumerate(rows):
+            row = row[:seq]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+
+        # Bursts are scored in 512-row slices to bound the activation memory.
+        probs = np.concatenate(
+            [
+                self._forward_probs(ids[i : i + 512], mask[i : i + 512])
+                for i in range(0, n_padded, 512)
+            ],
+            axis=0,
+        )
+
+        out: list[list[tuple[int, int]]] = []
+        cursor = 0
+        for plan in plans:
+            if plan is None:
+                out.append([])
+                continue
+            n_windows = len(plan["rows"])
+            doc_probs = probs[cursor : cursor + n_windows]
+            cursor += n_windows
+            # Max-aggregate across overlapping windows.
+            agg = np.zeros(plan["n_tokens"], np.float32)
+            for w, (ctx_start, ctx_len, tok_offset) in enumerate(plan["layout"]):
+                window = doc_probs[w, tok_offset : tok_offset + ctx_len]
+                agg[ctx_start : ctx_start + ctx_len] = np.maximum(
+                    agg[ctx_start : ctx_start + ctx_len], window
+                )
+            spans = select_spans_from_token_probs(
+                agg,
+                plan["offsets"],
+                threshold=self.threshold,
+                min_span_chars=self.min_span_chars,
+                merge_gap_chars=self.merge_gap_chars,
+            )
+            out.append(self._postprocess_spans(pairs[len(out)][1], spans))
+        return out
+
+    def _postprocess_spans(
+        self, context: str, spans: list[tuple[int, int]]
+    ) -> list[tuple[int, int]]:
+        """Subclass decode hook; the base extractor returns spans unchanged."""
+        return spans
+
+    def _forward_probs(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """[B, S] padded token ids/mask → [B, S] relevance probabilities."""
+        with torch.no_grad():
+            probs = token_relevance_probs(
+                self.model,
+                torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(mask).to(self.device),
+            )
+        return probs.cpu().numpy()
+
+    def _plan(self, question: str, context: str) -> dict | None:
+        """Tokenize one document and lay out its windows (host-only work)."""
+        if not context.strip():
+            return None
+        enc = self.tokenizer.encode_batch([context], max_length=10**9, with_offsets=True)
+        ctx_ids = [t for t, m in zip(enc.input_ids[0], enc.attention_mask[0]) if m]
+        ctx_offsets = enc.offsets[0][: len(ctx_ids)]
+        # Strip specials added by encode_batch (offset (0,0) + cls/sep ids at ends).
+        ctx = [(int(t), off) for t, off in zip(ctx_ids, ctx_offsets) if off[1] > off[0]]
+        if not ctx:
+            return None
+        ctx_token_ids = [t for t, _ in ctx]
+        ctx_token_offsets = [off for _, off in ctx]
+
+        q_enc = self.tokenizer.encode_batch([question], max_length=512)
+        q_tokens = [int(t) for t, m in zip(q_enc.input_ids[0], q_enc.attention_mask[0]) if m]
+        # Question tokens keep their cls/sep framing; context appended after.
+        budget = max(self.max_length - len(q_tokens) - 1, 16)  # -1: trailing sep
+
+        windows = self._make_windows(len(ctx_token_ids), budget, self.doc_stride)
+        sep = self.tokenizer.sep_id
+        rows, layout = [], []
+        for start, length in windows:
+            rows.append(list(q_tokens) + ctx_token_ids[start : start + length] + [sep])
+            layout.append((start, length, len(q_tokens)))
+        return {
+            "rows": rows,
+            "layout": layout,
+            "n_tokens": len(ctx_token_ids),
+            "offsets": ctx_token_offsets,
+        }
+
+    @staticmethod
+    def _make_windows(n_tokens: int, budget: int, stride: int) -> list[tuple[int, int]]:
+        """(start, length) context windows with `stride` overlap."""
+        if n_tokens <= budget:
+            return [(0, n_tokens)]
+        windows = []
+        # A budget ≤ stride cannot honor the overlap; clamp the step so the
+        # loop advances.
+        step = max(budget - stride, 1)
+        start = 0
+        while start < n_tokens:
+            length = min(budget, n_tokens - start)
+            windows.append((start, length))
+            if start + length >= n_tokens:
+                break
+            start += step
+        return windows

@@ -1,0 +1,177 @@
+"""Host-side tokenization for the encoders.
+
+Copy of `verbatim_rag_tpu/models/tokenizer.py`, trimmed to the file-free
+:class:`HashTokenizer` (word-level hashing into the configured vocab with
+BERT-style special ids) and its Python regex scanner. Ids, offsets and the
+padded batch layout are identical to the original (pinned by
+`tests/test_torch_copies.py`).
+"""
+
+from __future__ import annotations
+
+import re
+from abc import ABC, abstractmethod
+from dataclasses import dataclass
+
+import numpy as np
+
+from verbatim_rag_tpu_torch.engine.filters import stable_hash64
+
+_WORD_RE = re.compile(r"[a-z0-9]+|[^\w\s]")
+
+#: Pad batches to these sequence lengths to bound the set of shapes.
+DEFAULT_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+@dataclass
+class TokenizedBatch:
+    input_ids: np.ndarray  # [B, S] int32
+    attention_mask: np.ndarray  # [B, S] int32
+    #: per text: list of (char_start, char_end) per token (specials = (0, 0))
+    offsets: list[list[tuple[int, int]]] | None = None
+
+
+def bucket_length(n: int, buckets=DEFAULT_BUCKETS) -> int:
+    """Smallest padded length ≥ n: one of `buckets`, or past the last bucket
+    a multiple of it (callers cap with their own max_length)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    last = buckets[-1]
+    return -(-n // last) * last
+
+
+class Tokenizer(ABC):
+    pad_id: int = 0
+    cls_id: int = 101
+    sep_id: int = 102
+
+    @abstractmethod
+    def encode_batch(
+        self,
+        texts: list[str],
+        max_length: int = 512,
+        pair: list[str] | None = None,
+        with_offsets: bool = False,
+    ) -> TokenizedBatch: ...
+
+
+class HashTokenizer(Tokenizer):
+    """Deterministic word-hash tokenizer (no vocab files needed)."""
+
+    #: word→id memo cap (guards against unbounded token streams).
+    _CACHE_MAX = 1 << 20
+
+    def __init__(self, vocab_size: int = 30522, buckets=DEFAULT_BUCKETS):
+        self.vocab_size = vocab_size
+        self.buckets = buckets
+        self._hash = stable_hash64
+        self.pad_id, self.cls_id, self.sep_id = 0, 1, 2
+        self._reserved = 3
+        self._word_cache: dict[str, int] = {}
+
+    def _word_id(self, word: str) -> int:
+        wid = self._word_cache.get(word)
+        if wid is None:
+            span = self.vocab_size - self._reserved
+            wid = self._reserved + int(self._hash(word.lower())) % span
+            if len(self._word_cache) < self._CACHE_MAX:
+                self._word_cache[word] = wid
+        return wid
+
+    def describe(self) -> dict:
+        return {"class": "HashTokenizer", "vocab_size": self.vocab_size}
+
+    #: class-level (vocab, max_tokens, text) → (ids, offsets) memo shared by
+    #: every instance; bounded, cleared wholesale when full.
+    _text_cache: dict = {}
+    _TEXT_CACHE_MAX = 8192
+    #: long documents are not cached: the token bound caps the cached arrays,
+    #: the char bound caps the key string itself.
+    _TEXT_CACHE_MAX_TOKENS = 4096
+    _TEXT_CACHE_MAX_CHARS = 16384
+
+    def _tokenize_arrays(
+        self, text: str, max_tokens: int | None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Tokenize to ``(ids int32[n], offsets int32[n, 2])``; ``max_tokens``
+        stops the scan early."""
+        key = (self.vocab_size, max_tokens, text)
+        cache = HashTokenizer._text_cache
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        ids_l: list[int] = []
+        offs_l: list[tuple[int, int]] = []
+        for m in _WORD_RE.finditer(text.lower()):
+            ids_l.append(self._word_id(m.group(0)))
+            offs_l.append((m.start(), m.end()))
+            if max_tokens is not None and len(ids_l) >= max_tokens:
+                break
+        out = (
+            np.asarray(ids_l, np.int32),
+            np.asarray(offs_l, np.int32).reshape(len(offs_l), 2),
+        )
+        if (
+            out[0].size <= self._TEXT_CACHE_MAX_TOKENS
+            and len(text) <= self._TEXT_CACHE_MAX_CHARS
+        ):
+            if len(cache) >= self._TEXT_CACHE_MAX:
+                cache.clear()
+            cache[key] = out
+        return out
+
+    def tokenize_with_offsets(
+        self, text: str, max_tokens: int | None = None
+    ) -> tuple[list[int], list[tuple[int, int]]]:
+        ids, offsets = self._tokenize_arrays(text, max_tokens)
+        return ids.tolist(), list(
+            zip(offsets[:, 0].tolist(), offsets[:, 1].tolist())
+        )
+
+    def encode_batch(
+        self,
+        texts: list[str],
+        max_length: int = 512,
+        pair: list[str] | None = None,
+        with_offsets: bool = False,
+    ) -> TokenizedBatch:
+        per: list[tuple[np.ndarray, np.ndarray, np.ndarray | None]] = []
+        lengths = []
+        for i, text in enumerate(texts):
+            ids, offsets = self._tokenize_arrays(text, max_tokens=max_length)
+            p_ids = None
+            if pair is not None:
+                p_ids, _ = self._tokenize_arrays(pair[i], max_tokens=max_length)
+            per.append((ids, offsets, p_ids))
+            full = 2 + len(ids) + (len(p_ids) + 1 if p_ids is not None else 0)
+            lengths.append(min(full, max_length))
+
+        seq = min(bucket_length(max(lengths), self.buckets), max_length)
+        batch = np.full((len(per), seq), self.pad_id, np.int32)
+        mask = np.zeros((len(per), seq), np.int32)
+        offs_out: list[list[tuple[int, int]]] | None = [] if with_offsets else None
+        for i, (ids, offsets, p_ids) in enumerate(per):
+            batch[i, 0] = self.cls_id
+            pos = 1
+            n = min(len(ids), seq - pos)
+            batch[i, pos : pos + n] = ids[:n]
+            pos += n
+            if pos < seq:
+                batch[i, pos] = self.sep_id
+                pos += 1
+            if p_ids is not None:
+                pn = min(len(p_ids), seq - pos)
+                batch[i, pos : pos + pn] = p_ids[:pn]
+                pos += pn
+                if pos < seq:
+                    batch[i, pos] = self.sep_id
+                    pos += 1
+            mask[i, :pos] = 1
+            if offs_out is not None:
+                row = [(0, 0)] + list(
+                    zip(offsets[:n, 0].tolist(), offsets[:n, 1].tolist())
+                )
+                row += [(0, 0)] * (pos - len(row))
+                offs_out.append(row)
+        return TokenizedBatch(batch, mask, offs_out)

@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
+with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC`` into ``build/kernels/<name>-<hash>.so`` at the repository root (or
+under ``$VERBATIM_TORCH_BUILD_DIR``), keyed by a hash of the source and the
+flags, then loaded with ``ctypes``. :func:`build_all` starts one ``nvcc`` per
+source at once, so a fresh machine pays for the slowest file, not the sum.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+KERNEL_SOURCES = ("flash_attention", "rescore")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("VERBATIM_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"{name}-{key}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    target = _target(name)
+    if target.exists():
+        return None
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, target
+
+
+def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> None:
+    proc, tmp, target = job
+    log, _ = proc.communicate()
+    target.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+    os.replace(tmp, target)
+
+
+def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
+    """Compile every kernel source that has no current build, in parallel.
+
+    :return: ``{name: compiler log}`` (``-Xptxas -v`` register and shared
+        memory report; empty for sources that were already built).
+    """
+    with _lock:
+        jobs = {n: _start(n) for n in names}
+        for n, job in jobs.items():
+            if job is not None:
+                _finish(n, job)
+    logs = {}
+    for n in names:
+        log = _target(n).with_suffix(".log")
+        logs[n] = log.read_text() if jobs[n] is not None and log.exists() else ""
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all((name,))
+    with _lock:
+        if name not in _libs:
+            _libs[name] = ctypes.CDLL(str(_target(name)))
+        return _libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,99 @@
+"""Exact sparse rescore: CUDA kernel with the row gather fused in, plus its
+plain PyTorch twin.
+
+Port of `verbatim_rag_tpu/ops/rescore.py`. :func:`exact_rescore_oneshot` is
+the plain version (one broadcast compare-select-reduce over
+[B, C, m, qm]); :func:`exact_rescore_cuda` launches `csrc/rescore.cu`, which
+replaces the TPU kernel `_rescore_kernel` and reads candidate rows straight
+from the [N, m] forward index. :func:`exact_rescore_dispatch` is the store's
+"pallas" rescore impl: the plain version for CPU tensors, the kernel for
+CUDA tensors, for any m and qm.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1e30
+
+#: Kernel launches since the last reset (the main path's proof of use).
+launches = 0
+
+
+def _gather_rows(cand_rows, sp_ids, sp_w):
+    safe = cand_rows.clamp(min=0).reshape(-1)
+    m = sp_ids.shape[1]
+    cand_ids = sp_ids.index_select(0, safe).reshape(*cand_rows.shape, m).to(torch.int32)
+    cand_w = sp_w.index_select(0, safe).reshape(*cand_rows.shape, m)
+    return cand_ids, cand_w
+
+
+def exact_rescore_oneshot(cand_rows, sp_ids, sp_w, q_ids, q_w):
+    """Plain version: exact sparse scores [B, C] f32; rows < 0 → -1e30."""
+    cand_ids, cand_w = _gather_rows(cand_rows, sp_ids, sp_w)
+    match = cand_ids[..., None] == q_ids.to(torch.int32)[:, None, None, :]
+    contrib = torch.where(
+        match, cand_w[..., None].float() * q_w.float()[:, None, None, :], 0.0
+    )
+    scores = contrib.sum(dim=(-1, -2))
+    return torch.where(cand_rows >= 0, scores, NEG_INF)
+
+
+def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
+    """Launch the CUDA kernel: [B, C] f32 scores, -1e30 for rows < 0 or ≥ N."""
+    global launches
+    tensors = (cand_rows, sp_ids, sp_w, q_ids, q_w)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("exact_rescore_cuda needs CUDA tensors")
+    if sp_ids.dtype != torch.int32 or sp_w.dtype != torch.float32:
+        raise TypeError(
+            "the rescore kernel reads an int32/float32 forward index, got "
+            f"{sp_ids.dtype}/{sp_w.dtype} (int16 ids and float16 weights are not ported yet)"
+        )
+    if cand_rows.dtype != torch.int32 or q_ids.dtype != torch.int32 or q_w.dtype != torch.float32:
+        raise TypeError(
+            f"cand_rows/q_ids must be int32 and q_w float32, got "
+            f"{cand_rows.dtype}/{q_ids.dtype}/{q_w.dtype}"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rescore inputs must be contiguous")
+    batch, cands = cand_rows.shape
+    n_rows, m = sp_ids.shape
+    qm = q_ids.shape[1]
+    if sp_w.shape != (n_rows, m) or q_ids.shape != (batch, qm) or q_w.shape != (batch, qm):
+        raise ValueError(
+            f"shape mismatch: cand {tuple(cand_rows.shape)}, sp_ids {tuple(sp_ids.shape)}, "
+            f"sp_w {tuple(sp_w.shape)}, q_ids {tuple(q_ids.shape)}, q_w {tuple(q_w.shape)}"
+        )
+    if batch > 65535:
+        raise ValueError(f"batch {batch} exceeds the kernel grid (65535)")
+    out = torch.empty((batch, cands), dtype=torch.float32, device=cand_rows.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_build.load("rescore")
+    fn = lib.sparse_rescore
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p]
+    )
+    rc = fn(
+        cand_rows.data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(), q_ids.data_ptr(),
+        q_w.data_ptr(), out.data_ptr(), batch, cands, n_rows, m, qm,
+        torch.cuda.current_stream(cand_rows.device).cuda_stream,
+    )
+    cuda_build.check(rc, "sparse_rescore")
+    launches += 1
+    return out
+
+
+def exact_rescore_dispatch(cand_rows, sp_ids, sp_w, q_ids, q_w):
+    """The store's "pallas" impl: plain version on CPU tensors, kernel on CUDA."""
+    if cand_rows.device.type == "cpu":
+        return exact_rescore_oneshot(cand_rows, sp_ids, sp_w, q_ids, q_w)
+    return exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w)
