@@ -20,23 +20,37 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              length mask dropped) must fail that check;
              exact rescore at B=512, C=256, m=128, qm=32 over a 1M-row
              forward index with missing (−1) candidates; rtol 1e-5;
+             section tables (both arms, dense 384 + sketch 768) and
+             bucket-max v2 (each arm) at B=512 over N=1,007,616 rows (blocks
+             of 8192) and N=1,048,576 (blocks of 16384), int8 and bf16 rows,
+             dead rows in the mask: int8 tables bit-equal to the plain
+             version; bf16 values within 2⁻¹⁵·|q| and each differing row a
+             winner whose exact score is within that of the plain one's;
 3. flow    — the offline quickstart through the user entry points:
              `VerbatimIndex.add_documents` on `examples/example_docs` with the
              hashed providers, then `VerbatimRAG.query` with the full-width
              ModernBERT-base extractor (22 layers, random weights from the
-             seed) for 3 questions; every highlight must index its chunk
+             seed) for 3 questions, over a bf16 index and over an int8 index
+             (the section path); every highlight must index its chunk
              verbatim, every store tensor and parameter must be on the card;
 4. store   — a 1M-chunk store (dense 384 bf16, sketch 768, forward index
              128 nnz) filled through `add_vectors`, then 512-query hybrid
              batches through `query_batch`; rows checked against the same
              store with the plain rescore on every query (a query may differ
              only where its sparse arm's exact scores tie within 1e-6);
-5. long    — one ~20k-token document through the full-width extractor
+5. store_int8 — the same records in an int8 store (dense and sketch int8,
+             `candidate_impl="auto"` → the section kernel), 8 timed batches,
+             then `candidate_impl="bucket"` (a first batch and 2 timed
+             ones, two bucket launches each); rows checked on
+             every query against the same store with the plain table
+             versions (int8 tables are bit-equal, so no difference is
+             allowed);
+6. long    — one ~20k-token document through the full-width extractor
              (3 windows at S=8192 through all 22 layers).
 
-Each main-path phase (3-5) sets the kernels' launch counts to 0 just before
+Each main-path phase (3-6) sets the kernels' launch counts to 0 just before
 it and reads them just after; a kernel of the path launched no time fails.
-Phases 4 and 5 then run one more call under `torch.profiler` and print the
+Phases 4-6 then run one more call under `torch.profiler` and print the
 kernels that took the most device time and the device's idle share.
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -55,14 +69,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM published peaks (dense): bf16 tensor cores, FP32 CUDA cores, HBM3.
+#: H100 SXM published peaks (dense): bf16 and int8 tensor cores, FP32 CUDA
+#: cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 
 #: The store phase's serving point (`bench.py`'s): 1M chunks, 8 timed batches.
 STORE_ROWS = 1_000_000
 STORE_BATCHES = 8
+#: Timed batches the int8 store runs with candidate_impl="bucket" (after a
+#: first, checked one).
+BUCKET_BATCHES = 2
 
 #: bf16 flash check: per-row relative limit (see `flash_row_check`).
 FLASH_RTOL = 2e-2
@@ -303,20 +322,180 @@ def check_rescore(gen) -> dict:
     return result
 
 
-# -- phases 3-5: the main path ------------------------------------------------------------
+def table_arms(gen, n: int, batch: int, dtype: str):
+    """Dense (384) and sketch (768) arms at the serving shape: unit-norm rows
+    as int8 codes + scales or bf16, float32 queries, a mask with dead rows."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+
+    arms = []
+    for d in (384, 768):
+        rows = torch.randn(n, d, generator=gen, device="cuda")
+        rows /= rows.norm(dim=1, keepdim=True)
+        q = torch.randn(batch, d, generator=gen, device="cuda")
+        if dtype == "int8":
+            codes, scale = quantize_rows_int8(rows)
+            arms.append((codes, q, scale))
+        else:
+            arms.append((rows.to(torch.bfloat16), q, None))
+        del rows
+    mask = torch.rand(n, generator=gen, device="cuda") > 0.01
+    mask[n // 2 : n // 2 + 5000] = False
+    return arms, mask
+
+
+def check_table(got, expected, rows, q, int8: bool) -> float:
+    """Hold a kernel's (values, global rows) table to its plain version's:
+    int8 bit-equal; bf16 values within 2⁻¹⁵·|q| (rows have unit norm) and
+    each differing row a winner whose exact score is within that of the
+    plain version's row. Returns the max abs error of the live values."""
+    import torch
+
+    (g_vals, g_rows), (e_vals, e_rows) = got, expected
+    live = e_vals > -1e29
+    require(torch.equal(live, g_vals > -1e29), "table: live entries differ")
+    err = float((g_vals - e_vals).abs()[live].max())
+    if int8:
+        require(torch.equal(g_vals.view(torch.int32), e_vals.view(torch.int32)), "table: int8 values not bit-equal")
+        require(torch.equal(g_rows, e_rows), "table: int8 rows differ")
+        return err
+    tol = 2.0**-15 * q.norm(dim=1, keepdim=True).expand_as(g_vals)
+    require(bool(((g_vals - e_vals).abs() <= tol)[live].all()), f"table: bf16 values off by {err}")
+    b_idx, c_idx = torch.nonzero((g_rows != e_rows) & live, as_tuple=True)
+    qb = q.to(torch.bfloat16).float()[b_idx]
+    s_g = (qb * rows[g_rows[b_idx, c_idx].long()].float()).sum(-1)
+    s_e = (qb * rows[e_rows[b_idx, c_idx].long()].float()).sum(-1)
+    require(bool(((s_g - s_e).abs() <= tol[b_idx, c_idx]).all()), "table: a bf16 row is not a near-winner")
+    return err
+
+
+def table_bytes(arms, n: int, batch: int, width: int, out_bytes: int) -> float:
+    """Bytes a table function must move: each arm's rows (and scales), the
+    bool mask, the queries, and its output tables."""
+    total = n + sum(
+        c.numel() * c.element_size() + (0 if s is None else 4 * n) + q.numel() * 4 + batch * width * out_bytes
+        for c, q, s in arms
+    )
+    return float(total)
+
+
+def check_tables(gen) -> tuple[dict, dict]:
+    """Section kernel (both arms, one launch) and bucket-max v2 (one launch
+    per arm) against their plain versions at the serving shapes."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    batch = 512
+    section_cases, bucket_cases = [], []
+    for n, block in ((123 * 8192, 8192), (64 * 16384, 16384)):
+        for dtype in ("int8", "bfloat16"):
+            int8 = dtype == "int8"
+            arms, mask = table_arms(gen, n, batch, dtype)
+            corpora, queries, scales = zip(*arms)
+            scales = scales if int8 else (None, None)
+            width = n // block * 128
+            peak = PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
+            ops = [2.0 * batch * n * c.shape[1] for c in corpora]
+
+            got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+            torch.cuda.synchronize()
+            ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+            err = max(
+                check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
+                for g, e, c, q in zip(got, ref, corpora, queries)
+            )
+            del got, ref
+            ms = cuda_ms(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block), reps=10)
+            plain_ms = cuda_ms(lambda: sec.section_tables_reference(corpora, queries, mask, scales, block), reps=2)
+            b_ms, b_by = bound(table_bytes(arms, n, batch, width, 4), sum(ops), peak)
+            products = None
+            if int8:  # the two int8 products alone, as cuBLAS computes them
+                prepared = [ft.prepare_queries(q, c)[0] for c, q in zip(corpora, queries)]
+                products = cuda_ms(
+                    lambda: [torch._int_mm(p, c.t()) for p, c in zip(prepared, corpora)], reps=5
+                )
+            case = dict(
+                n=n, block=block, dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, int_mm_products_ms=products,
+            )
+            log("section", json.dumps(case))
+            section_cases.append(case)
+
+            for arm, (c, q, s) in zip(("dense", "sketch"), arms):
+                got = ft.matmul_bucket_max_v2_cuda(c, q, mask, s)
+                torch.cuda.synchronize()
+                ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
+                err = check_table(got, ref, c, q, int8)
+                del got, ref
+                ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10)
+                plain_ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=2)
+                b_ms, b_by = bound(
+                    table_bytes([(c, q, s)], n, batch, width, 8), 2.0 * batch * n * c.shape[1], peak
+                )
+                products = None
+                if int8:
+                    qi = ft.prepare_queries(q, c)[0]
+                    products = cuda_ms(lambda: torch._int_mm(qi, c.t()), reps=5)
+                case = dict(
+                    n=n, block=ft.choose_block_rows(n), dtype=dtype, arm=arm, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    int_mm_products_ms=products,
+                )
+                log("bucket_max_v2", json.dumps(case))
+                bucket_cases.append(case)
+            del arms, corpora, queries, scales, mask
+            torch.cuda.empty_cache()
+    # Headlines: the int8 store's geometry (N = 1,007,616, blocks of 8192);
+    # for bucket-max v2 the two arms of one hybrid batch added together.
+    section = dict(section_cases[0], library_ms=None, cases=section_cases)
+    arms = [c for c in bucket_cases if c["n"] == 123 * 8192 and c["dtype"] == "int8"]
+    bucket = {
+        key: sum(c[key] for c in arms)
+        for key in ("ms", "plain_ms", "bound_ms", "int_mm_products_ms")
+    }
+    bucket.update(
+        max_abs_err=max(c["max_abs_err"] for c in arms), bound_by=arms[0]["bound_by"],
+        library_ms=None, cases=bucket_cases,
+    )
+    return section, bucket
+
+
+def sec_decode(table, block: int, n: int):
+    """A packed section table → (values, global rows), decoded in full."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    vals, pos = sec.unpack_table(table)
+    cols = torch.arange(table.shape[1], device=table.device, dtype=torch.int32)
+    rows = (cols // 128) * block + pos * 128 + cols % 128
+    return vals, torch.clamp(rows, max=n - 1)
+
+
+# -- phases 3-6: the main path ------------------------------------------------------------
+
+
+def kernel_modules() -> dict:
+    from verbatim_rag_tpu_torch.ops import flash_attention, fused_topk, rescore, section
+
+    return {
+        "flash_attention": flash_attention,
+        "rescore": rescore,
+        "section": section,
+        "bucket_max_v2": fused_topk,
+    }
 
 
 def reset_counts() -> None:
-    from verbatim_rag_tpu_torch.ops import flash_attention as fa, rescore as rs
-
-    fa.launches = 0
-    rs.launches = 0
+    for module in kernel_modules().values():
+        module.launches = 0
 
 
 def read_counts() -> dict:
-    from verbatim_rag_tpu_torch.ops import flash_attention as fa, rescore as rs
-
-    return {"flash_attention": fa.launches, "rescore": rs.launches}
+    return {name: module.launches for name, module in kernel_modules().items()}
 
 
 def run_flow(seed: int, card: str):
@@ -339,89 +518,150 @@ def run_flow(seed: int, card: str):
     ]
     extractor = ModelSpanExtractor(config=modernbert_base_config(), seed=seed)
     reset_counts()
-    t0 = time.perf_counter()
-    index = VerbatimIndex(dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider())
-    index.add_documents([DocumentSchema.from_file(str(p)) for p in docs])
-    rag = VerbatimRAG(index, extractor=extractor)
-    ingest_s = time.perf_counter() - t0
-    times, n_highlights = [], 0
-    for q in questions:
+    result = dict(card=card)
+    for tier, dtypes in (("bf16", {}), ("int8", dict(dense_dtype="int8", sketch_dtype="int8"))):
         t0 = time.perf_counter()
-        response = rag.query(q)
-        times.append(time.perf_counter() - t0)
-        require(bool(response.documents), f"flow: no documents for {q!r}")
-        for doc in response.documents:
-            for h in doc.highlights:
-                require(doc.content[h.start : h.end] == h.text, "flow: highlight not verbatim")
-                n_highlights += 1
+        index = VerbatimIndex(
+            dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), **dtypes
+        )
+        index.add_documents([DocumentSchema.from_file(str(p)) for p in docs])
+        rag = VerbatimRAG(index, extractor=extractor)
+        ingest_s = time.perf_counter() - t0
+        times, n_highlights = [], 0
+        for q in questions:
+            t0 = time.perf_counter()
+            response = rag.query(q)
+            times.append(time.perf_counter() - t0)
+            require(bool(response.documents), f"flow {tier}: no documents for {q!r}")
+            for doc in response.documents:
+                for h in doc.highlights:
+                    require(doc.content[h.start : h.end] == h.text, f"flow {tier}: highlight not verbatim")
+                    n_highlights += 1
+        require(n_highlights > 0, f"flow {tier}: no highlights")
+        store = index.store
+        names = ["_dense", "_sp_ids", "_sp_w", "_sp_proj", "_valid_dev"]
+        if tier == "int8":
+            require(store.candidate_impl == "section", f"flow int8: impl {store.candidate_impl}")
+            names += ["_dense_scale", "_sp_proj_scale"]
+        for name in names:
+            require(getattr(store, name).is_cuda, f"flow {tier}: store.{name} not on cuda")
+        result[tier] = dict(
+            ingest_s=ingest_s, query_s=times, highlights=n_highlights,
+            answer_head=response.answer[:120],
+        )
     counts = read_counts()
-    require(n_highlights > 0, "flow: no highlights")
-    require(counts["flash_attention"] > 0 and counts["rescore"] > 0, f"flow: launches {counts}")
-    store = index.store
-    for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj", "_valid_dev"):
-        require(getattr(store, name).is_cuda, f"flow: store.{name} not on cuda")
-    require(all(p.is_cuda for p in extractor.model.parameters()), "flow: parameter not on cuda")
-    result = dict(
-        card=card, ingest_s=ingest_s, query_s=times, highlights=n_highlights, launches=counts,
-        answer_head=response.answer[:120],
+    require(
+        counts["flash_attention"] > 0 and counts["rescore"] > 0 and counts["section"] > 0,
+        f"flow: launches {counts}",
     )
+    require(all(p.is_cuda for p in extractor.model.parameters()), "flow: parameter not on cuda")
+    result["launches"] = counts
     log("flow", json.dumps(result))
     return extractor, result
 
 
-def run_store(seed: int, card: str) -> dict:
+def bench_data(seed: int) -> dict:
+    """The store phases' records and query batches (`bench.py`'s operating
+    point): 1M chunks, dense 384, 128-nnz forward index, 32 query terms."""
     import numpy as np
-    import torch
 
-    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
-
-    dim, nnz, vocab, batch, qm, top_k = 384, 128, 30522, 512, 32, 10
-    n_rows, n_batches = STORE_ROWS, STORE_BATCHES
+    dim, nnz, vocab, batch, qm = 384, 128, 30522, 512, 32
     rng = np.random.default_rng(seed)
-    dense = rng.standard_normal((n_rows, dim), dtype=np.float32)
-    ids = rng.integers(1, vocab, size=(n_rows, nnz), dtype=np.int32)
-    weights = rng.random((n_rows, nnz), dtype=np.float32)
+    dense = rng.standard_normal((STORE_ROWS, dim), dtype=np.float32)
+    ids = rng.integers(1, vocab, size=(STORE_ROWS, nnz), dtype=np.int32)
+    weights = rng.random((STORE_ROWS, nnz), dtype=np.float32)
     records = [
         {"id": str(i), "dense": dense[i], "sparse_arrays": (ids[i], weights[i])}
-        for i in range(n_rows)
+        for i in range(STORE_ROWS)
     ]
-    store = DeviceVectorStore(dense_dim=dim, sparse_vocab=vocab, sparse_max_nnz=nnz)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    store.add_vectors(records)
-    store.flush()
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    del records
-    state_gb = sum(
-        t.numel() * t.element_size()
-        for t in (store._dense, store._sp_ids, store._sp_w, store._sp_proj, store._valid_dev)
-    ) / 1e9
 
     def queries(i):
         r = np.random.default_rng(seed + 1 + i)
-        src = r.integers(0, n_rows, size=batch)
+        src = r.integers(0, STORE_ROWS, size=batch)
         q_dense = dense[src] + 0.5 * r.standard_normal((batch, dim), dtype=np.float32)
         q_ids = ids[src, :qm].copy()
         q_ids[:, qm // 2 :] = r.integers(1, vocab, size=(batch, qm - qm // 2))
         q_w = r.random((batch, qm), dtype=np.float32)
         return q_dense, (q_ids, q_w), src
 
-    q_dense, q_sparse, src = queries(0)
-    first = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
-    require(len(first) == batch and all(len(r) == top_k for r in first), "store: result shape")
-    require(all(math.isfinite(h.score) and h.score > 0 for r in first for h in r), "store: scores")
-    hit = np.mean([str(s) in {h.id for h in r} for s, r in zip(src, first)])
+    return dict(dim=dim, nnz=nnz, vocab=vocab, batch=batch, records=records, queries=queries)
 
-    batches = [queries(i) for i in range(1, n_batches + 1)]
-    times = []
-    for b_dense, b_sparse, _ in batches:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = store.query_batch(dense_queries=b_dense, sparse_queries=b_sparse, top_k=top_k)
-        times.append((time.perf_counter() - t0) * 1e3)
-        require(len(out) == batch, "store: batch size")
+
+def fill_store(data, **kwargs):
+    """A store on the card filled with the bench records; (store, ingest s, state GB)."""
+    import torch
+
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    store = DeviceVectorStore(
+        dense_dim=data["dim"], sparse_vocab=data["vocab"], sparse_max_nnz=data["nnz"], **kwargs
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.add_vectors(data["records"])
+    store.flush()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    arrays = ("_dense", "_dense_scale", "_sp_ids", "_sp_w", "_sp_proj", "_sp_proj_scale", "_valid_dev")
+    state_gb = sum(
+        t.numel() * t.element_size() for t in (getattr(store, a) for a in arrays) if t is not None
+    ) / 1e9
+    return store, ingest_s, state_gb
+
+
+def timed_batches(store, data, first: int, count: int, top_k: int):
+    """Host ms of each batch, and the ms the Python collector spent in full
+    (generation 2) collections inside it."""
+    import gc
+
+    import torch
+
+    times, gc_ms = [], []
+    started = []
+
+    def on_gc(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            gc_ms[-1] += (time.perf_counter() - started.pop()) * 1e3
+
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(first, first + count):
+            b_dense, b_sparse, _ = data["queries"](i)
+            torch.cuda.synchronize()
+            gc_ms.append(0.0)
+            t0 = time.perf_counter()
+            out = store.query_batch(dense_queries=b_dense, sparse_queries=b_sparse, top_k=top_k)
+            times.append((time.perf_counter() - t0) * 1e3)
+            require(len(out) == data["batch"], "store: batch size")
+    finally:
+        gc.callbacks.remove(on_gc)
+    return times, gc_ms
+
+
+def first_batch(store, data, top_k: int, what: str):
+    import numpy as np
+
+    q_dense, q_sparse, src = data["queries"](0)
+    first = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    require(len(first) == data["batch"] and all(len(r) == top_k for r in first), f"{what}: result shape")
+    require(all(math.isfinite(h.score) and h.score > 0 for r in first for h in r), f"{what}: scores")
+    hit = float(np.mean([str(s) in {h.id for h in r} for s, r in zip(src, first)]))
+    return first, hit
+
+
+def run_store(data, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    top_k, n_batches = 10, STORE_BATCHES
+    reset_counts()
+    store, ingest_s, state_gb = fill_store(data)
+    first, hit = first_batch(store, data, top_k, "store")
+    times, gc_ms = timed_batches(store, data, 1, n_batches, top_k)
     counts = read_counts()
     require(counts["rescore"] == n_batches + 1, f"store: launches {counts}")
 
@@ -430,13 +670,14 @@ def run_store(seed: int, card: str) -> dict:
     # in another order, reorder a near-tie: its sparse arm (the sparse-only
     # query at the hybrid's fetch depth, 2·top_k) must then differ, and only
     # at positions whose exact scores tie within 1e-6 relative.
+    q_dense, q_sparse, _ = data["queries"](0)
     kernel_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
     store.rescore_impl = "oneshot"
     plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
     plain_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
     store.rescore_impl = "pallas"
     differ = 0
-    for b in range(batch):
+    for b in range(data["batch"]):
         if [h.id for h in first[b]] == [h.id for h in plain[b]]:
             continue
         differ += 1
@@ -450,19 +691,83 @@ def run_store(seed: int, card: str) -> dict:
             ),
             f"store: query {b} rows differ from the plain rescore's without a score tie",
         )
-    q_dense, q_sparse, _ = batches[0]
+    q_dense, q_sparse, _ = data["queries"](1)
     profile = device_profile(
         lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
     )
     log("store profile", json.dumps(profile))
     ms = float(np.median(times))
     result = dict(
-        card=card, rows=n_rows, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
-        batch=batch, batch_ms_median=ms, batch_ms=times, qps=batch / ms * 1e3,
-        source_row_in_top10=float(hit), queries_differing_from_plain_on_a_tie=differ,
+        card=card, rows=STORE_ROWS, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
+        batch=data["batch"], batch_ms_median=ms, batch_ms=times, qps=data["batch"] / ms * 1e3,
+        gc_full_ms=gc_ms, source_row_in_top10=hit, queries_differing_from_plain_on_a_tie=differ,
         launches=counts,
     )
     log("store", json.dumps(result))
+    del store
+    torch.cuda.empty_cache()
+    return result
+
+
+def same_rows_with_plain_tables(store, data, top_k: int, expected, what: str) -> None:
+    """The first batch again with the table kernels' plain versions in their
+    place: int8 tables are bit-equal and everything after them is the same
+    code, so every query must give the same rows."""
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    kernels = (sec.section_tables_cuda, ft.matmul_bucket_max_v2_cuda)
+    sec.section_tables_cuda = sec.section_tables_reference
+    ft.matmul_bucket_max_v2_cuda = ft.matmul_bucket_max_v2_reference
+    try:
+        q_dense, q_sparse, _ = data["queries"](0)
+        plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    finally:
+        sec.section_tables_cuda, ft.matmul_bucket_max_v2_cuda = kernels
+    for b in range(data["batch"]):
+        require(
+            [h.id for h in expected[b]] == [h.id for h in plain[b]],
+            f"{what}: query {b} rows differ from the plain tables'",
+        )
+
+
+def run_store_int8(data, card: str) -> dict:
+    """The int8 tier: section path under "auto", then the bucket path."""
+    import numpy as np
+    import torch
+
+    top_k, n_batches = 10, STORE_BATCHES
+    reset_counts()
+    store, ingest_s, state_gb = fill_store(data, dense_dtype="int8", sketch_dtype="int8")
+    require(store.candidate_impl == "section", f"store_int8: impl {store.candidate_impl}")
+    first, hit = first_batch(store, data, top_k, "store_int8")
+    times, gc_ms = timed_batches(store, data, 1, n_batches, top_k)
+    store.candidate_impl = "bucket"
+    bucket_first, bucket_hit = first_batch(store, data, top_k, "store_int8 bucket")
+    bucket_times, bucket_gc_ms = timed_batches(store, data, 1, BUCKET_BATCHES, top_k)
+    counts = read_counts()
+    require(
+        counts["section"] == n_batches + 1
+        and counts["bucket_max_v2"] == 2 * (BUCKET_BATCHES + 1)
+        and counts["rescore"] == n_batches + BUCKET_BATCHES + 2,
+        f"store_int8: launches {counts}",
+    )
+    same_rows_with_plain_tables(store, data, top_k, bucket_first, "store_int8 bucket")
+    store.candidate_impl = "section"
+    same_rows_with_plain_tables(store, data, top_k, first, "store_int8")
+    q_dense, q_sparse, _ = data["queries"](1)
+    profile = device_profile(
+        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    )
+    log("store_int8 profile", json.dumps(profile))
+    ms = float(np.median(times))
+    result = dict(
+        card=card, rows=STORE_ROWS, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
+        batch=data["batch"], batch_ms_median=ms, batch_ms=times, qps=data["batch"] / ms * 1e3,
+        gc_full_ms=gc_ms, source_row_in_top10=hit, bucket_batch_ms=bucket_times,
+        bucket_gc_full_ms=bucket_gc_ms, bucket_source_row_in_top10=bucket_hit, launches=counts,
+    )
+    log("store_int8", json.dumps(result))
     del store
     torch.cuda.empty_cache()
     return result
@@ -530,16 +835,18 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen)
     rescore = check_rescore(gen)
+    section, bucket = check_tables(gen)
     torch.cuda.empty_cache()
 
     extractor, flow = run_flow(args.seed, card)
-    store = run_store(args.seed, card)
+    data = bench_data(args.seed)
+    store = run_store(data, card)
+    store_int8 = run_store_int8(data, card)
+    del data
     long_ctx = run_long(extractor, args.seed, card)
 
-    launches = {
-        k: flow["launches"][k] + store["launches"][k] + long_ctx["launches"][k]
-        for k in flow["launches"]
-    }
+    phases = (flow, store, store_int8, long_ctx)
+    launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
             name="flash_attention_fwd",
@@ -557,7 +864,25 @@ def main() -> None:
             launches=launches["rescore"],
             **rescore,
         ),
+        dict(
+            name="section_tables",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/section.cu",
+            replaces="verbatim_rag_tpu/ops/section.py:106",
+            launches=launches["section"],
+            **section,
+        ),
+        dict(
+            name="bucket_max_v2",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/section.cu",
+            replaces="verbatim_rag_tpu/ops/fused_topk.py:255",
+            launches=launches["bucket_max_v2"],
+            **bucket,
+        ),
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: no launch on the main path")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(

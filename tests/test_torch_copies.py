@@ -23,6 +23,8 @@ from verbatim_rag_tpu.ingestion import chunkers as jax_chunkers
 from verbatim_rag_tpu.ingestion.schema import DocumentSchema as JaxSchema
 from verbatim_rag_tpu.models import config as jax_config
 from verbatim_rag_tpu.models import tokenizer as jax_tokenizer
+from verbatim_rag_tpu.ops import fused_topk as jax_ft
+from verbatim_rag_tpu.ops import section as jax_section
 from verbatim_rag_tpu.ops import sparse_projected as jax_sp
 from verbatim_rag_tpu_torch.core.models import Highlight
 from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
@@ -35,6 +37,8 @@ from verbatim_rag_tpu_torch.ingestion import chunkers
 from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
 from verbatim_rag_tpu_torch.models import config
 from verbatim_rag_tpu_torch.models import tokenizer
+from verbatim_rag_tpu_torch.ops import fused_topk as ft
+from verbatim_rag_tpu_torch.ops import section
 from verbatim_rag_tpu_torch.ops import sparse_projected as sp
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples" / "example_docs"
@@ -190,3 +194,32 @@ def test_pad_sparse_equal(entries, nnz):
 )
 def test_is_sparse_arrays_equal(payload):
     assert store._is_sparse_arrays(payload) == jax_store._is_sparse_arrays(payload)
+
+
+@pytest.mark.parametrize("n", [1, 384, 960, 2048, 8192, 16384, 123 * 8192, 999_424, 2048 * 17])
+def test_bucket_geometry_equal(n):
+    assert ft.choose_block_rows(n) == jax_ft.choose_block_rows(n)
+    assert ft.bucket_table_width(n) == jax_ft.bucket_table_width(n)
+    assert (ft.BUCKET, ft.BLOCK_ROWS, ft.MIN_BLOCK_ROWS) == (
+        jax_ft.BUCKET, jax_ft.BLOCK_ROWS, jax_ft.MIN_BLOCK_ROWS
+    )
+    assert (section.LANE, section.BLOCK_COLS) == (jax_section.LANE, jax_section.BLOCK_COLS)
+
+
+def test_pack_and_unpack_bit_equal():
+    import jax.numpy as jnp
+    import torch
+
+    rng = np.random.default_rng(1)
+    scores = (rng.normal(size=(6, 256)) * 10.0 ** rng.integers(-30, 30, size=(6, 256))).astype(np.float32)
+    scores[0, :4] = [0.0, -0.0, -1e30, 1e30]
+    pos = rng.integers(0, 128, size=(6, 256)).astype(np.int32)
+    packed = ft._pack_pos(torch.from_numpy(scores), torch.from_numpy(pos))
+    expected = jax_ft._pack_pos(jnp.asarray(scores), jnp.asarray(pos))
+    np.testing.assert_array_equal(packed.numpy().view(np.int32), np.array(expected).view(np.int32))
+    for ours, theirs in (
+        (ft._unpack(packed), jax_ft._unpack(expected)),
+        (section.unpack_table(packed), jax_section.unpack_table(expected)),
+    ):
+        np.testing.assert_array_equal(ours[0].numpy().view(np.int32), np.array(theirs[0]).view(np.int32))
+        np.testing.assert_array_equal(ours[1].numpy(), np.asarray(theirs[1]))

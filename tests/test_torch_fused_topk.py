@@ -1,0 +1,186 @@
+"""Strided bucket-max (v2) in the PyTorch port vs the JAX package's kernel.
+
+The same numpy inputs go through the JAX `matmul_bucket_max_v2` /
+`fused_candidate_topk_v2` (the Pallas kernels in interpret mode, both
+variants) and the port's plain version.
+
+Tolerances:
+- int8 corpora: values and rows bit-equal (exact int32 dots, the same float
+  operations in the same order);
+- bf16 corpora: float32 dots summed in another order, so values within 2⁻¹⁵
+  of the dot's scale |q|·|c| and rows equal except in buckets whose two best
+  scores lie within that;
+- dispatch and fallbacks: equal (the block geometry is pinned in
+  `test_torch_copies.py`).
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from verbatim_rag_tpu.ops import dense as jax_dense
+from verbatim_rag_tpu.ops import fused_topk as jax_ft
+from verbatim_rag_tpu_torch.ops import dense, fused_topk
+
+BUCKET = 128
+
+
+def _inputs(n, d, b, seed, dead_lane=None):
+    rng = np.random.default_rng(seed)
+    corpus = rng.normal(size=(n, d)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[::7] = False
+    if dead_lane is not None:
+        mask[np.arange(n) % BUCKET == dead_lane] = False  # a dead bucket in every block
+    return corpus, q, mask
+
+
+@pytest.mark.parametrize("variant", ["onedot", "chunked"])
+@pytest.mark.parametrize("n,b", [(2048, 5), (2048 * 3, 3)])
+def test_int8_bit_equal(n, b, variant):
+    corpus, q, mask = _inputs(n, 64, b, seed=n + b, dead_lane=5)
+    codes, scale = jax_dense.quantize_rows_int8(corpus)
+    e_vals, e_rows = jax_ft.matmul_bucket_max_v2(
+        jnp.asarray(codes), jnp.asarray(q), jnp.asarray(mask), variant=variant, chunk_pos=4,
+        interpret=True, scale=jnp.asarray(scale),
+    )
+    g_vals, g_rows = fused_topk.matmul_bucket_max_v2(
+        torch.from_numpy(codes), torch.from_numpy(q), torch.from_numpy(mask),
+        variant=variant, chunk_pos=4, scale=torch.from_numpy(scale),
+    )
+    np.testing.assert_array_equal(g_vals.numpy().view(np.int32), np.array(e_vals).view(np.int32))
+    np.testing.assert_array_equal(g_rows.numpy(), np.asarray(e_rows))
+    assert (g_vals[:, 5] <= -1e29).all()  # the dead bucket
+    assert g_rows.max() <= n - 1
+
+
+def test_multi_block_and_negative_scores():
+    n, d, b = 2048 * 17, 16, 3  # 17 blocks of 2048 rows
+    corpus, q, mask = _inputs(n, d, b, seed=3)
+    corpus, q = np.abs(corpus), -np.abs(q)  # every score below zero
+    codes, scale = jax_dense.quantize_rows_int8(corpus)
+    e_vals, e_rows = jax_ft.matmul_bucket_max_v2(
+        jnp.asarray(codes), jnp.asarray(q), jnp.asarray(mask), interpret=True,
+        scale=jnp.asarray(scale),
+    )
+    g_vals, g_rows = fused_topk.matmul_bucket_max_v2(
+        torch.from_numpy(codes), torch.from_numpy(q), torch.from_numpy(mask),
+        scale=torch.from_numpy(scale),
+    )
+    assert g_vals.shape == (b, 17 * BUCKET)
+    np.testing.assert_array_equal(g_vals.numpy().view(np.int32), np.array(e_vals).view(np.int32))
+    np.testing.assert_array_equal(g_rows.numpy(), np.asarray(e_rows))
+    assert (g_vals < 0).all()
+
+
+@pytest.mark.parametrize("variant", ["onedot", "chunked"])
+def test_bf16_matches(variant):
+    n, d, b = 4096, 64, 4
+    corpus, q, mask = _inputs(n, d, b, seed=11, dead_lane=9)
+    e_vals, e_rows = jax_ft.matmul_bucket_max_v2(
+        jnp.asarray(corpus, jnp.bfloat16), jnp.asarray(q), jnp.asarray(mask),
+        variant=variant, chunk_pos=4, interpret=True,
+    )
+    g_vals, g_rows = fused_topk.matmul_bucket_max_v2(
+        torch.from_numpy(corpus).to(torch.bfloat16), torch.from_numpy(q),
+        torch.from_numpy(mask), variant=variant, chunk_pos=4,
+    )
+    e_vals, e_rows = torch.from_numpy(np.array(e_vals)), torch.from_numpy(np.array(e_rows))
+    live = e_vals > -1e29
+    assert torch.equal(live, g_vals > -1e29)
+    qb = torch.from_numpy(q).to(torch.bfloat16).float()
+    tol = 2.0**-15 * qb.norm(dim=1, keepdim=True).expand_as(g_vals)
+    assert bool(((g_vals - e_vals).abs() <= tol)[live].all())
+    c = torch.from_numpy(corpus).to(torch.bfloat16).float()
+    scores = torch.where(torch.from_numpy(mask), qb @ c.T, -1e30)
+    top2 = scores.reshape(b, -1, BUCKET).topk(2, dim=1).values  # one block
+    near = (top2[:, 0] - top2[:, 1]).abs() <= tol
+    assert bool(((g_rows == e_rows) | ~live | near).all())
+
+
+@pytest.mark.parametrize("k", [1, 8, 128])
+def test_fused_candidate_topk_v2_matches(k):
+    corpus, q, mask = _inputs(2048, 32, 3, seed=k)
+    codes, scale = jax_dense.quantize_rows_int8(corpus)
+    e_vals, e_rows = jax_ft.fused_candidate_topk_v2(
+        jnp.asarray(codes), jnp.asarray(q), k, jnp.asarray(mask), interpret=True,
+        scale=jnp.asarray(scale),
+    )
+    g_vals, g_rows = fused_topk.fused_candidate_topk_v2(
+        torch.from_numpy(codes), torch.from_numpy(q), k, torch.from_numpy(mask),
+        scale=torch.from_numpy(scale),
+    )
+    np.testing.assert_array_equal(g_rows.numpy(), np.asarray(e_rows))
+    np.testing.assert_array_equal(g_vals.numpy(), np.asarray(e_vals))
+
+
+@pytest.mark.parametrize(
+    "n,k,exact", [(1024, 8, False), (1024, 200, False), (960, 8, False), (1024, 8, True)]
+)
+def test_candidate_topk_bucket_dispatch(n, k, exact):
+    """impl="bucket" serves from the bucket table, falls back to the score
+    matrix when k exceeds the table width or the geometry does not tile,
+    and never serves an exact-selection request."""
+    corpus, q, mask = _inputs(n, 32, 2, seed=n + k)
+    codes, scale = jax_dense.quantize_rows_int8(corpus)
+    e_vals, e_rows = jax_dense.candidate_topk(
+        jnp.asarray(codes), jnp.asarray(q), k, jnp.asarray(mask), jnp.asarray(scale),
+        exact_topk=exact, impl="bucket", interpret=True,
+    )
+    g_vals, g_rows = dense.candidate_topk(
+        torch.from_numpy(codes), torch.from_numpy(q), k, torch.from_numpy(mask),
+        torch.from_numpy(scale), exact_topk=exact, impl="bucket",
+    )
+    served = dense.bucket_kernel_supported(torch.from_numpy(codes), scale, k) and not exact
+    assert served == (n == 1024 and k == 8 and not exact)
+    np.testing.assert_array_equal(g_rows.numpy(), np.asarray(e_rows))
+    np.testing.assert_array_equal(g_vals.numpy(), np.asarray(e_vals))
+
+
+def test_bucket_support_and_validation():
+    codes = torch.zeros(2048, 16, dtype=torch.int8)
+    assert not dense.bucket_kernel_supported(codes, None)
+    assert dense.bucket_kernel_supported(codes, torch.ones(2048, 1), 128)
+    assert not dense.bucket_kernel_supported(codes, torch.ones(2048, 1), 129)
+    q, mask = torch.zeros(2, 16), torch.ones(2048, dtype=torch.bool)
+    with pytest.raises(ValueError, match="requires scale"):
+        fused_topk.matmul_bucket_max_v2(codes, q, mask)
+    with pytest.raises(ValueError, match="chunk_pos"):
+        fused_topk.matmul_bucket_max_v2(codes, q, mask, variant="chunked", chunk_pos=3, scale=torch.ones(2048, 1))
+    with pytest.raises(ValueError, match="variant"):
+        fused_topk.matmul_bucket_max_v2(codes, q, mask, variant="other", scale=torch.ones(2048, 1))
+    with pytest.raises(ValueError, match="corpus rows"):
+        fused_topk.matmul_bucket_max_v2(torch.zeros(960, 16), q, torch.ones(960, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("x", ["rows", "queries"])
+def test_quantize_int8_bit_equal(x):
+    """Stored rows are quantized as the JAX store does (numpy, a true
+    division by 127); queries as the JAX package's compiled programs do."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(300, 48)).astype(np.float32) * rng.random((300, 1)).astype(np.float32)
+    data[3] = 0.0  # scale clipped at 1e-12
+    data[4, :5] = [0.5, -0.5, 1.5, 2.5, 127.0]  # halves round to even
+    if x == "rows":
+        e_codes, e_scale = jax_dense.quantize_rows_int8(data)
+        g_codes, g_scale = dense.quantize_rows_int8(torch.from_numpy(data))
+    else:
+        e_codes, e_scale = jax.jit(jax_dense.quantize_rows_int8)(jnp.asarray(data))
+        g_codes, g_scale = dense.quantize_queries_int8(torch.from_numpy(data))
+    np.testing.assert_array_equal(g_codes.numpy(), np.asarray(e_codes))
+    np.testing.assert_array_equal(g_scale.numpy().view(np.int32), np.array(e_scale).view(np.int32))
+
+
+def test_int8_dense_scores_bit_equal():
+    corpus, q, _ = _inputs(512, 96, 7, seed=1)
+    codes, scale = jax_dense.quantize_rows_int8(corpus)
+    expected = jax_dense.dense_scores(jnp.asarray(codes), jnp.asarray(q), jnp.asarray(scale))
+    got = dense.dense_scores(torch.from_numpy(codes), torch.from_numpy(q), torch.from_numpy(scale))
+    np.testing.assert_array_equal(got.numpy().view(np.int32), np.array(expected).view(np.int32))

@@ -1,8 +1,9 @@
 """The PyTorch port runs its main path without JAX or the JAX package.
 
 A fresh interpreter ingests the example documents, answers a question with
-the default extractor on the CPU, and then must hold no ``jax`` module and
-no ``verbatim_rag_tpu`` module. The same holds for every module of the
+the default extractor on the CPU, runs a hybrid query over an int8 index
+(the section path), and then must hold no ``jax`` module and no
+``verbatim_rag_tpu`` module. The same holds for every module of the
 port imported on its own.
 """
 
@@ -29,7 +30,15 @@ index = VerbatimIndex(
 index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
 response = VerbatimRAG(index).query("How efficient are solar panels?")
 ok = all(d.content[h.start:h.end] == h.text for d in response.documents for h in d.highlights)
+int8 = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu",
+    dense_dtype="int8", sketch_dtype="int8",
+)
+int8.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+int8_hits = int8.query("How efficient are solar panels?", k=3)
 print(json.dumps({
+    "int8_impl": int8.store.candidate_impl,
+    "int8_hits": len(int8_hits),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
     "docs": len(response.documents),
@@ -65,6 +74,7 @@ def test_main_path_loads_no_jax():
     result = _run(FLOW)
     assert result["jax"] == [] and result["reference"] == []
     assert result["docs"] > 0 and result["verbatim"]
+    assert result["int8_impl"] == "section" and result["int8_hits"] > 0
 
 
 def test_every_port_module_imports_without_jax():

@@ -157,9 +157,9 @@ def test_browsing_and_empty_store():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(dense_dtype="int8"),
+        dict(dense_dtype="int4"),
         dict(sketch_dtype="int4"),
-        dict(candidate_impl="section"),
+        dict(candidate_impl="section", enable_full_text=True),  # the 3-way section
         dict(enable_full_text=True),
         dict(sparse_mode="exact"),
         dict(sparse_ids_dtype="int16"),

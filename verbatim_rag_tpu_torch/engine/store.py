@@ -1,12 +1,15 @@
 """Device-resident hybrid vector store (port of
-`verbatim_rag_tpu/engine/store.py`, the bf16/f32 projected-sparse tier).
+`verbatim_rag_tpu/engine/store.py`: the bf16/f32 projected-sparse tier and
+the int8 tier).
 
 Layout on the store's device (a CUDA device unless ``device="cpu"``):
 
-- dense:    ``[cap, d]`` row-normalized bf16 (or f32);
+- dense:    ``[cap, d]`` row-normalized bf16 (or f32), or int8 codes with
+            a ``[cap, 1]`` float32 scale column (``dense_dtype="int8"``);
 - sparse:   forward index ``ids [cap, m] int32`` + ``weights [cap, m] f32``,
             and its projected sketches ``[cap, d_p]`` in the dense family's
-            float dtype;
+            float dtype, or int8 codes with a ``[cap, 1]`` scale column
+            (``sketch_dtype="int8"``);
 - validity: ``[cap] bool`` — deletes flip it (tombstones).
 
 Text and metadata stay on the host. Writes queue in a host buffer; `flush()`
@@ -15,9 +18,13 @@ writes them into the device arrays, whose capacity grows geometrically from
 write), rows are written in place into the preallocated arrays.
 
 Queries: dense-only, projected-sparse-only, and the 2-way hybrid, which runs
-as one call per batch (`ops/hybrid.py::hybrid_fused_topk`): candidate
-matmuls, exact rescore (the CUDA kernel on the default
-``rescore_impl="pallas"``) and weighted RRF, then one [B, k] readback.
+as one call per batch: candidate selection, exact rescore (the CUDA kernel
+on the default ``rescore_impl="pallas"``) and weighted RRF, then one [B, k]
+readback. Candidate selection follows ``candidate_impl``: "xla" scores the
+[B, N] matrices and selects exactly (`ops/hybrid.py::hybrid_fused_topk`);
+"section" (what "auto" picks on the int8 tier) builds both arms' packed
+bucket tables in one kernel launch (`ops/section.py::hybrid_section_topk`);
+"bucket" runs the fused bucket-max kernel per arm (`ops/fused_topk.py`).
 
 Options of the JAX store that later slices serve raise
 ``NotImplementedError`` naming the slice.
@@ -111,7 +118,7 @@ def _not_in_slice(what: str, slice_name: str):
     )
 
 
-_FLOAT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_STORE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
 
 
 class DeviceVectorStore(VectorStore):
@@ -150,8 +157,6 @@ class DeviceVectorStore(VectorStore):
             raise ValueError(
                 f"rescore_impl must be 'scan', 'oneshot' or 'pallas', got {rescore_impl!r}"
             )
-        if candidate_impl not in ("auto", "xla", "section", "bucket"):
-            raise ValueError(f"unknown candidate_impl {candidate_impl!r}")
         if dense_dtype not in ("bfloat16", "float32", "int8", "int4"):
             raise ValueError(f"unsupported dense_dtype {dense_dtype!r}")
         if sketch_dtype not in (None, "bfloat16", "float32", "int8", "int4"):
@@ -160,10 +165,8 @@ class DeviceVectorStore(VectorStore):
             raise ValueError(f"unsupported sparse_weight_dtype {sparse_weight_dtype!r}")
         if sparse_ids_dtype not in ("int32", "int16"):
             raise ValueError(f"unsupported sparse_ids_dtype {sparse_ids_dtype!r}")
-        if dense_dtype in ("int8", "int4") or sketch_dtype in ("int8", "int4"):
-            raise _not_in_slice("int8/int4 dense and sketch rows", "the int8 tier slice")
-        if candidate_impl in ("section", "bucket"):
-            raise _not_in_slice(f"candidate_impl={candidate_impl!r}", "the int8 tier slice")
+        if dense_dtype == "int4" or sketch_dtype == "int4":
+            raise _not_in_slice("int4 dense and sketch rows", "the int4 capacity slice")
         if mesh is not None:
             raise _not_in_slice("a mesh", "the parallel slice")
         if enable_full_text:
@@ -175,6 +178,19 @@ class DeviceVectorStore(VectorStore):
                 "int16 forward-index ids and float16 weights",
                 "the forward-index capacity options slice",
             )
+        from verbatim_rag_tpu_torch.ops.hybrid import validate_candidate_impl
+
+        if candidate_impl == "auto":
+            # The JAX package's policy: the section kernel serves the int8
+            # tier (both matrices int8) when the store selects approximately;
+            # a store built for exact selection takes the "xla" program.
+            candidate_impl = (
+                "section"
+                if dense_dtype == "int8" and sketch_dtype == "int8" and approx_topk
+                else "xla"
+            )
+        if candidate_impl != "section":
+            validate_candidate_impl(candidate_impl)
         self.device = resolve_device(device)
         self.dense_dim = dense_dim
         self.sparse_vocab = sparse_vocab
@@ -185,9 +201,16 @@ class DeviceVectorStore(VectorStore):
         self.projection_dim = projection_dim
         self.rescore_depth = rescore_depth
         self.projection_seed = projection_seed
-        # approx_topk is accepted for config parity and changes nothing:
-        # selection here is always exact (lowest index first among ties).
+        #: Candidate selection the store asks for. Selection over score
+        #: matrices is exact here either way (lowest index first among ties);
+        #: approx_topk=True lets the approximate bucket-table impls
+        #: ("section", "bucket") serve, False sends every query to the exact
+        #: "xla" program. Per-query override: search_params["approx_topk"].
+        self.approx_topk = approx_topk
         self.rescore_impl = rescore_impl
+        #: "xla", "section" or "bucket" (resolved from "auto" above).
+        self.candidate_impl = candidate_impl
+        self._warned_section_fallback: set[str] = set()
 
         # Host-side record state.
         self._ids: list[str] = []
@@ -204,10 +227,12 @@ class DeviceVectorStore(VectorStore):
         self._pending_ids: set[str] = set()
 
         # Device arrays (allocated on first flush).
-        self._dense = None  # [cap, d]
+        self._dense = None  # [cap, d] (int8 codes when dense_dtype="int8")
+        self._dense_scale = None  # [cap, 1] f32 per-row scales (int8 only)
         self._sp_ids = None  # [cap, m] int32
         self._sp_w = None  # [cap, m] f32
         self._sp_proj = None  # [cap, d_p] projected sparse sketches
+        self._sp_proj_scale = None  # [cap, 1] f32 per-row scales (int8 only)
         self._valid_dev = None  # [cap] bool
         self._capacity = 0
 
@@ -215,15 +240,24 @@ class DeviceVectorStore(VectorStore):
 
     @property
     def _dense_store_dtype(self) -> torch.dtype:
-        return _FLOAT_DTYPES[self.dense_dtype]
+        """Device dtype of the dense matrix. ``int8`` is the capacity mode:
+        per-row symmetric codes (`ops/dense.py::quantize_rows_int8`) with a
+        float32 scale column, half the bytes of bf16."""
+        return _STORE_DTYPES[self.dense_dtype]
 
     @property
     def _sketch_store_dtype(self) -> torch.dtype:
         """Explicit ``sketch_dtype`` wins; otherwise sketches follow the
         dense matrix's float family."""
         if self.sketch_dtype is not None:
-            return _FLOAT_DTYPES[self.sketch_dtype]
+            return _STORE_DTYPES[self.sketch_dtype]
         return torch.float32 if self.dense_dtype == "float32" else torch.bfloat16
+
+    @property
+    def _per_stage_candidate_impl(self) -> str:
+        """"section" is a whole-program impl (both hybrid arms in one
+        launch); single-method queries take the stage-wise "xla" instead."""
+        return "xla" if self.candidate_impl == "section" else self.candidate_impl
 
     @property
     def size(self) -> int:
@@ -323,7 +357,16 @@ class DeviceVectorStore(VectorStore):
             return arr
 
         if dense_new is not None:
-            self._dense = _write(self._dense, dense_new, self.dense_dim, self._dense_store_dtype)
+            if self.dense_dtype == "int8":
+                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+
+                codes, scale = quantize_rows_int8(torch.from_numpy(dense_new).to(self.device))
+                self._dense = _write(self._dense, codes, self.dense_dim, torch.int8)
+                self._dense_scale = _write(self._dense_scale, scale, 1, torch.float32)
+            else:
+                self._dense = _write(
+                    self._dense, dense_new, self.dense_dim, self._dense_store_dtype
+                )
         if sp_ids_new is not None:
             self._sp_ids = _write(self._sp_ids, sp_ids_new, self.sparse_max_nnz, torch.int32)
             self._sp_w = _write(self._sp_w, sp_w_new, self.sparse_max_nnz, torch.float32)
@@ -335,10 +378,16 @@ class DeviceVectorStore(VectorStore):
                 self._sp_w[offset : offset + n_new],
                 self._projection_dev(self.sparse_vocab),
             )
-            self._sp_proj = self._grow_capacity(
-                self._sp_proj, new_cap, self.projection_dim, self._sketch_store_dtype
-            )
-            self._sp_proj[offset : offset + n_new] = proj_new.to(self._sketch_store_dtype)
+            if self.sketch_dtype == "int8":
+                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+
+                codes, scale = quantize_rows_int8(proj_new)
+                self._sp_proj = _write(self._sp_proj, codes, self.projection_dim, torch.int8)
+                self._sp_proj_scale = _write(self._sp_proj_scale, scale, 1, torch.float32)
+            else:
+                self._sp_proj = _write(
+                    self._sp_proj, proj_new, self.projection_dim, self._sketch_store_dtype
+                )
 
         valid = torch.zeros(new_cap, dtype=torch.bool)
         valid[: self._valid.size] = torch.from_numpy(self._valid)
@@ -469,13 +518,14 @@ class DeviceVectorStore(VectorStore):
           per method and fuse with weighted RRF.
 
         ``search_params``: ``rescore_depth`` (sketch candidates rescored per
-        query, bucketed to a power of two in [64, 4096]); ``approx_topk`` is
-        accepted and changes nothing (selection here is always exact).
+        query, bucketed to a power of two in [64, 4096]); ``approx_topk``
+        overrides the store's setting for this call (False sends the query
+        to the exact "xla" program whatever ``candidate_impl`` is).
         """
         self.flush()
         params = dict(search_params or {})
         depth_override = params.pop("rescore_depth", None)
-        params.pop("approx_topk", None)
+        approx_override = params.pop("approx_topk", None)
         if params:
             logger.warning("Ignoring unknown search_params keys: %s", sorted(params))
         if depth_override:
@@ -483,6 +533,9 @@ class DeviceVectorStore(VectorStore):
             depth_override = 1 << (d - 1).bit_length()
         else:
             depth_override = None
+        exact_topk = not (
+            self.approx_topk if approx_override is None else bool(approx_override)
+        )
         n = len(self._ids)
         if n == 0:
             batch = self._batch_size(dense_queries, sparse_queries, text_queries)
@@ -532,7 +585,8 @@ class DeviceVectorStore(VectorStore):
         if len(methods) == 1 and not hybrid_weights:
             name = next(iter(methods))
             scores, rows = self._run_method(
-                name, methods[name], top_k, mask, depth_override=depth_override
+                name, methods[name], top_k, mask,
+                exact_topk=exact_topk, depth_override=depth_override,
             )
             return self._materialize(scores, rows)
 
@@ -545,13 +599,14 @@ class DeviceVectorStore(VectorStore):
         if set(methods) == {"dense", "sparse"}:
             scores, rows = self._hybrid_projected(
                 methods["dense"], methods["sparse"], top_k, fetch_k, mask,
-                weights, rrf_k, depth_override=depth_override,
+                weights, rrf_k, exact_topk=exact_topk, depth_override=depth_override,
             )
             return self._materialize(scores, rows)
         all_rows, w_list = [], []
         for name, payload in methods.items():
             scores, rows = self._run_method(
-                name, payload, fetch_k, mask, depth_override=depth_override
+                name, payload, fetch_k, mask,
+                exact_topk=exact_topk, depth_override=depth_override,
             )
             all_rows.append(np.where(scores > -1e29, rows, -1))
             w_list.append(weights.get(name, 0.0))
@@ -615,18 +670,24 @@ class DeviceVectorStore(VectorStore):
         return torch.from_numpy(np.asarray(payload, np.float32)).to(self.device)
 
     def _run_method(
-        self, name: str, payload, k: int, mask, depth_override: int | None = None
+        self, name: str, payload, k: int, mask,
+        exact_topk: bool = True, depth_override: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Run one retrieval method → host (scores [B,k], rows [B,k]; -1 pad)."""
+        """Run one retrieval method → host (scores [B,k], rows [B,k]; -1 pad).
+
+        Dense-only queries score the [B, N] matrix whatever the store's
+        ``candidate_impl`` (as in the JAX store, which runs `dense_topk`)."""
         from verbatim_rag_tpu_torch.ops.dense import candidate_topk, normalize_rows
 
         k = min(k, self._capacity)
         if name == "dense":
             q = normalize_rows(self._dense_queries(payload))
-            scores, rows = candidate_topk(self._dense, q, k, mask)
+            scores, rows = candidate_topk(self._dense, q, k, mask, scale=self._dense_scale)
             return scores.cpu().numpy(), rows.cpu().numpy()
         if name == "sparse":
-            return self._projected_search(payload, k, mask, depth_override=depth_override)
+            return self._projected_search(
+                payload, k, mask, exact_topk=exact_topk, depth_override=depth_override
+            )
         raise ValueError(f"Unknown method {name!r}")
 
     #: Query-nnz padding buckets (the JAX store's compile-shape buckets; kept
@@ -662,13 +723,15 @@ class DeviceVectorStore(VectorStore):
         mask,
         weights: Mapping[str, float],
         rrf_k: int,
+        exact_topk: bool = True,
         depth_override: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """The hybrid serving path: candidate matmuls, exact sparse rescore
-        and weighted RRF in one call (`ops/hybrid.py::hybrid_fused_topk`),
-        then one [B, k] readback."""
+        """The hybrid serving path in one call, then one [B, k] readback:
+        the section tables (`ops/section.py::hybrid_section_topk`) when
+        ``candidate_impl="section"`` can serve the query, else candidate
+        selection per arm (`ops/hybrid.py::hybrid_fused_topk`); exact
+        sparse rescore and weighted RRF either way."""
         from verbatim_rag_tpu_torch.ops.dense import normalize_rows
-        from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk
 
         depth = min(max(depth_override or self.rescore_depth, fetch_k), self._capacity)
         if isinstance(dense_q, torch.Tensor):
@@ -678,15 +741,7 @@ class DeviceVectorStore(VectorStore):
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
             q = torch.from_numpy(q).to(self.device)
         q_ids, q_w, q_proj = self._sparse_query_device(sparse_q, self.sparse_vocab)
-        scores, rows = hybrid_fused_topk(
-            self._dense,
-            self._sp_proj,
-            self._sp_ids,
-            self._sp_w,
-            q,
-            q_proj,
-            q_ids,
-            q_w,
+        common = dict(
             k=min(top_k, fetch_k),
             fetch_k=fetch_k,
             depth=depth,
@@ -694,22 +749,74 @@ class DeviceVectorStore(VectorStore):
             dense_weight=float(weights.get("dense", 0.5)),
             sparse_weight=float(weights.get("sparse", 0.5)),
             rrf_k=rrf_k,
+            dense_scale=self._dense_scale,
+            sketch_scale=self._sp_proj_scale,
             rescore_impl=self.rescore_impl,
         )
+        arrays = (self._dense, self._sp_proj, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w)
+        if self.candidate_impl == "section" and self._section_serves(exact_topk):
+            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk
+
+            scores, rows = hybrid_section_topk(
+                *arrays, **common,
+                block_cols=16384 if self._capacity % 16384 == 0 else 8192,
+            )
+        else:
+            from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk
+
+            scores, rows = hybrid_fused_topk(
+                *arrays, **common, exact_topk=exact_topk,
+                candidate_impl=self._per_stage_candidate_impl,
+            )
         return scores.cpu().numpy(), rows.cpu().numpy()
 
+    def _section_serves(self, exact_topk: bool = False) -> bool:
+        """Whether the section tables can serve this query.
+
+        Exactness: a query asking for exact selection (approx_topk=False)
+        falls back to the "xla" program, since the tables keep one winner
+        per bucket. Geometry: the tables cut the rows into 8192-row blocks,
+        so the capacity must be a multiple of 8192 (the default block
+        guarantees it). Each fallback logs one warning per reason."""
+        reason = None
+        if exact_topk:
+            reason = (
+                "exact selection requested (approx_topk=False) — the "
+                "kernel's bucket table is approximate by construction"
+            )
+        elif self._capacity % 8192 != 0:
+            reason = (
+                f"capacity {self._capacity} does not tile the section "
+                "kernel's 8192-row blocks (custom block size?)"
+            )
+        if reason is None:
+            return True
+        if reason not in self._warned_section_fallback:
+            logger.warning(
+                "candidate_impl='section' cannot serve this query (%s); "
+                "using the per-arm hybrid program instead",
+                reason,
+            )
+            self._warned_section_fallback.add(reason)
+        return False
+
     def _projected_search(
-        self, q_sparse, k: int, mask, depth_override: int | None = None
+        self, q_sparse, k: int, mask, exact_topk: bool = True,
+        depth_override: int | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Two-phase sparse search on the device: sketch-matmul candidates,
-        exact forward-index rescore, final top-k."""
+        """Two-phase sparse search on the device: sketch candidates, exact
+        forward-index rescore, final top-k."""
         from verbatim_rag_tpu_torch.ops.hybrid import projected_sparse_topk
 
         depth = min(max(depth_override or self.rescore_depth, 2 * k), self._capacity)
         q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, self.sparse_vocab)
         top_scores, top_rows = projected_sparse_topk(
             self._sp_proj, self._sp_ids, self._sp_w, q_proj, q_ids, q_w,
-            min(k, self._capacity), depth, mask, rescore_impl=self.rescore_impl,
+            min(k, self._capacity), depth, mask,
+            exact_topk=exact_topk,
+            sketch_scale=self._sp_proj_scale,
+            rescore_impl=self.rescore_impl,
+            candidate_impl=self._per_stage_candidate_impl,
         )
         return top_scores.cpu().numpy(), top_rows.cpu().numpy()
 

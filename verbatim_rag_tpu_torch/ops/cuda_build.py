@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("flash_attention", "rescore")
+KERNEL_SOURCES = ("flash_attention", "rescore", "section")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -85,9 +85,17 @@ def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
     """
     with _lock:
         jobs = {n: _start(n) for n in names}
+        # Wait for every compiler before raising, so a failed source leaves
+        # no other compile running or half written.
+        errors = []
         for n, job in jobs.items():
             if job is not None:
-                _finish(n, job)
+                try:
+                    _finish(n, job)
+                except RuntimeError as err:
+                    errors.append(err)
+        if errors:
+            raise errors[0]
     logs = {}
     for n in names:
         log = _target(n).with_suffix(".log")

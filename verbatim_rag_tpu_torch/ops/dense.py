@@ -1,17 +1,22 @@
 """Dense brute-force retrieval: matmul + top-k (port of
-`verbatim_rag_tpu/ops/dense.py`, bf16/f32 corpora).
+`verbatim_rag_tpu/ops/dense.py`: bf16/f32 corpora and the int8 tier).
 
-Two rules carried over from the JAX package so scores and orders agree:
+Three rules carried over from the JAX package so scores and orders agree:
 
 - a bf16 corpus is scored with bf16 operands and a float32 result
   (``preferred_element_type=float32`` in JAX); a plain bf16 matmul in torch
   would round the *output* to bf16 and reorder near-equal scores;
+- an int8 corpus is scored as exact int32 dots of the int8 codes, then
+  ``raw * (q_scale * c_scale.T)`` in float32 (the JAX order; the bucket and
+  section kernels scale as ``(raw * q_scale) * c_scale`` instead, and each
+  path keeps its own order);
 - selection is exact with the lowest index first among equal values, like
   ``lax.top_k`` (``torch.topk`` promises no order among ties).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -22,6 +27,38 @@ def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     x = x.float()
     norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
     return x / torch.clamp(norm, min=eps)
+
+
+def _quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of stored rows: ``x ≈ q * scale``.
+
+    Round half to even, codes clipped to ±127, scale ``max|x| / 127``
+    clipped below at 1e-12; bit-equal to the JAX package's on equal float32
+    inputs. Returns (int8 [N, d], float32 scales [N, 1]).
+    """
+    x = x.float()
+    return _quantize_int8(x, x.abs().amax(dim=-1, keepdim=True) / 127.0)
+
+
+#: 1/127 in float32. The JAX package quantizes queries inside compiled
+#: programs, where XLA turns ``max|x| / 127`` into ``max|x| * (1/127)``
+#: (a reciprocal multiply, which can differ from the division in the last
+#: bit); the port scales queries the same way so both pick the same codes.
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_queries_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of queries, as the JAX package's compiled
+    programs compute it: scale ``max|x| * (1/127)``, otherwise as
+    :func:`quantize_rows_int8`."""
+    x = x.float()
+    return _quantize_int8(x, x.abs().amax(dim=-1, keepdim=True) * _INV_127)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,8 +74,39 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
-def dense_scores(corpus: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """[B, N] cosine scores of row-normalized queries against a bf16/f32 corpus."""
+#: Widest int8 dot whose float32 product of the codes is exact
+#: (127² · 1040 < 2²⁴: every partial sum is an integer float32 holds).
+_EXACT_F32_DEPTH = 1040
+
+
+def int8_dots(qi: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Exact int32 dots of int8 rows, [B, d] × [N, d] → [B, N] as float32.
+
+    On CUDA a plain ``torch._int_mm`` (int8 tensor cores, int32 sums) where
+    its shape rules hold; elsewhere a float32 product of the codes, exact for
+    d ≤ 1040 (float64 above that). For d ≤ 1040 the values are integers
+    below 2²⁴ in magnitude, so the float32 result is exact.
+    """
+    b, d = qi.shape
+    n = codes.shape[0]
+    if qi.is_cuda and b > 16 and d % 8 == 0 and n % 8 == 0:
+        return torch._int_mm(qi.contiguous(), codes.t()).float()
+    wide = torch.float32 if d <= _EXACT_F32_DEPTH else torch.float64
+    return torch.mm(qi.to(wide), codes.to(wide).t()).float()
+
+
+def dense_scores(corpus, queries, corpus_scale=None) -> torch.Tensor:
+    """[B, N] cosine scores of row-normalized queries.
+
+    For an int8 corpus the queries are quantized per row on the fly and the
+    int32 dots are rescaled: ``raw * (q_scale * corpus_scale.T)``.
+    """
+    if corpus.dtype == torch.int8:
+        if corpus_scale is None:
+            raise ValueError("int8 corpus requires corpus_scale")
+        qi, q_scale = quantize_queries_int8(queries)
+        raw = int8_dots(qi, corpus)
+        return raw * (q_scale * corpus_scale.reshape(1, -1))
     return matmul_f32(queries.to(corpus.dtype), corpus.t())
 
 
@@ -83,9 +151,46 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals, pos
 
 
-def candidate_topk(corpus, queries, k: int, mask=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, d] × [N, d] scores, masked rows at -1e30, then exact top-k."""
-    scores = dense_scores(corpus, queries)
+def bucket_kernel_supported(corpus, scale, k: int | None = None) -> bool:
+    """Whether the fused bucket-max kernel can serve this request: the
+    kernel's block geometry, a bucket table wide enough to supply ``k``
+    candidates, and, for an int8 corpus, its per-row scale.
+
+    Unlike the JAX package there is no backend test: on a CPU tensor the
+    bucket path runs its plain version, on a CUDA tensor the kernel.
+    """
+    from .fused_topk import bucket_table_width
+
+    if corpus.dtype == torch.int8 and scale is None:
+        return False
+    width = bucket_table_width(corpus.shape[0])
+    return width is not None and (k is None or k <= width)
+
+
+def candidate_topk(
+    corpus, queries, k: int, mask=None, scale=None, exact_topk: bool = False,
+    impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate selection for the fused programs: (scores [B, k], rows [B, k]).
+
+    impl="xla": the [B, N] score matrix (masked rows at -1e30), then exact
+    top-k. impl="bucket": the fused matmul + strided bucket-max
+    (`ops/fused_topk.py`), whose [B, N] scores never exist; it falls back to
+    the "xla" path where its geometry or table width cannot serve the
+    request. The bucket table keeps one winner per bucket, so a request for
+    exact selection (``exact_topk=True``) never takes it. Selection on the
+    "xla" path is exact either way.
+    """
+    if impl not in ("xla", "bucket"):
+        raise ValueError(f"unknown candidate impl {impl!r}")
+    if impl == "bucket" and not exact_topk and bucket_kernel_supported(corpus, scale, k):
+        from .fused_topk import fused_candidate_topk_v2
+
+        if mask is None:
+            mask = torch.ones(corpus.shape[0], dtype=torch.bool, device=corpus.device)
+        q = queries if corpus.dtype == torch.int8 else queries.to(corpus.dtype)
+        return fused_candidate_topk_v2(corpus, q, k, mask, scale=scale)
+    scores = dense_scores(corpus, queries, scale)
     if mask is not None:
         scores = torch.where(mask[None, :], scores, NEG_INF)
     return topk(scores, k)

@@ -45,14 +45,28 @@ def rescore_fn(impl: str):
     raise ValueError(f"unknown rescore impl {impl!r}")
 
 
+def validate_candidate_impl(impl: str) -> str:
+    """Per-stage candidate impl: "xla" (score matrix + exact top-k) or
+    "bucket" (the fused matmul + bucket-max kernel). "section" is a
+    whole-program impl dispatched by the store; it never reaches these
+    per-stage programs."""
+    if impl not in ("xla", "bucket"):
+        raise ValueError(f"candidate_impl must be 'xla' or 'bucket', got {impl!r}")
+    return impl
+
+
 def projected_sparse_topk(
     sketch_corpus, sp_ids, sp_w, sketch_q, q_ids, q_w, k: int, depth: int,
-    mask=None, rescore_impl: str = "scan",
+    mask=None, exact_topk: bool = True, sketch_scale=None, rescore_impl: str = "scan",
+    candidate_impl: str = "xla",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sketch-matmul candidates → exact forward-index rescore → top-k:
     (exact scores [B, k], rows [B, k]; −1 where missing). A zero exact score
     (no term overlap) is not a hit."""
-    c_top, cand = candidate_topk(sketch_corpus, sketch_q, depth, mask)
+    impl = validate_candidate_impl(candidate_impl)
+    c_top, cand = candidate_topk(
+        sketch_corpus, sketch_q, depth, mask, sketch_scale, exact_topk, impl
+    )
     cand = torch.where(c_top > NEG_INF / 2, cand, -1).to(torch.int32)
     exact = rescore_fn(rescore_impl)(cand, sp_ids, sp_w, q_ids, q_w)
     top_scores, pos = topk(exact, k)
@@ -65,14 +79,22 @@ def hybrid_fused_topk(
     dense_corpus, sketch_corpus, sp_ids, sp_w, dense_q, sketch_q, q_ids, q_w,
     k: int, fetch_k: int, depth: int, mask=None,
     dense_weight: float = 0.5, sparse_weight: float = 0.5, rrf_k: int = 60,
-    rescore_impl: str = "scan",
+    exact_topk: bool = True, dense_scale=None, sketch_scale=None,
+    rescore_impl: str = "scan", candidate_impl: str = "xla",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The 2-way hybrid query: (fused RRF scores [B, k], rows [B, k]; −1 pads)."""
-    d_top, d_rows = candidate_topk(dense_corpus, dense_q, fetch_k, mask)
-    d_rows = torch.where(d_top > NEG_INF / 2, d_rows, -1)
+    """The 2-way hybrid query: (fused RRF scores [B, k], rows [B, k]; −1 pads).
+
+    Selection on the "xla" path is exact whatever ``exact_topk`` says;
+    ``exact_topk=True`` only keeps "bucket" requests off the bucket table.
+    """
+    impl = validate_candidate_impl(candidate_impl)
+    d_top, d_rows = candidate_topk(
+        dense_corpus, dense_q, fetch_k, mask, dense_scale, exact_topk, impl
+    )
+    d_rows = torch.where(d_top > NEG_INF / 2, d_rows, -1).long()
     _, s_rows = projected_sparse_topk(
         sketch_corpus, sp_ids, sp_w, sketch_q, q_ids, q_w, fetch_k, depth,
-        mask, rescore_impl,
+        mask, exact_topk, sketch_scale, rescore_impl, impl,
     )
     total = dense_weight + sparse_weight
     weights = torch.tensor(
