@@ -46,11 +46,32 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              versions (int8 tables are bit-equal, so no difference is
              allowed);
 6. long    — one ~20k-token document through the full-width extractor
-             (3 windows at S=8192 through all 22 layers).
+             (3 windows at S=8192 through all 22 layers);
+7. train   — the token highlighter at full ModernBERT-base width trained
+             through `Trainer` with the CLI defaults (batch 8, max_seq_length
+             4096: synthetic examples of 2.2k-4k tokens, so every batch pads
+             to 4096 with ragged rows), 4 optimizer steps; every loss and
+             gradient norm finite, the parameters changed, no batch skipped
+             for OOM, 22 forward (lse), 22 dq and 22 dk/dv launches a step;
+             then the saved checkpoint is served by
+             `ModelSpanExtractor(model_path=...)` on the card (its token
+             probabilities equal the trained model's, every span verbatim).
 
-Each main-path phase (3-6) sets the kernels' launch counts to 0 just before
+The kernels phase also holds the flash backward (`csrc/flash_attention_bwd.cu`)
+and the forward's logsumexp output against their plain versions at
+B=8, H=12, D=64, bf16, S ∈ {512, 4096, 8192}, global and window=128, with
+the forward's ragged lengths: lse within 1e-4 + 1e-5·|lse| of the plain
+version's; dq, dk and dv each live row (b, row, h) within 2e-2 of
+max(max|plain| over D, 1e-3 of the tensor's largest row) plus half a bf16
+ulp of the row's max (P and dS are rounded to bf16 for the second products;
+the floor covers rows where one key takes all the weight, dP − delta
+cancels and the true gradient is 0). At S=8192 global two planted faults
+(the dk/dv kernel run without each row's last key tile; delta replaced by 0)
+must fail that check.
+
+Each main-path phase (3-7) sets the kernels' launch counts to 0 just before
 it and reads them just after; a kernel of the path launched no time fails.
-Phases 4-6 then run one more call under `torch.profiler` and print the
+Phases 4-7 then run one more call under `torch.profiler` and print the
 kernels that took the most device time and the device's idle share.
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -83,7 +104,7 @@ STORE_BATCHES = 8
 #: first, checked one).
 BUCKET_BATCHES = 2
 
-#: bf16 flash check: per-row relative limit (see `flash_row_check`).
+#: bf16 flash checks: per-row relative limit (see `row_check`).
 FLASH_RTOL = 2e-2
 
 
@@ -174,20 +195,33 @@ def attention_pairs(lengths, seq: int, window) -> int:
     return total
 
 
-def flash_row_check(out, ref, live) -> tuple[float, float]:
-    """Hold each live attention row (b, q, h) to its own scale.
+def row_check(err, scale, live, floor: float = 0.0) -> tuple[float, float]:
+    """Hold each live attention row (b, row, h) to its own scale.
 
-    A row's limit is FLASH_RTOL·max|ref| plus half a bf16 ulp of that max,
-    both over D; an output element has std ≈ sqrt(e/n) for n live keys, so a
-    flat limit would be loose on long rows. Returns (max abs error, worst
-    error / limit) over the live rows."""
+    ``err`` and ``scale`` are [B, S, H]: max|out − plain| and max|plain| over
+    D. A row's limit is FLASH_RTOL·max(scale, floor·M) plus half a bf16 ulp
+    of its scale, with M the largest live scale of the whole tensor; an
+    output element has std ≈ sqrt(e/n) for n live keys, so a flat limit
+    would be loose on long rows. Returns (max abs error, worst error /
+    limit) over the live rows."""
     import torch
 
-    err = (out.float() - ref).abs().amax(dim=-1)  # [B, S, H]
-    scale = ref.abs().amax(dim=-1)
     _, exponent = torch.frexp(scale)
-    limit = FLASH_RTOL * scale + torch.ldexp(torch.ones_like(scale), exponent - 9)
+    base = torch.clamp(scale, min=floor * float(scale[live].max()))
+    limit = FLASH_RTOL * base + torch.ldexp(torch.ones_like(scale), exponent - 9)
     return float(err[live].max()), float((err / limit)[live].max())
+
+
+def sdpa_mask(lens, seq: int, window):
+    """[B, 1, S, S] boolean mask equivalent to the kernels' length and band
+    masks, for the `scaled_dot_product_attention` yardstick."""
+    import torch
+
+    kidx = torch.arange(seq, device=lens.device)
+    allowed = (kidx[None, None, :] < lens[:, None, None]).expand(lens.shape[0], seq, seq)
+    if window is not None:
+        allowed = allowed & ((kidx[:, None] - kidx[None, :]).abs() <= window // 2)[None]
+    return allowed[:, None]
 
 
 def check_flash(gen) -> dict:
@@ -229,8 +263,9 @@ def check_flash(gen) -> dict:
                 if not bool(live[sl].any()):
                     continue
                 ref = fa.attention_reference(q[sl], k[sl], v[sl], lens[sl], window)
+                scale = ref.abs().amax(dim=-1)
                 for name, o in outs.items():
-                    e, r = flash_row_check(o[sl], ref, live[sl])
+                    e, r = row_check((o[sl].float() - ref).abs().amax(dim=-1), scale, live[sl])
                     err[name], ratio[name] = max(err[name], e), max(ratio[name], r)
                 del ref
             out, max_err, worst = outs.pop("kernel"), err.pop("kernel"), ratio.pop("kernel")
@@ -251,16 +286,12 @@ def check_flash(gen) -> dict:
 
             plain_ms = cuda_ms(plain, reps=2)
             # Library yardstick: SDPA with the equivalent boolean mask ([B,H,S,D]).
-            kidx = torch.arange(seq, device="cuda")
-            allowed = (kidx[None, None, :] < lens[:, None, None]).expand(B, seq, seq)
-            if window is not None:
-                allowed = allowed & ((kidx[:, None] - kidx[None, :]).abs() <= window // 2)[None]
-            mask = allowed[:, None]
+            mask = sdpa_mask(lens, seq, window)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_ms = cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3
             )
-            del qt, kt, vt, mask, allowed
+            del qt, kt, vt, mask
             pairs = attention_pairs(lengths, seq, window)
             b_ms, b_by = bound(4 * B * seq * H * D * 2 + 4 * B, 4 * H * D * pairs, PEAK_BF16_FLOPS)
             case = dict(
@@ -275,6 +306,124 @@ def check_flash(gen) -> dict:
                 headline = case
         del q, k, v
         torch.cuda.empty_cache()
+    return dict(headline, cases=cases)
+
+
+def check_flash_bwd(gen) -> dict:
+    """The forward's lse output and the FA2 backward kernels against their
+    plain versions; planted faults at S=8192 global; times, bounds, SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    B, H, D = 8, 12, 64
+    cases = []
+    for seq in (512, 4096, 8192):
+        lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q, k, v, g = (
+            torch.randn(B, seq, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(4)
+        )
+        live = torch.arange(seq, device="cuda")[None, :] < lens[:, None]
+        rows = 1 if seq > 1024 else B  # plain versions per batch row at long S
+        for window in (None, 128):
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+            require(
+                torch.equal(out, fa.flash_attention_cuda(q, k, v, lens, window)),
+                f"flash lse S={seq} w={window}: out differs from the forward without lse",
+            )
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            outs = {"kernel": fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)}
+            if seq == 8192 and window is None:
+                # Planted faults the check must catch, each held to the true
+                # lengths: the dk/dv kernel without each row's last key tile,
+                # and both kernels with delta replaced by 0.
+                cut = torch.where(lens > 64, (lens - 1) // 64 * 64, lens)
+                dq_ok = outs["kernel"][0]
+                _, dk_cut, dv_cut = fa._launch_bwd(q, k, v, cut, lse, delta, g, None, ("dkv",))
+                outs["fault: last key tile dropped in dk/dv"] = (dq_ok, dk_cut, dv_cut)
+                outs["fault: delta replaced by 0"] = fa._launch_bwd(
+                    q, k, v, lens, lse, torch.zeros_like(delta), g, None
+                )
+            torch.cuda.synchronize()
+            # Per-row errors and scales over D, gathered slice by slice: the
+            # floor of the check is taken over the whole tensor.
+            scales = torch.zeros((3, B, seq, H), device="cuda")
+            errs = {name: torch.zeros_like(scales) for name in outs}
+            lse_err = 0.0
+            for b0 in range(0, B, rows):
+                sl = slice(b0, b0 + rows)
+                if not bool(live[sl].any()):
+                    continue
+                _, ref_lse = fa.attention_lse_reference(q[sl], k[sl], v[sl], lens[sl], window)
+                lse_gap = (lse[sl] - ref_lse).abs() - 1e-5 * ref_lse.abs()
+                lse_err = max(lse_err, float(lse_gap.max()))
+                del ref_lse
+                refs = fa.flash_attention_bwd_reference(
+                    q[sl], k[sl], v[sl], lens[sl], out[sl], lse[sl], g[sl], window
+                )
+                for i, ref in enumerate(refs):
+                    ref = ref.float()
+                    scales[i, sl] = ref.abs().amax(dim=-1)
+                    for name, grads in outs.items():
+                        errs[name][i, sl] = (grads[i][sl].float() - ref).abs().amax(dim=-1)
+                del refs
+            err, ratio = {}, {}
+            for name in outs:
+                checks = [row_check(errs[name][i], scales[i], live, floor=1e-3) for i in range(3)]
+                err[name] = max(c[0] for c in checks)
+                ratio[name] = max(c[1] for c in checks)
+            del scales, errs
+            grads, max_err, worst = outs.pop("kernel"), err.pop("kernel"), ratio.pop("kernel")
+            require(lse_err <= 1e-4, f"flash lse S={seq} w={window}: error {lse_err} over 1e-4 + 1e-5·|lse|")
+            require(all(bool((x[1] == 0).all()) for x in grads), f"flash bwd S={seq} w={window}: zero-length row not 0")
+            require(
+                math.isfinite(worst) and worst <= 1.0,
+                f"flash bwd S={seq} w={window}: max abs err {max_err}, worst row at {worst} of its limit",
+            )
+            for name, r in ratio.items():
+                require(r > 1.0, f"flash bwd S={seq}: {name} passes the check ({r} of the limit)")
+            del outs, grads
+            dq_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, window, ("dq",)), reps=3)
+            dkv_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, window, ("dkv",)), reps=3)
+            wrapper_ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window), reps=3)
+
+            def plain():
+                for b0 in range(0, B, rows):
+                    sl = slice(b0, b0 + rows)
+                    fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], lens[sl], out[sl], lse[sl], g[sl], window)
+
+            plain_ms = cuda_ms(plain, reps=1)
+            # Library yardstick: the backward of SDPA with the equivalent boolean mask.
+            mask = sdpa_mask(lens, seq, window)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            go = g.transpose(1, 2).contiguous()
+            library_ms = cuda_ms(
+                lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), reps=3
+            )
+            del qt, kt, vt, o, go, mask
+            pairs = attention_pairs(lengths, seq, window)
+            b_ms, b_by = bound(
+                7 * B * seq * H * D * 2 + 2 * B * H * seq * 4 + 4 * B, 10 * H * D * pairs, PEAK_BF16_FLOPS
+            )
+            case = dict(
+                seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst,
+                lse_max_excess=lse_err, ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms,
+            )
+            if ratio:
+                case["planted_faults_worst_row_of_limit"] = ratio
+            log("flash_bwd", json.dumps(case))
+            cases.append(case)
+            del out, lse, delta
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    # Headline: the train phase's shape (S=4096), global layers.
+    headline = next(c for c in cases if c["seq"] == 4096 and c["window"] is None)
     return dict(headline, cases=cases)
 
 
@@ -478,24 +627,27 @@ def sec_decode(table, block: int, n: int):
 # -- phases 3-6: the main path ------------------------------------------------------------
 
 
-def kernel_modules() -> dict:
+def kernel_counters() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
     from verbatim_rag_tpu_torch.ops import flash_attention, fused_topk, rescore, section
 
     return {
-        "flash_attention": flash_attention,
-        "rescore": rescore,
-        "section": section,
-        "bucket_max_v2": fused_topk,
+        "flash_attention": (flash_attention, "launches"),
+        "flash_bwd_dq": (flash_attention, "bwd_dq_launches"),
+        "flash_bwd_dkv": (flash_attention, "bwd_dkv_launches"),
+        "rescore": (rescore, "launches"),
+        "section": (section, "launches"),
+        "bucket_max_v2": (fused_topk, "launches"),
     }
 
 
 def reset_counts() -> None:
-    for module in kernel_modules().values():
-        module.launches = 0
+    for module, attr in kernel_counters().values():
+        setattr(module, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: module.launches for name, module in kernel_modules().items()}
+    return {name: getattr(module, attr) for name, (module, attr) in kernel_counters().items()}
 
 
 def run_flow(seed: int, card: str):
@@ -802,6 +954,151 @@ def run_long(extractor, seed: int, card: str) -> dict:
     return result
 
 
+#: The train phase: 4 optimizer steps at the CLI defaults (batch 8,
+#: max_seq_length 4096), then one more under the profiler.
+TRAIN_STEPS = 4
+TRAIN_BATCH = 8
+TRAIN_SEQ = 4096
+
+
+def train_examples(n: int, seed: int, tokenizer) -> list:
+    """``n`` synthetic token-span examples of 2.2k-4k context tokens each:
+    `make_synthetic_token_data` clauses concatenated, their gold spans
+    shifted along, so each example is one window at max_seq_length 4096 and
+    a batch pads to 4096 with ragged rows."""
+    import numpy as np
+
+    from verbatim_rag_tpu_torch.training.token_dataset import (
+        TokenSpanExample,
+        make_synthetic_token_data,
+    )
+
+    rng = np.random.default_rng(seed)
+    pool = iter(make_synthetic_token_data(n * 100, seed=seed))
+    examples = []
+    for _ in range(n):
+        target = int(rng.integers(2200, 4000))
+        parts, spans, pos, tokens, question = [], [], 0, 0, None
+        while tokens < target:
+            ex = next(pool)
+            question = question or ex.question
+            parts.append(ex.context)
+            spans += [(pos + a, pos + b) for a, b in ex.spans]
+            pos += len(ex.context)
+            tokens += len(tokenizer.tokenize_with_offsets(ex.context)[0])
+        examples.append(TokenSpanExample(question=question, context="".join(parts), spans=spans))
+    return examples
+
+
+def run_train(seed: int, card: str) -> dict:
+    """The token highlighter trained at full ModernBERT-base width through
+    `Trainer`, then its checkpoint served on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.models import (
+        HashTokenizer,
+        ModelSpanExtractor,
+        init_highlighter_params,
+        modernbert_base_config,
+        token_relevance_probs,
+    )
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.token_dataset import TokenDatasetEncoder
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, batch_to_device, train_step
+
+    config = modernbert_base_config()
+    tokenizer = HashTokenizer(vocab_size=config.vocab_size)
+    examples = train_examples((TRAIN_STEPS + 1) * TRAIN_BATCH, seed, tokenizer)
+    encoder = TokenDatasetEncoder(tokenizer, max_length=TRAIN_SEQ, doc_stride=128)
+    batches = list(encoder.iter_batches(examples, TRAIN_BATCH))
+    require(
+        all(b.input_ids.shape == (TRAIN_BATCH, TRAIN_SEQ) for b in batches),
+        f"train: batch shapes {[b.input_ids.shape for b in batches]}",
+    )
+    lengths = [int(n) for b in batches[:TRAIN_STEPS] for n in b.attention_mask.sum(1)]
+    out_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    model = init_highlighter_params(config, seed=seed, device="cuda")
+    tc = TrainingConfig(batch_size=TRAIN_BATCH, max_seq_length=TRAIN_SEQ, seed=seed)
+    trainer = Trainer(model, config, tc, output_dir=str(out_dir), loss_fn=token_loss, tokenizer=tokenizer)
+    last = config.num_layers - 1
+    probes = ("classifier.kernel", "layers.0.attn.q.kernel", f"layers.{last}.mlp.wo.kernel", "final_ln.scale")
+    before = {name: model.state_dict()[name].clone() for name in probes}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(batches[:TRAIN_STEPS], num_epochs=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = config.num_layers * TRAIN_STEPS
+    require(
+        counts["flash_attention"] == layers and counts["flash_bwd_dq"] == layers
+        and counts["flash_bwd_dkv"] == layers,
+        f"train: launches {counts}, expected {layers} of each flash kernel",
+    )
+    require(trainer.oom_skips == 0, f"train: {trainer.oom_skips} batches skipped for OOM")
+    require(len(trainer.steps) == TRAIN_STEPS, f"train: {len(trainer.steps)} steps")
+    require(
+        all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in trainer.steps),
+        f"train: a loss or gradient norm is not finite: {trainer.steps}",
+    )
+    changed = {name: not torch.equal(model.state_dict()[name], before[name]) for name in probes}
+    require(all(changed.values()), f"train: parameters unchanged: {changed}")
+
+    # Serving: the saved checkpoint on the card gives the trained model's
+    # probabilities, and every span is a verbatim piece of its context.
+    final = out_dir / "final"
+    extractor = ModelSpanExtractor(model_path=str(final), device="cuda")
+    require(all(p.is_cuda for p in extractor.model.parameters()), "train: served parameter not on cuda")
+    ex = examples[0]
+    plan = extractor._plan(ex.question, ex.context)
+    row = plan["rows"][0]
+    ids = torch.zeros((1, TRAIN_SEQ), dtype=torch.int32, device="cuda")
+    mask = torch.zeros_like(ids)
+    ids[0, : len(row)] = torch.tensor(row, dtype=torch.int32)
+    mask[0, : len(row)] = 1
+    with torch.no_grad():
+        served = token_relevance_probs(extractor.model, ids, mask)
+        trained = token_relevance_probs(model, ids, mask)
+    probs_diff = float((served - trained).abs().max())
+    require(probs_diff == 0.0, f"train: served probabilities differ from the trained model's by {probs_diff}")
+
+    class Result:
+        text = ex.context
+
+    spans = extractor.extract_spans(ex.question, [Result()])[ex.context]
+    require(all(span and span in ex.context for span in spans), "train: a served span is not verbatim")
+    del extractor
+
+    profile_batch = batch_to_device(batches[TRAIN_STEPS], "cuda")
+    profile = device_profile(lambda: train_step(model, trainer.optimizer, profile_batch, token_loss), top=12)
+    log("train profile", json.dumps(profile))
+    step_s = [st["seconds"] for st in trainer.steps]
+    median_s = float(np.median(step_s[1:]))
+    result = dict(
+        card=card, batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=config.num_layers,
+        live_tokens_per_step=sum(lengths) / TRAIN_STEPS, losses=[st["loss"] for st in trainer.steps],
+        grad_norms=[st["grad_norm"] for st in trainer.steps], step_s=step_s,
+        step_s_median_2_to_4=median_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_s,
+        live_tokens_per_s=sum(lengths) / TRAIN_STEPS / median_s, peak_memory_gb=peak_gb,
+        train_s_with_checkpoint=train_s, served_spans=len(spans), served_probs_max_diff=probs_diff,
+        launches=counts,
+    )
+    log("train", json.dumps(result))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -834,6 +1131,7 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen)
+    flash_bwd = check_flash_bwd(gen)
     rescore = check_rescore(gen)
     section, bucket = check_tables(gen)
     torch.cuda.empty_cache()
@@ -844,8 +1142,11 @@ def main() -> None:
     store_int8 = run_store_int8(data, card)
     del data
     long_ctx = run_long(extractor, args.seed, card)
+    del extractor
+    torch.cuda.empty_cache()
+    train = run_train(args.seed, card)
 
-    phases = (flow, store, store_int8, long_ctx)
+    phases = (flow, store, store_int8, long_ctx, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
@@ -855,6 +1156,17 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
             launches=launches["flash_attention"],
             **flash,
+        ),
+        dict(
+            name="flash_attention_bwd",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:245",
+            replaces_dkv="verbatim_rag_tpu/ops/flash_attention.py:312",
+            launches=launches["flash_bwd_dq"] + launches["flash_bwd_dkv"],
+            launches_dq=launches["flash_bwd_dq"],
+            launches_dkv=launches["flash_bwd_dkv"],
+            **flash_bwd,
         ),
         dict(
             name="sparse_rescore",
@@ -883,6 +1195,7 @@ def main() -> None:
     ]
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")
+    require(launches["flash_bwd_dq"] > 0 and launches["flash_bwd_dkv"] > 0, f"flash bwd launches {launches}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(

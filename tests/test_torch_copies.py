@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import enum
+import json
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +27,8 @@ from verbatim_rag_tpu.models import tokenizer as jax_tokenizer
 from verbatim_rag_tpu.ops import fused_topk as jax_ft
 from verbatim_rag_tpu.ops import section as jax_section
 from verbatim_rag_tpu.ops import sparse_projected as jax_sp
+from verbatim_rag_tpu.training import dataset as jax_dataset
+from verbatim_rag_tpu.training import token_dataset as jax_token_dataset
 from verbatim_rag_tpu_torch.core.models import Highlight
 from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
 from verbatim_rag_tpu_torch.core.templates import TemplateManager
@@ -40,6 +43,8 @@ from verbatim_rag_tpu_torch.models import tokenizer
 from verbatim_rag_tpu_torch.ops import fused_topk as ft
 from verbatim_rag_tpu_torch.ops import section
 from verbatim_rag_tpu_torch.ops import sparse_projected as sp
+from verbatim_rag_tpu_torch.training import dataset
+from verbatim_rag_tpu_torch.training import token_dataset
 
 EXAMPLES = Path(__file__).resolve().parent.parent / "examples" / "example_docs"
 TEXTS = [
@@ -223,3 +228,64 @@ def test_pack_and_unpack_bit_equal():
     ):
         np.testing.assert_array_equal(ours[0].numpy().view(np.int32), np.array(theirs[0]).view(np.int32))
         np.testing.assert_array_equal(ours[1].numpy(), np.asarray(theirs[1]))
+
+
+def test_training_config_equal():
+    assert dataclasses.asdict(config.TrainingConfig()) == dataclasses.asdict(jax_config.TrainingConfig())
+    kwargs = dict(learning_rate=1e-3, warmup_steps=7, max_grad_norm=0.5, extra={"a": 1})
+    assert dataclasses.asdict(config.TrainingConfig(**kwargs)) == dataclasses.asdict(
+        jax_config.TrainingConfig(**kwargs)
+    )
+
+
+def _assert_batches_equal(ours, theirs):
+    ours, theirs = list(ours), list(theirs)
+    assert len(ours) == len(theirs) > 0
+    for a, b in zip(ours, theirs):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert x.dtype == y.dtype, f.name
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
+@pytest.mark.parametrize("max_length,max_sentences", [(64, 4), (512, 64)])
+def test_sentence_dataset_batches_bit_equal(tmp_path, max_length, max_sentences):
+    ours = dataset.make_synthetic_qadata(11, sentences_per_doc=7, seed=3, task="keyword")
+    theirs = jax_dataset.make_synthetic_qadata(11, sentences_per_doc=7, seed=3, task="keyword")
+    ours.to_json(str(tmp_path / "a.json"))
+    theirs.to_json(str(tmp_path / "b.json"))
+    assert (tmp_path / "a.json").read_text() == (tmp_path / "b.json").read_text()
+    loaded = dataset.QAData.from_json(str(tmp_path / "b.json"))
+    assert loaded.filter_split("dev") and loaded.filter_split("train")
+    args = (max_length, max_sentences)
+    _assert_batches_equal(
+        dataset.QADatasetEncoder(tokenizer.HashTokenizer(5000), *args).iter_batches(
+            loaded.samples, 4, shuffle=True, seed=2
+        ),
+        jax_dataset.QADatasetEncoder(jax_tokenizer.HashTokenizer(5000), *args).iter_batches(
+            theirs.samples, 4, shuffle=True, seed=2
+        ),
+    )
+
+
+@pytest.mark.parametrize("max_length,stride", [(32, 8), (512, 128)])
+def test_token_dataset_batches_bit_equal(tmp_path, max_length, stride):
+    ours = token_dataset.make_synthetic_token_data(9, seed=4)
+    theirs = jax_token_dataset.make_synthetic_token_data(9, seed=4)
+    assert [dataclasses.asdict(e) for e in ours] == [dataclasses.asdict(e) for e in theirs]
+    records = [
+        {"question": e.question, "context": e.context, "answers": [list(s) for s in e.spans] + ["Clause"]}
+        for e in ours
+    ]
+    (tmp_path / "a.jsonl").write_text("\n".join(json.dumps(r) for r in records))
+    loaded = token_dataset.load_token_examples(str(tmp_path / "a.jsonl"))
+    expected = jax_token_dataset.load_token_examples(str(tmp_path / "a.jsonl"))
+    assert [dataclasses.asdict(e) for e in loaded] == [dataclasses.asdict(e) for e in expected]
+    _assert_batches_equal(
+        token_dataset.TokenDatasetEncoder(tokenizer.HashTokenizer(5000), max_length, stride).iter_batches(
+            loaded, 3, shuffle=True, seed=1
+        ),
+        jax_token_dataset.TokenDatasetEncoder(jax_tokenizer.HashTokenizer(5000), max_length, stride).iter_batches(
+            expected, 3, shuffle=True, seed=1
+        ),
+    )

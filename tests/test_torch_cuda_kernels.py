@@ -15,7 +15,8 @@ row (b, q, h) to its own scale: max|out − plain| over D within 2e-2 of
 max|plain| plus half a bf16 ulp of that max (the plain version rounds the
 probabilities to bf16 before P·V, the kernel rounds the unnormalised ones,
 and the output is bf16). Rescore rtol 1e-5 (float32 sums over the m slots
-in another order), missing candidates exactly −1e30.
+in another order), missing candidates exactly −1e30. The flash backward and
+the train step: see their tests' docstrings.
 """
 
 from __future__ import annotations
@@ -44,13 +45,15 @@ def _qkv(batch, seq, heads, head_dim, seed):
     return [rng.normal(size=(batch, seq, heads, head_dim)).astype(np.float32) for _ in range(3)]
 
 
-def _bf16_row_ratio(got, expected, live):
+def _bf16_row_ratio(got, expected, live, floor=0.0):
     """Worst live row (b, q, h): max|got − expected| over D divided by
-    2e-2·max|expected| plus half a bf16 ulp of that max."""
+    2e-2·max(max|expected|, floor·M) plus half a bf16 ulp of max|expected|,
+    with M the largest |expected| over the live rows."""
     err = (got.float() - expected).abs().amax(dim=-1)
     scale = expected.abs().amax(dim=-1)
     _, exponent = torch.frexp(scale)
-    limit = 2e-2 * scale + torch.ldexp(torch.ones_like(scale), exponent - 9)
+    base = torch.clamp(scale, min=floor * float(scale[live].max()))
+    limit = 2e-2 * base + torch.ldexp(torch.ones_like(scale), exponent - 9)
     return float((err / limit)[live].max())
 
 
@@ -71,6 +74,99 @@ def test_flash_kernel_matches_plain(cuda, dtype, window):
     else:
         assert _bf16_row_ratio(got, expected, live) <= 1.0
     assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 128, 7])
+def test_flash_lse_kernel_matches_plain(cuda, dtype, window):
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(4, 333, 3, 64, 4))
+    lens = torch.tensor([333, 0, 200, 17], dtype=torch.int32, device=cuda)
+    before = fa.launches
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and lse.shape == (4, 3, 333)
+    torch.testing.assert_close(out, fa.flash_attention_cuda(q, k, v, lens, window), rtol=0, atol=0)
+    _, expected = fa.attention_lse_reference(q, k, v, lens, window)
+    torch.testing.assert_close(lse, expected, rtol=1e-5, atol=1e-4)
+    assert (lse[1] == 0).all()
+
+
+def _bwd_inputs(cuda, dtype, seq, lengths, seed):
+    q, k, v, g = (
+        torch.from_numpy(np.random.default_rng(seed + i).normal(size=(len(lengths), seq, 3, 64)))
+        .to(cuda, dtype) for i in range(4)
+    )
+    return q, k, v, g, torch.tensor(lengths, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 128, 7])
+@pytest.mark.parametrize("seq,lengths", [(333, [333, 0, 200, 17]), (64, [64, 1]), (130, [129, 65])])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, window, seq, lengths):
+    """dq, dk, dv against the plain FA2 backward on the kernel forward's out
+    and lse: float32 rtol/atol 1e-4 (float32 sums in another order over up
+    to S terms); bf16 each live row held as the forward's bf16 rows are
+    (the kernels round P and dS to bf16 for the second products), with the
+    row's scale floored at 1e-3 of the tensor's largest row: where one key
+    takes all of a row's weight, dP − delta cancels, the true gradient is 0
+    and both sides hold float32 noise (≈1e-7)."""
+    q, k, v, g, lens = _bwd_inputs(cuda, dtype, seq, lengths, seed=seq)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    before = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (before[0] + 1, before[1] + 1)
+    expected = fa.flash_attention_bwd_reference(q, k, v, lens, out, lse, g, window)
+    live = torch.arange(seq, device=cuda)[None, :] < lens[:, None]
+    for name, a, e in zip(("dq", "dk", "dv"), got, expected):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4, msg=name)
+        else:
+            assert _bf16_row_ratio(a, e.float(), live, floor=1e-3) <= 1.0, name
+        dead = ~live if name != "dq" else lens[:, None].expand_as(live) == 0
+        assert (a[dead] == 0).all(), name
+
+
+def test_flash_autograd_on_cuda_matches_cpu(cuda):
+    """The differentiable path runs one forward (lse), one dq and one dk/dv
+    launch on CUDA, and its float32 grads match the CPU autograd's."""
+    q, k, v, g, lens = _bwd_inputs(cuda, torch.float32, 200, [200, 77, 0], seed=9)
+    g = g * (torch.arange(200, device=cuda)[None, :] < lens[:, None])[..., None, None]
+    grads = []
+    for device in ("cpu", "cuda"):
+        leaves = [x.detach().to(device).requires_grad_() for x in (q, k, v)]
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        out = fa.flash_attention(*leaves, lens.to(device), 16)
+        out.backward(g.to(device))
+        launched = (fa.launches - counts[0], fa.bwd_dq_launches - counts[1], fa.bwd_dkv_launches - counts[2])
+        assert launched == ((1, 1, 1) if device == "cuda" else (0, 0, 0))
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, e in zip(grads[1], grads[0]):
+        torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4)
+
+
+def test_matmul_f32_cuda_grads_match_plain(cuda):
+    """The CUDA bf16 branch of `matmul_f32` against its CPU branch, bit-equal:
+    operands are small multiples of 1/8 and the cotangent multiples of
+    1/1024, so every product and sum is exact in float32 and only the final
+    rounding to bf16 (where the gradient is rounded) can differ."""
+    from verbatim_rag_tpu_torch.ops.dense import matmul_f32
+
+    rng = np.random.default_rng(3)
+    a_np = rng.integers(-16, 17, size=(48, 32)) / 8.0
+    b_np = rng.integers(-16, 17, size=(32, 24)) / 8.0
+    g_np = rng.integers(-4096, 4097, size=(48, 24)) / 1024.0
+    results = []
+    for device in ("cpu", "cuda"):
+        a = torch.tensor(a_np, dtype=torch.bfloat16, device=device, requires_grad=True)
+        b = torch.tensor(b_np, dtype=torch.bfloat16, device=device, requires_grad=True)
+        y = matmul_f32(a, b)
+        y.backward(torch.tensor(g_np, dtype=torch.float32, device=device))
+        assert y.dtype == torch.float32 and a.grad.dtype == torch.bfloat16
+        results.append([t.detach().cpu() for t in (y, a.grad, b.grad)])
+    for got, expected in zip(results[1], results[0]):
+        assert torch.equal(got, expected)
 
 
 def test_flash_kernel_refuses_unsupported_head_dim(cuda):
@@ -306,3 +402,82 @@ def test_int8_store_on_cuda_matches_cpu(cuda, impl):
         assert (counter.launches > before) == (device == "cuda")
         results.append([[h.id for h in row] for row in out])
     assert results[0] == results[1]
+
+
+TRAIN_OVERRIDES = dict(
+    vocab_size=512, hidden_size=128, num_heads=2, num_layers=3, intermediate_size=128,
+    max_position_embeddings=4096, position_embedding_type="rope", norm_location="pre",
+    activation="geglu", use_bias=False, final_norm=True, type_vocab_size=0,
+    first_layer_no_attn_norm=True, layer_norm_eps=1e-5, local_attention_window=16,
+)
+
+
+def _token_batch(config, n=4, seed=0):
+    from verbatim_rag_tpu_torch.models import HashTokenizer
+    from verbatim_rag_tpu_torch.training.token_dataset import (
+        TokenDatasetEncoder,
+        make_synthetic_token_data,
+    )
+
+    encoder = TokenDatasetEncoder(HashTokenizer(config.vocab_size), max_length=128, doc_stride=32)
+    return encoder.encode(make_synthetic_token_data(n, seed=seed))
+
+
+@pytest.mark.parametrize("compute_dtype,rtol", [("float32", 1e-3), ("bfloat16", 5e-2)])
+def test_train_step_grads_on_cuda_match_cpu(cuda, compute_dtype, rtol):
+    """One loss + backward of the token highlighter (2 heads of 64, global
+    and local layers) on the card and on the CPU from the same weights: the
+    card runs 3 forward (lse), 3 dq and 3 dk/dv launches; each parameter's
+    gradient within ‖g_cuda − g_cpu‖/‖g_cpu‖ ≤ 1e-3 in float32 and 5e-2 in
+    bf16 (bf16 operands rounded at other points: the kernels round P and dS
+    to bf16, the plain versions keep them float32)."""
+    from verbatim_rag_tpu_torch.models import init_highlighter_params, tiny_test_config
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import batch_to_device
+
+    config = tiny_test_config(**TRAIN_OVERRIDES, compute_dtype=compute_dtype)
+    batch = _token_batch(config)
+    grads, losses = [], []
+    for device in ("cpu", "cuda"):
+        model = init_highlighter_params(config, seed=1, device=device)
+        counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        loss, _ = token_loss(model, batch_to_device(batch, device))
+        loss.backward()
+        launched = (fa.launches - counts[0], fa.bwd_dq_launches - counts[1], fa.bwd_dkv_launches - counts[2])
+        assert launched == ((3, 3, 3) if device == "cuda" else (0, 0, 0))
+        losses.append(float(loss))
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    np.testing.assert_allclose(losses[1], losses[0], rtol=rtol)
+    assert grads[0].keys() == grads[1].keys()
+    for name, g in grads[0].items():
+        err = float((grads[1][name] - g).norm() / g.norm().clamp(min=1e-30))
+        assert err <= rtol, (name, err)
+
+
+def test_trainer_on_cuda_serves_its_checkpoint(cuda, tmp_path):
+    """Two Trainer steps on the card, then `ModelSpanExtractor(model_path=...)`
+    on the saved checkpoint gives the trained model's probabilities."""
+    from verbatim_rag_tpu_torch.models import (
+        ModelSpanExtractor,
+        init_highlighter_params,
+        tiny_test_config,
+        token_relevance_probs,
+    )
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer
+
+    config = tiny_test_config(**TRAIN_OVERRIDES, compute_dtype="bfloat16")
+    model = init_highlighter_params(config, seed=2, device="cuda")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(model, config, output_dir=str(tmp_path), loss_fn=token_loss)
+    trainer.train([_token_batch(config, seed=s) for s in (3, 4)], num_epochs=1)
+    assert len(trainer.steps) == 2 and trainer.oom_skips == 0
+    assert all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"]) for s in trainer.steps)
+    assert any(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    served = ModelSpanExtractor(model_path=str(tmp_path / "final"), device="cuda")
+    batch = _token_batch(config, seed=5)
+    ids, mask = (torch.from_numpy(x).cuda() for x in (batch.input_ids, batch.attention_mask))
+    with torch.no_grad():
+        expected = token_relevance_probs(model, ids, mask)
+        got = token_relevance_probs(served.model, ids, mask)
+    assert torch.equal(got, expected)

@@ -2,7 +2,8 @@
 
 A fresh interpreter ingests the example documents, answers a question with
 the default extractor on the CPU, runs a hybrid query over an int8 index
-(the section path), and then must hold no ``jax`` module and no
+(the section path), takes one training step of the token highlighter and
+saves and loads its checkpoint, and then must hold no ``jax`` module and no
 ``verbatim_rag_tpu`` module. The same holds for every module of the
 port imported on its own.
 """
@@ -36,7 +37,28 @@ int8 = VerbatimIndex(
 )
 int8.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
 int8_hits = int8.query("How efficient are solar panels?", k=3)
+
+import tempfile
+from verbatim_rag_tpu_torch.models import HashTokenizer, ModelSpanExtractor, init_highlighter_params
+from verbatim_rag_tpu_torch.models.config import tiny_test_config
+from verbatim_rag_tpu_torch.training.model import token_loss
+from verbatim_rag_tpu_torch.training.token_dataset import TokenDatasetEncoder, make_synthetic_token_data
+from verbatim_rag_tpu_torch.training.trainer import Trainer, batch_to_device, train_step
+
+config = tiny_test_config()
+model = init_highlighter_params(config, seed=0, device="cpu")
+trainer = Trainer(model, config, loss_fn=token_loss)
+batch = TokenDatasetEncoder(HashTokenizer(config.vocab_size), max_length=64).encode(make_synthetic_token_data(2))
+loss, _ = train_step(model, trainer.optimizer, batch_to_device(batch, "cpu"), token_loss)
+with tempfile.TemporaryDirectory() as ckpt:
+    trainer.save_checkpoint(ckpt)
+    served = ModelSpanExtractor(model_path=ckpt, device="cpu")
+    reloaded = all(
+        bool((served.model.state_dict()[k] == v).all()) for k, v in model.state_dict().items()
+    )
 print(json.dumps({
+    "train_loss": float(loss),
+    "checkpoint_reloaded": reloaded,
     "int8_impl": int8.store.candidate_impl,
     "int8_hits": len(int8_hits),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
@@ -75,6 +97,7 @@ def test_main_path_loads_no_jax():
     assert result["jax"] == [] and result["reference"] == []
     assert result["docs"] > 0 and result["verbatim"]
     assert result["int8_impl"] == "section" and result["int8_hits"] > 0
+    assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
 
 
 def test_every_port_module_imports_without_jax():

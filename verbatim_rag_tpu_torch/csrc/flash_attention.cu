@@ -1,14 +1,17 @@
 // Flash-attention forward for the encoder stack, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `verbatim_rag_tpu/ops/flash_attention.py::_flash_kernel`
-// (pallas_call in `_flash_forward`, entry `flash_attention_tpu`), forward only
-// and without the logsumexp output.
+// (pallas_call in `_flash_forward`, entries `flash_attention_tpu` and, with the
+// logsumexp output, `flash_attention_tpu_lse`).
 //
 // Computes, per batch row b and head h:
 //     o[q] = softmax_k(q·k/sqrt(D) + mask)·v
 // with keys k >= lengths[b] masked and, when window >= 0, keys with
 // |q - k| > window/2 masked too. A row whose keys are all masked writes 0,
-// like the TPU kernel. Inputs and output are [B, S, H, D] contiguous with
+// like the TPU kernel. When `lse` is given ([B, H, S] float32, for training),
+// each row also writes its logsumexp m + log(l) over the live keys (scores
+// scaled by 1/sqrt(D)), and 0 for a row with no live key; serving passes
+// null. Inputs and output are [B, S, H, D] contiguous with
 // D = 64, in bfloat16 or float32; scores, softmax statistics and accumulators are
 // float32. Any S is taken: the ragged edge is masked here, nothing is padded
 // by the caller. Key tiles past lengths[b], or outside the band on local
@@ -70,7 +73,8 @@ __device__ __forceinline__ void key_tile_range(int q_start, int len, int window,
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
-                 float* __restrict__ out, int seq, int heads, int window, float scale) {
+                 float* __restrict__ out, float* __restrict__ lse, int seq, int heads,
+                 int window, float scale) {
   constexpr int kChunks = D / (4 * kThreadsPerRow);  // float4 output chunks per thread
   constexpr int kPad = D + 4;                          // K row stride in floats (bank spread)
 
@@ -201,6 +205,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) op[d + e] = acc[4 * c + e] / denom;
     }
+    if (lse != nullptr && sub == 0)
+      lse[(long long)bh * seq + qi] = l_run > 0.f ? m_run + logf(l_run) : 0.f;
   }
 }
 
@@ -236,8 +242,8 @@ __device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                     __nv_bfloat16* __restrict__ out, int seq, int heads, int window,
-                     float scale) {
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
+                     int heads, int window, float scale) {
   constexpr int kDSteps = D / 16;        // k-steps of Q·Kᵀ
   constexpr int kDTiles = D / 8;         // n-tiles of O
   constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
@@ -406,22 +412,28 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row1 * tok_stride + d) =
           __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
   }
+  if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
+    float* lp = lse + (long long)bh * seq;
+    if (row0 < seq) lp[row0] = l0 > 0.f ? m0 + logf(l0) : 0.f;
+    if (row1 < seq) lp[row1] = l1 > 0.f ? m1 + logf(l1) : 0.f;
+  }
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                       dim3 grid, int seq, int heads, int window, float scale, cudaStream_t s) {
+                       float* lse, dim3 grid, int seq, int heads, int window, float scale,
+                       cudaStream_t s) {
   flash_fwd_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      lengths, static_cast<float*>(out), seq, heads, window, scale);
+      lengths, static_cast<float*>(out), lse, seq, heads, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
-                        void* out, dim3 grid, int seq, int heads, int window, float scale,
-                        cudaStream_t s) {
+                        void* out, float* lse, dim3 grid, int seq, int heads, int window,
+                        float scale, cudaStream_t s) {
   flash_fwd_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), seq,
+      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, seq,
       heads, window, scale);
   return cudaGetLastError();
 }
@@ -429,10 +441,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window < 0 means global attention.
-// head_dim must be 64. Returns the CUDA error code of the launch (0 on success).
+// lse: [B, H, S] float32 logsumexp output, or null. head_dim must be 64.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* out, int batch, int seq, int heads,
-                                   int head_dim, int window, int dtype, void* stream) {
+                                   const void* lengths, void* out, void* lse, int batch, int seq,
+                                   int heads, int head_dim, int window, int dtype, void* stream) {
   if (head_dim != D) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaSuccess;
   if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -440,7 +453,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
   const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
-  if (dtype == 0) return (int)launch_f32(q, k, v, len, out, grid, seq, heads, window, scale, s);
-  if (dtype == 1) return (int)launch_bf16(q, k, v, len, out, grid, seq, heads, window, scale, s);
+  float* lse_out = static_cast<float*>(lse);
+  if (dtype == 0)
+    return (int)launch_f32(q, k, v, len, out, lse_out, grid, seq, heads, window, scale, s);
+  if (dtype == 1)
+    return (int)launch_bf16(q, k, v, len, out, lse_out, grid, seq, heads, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

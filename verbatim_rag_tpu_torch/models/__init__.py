@@ -12,6 +12,7 @@ from .highlighter import (
     ModelSpanExtractor,
     init_highlighter_params,
     params_from_jax,
+    params_to_jax,
     select_spans_from_token_probs,
     token_relevance_probs,
 )
@@ -28,6 +29,7 @@ __all__ = [
     "init_highlighter_params",
     "modernbert_base_config",
     "params_from_jax",
+    "params_to_jax",
     "select_spans_from_token_probs",
     "tiny_test_config",
     "token_relevance_probs",

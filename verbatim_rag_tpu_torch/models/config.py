@@ -1,8 +1,9 @@
 """Encoder architecture configs.
 
 Copy of `verbatim_rag_tpu/models/config.py`, trimmed to the config
-dataclass and the presets the port's extractor uses (ModernBERT-base, the
-compact demo highlighter, and the unit-test size). One dataclass covers both
+dataclass, the presets the port's extractor uses (ModernBERT-base, the
+compact demo highlighter, and the unit-test size) and the training knobs
+(`TrainingConfig`). One dataclass covers both
 families: BERT (absolute positions, post-LN, GELU, global attention) and
 ModernBERT (RoPE, pre-LN, gated GeGLU, alternating local/global attention,
 no biases, final LN).
@@ -10,7 +11,7 @@ no biases, final LN).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -125,3 +126,21 @@ def tiny_test_config(**overrides) -> EncoderConfig:
     )
     base.update(overrides)
     return EncoderConfig(**base)
+
+
+@dataclass
+class TrainingConfig:
+    """Optimizer/schedule knobs for extractor training."""
+
+    learning_rate: float = 2e-5
+    weight_decay: float = 0.01
+    warmup_steps: int = 0
+    batch_size: int = 8
+    num_epochs: int = 3
+    max_seq_length: int = 4096
+    seed: int = 42
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    max_grad_norm: float = 1.0
+    extra: dict = field(default_factory=dict)

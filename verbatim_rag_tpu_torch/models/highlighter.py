@@ -78,11 +78,12 @@ def token_relevance_probs(model: HighlighterModel, input_ids, attention_mask) ->
 
 
 def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX highlighter parameter tree (numpy leaves) → the port's state_dict.
+    """JAX highlighter (or sentence-classifier) parameter tree (numpy
+    leaves) → the port's state_dict.
 
     JAX stacks layers on a leading axis (``params["layers"]`` leaves are
-    ``[L, ...]``); kernels are ``[in, out]`` on both sides; ``cls_head`` is
-    optional.
+    ``[L, ...]``); kernels are ``[in, out]`` on both sides; ``cls_head``,
+    ``classifier`` and ``sentence_classifier`` are optional.
     """
     out: dict[str, torch.Tensor] = {}
 
@@ -107,10 +108,45 @@ def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for i in range(n_layers):
         walk(f"layers.{i}.", params_np["layers"], i)
 
-    for top in ("final_ln", "classifier", "cls_head"):
+    for top in ("final_ln", "classifier", "cls_head", "sentence_classifier"):
         if top in params_np:
             walk(f"{top}.", params_np[top], slice(None))
     return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The port's state_dict → the JAX parameter tree (float32 numpy
+    leaves, layers stacked on a leading axis): the inverse of
+    :func:`params_from_jax`."""
+    tree: dict[str, Any] = {}
+    layers: dict[int, dict[str, Any]] = {}
+
+    def put(node, path, value):
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value
+
+    for key, value in state.items():
+        arr = value.detach().cpu().float().numpy()
+        parts = key.split(".")
+        if parts[0] == "layers":
+            put(layers.setdefault(int(parts[1]), {}), parts[2:], arr)
+        elif parts[0] == "embeddings_ln":
+            put(tree, ["embeddings", "ln", *parts[1:]], arr)
+        else:
+            put(tree, parts, arr)
+
+    def stack(nodes):
+        return {
+            name: stack([n[name] for n in nodes])
+            if isinstance(nodes[0][name], dict)
+            else np.stack([n[name] for n in nodes])
+            for name in nodes[0]
+        }
+
+    if layers:
+        tree["layers"] = stack([layers[i] for i in sorted(layers)])
+    return tree
 
 
 def select_spans_from_token_probs(
@@ -158,7 +194,10 @@ class ModelSpanExtractor(SpanExtractor):
 
     ``params`` is a state_dict for :class:`HighlighterModel` (for example
     from :func:`params_from_jax`); without it the model is random-initialized
-    from ``seed``. The model lives on ``device`` (``None`` → ``cuda``).
+    from ``seed``. ``model_path`` names a checkpoint directory written by
+    `training.Trainer.save_checkpoint` (of either package); its weights,
+    config and tokenizer replace ``params``, ``config`` and ``tokenizer``.
+    The model lives on ``device`` (``None`` → ``cuda``).
     """
 
     def __init__(
@@ -176,10 +215,6 @@ class ModelSpanExtractor(SpanExtractor):
         sp_mesh=None,
         device=None,
     ):
-        if model_path is not None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (the extractor checkpoint slice)"
-            )
         if sp_mesh is not None:
             raise NotImplementedError(
                 "sequence-parallel extraction is not ported yet (the parallel slice)"
@@ -190,6 +225,15 @@ class ModelSpanExtractor(SpanExtractor):
         self.max_length = max_length
         self.doc_stride = doc_stride
         self.device = resolve_device(device)
+        if model_path is not None:
+            from .hf_convert import load_highlighter_checkpoint
+
+            params, config, tokenizer = load_highlighter_checkpoint(model_path)
+            if "classifier.kernel" not in params:
+                raise ValueError(
+                    f"{model_path} holds no token-classification head (a sentence-classifier "
+                    "checkpoint is served by SentenceModelExtractor, not ported yet)"
+                )
         self.config = config or demo_highlighter_config()
         if params is None:
             self.model = init_highlighter_params(self.config, seed, self.device)

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("flash_attention", "rescore", "section")
+KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "rescore", "section")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -61,16 +61,42 @@ def quantize_queries_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _quantize_int8(x, x.abs().amax(dim=-1, keepdim=True) * _INV_127)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 × bf16 → float32 on the tensor cores, differentiable.
+
+    ``torch.mm(..., out_dtype=float32)`` has no derivative, so the backward
+    is written out, as JAX transposes ``dot_general(...,
+    preferred_element_type=float32)``: the float32 cotangent meets the other
+    operand in a float32 product, and only then is the gradient rounded to
+    the operand's dtype (rounding the cotangent to bf16 first would give
+    other values).
+    """
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        da = torch.mm(g, b.float().t()).to(a.dtype) if ctx.needs_input_grad[0] else None
+        db = torch.mm(a.float().t(), g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a float32 result, whatever the operands' float dtype.
 
     On CUDA a bf16 product runs on the tensor cores with float32 output
-    (``torch.mm(..., out_dtype=float32)``); elsewhere, and for float32, the
-    operands are multiplied in float32 (products of bf16 values are exact
-    in float32). TF32 is never used: float32 products stay float32.
+    (:class:`_MatmulF32`); elsewhere, and for float32, the operands are
+    multiplied in float32 (products of bf16 values are exact in float32).
+    Both are differentiable with the same gradients. TF32 is never used:
+    float32 products stay float32.
     """
     if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return torch.mm(a.float(), b.float())
 
 

@@ -1,14 +1,26 @@
-"""Flash attention for the encoder stack: CUDA kernel + plain PyTorch twin.
+"""Flash attention for the encoder stack: CUDA kernels + plain PyTorch twins.
 
-Port of `verbatim_rag_tpu/ops/flash_attention.py` (forward only). The kernel
-(`csrc/flash_attention.cu`: tensor cores for bf16, FMA for float32) replaces
-the TPU kernel `_flash_kernel`;
-:func:`attention_reference` is the plain version of the same function, kept
-beside it as the CPU path and the kernel's oracle.
+Port of `verbatim_rag_tpu/ops/flash_attention.py`. The kernels replace the
+TPU kernels of that module:
+
+- `csrc/flash_attention.cu` (tensor cores for bf16, FMA for float32) the
+  forward `_flash_kernel`, with the logsumexp output of
+  `flash_attention_tpu_lse` on request;
+- `csrc/flash_attention_bwd.cu` the FlashAttention-2 backward
+  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.
+
+:func:`attention_reference`, :func:`attention_lse_reference` and
+:func:`flash_attention_bwd_reference` are the plain versions of the same
+functions, kept beside them as the CPU path and the kernels' oracle.
 
 :func:`flash_attention` dispatches on the tensor's device alone: a CPU tensor
-takes the plain version, a CUDA tensor launches the kernel or raises. The
-kernel takes any sequence length and masks the ragged edge itself.
+takes the plain versions, a CUDA tensor launches the kernels or raises. When
+an input requires grad it runs through :class:`FlashAttention`, whose forward
+also keeps the logsumexp and whose backward is the FA2 backward (kernels on
+CUDA); otherwise it runs the forward alone. The kernels take any sequence
+length and mask the ragged edge themselves. Rows with no live key (a
+zero-length row, or a padded query of a local layer whose band holds no live
+key) get zero gradients, as in the JAX package's kernel backward.
 """
 
 from __future__ import annotations
@@ -21,12 +33,29 @@ from . import cuda_build
 
 NEG_INF = -1e30
 
-#: The one head dim the kernel is compiled for (ModernBERT's).
+#: The one head dim the kernels are compiled for (ModernBERT's).
 KERNEL_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Kernel launches since the last reset (the main path's proof of use).
+#: Kernel launches since the last reset (the main path's proof of use): the
+#: forward (with or without lse), the backward's dq and its dk/dv kernel.
 launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
+
+
+def _scale(head_dim: int) -> float:
+    return 1.0 / float(head_dim) ** 0.5
+
+
+def _live_mask(lengths, seq: int, window, device) -> torch.Tensor:
+    """[B, 1, S, S] bool: key below its row's length and, with a window, in
+    the band |q − k| ≤ window // 2."""
+    kidx = torch.arange(seq, device=device)
+    live = (kidx[None, :] < lengths.to(device)[:, None])[:, None, None, :]
+    if window is not None:
+        live = live & ((kidx[:, None] - kidx[None, :]).abs() <= window // 2)[None, None]
+    return live
 
 
 def attention_reference(q, k, v, lengths, window=None):
@@ -51,16 +80,50 @@ def attention_reference(q, k, v, lengths, window=None):
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
 
 
-def flash_attention_cuda(q, k, v, lengths, window=None):
-    """Launch the CUDA kernel: [B, S, H, D] in q's dtype → same shape/dtype."""
-    global launches
+def attention_lse_reference(q, k, v, lengths, window=None):
+    """Plain version of the forward with its logsumexp: (out as
+    :func:`attention_reference`, lse [B, H, S] float32).
+
+    lse = m + log(l) over the live keys of the scaled scores, 0 for a row
+    with no live key (as `flash_attention_tpu_lse` writes it).
+    """
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(q.shape[-1])
+    live = _live_mask(lengths, q.shape[1], window, q.device)
+    lse = torch.logsumexp(logits.masked_fill(~live, float("-inf")), dim=-1)
+    lse = torch.where(torch.isfinite(lse), lse, 0.0)
+    return attention_reference(q, k, v, lengths, window), lse
+
+
+def flash_attention_bwd_reference(q, k, v, lengths, out, lse, g, window=None):
+    """Plain version of the FA2 backward over the full [S, S], in float32:
+    (dq, dk, dv) in q's, k's and v's dtypes.
+
+    The same arithmetic as `flash_attention_bwd_tpu`: p = exp(s − lse) on
+    live pairs (0 elsewhere), delta = rowsum(g ∘ out), ds = p ∘ (g·vᵀ −
+    delta)·scale, dq = ds·k, dk = dsᵀ·q, dv = pᵀ·g.
+    """
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    scale = _scale(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    live = _live_mask(lengths, q.shape[1], window, q.device)
+    p = torch.exp((s - lse.float()[..., None]).masked_fill(~live, float("-inf")))
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)  # [B, H, S]
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_inputs(q, k, v, lengths, what: str) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lengths.is_cuda):
-        raise ValueError("flash_attention_cuda needs CUDA tensors")
+        raise ValueError(f"{what} needs CUDA tensors")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
         raise ValueError(f"q, k, v must be equal [B, S, H, D], got {q.shape}, {k.shape}, {v.shape}")
-    batch, seq, heads, head_dim = q.shape
+    batch, _, heads, head_dim = q.shape
     if head_dim != KERNEL_HEAD_DIM:
         raise ValueError(f"kernel head_dim must be {KERNEL_HEAD_DIM}, got {head_dim}")
     if batch * heads > 65535:
@@ -69,29 +132,131 @@ def flash_attention_cuda(q, k, v, lengths, window=None):
         raise ValueError("q, k, v must be contiguous and 16-byte aligned")
     if lengths.shape != (batch,) or lengths.dtype != torch.int32 or not lengths.is_contiguous():
         raise ValueError(f"lengths must be contiguous int32 [{batch}], got {lengths.dtype} {tuple(lengths.shape)}")
+
+
+def _check_rows(x, q, name: str) -> None:
+    """A [B, H, S] float32 per-row statistic of q (lse, delta)."""
+    batch, seq, heads, _ = q.shape
+    if x.shape != (batch, heads, seq) or x.dtype != torch.float32 or not x.is_contiguous() or not x.is_cuda:
+        raise ValueError(f"{name} must be contiguous float32 [{batch}, {heads}, {seq}] on CUDA")
+
+
+def _forward(q, k, v, lengths, window, with_lse: bool):
+    global launches
+    _check_inputs(q, k, v, lengths, "flash_attention_cuda")
+    batch, seq, heads, head_dim = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = cuda_build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         batch, seq, heads, head_dim, -1 if window is None else int(window),
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_build.check(rc, "flash_attention_fwd")
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_cuda(q, k, v, lengths, window=None):
+    """Launch the forward kernel: [B, S, H, D] in q's dtype → same shape/dtype."""
+    return _forward(q, k, v, lengths, window, with_lse=False)[0]
+
+
+def flash_attention_lse_cuda(q, k, v, lengths, window=None):
+    """Launch the forward kernel with its logsumexp output: (out [B, S, H, D]
+    in q's dtype, lse [B, H, S] float32)."""
+    return _forward(q, k, v, lengths, window, with_lse=True)
+
+
+def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
+    """Launch the backward kernels with a given delta; (dq, dk, dv), each
+    None when its kernel was not asked for."""
+    global bwd_dq_launches, bwd_dkv_launches
+    batch, seq, heads, head_dim = q.shape
+    lib = cuda_build.load("flash_attention_bwd")
+    win = -1 if window is None else int(window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), lengths.data_ptr())
+    shape = (batch, seq, heads, head_dim, win, _DTYPE_CODES[q.dtype], stream)
+    dq = dk = dv = None
+    if "dq" in kernels:
+        dq = torch.empty_like(q)
+        fn = lib.flash_bwd_dq
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        cuda_build.check(fn(*common, dq.data_ptr(), *shape), "flash_bwd_dq")
+        bwd_dq_launches += 1
+    if "dkv" in kernels:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        fn = lib.flash_bwd_dkv
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape), "flash_bwd_dkv")
+        bwd_dkv_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_cuda(q, k, v, lengths, out, lse, g, window=None):
+    """Launch the FA2 backward kernels: (dq, dk, dv) in q's dtype.
+
+    ``out`` and ``lse`` are the forward's outputs, ``g`` the output's
+    cotangent (cast to q's dtype: the kernels read dO in the inputs' type).
+    delta = rowsum(g ∘ out) is a torch reduction here, outside the kernels,
+    as the JAX package computes it outside its Pallas calls.
+    """
+    _check_inputs(q, k, v, lengths, "flash_attention_bwd_cuda")
+    g = g.to(q.dtype).contiguous()
+    if g.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"out and g must be {tuple(q.shape)}, got {tuple(out.shape)}, {tuple(g.shape)}")
+    _check_rows(lse, q, "lse")
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return _launch_bwd(q, k, v, lengths, lse, delta, g, window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward keeps (q, k, v, lengths,
+    out, lse), the backward is the FA2 backward. CUDA tensors run the
+    kernels, CPU tensors the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, window):
+        if q.device.type == "cpu":
+            out, lse = attention_lse_reference(q, k, v, lengths, window)
+        else:
+            out, lse = flash_attention_lse_cuda(q, k, v, lengths, window)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_reference(q, k, v, lengths, out, lse, g, ctx.window)
+        else:
+            grads = flash_attention_bwd_cuda(q, k, v, lengths, out, lse, g, ctx.window)
+        return (*grads, None, None)
 
 
 def flash_attention(q, k, v, lengths, window=None):
     """Attention over [B, S, H, D] with key padding and an optional local band.
 
-    CPU tensors take :func:`attention_reference` (float32 out); CUDA tensors
-    take the kernel (q's dtype out). There is no other path.
+    CPU tensors take the plain versions (float32 out); CUDA tensors take the
+    kernels (q's dtype out). There is no other path. When grad is enabled
+    and q, k or v requires it, the call is differentiable (:class:`FlashAttention`).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, lengths, window)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, lengths, window)
     return flash_attention_cuda(q, k, v, lengths, window)

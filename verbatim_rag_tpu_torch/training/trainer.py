@@ -1,0 +1,298 @@
+"""Trainer: AdamW with global-norm clipping and a warmup-cosine schedule, dev
+F1 evaluation and ``.npz`` checkpoints (port of
+`verbatim_rag_tpu/training/trainer.py`).
+
+The optimizer is the JAX package's optax chain, ``clip_by_global_norm``
+then ``adamw(warmup_cosine_decay_schedule(0, lr, warmup, total))``, on
+torch parameters (:class:`Optimizer`):
+
+- clipping divides by the global norm itself (``torch.nn.utils.clip_grad_norm_``
+  would divide by norm + 1e-6), and only when the norm reaches the limit;
+- AdamW (``torch.optim.AdamW``, fused on CUDA) takes eps outside the square
+  root and decays every parameter, as optax's ``adamw`` does; a parameter
+  the loss does not reach gets a zero gradient, so it is decayed too;
+- the rate is the schedule at the update count before the update, so with
+  warmup the first update has rate 0.
+
+Checkpoints are the JAX package's layout (`models/hf_convert.py`), so either
+package loads the other's. Training on a mesh comes with the parallel slice
+of the port; orbax checkpoints are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import math
+import os
+import time
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+from verbatim_rag_tpu_torch.models.config import EncoderConfig, TrainingConfig
+from verbatim_rag_tpu_torch.models.hf_convert import load_params_npz, save_params_npz
+
+from .dataset import EncodedBatch
+from .model import sentence_loss
+
+logger = logging.getLogger(__name__)
+
+
+def warmup_cosine_schedule(tc: TrainingConfig, total_steps: int = 10_000):
+    """The learning rate at an update count: ``optax.warmup_cosine_decay_schedule(
+    0, lr, warmup, max(total, warmup + 1))`` (end value 0), or the constant
+    rate without warmup."""
+    lr, warmup = tc.learning_rate, tc.warmup_steps
+    decay = max(total_steps, warmup + 1) - warmup
+
+    def rate(count: int) -> float:
+        if not warmup:
+            return lr
+        if count < warmup:
+            return lr * count / warmup
+        frac = min(count - warmup, decay) / decay
+        return lr * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return rate
+
+
+class Optimizer:
+    """Global-norm clipping, then one AdamW update at the schedule's rate."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], tc: TrainingConfig, total_steps: int):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_grad_norm = tc.max_grad_norm
+        self.schedule = warmup_cosine_schedule(tc, total_steps)
+        self.adamw = torch.optim.AdamW(
+            self.params,
+            lr=self.schedule(0),
+            betas=(tc.adam_b1, tc.adam_b2),
+            eps=tc.adam_eps,
+            weight_decay=tc.weight_decay,
+            fused=True if all(p.is_cuda for p in self.params) else None,
+        )
+        #: updates made so far (optax's count)
+        self.count = 0
+        #: global norm of the last step's gradients, before clipping
+        self.grad_norm = float("nan")
+        #: True while an update is being applied: an exception raised then
+        #: leaves the parameters half updated
+        self.stepping = False
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self) -> float:
+        """Clip, update, count; returns the global gradient norm."""
+        self.stepping = True
+        grads = []
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        self.grad_norm = float(norm)
+        if not self.grad_norm < self.max_grad_norm:  # as optax: NaN clips too
+            torch._foreach_div_(grads, norm)
+            torch._foreach_mul_(grads, self.max_grad_norm)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+        self.stepping = False
+        return self.grad_norm
+
+
+def make_optimizer(
+    tc: TrainingConfig, params: Iterable[torch.nn.Parameter], total_steps: int = 10_000
+) -> Optimizer:
+    return Optimizer(params, tc, total_steps)
+
+
+def train_step(model, optimizer: Optimizer, batch: dict[str, torch.Tensor], loss_fn=sentence_loss):
+    """One optimization step in place: loss → grads → clipped AdamW update.
+
+    :return: (loss, aux) as tensors.
+    """
+    optimizer.zero_grad()
+    loss, aux = loss_fn(model, batch)
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def eval_step(model, batch: dict[str, torch.Tensor], loss_fn=sentence_loss):
+    with torch.no_grad():
+        return loss_fn(model, batch)
+
+
+def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
+    """Any dataclass batch (EncodedBatch, TokenBatch, ...) → dict of tensors."""
+    return {
+        f.name: torch.from_numpy(np.asarray(getattr(batch, f.name))).to(device)
+        for f in dataclasses.fields(batch)
+        if getattr(batch, f.name) is not None
+    }
+
+
+def metrics_from_counts(counts: dict[str, float]) -> dict[str, float]:
+    tp, fp, fn = counts.get("tp", 0.0), counts.get("fp", 0.0), counts.get("fn", 0.0)
+    precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+    recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+    f1 = 2 * precision * recall / (precision + recall) if precision + recall > 0 else 0.0
+    accuracy = (
+        counts.get("n_correct", 0.0) / counts["n_sentences"]
+        if counts.get("n_sentences")
+        else 0.0
+    )
+    return {"precision": precision, "recall": recall, "f1": f1, "accuracy": accuracy}
+
+
+class Trainer:
+    """Epoch loop with dev evaluation and best-F1 checkpointing.
+
+    ``model`` (a `QAModel` or `HighlighterModel`) is trained in place on its
+    own device. Each optimization step is logged in :attr:`steps` (loss,
+    global gradient norm, host seconds); a batch that runs out of device
+    memory before the update is skipped with its gradients dropped and
+    counted in :attr:`oom_skips`.
+    """
+
+    def __init__(
+        self,
+        model,
+        encoder_config: EncoderConfig,
+        training_config: TrainingConfig | None = None,
+        output_dir: str = "./qa_model_out",
+        mesh=None,
+        loss_fn=sentence_loss,
+        total_steps: int | None = None,
+        tokenizer=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("training on a mesh is not ported yet (the parallel slice)")
+        self.model = model
+        self.encoder_config = encoder_config
+        self.tc = training_config or TrainingConfig()
+        self.output_dir = output_dir
+        self.loss_fn = loss_fn
+        #: recorded in checkpoints so the serving extractor can rebuild the
+        #: same tokenizer (None → hash tokenizer at the config vocab)
+        self.tokenizer = tokenizer
+        # Size the (warmup+cosine) schedule to the actual run.
+        self.optimizer = make_optimizer(self.tc, model.parameters(), total_steps or 10_000)
+        self.best_f1 = -1.0
+        self.history: list[dict] = []
+        self.steps: list[dict] = []
+        self.oom_skips = 0
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    def train(
+        self,
+        train_batches: Iterator[EncodedBatch] | list[EncodedBatch],
+        dev_batches: list[EncodedBatch] | None = None,
+        num_epochs: int | None = None,
+        make_train_iter=None,
+    ) -> dict:
+        """Run the full loop. Pass ``make_train_iter`` (epoch → iterator) for
+        re-shuffled epochs; otherwise the same batch list is reused."""
+        epochs = num_epochs or self.tc.num_epochs
+        if make_train_iter is None:
+            cached = list(train_batches)
+            make_train_iter = lambda epoch: iter(cached)  # noqa: E731
+
+        for epoch in range(epochs):
+            t0 = time.time()
+            losses = []
+            for batch in make_train_iter(epoch):
+                device_batch = batch_to_device(batch, self.device)
+                started = time.perf_counter()
+                try:
+                    loss, _aux = train_step(self.model, self.optimizer, device_batch, self.loss_fn)
+                    loss = float(loss)
+                except torch.cuda.OutOfMemoryError as exc:
+                    if self.optimizer.stepping:
+                        raise RuntimeError(
+                            "Batch ran out of memory inside the parameter update — "
+                            "training state is unrecoverable. Reduce batch size / "
+                            "sequence length, or resume from the last checkpoint."
+                        ) from exc
+                    self.optimizer.zero_grad()
+                    self.oom_skips += 1
+                    logger.warning("Skipping batch after OOM: %s", str(exc)[:200])
+                    continue
+                losses.append(loss)
+                self.steps.append(
+                    dict(
+                        loss=loss,
+                        grad_norm=self.optimizer.grad_norm,
+                        seconds=time.perf_counter() - started,
+                    )
+                )
+            record = {
+                "epoch": epoch,
+                "train_loss": float(np.mean(losses)) if losses else float("nan"),
+                "epoch_seconds": time.time() - t0,
+            }
+            if dev_batches:
+                record.update({f"dev_{k}": v for k, v in self.evaluate(dev_batches).items()})
+                if record["dev_f1"] > self.best_f1:
+                    self.best_f1 = record["dev_f1"]
+                    self.save_checkpoint(os.path.join(self.output_dir, "best"))
+            self.history.append(record)
+            logger.info("epoch %d: %s", epoch, record)
+
+        self.save_checkpoint(os.path.join(self.output_dir, "final"))
+        with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
+            json.dump({"history": self.history, "best_f1": self.best_f1}, f, indent=2)
+        return {"history": self.history, "best_f1": self.best_f1}
+
+    def evaluate(self, batches: list[EncodedBatch]) -> dict[str, float]:
+        totals: dict[str, float] = {}
+        losses = []
+        for batch in batches:
+            loss, aux = eval_step(self.model, batch_to_device(batch, self.device), self.loss_fn)
+            losses.append(float(loss))
+            for key, value in aux.items():
+                totals[key] = totals.get(key, 0.0) + float(value)
+        metrics = metrics_from_counts(totals)
+        metrics["loss"] = float(np.mean(losses)) if losses else float("nan")
+        return metrics
+
+    # -- checkpointing -----------------------------------------------------------
+
+    def save_checkpoint(self, path: str, format: str = "npz") -> None:
+        """Persist the parameters as ``params.npz`` (the JAX package's tree
+        layout) beside ``verbatim_config.json``."""
+        if format != "npz":
+            raise NotImplementedError(f"checkpoint format {format!r} is not ported (npz only)")
+        os.makedirs(path, exist_ok=True)
+        state = self.model.state_dict()
+        save_params_npz(state, path)
+        meta = {
+            "format": "verbatim-native",
+            # Head kind comes from the parameters, as in the JAX package.
+            "head": "sentence" if "sentence_classifier.kernel" in state else "token",
+            "encoder_config": dataclasses.asdict(self.encoder_config),
+            "tokenizer": self.tokenizer.describe() if hasattr(self.tokenizer, "describe") else None,
+        }
+        with open(os.path.join(path, "verbatim_config.json"), "w") as f:
+            json.dump(meta, f, indent=1)
+
+    @staticmethod
+    def load_checkpoint(path: str, model):
+        """Load the parameters saved by `save_checkpoint` (of either package)
+        into ``model`` in place; every parameter of the model must be there."""
+        state = load_params_npz(path)
+        missing = [key for key in model.state_dict() if key not in state]
+        if missing:
+            raise KeyError(f"{path}: checkpoint lacks {missing[:5]}")
+        model.load_state_dict({key: state[key] for key in model.state_dict()})
+        return model
