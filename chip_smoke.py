@@ -47,6 +47,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              allowed);
 6. long    — one ~20k-token document through the full-width extractor
              (3 windows at S=8192 through all 22 layers);
+6b. long_sp — the same document and weights through
+             `ModelSpanExtractor(sp_mesh=make_mesh(dp=1, tp=4, devices=[cuda] * 4))`:
+             one row at S=24576 in 4 shards of 6144 on the one card, ring
+             attention (the partial kernel, 4² launches) on the 8 global
+             layers and halo attention (plain torch) on the 14 local ones:
+             exactly 128 partial launches, spans on token boundaries, token
+             probabilities within 1e-2 of the single-device forward's on the
+             same row (one window at S=24576, the flash forward kernel: both
+             round P and the attention output to bf16, at different points),
+             spans equal unless a probability lies within 1e-2 of the
+             threshold;
 7. train   — the token highlighter at full ModernBERT-base width trained
              through `Trainer` with the CLI defaults (batch 8, max_seq_length
              4096: synthetic examples of 2.2k-4k tokens, so every batch pads
@@ -56,6 +67,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              then the saved checkpoint is served by
              `ModelSpanExtractor(model_path=...)` on the card (its token
              probabilities equal the trained model's, every span verbatim).
+
+The kernels phase also holds the ring step's partial kernel (the
+`flash_attention_partial` entry of `csrc/flash_attention.cu`) against its
+plain version at the SP phase's block shape, B=2, Sq=Sk=6144, H=12, D=64,
+bf16, lengths {22830, 7000}, k_offset ∈ {0, 6144, 12288, 18432} (blocks
+fully live, partly live and, for row 1, dead): m within 1e-5·|m| + 1e-6 of
+the plain version's, l within 1e-4 relative (both sum the unrounded P), the
+numerator per live row as the forward's rows (the kernel rounds P to bf16
+for P·V, the plain version keeps it float32), dead rows exactly (-1e30, 0,
+0). Two planted faults (k_offset ignored; the last key tile dropped) must
+fail that check. Its times are taken at the main path's shape (B=1).
 
 The kernels phase also holds the flash backward (`csrc/flash_attention_bwd.cu`)
 and the forward's logsumexp output against their plain versions at
@@ -69,9 +91,9 @@ cancels and the true gradient is 0). At S=8192 global two planted faults
 (the dk/dv kernel run without each row's last key tile; delta replaced by 0)
 must fail that check.
 
-Each main-path phase (3-7) sets the kernels' launch counts to 0 just before
-it and reads them just after; a kernel of the path launched no time fails.
-Phases 4-7 then run one more call under `torch.profiler` and print the
+Each main-path phase (3-7 and 6b) sets the kernels' launch counts to 0 just
+before it and reads them just after; a kernel of the path launched no time fails.
+Phases 4-7 and 6b then run one more call under `torch.profiler` and print the
 kernels that took the most device time and the device's idle share.
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -106,6 +128,12 @@ BUCKET_BATCHES = 2
 
 #: bf16 flash checks: per-row relative limit (see `row_check`).
 FLASH_RTOL = 2e-2
+#: Partial-kernel check: l's relative limit (float32 sums of the same P).
+PARTIAL_L_RTOL = 1e-4
+#: The long_sp phase: shards on the one card, and the largest difference
+#: allowed between its token probabilities and the single-device forward's.
+SP_SHARDS = 4
+SP_PROBS_ATOL = 1e-2
 
 
 def log(*parts) -> None:
@@ -427,6 +455,105 @@ def check_flash_bwd(gen) -> dict:
     return dict(headline, cases=cases)
 
 
+def check_flash_partial(gen) -> dict:
+    """The ring step's partial kernel against its plain version at every
+    k_offset of a 4-shard ring over 24576 tokens; planted faults; times at
+    the main path's shape (B=1) with bound, plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = 2, 6144, 12, 64
+    lengths = [22830, 7000]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, k, v = (
+        torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3)
+    )
+
+    def held(got, offset) -> dict:
+        """How the kernel's (numer, m, l) stand against the plain version's:
+        the worst live row's error over its limit for each output, and
+        whether every dead row is exactly (-1e30, 0, 0)."""
+        numer, m, l = got
+        ref_numer, ref_m, ref_l = fa.flash_attention_partial_reference(q, k, v, lens, offset)
+        live = (lens > offset)[:, None, None].expand_as(m)  # [B, H, Sq]
+        dead = ~live
+        dead_exact = bool(
+            (m[dead] == fa.NEG_INF).all() and (l[dead] == 0).all()
+            and (numer.transpose(1, 2)[dead] == 0).all()
+        )
+        m_ratio = float(((m - ref_m).abs() / (1e-5 * ref_m.abs() + 1e-6))[live].max())
+        l_ratio = float(((l - ref_l).abs() / (PARTIAL_L_RTOL * ref_l))[live].max())
+        err, n_ratio = row_check(
+            (numer - ref_numer).abs().amax(dim=-1), ref_numer.abs().amax(dim=-1), live.transpose(1, 2)
+        )
+        del ref_numer, ref_m, ref_l
+        return dict(
+            max_abs_err=err, numer_worst_row_of_limit=n_ratio, m_worst_of_limit=m_ratio,
+            l_worst_of_limit=l_ratio, dead_rows_exact=dead_exact,
+            worst=max(n_ratio, m_ratio, l_ratio),
+        )
+
+    def fails(h: dict) -> bool:
+        return not h["dead_rows_exact"] or not (math.isfinite(h["worst"]) and h["worst"] <= 1.0)
+
+    cases = []
+    for offset in (0, S, 2 * S, 3 * S):
+        h = held(fa.flash_attention_partial_cuda(q, k, v, lens, offset), offset)
+        require(not fails(h), f"flash partial k_offset={offset}: {h}")
+        live_keys = [max(0, min(S, n - offset)) for n in lengths]
+        case = dict(k_offset=offset, live_keys=live_keys, **h)
+        case["ms"] = cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, offset), reps=10)
+        log("flash_partial", json.dumps(case))
+        cases.append(case)
+    # Planted faults the check must catch, each held to the true offset: the
+    # kernel run at k_offset 0 for the last block (row 1 is dead there), and
+    # without the last key tile of the first block.
+    faults = {
+        "fault: k_offset ignored": held(fa.flash_attention_partial_cuda(q, k, v, lens, 0), 3 * S),
+        "fault: last key tile dropped": held(
+            fa.flash_attention_partial_cuda(
+                q, k[:, : S - 64].contiguous(), v[:, : S - 64].contiguous(), lens, 0
+            ),
+            0,
+        ),
+    }
+    for name, h in faults.items():
+        require(fails(h), f"flash partial: {name} passes the check ({h})")
+    log("flash_partial faults", json.dumps(faults))
+
+    # Times at the main path's shape: one row, a fully live block.
+    q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
+    lens1 = lens[:1].contiguous()
+    del q, k, v
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fa.flash_attention_partial_cuda(q1, k1, v1, lens1, 0), reps=20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_partial_reference(q1, k1, v1, lens1, 0), reps=3)
+    # Library yardstick: SDPA with the same boolean key mask. It returns the
+    # normalised output, not (numer, m, l): not the same function.
+    mask = (torch.arange(S, device="cuda") < lens1[0])[None, None, None, :].expand(1, 1, S, S)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q1, k1, v1))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    del qt, kt, vt, mask
+    pairs = S * min(S, lengths[0])
+    b_ms, b_by = bound(
+        3 * S * H * D * 2 + S * H * D * 4 + 2 * H * S * 4 + 4, 4 * H * D * pairs, PEAK_BF16_FLOPS
+    )
+    result = dict(
+        batch=1, seq_q=S, seq_k=S, heads=H, k_offset=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=library_ms,
+        library_note="SDPA with the same boolean mask: the normalised output, not the same function",
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        worst_of_limit=max(c["worst"] for c in cases),
+        planted_faults_worst_of_limit={n: h["worst"] for n, h in faults.items()},
+        cases=cases,
+    )
+    log("flash_partial", json.dumps(result))
+    torch.cuda.empty_cache()
+    return result
+
+
 def check_rescore(gen) -> dict:
     import torch
 
@@ -635,6 +762,7 @@ def kernel_counters() -> dict:
         "flash_attention": (flash_attention, "launches"),
         "flash_bwd_dq": (flash_attention, "bwd_dq_launches"),
         "flash_bwd_dkv": (flash_attention, "bwd_dkv_launches"),
+        "flash_attention_partial": (flash_attention, "partial_launches"),
         "rescore": (rescore, "launches"),
         "section": (section, "launches"),
         "bucket_max_v2": (fused_topk, "launches"),
@@ -925,25 +1053,35 @@ def run_store_int8(data, card: str) -> dict:
     return result
 
 
-def run_long(extractor, seed: int, card: str) -> dict:
+#: The long phases' question; their document is `long_document`'s.
+LONG_QUESTION = "How do solar panels store energy?"
+
+
+def long_document(seed: int) -> str:
+    """≈ 22.8k tokens: 19,000 words drawn from the example documents."""
     import numpy as np
-    import torch
 
     words = (ROOT / "examples" / "example_docs" / "solar.md").read_text().split()
     words += (ROOT / "examples" / "example_docs" / "wind.md").read_text().split()
     rng = np.random.default_rng(seed)
-    text = " ".join(rng.choice(words, size=19000))
-    plan = extractor._plan("How do solar panels store energy?", text)
+    return " ".join(rng.choice(words, size=19000))
+
+
+def run_long(extractor, seed: int, card: str) -> dict:
+    import torch
+
+    text = long_document(seed)
+    plan = extractor._plan(LONG_QUESTION, text)
     require(len(plan["rows"]) == 3, f"long: {len(plan['rows'])} windows, expected 3")
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    spans = extractor.process("How do solar panels store energy?", text)
+    spans = extractor.process(LONG_QUESTION, text)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
     require(counts["flash_attention"] == extractor.config.num_layers, f"long: launches {counts}")
-    profile = device_profile(lambda: extractor.process("How do solar panels store energy?", text))
+    profile = device_profile(lambda: extractor.process(LONG_QUESTION, text))
     log("long profile", json.dumps(profile))
     require(all(0 <= s < e <= len(text) for s, e in spans), "long: span offsets")
     result = dict(
@@ -951,6 +1089,88 @@ def run_long(extractor, seed: int, card: str) -> dict:
         spans=len(spans), launches=counts,
     )
     log("long", json.dumps(result))
+    return result
+
+
+def run_long_sp(extractor, seed: int, card: str) -> dict:
+    """The long document in one sequence-parallel pass over SP_SHARDS shards
+    on the card, with the long extractor's weights; held to the
+    single-device forward on the same row."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.models import (
+        ModelSpanExtractor,
+        select_spans_from_token_probs,
+        token_relevance_probs,
+    )
+    from verbatim_rag_tpu_torch.models.tokenizer import bucket_length
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    text = long_document(seed)
+    config = extractor.config
+    mesh = make_mesh(dp=1, tp=SP_SHARDS, devices=[torch.device("cuda")] * SP_SHARDS)
+    sp = ModelSpanExtractor(params=extractor.model.state_dict(), config=config, sp_mesh=mesh)
+    plan = sp._plan(LONG_QUESTION, text)
+    row = plan["rows"][0]
+    seq = bucket_length(len(row))
+    require(len(plan["rows"]) == 1 and seq == 24576, f"long_sp: {len(plan['rows'])} rows at S={seq}")
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spans = sp.process(LONG_QUESTION, text)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = read_counts()
+    global_layers = sum(config.is_global_layer(i) for i in range(config.num_layers))
+    expected = global_layers * SP_SHARDS**2
+    require(
+        counts["flash_attention_partial"] == expected and counts["flash_attention"] == 0,
+        f"long_sp: launches {counts}, expected {expected} partial and no forward launch",
+    )
+    starts = {a for a, _ in plan["offsets"]}
+    ends = {b for _, b in plan["offsets"]}
+    require(
+        bool(spans) and all(s in starts and e in ends and 0 <= s < e <= len(text) for s, e in spans),
+        "long_sp: a span does not index the document on token boundaries",
+    )
+
+    # The same row through the single-device forward (one window at S=24576).
+    ids = np.full((1, seq), sp.tokenizer.pad_id, np.int32)
+    mask = np.zeros((1, seq), np.int32)
+    ids[0, : len(row)] = row
+    mask[0, : len(row)] = 1
+    sp_probs = sp._forward_probs(ids, mask)[0]
+    with torch.no_grad():
+        single = token_relevance_probs(
+            extractor.model, torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        )[0].cpu().numpy()
+    probs_diff = float(np.abs(sp_probs - single)[: len(row)].max())
+    require(probs_diff <= SP_PROBS_ATOL, f"long_sp: probabilities differ by {probs_diff}")
+    start, length, tok_offset = plan["layout"][0]
+    agg = single[tok_offset : tok_offset + length]
+    single_spans = select_spans_from_token_probs(
+        agg, plan["offsets"], threshold=sp.threshold, min_span_chars=sp.min_span_chars,
+        merge_gap_chars=sp.merge_gap_chars,
+    )
+    near = int((np.abs(agg - sp.threshold) <= SP_PROBS_ATOL).sum())
+    require(
+        spans == single_spans or near > 0,
+        "long_sp: spans differ from the single-device forward's with no probability near the threshold",
+    )
+    profile = device_profile(lambda: sp.process(LONG_QUESTION, text), top=10)
+    log("long_sp profile", json.dumps(profile))
+    result = dict(
+        card=card, tokens=plan["n_tokens"], seq=seq, shards=SP_SHARDS, seconds=seconds,
+        spans=len(spans), spans_equal_single_device=spans == single_spans,
+        tokens_within_tol_of_threshold=near, probs_max_abs_diff_vs_single_device=probs_diff,
+        peak_memory_gb=peak_gb, launches=counts,
+    )
+    log("long_sp", json.dumps(result))
+    del sp
+    torch.cuda.empty_cache()
     return result
 
 
@@ -1132,6 +1352,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen)
     flash_bwd = check_flash_bwd(gen)
+    partial = check_flash_partial(gen)
     rescore = check_rescore(gen)
     section, bucket = check_tables(gen)
     torch.cuda.empty_cache()
@@ -1142,11 +1363,12 @@ def main() -> None:
     store_int8 = run_store_int8(data, card)
     del data
     long_ctx = run_long(extractor, args.seed, card)
+    long_sp = run_long_sp(extractor, args.seed, card)
     del extractor
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
 
-    phases = (flow, store, store_int8, long_ctx, train)
+    phases = (flow, store, store_int8, long_ctx, long_sp, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
@@ -1167,6 +1389,14 @@ def main() -> None:
             launches_dq=launches["flash_bwd_dq"],
             launches_dkv=launches["flash_bwd_dkv"],
             **flash_bwd,
+        ),
+        dict(
+            name="flash_attention_partial",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
+            launches=launches["flash_attention_partial"],
+            **partial,
         ),
         dict(
             name="sparse_rescore",

@@ -16,7 +16,11 @@ max|plain| plus half a bf16 ulp of that max (the plain version rounds the
 probabilities to bf16 before P·V, the kernel rounds the unnormalised ones,
 and the output is bf16). Rescore rtol 1e-5 (float32 sums over the m slots
 in another order), missing candidates exactly −1e30. The flash backward and
-the train step: see their tests' docstrings.
+the train step: see their tests' docstrings. The flash partial (one ring
+step): m within 1e-5·|m| + 1e-6, l rtol 1e-4 (both sum the unrounded P),
+the numerator float32 rtol/atol 1e-5 and bf16 per live row as the forward
+(the kernel rounds P to bf16 for P·V, the plain version keeps it float32);
+dead rows exactly (-1e30, 0, 0).
 """
 
 from __future__ import annotations
@@ -173,6 +177,85 @@ def test_flash_kernel_refuses_unsupported_head_dim(cuda):
     q = torch.zeros(1, 8, 1, 8, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "seq_q,seq_k,k_offset",
+    [(200, 333, 0), (200, 333, 150), (64, 130, 333), (333, 70, 1000), (1, 1, 5)],
+)
+def test_flash_partial_kernel_matches_plain(cuda, dtype, seq_q, seq_k, k_offset):
+    """Offsets with live, partly live and dead blocks, ragged Sq and Sk; row
+    2 is empty and, past its length, so is row 1."""
+    rng = np.random.default_rng(seq_q + seq_k + k_offset)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(3, s, 3, 64)).astype(np.float32)).to(cuda, dtype)
+        for s in (seq_q, seq_k, seq_k)
+    )
+    lens = torch.tensor([k_offset + seq_k, k_offset + seq_k // 2, 0], dtype=torch.int32, device=cuda)
+    before = fa.partial_launches
+    numer, m, l = fa.flash_attention_partial(q, k, v, lens, k_offset)
+    torch.cuda.synchronize()
+    assert fa.partial_launches == before + 1
+    e_numer, e_m, e_l = fa.flash_attention_partial_reference(q, k, v, lens, k_offset)
+    dead = (lens <= k_offset)[:, None, None].expand_as(m)
+    live = ~dead
+    assert (m[dead] == fa.NEG_INF).all() and (l[dead] == 0).all()
+    assert (numer.transpose(1, 2)[dead] == 0).all()
+    assert bool(((m - e_m).abs() <= 1e-5 * e_m.abs() + 1e-6)[live].all())
+    torch.testing.assert_close(l[live], e_l[live], rtol=1e-4, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(numer, e_numer, rtol=1e-5, atol=1e-5)
+    else:
+        rows = live.transpose(1, 2)  # [B, Sq, H]
+        assert _bf16_row_ratio(numer, e_numer, rows) <= 1.0
+
+
+def test_flash_partial_refuses_grad_on_cuda(cuda):
+    q = torch.zeros(1, 8, 1, 64, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        fa.flash_attention_partial(q, q, q, torch.ones(1, dtype=torch.int32, device=cuda), 0)
+
+
+def test_ring_attention_on_cuda_matches_cpu(cuda):
+    """A ring of 4 shards on one card: 16 partial launches, float32 output
+    as the CPU ring's within 1e-4."""
+    from verbatim_rag_tpu_torch.ops.ring_attention import ring_attention, shard_sequence
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(1)
+    x = [torch.from_numpy(rng.normal(size=(2, 256, 2, 64)).astype(np.float32)) for _ in range(3)]
+    lens = torch.tensor([256, 100], dtype=torch.int32)
+    outs = []
+    for device in ("cpu", "cuda"):
+        mesh = make_mesh(dp=1, tp=4, devices=[device] * 4)
+        before = fa.partial_launches
+        got = ring_attention(*(shard_sequence(t, mesh) for t in x), lens, mesh)
+        assert fa.partial_launches - before == (16 if device == "cuda" else 0)
+        outs.append(torch.cat(got, dim=1).cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+
+
+def test_sp_extractor_on_cuda_matches_cpu(cuda):
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor, demo_highlighter_config
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    text = " ".join(["Solar panels convert sunlight into electricity."] * 60)
+    probs = []
+    for device in ("cpu", "cuda"):
+        extractor = ModelSpanExtractor(
+            config=demo_highlighter_config(), device=device, seed=1,
+            sp_mesh=make_mesh(dp=1, tp=2, devices=[device] * 2),
+        )
+        row = extractor._plan("how do solar panels work", text)["rows"][0]
+        ids = np.zeros((1, 512), np.int32)
+        mask = np.zeros((1, 512), np.int32)
+        ids[0, : len(row)] = row
+        mask[0, : len(row)] = 1
+        before = fa.partial_launches
+        probs.append(extractor._forward_probs(ids, mask))
+        assert (fa.partial_launches - before) == (8 if device == "cuda" else 0)  # 2 global layers × 2²
+    np.testing.assert_allclose(probs[1], probs[0], rtol=1e-4, atol=1e-4)
 
 
 def _rescore_inputs(b, c, n, m, qm, seed):

@@ -3,8 +3,9 @@
 A fresh interpreter ingests the example documents, answers a question with
 the default extractor on the CPU, runs a hybrid query over an int8 index
 (the section path), takes one training step of the token highlighter and
-saves and loads its checkpoint, and then must hold no ``jax`` module and no
-``verbatim_rag_tpu`` module. The same holds for every module of the
+saves and loads its checkpoint, scores a document in one sequence-parallel
+pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
+module and no ``verbatim_rag_tpu`` module. The same holds for every module of the
 port imported on its own.
 """
 
@@ -56,7 +57,14 @@ with tempfile.TemporaryDirectory() as ckpt:
     reloaded = all(
         bool((served.model.state_dict()[k] == v).all()) for k, v in model.state_dict().items()
     )
+from verbatim_rag_tpu_torch.parallel import make_mesh
+
+sp = ModelSpanExtractor(sp_mesh=make_mesh(dp=1, tp=2, devices=["cpu"] * 2), device="cpu", threshold=0.0)
+sp_text = " ".join(Path("examples/example_docs/solar.md").read_text().split()[:150])
+sp_spans = sp.process("How efficient are solar panels?", sp_text)
 print(json.dumps({
+    "sp_rows": len(sp._plan("How efficient are solar panels?", sp_text)["rows"]),
+    "sp_whole": sp_spans == [(0, len(sp_text))],
     "train_loss": float(loss),
     "checkpoint_reloaded": reloaded,
     "int8_impl": int8.store.candidate_impl,
@@ -98,6 +106,7 @@ def test_main_path_loads_no_jax():
     assert result["docs"] > 0 and result["verbatim"]
     assert result["int8_impl"] == "section" and result["int8_hits"] > 0
     assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
+    assert result["sp_rows"] == 1 and result["sp_whole"]
 
 
 def test_every_port_module_imports_without_jax():

@@ -1,25 +1,43 @@
 // Flash-attention forward for the encoder stack, hand-written for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `verbatim_rag_tpu/ops/flash_attention.py::_flash_kernel`
-// (pallas_call in `_flash_forward`, entries `flash_attention_tpu` and, with the
-// logsumexp output, `flash_attention_tpu_lse`).
+// Replaces two TPU kernels of `verbatim_rag_tpu/ops/flash_attention.py`:
 //
-// Computes, per batch row b and head h:
+//   `_flash_kernel` (pallas_call in `_flash_forward`, entries `flash_attention_tpu`
+//   and, with the logsumexp output, `flash_attention_tpu_lse`) — entry
+//   `flash_attention_fwd` below;
+//   `_flash_partial_kernel` (pallas_call in `_flash_partial_impl`, entry
+//   `flash_attention_partial`: one ring step of sequence-parallel attention) —
+//   entry `flash_attention_partial` below.
+//
+// The forward computes, per batch row b and head h:
 //     o[q] = softmax_k(q·k/sqrt(D) + mask)·v
 // with keys k >= lengths[b] masked and, when window >= 0, keys with
 // |q - k| > window/2 masked too. A row whose keys are all masked writes 0,
 // like the TPU kernel. When `lse` is given ([B, H, S] float32, for training),
 // each row also writes its logsumexp m + log(l) over the live keys (scores
 // scaled by 1/sqrt(D)), and 0 for a row with no live key; serving passes
-// null. Inputs and output are [B, S, H, D] contiguous with
-// D = 64, in bfloat16 or float32; scores, softmax statistics and accumulators are
-// float32. Any S is taken: the ragged edge is masked here, nothing is padded
-// by the caller. Key tiles past lengths[b], or outside the band on local
-// layers, are never loaded, so local layers cost O(S·window).
+// null.
+//
+// The partial entry takes q [B, Sq, H, D] and ONE KV block k, v [B, Sk, H, D]
+// of a longer sequence whose first key sits at global position k_offset. A
+// key is live when its local index is below Sk and k_offset + index is below
+// lengths[b] (global lengths); there is no band. It writes the block's
+// UNnormalised numerator Σ p·v ([B, Sq, H, D] float32), the row max m of the
+// scaled scores (natural log domain, as the ring's exp(m_run − m_new) merge
+// reads it) and the denominator l = Σ p ([B, H, Sq] float32 each). A row with
+// no live key in the block writes exactly m = -1e30, l = 0, numer = 0, so the
+// merge never meets -inf − -inf.
+//
+// Inputs and outputs are contiguous with D = 64, q, k, v in bfloat16 or
+// float32; scores, softmax statistics and accumulators are float32. Any S is
+// taken: the ragged edge is masked here, nothing is padded by the caller. Key
+// tiles past the live keys, or outside the band on local layers, are never
+// loaded, so local layers cost O(S·window) and a dead KV block costs nothing.
 //
 // Two kernels, one per input type, both one thread block per (64-row q tile,
 // b·h) with 64-key K/V tiles in shared memory and an online softmax (running
-// max and normaliser in registers):
+// max and normaliser in registers), each instantiated for the forward and the
+// partial (kPartial: other key frame, unnormalised float32 output with m, l):
 //
 //   bf16 — the encoder's compute type: tensor cores through mma.sync
 //          m16n8k16 (bf16 in, f32 accumulate). 4 warps, 16 q rows each; Q
@@ -27,17 +45,19 @@
 //          exactly the layout of the A fragments of P·V, so P never touches
 //          shared memory (FlashAttention-2's register reuse). V is stored
 //          transposed in shared memory so every B fragment is one 32-bit
-//          load. P is rounded to bf16 for the P·V product (the plain version
-//          rounds the normalised probabilities to bf16 too).
+//          load. P is rounded to bf16 for the P·V product (the plain versions
+//          round the normalised probabilities to bf16 in the forward and keep
+//          P in float32 in the partial); l sums the unrounded P.
 //   f32  — plain FMA on the CUDA cores, 4 threads per q row, p passed to the
 //          P·V loop by warp shuffle.
 //
-// Bound on an H100 SXM: global layers are compute-bound (4·B·H·S²·D FLOP;
-// 618 GFLOP at B=3, S=8192, H=12, D=64, i.e. 0.63 ms at 989 TFLOP/s bf16);
-// local layers are memory-bound (q, k, v and o read or written once). The
-// bf16 kernel loads each tile synchronously (no cp.async/TMA pipeline) and
-// uses mma.sync, not wgmma, so it is still far from that bound; a pipelined
-// wgmma kernel is the next step.
+// Bound on an H100 SXM: global layers and ring steps are compute-bound
+// (4·H·D FLOP per live (q, k) pair: 618 GFLOP at B=3, S=8192, H=12, i.e.
+// 0.63 ms at 989 TFLOP/s bf16; one fully live ring step at B=1, Sq=Sk=6144,
+// 0.12 ms); local layers are memory-bound (q, k, v and o read or written
+// once). The bf16 kernel loads each tile synchronously (no cp.async/TMA
+// pipeline) and uses mma.sync, not wgmma, so it is still far from that
+// bound; a pipelined wgmma kernel is the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,8 +72,17 @@ constexpr int kThreads = kBlockQ * kThreadsPerRow;  // 256
 constexpr int kKeysPerThread = kBlockK / kThreadsPerRow;  // 16
 constexpr float kNegInf = -1e30f;
 
+// Live keys of batch row b as local indices [0, limit): below seq_k and, for a
+// block whose first key sits at global position k_offset, below lengths[b]
+// (the forward passes k_offset = 0 and seq_k = S).
+__device__ __forceinline__ int key_limit(int length, int k_offset, int seq_k) {
+  const int n = length - k_offset;
+  return n < 0 ? 0 : (n > seq_k ? seq_k : n);
+}
+
 // Key tiles [begin, end) that a q tile starting at q_start can see: keys below
-// len and, for window >= 0, within window/2 of some row of the tile.
+// len and, for window >= 0, within window/2 of some row of the tile (q and k
+// share positions whenever window >= 0).
 __device__ __forceinline__ void key_tile_range(int q_start, int len, int window, int* begin,
                                                int* end) {
   int k_lo = 0;
@@ -70,11 +99,13 @@ __device__ __forceinline__ void key_tile_range(int q_start, int len, int window,
 
 // ---- float32: FMA on the CUDA cores ------------------------------------------------
 
+template <bool kPartial>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
-                 float* __restrict__ out, float* __restrict__ lse, int seq, int heads,
-                 int window, float scale) {
+                 float* __restrict__ out, float* __restrict__ lse, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int seq_q, int seq_k, int heads, int window,
+                 int k_offset, float scale) {
   constexpr int kChunks = D / (4 * kThreadsPerRow);  // float4 output chunks per thread
   constexpr int kPad = D + 4;                          // K row stride in floats (bank spread)
 
@@ -93,15 +124,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qi = q_start + row;
   const int half = window / 2;
 
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > seq ? seq : len);
+  const int len = key_limit(lengths[b], k_offset, seq_k);
 
   const long long tok_stride = (long long)heads * D;
-  const long long base = (long long)b * seq * tok_stride + (long long)h * D;
+  const long long q_base = (long long)b * seq_q * tok_stride + (long long)h * D;
+  // The forward's q and k/v share one length, so one base serves both: one
+  // 64-bit value live across the key loop instead of two (no spill).
+  const long long kv_base =
+      kPartial ? (long long)b * seq_k * tok_stride + (long long)h * D : q_base;
 
   float qr[D];
-  if (qi < seq) {
-    const float* qp = q + base + (long long)qi * tok_stride;
+  if (qi < seq_q) {
+    const float* qp = q + q_base + (long long)qi * tok_stride;
 #pragma unroll
     for (int d = 0; d < D; ++d) qr[d] = qp[d] * scale;
   } else {
@@ -126,8 +160,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = i - kk * D;
       const int key = k0 + kk;
       float kv = 0.f, vv = 0.f;
-      if (key < seq) {
-        const long long off = base + (long long)key * tok_stride + d;
+      if (key < seq_k) {
+        const long long off = kv_base + (long long)key * tok_stride + d;
         kv = k[off];
         vv = v[off];
       }
@@ -196,17 +230,25 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  if (qi < seq) {
-    const float denom = fmaxf(l_run, 1e-20f);
-    float* op = out + base + (long long)qi * tok_stride;
+  if (qi < seq_q) {
+    // The partial keeps the numerator unnormalised; the forward divides.
+    const float denom = kPartial ? 1.f : fmaxf(l_run, 1e-20f);
+    float* op = out + q_base + (long long)qi * tok_stride;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int d = (sub + kThreadsPerRow * c) * 4;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) op[d + e] = acc[4 * c + e] / denom;
+      for (int e = 0; e < 4; ++e) op[d + e] = kPartial ? acc[4 * c + e] : acc[4 * c + e] / denom;
     }
-    if (lse != nullptr && sub == 0)
-      lse[(long long)bh * seq + qi] = l_run > 0.f ? m_run + logf(l_run) : 0.f;
+    if (sub == 0) {
+      const long long r = (long long)bh * seq_q + qi;
+      if constexpr (kPartial) {
+        m_out[r] = m_run;
+        l_out[r] = l_run;
+      } else if (lse != nullptr) {
+        lse[r] = l_run > 0.f ? m_run + logf(l_run) : 0.f;
+      }
+    }
   }
 }
 
@@ -239,11 +281,14 @@ __device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
 //                         reg3 (g+8, 2t+8..)
 //   B (16×8, k × n):      reg0 (k = 2t..2t+1, n = g), reg1 (k = 2t+8..2t+9, n = g)
 //   C (16×8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
+// `out` is bf16 [B, Sq, H, D] for the forward, float32 for the partial.
+template <bool kPartial>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
-                     int heads, int window, float scale) {
+                     void* __restrict__ out, float* __restrict__ lse, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int seq_q, int seq_k, int heads, int window,
+                     int k_offset, float scale) {
   constexpr int kDSteps = D / 16;        // k-steps of Q·Kᵀ
   constexpr int kDTiles = D / 8;         // n-tiles of O
   constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
@@ -266,22 +311,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int row1 = row0 + 8;
   const int half = window / 2;
 
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > seq ? seq : len);
+  const int len = key_limit(lengths[b], k_offset, seq_k);
 
   const long long tok_stride = (long long)heads * D;
-  const long long base = (long long)b * seq * tok_stride + (long long)h * D;
+  const long long q_base = (long long)b * seq_q * tok_stride + (long long)h * D;
+  // The forward's q and k/v share one length, so one base serves both: one
+  // 64-bit value live across the key loop instead of two (no spill).
+  const long long kv_base =
+      kPartial ? (long long)b * seq_k * tok_stride + (long long)h * D : q_base;
 
   unsigned qa[kDSteps][4];
 #pragma unroll
   for (int kc = 0; kc < kDSteps; ++kc) {
     const int d = kc * 16 + 2 * t;
-    const __nv_bfloat16* q0 = q + base + (long long)row0 * tok_stride + d;
-    const __nv_bfloat16* q1 = q + base + (long long)row1 * tok_stride + d;
-    qa[kc][0] = row0 < seq ? load_u32(q0) : 0u;
-    qa[kc][1] = row1 < seq ? load_u32(q1) : 0u;
-    qa[kc][2] = row0 < seq ? load_u32(q0 + 8) : 0u;
-    qa[kc][3] = row1 < seq ? load_u32(q1 + 8) : 0u;
+    const __nv_bfloat16* q0 = q + q_base + (long long)row0 * tok_stride + d;
+    const __nv_bfloat16* q1 = q + q_base + (long long)row1 * tok_stride + d;
+    qa[kc][0] = row0 < seq_q ? load_u32(q0) : 0u;
+    qa[kc][1] = row1 < seq_q ? load_u32(q1) : 0u;
+    qa[kc][2] = row0 < seq_q ? load_u32(q0 + 8) : 0u;
+    qa[kc][3] = row1 < seq_q ? load_u32(q1 + 8) : 0u;
   }
 
   float o[kDTiles][4];
@@ -301,8 +349,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       const int c = (i - kk * kChunks) * 8;
       const int key = k0 + kk;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < seq) {
-        const long long off = base + (long long)key * tok_stride + c;
+      if (key < seq_k) {
+        const long long off = kv_base + (long long)key * tok_stride + c;
         kv = *reinterpret_cast<const uint4*>(k + off);
         vv = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -400,42 +448,78 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
   }
 
-  const float den0 = fmaxf(l0, 1e-20f);
-  const float den1 = fmaxf(l1, 1e-20f);
+  if constexpr (kPartial) {
+    // Unnormalised float32 numerator, and the row's m and l.
+    float* np = static_cast<float*>(out) + q_base;
 #pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row0 * tok_stride + d) =
-          __floats2bfloat162_rn(o[j][0] / den0, o[j][1] / den0);
-    if (row1 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(out + base + (long long)row1 * tok_stride + d) =
-          __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
-  }
-  if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
-    float* lp = lse + (long long)bh * seq;
-    if (row0 < seq) lp[row0] = l0 > 0.f ? m0 + logf(l0) : 0.f;
-    if (row1 < seq) lp[row1] = l1 > 0.f ? m1 + logf(l1) : 0.f;
+    for (int j = 0; j < kDTiles; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (row0 < seq_q)
+        *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
+            make_float2(o[j][0], o[j][1]);
+      if (row1 < seq_q)
+        *reinterpret_cast<float2*>(np + (long long)row1 * tok_stride + d) =
+            make_float2(o[j][2], o[j][3]);
+    }
+    if (t == 0) {  // the quad's four lanes hold the same m and l
+      const long long r = (long long)bh * seq_q;
+      if (row0 < seq_q) {
+        m_out[r + row0] = m0;
+        l_out[r + row0] = l0;
+      }
+      if (row1 < seq_q) {
+        m_out[r + row1] = m1;
+        l_out[r + row1] = l1;
+      }
+    }
+  } else {
+    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out) + q_base;
+    const float den0 = fmaxf(l0, 1e-20f);
+    const float den1 = fmaxf(l1, 1e-20f);
+#pragma unroll
+    for (int j = 0; j < kDTiles; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (row0 < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
+            __floats2bfloat162_rn(o[j][0] / den0, o[j][1] / den0);
+      if (row1 < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row1 * tok_stride + d) =
+            __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
+    }
+    if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
+      float* lp = lse + (long long)bh * seq_q;
+      if (row0 < seq_q) lp[row0] = l0 > 0.f ? m0 + logf(l0) : 0.f;
+      if (row1 < seq_q) lp[row1] = l1 > 0.f ? m1 + logf(l1) : 0.f;
+    }
   }
 }
 
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                       float* lse, dim3 grid, int seq, int heads, int window, float scale,
-                       cudaStream_t s) {
-  flash_fwd_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      lengths, static_cast<float*>(out), lse, seq, heads, window, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* lengths,
-                        void* out, float* lse, dim3 grid, int seq, int heads, int window,
-                        float scale, cudaStream_t s) {
-  flash_fwd_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), lengths, static_cast<__nv_bfloat16*>(out), lse, seq,
-      heads, window, scale);
-  return cudaGetLastError();
+// One launch of either kernel; dtype 0 = float32, 1 = bfloat16.
+template <bool kPartial>
+int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
+           float* lse, float* m, float* l, int batch, int seq_q, int seq_k, int heads,
+           int head_dim, int window, int k_offset, int dtype, void* stream) {
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || seq_q <= 0 || heads <= 0) return (int)cudaSuccess;
+  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
+  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
+  if (dtype == 0) {
+    flash_fwd_kernel<kPartial><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), len, static_cast<float*>(out), lse, m, l, seq_q, seq_k,
+        heads, window, k_offset, scale);
+  } else if (dtype == 1) {
+    flash_fwd_mma_kernel<kPartial><<<grid, kMmaThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), len, out, lse, m, l, seq_q, seq_k, heads, window,
+        k_offset, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -446,17 +530,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* lengths, void* out, void* lse, int batch, int seq,
                                    int heads, int head_dim, int window, int dtype, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaSuccess;
-  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
-  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
-  float* lse_out = static_cast<float*>(lse);
-  if (dtype == 0)
-    return (int)launch_f32(q, k, v, len, out, lse_out, grid, seq, heads, window, scale, s);
-  if (dtype == 1)
-    return (int)launch_bf16(q, k, v, len, out, lse_out, grid, seq, heads, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<false>(q, k, v, lengths, out, static_cast<float*>(lse), nullptr, nullptr, batch,
+                       seq, seq, heads, head_dim, window, 0, dtype, stream);
+}
+
+// One KV block's unnormalised contribution: q [B, seq_q, H, D], k and v
+// [B, seq_k, H, D] (dtype 0 = float32, 1 = bfloat16), lengths [B] int32 global,
+// k_offset >= 0 the global position of the block's first key. Writes numer
+// [B, seq_q, H, D] float32, m and l [B, H, seq_q] float32. head_dim must be 64.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int flash_attention_partial(const void* q, const void* k, const void* v,
+                                       const void* lengths, void* numer, void* m, void* l,
+                                       int batch, int seq_q, int seq_k, int heads, int head_dim,
+                                       int k_offset, int dtype, void* stream) {
+  if (seq_k < 0 || k_offset < 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(q, k, v, lengths, numer, nullptr, static_cast<float*>(m),
+                      static_cast<float*>(l), batch, seq_q, seq_k, heads, head_dim, -1, k_offset,
+                      dtype, stream);
 }

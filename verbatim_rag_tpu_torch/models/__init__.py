@@ -6,7 +6,7 @@ from .config import (
     modernbert_base_config,
     tiny_test_config,
 )
-from .encoder import Encoder
+from .encoder import Encoder, encoder_forward_sp
 from .highlighter import (
     HighlighterModel,
     ModelSpanExtractor,
@@ -15,6 +15,7 @@ from .highlighter import (
     params_to_jax,
     select_spans_from_token_probs,
     token_relevance_probs,
+    token_relevance_probs_sp,
 )
 from .tokenizer import HashTokenizer, TokenizedBatch
 
@@ -26,6 +27,7 @@ __all__ = [
     "ModelSpanExtractor",
     "TokenizedBatch",
     "demo_highlighter_config",
+    "encoder_forward_sp",
     "init_highlighter_params",
     "modernbert_base_config",
     "params_from_jax",
@@ -33,4 +35,5 @@ __all__ = [
     "select_spans_from_token_probs",
     "tiny_test_config",
     "token_relevance_probs",
+    "token_relevance_probs_sp",
 ]

@@ -17,9 +17,14 @@ Numerics follow the JAX forward:
 - GELU is the exact erf form;
 - every attention layer goes through `ops.flash_attention.flash_attention`:
   the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+:func:`encoder_forward_sp` is the sequence-parallel forward over a mesh:
+ring attention on global layers, halo attention on local ones.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +32,7 @@ from torch import nn
 
 from verbatim_rag_tpu_torch.ops.dense import matmul_f32
 from verbatim_rag_tpu_torch.ops.flash_attention import flash_attention
+from verbatim_rag_tpu_torch.ops.ring_attention import halo_attention, ring_attention
 
 from .config import EncoderConfig
 
@@ -142,11 +148,14 @@ class Encoder(nn.Module):
         )
         self.final_ln = LayerNorm(h, config.use_bias) if config.final_norm else None
 
-    def embed(self, input_ids, token_type_ids=None) -> torch.Tensor:
+    def embed(self, input_ids, token_type_ids=None, positions=None) -> torch.Tensor:
+        """Token (+ absolute position, + token type) embeddings; ``positions``
+        default to ``arange(S)`` (a sequence shard passes its global ones)."""
         config = self.config
         emb = self.embeddings["word"][input_ids]
         if config.position_embedding_type == "absolute":
-            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+            if positions is None:
+                positions = torch.arange(input_ids.shape[1], device=input_ids.device)
             emb = emb + self.embeddings["position"][positions][None]
         if config.type_vocab_size and "token_type" in self.embeddings:
             if token_type_ids is None:
@@ -198,3 +207,76 @@ class Encoder(nn.Module):
         if self.final_ln is not None:
             h = self.final_ln(h, eps)
         return h.float()
+
+
+def shard_replicas(model: nn.Module, devices) -> list[nn.Module]:
+    """``model`` for each shard's device: the model itself where its
+    parameters live, a copy elsewhere (made once per distinct device)."""
+    home = next(model.parameters()).device
+    copies = {home: model}
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = copy.deepcopy(model).to(dev)
+    return [copies[dev] for dev in devices]
+
+
+def encoder_forward_sp(model: Encoder, ids_shards, mask_shards, mesh, axis: str = "tp") -> list[torch.Tensor]:
+    """Sequence-parallel encoder forward: lists of [B, S/n] id and mask
+    shards (one per device of ``axis``, :func:`ops.ring_attention.shard_sequence`)
+    → the list of hidden-state shards [B, S/n, hidden] float32.
+
+    Activations stay on their shard's device; embeddings, LayerNorms, dense
+    layers, MLP and RoPE run per shard, RoPE and absolute positions at global
+    positions ``my·S/n + arange``. Global layers run exact ring attention,
+    local layers halo attention.
+    ``lengths`` is the mask summed over the shards. The function is the
+    single-device forward's: results match it up to float rounding.
+    """
+    config = model.config
+    dtype = compute_dtype(config)
+    heads, head_dim = config.num_heads, config.head_dim
+    pre_ln = config.norm_location == "pre"
+    eps = config.layer_norm_eps
+    use_rope = config.position_embedding_type == "rope"
+    devices = [ids.device for ids in ids_shards]
+    models = shard_replicas(model, devices)
+    shard_len = ids_shards[0].shape[1]
+    positions = [my * shard_len + torch.arange(shard_len, device=d) for my, d in enumerate(devices)]
+    lengths = sum(m.to(devices[0]).sum(dim=1) for m in mask_shards).to(torch.int32)
+
+    h = [md.embed(ids.long(), None, pos) for md, ids, pos in zip(models, ids_shards, positions)]
+    for i in range(config.num_layers):
+        is_global = config.is_global_layer(i)
+        theta = config.global_rope_theta if is_global else config.local_rope_theta
+        qs, ks, vs = [], [], []
+        for md, x, pos in zip(models, h, positions):
+            layer = md.layers[i]
+            a_in = layer.attn_ln(x, eps) if pre_ln and not (i == 0 and config.first_layer_no_attn_norm) else x
+            batch, seq = x.shape[:2]
+            q, k, v = (
+                layer.attn[name](a_in, dtype).reshape(batch, seq, heads, head_dim)
+                for name in ("q", "k", "v")
+            )
+            if use_rope:
+                q = rope(q.to(dtype), theta, pos)
+                k = rope(k.to(dtype), theta, pos)
+            qs.append(q.to(dtype).contiguous())
+            ks.append(k.to(dtype).contiguous())
+            vs.append(v.to(dtype).contiguous())
+        if is_global:
+            ctx = ring_attention(qs, ks, vs, lengths, mesh, axis)
+        else:
+            ctx = halo_attention(qs, ks, vs, lengths, config.local_attention_window, mesh, axis)
+        for my, (md, c) in enumerate(zip(models, ctx)):
+            layer = md.layers[i]
+            x = h[my] + layer.attn["o"](c.reshape(*c.shape[:2], -1), dtype)
+            if not pre_ln:
+                x = layer.attn_ln(x, eps)
+            m_in = layer.mlp_ln(x, eps) if pre_ln else x
+            x = x + layer.mlp_forward(m_in, config.activation, dtype)
+            if not pre_ln:
+                x = layer.mlp_ln(x, eps)
+            h[my] = x
+    if model.final_ln is not None:
+        h = [md.final_ln(x, eps) for md, x in zip(models, h)]
+    return [x.float() for x in h]

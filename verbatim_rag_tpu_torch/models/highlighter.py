@@ -9,7 +9,9 @@ are max-aggregated. Windows of every document run in one padded forward
 (row counts bucketed to powers of two, bursts scored in 512-row slices).
 
 The host-side planning, batching and decode are the JAX package's, unchanged;
-:meth:`ModelSpanExtractor._forward_probs` is the one model seam.
+:meth:`ModelSpanExtractor._forward_probs` is the one model seam. With
+``sp_mesh`` every context is one window, scored in a single
+sequence-sharded pass over the mesh (:func:`token_relevance_probs_sp`).
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from torch import nn
 
 from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
 from verbatim_rag_tpu_torch.device import resolve_device
+from verbatim_rag_tpu_torch.ops.ring_attention import shard_sequence
 
 from .config import EncoderConfig, demo_highlighter_config
-from .encoder import Dense, Encoder, LayerNorm, compute_dtype
+from .encoder import Dense, Encoder, LayerNorm, compute_dtype, encoder_forward_sp, shard_replicas
 from .tokenizer import HashTokenizer, Tokenizer, bucket_length
 
 
@@ -75,6 +78,22 @@ def token_relevance_probs(model: HighlighterModel, input_ids, attention_mask) ->
     logits = model.classifier_logits(hidden)
     probs = torch.softmax(logits.float(), dim=-1)[..., 1]
     return probs * attention_mask.float()
+
+
+def token_relevance_probs_sp(
+    model: HighlighterModel, ids_shards, mask_shards, mesh, axis: str = "tp"
+) -> list[torch.Tensor]:
+    """Sequence-parallel token scoring, the single-pass long-context path (no
+    sliding windows): lists of [B, S/n] id and mask shards → the list of
+    [B, S/n] float32 probability shards (`models.encoder.encoder_forward_sp`:
+    ring attention for global layers, halo exchange for local layers)."""
+    hidden = encoder_forward_sp(model, ids_shards, mask_shards, mesh, axis)
+    models = shard_replicas(model, [x.device for x in hidden])
+    out = []
+    for md, x, mask in zip(models, hidden, mask_shards):
+        probs = torch.softmax(md.classifier_logits(x).float(), dim=-1)[..., 1]
+        out.append(probs * mask.float())
+    return out
 
 
 def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -198,6 +217,12 @@ class ModelSpanExtractor(SpanExtractor):
     `training.Trainer.save_checkpoint` (of either package); its weights,
     config and tokenizer replace ``params``, ``config`` and ``tokenizer``.
     The model lives on ``device`` (``None`` → ``cuda``).
+
+    ``sp_mesh`` (a `parallel.Mesh`) scores each context in ONE
+    sequence-sharded pass over the devices of its ``sp_axis`` (no sliding
+    windows, no ``max_length`` cap): global layers run ring attention, local
+    layers halo attention. The JAX program computes the same result on every
+    dp row of the mesh; the port computes it once, on the first dp row.
     """
 
     def __init__(
@@ -213,17 +238,16 @@ class ModelSpanExtractor(SpanExtractor):
         doc_stride: int = 256,
         seed: int = 0,
         sp_mesh=None,
+        sp_axis: str = "tp",
         device=None,
     ):
-        if sp_mesh is not None:
-            raise NotImplementedError(
-                "sequence-parallel extraction is not ported yet (the parallel slice)"
-            )
         self.threshold = threshold
         self.min_span_chars = min_span_chars
         self.merge_gap_chars = merge_gap_chars
         self.max_length = max_length
         self.doc_stride = doc_stride
+        self.sp_mesh = sp_mesh
+        self.sp_axis = sp_axis
         self.device = resolve_device(device)
         if model_path is not None:
             from .hf_convert import load_highlighter_checkpoint
@@ -305,7 +329,8 @@ class ModelSpanExtractor(SpanExtractor):
         if not rows:
             return [[] for _ in pairs]
 
-        seq = min(bucket_length(max(len(r) for r in rows)), self.max_length)
+        longest = bucket_length(max(len(r) for r in rows))
+        seq = longest if self.sp_mesh is not None else min(longest, self.max_length)
         # Row counts are bucketed to powers of two (then multiples of 512),
         # as in the JAX package; pad rows are all-pad and sliced off.
         n_real = len(rows)
@@ -363,6 +388,16 @@ class ModelSpanExtractor(SpanExtractor):
 
     def _forward_probs(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """[B, S] padded token ids/mask → [B, S] relevance probabilities."""
+        if self.sp_mesh is not None:
+            with torch.no_grad():
+                shards = token_relevance_probs_sp(
+                    self.model,
+                    shard_sequence(torch.from_numpy(ids), self.sp_mesh, self.sp_axis),
+                    shard_sequence(torch.from_numpy(mask), self.sp_mesh, self.sp_axis),
+                    self.sp_mesh,
+                    self.sp_axis,
+                )
+            return np.concatenate([p.cpu().numpy() for p in shards], axis=1)
         with torch.no_grad():
             probs = token_relevance_probs(
                 self.model,
@@ -388,7 +423,10 @@ class ModelSpanExtractor(SpanExtractor):
         q_enc = self.tokenizer.encode_batch([question], max_length=512)
         q_tokens = [int(t) for t, m in zip(q_enc.input_ids[0], q_enc.attention_mask[0]) if m]
         # Question tokens keep their cls/sep framing; context appended after.
-        budget = max(self.max_length - len(q_tokens) - 1, 16)  # -1: trailing sep
+        if self.sp_mesh is not None:
+            budget = max(len(ctx_token_ids), 16)  # one window: the SP pass
+        else:
+            budget = max(self.max_length - len(q_tokens) - 1, 16)  # -1: trailing sep
 
         windows = self._make_windows(len(ctx_token_ids), budget, self.doc_stride)
         sep = self.tokenizer.sep_id

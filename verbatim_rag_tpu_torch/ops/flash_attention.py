@@ -5,12 +5,15 @@ TPU kernels of that module:
 
 - `csrc/flash_attention.cu` (tensor cores for bf16, FMA for float32) the
   forward `_flash_kernel`, with the logsumexp output of
-  `flash_attention_tpu_lse` on request;
+  `flash_attention_tpu_lse` on request, and the ring step
+  `_flash_partial_kernel` (:func:`flash_attention_partial`: one KV block's
+  unnormalised numerator, row max and denominator);
 - `csrc/flash_attention_bwd.cu` the FlashAttention-2 backward
   `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.
 
-:func:`attention_reference`, :func:`attention_lse_reference` and
-:func:`flash_attention_bwd_reference` are the plain versions of the same
+:func:`attention_reference`, :func:`attention_lse_reference`,
+:func:`flash_attention_bwd_reference` and
+:func:`flash_attention_partial_reference` are the plain versions of the same
 functions, kept beside them as the CPU path and the kernels' oracle.
 
 :func:`flash_attention` dispatches on the tensor's device alone: a CPU tensor
@@ -38,10 +41,12 @@ KERNEL_HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the main path's proof of use): the
-#: forward (with or without lse), the backward's dq and its dk/dv kernel.
+#: forward (with or without lse), the backward's dq and its dk/dv kernel, and
+#: the ring step's partial kernel.
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+partial_launches = 0
 
 
 def _scale(head_dim: int) -> float:
@@ -116,13 +121,16 @@ def flash_attention_bwd_reference(q, k, v, lengths, out, lse, g, window=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_inputs(q, k, v, lengths, what: str) -> None:
+def _check_inputs(q, k, v, lengths, what: str, same_seq: bool = True) -> None:
+    """Device, dtype, shape, alignment and lengths of a kernel's inputs; k and
+    v may hold another sequence length than q when ``same_seq`` is false."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lengths.is_cuda):
         raise ValueError(f"{what} needs CUDA tensors")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.shape != k.shape or q.shape != v.shape or q.dim() != 4:
-        raise ValueError(f"q, k, v must be equal [B, S, H, D], got {q.shape}, {k.shape}, {v.shape}")
+    kv_shape = q.shape if same_seq else (q.shape[0], k.shape[1], *q.shape[2:])
+    if q.dim() != 4 or k.shape != kv_shape or v.shape != kv_shape:
+        raise ValueError(f"q, k, v must be [B, S, H, D] alike, got {q.shape}, {k.shape}, {v.shape}")
     batch, _, heads, head_dim = q.shape
     if head_dim != KERNEL_HEAD_DIM:
         raise ValueError(f"kernel head_dim must be {KERNEL_HEAD_DIM}, got {head_dim}")
@@ -221,6 +229,71 @@ def flash_attention_bwd_cuda(q, k, v, lengths, out, lse, g, window=None):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return _launch_bwd(q, k, v, lengths, lse, delta, g, window)
+
+
+def flash_attention_partial_reference(q, k, v, lengths, k_offset: int):
+    """Plain version of one ring step: q [B, Sq, H, D] against ONE KV block
+    k, v [B, Sk, H, D] whose first key sits at global position ``k_offset``.
+
+    Returns (numer [B, Sq, H, D], m [B, H, Sq], l [B, H, Sq]), all float32:
+    the unnormalised Σ p·v, the row max of the scaled scores and Σ p, with p
+    = exp(s − m) on live keys (``k_offset + idx < lengths[b]``) and 0
+    elsewhere. A row with no live key gets m = -1e30, l = 0, numer = 0. The
+    arithmetic of the JAX package's `_partial_reference`: float32 scores
+    scaled after the dot, P kept in float32.
+    """
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(q.shape[-1])
+    kidx = k_offset + torch.arange(k.shape[1], device=q.device)
+    valid = (kidx[None, :] < lengths.to(q.device)[:, None])[:, None, None, :]
+    logits = torch.where(valid, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.where(valid, torch.exp(logits - m[..., None]), 0.0)
+    numer = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return numer, m, p.sum(dim=-1)
+
+
+def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
+    """Launch the partial kernel: (numer [B, Sq, H, D], m [B, H, Sq],
+    l [B, H, Sq]) float32, as :func:`flash_attention_partial_reference`."""
+    global partial_launches
+    _check_inputs(q, k, v, lengths, "flash_attention_partial_cuda", same_seq=False)
+    k_offset = int(k_offset)
+    if not 0 <= k_offset < 2**31:
+        raise ValueError(f"k_offset must be a non-negative int32 position, got {k_offset}")
+    batch, seq_q, heads, head_dim = q.shape
+    numer = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if numer.numel() == 0:
+        return numer, m, l
+    lib = cuda_build.load("flash_attention")
+    fn = lib.flash_attention_partial
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), numer.data_ptr(),
+        m.data_ptr(), l.data_ptr(), batch, seq_q, k.shape[1], heads, head_dim, k_offset,
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    cuda_build.check(rc, "flash_attention_partial")
+    partial_launches += 1
+    return numer, m, l
+
+
+def flash_attention_partial(q, k, v, lengths, k_offset: int):
+    """One KV block's unnormalised attention state, for the ring's online
+    softmax merge (`ops.ring_attention.ring_attention`).
+
+    CPU tensors take the plain version, CUDA tensors the kernel; there is no
+    other path. ``k_offset`` is a host int. The CPU path is differentiable
+    through torch's autograd; the kernel has no backward yet, so on CUDA an
+    input that requires grad raises.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_partial_reference(q, k, v, lengths, k_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise NotImplementedError("flash_attention_partial has no CUDA backward yet")
+    return flash_attention_partial_cuda(q, k, v, lengths, k_offset)
 
 
 class FlashAttention(torch.autograd.Function):
