@@ -19,20 +19,40 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              global two planted faults (the last key tile dropped, one row's
              length mask dropped) must fail that check;
              exact rescore at B=512, C=256, m=128, qm=32 over a 1M-row
-             forward index with missing (−1) candidates; rtol 1e-5;
+             forward index with missing (−1) candidates, int32/float32 and
+             int16/float16 slots; rtol 1e-5;
              section tables (both arms, dense 384 + sketch 768) and
              bucket-max v2 (each arm) at B=512 over N=1,007,616 rows (blocks
-             of 8192) and N=1,048,576 (blocks of 16384), int8 and bf16 rows,
-             dead rows in the mask: int8 tables bit-equal to the plain
-             version; bf16 values within 2⁻¹⁵·|q| and each differing row a
-             winner whose exact score is within that of the plain one's;
+             of 8192; int8, bf16 and float32 rows) and N=1,048,576 (blocks
+             of 16384; int8 and bf16), dead rows in the mask: int8 tables
+             bit-equal to the plain version; bf16 and float32 values within
+             2⁻¹⁵·|q| and each differing row a winner whose exact score is
+             within that of the plain one's;
+             bucket-max v1 (128 consecutive rows a bucket, highest-lane
+             argmax) on bf16 and float32 rows at B=512, N=999,424, d ∈ {384,
+             768} and at one block (N=16384, a ragged batch of 70), dead rows
+             and a dead bucket: values within 2⁻¹⁵·|q| (bf16) / 2⁻¹⁸·|q|
+             (float32), rows equal except in buckets whose two best plain
+             scores lie within that; on small-integer rows with duplicates
+             (exact dots) values and rows bit-equal; two planted faults (the
+             mask ignored; ties to the lowest lane) must fail that check;
 3. flow    — the offline quickstart through the user entry points:
              `VerbatimIndex.add_documents` on `examples/example_docs` with the
              hashed providers, then `VerbatimRAG.query` with the full-width
              ModernBERT-base extractor (22 layers, random weights from the
-             seed) for 3 questions, over a bf16 index and over an int8 index
-             (the section path); every highlight must index its chunk
-             verbatim, every store tensor and parameter must be on the card;
+             seed) for 3 questions, over a bf16 index, an int8 index (the
+             section path) and a float32 index with an int16 / float16
+             forward index (`candidate_impl="section"`, then `"bucket"`: the
+             float32 table arms and the narrow rescore must launch); every
+             highlight must index its chunk verbatim, every store tensor and
+             parameter must be on the card;
+3b. bucket_ab — the port's counterpart of `benchmarks/bench_fused_bucket.py`:
+             candidate top-k (k=256) of 512 unit queries over 999,424 normal
+             bf16 rows at d ∈ {384, 768} by exact top-k over the score
+             matrix, v1 (`fused_candidate_topk`) and v2
+             (`fused_candidate_topk_v2`, both variant names): each arm's
+             median ms (CUDA events, 10 calls) and its candidate overlap with
+             the exact set; a bucket kernel below 0.95 fails;
 4. store   — a 1M-chunk store (dense 384 bf16, sketch 768, forward index
              128 nnz) filled through `add_vectors`, then 512-query hybrid
              batches through `query_batch`; rows checked against the same
@@ -91,7 +111,7 @@ cancels and the true gradient is 0). At S=8192 global two planted faults
 (the dk/dv kernel run without each row's last key tile; delta replaced by 0)
 must fail that check.
 
-Each main-path phase (3-7 and 6b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3b and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` and print the
 kernels that took the most device time and the device's idle share.
@@ -587,12 +607,34 @@ def check_rescore(gen) -> dict:
     ms = cuda_ms(lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), reps=20)
     plain_ms = cuda_ms(lambda: rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w), reps=3)
     n_valid = int(valid.sum())
-    b_ms, b_by = bound(
-        n_valid * m * 8 + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm, PEAK_FP32_OPS
-    )
+
+    def rescore_bound(slot_bytes: int):
+        return bound(
+            n_valid * m * slot_bytes + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm,
+            PEAK_FP32_OPS,
+        )
+
+    b_ms, b_by = rescore_bound(8)
     result = dict(
         max_abs_err=err, max_rel_err=float(rel.max()), ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    # The store's narrow forward index: int16 ids (vocab < 32768) and float16
+    # weights, read straight from the [N, m] rows and widened in registers.
+    ids16, w16 = sp_ids.to(torch.int16), sp_w.to(torch.float16)
+    del sp_ids, sp_w
+    got = rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w)
+    torch.cuda.synchronize()
+    ref = rs.exact_rescore_oneshot(cand, ids16, w16, q_ids, q_w)
+    require(bool(((got <= -1e29) == ~valid).all()), "rescore int16/float16: -1 rows differ")
+    rel16 = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
+    require(bool((rel16 <= 1e-5).all()), f"rescore int16/float16: max rel err {float(rel16.max())}")
+    b16_ms, b16_by = rescore_bound(4)
+    result["int16_float16"] = dict(
+        max_abs_err=float((got - ref)[valid].abs().max()), max_rel_err=float(rel16.max()),
+        ms=cuda_ms(lambda: rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w), reps=20),
+        plain_ms=cuda_ms(lambda: rs.exact_rescore_oneshot(cand, ids16, w16, q_ids, q_w), reps=3),
+        bound_ms=b16_ms, bound_by=b16_by, library_ms=None,
     )
     log("rescore", json.dumps(result))
     return result
@@ -600,7 +642,8 @@ def check_rescore(gen) -> dict:
 
 def table_arms(gen, n: int, batch: int, dtype: str):
     """Dense (384) and sketch (768) arms at the serving shape: unit-norm rows
-    as int8 codes + scales or bf16, float32 queries, a mask with dead rows."""
+    as int8 codes + scales, bf16 or float32, float32 queries, a mask with
+    dead rows."""
     import torch
 
     from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
@@ -614,7 +657,7 @@ def table_arms(gen, n: int, batch: int, dtype: str):
             codes, scale = quantize_rows_int8(rows)
             arms.append((codes, q, scale))
         else:
-            arms.append((rows.to(torch.bfloat16), q, None))
+            arms.append((rows.to(getattr(torch, dtype)), q, None))
         del rows
     mask = torch.rand(n, generator=gen, device="cuda") > 0.01
     mask[n // 2 : n // 2 + 5000] = False
@@ -623,9 +666,11 @@ def table_arms(gen, n: int, batch: int, dtype: str):
 
 def check_table(got, expected, rows, q, int8: bool) -> float:
     """Hold a kernel's (values, global rows) table to its plain version's:
-    int8 bit-equal; bf16 values within 2⁻¹⁵·|q| (rows have unit norm) and
-    each differing row a winner whose exact score is within that of the
-    plain version's row. Returns the max abs error of the live values."""
+    int8 bit-equal; bf16 and float32 values within 2⁻¹⁵·|q| (rows have unit
+    norm; float32 sums in another order, and a pack step of 128 ulp is 2⁻¹⁶
+    of a value) and each differing row a winner whose exact score is within
+    that of the plain version's row. Returns the max abs error of the live
+    values."""
     import torch
 
     (g_vals, g_rows), (e_vals, e_rows) = got, expected
@@ -637,12 +682,12 @@ def check_table(got, expected, rows, q, int8: bool) -> float:
         require(torch.equal(g_rows, e_rows), "table: int8 rows differ")
         return err
     tol = 2.0**-15 * q.norm(dim=1, keepdim=True).expand_as(g_vals)
-    require(bool(((g_vals - e_vals).abs() <= tol)[live].all()), f"table: bf16 values off by {err}")
+    require(bool(((g_vals - e_vals).abs() <= tol)[live].all()), f"table: {rows.dtype} values off by {err}")
     b_idx, c_idx = torch.nonzero((g_rows != e_rows) & live, as_tuple=True)
-    qb = q.to(torch.bfloat16).float()[b_idx]
+    qb = q.to(rows.dtype).float()[b_idx]
     s_g = (qb * rows[g_rows[b_idx, c_idx].long()].float()).sum(-1)
     s_e = (qb * rows[e_rows[b_idx, c_idx].long()].float()).sum(-1)
-    require(bool(((s_g - s_e).abs() <= tol[b_idx, c_idx]).all()), "table: a bf16 row is not a near-winner")
+    require(bool(((s_g - s_e).abs() <= tol[b_idx, c_idx]).all()), f"table: a {rows.dtype} row is not a near-winner")
     return err
 
 
@@ -658,7 +703,8 @@ def table_bytes(arms, n: int, batch: int, width: int, out_bytes: int) -> float:
 
 def check_tables(gen) -> tuple[dict, dict]:
     """Section kernel (both arms, one launch) and bucket-max v2 (one launch
-    per arm) against their plain versions at the serving shapes."""
+    per arm) against their plain versions at the serving shapes: int8 and
+    bf16 rows at both geometries, float32 rows at the int8 store's."""
     import torch
 
     from verbatim_rag_tpu_torch.ops import fused_topk as ft
@@ -666,76 +712,80 @@ def check_tables(gen) -> tuple[dict, dict]:
 
     batch = 512
     section_cases, bucket_cases = [], []
-    for n, block in ((123 * 8192, 8192), (64 * 16384, 16384)):
-        for dtype in ("int8", "bfloat16"):
-            int8 = dtype == "int8"
-            arms, mask = table_arms(gen, n, batch, dtype)
-            corpora, queries, scales = zip(*arms)
-            scales = scales if int8 else (None, None)
-            width = n // block * 128
-            peak = PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
-            ops = [2.0 * batch * n * c.shape[1] for c in corpora]
+    cells = [(123 * 8192, 8192, dt) for dt in ("int8", "bfloat16", "float32")]
+    cells += [(64 * 16384, 16384, dt) for dt in ("int8", "bfloat16")]
+    for n, block, dtype in cells:
+        int8 = dtype == "int8"
+        arms, mask = table_arms(gen, n, batch, dtype)
+        corpora, queries, scales = zip(*arms)
+        scales = scales if int8 else (None, None)
+        width = n // block * 128
+        peak = {"int8": PEAK_INT8_OPS, "bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_FP32_OPS}[dtype]
+        ops = [2.0 * batch * n * c.shape[1] for c in corpora]
 
-            got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+        got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+        torch.cuda.synchronize()
+        ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+        err = max(
+            check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
+            for g, e, c, q in zip(got, ref, corpora, queries)
+        )
+        del got, ref
+        ms = cuda_ms(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block), reps=10)
+        plain_ms = cuda_ms(lambda: sec.section_tables_reference(corpora, queries, mask, scales, block), reps=2)
+        b_ms, b_by = bound(table_bytes(arms, n, batch, width, 4), sum(ops), peak)
+        products = None
+        if dtype != "bfloat16":  # the two products alone, as cuBLAS computes them
+            prepared = [ft.prepare_queries(q, c)[0] for c, q in zip(corpora, queries)]
+            product = torch._int_mm if int8 else torch.mm
+            products = cuda_ms(
+                lambda: [product(p, c.t()) for p, c in zip(prepared, corpora)], reps=5
+            )
+        case = dict(
+            n=n, block=block, dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, products_ms=products,
+        )
+        log("section", json.dumps(case))
+        section_cases.append(case)
+
+        for arm, (c, q, s) in zip(("dense", "sketch"), arms):
+            got = ft.matmul_bucket_max_v2_cuda(c, q, mask, s)
             torch.cuda.synchronize()
-            ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
-            err = max(
-                check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
-                for g, e, c, q in zip(got, ref, corpora, queries)
-            )
+            ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
+            err = check_table(got, ref, c, q, int8)
             del got, ref
-            ms = cuda_ms(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block), reps=10)
-            plain_ms = cuda_ms(lambda: sec.section_tables_reference(corpora, queries, mask, scales, block), reps=2)
-            b_ms, b_by = bound(table_bytes(arms, n, batch, width, 4), sum(ops), peak)
-            products = None
-            if int8:  # the two int8 products alone, as cuBLAS computes them
-                prepared = [ft.prepare_queries(q, c)[0] for c, q in zip(corpora, queries)]
-                products = cuda_ms(
-                    lambda: [torch._int_mm(p, c.t()) for p, c in zip(prepared, corpora)], reps=5
-                )
-            case = dict(
-                n=n, block=block, dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, int_mm_products_ms=products,
+            ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10)
+            plain_ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=2)
+            b_ms, b_by = bound(
+                table_bytes([(c, q, s)], n, batch, width, 8), 2.0 * batch * n * c.shape[1], peak
             )
-            log("section", json.dumps(case))
-            section_cases.append(case)
+            products = None
+            if dtype != "bfloat16":
+                qi = ft.prepare_queries(q, c)[0]
+                product = torch._int_mm if int8 else torch.mm
+                products = cuda_ms(lambda: product(qi, c.t()), reps=5)
+            case = dict(
+                n=n, block=ft.choose_block_rows(n), dtype=dtype, arm=arm, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                products_ms=products,
+            )
+            log("bucket_max_v2", json.dumps(case))
+            bucket_cases.append(case)
+        del arms, corpora, queries, scales, mask
+        torch.cuda.empty_cache()
+    # Headlines: the int8 store's geometry (N = 1,007,616, blocks of 8192),
+    # int8, with the float32 arms beside them; for bucket-max v2 the two
+    # arms of one hybrid batch added together.
+    def headline(cases, dtype):
+        rows = [c for c in cases if c["n"] == 123 * 8192 and c["dtype"] == dtype]
+        out = {k: sum(c[k] for c in rows) for k in ("ms", "plain_ms", "bound_ms", "products_ms")}
+        out.update(max_abs_err=max(c["max_abs_err"] for c in rows), bound_by=rows[0]["bound_by"])
+        return out
 
-            for arm, (c, q, s) in zip(("dense", "sketch"), arms):
-                got = ft.matmul_bucket_max_v2_cuda(c, q, mask, s)
-                torch.cuda.synchronize()
-                ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
-                err = check_table(got, ref, c, q, int8)
-                del got, ref
-                ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10)
-                plain_ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=2)
-                b_ms, b_by = bound(
-                    table_bytes([(c, q, s)], n, batch, width, 8), 2.0 * batch * n * c.shape[1], peak
-                )
-                products = None
-                if int8:
-                    qi = ft.prepare_queries(q, c)[0]
-                    products = cuda_ms(lambda: torch._int_mm(qi, c.t()), reps=5)
-                case = dict(
-                    n=n, block=ft.choose_block_rows(n), dtype=dtype, arm=arm, max_abs_err=err,
-                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    int_mm_products_ms=products,
-                )
-                log("bucket_max_v2", json.dumps(case))
-                bucket_cases.append(case)
-            del arms, corpora, queries, scales, mask
-            torch.cuda.empty_cache()
-    # Headlines: the int8 store's geometry (N = 1,007,616, blocks of 8192);
-    # for bucket-max v2 the two arms of one hybrid batch added together.
-    section = dict(section_cases[0], library_ms=None, cases=section_cases)
-    arms = [c for c in bucket_cases if c["n"] == 123 * 8192 and c["dtype"] == "int8"]
-    bucket = {
-        key: sum(c[key] for c in arms)
-        for key in ("ms", "plain_ms", "bound_ms", "int_mm_products_ms")
-    }
-    bucket.update(
-        max_abs_err=max(c["max_abs_err"] for c in arms), bound_by=arms[0]["bound_by"],
-        library_ms=None, cases=bucket_cases,
-    )
+    section = dict(headline(section_cases, "int8"), library_ms=None, cases=section_cases)
+    section["float32"] = headline(section_cases, "float32")
+    bucket = dict(headline(bucket_cases, "int8"), library_ms=None, cases=bucket_cases)
+    bucket["float32"] = headline(bucket_cases, "float32")
     return section, bucket
 
 
@@ -749,6 +799,167 @@ def sec_decode(table, block: int, n: int):
     cols = torch.arange(table.shape[1], device=table.device, dtype=torch.int32)
     rows = (cols // 128) * block + pos * 128 + cols % 128
     return vals, torch.clamp(rows, max=n - 1)
+
+
+#: Bucket-max v1 checks: values within this share of |q| (rows have unit
+#: norm). bf16 as the v2 checks; float32 sums of d products in another order
+#: are off by about √d·2⁻²⁴·|q| (1.7e-6·|q| at d = 768); no pack step.
+V1_LIMITS = {"bfloat16": 2.0**-15, "float32": 2.0**-18}
+#: The bucket A/B phase (`benchmarks/bench_fused_bucket.py`'s defaults).
+AB_ROWS, AB_BATCH, AB_K = 999_424, 512, 256
+
+
+def v1_fails(got, expected, q, corpus, mask, limit: float | None) -> str | None:
+    """Why a v1 table (values, rows) does not hold to the plain version's,
+    or None: the same live entries, -1e30 and the same rows on dead buckets;
+    values bit-equal and rows equal (``limit`` None: exact-tie inputs) or
+    values within limit·|q| and rows equal except in buckets whose two best
+    plain scores lie within that."""
+    import torch
+
+    (g_vals, g_rows), (e_vals, e_rows) = got, expected
+    live = e_vals > -1e29
+    if not torch.equal(live, g_vals > -1e29) or not bool((g_vals[~live] == -1e30).all()):
+        return "live entries differ"
+    if not torch.equal(g_rows[~live], e_rows[~live]):
+        return "dead-bucket rows differ"
+    if limit is None:
+        if not torch.equal(g_vals.view(torch.int32), e_vals.view(torch.int32)):
+            return "values not bit-equal"
+        return None if torch.equal(g_rows, e_rows) else "rows differ"
+    tol = limit * q.to(corpus.dtype).float().norm(dim=1, keepdim=True).expand_as(g_vals)
+    if not bool(((g_vals - e_vals).abs() <= tol)[live].all()):
+        return f"values off by {float((g_vals - e_vals).abs()[live].max())}"
+    b_idx, c_idx = torch.nonzero((g_rows != e_rows) & live, as_tuple=True)
+    if b_idx.numel():  # only the differing buckets' scores are computed
+        qb = q.to(corpus.dtype).float()[b_idx]
+        rows = c_idx[:, None] * 128 + torch.arange(128, device=q.device)[None, :]
+        s = (qb[:, None, :] * corpus[rows].float()).sum(-1)
+        s = torch.where(mask[rows], s, -1e30).topk(2, dim=1).values
+        if not bool(((s[:, 0] - s[:, 1]).abs() <= tol[b_idx, c_idx]).all()):
+            return f"{b_idx.numel()} rows differ outside a near-tie"
+    return None
+
+
+def v1_bound(n: int, batch: int, d: int, dtype) -> tuple[float, str]:
+    import torch
+
+    elt = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_OPS
+    return bound(n * d * elt + batch * d * elt + n + batch * (n // 128) * 8, 2.0 * batch * n * d, peak)
+
+
+def v1_inputs(gen, n: int, batch: int, d: int, dtype):
+    """Unit-norm rows and float32 queries, every 7th row dead and bucket 5
+    dead."""
+    import torch
+
+    rows = torch.randn(n, d, generator=gen, device="cuda")
+    rows = (rows / rows.norm(dim=1, keepdim=True)).to(dtype)
+    q = torch.randn(batch, d, generator=gen, device="cuda")
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    mask[::7] = False
+    mask[5 * 128 : 6 * 128] = False
+    return rows, q, mask
+
+
+def check_bucket_v1(gen) -> dict:
+    """Bucket-max v1 against its plain version: bf16 and float32 rows at the
+    A/B shapes (d = 384, 768) and at one block (N = 16384, a ragged batch of
+    70), dead rows and a dead bucket; exact ties on small-integer rows with
+    duplicates (bit-equal, highest lane); two planted faults; times, bounds
+    and the product alone as the library yardstick."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        limit = V1_LIMITS[name]
+        for n, batch, d in ((16384, 70, 384), (AB_ROWS, AB_BATCH, 384), (AB_ROWS, AB_BATCH, 768)):
+            corpus, q, mask = v1_inputs(gen, n, batch, d, dtype)
+            got = ft.matmul_bucket_max_cuda(corpus, q, mask)
+            torch.cuda.synchronize()
+            ref = ft.matmul_bucket_max_reference(corpus, q, mask)
+            why = v1_fails(got, ref, q, corpus, mask, limit)
+            require(why is None, f"bucket v1 {name} N={n} d={d}: {why}")
+            require(
+                bool((got[0][:, 5] == -1e30).all() and (got[1][:, 5] == 5 * 128 + 127).all()),
+                f"bucket v1 {name}: dead bucket not (-1e30, highest lane)",
+            )
+            live = ref[0] > -1e29
+            case = dict(n=n, batch=batch, d=d, dtype=name, max_abs_err=float((got[0] - ref[0]).abs()[live].max()))
+            del got, ref
+            if n == AB_ROWS:
+                # Planted fault: the kernel run without the mask.
+                unmasked = ft.matmul_bucket_max_cuda(corpus, q, torch.ones_like(mask))
+                fault = v1_fails(unmasked, ft.matmul_bucket_max_reference(corpus, q, mask), q, corpus, mask, limit)
+                require(fault is not None, f"bucket v1 {name}: the mask-ignored fault passes the check")
+                case["fault_mask_ignored"] = fault
+                del unmasked
+                qp = q.to(dtype)
+                case["ms"] = cuda_ms(lambda: ft.matmul_bucket_max_cuda(corpus, q, mask), reps=10)
+                case["plain_ms"] = cuda_ms(lambda: ft.matmul_bucket_max_reference(corpus, q, mask), reps=2)
+                # Library yardstick: the product alone (no bucket max, no argmax).
+                if dtype == torch.bfloat16:
+                    case["library_ms"] = cuda_ms(lambda: torch.mm(qp, corpus.t(), out_dtype=torch.float32), reps=10)
+                else:
+                    case["library_ms"] = cuda_ms(lambda: torch.mm(qp, corpus.t()), reps=10)
+                case["bound_ms"], case["bound_by"] = v1_bound(n, batch, d, dtype)
+            log("bucket_max_v1", json.dumps(case))
+            cases.append(case)
+            del corpus, q, mask
+            torch.cuda.empty_cache()
+
+        # Exact ties: small-integer rows (every dot exact in float32 and in
+        # bf16) with 6 copies of one row in every bucket.
+        n, batch, d = 4 * 16384, 77, 64
+        corpus = torch.randint(-2, 3, (n, d), generator=gen, device="cuda").float()
+        q = torch.randint(-2, 3, (batch, d), generator=gen, device="cuda").float()
+        copies = torch.randint(0, 128, (n // 128, 6), generator=gen, device="cuda")
+        rows = copies + torch.arange(0, n, 128, device="cuda")[:, None]
+        corpus[rows] = corpus[rows[:, :1]]
+        corpus = corpus.to(dtype)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        mask[::11] = False
+        mask[5 * 128 : 6 * 128] = False
+        got = ft.matmul_bucket_max_cuda(corpus, q, mask)
+        ref = ft.matmul_bucket_max_reference(corpus, q, mask)
+        why = v1_fails(got, ref, q, corpus, mask, None)
+        require(why is None, f"bucket v1 {name} exact ties: {why}")
+        # Planted fault: ties to the lowest lane (the kernel on each bucket's
+        # lanes reversed, its rows mapped back).
+        flip = lambda x: x.reshape(-1, 128, *x.shape[1:]).flip(1).reshape(x.shape)  # noqa: E731
+        vals, frows = ft.matmul_bucket_max_cuda(flip(corpus), q, flip(mask))
+        lowest = (vals, (frows // 128) * 128 + 127 - frows % 128)
+        fault = v1_fails(lowest, ref, q, corpus, mask, None)
+        require(fault is not None, f"bucket v1 {name}: the lowest-lane fault passes the check")
+        # ...and not only on dead buckets: on live buckets that hold a tie.
+        live = ref[0] > -1e29
+        fault_live = int((lowest[1] != ref[1])[live].sum())
+        require(fault_live > 0, f"bucket v1 {name}: the lowest-lane fault moves no live row")
+        scores = torch.where(mask, q.to(dtype).float() @ corpus.float().t(), -1e30)
+        tied = int(((scores.reshape(batch, -1, 128) == ref[0][..., None]).sum(-1) > 1).sum())
+        require(tied > 0, f"bucket v1 {name} exact ties: no bucket holds a tie")
+        case = dict(
+            n=n, batch=batch, d=d, dtype=name, exact_ties=True, tied_buckets=tied,
+            fault_lowest_lane=fault, fault_lowest_lane_live_rows_moved=fault_live,
+        )
+        log("bucket_max_v1", json.dumps(case))
+        cases.append(case)
+        del corpus, q, mask, got, ref, vals, frows, scores
+        torch.cuda.empty_cache()
+    # Headline: bf16 at the A/B shape, d = 768 (the sketch width).
+    head = next(c for c in cases if c["dtype"] == "bfloat16" and c["n"] == AB_ROWS and c["d"] == 768)
+    d384 = next(c for c in cases if c["dtype"] == "bfloat16" and c["n"] == AB_ROWS and c["d"] == 384)
+    return dict(
+        {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        library_note="torch.mm of the product alone: no PyTorch call computes the bucket argmax",
+        max_abs_err=max(c.get("max_abs_err", 0.0) for c in cases),
+        d384={k: d384[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        cases=cases,
+    )
 
 
 # -- phases 3-6: the main path ------------------------------------------------------------
@@ -766,6 +977,7 @@ def kernel_counters() -> dict:
         "rescore": (rescore, "launches"),
         "section": (section, "launches"),
         "bucket_max_v2": (fused_topk, "launches"),
+        "bucket_max_v1": (fused_topk, "launches_v1"),
     }
 
 
@@ -799,7 +1011,18 @@ def run_flow(seed: int, card: str):
     extractor = ModelSpanExtractor(config=modernbert_base_config(), seed=seed)
     reset_counts()
     result = dict(card=card)
-    for tier, dtypes in (("bf16", {}), ("int8", dict(dense_dtype="int8", sketch_dtype="int8"))):
+    # (tier, store options, candidate impls set in turn; None keeps "auto"'s)
+    tiers = (
+        ("bf16", {}, (None,)),
+        ("int8", dict(dense_dtype="int8", sketch_dtype="int8"), (None,)),
+        (
+            "f32_narrow",
+            dict(dense_dtype="float32", sparse_ids_dtype="int16", sparse_weight_dtype="float16"),
+            ("section", "bucket"),
+        ),
+    )
+    for tier, dtypes, impls in tiers:
+        before = read_counts()
         t0 = time.perf_counter()
         index = VerbatimIndex(
             dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), **dtypes
@@ -807,27 +1030,44 @@ def run_flow(seed: int, card: str):
         index.add_documents([DocumentSchema.from_file(str(p)) for p in docs])
         rag = VerbatimRAG(index, extractor=extractor)
         ingest_s = time.perf_counter() - t0
-        times, n_highlights = [], 0
-        for q in questions:
-            t0 = time.perf_counter()
-            response = rag.query(q)
-            times.append(time.perf_counter() - t0)
-            require(bool(response.documents), f"flow {tier}: no documents for {q!r}")
-            for doc in response.documents:
-                for h in doc.highlights:
-                    require(doc.content[h.start : h.end] == h.text, f"flow {tier}: highlight not verbatim")
-                    n_highlights += 1
-        require(n_highlights > 0, f"flow {tier}: no highlights")
         store = index.store
+        times, n_highlights = [], 0
+        for impl in impls:
+            if impl is not None:
+                store.candidate_impl = impl
+            for q in questions:
+                t0 = time.perf_counter()
+                response = rag.query(q)
+                times.append(time.perf_counter() - t0)
+                require(bool(response.documents), f"flow {tier} {impl}: no documents for {q!r}")
+                for doc in response.documents:
+                    for h in doc.highlights:
+                        require(
+                            doc.content[h.start : h.end] == h.text,
+                            f"flow {tier} {impl}: highlight not verbatim",
+                        )
+                        n_highlights += 1
+        require(n_highlights > 0, f"flow {tier}: no highlights")
+        moved = {k: v - before[k] for k, v in read_counts().items()}
         names = ["_dense", "_sp_ids", "_sp_w", "_sp_proj", "_valid_dev"]
         if tier == "int8":
             require(store.candidate_impl == "section", f"flow int8: impl {store.candidate_impl}")
             names += ["_dense_scale", "_sp_proj_scale"]
+        if tier == "f32_narrow":
+            dtypes_seen = (store._dense.dtype, store._sp_proj.dtype, store._sp_ids.dtype, store._sp_w.dtype)
+            require(
+                dtypes_seen == (torch.float32, torch.float32, torch.int16, torch.float16),
+                f"flow f32_narrow: store dtypes {dtypes_seen}",
+            )
+            require(
+                moved["section"] > 0 and moved["bucket_max_v2"] > 0 and moved["rescore"] > 0,
+                f"flow f32_narrow: launches {moved}",
+            )
         for name in names:
             require(getattr(store, name).is_cuda, f"flow {tier}: store.{name} not on cuda")
         result[tier] = dict(
-            ingest_s=ingest_s, query_s=times, highlights=n_highlights,
-            answer_head=response.answer[:120],
+            ingest_s=ingest_s, impls=list(impls), query_s=times, highlights=n_highlights,
+            launches=moved, answer_head=response.answer[:120],
         )
     counts = read_counts()
     require(
@@ -838,6 +1078,71 @@ def run_flow(seed: int, card: str):
     result["launches"] = counts
     log("flow", json.dumps(result))
     return extractor, result
+
+
+def median_ms(fn, reps: int = 10) -> float:
+    """Median device time of ``fn()`` in ms over ``reps`` calls, each between
+    its own CUDA events, after one warm-up call."""
+    import numpy as np
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def run_bucket_ab(gen, card: str) -> dict:
+    """The port's counterpart of `benchmarks/bench_fused_bucket.py`: candidate
+    top-k (k=256) of 512 unit queries over 999,424 normal bf16 rows, all
+    live, at d = 384 and 768, by three arms: the score matrix and exact
+    top-k (`candidate_topk(impl="xla")`: the port has no approx_max_k), v1
+    (`fused_candidate_topk`) and v2 (`fused_candidate_topk_v2`, both variant
+    names, one kernel). Each arm's median ms and its candidate overlap with
+    the exact set; a bucket kernel below 0.95 fails."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.dense import candidate_topk
+    from verbatim_rag_tpu_torch.ops.fused_topk import fused_candidate_topk, fused_candidate_topk_v2
+
+    arms = {
+        "xla_exact_topk": lambda c, q, m: candidate_topk(c, q, AB_K, m, impl="xla"),
+        "v1": lambda c, q, m: fused_candidate_topk(c, q, AB_K, m),
+        "v2_onedot": lambda c, q, m: fused_candidate_topk_v2(c, q, AB_K, m, variant="onedot"),
+        "v2_chunked": lambda c, q, m: fused_candidate_topk_v2(c, q, AB_K, m, variant="chunked"),
+    }
+    reset_counts()
+    result = dict(card=card, n=AB_ROWS, batch=AB_BATCH, k=AB_K)
+    for d in (384, 768):
+        corpus = torch.randn(AB_ROWS, d, generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn(AB_BATCH, d, generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        mask = torch.ones(AB_ROWS, dtype=torch.bool, device="cuda")
+        _, exact = arms["xla_exact_topk"](corpus, q, mask)
+        exact_sets = [set(r) for r in exact.tolist()]
+        cell = {}
+        for name, fn in arms.items():
+            _, rows = fn(corpus, q, mask)
+            require(tuple(rows.shape) == (AB_BATCH, AB_K) and bool((rows >= 0).all()), f"bucket_ab {name}: rows")
+            overlap = sum(len(e & set(r)) for e, r in zip(exact_sets, rows.tolist())) / (AB_BATCH * AB_K)
+            cell[name] = dict(ms=median_ms(lambda: fn(corpus, q, mask)), overlap=overlap)
+        for name in ("v1", "v2_onedot", "v2_chunked"):
+            require(cell[name]["overlap"] >= 0.95, f"bucket_ab d={d}: {name} overlap {cell[name]['overlap']}")
+        result[f"d{d}"] = cell
+        log("bucket_ab", json.dumps({"d": d, **cell}))
+        del corpus, q, mask, exact
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    require(counts["bucket_max_v1"] > 0 and counts["bucket_max_v2"] > 0, f"bucket_ab: launches {counts}")
+    result["launches"] = counts
+    log("bucket_ab", json.dumps(result))
+    return result
 
 
 def bench_data(seed: int) -> dict:
@@ -1355,9 +1660,11 @@ def main() -> None:
     partial = check_flash_partial(gen)
     rescore = check_rescore(gen)
     section, bucket = check_tables(gen)
+    bucket_v1 = check_bucket_v1(gen)
     torch.cuda.empty_cache()
 
     extractor, flow = run_flow(args.seed, card)
+    bucket_ab = run_bucket_ab(gen, card)
     data = bench_data(args.seed)
     store = run_store(data, card)
     store_int8 = run_store_int8(data, card)
@@ -1368,7 +1675,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
 
-    phases = (flow, store, store_int8, long_ctx, long_sp, train)
+    phases = (flow, bucket_ab, store, store_int8, long_ctx, long_sp, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
@@ -1421,6 +1728,18 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/fused_topk.py:255",
             launches=launches["bucket_max_v2"],
             **bucket,
+        ),
+        dict(
+            name="bucket_max_v1",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/section.cu",
+            replaces="verbatim_rag_tpu/ops/fused_topk.py:42",
+            launches=launches["bucket_max_v1"],
+            ab_overlap_k256={
+                f"d{d}": {arm: bucket_ab[f"d{d}"][arm]["overlap"] for arm in ("v1", "v2_onedot")}
+                for d in (384, 768)
+            },
+            **bucket_v1,
         ),
     ]
     for k in kernels:

@@ -211,6 +211,13 @@ def test_bucket_geometry_equal(n):
     assert (section.LANE, section.BLOCK_COLS) == (jax_section.LANE, jax_section.BLOCK_COLS)
 
 
+def test_bucket_v1_constants_equal():
+    """v1's bucket width, largest block and masked score are the JAX module's."""
+    assert (ft.BUCKET, ft.BLOCK_ROWS, ft.NEG_INF) == (
+        jax_ft.BUCKET, jax_ft.BLOCK_ROWS, jax_ft.NEG_INF
+    )
+
+
 def test_pack_and_unpack_bit_equal():
     import jax.numpy as jnp
     import torch

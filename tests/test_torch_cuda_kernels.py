@@ -7,15 +7,19 @@ runs:
     python3 -m pytest tests/test_torch_cuda_kernels.py -q
 
 Tolerances: section tables and bucket-max v2 on int8 rows bit-equal to their
-plain versions (exact int32 sums, the same float operations); on bf16 rows
-values within 2⁻¹⁵ of the dot's scale |q|·|c| (float32 sums in another
-order) and rows equal except in buckets whose two best scores lie within
-that. Flash attention float32 1e-5. bf16 holds each live attention
+plain versions (exact int32 sums, the same float operations); on bf16 and
+float32 rows values within 2⁻¹⁵ of the dot's scale |q|·|c| (float32 sums in
+another order, and the pack's 128-ulp step is 2⁻¹⁶ of a value) and rows equal
+except in buckets whose two best scores lie within that. Bucket-max v1 (no
+pack): bf16 within 2⁻¹⁵·|q|, float32 within 2⁻¹⁸·|q|, rows equal except in
+buckets whose two best plain scores lie within that; on small-integer rows
+(every dot exact) values and rows bit-equal, ties to the highest lane. Flash attention float32 1e-5. bf16 holds each live attention
 row (b, q, h) to its own scale: max|out − plain| over D within 2e-2 of
 max|plain| plus half a bf16 ulp of that max (the plain version rounds the
 probabilities to bf16 before P·V, the kernel rounds the unnormalised ones,
 and the output is bf16). Rescore rtol 1e-5 (float32 sums over the m slots
-in another order), missing candidates exactly −1e30. The flash backward and
+in another order; int16 ids and float16 weights widened alike), missing
+candidates exactly −1e30. The flash backward and
 the train step: see their tests' docstrings. The flash partial (one ring
 step): m within 1e-5·|m| + 1e-6, l rtol 1e-4 (both sum the unrounded P),
 the numerator float32 rtol/atol 1e-5 and bf16 per live row as the forward
@@ -283,11 +287,30 @@ def test_rescore_kernel_matches_plain(cuda, b, c, n, m, qm):
     torch.testing.assert_close(got[~miss], expected[~miss], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.float16])
+def test_rescore_kernel_narrow_forward_index(cuda, ids_dtype, w_dtype):
+    cand, sp_ids, sp_w, q_ids, q_w = (
+        torch.from_numpy(a).to(cuda) for a in _rescore_inputs(64, 256, 5000, 128, 32, seed=9)
+    )
+    sp_ids, sp_w = sp_ids.to(ids_dtype), sp_w.to(w_dtype)
+    before = rs.launches
+    got = rs.exact_rescore_dispatch(cand, sp_ids, sp_w, q_ids, q_w)
+    torch.cuda.synchronize()
+    assert rs.launches == before + 1
+    expected = rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w)
+    miss = cand < 0
+    assert (got[miss] == -1e30).all()
+    torch.testing.assert_close(got[~miss], expected[~miss], rtol=1e-5, atol=1e-6)
+
+
 def test_rescore_kernel_refuses_narrow_index_dtypes(cuda):
     arrays = [torch.from_numpy(a).to(cuda) for a in _rescore_inputs(2, 4, 10, 4, 2, seed=0)]
-    arrays[1] = arrays[1].to(torch.int16)
-    with pytest.raises(TypeError, match="int16"):
-        rs.exact_rescore_dispatch(*arrays)
+    for ids_dtype, w_dtype in ((torch.int8, torch.float32), (torch.int32, torch.bfloat16)):
+        narrow = list(arrays)
+        narrow[1], narrow[2] = arrays[1].to(ids_dtype), arrays[2].to(w_dtype)
+        with pytest.raises(TypeError, match="int32 or int16"):
+            rs.exact_rescore_dispatch(*narrow)
 
 
 def test_store_on_cuda_matches_cpu(cuda):
@@ -347,8 +370,8 @@ def test_topk_tie_order_on_cuda(cuda, k):
 
 
 def _rows_and_queries(n, dims, b, seed, dtype, device):
-    """Per arm: unit-norm rows ([N, d] int8 codes + scales, or bf16) and
-    float32 queries, made with numpy."""
+    """Per arm: unit-norm rows ([N, d] int8 codes + scales, bf16 or float32)
+    and float32 queries, made with numpy."""
     from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
 
     rng = np.random.default_rng(seed)
@@ -362,7 +385,7 @@ def _rows_and_queries(n, dims, b, seed, dtype, device):
             codes, scale = quantize_rows_int8(c)
             arms.append((codes, q, scale))
         else:
-            arms.append((c.to(torch.bfloat16), q, None))
+            arms.append((c.to(getattr(torch, dtype)), q, None))
     return arms
 
 
@@ -399,7 +422,7 @@ def _decode(table, block):
     return vals, (cols // 128) * block + pos * 128 + cols % 128
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("masked", [True, False])
 @pytest.mark.parametrize(
     "n,block,b,dims",
@@ -422,7 +445,7 @@ def test_section_kernel_matches_plain(cuda, n, block, b, dims, masked, dtype):
         c, q = corpora[a], queries[a]
 
         def scores(c=c, q=q):
-            s = q.to(torch.bfloat16).float() @ c.float().T
+            s = q.to(c.dtype).float() @ c.float().T
             return s if mask is None else torch.where(mask, s, -1e30)
 
         _assert_tables_match(
@@ -430,7 +453,7 @@ def test_section_kernel_matches_plain(cuda, n, block, b, dims, masked, dtype):
         )
 
 
-@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
 @pytest.mark.parametrize("n,b,d", [(2048, 5, 64), (123 * 8192, 40, 384), (6 * 16384, 130, 768)])
 def test_bucket_kernel_matches_plain(cuda, n, b, d, dtype):
     ((corpus, q, scale),) = _rows_and_queries(n, (d,), b, seed=d, dtype=dtype, device=cuda)
@@ -443,18 +466,119 @@ def test_bucket_kernel_matches_plain(cuda, n, b, d, dtype):
     block = ft.choose_block_rows(n)
 
     def scores():
-        return torch.where(mask, q.to(torch.bfloat16).float() @ corpus.float().T, -1e30)
+        return torch.where(mask, q.to(corpus.dtype).float() @ corpus.float().T, -1e30)
 
     _assert_tables_match(got, expected, q, scores, block, exact=dtype == "int8")
     assert (got[0][:, 5] <= -1e29).all()
 
 
-def test_table_kernels_refuse_float32_rows(cuda):
-    rows, q = torch.zeros(256, 32, device=cuda), torch.zeros(2, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="float32"):
-        sec.section_bucket_tables((rows,), (q,), None, block_cols=256)
-    with pytest.raises(NotImplementedError, match="float32"):
-        ft.matmul_bucket_max_v2(rows, q, torch.ones(256, dtype=torch.bool, device=cuda))
+def test_section_kernel_mixed_arm_kinds(cuda):
+    """A float32 dense arm (32-query tiles) beside an int8 sketch arm
+    (64-query tiles) in one launch."""
+    (dense,) = _rows_and_queries(8192, (384,), 100, seed=1, dtype="float32", device=cuda)
+    (sketch,) = _rows_and_queries(8192, (768,), 100, seed=2, dtype="int8", device=cuda)
+    corpora, queries, scales = zip(dense, sketch)
+    mask = _test_mask(8192, cuda)
+    got = sec.section_bucket_tables(corpora, queries, mask, scales=scales, block_cols=8192)
+    expected = sec.section_tables_reference(corpora, queries, mask, scales, 8192)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1].view(torch.int32), expected[1].view(torch.int32))
+    _assert_tables_match(
+        _decode(got[0], 8192), _decode(expected[0], 8192), queries[0],
+        lambda: torch.where(mask, queries[0] @ corpora[0].T, -1e30), 8192, exact=False,
+    )
+
+
+def test_table_kernels_refuse_other_row_types(cuda):
+    q, mask = torch.zeros(2, 32, device=cuda), torch.ones(256, dtype=torch.bool, device=cuda)
+    half = torch.zeros(256, 32, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 rows"):
+        sec.section_bucket_tables((half,), (q,), None, block_cols=256)
+    with pytest.raises(TypeError, match="float32 rows"):
+        ft.matmul_bucket_max_v2(half, q, mask)
+    wide = torch.zeros(256, 1380, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ft.matmul_bucket_max_v2(wide, torch.zeros(2, 1380, device=cuda), mask)
+    with pytest.raises(ValueError, match="no\\s+scale in v1"):
+        ft.matmul_bucket_max(torch.zeros(256, 32, dtype=torch.int8, device=cuda), q, mask)
+
+
+V1_LIMITS = {"bfloat16": 2.0**-15, "float32": 2.0**-18}
+
+
+def _v1_check(got, expected, q, corpus, mask, limit) -> bool:
+    """Whether a v1 table (values, rows) holds to the plain version's: the
+    same live entries, -1e30 and the same rows on dead buckets, values within
+    limit·|q|, rows equal except in buckets whose two best plain scores lie
+    within that."""
+    (g_vals, g_rows), (e_vals, e_rows) = got, expected
+    live = e_vals > -1e29
+    if not torch.equal(live, g_vals > -1e29) or not torch.equal(g_rows[~live], e_rows[~live]):
+        return False
+    if not bool((g_vals[~live] == -1e30).all()):
+        return False
+    tol = limit * q.to(corpus.dtype).float().norm(dim=1, keepdim=True).expand_as(g_vals)
+    if not bool(((g_vals - e_vals).abs() <= tol)[live].all()):
+        return False
+    scores = torch.where(mask, q.to(corpus.dtype).float() @ corpus.float().T, -1e30)
+    top2 = scores.reshape(q.shape[0], -1, 128).topk(2, dim=2).values
+    near = (top2[..., 0] - top2[..., 1]).abs() <= tol
+    return bool(((g_rows == e_rows) | near).all())
+
+
+def _v1_mask(n, device):
+    mask = torch.ones(n, dtype=torch.bool)
+    mask[::7] = False
+    mask[5 * 128 : 6 * 128] = False  # a fully dead bucket
+    return mask.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize(
+    "n,b,d", [(2048, 5, 64), (16384, 70, 384), (4 * 16384, 130, 768), (3 * 16384, 512, 384)]
+)
+def test_bucket_v1_kernel_matches_plain(cuda, n, b, d, dtype):
+    ((corpus, q, _),) = _rows_and_queries(n, (d,), b, seed=d + b, dtype=dtype, device=cuda)
+    mask = _v1_mask(n, cuda)
+    before = ft.launches_v1
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches_v1 == before + 1
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    assert got[0].shape == got[1].shape == (b, n // 128)
+    assert _v1_check(got, expected, q, corpus, mask, V1_LIMITS[dtype])
+    assert (got[0][:, 5] == -1e30).all() and (got[1][:, 5] == 5 * 128 + 127).all()
+    # Planted fault: the kernel run without the mask must fail the check.
+    assert not _v1_check(
+        ft.matmul_bucket_max(corpus, q, torch.ones_like(mask)), expected, q, corpus, mask,
+        V1_LIMITS[dtype],
+    )
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bucket_v1_kernel_exact_ties(cuda, dtype):
+    """Small-integer rows with duplicates inside buckets: bit-equal, highest
+    lane; the kernel run on each bucket's lanes reversed (ties to the lowest
+    lane, mapped back) must differ."""
+    n, b, d = 4 * 16384, 77, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    corpus = torch.randint(-2, 3, (n, d), generator=gen, device=cuda).float()
+    q = torch.randint(-2, 3, (b, d), generator=gen, device=cuda).float()
+    copies = torch.randint(0, 128, (n // 128, 6), generator=gen, device=cuda)
+    rows = copies + torch.arange(0, n, 128, device=cuda)[:, None]
+    corpus[rows] = corpus[rows[:, :1]]
+    corpus = corpus.to(getattr(torch, dtype))
+    mask = _v1_mask(n, cuda)
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), expected[0].view(torch.int32))
+    assert torch.equal(got[1], expected[1])
+    flip = lambda x: x.reshape(-1, 128, *x.shape[1:]).flip(1).reshape(x.shape)  # noqa: E731
+    vals, rrows = ft.matmul_bucket_max(flip(corpus), q, flip(mask))
+    lowest = (rrows // 128) * 128 + 127 - rrows % 128
+    live = got[0] > -1e29
+    assert torch.equal(vals, got[0]) and not torch.equal(lowest[live], got[1][live])
 
 
 @pytest.mark.parametrize("impl", ["auto", "bucket"])
@@ -483,6 +607,42 @@ def test_int8_store_on_cuda_matches_cpu(cuda, impl):
             top_k=5, search_params={"rescore_depth": 64},
         )
         assert (counter.launches > before) == (device == "cuda")
+        results.append([[h.id for h in row] for row in out])
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("impl", ["section", "bucket"])
+def test_float32_narrow_index_store_on_cuda_matches_cpu(cuda, impl):
+    """dense float32, int16 ids, float16 weights: the float32 table arms and
+    the narrow rescore on the card give the CPU store's rows."""
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    rng = np.random.default_rng(4)
+    n, d, m, vocab = 600, 64, 16, 4096
+    dense = rng.normal(size=(n, d)).astype(np.float32)
+    ids = rng.integers(1, vocab, size=(n, m)).astype(np.int32)
+    weights = rng.random((n, m), dtype=np.float32)
+    records = [
+        {"id": str(i), "text": str(i), "dense": dense[i], "sparse_arrays": (ids[i], weights[i])}
+        for i in range(n)
+    ]
+    q_dense = dense[:5] + 0.3 * rng.normal(size=(5, d)).astype(np.float32)
+    q_ids, q_w = ids[:5, :8].copy(), rng.random((5, 8), dtype=np.float32)
+    results = []
+    for device in ("cpu", "cuda"):
+        store = DeviceVectorStore(
+            dense_dim=d, sparse_vocab=vocab, sparse_max_nnz=m, device=device,
+            dense_dtype="float32", sparse_ids_dtype="int16", sparse_weight_dtype="float16",
+        )
+        store.candidate_impl = impl
+        store.add_vectors(records)
+        counter = ft if impl == "bucket" else sec
+        before, rs_before = counter.launches, rs.launches
+        out = store.query_batch(
+            dense_queries=q_dense, sparse_queries=(q_ids, q_w), top_k=5,
+            search_params={"rescore_depth": 64},
+        )
+        assert (counter.launches > before) == (rs.launches > rs_before) == (device == "cuda")
         results.append([[h.id for h in row] for row in out])
     assert results[0] == results[1]
 

@@ -158,6 +158,38 @@ def test_bucket_support_and_validation():
         fused_topk.matmul_bucket_max_v2(torch.zeros(960, 16), q, torch.ones(960, dtype=torch.bool))
 
 
+@pytest.mark.parametrize(
+    "dtype,d,v1,row_bytes",
+    [
+        (torch.float32, 384, False, 1536),  # the dense arm
+        (torch.float32, 768, False, 3072),  # the sketch arm
+        (torch.float32, 768, True, 3072),
+        (torch.float32, 1376, False, 5504),  # the widest float32 row
+        (torch.bfloat16, 1344, True, 2688),  # the widest bf16 / int8 row
+        (torch.int8, 2688, False, 2688),
+    ],
+)
+def test_kernel_rows_accepted(dtype, d, v1, row_bytes):
+    """The shape and shared-memory rule of `csrc/section.cu`: float32 rows
+    take the 32-query FMA tile, so 768 float32 columns fit beside the three
+    stages (32 · 3,088 + 55,296 = 154,112 bytes of the 232,448)."""
+    corpus = torch.zeros(4, d, dtype=dtype)
+    assert fused_topk.check_kernel_rows(corpus, "bucket", v1=v1) == row_bytes
+    assert fused_topk.kernel_smem_bytes(dtype, row_bytes, v1) <= 232448
+    assert fused_topk.tile_queries(dtype) == (32 if dtype == torch.float32 else 64)
+
+
+def test_kernel_rows_refused():
+    assert fused_topk.kernel_smem_bytes(torch.float32, 3072) == 32 * 3088 + 3 * 128 * 144
+    assert fused_topk.kernel_smem_bytes(torch.bfloat16, 1536, v1=True) == 64 * 1552 + 3 * 128 * 144 + 1024
+    for dtype, d in ((torch.float32, 1380), (torch.float32, 6), (torch.bfloat16, 1352), (torch.int8, 2696)):
+        with pytest.raises(ValueError, match="16-byte multiple"):
+            fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket")
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="float32 rows"):
+            fused_topk.check_kernel_rows(torch.zeros(4, 64, dtype=dtype), "bucket")
+
+
 @pytest.mark.parametrize("x", ["rows", "queries"])
 def test_quantize_int8_bit_equal(x):
     """Stored rows are quantized as the JAX store does (numpy, a true

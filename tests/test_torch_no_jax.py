@@ -2,7 +2,8 @@
 
 A fresh interpreter ingests the example documents, answers a question with
 the default extractor on the CPU, runs a hybrid query over an int8 index
-(the section path), takes one training step of the token highlighter and
+(the section path) and over a float32 index with an int16 / float16 forward
+index (the section path), calls the bucket-max v1 entry points, takes one training step of the token highlighter and
 saves and loads its checkpoint, scores a document in one sequence-parallel
 pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
 module and no ``verbatim_rag_tpu`` module. The same holds for every module of the
@@ -38,6 +39,18 @@ int8 = VerbatimIndex(
 )
 int8.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
 int8_hits = int8.query("How efficient are solar panels?", k=3)
+narrow = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu",
+    dense_dtype="float32", sparse_ids_dtype="int16", sparse_weight_dtype="float16",
+)
+narrow.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+narrow.store.candidate_impl = "section"
+narrow_hits = narrow.query("How efficient are solar panels?", k=3)
+
+import torch
+from verbatim_rag_tpu_torch.ops.fused_topk import fused_candidate_topk, matmul_bucket_max
+v1_vals, v1_rows = matmul_bucket_max(torch.randn(2048, 16), torch.randn(3, 16), torch.ones(2048, dtype=torch.bool))
+_, v1_top = fused_candidate_topk(torch.randn(2048, 16), torch.randn(3, 16), 5, torch.ones(2048, dtype=torch.bool))
 
 import tempfile
 from verbatim_rag_tpu_torch.models import HashTokenizer, ModelSpanExtractor, init_highlighter_params
@@ -69,6 +82,9 @@ print(json.dumps({
     "checkpoint_reloaded": reloaded,
     "int8_impl": int8.store.candidate_impl,
     "int8_hits": len(int8_hits),
+    "narrow_hits": len(narrow_hits),
+    "narrow_dtypes": [str(narrow.store._sp_ids.dtype), str(narrow.store._sp_w.dtype), str(narrow.store._dense.dtype)],
+    "v1_shapes": [list(v1_vals.shape), list(v1_rows.shape), list(v1_top.shape)],
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
     "docs": len(response.documents),
@@ -105,6 +121,9 @@ def test_main_path_loads_no_jax():
     assert result["jax"] == [] and result["reference"] == []
     assert result["docs"] > 0 and result["verbatim"]
     assert result["int8_impl"] == "section" and result["int8_hits"] > 0
+    assert result["narrow_hits"] > 0
+    assert result["narrow_dtypes"] == ["torch.int16", "torch.float16", "torch.float32"]
+    assert result["v1_shapes"] == [[3, 16], [3, 16], [3, 5]]
     assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
     assert result["sp_rows"] == 1 and result["sp_whole"]
 

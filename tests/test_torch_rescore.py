@@ -100,6 +100,25 @@ def test_rescore_impls_agree_on_cpu(impl):
     _check(got, expected, arrays[0])
 
 
+NARROW = {"int16": (np.int16, np.float32), "float16": (np.int32, np.float16),
+          "int16_float16": (np.int16, np.float16)}
+
+
+@pytest.mark.parametrize("jax_impl", sorted(JAX_IMPLS))
+@pytest.mark.parametrize("narrow", sorted(NARROW))
+def test_narrow_forward_index_matches_jax(narrow, jax_impl):
+    """int16 ids and float16 weights, as the store keeps them with
+    ``sparse_ids_dtype="int16"`` / ``sparse_weight_dtype="float16"``: both
+    sides widen the gathered slots, so the tolerance is the same."""
+    id_type, w_type = NARROW[narrow]
+    cand, sp_ids, sp_w, q_ids, q_w = _setup(**SHAPES[3])
+    arrays = (cand, sp_ids.astype(id_type), sp_w.astype(w_type), q_ids, q_w)
+    expected = np.asarray(JAX_IMPLS[jax_impl](*map(jnp.asarray, arrays)))
+    for fn in (rs.exact_rescore_oneshot, exact_rescore_device):
+        got = fn(*map(torch.from_numpy, arrays)).numpy()
+        _check(got, expected, cand)
+
+
 def test_kernel_wrapper_checks_inputs():
     arrays = [torch.from_numpy(a) for a in _setup(**SHAPES[0])]
     with pytest.raises(ValueError, match="CUDA"):

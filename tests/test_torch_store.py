@@ -63,10 +63,10 @@ def _records(texts, start=0):
     ]
 
 
-def _stores(block=16, flushes=(5, 4, 3)):
+def _stores(block=16, flushes=(5, 4, 3), **options):
     kwargs = dict(
         dense_dim=64, sparse_vocab=4096, sparse_max_nnz=8, projection_dim=32,
-        block=block, approx_topk=False,
+        block=block, approx_topk=False, **options,
     )
     jax_store, port_store = JaxStore(**kwargs), DeviceVectorStore(device="cpu", **kwargs)
     start = 0
@@ -162,14 +162,53 @@ def test_browsing_and_empty_store():
         dict(candidate_impl="section", enable_full_text=True),  # the 3-way section
         dict(enable_full_text=True),
         dict(sparse_mode="exact"),
-        dict(sparse_ids_dtype="int16"),
-        dict(sparse_weight_dtype="float16"),
+        dict(sparse_ids_dtype="int16", enable_full_text=True),  # BM25 with the narrow index
+        dict(sparse_weight_dtype="float16", mesh=object()),
         dict(mesh=object()),
     ],
 )
 def test_options_of_later_slices_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         DeviceVectorStore(device="cpu", **kwargs)
+
+
+NARROW_INDEX = [
+    dict(sparse_ids_dtype="int16"),
+    dict(sparse_weight_dtype="float16"),
+    dict(sparse_ids_dtype="int16", sparse_weight_dtype="float16"),
+]
+
+
+@pytest.mark.parametrize("options", NARROW_INDEX, ids=["int16", "float16", "int16_float16"])
+@pytest.mark.parametrize("search_type", ["hybrid", "sparse"])
+def test_narrow_forward_index_matches_jax(search_type, options):
+    """int16 ids and float16 weights: the same rows, and scores at the
+    tolerances above (the rescore widens the float16 weights on both sides,
+    after rounding them to nearest even in the same way)."""
+    jax_store, port_store = _stores(**options)
+    assert port_store._sp_ids.dtype == (
+        torch.int16 if "sparse_ids_dtype" in options else torch.int32
+    )
+    assert port_store._sp_w.dtype == (
+        torch.float16 if "sparse_weight_dtype" in options else torch.float32
+    )
+    np.testing.assert_array_equal(port_store._sp_ids.numpy(), np.asarray(jax_store._sp_ids))
+    np.testing.assert_array_equal(
+        port_store._sp_w.numpy().view(np.uint8), np.asarray(jax_store._sp_w).view(np.uint8)
+    )
+    for top_k in (3, 20):
+        expected = _query(jax_store, search_type, top_k=top_k)
+        got = _query(port_store, search_type, top_k=top_k)
+        assert any(got)
+        _assert_same(got, expected, exact_scores=search_type == "hybrid")
+
+
+def test_narrow_ids_need_a_small_vocab():
+    for store_cls in (JaxStore, lambda **kw: DeviceVectorStore(device="cpu", **kw)):
+        with pytest.raises(ValueError, match="32768"):
+            store_cls(sparse_vocab=40000, sparse_ids_dtype="int16")
+    store = DeviceVectorStore(device="cpu", sparse_vocab=32768, sparse_ids_dtype="int16")
+    assert store.sparse_ids_dtype == "int16"
 
 
 def test_persistence_raises():

@@ -1,6 +1,6 @@
-// Packed strided bucket tables for the int8 tier, hand-written for Hopper (sm_90a).
+// Bucket tables for the candidate stage, hand-written for Hopper (sm_90a).
 //
-// Two entry points share one main loop:
+// Three entry points share one main loop:
 //
 //   section_tables — replaces the TPU kernel
 //     `verbatim_rag_tpu/ops/section.py::_make_section_kernel` (pallas_call in
@@ -9,41 +9,64 @@
 //   bucket_max_v2  — replaces `verbatim_rag_tpu/ops/fused_topk.py`
 //     `_bucket_max_v2_onedot_kernel` / `_bucket_max_v2_chunked_kernel`
 //     (pallas_call in `matmul_bucket_max_v2`): one corpus, the mask applied by
-//     select, the table written unpacked as (value, position).
+//     select, the table written unpacked as (value, position);
+//   bucket_max_v1  — replaces `verbatim_rag_tpu/ops/fused_topk.py`
+//     `_bucket_max_kernel` (pallas_call in `matmul_bucket_max`): buckets of
+//     128 CONSECUTIVE rows, exact maximum and highest-lane argmax.
 //
-// Both compute, for query b and table column c = block·128 + lane, the maximum
-// over positions p < block/128 of
+// section_tables and bucket_max_v2 compute, for query b and table column
+// c = block·128 + lane, the maximum over positions p < block/128 of
 //     pack(score(b, row), p)                  row = block·B + p·128 + lane,
 // where pack overwrites the score's low 7 mantissa bits with p (the bits are
 // cleared first), so one maximum carries value and position. The score is
-//     int8 rows:  (float(int32 dot of the codes) * q_scale[b]) * c_scale[row]
-//     bf16 rows:  the float32 dot (bf16 operands, f32 accumulate)
+//     int8 rows:    (float(int32 dot of the codes) * q_scale[b]) * c_scale[row]
+//     bf16 rows:    the float32 dot (bf16 operands, f32 accumulate)
+//     float32 rows: the float32 dot (FMA on the CUDA cores, never TF32)
 // section_tables then adds mask_add[row] (0 or -1e30; no mask: nothing added);
 // bucket_max_v2 replaces the packed value by -1e30 where mask[row] == 0. The
 // running maximum starts at -1e30. The int8 path is bit-equal to the plain
 // version: int32 sums are exact and each float operation is the same.
 //
+// bucket_max_v1 scores bf16 or float32 rows the same way (masked rows score
+// exactly -1e30, by a select) and writes, for bucket g = row / 128, the
+// maximum over the bucket's 128 lanes and the global row of the highest lane
+// that holds it. Stage p of column block `block` is exactly bucket
+// block·B/128 + p, so v1 is a third epilogue of the same walk: after each
+// position the tile is reduced across lanes instead of folded into a running
+// maximum per lane. The result does not depend on the block size.
+//
 // Layout: rows are row-major [N, d] (the TPU kernel wants transposed [d, N]
 // copies for its MXU; here the corpus rows are B operands as they lie), d·elt
-// a multiple of 16 bytes. One CTA of 8 warps owns a tile of 64 queries × 128
+// a multiple of 16 bytes. One CTA of 8 warps owns a tile of queries × 128
 // lanes of one column block and walks the block's positions:
 //   - the query tile stays in shared memory for the whole walk;
 //   - the corpus is streamed in stages of 128 rows × 128 bytes through a
 //     3-deep cp.async ring;
-//   - each warp computes 16 queries × 64 lanes with mma.sync (m16n8k32 s8·s8→s32
-//     for int8, m16n8k16 bf16→f32); in bytes both take the same fragments, so
-//     one shared-memory layout (rows padded by 16 bytes: conflict-free 32-bit
-//     fragment loads) serves both;
+//   - int8 and bf16 rows (MmaTile): 64 queries; each warp computes 16
+//     queries × 64 lanes with mma.sync (m16n8k32 s8·s8→s32 for int8, m16n8k16
+//     bf16→f32); in bytes both take the same fragments, so one shared-memory
+//     layout (rows padded by 16 bytes: conflict-free 32-bit fragment loads)
+//     serves both;
+//   - float32 rows (FmaTile): 32 queries, so that a 768-wide query tile
+//     (32 × 3,088 B) and the three stages fit the 227 KB a block may use;
+//     warp w computes queries 4w..4w+3 against all 128 lanes, each thread 4
+//     queries × lanes {l, l+32, l+64, l+96} with 16-byte shared loads
+//     (conflict-free with the 144-byte row stride; the query loads are warp
+//     broadcasts) and 64 FMAs per 8 loads;
 //   - after the last stage of a position the accumulators are scaled, packed,
-//     masked and folded into a running maximum held in registers.
+//     masked and folded into a running maximum held in registers (section,
+//     v2), or reduced across the 128 lanes and written out (v1).
 // Grid: x = query tiles (fastest, so the tiles of one column block run
 // together and share its rows in L2), y = column blocks, z = arms.
 //
-// Bound on an H100 SXM at the serving point (B=512, N=1,007,616, dense 384 +
-// sketch 768 int8): 1.19 T int8 operations (0.60 ms at 1,979 TOP/s) against
+// Bounds on an H100 SXM: at the serving point (B=512, N=1,007,616, dense 384
+// + sketch 768 int8) 1.19 T int8 operations (0.60 ms at 1,979 TOP/s) against
 // 1.17 GB of rows, scales and mask (0.35 ms at 3.35 TB/s), so operations bound
-// it. mma.sync, not wgmma, and an epilogue of ~10 instructions per score keep
-// it above that bound; a TMA/wgmma pipeline is later work.
+// it; the float32 arms at the same shape take 0.59 T multiply-adds, 17.8 ms
+// at the 67 TFLOP/s CUDA-core rate. v1 at B=512, N=999,424, bf16: 0.80 ms
+// (d=768) / 0.40 ms (d=384) of tensor-core operations against 1.54 / 0.77 GB.
+// mma.sync, not wgmma, and an epilogue of ~10 instructions per score keep
+// the tensor-core kinds above that bound; a TMA/wgmma pipeline is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,8 +76,7 @@
 namespace {
 
 constexpr int kLanes = 128;        // bucket width: table columns per block
-constexpr int kQueries = 64;       // queries per CTA
-constexpr int kWarps = 8;          // 4 (queries) × 2 (lanes)
+constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 128;        // bytes of a row per stage
 constexpr int kPad = 16;           // shared-memory row padding
@@ -63,23 +85,28 @@ constexpr int kStages = 3;
 constexpr int kStageBytes = kLanes * kStageStride;
 constexpr int kMaxArms = 3;
 constexpr int kPosMask = 0x7F;
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
+constexpr int kV1ReduceBytes = 2 * 64 * 8;  // v1, MmaTile: two lane-warps' (value, lane) a query
 constexpr float kNegInf = -1e30f;
 
+enum Kind : int { kBf16 = 0, kInt8 = 1, kF32 = 2 };
+enum Mode : int { kSection = 0, kBucketV2 = 1, kBucketV1 = 2 };
+
 struct Arm {
-  const uint8_t* q;       // [batch, d] int8 codes or bf16
+  const uint8_t* q;       // [batch, d] int8 codes, bf16 or float32
   const uint8_t* corpus;  // [n_rows, d]
   const float* qscale;    // [batch] (int8 arms)
   const float* cscale;    // [n_rows] (int8 arms)
-  float* out;             // [batch, n_blocks·128]
-  int* out_pos;           // bucket_max_v2: [batch, n_blocks·128]
+  float* out;             // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
+  int* out_pos;           // v2: position in the bucket; v1: global row (out's shape)
   int row_bytes;
-  int is_int8;
+  int kind;
 };
 
 struct Params {
   Arm arm[kMaxArms];
   const float* mask_add;   // section_tables: [n_rows] or null
-  const uint8_t* mask_sel; // bucket_max_v2: [n_rows] 0/1
+  const uint8_t* mask_sel; // bucket_max_v1 / v2: [n_rows] 0/1
   int batch;
   long long n_rows;
   int block;
@@ -119,26 +146,212 @@ __device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uin
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// One arm's tile: 64 queries × 128 lanes of column block `blk`.
-// kSelect: false = section_tables (additive mask, packed output),
-//          true  = bucket_max_v2 (select mask, value + position output).
-template <bool kInt8, bool kSelect>
-__device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int blk, int q0,
-                                         uint8_t* smem) {
-  using Acc = std::conditional_t<kInt8, int, float>;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int warp_q = (warp & 3) * 16;
-  const int warp_l = (warp >> 2) * 64;
+// v1's order on (value, lane): the larger value, then the higher lane.
+__device__ __forceinline__ void keep_best(float& v, int& l, float ov, int ol) {
+  if (ov > v || (ov == v && ol > l)) {
+    v = ov;
+    l = ol;
+  }
+}
 
+__device__ __forceinline__ float masked(const Params& prm, long long row, float v) {
+  return __ldg(prm.mask_sel + row) != 0 ? v : kNegInf;
+}
+
+__device__ __forceinline__ void write_v1(const Params& prm, const Arm& arm, int b,
+                                         long long bucket, float v, int lane) {
+  const long long idx = static_cast<long long>(b) * (prm.n_rows / kLanes) + bucket;
+  arm.out[idx] = v;
+  arm.out_pos[idx] = static_cast<int>(bucket * kLanes + lane);
+}
+
+// Tensor-core tile (int8 codes or bf16): 64 queries × 128 lanes, 8 warps as
+// 4 (queries) × 2 (lanes), each warp 16 queries × 64 lanes. A thread's output
+// (nt, i) is the m16n8 accumulator fragment's: query warp_q + g + 8·(i >> 1),
+// lane warp_l + nt·8 + t·2 + (i & 1).
+template <bool kInt8>
+struct MmaTile {
+  using Acc = std::conditional_t<kInt8, int, float>;
+  static constexpr int kQueries = 64;
+  static constexpr int kA = 8;
+  static constexpr int kB = 4;
+
+  Acc acc[kA][kB];
+  float best[kA][kB];
+  float qscale[2];
+  int g, t, warp_q, warp_l;
+
+  __device__ MmaTile(const Arm& arm, int q0, int batch) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    warp_q = (warp & 3) * 16;
+    warp_l = (warp >> 2) * 64;
+    for (int h = 0; h < 2; ++h) {
+      const int b = q0 + warp_q + g + 8 * h;
+      qscale[h] = kInt8 && b < batch ? arm.qscale[b] : 0.f;
+    }
+  }
+
+  __device__ int query(int a, int b) const { return warp_q + g + 8 * (b >> 1); }
+  __device__ int lane(int a, int b) const { return warp_l + a * 8 + t * 2 + (b & 1); }
+
+  __device__ float score(const Arm& arm, int a, int b, long long row) const {
+    if constexpr (kInt8) {
+      return __fmul_rn(__fmul_rn(__int2float_rn(acc[a][b]), qscale[b >> 1]),
+                       __ldg(arm.cscale + row));
+    } else {
+      return acc[a][b];
+    }
+  }
+
+  // Accumulate `bytes` of every row: the stage against the query tile's
+  // bytes [q_off, q_off + bytes). Bytes past a row are zero on both sides.
+  __device__ void mac(const uint8_t* q_s, int q_stride, const uint8_t* stage, int q_off,
+                      int bytes) {
+    const int k_steps = (bytes + 31) / 32;
+    for (int ks = 0; ks < k_steps; ++ks) {
+      const uint8_t* qa = q_s + (warp_q + g) * q_stride + q_off + ks * 32 + t * 4;
+      const uint32_t a0 = ld32(qa);
+      const uint32_t a1 = ld32(qa + 8 * q_stride);
+      const uint32_t a2 = ld32(qa + 16);
+      const uint32_t a3 = ld32(qa + 8 * q_stride + 16);
+#pragma unroll
+      for (int nt = 0; nt < kA; ++nt) {
+        const uint8_t* cb = stage + (warp_l + nt * 8 + g) * kStageStride + ks * 32 + t * 4;
+        mma(acc[nt], a0, a1, a2, a3, ld32(cb), ld32(cb + 16));
+      }
+    }
+  }
+
+  // v1: reduce the 64 queries × 128 lanes of bucket `bucket` (rows
+  // row0 .. row0 + 127) across lanes: within the thread, over the four
+  // threads of a fragment row group, then across the two lane-warps through
+  // shared memory.
+  __device__ void reduce_v1(const Params& prm, const Arm& arm, long long row0, long long bucket,
+                            int q0, uint8_t* red) {
+    float* red_v = reinterpret_cast<float*>(red);
+    int* red_l = reinterpret_cast<int*>(red + 2 * kQueries * 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float bv = -__int_as_float(0x7f800000);
+      int bl = -1;
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int l = lane(a, 2 * h + e);
+          keep_best(bv, bl, masked(prm, row0 + l, score(arm, a, 2 * h + e, row0 + l)), l);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
+        keep_best(bv, bl, ov, ol);
+      }
+      if (t == 0) {
+        const int slot = (warp_l / 64) * kQueries + warp_q + g + 8 * h;
+        red_v[slot] = bv;
+        red_l[slot] = bl;
+      }
+    }
+    __syncthreads();
+    const int r = threadIdx.x;
+    if (r < kQueries && q0 + r < prm.batch) {
+      float bv = red_v[r];
+      int bl = red_l[r];
+      keep_best(bv, bl, red_v[kQueries + r], red_l[kQueries + r]);
+      write_v1(prm, arm, q0 + r, bucket, bv, bl);
+    }
+  }
+};
+
+// CUDA-core tile (float32 rows): 32 queries × 128 lanes. Warp w owns queries
+// 4w..4w+3 against all 128 lanes; thread l of the warp owns output (a, b) =
+// query 4w + a, lane l + 32·b.
+struct FmaTile {
+  static constexpr int kQueries = 32;
+  static constexpr int kA = 4;
+  static constexpr int kB = 4;
+
+  float acc[kA][kB];
+  float best[kA][kB];
+  int qg, lg;
+
+  __device__ FmaTile(const Arm&, int, int) {
+    qg = threadIdx.x / 32;
+    lg = threadIdx.x & 31;
+  }
+
+  __device__ int query(int a, int b) const { return qg * kA + a; }
+  __device__ int lane(int a, int b) const { return lg + 32 * b; }
+  __device__ float score(const Arm&, int a, int b, long long) const { return acc[a][b]; }
+
+  __device__ void mac(const uint8_t* q_s, int q_stride, const uint8_t* stage, int q_off,
+                      int bytes) {
+    for (int k = 0; k < bytes; k += 16) {
+      float4 qv[kA], cv[kB];
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+        qv[a] = *reinterpret_cast<const float4*>(q_s + (qg * kA + a) * q_stride + q_off + k);
+      }
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        cv[b] = *reinterpret_cast<const float4*>(stage + (lg + 32 * b) * kStageStride + k);
+      }
+#pragma unroll
+      for (int a = 0; a < kA; ++a) {
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          float s = acc[a][b];
+          s = fmaf(qv[a].x, cv[b].x, s);
+          s = fmaf(qv[a].y, cv[b].y, s);
+          s = fmaf(qv[a].z, cv[b].z, s);
+          acc[a][b] = fmaf(qv[a].w, cv[b].w, s);
+        }
+      }
+    }
+  }
+
+  // v1: every lane of a query lives in one warp: reduce within the thread,
+  // then over the warp with shuffles.
+  __device__ void reduce_v1(const Params& prm, const Arm& arm, long long row0, long long bucket,
+                            int q0, uint8_t*) {
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      float bv = -__int_as_float(0x7f800000);
+      int bl = -1;
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        keep_best(bv, bl, masked(prm, row0 + lane(a, b), acc[a][b]), lane(a, b));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+        const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
+        keep_best(bv, bl, ov, ol);
+      }
+      const int b = q0 + query(a, 0);
+      if (lg == 0 && b < prm.batch) write_v1(prm, arm, b, bucket, bv, bl);
+    }
+  }
+};
+
+// One arm's tile: Tile::kQueries queries × 128 lanes of column block `blk`.
+template <class Tile, int kMode>
+__device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int blk,
+                                         uint8_t* smem) {
+  const int q0 = blockIdx.x * Tile::kQueries;
+  if (q0 >= prm.batch) return;  // a narrower tile of another arm sized the grid
+  const int tid = threadIdx.x;
   const int row_bytes = arm.row_bytes;
   const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
   const int q_stride = padded + kPad;
   uint8_t* q_s = smem;
-  uint8_t* stages = smem + kQueries * q_stride;
+  uint8_t* stages = smem + Tile::kQueries * q_stride;
+  uint8_t* red = stages + kStages * kStageBytes;
 
   const int n_chunks = padded / kChunk;
   const int n_pos = prm.block / kLanes;
@@ -147,7 +360,7 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
 
   // Query tile: rows past the batch and bytes past the row are zero.
   const int q_pieces = padded / 16;
-  for (int i = tid; i < kQueries * q_pieces; i += kThreads) {
+  for (int i = tid; i < Tile::kQueries * q_pieces; i += kThreads) {
     const int r = i / q_pieces;
     const int c = (i - r * q_pieces) * 16;
     uint8_t* dst = q_s + r * q_stride + c;
@@ -175,22 +388,13 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
     }
   };
 
-  float qscale[2] = {0.f, 0.f};
-  if constexpr (kInt8) {
-    for (int h = 0; h < 2; ++h) {
-      const int b = q0 + warp_q + g + 8 * h;
-      qscale[h] = b < prm.batch ? arm.qscale[b] : 0.f;
-    }
-  }
-
-  Acc acc[8][4];
-  float best[8][4];
+  Tile tile(arm, q0, prm.batch);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int a = 0; a < Tile::kA; ++a) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[nt][i] = 0;
-      best[nt][i] = kNegInf;
+    for (int b = 0; b < Tile::kB; ++b) {
+      tile.acc[a][b] = 0;
+      tile.best[a][b] = kNegInf;
     }
   }
 
@@ -207,111 +411,114 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
     if (it + kStages - 1 < total) load_stage(it + kStages - 1);
     cp_async_commit();
 
-    const uint8_t* stage = stages + (it % kStages) * kStageBytes;
     const int left = row_bytes - chunk * kChunk;
-    const int k_steps = left >= kChunk ? kChunk / 32 : (left + 31) / 32;
-    for (int ks = 0; ks < k_steps; ++ks) {
-      const uint8_t* qa = q_s + (warp_q + g) * q_stride + chunk * kChunk + ks * 32 + t * 4;
-      const uint32_t a0 = ld32(qa);
-      const uint32_t a1 = ld32(qa + 8 * q_stride);
-      const uint32_t a2 = ld32(qa + 16);
-      const uint32_t a3 = ld32(qa + 8 * q_stride + 16);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint8_t* cb = stage + (warp_l + nt * 8 + g) * kStageStride + ks * 32 + t * 4;
-        mma(acc[nt], a0, a1, a2, a3, ld32(cb), ld32(cb + 16));
-      }
-    }
+    tile.mac(q_s, q_stride, stages + (it % kStages) * kStageBytes, chunk * kChunk,
+             left < kChunk ? left : kChunk);
 
     if (++chunk == n_chunks) {
-      // Epilogue of position p: scale, pack, mask, running maximum.
-      const long long row_base = block_row0 + p * kLanes + warp_l + t * 2;
+      const long long row0 = block_row0 + p * kLanes;
+      if constexpr (kMode == kBucketV1) {
+        tile.reduce_v1(prm, arm, row0, block_row0 / kLanes + p, q0, red);
+      } else {
+        // Position p: scale, pack, mask, running maximum.
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+        for (int a = 0; a < Tile::kA; ++a) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long long row = row_base + nt * 8 + (i & 1);
-          float v;
-          if constexpr (kInt8) {
-            v = __fmul_rn(__fmul_rn(__int2float_rn(static_cast<int>(acc[nt][i])), qscale[i >> 1]),
-                          __ldg(arm.cscale + row));
-          } else {
-            v = acc[nt][i];
+          for (int b = 0; b < Tile::kB; ++b) {
+            const long long row = row0 + tile.lane(a, b);
+            float v = tile.score(arm, a, b, row);
+            v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
+            if constexpr (kMode == kBucketV2) {
+              if (__ldg(prm.mask_sel + row) == 0) v = kNegInf;
+            } else if (prm.mask_add != nullptr) {
+              v = __fadd_rn(v, __ldg(prm.mask_add + row));
+            }
+            tile.best[a][b] = fmaxf(tile.best[a][b], v);
           }
-          v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
-          if constexpr (kSelect) {
-            if (__ldg(prm.mask_sel + row) == 0) v = kNegInf;
-          } else if (prm.mask_add != nullptr) {
-            v = __fadd_rn(v, __ldg(prm.mask_add + row));
-          }
-          best[nt][i] = fmaxf(best[nt][i], v);
-          acc[nt][i] = 0;
         }
+      }
+#pragma unroll
+      for (int a = 0; a < Tile::kA; ++a) {
+#pragma unroll
+        for (int b = 0; b < Tile::kB; ++b) tile.acc[a][b] = 0;
       }
       chunk = 0;
       ++p;
     }
   }
   asm volatile("cp.async.wait_all;\n" ::);
+  if constexpr (kMode == kBucketV1) return;
 
   const long long width = static_cast<long long>(prm.n_blocks) * kLanes;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int a = 0; a < Tile::kA; ++a) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int b = q0 + warp_q + g + 8 * (i >> 1);
-      if (b >= prm.batch) continue;
-      const long long col = static_cast<long long>(blk) * kLanes + warp_l + nt * 8 + t * 2 + (i & 1);
-      const long long idx = static_cast<long long>(b) * width + col;
-      if constexpr (kSelect) {
-        const int bits = __float_as_int(best[nt][i]);
+    for (int b = 0; b < Tile::kB; ++b) {
+      const int bq = q0 + tile.query(a, b);
+      if (bq >= prm.batch) continue;
+      const long long col = static_cast<long long>(blk) * kLanes + tile.lane(a, b);
+      const long long idx = static_cast<long long>(bq) * width + col;
+      if constexpr (kMode == kBucketV2) {
+        const int bits = __float_as_int(tile.best[a][b]);
         arm.out[idx] = __int_as_float(bits & ~kPosMask);
         arm.out_pos[idx] = bits & kPosMask;
       } else {
-        arm.out[idx] = best[nt][i];
+        arm.out[idx] = tile.best[a][b];
       }
     }
   }
 }
 
-template <bool kSelect>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2) bucket_tables_kernel(const Params prm) {
   extern __shared__ __align__(16) uint8_t smem[];
   const Arm& arm = prm.arm[blockIdx.z];
-  const int q0 = blockIdx.x * kQueries;
   const int blk = blockIdx.y;
-  if (arm.is_int8) {
-    run_tile<true, kSelect>(prm, arm, blk, q0, smem);
-  } else {
-    run_tile<false, kSelect>(prm, arm, blk, q0, smem);
+  if (arm.kind == kF32) {
+    run_tile<FmaTile, kMode>(prm, arm, blk, smem);
+  } else if (arm.kind == kBf16) {
+    run_tile<MmaTile<false>, kMode>(prm, arm, blk, smem);
+  } else if constexpr (kMode != kBucketV1) {  // v1 takes no int8 rows
+    run_tile<MmaTile<true>, kMode>(prm, arm, blk, smem);
   }
 }
 
-int smem_bytes(int row_bytes) {
+int tile_queries(int kind) { return kind == kF32 ? FmaTile::kQueries : MmaTile<false>::kQueries; }
+
+int smem_bytes(int kind, int row_bytes, int mode) {
   const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
-  return kQueries * (padded + kPad) + kStages * kStageBytes;
+  const int reduce = mode == kBucketV1 && kind != kF32 ? kV1ReduceBytes : 0;
+  return tile_queries(kind) * (padded + kPad) + kStages * kStageBytes + reduce;
 }
 
-template <bool kSelect>
+template <int kMode>
 int launch(const Params& prm, int n_arms, cudaStream_t stream) {
   int smem = 0;
+  int rows_per_tile = MmaTile<false>::kQueries;
   for (int a = 0; a < n_arms; ++a) {
-    const int rb = prm.arm[a].row_bytes;
-    if (rb <= 0 || rb % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (prm.arm[a].is_int8 && (prm.arm[a].qscale == nullptr || prm.arm[a].cscale == nullptr)) {
+    const Arm& arm = prm.arm[a];
+    const int rb = arm.row_bytes;
+    if (rb <= 0 || rb % 16 != 0 || arm.kind < kBf16 || arm.kind > kF32) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    smem = smem_bytes(rb) > smem ? smem_bytes(rb) : smem;
+    if (arm.kind == kInt8 &&
+        (kMode == kBucketV1 || arm.qscale == nullptr || arm.cscale == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    smem = smem_bytes(arm.kind, rb, kMode) > smem ? smem_bytes(arm.kind, rb, kMode) : smem;
+    rows_per_tile = tile_queries(arm.kind) < rows_per_tile ? tile_queries(arm.kind) : rows_per_tile;
   }
-  if (prm.block <= 0 || prm.block % kLanes != 0 || prm.block / kLanes > kPosMask + 1 ||
-      prm.n_rows % prm.block != 0 || prm.n_blocks > 65535) {
+  const bool packed = kMode != kBucketV1;
+  if (smem > kMaxSmem || prm.block <= 0 || prm.block % kLanes != 0 ||
+      (packed && prm.block / kLanes > kPosMask + 1) || prm.n_rows % prm.block != 0 ||
+      prm.n_blocks > 65535 || (kMode != kSection && prm.mask_sel == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(bucket_tables_kernel<kSelect>,
+  cudaError_t err = cudaFuncSetAttribute(bucket_tables_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((prm.batch + kQueries - 1) / kQueries, prm.n_blocks, n_arms);
-  bucket_tables_kernel<kSelect><<<grid, kThreads, smem, stream>>>(prm);
+  const dim3 grid((prm.batch + rows_per_tile - 1) / rows_per_tile, prm.n_blocks, n_arms);
+  bucket_tables_kernel<kMode><<<grid, kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,43 +531,63 @@ Params make_params(int batch, long long n_rows, int block) {
   return prm;
 }
 
+Arm make_arm(const void* q, const void* corpus, const void* qscale, const void* cscale, void* out,
+             void* out_pos, int row_bytes, int kind) {
+  return Arm{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
+             static_cast<const float*>(qscale), static_cast<const float*>(cscale),
+             static_cast<float*>(out), static_cast<int*>(out_pos), row_bytes, kind};
+}
+
 }  // namespace
 
-// Per arm a < n_arms: q[a] [batch, d_a], corpus[a] [n_rows, d_a] (int8 when
-// is_int8[a], else bf16), qscale[a] [batch] and cscale[a] [n_rows] float32 for
-// int8 arms, out[a] [batch, n_rows/block·128] float32; mask_add [n_rows]
-// float32 or null. All contiguous. Returns the CUDA error code of the launch.
+// Row kinds: 0 = bf16, 1 = int8 codes, 2 = float32.
+//
+// Per arm a < n_arms: q[a] [batch, d_a] and corpus[a] [n_rows, d_a] of kind
+// kind[a], qscale[a] [batch] and cscale[a] [n_rows] float32 for int8 arms,
+// out[a] [batch, n_rows/block·128] float32; mask_add [n_rows] float32 or
+// null. All contiguous. Returns the CUDA error code of the launch.
 extern "C" int section_tables(int n_arms, const void* const* q, const void* const* corpus,
                               const void* const* qscale, const void* const* cscale,
-                              void* const* out, const int* row_bytes, const int* is_int8,
+                              void* const* out, const int* row_bytes, const int* kind,
                               const void* mask_add, int batch, long long n_rows, int block,
                               void* stream) {
   if (n_arms < 1 || n_arms > kMaxArms) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   Params prm = make_params(batch, n_rows, block);
   for (int a = 0; a < n_arms; ++a) {
-    prm.arm[a] = Arm{static_cast<const uint8_t*>(q[a]), static_cast<const uint8_t*>(corpus[a]),
-                     static_cast<const float*>(qscale[a]), static_cast<const float*>(cscale[a]),
-                     static_cast<float*>(out[a]), nullptr, row_bytes[a], is_int8[a]};
+    prm.arm[a] = make_arm(q[a], corpus[a], qscale[a], cscale[a], out[a], nullptr, row_bytes[a],
+                          kind[a]);
   }
   prm.mask_add = static_cast<const float*>(mask_add);
-  return launch<false>(prm, n_arms, static_cast<cudaStream_t>(stream));
+  return launch<kSection>(prm, n_arms, static_cast<cudaStream_t>(stream));
 }
 
-// q [batch, d], corpus [n_rows, d] (int8 when is_int8, else bf16), qscale
-// [batch] / cscale [n_rows] float32 for int8, mask [n_rows] bool; out_val
-// [batch, n_rows/block·128] float32 (low 7 bits cleared), out_pos the same
-// shape int32 (position in the bucket). Returns the CUDA error code.
+// q [batch, d], corpus [n_rows, d] of `kind`, qscale [batch] / cscale
+// [n_rows] float32 for int8, mask [n_rows] bool; out_val [batch,
+// n_rows/block·128] float32 (low 7 bits cleared), out_pos the same shape
+// int32 (position in the bucket). Returns the CUDA error code.
 extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qscale,
                              const void* cscale, const void* mask, void* out_val, void* out_pos,
-                             int row_bytes, int is_int8, int batch, long long n_rows, int block,
+                             int row_bytes, int kind, int batch, long long n_rows, int block,
                              void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Params prm = make_params(batch, n_rows, block);
-  prm.arm[0] = Arm{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
-                   static_cast<const float*>(qscale), static_cast<const float*>(cscale),
-                   static_cast<float*>(out_val), static_cast<int*>(out_pos), row_bytes, is_int8};
+  prm.arm[0] = make_arm(q, corpus, qscale, cscale, out_val, out_pos, row_bytes, kind);
   prm.mask_sel = static_cast<const uint8_t*>(mask);
-  return launch<true>(prm, 1, static_cast<cudaStream_t>(stream));
+  return launch<kBucketV2>(prm, 1, static_cast<cudaStream_t>(stream));
+}
+
+// q [batch, d], corpus [n_rows, d] bf16 (kind 0) or float32 (kind 2), mask
+// [n_rows] bool; out_val [batch, n_rows/128] float32 (each bucket's
+// maximum, -1e30 where all its rows are masked), out_row the same shape int32
+// (global row of the highest lane holding it). `block` (a 128-multiple that
+// divides n_rows) only sets the work per CTA. Returns the CUDA error code.
+extern "C" int bucket_max_v1(const void* q, const void* corpus, const void* mask, void* out_val,
+                             void* out_row, int row_bytes, int kind, int batch, long long n_rows,
+                             int block, void* stream) {
+  if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  Params prm = make_params(batch, n_rows, block);
+  prm.arm[0] = make_arm(q, corpus, nullptr, nullptr, out_val, out_row, row_bytes, kind);
+  prm.mask_sel = static_cast<const uint8_t*>(mask);
+  return launch<kBucketV1>(prm, 1, static_cast<cudaStream_t>(stream));
 }

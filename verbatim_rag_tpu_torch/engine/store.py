@@ -6,8 +6,9 @@ Layout on the store's device (a CUDA device unless ``device="cpu"``):
 
 - dense:    ``[cap, d]`` row-normalized bf16 (or f32), or int8 codes with
             a ``[cap, 1]`` float32 scale column (``dense_dtype="int8"``);
-- sparse:   forward index ``ids [cap, m] int32`` + ``weights [cap, m] f32``,
-            and its projected sketches ``[cap, d_p]`` in the dense family's
+- sparse:   forward index ``ids [cap, m]`` int32 (or int16,
+            ``sparse_ids_dtype``) + ``weights [cap, m]`` f32 (or f16,
+            ``sparse_weight_dtype``), and its projected sketches ``[cap, d_p]`` in the dense family's
             float dtype, or int8 codes with a ``[cap, 1]`` scale column
             (``sketch_dtype="int8"``);
 - validity: ``[cap] bool`` — deletes flip it (tombstones).
@@ -165,6 +166,11 @@ class DeviceVectorStore(VectorStore):
             raise ValueError(f"unsupported sparse_weight_dtype {sparse_weight_dtype!r}")
         if sparse_ids_dtype not in ("int32", "int16"):
             raise ValueError(f"unsupported sparse_ids_dtype {sparse_ids_dtype!r}")
+        if sparse_ids_dtype == "int16" and sparse_vocab is not None and sparse_vocab > 32768:
+            raise ValueError(
+                f"sparse_ids_dtype='int16' holds vocab ids < 32768; "
+                f"sparse_vocab is {sparse_vocab}"
+            )
         if dense_dtype == "int4" or sketch_dtype == "int4":
             raise _not_in_slice("int4 dense and sketch rows", "the int4 capacity slice")
         if mesh is not None:
@@ -173,11 +179,6 @@ class DeviceVectorStore(VectorStore):
             raise _not_in_slice("enable_full_text (BM25)", "the persistence and BM25 slice")
         if sparse_mode == "exact":
             raise _not_in_slice("sparse_mode='exact'", "the persistence and BM25 slice")
-        if sparse_ids_dtype == "int16" or sparse_weight_dtype == "float16":
-            raise _not_in_slice(
-                "int16 forward-index ids and float16 weights",
-                "the forward-index capacity options slice",
-            )
         from verbatim_rag_tpu_torch.ops.hybrid import validate_candidate_impl
 
         if candidate_impl == "auto":
@@ -201,6 +202,10 @@ class DeviceVectorStore(VectorStore):
         self.projection_dim = projection_dim
         self.rescore_depth = rescore_depth
         self.projection_seed = projection_seed
+        #: Forward-index storage: "int16" ids (vocab ≤ 32768) and "float16"
+        #: weights each halve their half of the index; the rescore widens them.
+        self.sparse_ids_dtype = sparse_ids_dtype
+        self.sparse_weight_dtype = sparse_weight_dtype
         #: Candidate selection the store asks for. Selection over score
         #: matrices is exact here either way (lowest index first among ties);
         #: approx_topk=True lets the approximate bucket-table impls
@@ -229,8 +234,8 @@ class DeviceVectorStore(VectorStore):
         # Device arrays (allocated on first flush).
         self._dense = None  # [cap, d] (int8 codes when dense_dtype="int8")
         self._dense_scale = None  # [cap, 1] f32 per-row scales (int8 only)
-        self._sp_ids = None  # [cap, m] int32
-        self._sp_w = None  # [cap, m] f32
+        self._sp_ids = None  # [cap, m] int32 or int16
+        self._sp_w = None  # [cap, m] f32 or f16
         self._sp_proj = None  # [cap, d_p] projected sparse sketches
         self._sp_proj_scale = None  # [cap, 1] f32 per-row scales (int8 only)
         self._valid_dev = None  # [cap] bool
@@ -252,6 +257,16 @@ class DeviceVectorStore(VectorStore):
         if self.sketch_dtype is not None:
             return _STORE_DTYPES[self.sketch_dtype]
         return torch.float32 if self.dense_dtype == "float32" else torch.bfloat16
+
+    @property
+    def _sp_ids_dtype(self) -> torch.dtype:
+        return torch.int16 if self.sparse_ids_dtype == "int16" else torch.int32
+
+    @property
+    def _sp_w_dtype(self) -> torch.dtype:
+        """float32 → float16 rounds to nearest even, as numpy's cast in the
+        JAX store does."""
+        return torch.float16 if self.sparse_weight_dtype == "float16" else torch.float32
 
     @property
     def _per_stage_candidate_impl(self) -> str:
@@ -351,9 +366,9 @@ class DeviceVectorStore(VectorStore):
         pad_rows = -(-n_new // pad_unit) * pad_unit
         new_cap = self._target_capacity(offset + pad_rows, first_flush=offset == 0)
 
-        def _write(arr, new_host, width, dtype):
+        def _write(arr, new_rows, width, dtype):
             arr = self._grow_capacity(arr, new_cap, width, dtype)
-            arr[offset : offset + n_new] = torch.as_tensor(new_host).to(self.device, dtype)
+            arr[offset : offset + n_new] = torch.as_tensor(new_rows).to(self.device, dtype)
             return arr
 
         if dense_new is not None:
@@ -368,16 +383,15 @@ class DeviceVectorStore(VectorStore):
                     self._dense, dense_new, self.dense_dim, self._dense_store_dtype
                 )
         if sp_ids_new is not None:
-            self._sp_ids = _write(self._sp_ids, sp_ids_new, self.sparse_max_nnz, torch.int32)
-            self._sp_w = _write(self._sp_w, sp_w_new, self.sparse_max_nnz, torch.float32)
             from verbatim_rag_tpu_torch.ops.sparse_projected import project_rows
 
-            # Sketch the new rows on the device, from the rows just written.
-            proj_new = project_rows(
-                self._sp_ids[offset : offset + n_new],
-                self._sp_w[offset : offset + n_new],
-                self._projection_dev(self.sparse_vocab),
-            )
+            ids_dev = torch.from_numpy(sp_ids_new).to(self.device)
+            w_dev = torch.from_numpy(sp_w_new).to(self.device)
+            self._sp_ids = _write(self._sp_ids, ids_dev, self.sparse_max_nnz, self._sp_ids_dtype)
+            self._sp_w = _write(self._sp_w, w_dev, self.sparse_max_nnz, self._sp_w_dtype)
+            # Sketch the new rows on the device from their float32 weights
+            # (the JAX store sketches before any float16 rounding).
+            proj_new = project_rows(ids_dev, w_dev, self._projection_dev(self.sparse_vocab))
             if self.sketch_dtype == "int8":
                 from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
 

@@ -1,7 +1,19 @@
-"""Fused matmul + strided bucket-max candidate selection (port of the v2
-kernel of `verbatim_rag_tpu/ops/fused_topk.py`).
+"""Fused matmul + bucket-max candidate selection (port of
+`verbatim_rag_tpu/ops/fused_topk.py`: the v1 and v2 kernels).
 
-For a corpus of N rows cut into blocks of ``block_rows`` (`choose_block_rows`),
+**v1** (:func:`matmul_bucket_max`, :func:`fused_candidate_topk`): bucket g
+holds the 128 consecutive rows ``g·128 … g·128 + 127``; the table is each
+bucket's maximum score [B, N/128] float32 and the global row of the highest
+lane that holds it [B, N/128] int32. Masked rows score exactly -1e30 (a
+select), so an all-masked bucket reports -1e30 at row ``g·128 + 127``. N must
+be a 128-multiple, and either ≤ 16384 or a 16384-multiple, as in JAX.
+Queries are cast to the corpus dtype (bf16 or float32); an int8 corpus has no
+scale in v1 and is refused. :func:`matmul_bucket_max_reference` is the plain
+version and oracle, :func:`matmul_bucket_max_cuda` launches
+`csrc/section.cu::bucket_max_v1`, which replaces the TPU kernel
+`_bucket_max_kernel`.
+
+**v2**: for a corpus of N rows cut into blocks of ``block_rows`` (`choose_block_rows`),
 bucket g = block·128 + lane holds the block_rows/128 rows
 ``{block·block_rows + pos·128 + lane}``. Each score's low 7 mantissa bits are
 overwritten with its ``pos`` before the per-bucket maximum, so one maximum
@@ -17,6 +29,8 @@ kernel's oracle. :func:`matmul_bucket_max_v2_cuda` launches
 `_bucket_max_v2_onedot_kernel` and `_bucket_max_v2_chunked_kernel`. The two
 TPU variants compute the same function and are both served by the one CUDA
 kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
+
+The kernels read int8 (v2 only), bf16 or float32 rows (`check_kernel_rows`).
 """
 
 from __future__ import annotations
@@ -40,8 +54,10 @@ _POS_MASK = (1 << _POS_BITS) - 1  # 0x7F
 #: float32 temporaries (512 · 131072 · 4 B = 268 MB at the serving batch).
 PLAIN_CHUNK_ROWS = 131072
 
-#: Kernel launches since the last reset (the main path's proof of use).
+#: Kernel launches since the last reset (the main path's proof of use):
+#: bucket_max_v2, and bucket_max_v1.
 launches = 0
+launches_v1 = 0
 
 
 def choose_block_rows(n: int) -> int | None:
@@ -111,27 +127,44 @@ def _positions(block_rows: int, device) -> torch.Tensor:
     return torch.arange(block_rows // BUCKET, dtype=torch.int32, device=device)[None, None, :, None]
 
 
+#: Row kinds of `csrc/section.cu`.
+KERNEL_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
 #: Shared memory a CTA of `csrc/section.cu` may use, and what it takes
 #: besides its query tile (three 128-row stages of 144 bytes a row).
 _SMEM_LIMIT = 232448
 _SMEM_STAGES = 3 * 128 * 144
+#: v1 on the tensor-core tile: each lane-warp's (value, lane) per query.
+_SMEM_V1_REDUCE = 2 * 64 * 8
 
 
-def check_kernel_rows(corpus, what: str) -> int:
+def tile_queries(dtype) -> int:
+    """Queries per CTA: 32 for float32 rows (FMA tile), 64 otherwise."""
+    return 32 if dtype == torch.float32 else 64
+
+
+def kernel_smem_bytes(dtype, row_bytes: int, v1: bool = False) -> int:
+    """Shared memory of one CTA: the query tile (rows padded to 128 bytes
+    plus 16), the three stages and, for v1 on tensor cores, the reduction."""
+    padded = -(-row_bytes // 128) * 128
+    reduce = _SMEM_V1_REDUCE if v1 and dtype != torch.float32 else 0
+    return tile_queries(dtype) * (padded + 16) + _SMEM_STAGES + reduce
+
+
+def check_kernel_rows(corpus, what: str, v1: bool = False) -> int:
     """Row width in bytes that `csrc/section.cu` takes for ``corpus``, or a
-    raise: int8 or bfloat16 rows, 16-byte multiples (the kernel copies rows
-    in 16-byte pieces), and a 64-query tile that fits shared memory."""
-    if corpus.dtype not in (torch.int8, torch.bfloat16):
-        raise NotImplementedError(
-            f"the {what} kernel reads int8 or bfloat16 rows, got {corpus.dtype} "
-            "(float32 arms are not ported to a kernel yet; a later slice)"
+    raise: int8, bfloat16 or float32 rows, 16-byte multiples (the kernel
+    copies rows in 16-byte pieces), and a query tile that fits shared memory
+    (up to 2688 bytes a row for int8 and bf16, 5504 for float32)."""
+    if corpus.dtype not in KERNEL_KINDS:
+        raise TypeError(
+            f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
         )
     row_bytes = corpus.shape[1] * corpus.element_size()
-    padded = -(-row_bytes // 128) * 128
-    if row_bytes % 16 or 64 * (padded + 16) + _SMEM_STAGES > _SMEM_LIMIT:
+    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, v1) > _SMEM_LIMIT:
         raise ValueError(
-            f"the {what} kernel takes rows of a 16-byte multiple up to 2688 bytes, "
-            f"got {corpus.shape[1]} × {corpus.element_size()} bytes"
+            f"the {what} kernel takes rows of a 16-byte multiple whose query tile "
+            f"fits shared memory, got {corpus.shape[1]} × {corpus.element_size()} bytes"
         )
     return row_bytes
 
@@ -197,7 +230,7 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
         rc = fn(
             qp.data_ptr(), corpus.data_ptr(), _ptr(q_scale), _ptr(c_scale), mask.data_ptr(),
             vals.data_ptr(), pos.data_ptr(), row_bytes,
-            int(corpus.dtype == torch.int8), qp.shape[0], n, block_rows,
+            KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows,
             torch.cuda.current_stream(corpus.device).cuda_stream,
         )
         cuda_build.check(rc, "bucket_max_v2")
@@ -252,6 +285,120 @@ def fused_candidate_topk_v2(
     vals, rows = matmul_bucket_max_v2(
         corpus, q, mask, variant=variant, chunk_pos=chunk_pos, scale=scale
     )
+    k = min(k, vals.shape[1])
+    top_vals, pos = topk(vals, k)
+    top_rows = torch.gather(rows, 1, pos)
+    return top_vals, torch.where(top_vals > NEG_INF / 2, top_rows, -1)
+
+
+# -- v1: consecutive buckets, exact maximum, highest-lane argmax -----------------
+
+
+def _check_v1_geometry(corpus) -> None:
+    """The JAX function's geometry errors, word for word, and v1's dtypes."""
+    n = corpus.shape[0]
+    if n % BUCKET != 0:
+        raise ValueError(f"corpus rows ({n}) must be a multiple of {BUCKET}")
+    if n > BLOCK_ROWS and n % BLOCK_ROWS != 0:
+        raise ValueError(
+            f"corpus rows ({n}) must be ≤ {BLOCK_ROWS} or a multiple of it "
+            "(store capacities are powers of two of the block size)"
+        )
+    if corpus.dtype == torch.int8:
+        raise ValueError(
+            "matmul_bucket_max takes bf16 or float32 rows: an int8 corpus has no "
+            "scale in v1 (use matmul_bucket_max_v2 with scale=)"
+        )
+
+
+def matmul_bucket_max_reference(corpus, q, mask):
+    """Plain version: (bucket max [B, N/128] f32, global rows [B, N/128]
+    int32), scores computed per chunk of rows."""
+    n = corpus.shape[0]
+    qp = q.to(corpus.dtype)
+    lane = torch.arange(BUCKET, dtype=torch.int32, device=corpus.device)
+    vals, rows = [], []
+    for start in range(0, n, PLAIN_CHUNK_ROWS):
+        stop = min(n, start + PLAIN_CHUNK_ROWS)
+        s = block_scores(qp, None, corpus[start:stop], None)
+        s = torch.where(mask[start:stop][None, :], s, NEG_INF).reshape(qp.shape[0], -1, BUCKET)
+        best = s.amax(dim=-1)
+        winner = torch.where(s >= best[..., None], lane, -1).amax(dim=-1)
+        base = torch.arange(start, stop, BUCKET, dtype=torch.int32, device=corpus.device)
+        vals.append(best)
+        rows.append(base[None, :] + winner)
+    return torch.cat(vals, dim=1), torch.cat(rows, dim=1)
+
+
+def v1_block_rows(n: int, batch: int, dtype, n_sm: int) -> int:
+    """Rows per column block of the v1 kernel. Any 128-multiple that divides
+    ``n`` gives the same table, so take the largest ≤ 16384 and halve it
+    (down to 1024) while the grid holds fewer than two CTAs per SM."""
+    block = min(n, BLOCK_ROWS)
+    tiles = -(-batch // tile_queries(dtype))
+    while (n // block) * tiles < 2 * n_sm and block > 1024:
+        half = block // 2
+        if half % BUCKET or n % half:
+            break
+        block = half
+    return block
+
+
+def matmul_bucket_max_cuda(corpus, q, mask):
+    """Launch `csrc/section.cu::bucket_max_v1`: the plain version's outputs."""
+    global launches_v1
+    _check_v1_geometry(corpus)
+    if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
+        raise ValueError("matmul_bucket_max_cuda needs CUDA tensors")
+    n, d = corpus.shape
+    row_bytes = check_kernel_rows(corpus, "bucket v1", v1=True)
+    if q.dim() != 2 or q.shape[1] != d:
+        raise ValueError(f"queries must be [B, {d}], got {tuple(q.shape)}")
+    if mask.dtype != torch.bool or mask.shape != (n,):
+        raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
+    qp = q.to(corpus.dtype).contiguous()
+    corpus = corpus.contiguous()
+    mask = mask.contiguous()
+    batch = qp.shape[0]
+    vals = torch.empty((batch, n // BUCKET), dtype=torch.float32, device=corpus.device)
+    rows = torch.empty((batch, n // BUCKET), dtype=torch.int32, device=corpus.device)
+    if vals.numel():
+        n_sm = torch.cuda.get_device_properties(corpus.device).multi_processor_count
+        block = v1_block_rows(n, batch, corpus.dtype, n_sm)
+        fn = cuda_build.load("section").bucket_max_v1
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ]
+        rc = fn(
+            qp.data_ptr(), corpus.data_ptr(), mask.data_ptr(), vals.data_ptr(), rows.data_ptr(),
+            row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block,
+            torch.cuda.current_stream(corpus.device).cuda_stream,
+        )
+        cuda_build.check(rc, "bucket_max_v1")
+        launches_v1 += 1
+    return vals, rows
+
+
+def matmul_bucket_max(corpus, q, mask):
+    """Consecutive-bucket fused scores + reduce: (bucket max [B, N/128] f32,
+    global argmax rows [B, N/128] int32; all-masked buckets carry -1e30).
+
+    A CPU tensor takes the plain version, a CUDA tensor the kernel (or a
+    raise)."""
+    _check_v1_geometry(corpus)
+    if corpus.device.type == "cpu":
+        return matmul_bucket_max_reference(corpus, q, mask)
+    return matmul_bucket_max_cuda(corpus, q, mask)
+
+
+def fused_candidate_topk(corpus, q, k: int, mask) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate top-k over the v1 bucket table: (scores [B, k] f32, rows
+    [B, k] int32; −1 where masked or absent). ``k`` is cut to N/128;
+    selection is exact, lowest bucket first among ties."""
+    from .dense import topk
+
+    vals, rows = matmul_bucket_max(corpus, q, mask)
     k = min(k, vals.shape[1])
     top_vals, pos = topk(vals, k)
     top_rows = torch.gather(rows, 1, pos)

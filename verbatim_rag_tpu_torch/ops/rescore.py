@@ -8,6 +8,11 @@ replaces the TPU kernel `_rescore_kernel` and reads candidate rows straight
 from the [N, m] forward index. :func:`exact_rescore_dispatch` is the store's
 "pallas" rescore impl: the plain version for CPU tensors, the kernel for
 CUDA tensors, for any m and qm.
+
+The forward index holds int32 or int16 ids and float32 or float16 weights
+(the store's ``sparse_ids_dtype`` / ``sparse_weight_dtype``). Both versions
+widen the gathered slots to int32 / float32 before the compare-multiply, as
+the JAX path does; queries are int32 / float32.
 """
 
 from __future__ import annotations
@@ -19,6 +24,10 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e30
+
+#: Forward-index slot types the kernel reads: bytes of an id, of a weight.
+_ID_BYTES = {torch.int32: 4, torch.int16: 2}
+_WEIGHT_BYTES = {torch.float32: 4, torch.float16: 2}
 
 #: Kernel launches since the last reset (the main path's proof of use).
 launches = 0
@@ -49,10 +58,10 @@ def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
     tensors = (cand_rows, sp_ids, sp_w, q_ids, q_w)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("exact_rescore_cuda needs CUDA tensors")
-    if sp_ids.dtype != torch.int32 or sp_w.dtype != torch.float32:
+    if sp_ids.dtype not in _ID_BYTES or sp_w.dtype not in _WEIGHT_BYTES:
         raise TypeError(
-            "the rescore kernel reads an int32/float32 forward index, got "
-            f"{sp_ids.dtype}/{sp_w.dtype} (int16 ids and float16 weights are not ported yet)"
+            "the rescore kernel reads int32 or int16 ids and float32 or float16 "
+            f"weights, got {sp_ids.dtype}/{sp_w.dtype}"
         )
     if cand_rows.dtype != torch.int32 or q_ids.dtype != torch.int32 or q_w.dtype != torch.float32:
         raise TypeError(
@@ -79,12 +88,13 @@ def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
     fn.restype = ctypes.c_int
     fn.argtypes = (
         [ctypes.c_void_p] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     )
     rc = fn(
         cand_rows.data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(), q_ids.data_ptr(),
         q_w.data_ptr(), out.data_ptr(), batch, cands, n_rows, m, qm,
+        _ID_BYTES[sp_ids.dtype], _WEIGHT_BYTES[sp_w.dtype],
         torch.cuda.current_stream(cand_rows.device).cuda_stream,
     )
     cuda_build.check(rc, "sparse_rescore")

@@ -36,6 +36,7 @@ from .fused_topk import (
     PLAIN_CHUNK_ROWS,
     _POS_BITS,
     _POS_MASK,
+    KERNEL_KINDS,
     _pack_pos,
     _positions,
     _ptr,
@@ -151,7 +152,7 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
         column([_ptr(a[3]) for a in arms]),
         column([t.data_ptr() for t in tables]),
         ints(*[a[4] for a in arms], *([0] * (MAX_ARMS - n_arms))),
-        ints(*[int(a[0].dtype == torch.int8) for a in arms], *([0] * (MAX_ARMS - n_arms))),
+        ints(*[KERNEL_KINDS[a[0].dtype] for a in arms], *([0] * (MAX_ARMS - n_arms))),
         _ptr(mask_add),
         batch, n, block_cols,
         torch.cuda.current_stream(corpora[0].device).cuda_stream,
@@ -164,7 +165,7 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
 def section_bucket_tables(corpora, queries, mask, scales=(), block_cols: int = BLOCK_COLS):
     """One packed bucket table [B, (N/block_cols)·128] f32 per arm.
 
-    ``corpora``: per arm [N, d_a] rows (int8, bf16; float32 on the CPU only);
+    ``corpora``: per arm [N, d_a] rows (int8, bf16 or float32);
     ``queries``: per arm [B, d_a] float32 (quantized per row on the fly for
     int8 arms, cast to the arm's dtype otherwise); ``mask``: [N] bool or None
     (every row live); ``scales``: per arm [N, 1] float32 for int8 arms, else
