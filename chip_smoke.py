@@ -6,12 +6,17 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 
 1. build   — compile every CUDA kernel from `verbatim_rag_tpu_torch/csrc`
              (one nvcc per source, started together); print the card's name
-             and power limit;
+             and power limit, the build seconds, each kernel's registers and
+             spilled bytes (`-Xptxas -v`) and the HGMMA (wgmma), UTMALDG (TMA
+             load) and HMMA (mma.sync) instructions in the SASS of the bf16
+             flash kernels (`cuobjdump -sass`): each must hold HGMMA and
+             UTMALDG, no HMMA, and spill nothing;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes, with timings, bounds and the library
              yardstick:
              flash attention, ModernBERT-base heads (B=8, H=12, D=64, bf16),
-             S ∈ {512, 8192}, global and window=128, ragged lengths with a
+             S ∈ {512, 777, 4099, 8192} (777 and 4099 off the kernels'
+             64- and 128-row tiles), global and window=128, ragged lengths with a
              zero-length row; each live attention row (b, q, h) held to its
              own scale: max|out − plain| over D within 2e-2 of max|plain|
              plus half a bf16 ulp of that max (both round probabilities to
@@ -101,15 +106,17 @@ fail that check. Its times are taken at the main path's shape (B=1).
 
 The kernels phase also holds the flash backward (`csrc/flash_attention_bwd.cu`)
 and the forward's logsumexp output against their plain versions at
-B=8, H=12, D=64, bf16, S ∈ {512, 4096, 8192}, global and window=128, with
-the forward's ragged lengths: lse within 1e-4 + 1e-5·|lse| of the plain
+B=8, H=12, D=64, bf16, S ∈ {512, 777, 4096, 4099, 8192}, global and
+window=128, with the forward's ragged lengths: lse within 1e-4 + 1e-5·|lse| of the plain
 version's; dq, dk and dv each live row (b, row, h) within 2e-2 of
 max(max|plain| over D, 1e-3 of the tensor's largest row) plus half a bf16
 ulp of the row's max (P and dS are rounded to bf16 for the second products;
 the floor covers rows where one key takes all the weight, dP − delta
 cancels and the true gradient is 0). At S=8192 global two planted faults
 (the dk/dv kernel run without each row's last key tile; delta replaced by 0)
-must fail that check.
+must fail that check. A second backward call must give bit-equal gradients
+(no atomics). Each case reports the least work (10·D FLOP a live pair and
+head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
 Each main-path phase (3-7, 3b and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
@@ -125,6 +132,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -148,6 +156,17 @@ BUCKET_BATCHES = 2
 
 #: bf16 flash checks: per-row relative limit (see `row_check`).
 FLASH_RTOL = 2e-2
+#: Sequence lengths of the forward and backward checks: the main path's
+#: shapes (encoder windows up to 8192, the train phase's 4096) and two that
+#: are not a multiple of the kernels' 64- and 128-row tiles (the TMA edge).
+FLASH_SEQS = (512, 777, 4099, 8192)
+FLASH_BWD_SEQS = (512, 777, 4096, 4099, 8192)
+#: Kernels that must run on wgmma fed by TMA (the bf16 forward and backward):
+#: the build phase counts their HGMMA and UTMALDG instructions.
+WGMMA_KERNELS = {
+    "flash_attention": ("flash_fwd_wgmma_kernel",),
+    "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
+}
 #: Partial-kernel check: l's relative limit (float32 sums of the same P).
 PARTIAL_L_RTOL = 1e-4
 #: The long_sp phase: shards on the one card, and the largest difference
@@ -223,6 +242,91 @@ def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# -- phase 1: build ---------------------------------------------------------------------
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own name inside a mangled symbol: the last of its
+    length-prefixed names (namespaces first), with a bool template flag."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        digits = re.match(r"\d+", mangled[pos:]).group()
+        start = pos + len(digits)
+        name, pos = mangled[start : start + int(digits)], start + int(digits)
+    flag = re.match(r"ILb[01]E", mangled[pos:])
+    return name + (flag.group() if flag else "")
+
+
+def ptxas_report(log_text: str) -> dict:
+    """``{kernel: {"registers": n, "spill_bytes": n}}`` from ``-Xptxas -v``."""
+    report, current = {}, None
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = kernel_name(entry.group(1))
+            report[current] = {"registers": None, "spill_bytes": 0}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            report[current]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            report[current]["registers"] = int(used.group(1))
+    return report
+
+
+def sass_counts(library: Path) -> dict:
+    """``{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}}``: instructions in the
+    library's SASS (`cuobjdump -sass`). HGMMA is wgmma, UTMALDG a TMA tile
+    load, HMMA an mma.sync."""
+    from verbatim_rag_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(library)], capture_output=True, text=True, check=True, timeout=300
+    ).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            current = kernel_name(func.group(1))
+            counts[current] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif current is not None:
+            for op in ("HGMMA", "UTMALDG", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[current][op] += 1
+    return counts
+
+
+def check_build(build_logs: dict) -> dict:
+    """Print every kernel's registers and spills; require the wgmma kernels
+    to spill nothing, to hold HGMMA and UTMALDG instructions and no HMMA."""
+    from verbatim_rag_tpu_torch.ops import cuda_build
+
+    result = {}
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "warning" in line.lower() or "Performance Loss" in line:
+                log(f"  {name}: {line.strip()}")
+        for kernel, info in ptxas_report(text).items():
+            log(f"  {name}: {kernel}: {info['registers']} registers, {info['spill_bytes']} bytes spilled")
+            result[kernel] = dict(info)
+    for name, kernels in WGMMA_KERNELS.items():
+        counts = sass_counts(cuda_build._target(name))
+        for kernel in kernels:
+            c = counts.get(kernel, {})
+            log(f"  {name}: {kernel}: SASS {json.dumps(c)}")
+            require(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0, f"{kernel}: no wgmma or no TMA load in its SASS {c}")
+            require(c.get("HMMA", 0) == 0, f"{kernel}: mma.sync left in its SASS {c}")
+            if kernel in result:
+                require(result[kernel]["spill_bytes"] == 0, f"{kernel} spills: {result[kernel]}")
+            result.setdefault(kernel, {}).update(sass=c)
+    return result
+
+
 # -- phase 2: kernels against their plain versions -------------------------------------
 
 
@@ -281,7 +385,7 @@ def check_flash(gen) -> dict:
     B, H, D = 8, 12, 64
     cases = []
     headline = None
-    for seq in (512, 8192):
+    for seq in FLASH_SEQS:
         lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q, k, v = (
@@ -367,7 +471,7 @@ def check_flash_bwd(gen) -> dict:
 
     B, H, D = 8, 12, 64
     cases = []
-    for seq in (512, 4096, 8192):
+    for seq in FLASH_BWD_SEQS:
         lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q, k, v, g = (
@@ -425,6 +529,12 @@ def check_flash_bwd(gen) -> dict:
                 ratio[name] = max(c[1] for c in checks)
             del scales, errs
             grads, max_err, worst = outs.pop("kernel"), err.pop("kernel"), ratio.pop("kernel")
+            again = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+            require(
+                all(torch.equal(a, b) for a, b in zip(grads, again)),
+                f"flash bwd S={seq} w={window}: two calls differ (the kernels must be deterministic)",
+            )
+            del again
             require(lse_err <= 1e-4, f"flash lse S={seq} w={window}: error {lse_err} over 1e-4 + 1e-5·|lse|")
             require(all(bool((x[1] == 0).all()) for x in grads), f"flash bwd S={seq} w={window}: zero-length row not 0")
             require(
@@ -454,6 +564,8 @@ def check_flash_bwd(gen) -> dict:
             )
             del qt, kt, vt, o, go, mask
             pairs = attention_pairs(lengths, seq, window)
+            # The bound counts the least work (five products: 10·D FLOP a
+            # live pair and head); the dq + dk/dv split does seven (14·D).
             b_ms, b_by = bound(
                 7 * B * seq * H * D * 2 + 2 * B * H * seq * 4 + 4 * B, 10 * H * D * pairs, PEAK_BF16_FLOPS
             )
@@ -461,7 +573,8 @@ def check_flash_bwd(gen) -> dict:
                 seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst,
                 lse_max_excess=lse_err, ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms,
+                library_ms=library_ms, least_gflop=10 * H * D * pairs / 1e9,
+                split_gflop=14 * H * D * pairs / 1e9, deterministic=True,
             )
             if ratio:
                 case["planted_faults_worst_row_of_limit"] = ratio
@@ -1649,10 +1762,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build_logs = cuda_build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    build = check_build(build_logs)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen)
@@ -1684,6 +1794,7 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
             replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
             launches=launches["flash_attention"],
+            registers=build.get("flash_fwd_wgmma_kernel", {}).get("registers"),
             **flash,
         ),
         dict(
@@ -1695,6 +1806,8 @@ def main() -> None:
             launches=launches["flash_bwd_dq"] + launches["flash_bwd_dkv"],
             launches_dq=launches["flash_bwd_dq"],
             launches_dkv=launches["flash_bwd_dkv"],
+            registers_dq=build.get("flash_bwd_dq_wgmma_kernel", {}).get("registers"),
+            registers_dkv=build.get("flash_bwd_dkv_wgmma_kernel", {}).get("registers"),
             **flash_bwd,
         ),
         dict(

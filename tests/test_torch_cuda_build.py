@@ -85,6 +85,30 @@ def test_failed_compile_raises_with_the_log(fake_toolkit, monkeypatch):
     assert not list(fake_toolkit.glob("*.tmp"))
 
 
+def test_output_name_follows_the_shared_headers(fake_toolkit, tmp_path, monkeypatch):
+    """An edit to a shared header (`csrc/*.cuh`) changes every source's
+    target, so a stale library is never loaded; the compiler command links
+    libcuda, which encodes the flash kernels' TMA tensor maps."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for path in cuda_build.CSRC.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            (csrc / path.name).write_bytes(path.read_bytes())
+    assert (csrc / "hopper.cuh").exists()
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = {n: cuda_build._target(n).name for n in cuda_build.KERNEL_SOURCES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build._target(n).name for n in cuda_build.KERNEL_SOURCES}
+    assert all(before[n] != after[n] for n in before)
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert cuda_build._target("flash_attention").name != after["flash_attention"]
+    cuda_build.build_all(("flash_attention",))
+    (call,) = _calls(fake_toolkit)
+    assert "-lcuda" in call.split() and call.split()[-1] == str(csrc / "flash_attention.cu")
+    assert cuda_build._target("flash_attention").exists()
+
+
 def test_output_name_follows_the_source(fake_toolkit):
     names = {cuda_build._target(n).name for n in cuda_build.KERNEL_SOURCES}
     assert len(names) == len(cuda_build.KERNEL_SOURCES)

@@ -99,9 +99,9 @@ def test_flash_lse_kernel_matches_plain(cuda, dtype, window):
     assert (lse[1] == 0).all()
 
 
-def _bwd_inputs(cuda, dtype, seq, lengths, seed):
+def _bwd_inputs(cuda, dtype, seq, lengths, seed, heads=3):
     q, k, v, g = (
-        torch.from_numpy(np.random.default_rng(seed + i).normal(size=(len(lengths), seq, 3, 64)))
+        torch.from_numpy(np.random.default_rng(seed + i).normal(size=(len(lengths), seq, heads, 64)))
         .to(cuda, dtype) for i in range(4)
     )
     return q, k, v, g, torch.tensor(lengths, dtype=torch.int32, device=cuda)
@@ -134,6 +134,65 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, window, seq, lengths):
             assert _bf16_row_ratio(a, e.float(), live, floor=1e-3) <= 1.0, name
         dead = ~live if name != "dq" else lens[:, None].expand_as(live) == 0
         assert (a[dead] == 0).all(), name
+
+
+@pytest.mark.parametrize("window", [None, 128, 7])
+@pytest.mark.parametrize("seq", [777, 4099])
+def test_flash_bf16_kernels_off_the_tile_grid(cuda, seq, window):
+    """The bf16 forward (with lse) and backward at S off the kernels' 64- and
+    128-row tiles (TMA zero-fills the rows past S; the kernels mask them),
+    ModernBERT's 12 heads, a zero-length row; rows held as in the tests
+    above, lse as the lse test's."""
+    q, k, v, g, lens = _bwd_inputs(cuda, torch.bfloat16, seq, [seq, 0, seq // 2 + 3], seq, heads=12)
+    live = torch.arange(seq, device=cuda)[None, :] < lens[:, None]
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    torch.cuda.synchronize()
+    expected_out, expected_lse = fa.attention_lse_reference(q, k, v, lens, window)
+    assert _bf16_row_ratio(out, expected_out, live) <= 1.0
+    torch.testing.assert_close(lse, expected_lse, rtol=1e-5, atol=1e-4)
+    assert (out[1] == 0).all() and (lse[1] == 0).all()
+    del expected_out, expected_lse
+    expected = fa.flash_attention_bwd_reference(q, k, v, lens, out, lse, g, window)
+    for name, a, e in zip(("dq", "dk", "dv"), grads, expected):
+        assert _bf16_row_ratio(a, e.float(), live, floor=1e-3) <= 1.0, name
+        assert (a[1] == 0).all(), name
+
+
+@pytest.mark.parametrize("window", [None, 128])
+def test_flash_bwd_kernels_are_deterministic(cuda, window):
+    """No atomics: two backward calls give bit-equal dq, dk and dv."""
+    q, k, v, g, lens = _bwd_inputs(cuda, torch.bfloat16, 1000, [1000, 0, 517], 5, heads=12)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    first = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    second = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "non_contiguous"])
+def test_flash_kernels_refuse_misaligned_or_strided_inputs(cuda, fault):
+    """The TMA tensor maps need contiguous rows on 16-byte boundaries: the
+    wrappers raise before any launch."""
+    q, k, v, g, lens = _bwd_inputs(cuda, torch.bfloat16, 130, [129, 65], 1)
+    if fault == "misaligned":
+        bad = torch.empty(k.numel() + 1, dtype=k.dtype, device=cuda)[1:].view(k.shape)
+        bad.copy_(k)
+    else:
+        bad = k.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(bad, k)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens)
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    for call in (
+        lambda: fa.flash_attention_cuda(q, bad, v, lens),
+        lambda: fa.flash_attention_lse_cuda(bad, k, v, lens),
+        lambda: fa.flash_attention_bwd_cuda(q, bad, v, lens, out, lse, g),
+        lambda: fa.flash_attention_bwd_cuda(q, k, bad, lens, out, lse, g),
+    ):
+        with pytest.raises(ValueError, match="contiguous and 16-byte aligned"):
+            call()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == before
 
 
 def test_flash_autograd_on_cuda_matches_cpu(cuda):

@@ -211,6 +211,36 @@ def test_narrow_ids_need_a_small_vocab():
     assert store.sparse_ids_dtype == "int16"
 
 
+@pytest.mark.parametrize(
+    "spec",
+    ["xla,xla", "xla,bucket", "bucket,xla", "bucket,bucket", "xla,section", "xla,bucket,xla"],
+)
+def test_comma_pair_candidate_impl_matches_jax(spec, caplog):
+    """The retired 0.4.x comma-pair specs: a valid pair of "xla"/"bucket"
+    maps to "xla" with the JAX store's warning; other comma specs raise its
+    ValueError word for word."""
+
+    def build(store_cls):
+        caplog.clear()
+        try:
+            store = store_cls(candidate_impl=spec)
+        except ValueError as err:
+            return str(err), None, [r.getMessage() for r in caplog.records]
+        return (
+            store.candidate_impl, store.candidate_impl_requested,
+            [r.getMessage() for r in caplog.records if r.levelname == "WARNING"],
+        )
+
+    with caplog.at_level("WARNING"):
+        expected = build(JaxStore)
+        got = build(lambda **kw: DeviceVectorStore(device="cpu", **kw))
+    assert got == expected
+    if spec.count(",") == 1 and "section" not in spec:
+        assert got[:2] == ("xla", "xla") and "0.4.x" in got[2][0]
+    else:
+        assert "is not a valid spec" in got[0]
+
+
 def test_persistence_raises():
     store = DeviceVectorStore(device="cpu")
     for call in (lambda: store.save("x"), store.compact, lambda: DeviceVectorStore.load("x")):

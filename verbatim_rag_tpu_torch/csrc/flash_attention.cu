@@ -16,7 +16,7 @@
 // like the TPU kernel. When `lse` is given ([B, H, S] float32, for training),
 // each row also writes its logsumexp m + log(l) over the live keys (scores
 // scaled by 1/sqrt(D)), and 0 for a row with no live key; serving passes
-// null.
+// null. The output does not depend on whether lse is written.
 //
 // The partial entry takes q [B, Sq, H, D] and ONE KV block k, v [B, Sk, H, D]
 // of a longer sequence whose first key sits at global position k_offset. A
@@ -34,33 +34,45 @@
 // tiles past the live keys, or outside the band on local layers, are never
 // loaded, so local layers cost O(S·window) and a dead KV block costs nothing.
 //
-// Two kernels, one per input type, both one thread block per (64-row q tile,
-// b·h) with 64-key K/V tiles in shared memory and an online softmax (running
-// max and normaliser in registers), each instantiated for the forward and the
-// partial (kPartial: other key frame, unnormalised float32 output with m, l):
+// Three kernels:
 //
-//   bf16 — the encoder's compute type: tensor cores through mma.sync
-//          m16n8k16 (bf16 in, f32 accumulate). 4 warps, 16 q rows each; Q
-//          stays in registers as A fragments, S = Q·Kᵀ lands in registers in
-//          exactly the layout of the A fragments of P·V, so P never touches
-//          shared memory (FlashAttention-2's register reuse). V is stored
-//          transposed in shared memory so every B fragment is one 32-bit
-//          load. P is rounded to bf16 for the P·V product (the plain versions
-//          round the normalised probabilities to bf16 in the forward and keep
-//          P in float32 in the partial); l sums the unrounded P.
+//   bf16 forward — wgmma fed by TMA (Hopper's own path to the tensor cores).
+//          One CTA per (128-row q tile, b·h): two consumer warpgroups of 64
+//          rows and one producer warp. The producer loads the Q tile once and
+//          streams 128-key K and V tiles through a ring of shared-memory
+//          stages with full/empty mbarriers (TMA, 128-byte swizzle, rows past
+//          S zero-filled). Each consumer computes S = Q·Kᵀ (wgmma m64n128,
+//          both operands K-major in shared memory), the online softmax in
+//          registers (exp2 with log2(e) folded into the scale; row max and sum
+//          over the four lanes of a quad), packs P to bf16 straight into the A
+//          registers of O += P·V (wgmma m64n64 with A from registers and V read
+//          MN-major through the descriptor's transpose bit: no Vᵀ copy), and
+//          normalises in the epilogue. Length and band masks are evaluated
+//          only on tiles that straddle an edge; a warpgroup with no live pair
+//          in a tile skips its products. l sums the unrounded P; P is rounded
+//          to bf16 for P·V (the plain version rounds the normalised
+//          probabilities, so the two differ by a bf16 rounding).
+//   bf16 partial — tensor cores through mma.sync m16n8k16, 4 warps of 16 q
+//          rows, 64-key tiles loaded synchronously with V stored transposed;
+//          P stays in registers (FlashAttention-2's register reuse) and is
+//          kept unrounded in l.
 //   f32  — plain FMA on the CUDA cores, 4 threads per q row, p passed to the
-//          P·V loop by warp shuffle.
+//          P·V loop by warp shuffle (forward and partial).
 //
 // Bound on an H100 SXM: global layers and ring steps are compute-bound
 // (4·H·D FLOP per live (q, k) pair: 618 GFLOP at B=3, S=8192, H=12, i.e.
 // 0.63 ms at 989 TFLOP/s bf16; one fully live ring step at B=1, Sq=Sk=6144,
-// 0.12 ms); local layers are memory-bound (q, k, v and o read or written
-// once). The bf16 kernel loads each tile synchronously (no cp.async/TMA
-// pipeline) and uses mma.sync, not wgmma, so it is still far from that
-// bound; a pipelined wgmma kernel is the next step.
+// 0.12 ms). At D = 64 the softmax's one exp per pair (16 a clock per SM on
+// the multi-function units) weighs as much as the products, which is why
+// the exp runs as a single ex2 after one FMA and the masks stay off interior
+// tiles. Local layers are memory-bound (q, k, v and o read or written once);
+// their 128-key tiles cover the 129-key band of a 64-row warpgroup in two
+// tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -80,9 +92,10 @@ __device__ __forceinline__ int key_limit(int length, int k_offset, int seq_k) {
   return n < 0 ? 0 : (n > seq_k ? seq_k : n);
 }
 
-// Key tiles [begin, end) that a q tile starting at q_start can see: keys below
-// len and, for window >= 0, within window/2 of some row of the tile (q and k
-// share positions whenever window >= 0).
+// Key tiles [begin, end) of kTile keys that a q tile of kRows rows starting
+// at q_start can see: keys below len and, for window >= 0, within window/2 of
+// some row of the tile (q and k share positions whenever window >= 0).
+template <int kRows, int kTile>
 __device__ __forceinline__ void key_tile_range(int q_start, int len, int window, int* begin,
                                                int* end) {
   int k_lo = 0;
@@ -90,11 +103,11 @@ __device__ __forceinline__ void key_tile_range(int q_start, int len, int window,
   if (window >= 0) {
     const int half = window / 2;
     k_lo = q_start - half > 0 ? q_start - half : 0;
-    const int hi = q_start + kBlockQ + half;  // exclusive
+    const int hi = q_start + kRows + half;  // exclusive
     k_hi = hi < len ? hi : len;
   }
-  *begin = k_lo / kBlockK;
-  *end = k_hi > k_lo ? (k_hi + kBlockK - 1) / kBlockK : *begin;
+  *begin = k_lo / kTile;
+  *end = k_hi > k_lo ? (k_hi + kTile - 1) / kTile : *begin;
 }
 
 // ---- float32: FMA on the CUDA cores ------------------------------------------------
@@ -150,7 +163,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float l_run = 0.f;
 
   int kt_begin, kt_end;
-  key_tile_range(q_start, len, window, &kt_begin, &kt_end);
+  key_tile_range<kBlockQ, kBlockK>(q_start, len, window, &kt_begin, &kt_end);
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
@@ -252,7 +265,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor cores through mma.sync -------------------------------------------
+// ---- bf16 partial: tensor cores through mma.sync --------------------------------------
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = kMmaWarps * 32;  // 16 q rows per warp
@@ -267,11 +280,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
 __device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
@@ -281,14 +289,13 @@ __device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
 //                         reg3 (g+8, 2t+8..)
 //   B (16×8, k × n):      reg0 (k = 2t..2t+1, n = g), reg1 (k = 2t+8..2t+9, n = g)
 //   C (16×8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// `out` is bf16 [B, Sq, H, D] for the forward, float32 for the partial.
-template <bool kPartial>
+// Writes the float32 numerator [B, Sq, H, D] and m, l [B, H, Sq].
 __global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                     void* __restrict__ out, float* __restrict__ lse, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int seq_q, int seq_k, int heads, int window,
-                     int k_offset, float scale) {
+flash_partial_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+                         float* __restrict__ numer, float* __restrict__ m_out,
+                         float* __restrict__ l_out, int seq_q, int seq_k, int heads,
+                         int k_offset, float scale) {
   constexpr int kDSteps = D / 16;        // k-steps of Q·Kᵀ
   constexpr int kDTiles = D / 8;         // n-tiles of O
   constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
@@ -309,16 +316,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int t = lane & 3;
   const int row0 = q_start + (tid / 32) * 16 + g;  // this thread's rows: row0, row0 + 8
   const int row1 = row0 + 8;
-  const int half = window / 2;
 
   const int len = key_limit(lengths[b], k_offset, seq_k);
 
   const long long tok_stride = (long long)heads * D;
   const long long q_base = (long long)b * seq_q * tok_stride + (long long)h * D;
-  // The forward's q and k/v share one length, so one base serves both: one
-  // 64-bit value live across the key loop instead of two (no spill).
-  const long long kv_base =
-      kPartial ? (long long)b * seq_k * tok_stride + (long long)h * D : q_base;
+  const long long kv_base = (long long)b * seq_k * tok_stride + (long long)h * D;
 
   unsigned qa[kDSteps][4];
 #pragma unroll
@@ -337,10 +340,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   for (int j = 0; j < kDTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  int kt_begin, kt_end;
-  key_tile_range(q_start, len, window, &kt_begin, &kt_end);
+  // No band: every key tile below the block's live keys.
+  const int kt_end = (len + kBlockK - 1) / kBlockK;
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
+  for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile has been consumed
     constexpr int kChunks = D / 8;  // 16-byte chunks per key row
@@ -380,10 +383,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     for (int j = 0; j < kKeyTiles; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row0 : row1;
-        const int dist = row > key ? row - key : key - row;
-        const bool ok = key < len && (window < 0 || dist <= half);
+        const bool ok = k0 + j * 8 + 2 * t + (e & 1) < len;
         s[j][e] = ok ? s[j][e] * scale : kNegInf;
         valid |= ok ? (1u << (j * 4 + e)) : 0u;
         if (e < 2)
@@ -435,10 +435,10 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
     for (int kc = 0; kc < kKeySteps; ++kc) {
       const unsigned pa[4] = {
-          pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-          pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-          pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]),
+          hopper::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
+          hopper::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
+          hopper::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+          hopper::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]),
       };
 #pragma unroll
       for (int j = 0; j < kDTiles; ++j) {
@@ -448,77 +448,235 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     }
   }
 
-  if constexpr (kPartial) {
-    // Unnormalised float32 numerator, and the row's m and l.
-    float* np = static_cast<float*>(out) + q_base;
+  // Unnormalised float32 numerator, and the row's m and l.
+  float* np = numer + q_base;
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      const int d = j * 8 + 2 * t;
-      if (row0 < seq_q)
-        *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
-            make_float2(o[j][0], o[j][1]);
-      if (row1 < seq_q)
-        *reinterpret_cast<float2*>(np + (long long)row1 * tok_stride + d) =
-            make_float2(o[j][2], o[j][3]);
+  for (int j = 0; j < kDTiles; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (row0 < seq_q)
+      *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
+          make_float2(o[j][0], o[j][1]);
+    if (row1 < seq_q)
+      *reinterpret_cast<float2*>(np + (long long)row1 * tok_stride + d) =
+          make_float2(o[j][2], o[j][3]);
+  }
+  if (t == 0) {  // the quad's four lanes hold the same m and l
+    const long long r = (long long)bh * seq_q;
+    if (row0 < seq_q) {
+      m_out[r + row0] = m0;
+      l_out[r + row0] = l0;
     }
-    if (t == 0) {  // the quad's four lanes hold the same m and l
-      const long long r = (long long)bh * seq_q;
-      if (row0 < seq_q) {
-        m_out[r + row0] = m0;
-        l_out[r + row0] = l0;
-      }
-      if (row1 < seq_q) {
-        m_out[r + row1] = m1;
-        l_out[r + row1] = l1;
-      }
-    }
-  } else {
-    __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out) + q_base;
-    const float den0 = fmaxf(l0, 1e-20f);
-    const float den1 = fmaxf(l1, 1e-20f);
-#pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      const int d = j * 8 + 2 * t;
-      if (row0 < seq_q)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
-            __floats2bfloat162_rn(o[j][0] / den0, o[j][1] / den0);
-      if (row1 < seq_q)
-        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row1 * tok_stride + d) =
-            __floats2bfloat162_rn(o[j][2] / den1, o[j][3] / den1);
-    }
-    if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
-      float* lp = lse + (long long)bh * seq_q;
-      if (row0 < seq_q) lp[row0] = l0 > 0.f ? m0 + logf(l0) : 0.f;
-      if (row1 < seq_q) lp[row1] = l1 > 0.f ? m1 + logf(l1) : 0.f;
+    if (row1 < seq_q) {
+      m_out[r + row1] = m1;
+      l_out[r + row1] = l1;
     }
   }
 }
 
-// One launch of either kernel; dtype 0 = float32, 1 = bfloat16.
-template <bool kPartial>
-int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           float* lse, float* m, float* l, int batch, int seq_q, int seq_k, int heads,
-           int head_dim, int window, int k_offset, int dtype, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
-  if (batch <= 0 || seq_q <= 0 || heads <= 0) return (int)cudaSuccess;
-  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
-  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
-  if (dtype == 0) {
-    flash_fwd_kernel<kPartial><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), len, static_cast<float*>(out), lse, m, l, seq_q, seq_k,
-        heads, window, k_offset, scale);
-  } else if (dtype == 1) {
-    flash_fwd_mma_kernel<kPartial><<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), len, out, lse, m, l, seq_q, seq_k, heads, window,
-        k_offset, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// ---- bf16 forward: wgmma fed by TMA ----------------------------------------------------
+
+constexpr int kFwdRows = 128;  // q rows a CTA: two consumer warpgroups of 64
+constexpr int kFwdKeys = 128;  // keys a K/V tile
+constexpr int kFwdStages = 2;  // K/V ring depth
+constexpr int kFwdConsumers = 2 * hopper::kWarpgroup;
+constexpr int kFwdThreads = kFwdConsumers + 32;  // + the TMA producer warp
+constexpr int kFwdQBytes = kFwdRows * hopper::kRowBytes;
+constexpr int kFwdTileBytes = kFwdKeys * hopper::kRowBytes;
+constexpr int kFwdBarOffset = kFwdQBytes + kFwdStages * 2 * kFwdTileBytes;
+constexpr int kFwdSmem = kFwdBarOffset + (1 + 2 * kFwdStages) * 8 + 1024;  // + alignment slack
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
+                       int heads, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_base_1024(smem_raw);
+  uint8_t* q_tile = smem;
+  uint8_t* kv_tiles = smem + kFwdQBytes;  // stage s: K at 2s, V at 2s + 1 (tiles of kFwdTileBytes)
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kFwdBarOffset);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kFwdStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh % heads;
+  const int q_start = blockIdx.x * kFwdRows;
+  const int len = key_limit(lengths[b], 0, seq);
+  int kt_begin, kt_end;
+  key_tile_range<kFwdRows, kFwdKeys>(q_start, len, window, &kt_begin, &kt_end);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], kFwdConsumers);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= kFwdConsumers) {
+    // Producer warp: one thread loads Q, then keeps the K/V ring full.
+    if (threadIdx.x == kFwdConsumers) {
+      mbar_arrive_expect_tx(q_full, kFwdQBytes);
+      tma_load_tile(q_tile, &q_map, q_full, h, q_start, b);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int s = i % kFwdStages;
+        if (i >= kFwdStages) mbar_wait(&kv_empty[s], (i / kFwdStages - 1) & 1);
+        mbar_arrive_expect_tx(&kv_full[s], 2 * kFwdTileBytes);
+        tma_load_tile(kv_tiles + 2 * s * kFwdTileBytes, &k_map, &kv_full[s], h, kt * kFwdKeys, b);
+        tma_load_tile(kv_tiles + (2 * s + 1) * kFwdTileBytes, &v_map, &kv_full[s], h,
+                      kt * kFwdKeys, b);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows wg_row .. wg_row + 63; this thread rows
+  // row0 and row0 + 8 (the accumulator layout, see hopper.cuh).
+  const int wg = threadIdx.x / kWarpgroup;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg_row = q_start + wg * 64;
+  const int row0 = wg_row + (threadIdx.x % kWarpgroup) / 32 * 16 + g;
+  const int row1 = row0 + 8;
+  const int half = window / 2;
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x·scale) = 2^(x·scale_log2)
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // Running max of the raw scores; l0, l1 sum this thread's columns only (the
+  // quad's four partial sums are added in the epilogue).
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  mbar_wait(q_full, 0);
+  const uint64_t q_desc = desc_sw128(q_tile + wg * 64 * kRowBytes);
+
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int s = i % kFwdStages;
+    mbar_wait(&kv_full[s], (i / kFwdStages) & 1);
+    const int k0 = kt * kFwdKeys;
+    const int k_last = k0 + kFwdKeys - 1;
+    if (wg_row < seq && any_live(wg_row, k0, k_last, len, window)) {
+      const uint8_t* k_tile = kv_tiles + 2 * s * kFwdTileBytes;
+      const uint8_t* v_tile = k_tile + kFwdTileBytes;
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n128k16_ss(sc, q_desc + kc * kDescKStep, desc_sw128(k_tile) + kc * kDescKStep,
+                            kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // Masks only where the tile crosses the length or the band's edge.
+      if (!all_live(wg_row, k0, k_last, len, window)) {
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          const int key = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+          const int row = e & 2 ? row1 : row0;
+          const int dist = row > key ? row - key : key - row;
+          if (key >= len || (window >= 0 && dist > half)) sc[e] = -INFINITY;
+        }
+      }
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        if (e & 2)
+          mx1 = fmaxf(mx1, sc[e]);
+        else
+          mx0 = fmaxf(mx0, sc[e]);
+      }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      // A row with no live key yet keeps m = -inf: subtract 0 there, so no
+      // -inf − -inf arises and its P and correction are 0.
+      const float base0 = mx0 == -INFINITY ? 0.f : mx0 * scale_log2;
+      const float base1 = mx1 == -INFINITY ? 0.f : mx1 * scale_log2;
+      const float corr0 = exp2_approx(m0 * scale_log2 - base0);
+      const float corr1 = exp2_approx(m1 * scale_log2 - base1);
+      m0 = mx0;
+      m1 = mx1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        sc[e] = exp2_approx(fmaf(sc[e], scale_log2, e & 2 ? -base1 : -base0));
+        if (e & 2)
+          ps1 += sc[e];
+        else
+          ps0 += sc[e];
+      }
+      l0 = l0 * corr0 + ps0;
+      l1 = l1 * corr1 + ps1;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[e] *= e & 2 ? corr1 : corr0;
+
+      // O += P·V: P's bf16 pairs are the A registers, V is read MN-major.
+      uint32_t pa[8][4];
+      acc_to_a(sc, pa);
+      fence_regs(o);
+      fence_regs(pa);
+      wgmma_fence();
+      const uint64_t v_desc = desc_sw128(v_tile);
+#pragma unroll
+      for (int kc = 0; kc < kFwdKeys / 16; ++kc)
+        wgmma_m64n64k16_rs(o, pa[kc], v_desc + kc * kDescRowStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    mbar_arrive(&kv_empty[s]);
+  }
+
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const long long tok_stride = (long long)heads * D;
+  __nv_bfloat16* op = out + (long long)b * seq * tok_stride + (long long)h * D;
+  const float den0 = fmaxf(l0, 1e-20f);
+  const float den1 = fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (row0 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
+          __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
+    if (row1 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row1 * tok_stride + d) =
+          __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+  }
+  if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
+    float* lp = lse + (long long)bh * seq;
+    if (row0 < seq) lp[row0] = l0 > 0.f ? m0 * scale + logf(l0) : 0.f;
+    if (row1 < seq) lp[row1] = l1 > 0.f ? m1 * scale + logf(l1) : 0.f;
+  }
+}
+
+int launch_fwd_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
+                    float* lse, int batch, int seq, int heads, int window, float scale,
+                    cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (int rc = hopper::make_tile_map(&q_map, q, batch, seq, heads, kFwdRows)) return rc;
+  if (int rc = hopper::make_tile_map(&k_map, k, batch, seq, heads, kFwdKeys)) return rc;
+  if (int rc = hopper::make_tile_map(&v_map, v, batch, seq, heads, kFwdKeys)) return rc;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((seq + kFwdRows - 1) / kFwdRows, batch * heads);
+  flash_fwd_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
+      q_map, k_map, v_map, lengths, static_cast<__nv_bfloat16*>(out), lse, seq, heads, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -530,8 +688,21 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* lengths, void* out, void* lse, int batch, int seq,
                                    int heads, int head_dim, int window, int dtype, void* stream) {
-  return launch<false>(q, k, v, lengths, out, static_cast<float*>(lse), nullptr, nullptr, batch,
-                       seq, seq, heads, head_dim, window, 0, dtype, stream);
+  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaSuccess;
+  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
+  float* lse_out = static_cast<float*>(lse);
+  if (dtype == 1)
+    return launch_fwd_bf16(q, k, v, len, out, lse_out, batch, seq, heads, window, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
+  flash_fwd_kernel<false><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      len, static_cast<float*>(out), lse_out, nullptr, nullptr, seq, seq, heads, window, 0, scale);
+  return (int)cudaGetLastError();
 }
 
 // One KV block's unnormalised contribution: q [B, seq_q, H, D], k and v
@@ -543,8 +714,27 @@ extern "C" int flash_attention_partial(const void* q, const void* k, const void*
                                        const void* lengths, void* numer, void* m, void* l,
                                        int batch, int seq_q, int seq_k, int heads, int head_dim,
                                        int k_offset, int dtype, void* stream) {
-  if (seq_k < 0 || k_offset < 0) return (int)cudaErrorInvalidValue;
-  return launch<true>(q, k, v, lengths, numer, nullptr, static_cast<float*>(m),
-                      static_cast<float*>(l), batch, seq_q, seq_k, heads, head_dim, -1, k_offset,
-                      dtype, stream);
+  if (seq_k < 0 || k_offset < 0 || head_dim != D) return (int)cudaErrorInvalidValue;
+  if (batch <= 0 || seq_q <= 0 || heads <= 0) return (int)cudaSuccess;
+  if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
+  const float scale = 1.0f / sqrtf((float)D);
+  float* mo = static_cast<float*>(m);
+  float* lo = static_cast<float*>(l);
+  if (dtype == 0) {
+    flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), len, static_cast<float*>(numer), nullptr, mo, lo, seq_q,
+        seq_k, heads, -1, k_offset, scale);
+  } else if (dtype == 1) {
+    flash_partial_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), len, static_cast<float*>(numer), mo, lo, seq_q,
+        seq_k, heads, k_offset, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

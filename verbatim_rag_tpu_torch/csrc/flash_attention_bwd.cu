@@ -16,38 +16,50 @@
 // D = 64, in bfloat16 or float32; every sum is float32 and the outputs are
 // written in the inputs' type. Any S is taken: the ragged edge is masked here.
 //
-// Two kernels, each in two variants (one per input type):
+// Two kernels, each in two variants (one per input type), as the TPU kernels
+// split the work: deterministic, no atomics, no second pass.
 //
-//   dq  — one thread block per (q tile, b·h); a loop over the key tiles the
-//         tile can see (past the length, or outside the band, never loaded)
-//         recomputes S and P from Q, K and lse, computes dP = dO·Vᵀ, and
+//   dq  — one CTA per (q tile, b·h); a loop over the key tiles the tile can
+//         see (past the length, or outside the band, never loaded) recomputes
+//         S and P from Q, K and lse, computes dP = dO·Vᵀ and dS, and
 //         accumulates dq in registers.
-//   dkv — one thread block per (key tile, b·h); a loop over the q tiles that
-//         can see it (the band is symmetric, so their range is the mirror of
-//         the key range) accumulates dk and dv in registers. The q tiles are
-//         the reduction, as the TPU kernel's innermost grid axis is: no
-//         atomics, no second pass.
+//   dkv — one CTA per (key tile, b·h); a loop over the q tiles that can see it
+//         (the band is symmetric, so their range is the mirror of the key
+//         range) accumulates dk and dv in registers. The q tiles are the
+//         reduction, as the TPU kernel's innermost grid axis is.
 //
-//   bf16 — tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate),
-//          4 warps of 16 rows. The dkv kernel computes Sᵀ = K·Qᵀ and
-//          dPᵀ = V·dOᵀ directly (K and V rows are the A operands), so Pᵀ and
-//          dSᵀ land in registers in exactly the layout of the A fragments of
-//          Pᵀ·dO and dSᵀ·Q, as P does in the forward; the dq kernel reuses dS
-//          the same way for dS·K. Each B operand that contracts over rows
-//          (K for dq, Q and dO for dkv) is also kept transposed in shared
-//          memory, so every fragment is one 32-bit load. P and dS are rounded
-//          to bf16 for the second products.
+//   bf16 — wgmma fed by TMA. Two warpgroups of 64 rows each (q rows for dq,
+//          keys for dk/dv); the CTA's own rows load once and the other
+//          side's tiles stream through a 3-stage ring with full/empty
+//          mbarriers (TMA, 128-byte swizzle, rows past S zero-filled), started
+//          by a producer warp in dq (288 threads) and by thread 0 in dk/dv
+//          (256 threads: its four accumulators a thread need more than the
+//          168 registers ptxas allows a 288-thread wgmma kernel). dq:
+//          S = Q·Kᵀ and dP = dO·Vᵀ (SS wgmma m64n64, both K-major), dS in
+//          registers, dQ += dS·K (RS: dS's bf16 pairs are the A registers, K
+//          is read MN-major through the descriptor's transpose bit). dk/dv: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (SS),
+//          then Pᵀ and dSᵀ in registers and dV += Pᵀ·dO, dK += dSᵀ·Q (RS, dO
+//          and Q MN-major; the dV product runs while dSᵀ is computed). A
+//          wgmma accumulator gives each warp 16 rows in the mma.sync C layout,
+//          which is the A layout of the next product, so P and dS never touch
+//          shared memory and no tile is ever transposed. Masks are evaluated
+//          only on tiles that straddle the length, the band or S; a
+//          warpgroup with no live pair in a tile skips its products. P and dS
+//          are rounded to bf16 for the second products.
 //   f32  — plain FMA on the CUDA cores with 32-row tiles in shared memory,
 //          4 threads per row, p and ds passed between them by warp shuffle.
 //
-// Bound on an H100 SXM: global layers are compute-bound (10·D FLOP per live
-// pair and head: S recomputed twice, dP twice, dq, dk and dv once each in
-// the TPU kernels' split; about 2.5× the forward); local layers are
-// memory-bound. Like the forward, both kernels load their tiles
-// synchronously and use mma.sync, not wgmma; pipelining is later work.
+// Work: the split recomputes S and dP in both kernels, so it does seven
+// products of 2·D FLOP per live pair and head (S, dP, dq in one; S, dP, dk,
+// dv in the other): 14·D. The least work for the function is five products,
+// 10·D, which is what the bound in `chip_smoke.py` counts. Global layers are
+// compute-bound (with D = 64 the two exps per pair weigh as much as the
+// products); local layers are memory-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,320 +106,357 @@ __device__ __forceinline__ bool live(int qi, int key, int len, int window) {
   return key < len && (window < 0 || dist <= window / 2);
 }
 
-// ---- bf16: tensor cores through mma.sync -------------------------------------------
+// ---- bf16: wgmma fed by TMA -------------------------------------------------------------
 
-constexpr int kTile = 64;             // q rows and keys per tile
-constexpr int kMmaThreads = 128;      // 4 warps × 16 rows
-constexpr int kStride = D + 8;        // [row][d] tiles: bf16 per shared row (bank spread)
-constexpr int kTStride = kTile + 8;   // [d][row] tiles
+constexpr int kBwdConsumers = 2 * hopper::kWarpgroup;  // two warpgroups of 64 rows
+constexpr int kBwdThreads = kBwdConsumers + 32;        // + the TMA producer warp
+constexpr int kBwdStages = 3;                          // ring depth
+constexpr int kOwnRows = 128;   // the CTA's own rows: q rows (dq) or keys (dk/dv)
+constexpr int kStreamRows = 64;  // rows of each streamed tile: keys (dq) or q rows (dk/dv)
+constexpr int kOwnBytes = kOwnRows * hopper::kRowBytes;        // 16 KB a tensor
+constexpr int kStreamBytes = kStreamRows * hopper::kRowBytes;  // 8 KB a tensor
+constexpr int kStagesOffset = 2 * kOwnBytes;                   // stage s: 2 tiles at s·2·8 KB
+constexpr int kBarOffset = kStagesOffset + kBwdStages * 2 * kStreamBytes;
+constexpr int kBwdSmem = kBarOffset + (1 + 2 * kBwdStages) * 8 + 1024;  // + alignment slack
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Shared memory of both kernels: the CTA's own two tiles (Q, dO for dq; K, V
+// for dk/dv), a ring of stages of two streamed tiles, then the barriers: own
+// tiles loaded, and per stage full and empty.
+struct BwdSmem {
+  uint8_t* base;
+  __device__ uint8_t* own(int i) const { return base + i * kOwnBytes; }
+  __device__ uint8_t* stream(int s, int i) const {
+    return base + kStagesOffset + (2 * s + i) * kStreamBytes;
+  }
+  __device__ uint64_t* own_full() const { return reinterpret_cast<uint64_t*>(base + kBarOffset); }
+  __device__ uint64_t* full(int s) const { return own_full() + 1 + s; }
+  __device__ uint64_t* empty(int s) const { return own_full() + 1 + kBwdStages + s; }
+};
+
+// Barriers: the own tiles' and each stage's full (one arrival + bytes) and
+// each stage's empty (every consumer thread).
+__device__ __forceinline__ void init_barriers(const BwdSmem& sm) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(sm.own_full(), 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      hopper::mbar_init(sm.full(s), 1);
+      hopper::mbar_init(sm.empty(s), kBwdConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// A fragments (16 rows × D) of rows r0 and r0 + 8 of a [B, S, H, D] tensor; 0 past seq.
-__device__ __forceinline__ void load_a_rows(const __nv_bfloat16* x, long long base,
-                                            long long tok_stride, int r0, int seq, int t,
-                                            unsigned (&a)[D / 16][4]) {
-  const int r1 = r0 + 8;
+// Writes rows r0 and r0 + 8 (below seq) of a [B, S, H, D] bf16 tensor from
+// a wgmma m64n64 accumulator.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* x, long long base, long long tok_stride,
+                                           int r0, int seq, int t, const float (&acc)[32]) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int d = kc * 16 + 2 * t;
-    const __nv_bfloat16* p0 = x + base + (long long)r0 * tok_stride + d;
-    const __nv_bfloat16* p1 = x + base + (long long)r1 * tok_stride + d;
-    a[kc][0] = r0 < seq ? load_u32(p0) : 0u;
-    a[kc][1] = r1 < seq ? load_u32(p1) : 0u;
-    a[kc][2] = r0 < seq ? load_u32(p0 + 8) : 0u;
-    a[kc][3] = r1 < seq ? load_u32(p1 + 8) : 0u;
+  for (int j = 0; j < 8; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (r0 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(x + base + (long long)r0 * tok_stride + d) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (r0 + 8 < seq)
+      *reinterpret_cast<__nv_bfloat162*>(x + base + (long long)(r0 + 8) * tok_stride + d) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
-// Rows [r_start, r_start + kTile) of two [B, S, H, D] tensors into shared
-// memory: x as [row][d] (and, when xt is given, also as [d][row]), y as
-// [row][d] (and yt as [d][row]); rows past seq are 0.
-__device__ __forceinline__ void load_tiles(const __nv_bfloat16* x, const __nv_bfloat16* y,
-                                           long long base, long long tok_stride, int r_start,
-                                           int seq, __nv_bfloat16* xs, __nv_bfloat16* ys,
-                                           __nv_bfloat16* xt, __nv_bfloat16* yt) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * 8;
-    const int row = r_start + r;
-    uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = make_uint4(0u, 0u, 0u, 0u);
-    if (row < seq) {
-      const long long off = base + (long long)row * tok_stride + c;
-      xv = *reinterpret_cast<const uint4*>(x + off);
-      yv = *reinterpret_cast<const uint4*>(y + off);
-    }
-    *reinterpret_cast<uint4*>(&xs[r * kStride + c]) = xv;
-    *reinterpret_cast<uint4*>(&ys[r * kStride + c]) = yv;
-    const __nv_bfloat16* xe = reinterpret_cast<const __nv_bfloat16*>(&xv);
-    const __nv_bfloat16* ye = reinterpret_cast<const __nv_bfloat16*>(&yv);
-    if (xt != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) xt[(c + e) * kTStride + r] = xe[e];
-    }
-    if (yt != nullptr) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) yt[(c + e) * kTStride + r] = ye[e];
-    }
-  }
-}
-
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16×16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2 (g, 2t+8..),
-//                         reg3 (g+8, 2t+8..)
-//   B (16×8, k × n):      reg0 (k = 2t..2t+1, n = g), reg1 (k = 2t+8..2t+9, n = g)
-//   C (16×8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// so the C tiles of n-tiles 2kc and 2kc+1 are, packed to bf16, the A fragment
-// of k-step kc of the next product.
-__device__ __forceinline__ void c_to_a(const float (&lo)[4], const float (&hi)[4],
-                                       unsigned (&a)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ lengths, __nv_bfloat16* __restrict__ dq, int seq,
-                        int heads, int window, float scale) {
-  constexpr int kNT = kTile / 8;  // n-tiles of S (keys) and of dq (d)
-  constexpr int kKS = kTile / 16;  // k-steps of dS·K (keys)
-
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kTile * kStride];    // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 v_tile[kTile * kStride];    // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 kt_tile[D * kTStride];      // [d][key]
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ lengths, __nv_bfloat16* __restrict__ dq,
+                          int seq, int heads, int window, float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem sm{smem_base_1024(smem_raw)};
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
-  const int q_start = blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = q_start + (threadIdx.x / 32) * 16 + g;
-  const int row1 = row0 + 8;
-
+  const int q_start = blockIdx.x * kOwnRows;
   int len = lengths[b];
   len = len < 0 ? 0 : (len > seq ? seq : len);
-
-  const long long tok_stride = (long long)heads * D;
-  const long long base = (long long)b * seq * tok_stride + (long long)h * D;
-  const float* lse_bh = lse + (long long)bh * seq;
-  const float* delta_bh = delta + (long long)bh * seq;
-
-  unsigned qa[D / 16][4], da[D / 16][4];
-  load_a_rows(q, base, tok_stride, row0, seq, t, qa);
-  load_a_rows(dout, base, tok_stride, row0, seq, t, da);
-  const float lse0 = row0 < seq ? lse_bh[row0] : 0.f, lse1 = row1 < seq ? lse_bh[row1] : 0.f;
-  const float dl0 = row0 < seq ? delta_bh[row0] : 0.f, dl1 = row1 < seq ? delta_bh[row1] : 0.f;
-
-  float acc[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
   int kt_begin, kt_end;
-  key_tile_range<kTile, kTile>(q_start, len, window, &kt_begin, &kt_end);
+  key_tile_range<kOwnRows, kStreamRows>(q_start, len, window, &kt_begin, &kt_end);
 
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile has been consumed
-    load_tiles(k, v, base, tok_stride, k0, seq, k_tile, v_tile, kt_tile, nullptr);
-    __syncthreads();
+  init_barriers(sm);
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ, 8 n-tiles of 8 keys each.
-    float s[kNT][4], dp[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const int off = (j * 8 + g) * kStride + kc * 16 + 2 * t;
-        mma_bf16(s[j], qa[kc], load_u32(&k_tile[off]), load_u32(&k_tile[off + 8]));
-        mma_bf16(dp[j], da[kc], load_u32(&v_tile[off]), load_u32(&v_tile[off + 8]));
+  if (threadIdx.x >= kBwdConsumers) {
+    // Producer warp: one thread loads Q and dO, then keeps the K/V ring full.
+    if (threadIdx.x == kBwdConsumers) {
+      mbar_arrive_expect_tx(sm.own_full(), 2 * kOwnBytes);
+      tma_load_tile(sm.own(0), &q_map, sm.own_full(), h, q_start, b);
+      tma_load_tile(sm.own(1), &do_map, sm.own_full(), h, q_start, b);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int s = i % kBwdStages;
+        if (i >= kBwdStages) mbar_wait(sm.empty(s), (i / kBwdStages - 1) & 1);
+        mbar_arrive_expect_tx(sm.full(s), 2 * kStreamBytes);
+        tma_load_tile(sm.stream(s, 0), &k_map, sm.full(s), h, kt * kStreamRows, b);
+        tma_load_tile(sm.stream(s, 1), &v_map, sm.full(s), h, kt * kStreamRows, b);
       }
     }
-
-    // dS = P ∘ (dP − delta)·scale with P = exp(S·scale − lse) on live pairs; into s.
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const bool top = e < 2;
-        const float p = live(top ? row0 : row1, key, len, window)
-                            ? expf(s[j][e] * scale - (top ? lse0 : lse1))
-                            : 0.f;
-        s[j][e] = p * (dp[j][e] - (top ? dl0 : dl1)) * scale;
-      }
-    }
-
-    // dQ += dS·K: dS's accumulators are the A fragments, K comes from [d][key].
-#pragma unroll
-    for (int kc = 0; kc < kKS; ++kc) {
-      unsigned sa[4];
-      c_to_a(s[2 * kc], s[2 * kc + 1], sa);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int off = (j * 8 + g) * kTStride + kc * 16 + 2 * t;
-        mma_bf16(acc[j], sa, load_u32(&kt_tile[off]), load_u32(&kt_tile[off + 8]));
-      }
-    }
+    return;
   }
 
+  const int wg = threadIdx.x / kWarpgroup;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg_row = q_start + wg * 64;
+  const int row0 = wg_row + (threadIdx.x % kWarpgroup) / 32 * 16 + g;  // and row0 + 8
+  const int row1 = row0 + 8;
+  const int half = window / 2;
+  const float scale_log2 = scale * kLog2e;
+
+  const float* lse_bh = lse + (long long)bh * seq;
+  const float* delta_bh = delta + (long long)bh * seq;
+  const float lse0 = row0 < seq ? lse_bh[row0] * kLog2e : 0.f;
+  const float lse1 = row1 < seq ? lse_bh[row1] * kLog2e : 0.f;
+  const float dl0 = row0 < seq ? delta_bh[row0] : 0.f;
+  const float dl1 = row1 < seq ? delta_bh[row1] : 0.f;
+
+  float acc[32];
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (long long)row0 * tok_stride + d) =
-          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-    if (row1 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(dq + base + (long long)row1 * tok_stride + d) =
-          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  mbar_wait(sm.own_full(), 0);
+  const uint64_t q_desc = desc_sw128(sm.own(0) + wg * 64 * kRowBytes);
+  const uint64_t do_desc = desc_sw128(sm.own(1) + wg * 64 * kRowBytes);
+
+  for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+    const int s = i % kBwdStages;
+    mbar_wait(sm.full(s), (i / kBwdStages) & 1);
+    const int k0 = kt * kStreamRows;
+    const int k_last = k0 + kStreamRows - 1;
+    if (wg_row < seq && hopper::any_live(wg_row, k0, k_last, len, window)) {
+      const uint64_t k_desc = desc_sw128(sm.stream(s, 0));
+      const uint64_t v_desc = desc_sw128(sm.stream(s, 1));
+      // S = Q·Kᵀ and dP = dO·Vᵀ.
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n64k16_ss(sc, q_desc + kc * kDescKStep, k_desc + kc * kDescKStep, kc);
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n64k16_ss(dp, do_desc + kc * kDescKStep, v_desc + kc * kDescKStep, kc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      if (!hopper::all_live(wg_row, k0, k_last, len, window)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int key = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+          const int row = e & 2 ? row1 : row0;
+          const int dist = row > key ? row - key : key - row;
+          if (key >= len || (window >= 0 && dist > half)) sc[e] = -INFINITY;
+        }
+      }
+      // dS = P ∘ (dP − delta)·scale with P = exp(S·scale − lse), into sc.
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float p = exp2_approx(fmaf(sc[e], scale_log2, e & 2 ? -lse1 : -lse0));
+        sc[e] = p * (dp[e] - (e & 2 ? dl1 : dl0)) * scale;
+      }
+
+      // dQ += dS·K: dS's bf16 pairs are the A registers, K is read MN-major.
+      uint32_t da[4][4];
+      acc_to_a(sc, da);
+      fence_regs(acc);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStreamRows / 16; ++kc)
+        wgmma_m64n64k16_rs(acc, da[kc], k_desc + kc * kDescRowStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    mbar_arrive(sm.empty(s));
   }
+
+  const long long tok_stride = (long long)heads * D;
+  store_rows(dq, (long long)b * seq * tok_stride + (long long)h * D, tok_stride, row0, seq, t, acc);
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, const int* __restrict__ lengths,
-                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int seq,
-                         int heads, int window, float scale) {
-  constexpr int kNT = kTile / 8;   // n-tiles of Sᵀ (q rows) and of dk, dv (d)
-  constexpr int kKS = kTile / 16;  // k-steps of Pᵀ·dO and dSᵀ·Q (q rows)
+// Stage j % kBwdStages of the dk/dv ring gets q tile q0: Q and dO by TMA.
+__device__ __forceinline__ void load_q_tile(const BwdSmem& sm, int j, int q0,
+                                            const CUtensorMap* q_map, const CUtensorMap* do_map,
+                                            int h, int b) {
+  using namespace hopper;
+  const int s = j % kBwdStages;
+  mbar_arrive_expect_tx(sm.full(s), 2 * kStreamBytes);
+  tma_load_tile(sm.stream(s, 0), q_map, sm.full(s), h, q0, b);
+  tma_load_tile(sm.stream(s, 1), do_map, sm.full(s), h, q0, b);
+}
 
-  __shared__ __align__(16) __nv_bfloat16 q_tile[kTile * kStride];   // [q][d]
-  __shared__ __align__(16) __nv_bfloat16 do_tile[kTile * kStride];  // [q][d]
-  __shared__ __align__(16) __nv_bfloat16 qt_tile[D * kTStride];     // [d][q]
-  __shared__ __align__(16) __nv_bfloat16 dot_tile[D * kTStride];    // [d][q]
-  __shared__ float lse_tile[kTile];
-  __shared__ float delta_tile[kTile];
+// Four accumulators a thread (dK, dV, Sᵀ, dPᵀ) need more than the 168
+// registers ptxas allows a wgmma kernel of 288 threads, so this kernel has no
+// producer warp: 256 threads (up to 255 registers), thread 0 issuing the
+// loads. It fills the ring, then after each q tile refills the stage of the
+// tile before, which leaves the other warpgroup one tile of slack. Each
+// thread reads the lse and delta of its own 16 q columns from global memory
+// while the tile's first products run.
+__global__ void __launch_bounds__(kBwdConsumers, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const int* __restrict__ lengths, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int seq, int heads, int window,
+                           float scale) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  const BwdSmem sm{smem_base_1024(smem_raw)};
 
   const int bh = blockIdx.y;
   const int b = bh / heads;
   const int h = bh % heads;
-  const int k_start = blockIdx.x * kTile;
+  const int k_start = blockIdx.x * kOwnRows;
+  int len = lengths[b];
+  len = len < 0 ? 0 : (len > seq ? seq : len);
+  int qt_begin, qt_end;
+  query_tile_range<kOwnRows, kStreamRows>(k_start, len, seq, window, &qt_begin, &qt_end);
+  const int n_tiles = qt_end - qt_begin;
+
+  init_barriers(sm);
+
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(sm.own_full(), 2 * kOwnBytes);
+    tma_load_tile(sm.own(0), &k_map, sm.own_full(), h, k_start, b);
+    tma_load_tile(sm.own(1), &v_map, sm.own_full(), h, k_start, b);
+    for (int j = 0; j < kBwdStages && j < n_tiles; ++j)
+      load_q_tile(sm, j, (qt_begin + j) * kStreamRows, &q_map, &do_map, h, b);
+  }
+
+  const float* lse_bh = lse + (long long)bh * seq;
+  const float* delta_bh = delta + (long long)bh * seq;
+  const int wg = threadIdx.x / kWarpgroup;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int key0 = k_start + (threadIdx.x / 32) * 16 + g;  // this thread's keys: key0, key0 + 8
+  const int wg_key = k_start + wg * 64;
+  const int key0 = wg_key + (threadIdx.x % kWarpgroup) / 32 * 16 + g;  // and key0 + 8
   const int key1 = key0 + 8;
+  const int half = window / 2;
+  const float scale_log2 = scale * kLog2e;
 
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > seq ? seq : len);
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  mbar_wait(sm.own_full(), 0);
+  const uint64_t k_desc = desc_sw128(sm.own(0) + wg * 64 * kRowBytes);
+  const uint64_t v_desc = desc_sw128(sm.own(1) + wg * 64 * kRowBytes);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kBwdStages;
+    mbar_wait(sm.full(s), (i / kBwdStages) & 1);
+    const int q0 = (qt_begin + i) * kStreamRows;
+    const int q_last = q0 + kStreamRows - 1;
+    // The band is symmetric: the q tile's rows against this warpgroup's keys.
+    if (any_live(q0, wg_key, wg_key + 63, len, window)) {
+      const uint64_t q_desc = desc_sw128(sm.stream(s, 0));
+      const uint64_t do_desc = desc_sw128(sm.stream(s, 1));
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are keys, columns q rows.
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n64k16_ss(st, k_desc + kc * kDescKStep, q_desc + kc * kDescKStep, kc);
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc)
+        wgmma_m64n64k16_ss(dpt, v_desc + kc * kDescKStep, do_desc + kc * kDescKStep, kc);
+      wgmma_commit();
+      // While they run: lse·log2(e) and delta of this thread's columns
+      // 8j + 2t + c (q rows q0 + that; 0 past seq, where P is masked).
+      float lse2[16], dl[16];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = q0 + 8 * j + 2 * t + c;
+          lse2[2 * j + c] = qi < seq ? lse_bh[qi] * kLog2e : 0.f;
+          dl[2 * j + c] = qi < seq ? delta_bh[qi] : 0.f;
+        }
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      if (q_last >= seq || !all_live(q0, wg_key, wg_key + 63, len, window)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int qi = q0 + (e >> 2) * 8 + 2 * t + (e & 1);
+          const int key = e & 2 ? key1 : key0;
+          const int dist = qi > key ? qi - key : key - qi;
+          if (qi >= seq || key >= len || (window >= 0 && dist > half)) st[e] = -INFINITY;
+        }
+      }
+      // Pᵀ = exp(Sᵀ·scale − lse[q]); element e is column 8(e / 4) + 2t + e % 2.
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        st[e] = exp2_approx(fmaf(st[e], scale_log2, -lse2[e / 4 * 2 + (e & 1)]));
+      // dV += Pᵀ·dO (dO read MN-major), running while dSᵀ is computed.
+      uint32_t pa[4][4];
+      acc_to_a(st, pa);
+      fence_regs(dv_acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStreamRows / 16; ++kc)
+        wgmma_m64n64k16_rs(dv_acc, pa[kc], do_desc + kc * kDescRowStep);
+      wgmma_commit();
+      // dSᵀ = Pᵀ ∘ (dPᵀ − delta[q])·scale, then dK += dSᵀ·Q (Q read MN-major).
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dpt[e] = st[e] * (dpt[e] - dl[e / 4 * 2 + (e & 1)]) * scale;
+      uint32_t sa[4][4];
+      acc_to_a(dpt, sa);
+      fence_regs(dk_acc);
+      fence_regs(sa);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kStreamRows / 16; ++kc)
+        wgmma_m64n64k16_rs(dk_acc, sa[kc], q_desc + kc * kDescRowStep);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+    }
+    mbar_arrive(sm.empty(s));
+    // Thread 0 refills the previous tile's stage once both warpgroups are
+    // done with it.
+    const int next = i - 1 + kBwdStages;
+    if (threadIdx.x == 0 && i >= 1 && next < n_tiles) {
+      mbar_wait(sm.empty((i - 1) % kBwdStages), ((i - 1) / kBwdStages) & 1);
+      load_q_tile(sm, next, (qt_begin + next) * kStreamRows, &q_map, &do_map, h, b);
+    }
+  }
 
   const long long tok_stride = (long long)heads * D;
   const long long base = (long long)b * seq * tok_stride + (long long)h * D;
-  const float* lse_bh = lse + (long long)bh * seq;
-  const float* delta_bh = delta + (long long)bh * seq;
+  store_rows(dk, base, tok_stride, key0, seq, t, dk_acc);
+  store_rows(dv, base, tok_stride, key0, seq, t, dv_acc);
+}
 
-  unsigned ka[D / 16][4], va[D / 16][4];
-  load_a_rows(k, base, tok_stride, key0, seq, t, ka);
-  load_a_rows(v, base, tok_stride, key0, seq, t, va);
-
-  float dk_acc[kNT][4], dv_acc[kNT][4];
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
-  }
-
-  int qt_begin, qt_end;
-  query_tile_range<kTile, kTile>(k_start, len, seq, window, &qt_begin, &qt_end);
-
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile has been consumed
-    load_tiles(q, dout, base, tok_stride, q0, seq, q_tile, do_tile, qt_tile, dot_tile);
-    for (int i = threadIdx.x; i < kTile; i += kMmaThreads) {
-      const int qi = q0 + i;
-      lse_tile[i] = qi < seq ? lse_bh[qi] : 0.f;
-      delta_tile[i] = qi < seq ? delta_bh[qi] : 0.f;
-    }
-    __syncthreads();
-
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: rows are this warp's 16 keys, n-tiles 8 q rows.
-    float s[kNT][4], dp[kNT][4];
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const int off = (j * 8 + g) * kStride + kc * 16 + 2 * t;
-        mma_bf16(s[j], ka[kc], load_u32(&q_tile[off]), load_u32(&q_tile[off + 8]));
-        mma_bf16(dp[j], va[kc], load_u32(&do_tile[off]), load_u32(&do_tile[off + 8]));
-      }
-    }
-
-    // Pᵀ into s, dSᵀ into dp.
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + 2 * t + (e & 1);
-        const int qi = q0 + col;
-        const bool ok = qi < seq && live(qi, e < 2 ? key0 : key1, len, window);
-        const float p = ok ? expf(s[j][e] * scale - lse_tile[col]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - delta_tile[col]) * scale;
-      }
-    }
-
-    // dV += Pᵀ·dO and dK += dSᵀ·Q; dO and Q come from their [d][q] copies.
-#pragma unroll
-    for (int kc = 0; kc < kKS; ++kc) {
-      unsigned pa[4], sa[4];
-      c_to_a(s[2 * kc], s[2 * kc + 1], pa);
-      c_to_a(dp[2 * kc], dp[2 * kc + 1], sa);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int off = (j * 8 + g) * kTStride + kc * 16 + 2 * t;
-        mma_bf16(dv_acc[j], pa, load_u32(&dot_tile[off]), load_u32(&dot_tile[off + 8]));
-        mma_bf16(dk_acc[j], sa, load_u32(&qt_tile[off]), load_u32(&qt_tile[off + 8]));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (key0 < seq) {
-      const long long off = base + (long long)key0 * tok_stride + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(dk_acc[j][0], dk_acc[j][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
-          __floats2bfloat162_rn(dv_acc[j][0], dv_acc[j][1]);
-    }
-    if (key1 < seq) {
-      const long long off = base + (long long)key1 * tok_stride + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(dk_acc[j][2], dk_acc[j][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) =
-          __floats2bfloat162_rn(dv_acc[j][2], dv_acc[j][3]);
-    }
-  }
+// The four tile maps of one backward kernel: the CTA's own rows (128) of
+// own0, own1 and the streamed rows (64) of str0, str1.
+int make_bwd_maps(CUtensorMap (&maps)[4], const void* own0, const void* own1, const void* str0,
+                  const void* str1, int batch, int seq, int heads) {
+  const void* bases[4] = {own0, own1, str0, str1};
+  for (int i = 0; i < 4; ++i)
+    if (int rc = hopper::make_tile_map(&maps[i], bases[i], batch, seq, heads,
+                                       i < 2 ? kOwnRows : kStreamRows))
+      return rc;
+  return (int)cudaSuccess;
 }
 
 // ---- float32: FMA on the CUDA cores ------------------------------------------------
@@ -642,11 +691,15 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
         static_cast<const float*>(dout), l, dl, len, static_cast<float*>(dq), seq, heads, window,
         scale);
   } else if (dtype == 1) {
-    const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-    flash_bwd_dq_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l, dl,
-        len, static_cast<__nv_bfloat16*>(dq), seq, heads, window, scale);
+    CUtensorMap maps[4];
+    if (int rc = make_bwd_maps(maps, q, dout, k, v, batch, seq, heads)) return rc;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((seq + kOwnRows - 1) / kOwnRows, batch * heads);
+    flash_bwd_dq_wgmma_kernel<<<grid, kBwdThreads, kBwdSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], l, dl, len, static_cast<__nv_bfloat16*>(dq), seq,
+        heads, window, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -671,12 +724,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
         static_cast<const float*>(dout), l, dl, len, static_cast<float*>(dk),
         static_cast<float*>(dv), seq, heads, window, scale);
   } else if (dtype == 1) {
-    const dim3 grid((seq + kTile - 1) / kTile, batch * heads);
-    flash_bwd_dkv_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), l, dl,
-        len, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq, heads,
-        window, scale);
+    CUtensorMap maps[4];
+    if (int rc = make_bwd_maps(maps, k, v, q, dout, batch, seq, heads)) return rc;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        flash_bwd_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    const dim3 grid((seq + kOwnRows - 1) / kOwnRows, batch * heads);
+    flash_bwd_dkv_wgmma_kernel<<<grid, kBwdConsumers, kBwdSmem, s>>>(
+        maps[0], maps[1], maps[2], maps[3], l, dl, len, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), seq, heads, window, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

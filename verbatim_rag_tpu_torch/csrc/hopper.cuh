@@ -1,0 +1,239 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels of
+// `flash_attention.cu` and `flash_attention_bwd.cu`: TMA tensor maps and tile
+// loads, mbarriers, and warpgroup MMA (wgmma) on 128-byte-swizzled shared
+// tiles. Hand-written PTX; nothing here allocates or synchronises the device.
+//
+// Every tile is a [rows][64] bf16 slab of one head of a [B, S, H, 64]
+// contiguous tensor: 128 bytes a row, which is exactly one 128-byte swizzle
+// span. TMA writes it swizzled (16-byte chunk c of row r lands at chunk
+// c ^ (r % 8)), rows past S zero-filled; wgmma reads it through a descriptor
+// with the same swizzle, either K-major (the 64 values of a row are the
+// contraction: Q·Kᵀ, dO·Vᵀ) or MN-major (rows are the contraction: P·V,
+// dS·K, Pᵀ·dO, dSᵀ·Q), so no product needs a transposed copy.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr int kHeadDim = 64;            // values a row: ModernBERT's 12 × 64 heads
+constexpr int kRowBytes = kHeadDim * 2;  // bf16: one 128-byte swizzle span
+constexpr int kWarpgroup = 128;
+
+// ---- host: tensor maps ------------------------------------------------------------
+
+// A TMA map over a [batch, seq, heads, 64] contiguous bf16 tensor whose box is
+// `rows` consecutive positions of one (batch, head): coordinates (0, h, s, b).
+// Rows past seq are zero-filled. Returns 0 or a CUDA error code.
+inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
+                         int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)heads, (cuuint64_t)seq,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)kRowBytes, (cuuint64_t)heads * kRowBytes,
+                                 (cuuint64_t)seq * heads * kRowBytes};
+  const cuuint32_t box[4] = {(cuuint32_t)kHeadDim, 1u, (cuuint32_t)rows, 1u};
+  const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
+  const CUresult rc = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// ---- device: shared memory, mbarriers, TMA ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to 1024 bytes (the swizzle's period:
+// tiles must start on it). Launches ask for 1024 bytes more than they use.
+__device__ __forceinline__ uint8_t* smem_base_1024(uint8_t* raw) {
+  const uint32_t off = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return raw + off;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA data the phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Blocks until the phase of parity `parity` has completed. A phase that has
+// not completed 10 s after the first try means a broken protocol (a load
+// that never lands, an arrival that never comes): the kernel traps, so the
+// launch fails with an error instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t first = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (first == 0)
+      first = now;
+    else if (now - first > 10000000000ull)
+      __trap();
+  }
+}
+
+// TMA: the box of `map` at (0, h, s, b) into shared memory at dst (1024-byte
+// aligned); its bytes count against the barrier's expected transactions.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int h, int s, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+// ---- device: wgmma -----------------------------------------------------------------
+
+// Descriptor of a 128-byte-swizzled tile of 128-byte rows at p (K-major or
+// MN-major alike): 8-row groups 1024 bytes apart (SBO), the leading offset
+// unused (one swizzle span covers the 64 values), layout type 1 = 128B.
+// A K-major k16 slice starts 32 bytes further per step (+2 in the address
+// field), an MN-major one 16 rows = 2048 bytes further (+128).
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+constexpr uint64_t kDescKStep = 32 >> 4;                // K-major: next 16 values
+constexpr uint64_t kDescRowStep = (16 * kRowBytes) >> 4;  // MN-major: next 16 rows
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Pins register values across the asynchronous products: the compiler may
+// neither read an accumulator before the wgmma.wait that completes it nor
+// move a write past the wgmma.fence that publishes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// D[64×64] (+)= A·Bᵀ: A [64 × 16] and B [64 × 16] both K-major in shared
+// memory (descriptors). scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64×128] (+)= A·Bᵀ: A [64 × 16] and B [128 × 16] both K-major in shared
+// memory (descriptors). scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64×64] += A·B: A [64 × 16] from registers (see `acc_to_a`), B [16 × 64]
+// MN-major in shared memory (rows of 64 contiguous values; the descriptor's
+// transpose bit), so a row-major tile serves as B with no transposed copy.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// Accumulator layout of a wgmma m64nN tile (f32): warp w of the warpgroup
+// holds rows 16w + g and 16w + g + 8 (g = lane / 4, t = lane % 4); element
+// 4j + e is (row 16w + g + 8·(e / 2), column 8j + 2t + e % 2). That is the
+// mma.sync C layout per 8-column tile, and the register-A layout of the next
+// product: columns 16kc..16kc+15 (elements 8kc..8kc+7), rounded to bf16, are
+// the A fragment of k-step kc.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&c)[N], uint32_t (&a)[N / 8][4]) {
+#pragma unroll
+  for (int kc = 0; kc < N / 8; ++kc) {
+    a[kc][0] = pack_bf16(c[8 * kc + 0], c[8 * kc + 1]);
+    a[kc][1] = pack_bf16(c[8 * kc + 2], c[8 * kc + 3]);
+    a[kc][2] = pack_bf16(c[8 * kc + 4], c[8 * kc + 5]);
+    a[kc][3] = pack_bf16(c[8 * kc + 6], c[8 * kc + 7]);
+  }
+}
+
+// The masks on a warpgroup's tile: 64 rows [r, r + 63] (query rows, or for
+// dk/dv the q tile seen from its keys: the band is symmetric) against keys
+// [k, k_last]. A pair is live when its key is below len and, for
+// window >= 0, |row − key| <= window / 2.
+__device__ __forceinline__ bool any_live(int r, int k, int k_last, int len, int window) {
+  const int half = window / 2;
+  return k < len && (window < 0 || (k - (r + 63) <= half && r - k_last <= half));
+}
+__device__ __forceinline__ bool all_live(int r, int k, int k_last, int len, int window) {
+  const int half = window / 2;
+  return k_last < len && (window < 0 || (k_last - r <= half && r + 63 - k <= half));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace hopper

@@ -181,6 +181,28 @@ class DeviceVectorStore(VectorStore):
             raise _not_in_slice("sparse_mode='exact'", "the persistence and BM25 slice")
         from verbatim_rag_tpu_torch.ops.hybrid import validate_candidate_impl
 
+        if "," in candidate_impl:
+            # 0.4.x persisted per-stage comma-pair specs ("dense,sketch"
+            # splits like "bucket,xla"); indexes saved under them stay
+            # loadable. A valid legacy pair maps to "xla", as in the JAX
+            # store; junk specs still fail like any other typo.
+            parts = candidate_impl.split(",")
+            if len(parts) != 2 or any(p not in ("xla", "bucket") for p in parts):
+                raise ValueError(
+                    f"candidate_impl {candidate_impl!r} is not a valid spec "
+                    "(the 0.4.x comma-pair format held exactly two of "
+                    "'xla'/'bucket')"
+                )
+            logger.warning(
+                "candidate_impl=%r is the retired 0.4.x per-stage comma-pair "
+                "spec; using 'xla' (the measured composition winner). "
+                "Re-save the index to persist the new spec.",
+                candidate_impl,
+            )
+            candidate_impl = "xla"
+        #: The spec as passed, after the comma-pair mapping and before "auto"
+        #: resolves (the JAX store persists it so a reload re-resolves).
+        self.candidate_impl_requested = candidate_impl
         if candidate_impl == "auto":
             # The JAX package's policy: the section kernel serves the int8
             # tier (both matrices int8) when the store selects approximately;

@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC`` into ``build/kernels/<name>-<hash>.so`` at the repository root (or
-under ``$VERBATIM_TORCH_BUILD_DIR``), keyed by a hash of the source and the
-flags, then loaded with ``ctypes``. :func:`build_all` starts one ``nvcc`` per
-source at once, so a fresh machine pays for the slowest file, not the sum.
+-fPIC -lcuda`` into ``build/kernels/<name>-<hash>.so`` at the repository root
+(or under ``$VERBATIM_TORCH_BUILD_DIR``), keyed by a hash of the source, of
+every shared header ``csrc/*.cuh`` and of the flags, then loaded with
+``ctypes``. ``-lcuda`` links libcuda, whose ``cuTensorMapEncodeTiled``
+encodes the flash kernels' TMA tensor maps. :func:`build_all` starts one
+``nvcc`` per source at once, so a fresh machine pays for the slowest file,
+not the sum.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on machines without ``nvcc``.
@@ -24,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lcuda",
 )
 KERNEL_SOURCES = ("flash_attention", "flash_attention_bwd", "rescore", "section")
 
@@ -50,8 +53,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any source may include any of them
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     return build_dir() / f"{name}-{key}.so"
 
 
