@@ -7,10 +7,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 1. build   — compile every CUDA kernel from `verbatim_rag_tpu_torch/csrc`
              (one nvcc per source, started together); print the card's name
              and power limit, the build seconds, each kernel's registers and
-             spilled bytes (`-Xptxas -v`) and the HGMMA (wgmma), UTMALDG (TMA
-             load) and HMMA (mma.sync) instructions in the SASS of the bf16
-             flash kernels (`cuobjdump -sass`): each must hold HGMMA and
-             UTMALDG, no HMMA, and spill nothing;
+             spilled bytes (`-Xptxas -v`) and the wgmma (HGMMA, IGMMA on
+             int8), TMA load (UTMALDG) and mma.sync (HMMA, IMMA) instructions
+             in the SASS of the wgmma kernels (`WGMMA_KERNELS`: the bf16 flash
+             forward, partial and backward, bucket-max v2 on int8 and bf16
+             rows; `cuobjdump -sass`): each must hold wgmma and UTMALDG, no
+             mma.sync, and spill nothing;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes, with timings, bounds and the library
              yardstick:
@@ -32,7 +34,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              of 16384; int8 and bf16), dead rows in the mask: int8 tables
              bit-equal to the plain version; bf16 and float32 values within
              2⁻¹⁵·|q| and each differing row a winner whose exact score is
-             within that of the plain one's;
+             within that of the plain one's; on v2's int8 and bf16 dense
+             arms at N=1,007,616 two planted faults (the mask ignored; the
+             last position of each block dropped) must fail that check;
              bucket-max v1 (128 consecutive rows a bucket, highest-lane
              argmax) on bf16 and float32 rows at B=512, N=999,424, d ∈ {384,
              768} and at one block (N=16384, a ragged batch of 70), dead rows
@@ -102,7 +106,9 @@ the plain version's, l within 1e-4 relative (both sum the unrounded P), the
 numerator per live row as the forward's rows (the kernel rounds P to bf16
 for P·V, the plain version keeps it float32), dead rows exactly (-1e30, 0,
 0). Two planted faults (k_offset ignored; the last key tile dropped) must
-fail that check. Its times are taken at the main path's shape (B=1).
+fail that check. Its times are taken at the main path's shape (B=1), beside
+SDPA and the memory-efficient attention kernel with its logsumexp (the
+library yardstick: (o, lse) carries what (numer, m, l) carries).
 
 The kernels phase also holds the flash backward (`csrc/flash_attention_bwd.cu`)
 and the forward's logsumexp output against their plain versions at
@@ -120,7 +126,8 @@ head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
 Each main-path phase (3-7, 3b and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
-Phases 4-7 and 6b then run one more call under `torch.profiler` and print the
+Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
+batch of each candidate path) and print the
 kernels that took the most device time and the device's idle share.
 The last lines are the card's name and power limit, one JSON object with a
 row per kernel, and ``{"ok": true, "device": {...}}``.
@@ -161,11 +168,13 @@ FLASH_RTOL = 2e-2
 #: are not a multiple of the kernels' 64- and 128-row tiles (the TMA edge).
 FLASH_SEQS = (512, 777, 4099, 8192)
 FLASH_BWD_SEQS = (512, 777, 4096, 4099, 8192)
-#: Kernels that must run on wgmma fed by TMA (the bf16 forward and backward):
-#: the build phase counts their HGMMA and UTMALDG instructions.
+#: Kernels that must run on wgmma fed by TMA (the bf16 forward, partial and
+#: backward; bucket-max v2 on int8 and bf16 rows): the build phase counts
+#: their HGMMA and UTMALDG instructions.
 WGMMA_KERNELS = {
-    "flash_attention": ("flash_fwd_wgmma_kernel",),
+    "flash_attention": ("flash_fwd_wgmma_kernel", "flash_partial_wgmma_kernel"),
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
+    "section": ("bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E"),
 }
 #: Partial-kernel check: l's relative limit (float32 sums of the same P).
 PARTIAL_L_RTOL = 1e-4
@@ -278,10 +287,15 @@ def ptxas_report(log_text: str) -> dict:
     return report
 
 
+#: SASS instructions counted per kernel: wgmma on floating-point (HGMMA)
+#: and integer (IGMMA) operands, the TMA tile load (UTMALDG), and mma.sync
+#: on floating-point (HMMA) and integer (IMMA) operands.
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
 def sass_counts(library: Path) -> dict:
-    """``{kernel: {"HGMMA": n, "UTMALDG": n, "HMMA": n}}``: instructions in the
-    library's SASS (`cuobjdump -sass`). HGMMA is wgmma, UTMALDG a TMA tile
-    load, HMMA an mma.sync."""
+    """``{kernel: {op: n for op in SASS_OPS}}``: instructions in the
+    library's SASS (`cuobjdump -sass`)."""
     from verbatim_rag_tpu_torch.ops import cuda_build
 
     tool = Path(cuda_build._nvcc()).with_name("cuobjdump")
@@ -293,9 +307,9 @@ def sass_counts(library: Path) -> dict:
         func = re.search(r"Function : (\S+)", line)
         if func:
             current = kernel_name(func.group(1))
-            counts[current] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+            counts[current] = dict.fromkeys(SASS_OPS, 0)
         elif current is not None:
-            for op in ("HGMMA", "UTMALDG", "HMMA"):
+            for op in SASS_OPS:
                 if re.search(rf"\b{op}\b", line):
                     counts[current][op] += 1
     return counts
@@ -303,7 +317,8 @@ def sass_counts(library: Path) -> dict:
 
 def check_build(build_logs: dict) -> dict:
     """Print every kernel's registers and spills; require the wgmma kernels
-    to spill nothing, to hold HGMMA and UTMALDG instructions and no HMMA."""
+    to spill nothing, to hold wgmma (HGMMA, or IGMMA on int8) and UTMALDG
+    instructions, and no mma.sync (HMMA, IMMA)."""
     from verbatim_rag_tpu_torch.ops import cuda_build
 
     result = {}
@@ -319,8 +334,9 @@ def check_build(build_logs: dict) -> dict:
         for kernel in kernels:
             c = counts.get(kernel, {})
             log(f"  {name}: {kernel}: SASS {json.dumps(c)}")
-            require(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0, f"{kernel}: no wgmma or no TMA load in its SASS {c}")
-            require(c.get("HMMA", 0) == 0, f"{kernel}: mma.sync left in its SASS {c}")
+            wgmma = c.get("HGMMA", 0) + c.get("IGMMA", 0)
+            require(wgmma > 0 and c.get("UTMALDG", 0) > 0, f"{kernel}: no wgmma or no TMA load in its SASS {c}")
+            require(c.get("HMMA", 0) + c.get("IMMA", 0) == 0, f"{kernel}: mma.sync left in its SASS {c}")
             if kernel in result:
                 require(result[kernel]["spill_bytes"] == 0, f"{kernel} spills: {result[kernel]}")
             result.setdefault(kernel, {}).update(sass=c)
@@ -663,11 +679,14 @@ def check_flash_partial(gen) -> dict:
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: fa.flash_attention_partial_cuda(q1, k1, v1, lens1, 0), reps=20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_partial_reference(q1, k1, v1, lens1, 0), reps=3)
-    # Library yardstick: SDPA with the same boolean key mask. It returns the
-    # normalised output, not (numer, m, l): not the same function.
-    mask = (torch.arange(S, device="cuda") < lens1[0])[None, None, None, :].expand(1, 1, S, S)
+    # Library yardsticks with the same key mask: SDPA (the normalised output
+    # alone), and the memory-efficient kernel with its logsumexp, (o, lse):
+    # the information of (numer, m, l) up to a per-row rescale.
+    live = torch.arange(S, device="cuda") < lens1[0]
+    mask = live[None, None, None, :].expand(1, 1, S, S)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q1, k1, v1))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
+    library_ms, library_note = efficient_attention_ms(qt, kt, vt, live)
     del qt, kt, vt, mask
     pairs = S * min(S, lengths[0])
     b_ms, b_by = bound(
@@ -675,8 +694,7 @@ def check_flash_partial(gen) -> dict:
     )
     result = dict(
         batch=1, seq_q=S, seq_k=S, heads=H, k_offset=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms,
-        library_note="SDPA with the same boolean mask: the normalised output, not the same function",
+        bound_by=b_by, library_ms=library_ms, library_note=library_note, sdpa_ms=sdpa_ms,
         max_abs_err=max(c["max_abs_err"] for c in cases),
         worst_of_limit=max(c["worst"] for c in cases),
         planted_faults_worst_of_limit={n: h["worst"] for n, h in faults.items()},
@@ -685,6 +703,27 @@ def check_flash_partial(gen) -> dict:
     log("flash_partial", json.dumps(result))
     torch.cuda.empty_cache()
     return result
+
+
+def efficient_attention_ms(qt, kt, vt, live) -> tuple[float | None, str]:
+    """Time of `aten::_scaled_dot_product_efficient_attention` with
+    compute_log_sumexp=True on [B, H, S, D] inputs, the key mask ``live``
+    [Sk] as an additive bias broadcast over rows and heads: (ms, note), or
+    (None, why) where the library refuses the inputs."""
+    import torch
+
+    bias = torch.zeros(live.shape[0], dtype=qt.dtype, device=qt.device)
+    bias = bias.masked_fill(~live, float("-inf"))[None, None, None, :]
+    bias = bias.expand(qt.shape[0], qt.shape[1], qt.shape[2], live.shape[0])
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        ms = cuda_ms(lambda: op(qt, kt, vt, bias, True), reps=10)
+    except RuntimeError as err:  # a yardstick, not a kernel of the port
+        return None, f"efficient attention refused the inputs: {str(err).splitlines()[0]}"
+    return ms, (
+        "aten::_scaled_dot_product_efficient_attention(compute_log_sumexp=True), the key "
+        "mask as bias: (o, lse), the same information as (numer, m, l) up to a per-row rescale"
+    )
 
 
 def check_rescore(gen) -> dict:
@@ -777,31 +816,63 @@ def table_arms(gen, n: int, batch: int, dtype: str):
     return arms, mask
 
 
-def check_table(got, expected, rows, q, int8: bool) -> float:
-    """Hold a kernel's (values, global rows) table to its plain version's:
-    int8 bit-equal; bf16 and float32 values within 2⁻¹⁵·|q| (rows have unit
-    norm; float32 sums in another order, and a pack step of 128 ulp is 2⁻¹⁶
-    of a value) and each differing row a winner whose exact score is within
-    that of the plain version's row. Returns the max abs error of the live
-    values."""
+def table_fault(got, expected, rows, q, int8: bool) -> str | None:
+    """Why a kernel's (values, global rows) table does not hold to its plain
+    version's, or None: int8 bit-equal; bf16 and float32 values within
+    2⁻¹⁵·|q| (rows have unit norm; float32 sums in another order, and a pack
+    step of 128 ulp is 2⁻¹⁶ of a value) and each differing row a winner whose
+    exact score is within that of the plain version's row."""
     import torch
 
     (g_vals, g_rows), (e_vals, e_rows) = got, expected
     live = e_vals > -1e29
-    require(torch.equal(live, g_vals > -1e29), "table: live entries differ")
-    err = float((g_vals - e_vals).abs()[live].max())
+    if not torch.equal(live, g_vals > -1e29):
+        return "table: live entries differ"
     if int8:
-        require(torch.equal(g_vals.view(torch.int32), e_vals.view(torch.int32)), "table: int8 values not bit-equal")
-        require(torch.equal(g_rows, e_rows), "table: int8 rows differ")
-        return err
+        if not torch.equal(g_vals.view(torch.int32), e_vals.view(torch.int32)):
+            return "table: int8 values not bit-equal"
+        return None if torch.equal(g_rows, e_rows) else "table: int8 rows differ"
     tol = 2.0**-15 * q.norm(dim=1, keepdim=True).expand_as(g_vals)
-    require(bool(((g_vals - e_vals).abs() <= tol)[live].all()), f"table: {rows.dtype} values off by {err}")
+    if not bool(((g_vals - e_vals).abs() <= tol)[live].all()):
+        return f"table: {rows.dtype} values off by {float((g_vals - e_vals).abs()[live].max())}"
     b_idx, c_idx = torch.nonzero((g_rows != e_rows) & live, as_tuple=True)
     qb = q.to(rows.dtype).float()[b_idx]
     s_g = (qb * rows[g_rows[b_idx, c_idx].long()].float()).sum(-1)
     s_e = (qb * rows[e_rows[b_idx, c_idx].long()].float()).sum(-1)
-    require(bool(((s_g - s_e).abs() <= tol[b_idx, c_idx]).all()), f"table: a {rows.dtype} row is not a near-winner")
-    return err
+    if not bool(((s_g - s_e).abs() <= tol[b_idx, c_idx]).all()):
+        return f"table: a {rows.dtype} row is not a near-winner"
+    return None
+
+
+def check_table(got, expected, rows, q, int8: bool) -> float:
+    """Require `table_fault` to find nothing; the max abs error of the live
+    values."""
+    why = table_fault(got, expected, rows, q, int8)
+    require(why is None, str(why))
+    live = expected[0] > -1e29
+    return float((got[0] - expected[0]).abs()[live].max())
+
+
+def v2_planted_faults(c, q, mask, s, ref, int8: bool) -> dict:
+    """The v2 kernel run with each planted fault, held to the true plain
+    table: the mask ignored (every row live), and the last position of each
+    block dropped (its rows masked). Each must fail the check."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+
+    n = c.shape[0]
+    block = ft.choose_block_rows(n)
+    last = (torch.arange(n, device=c.device) % block) // 128 == block // 128 - 1
+    found = {}
+    for name, fault_mask in (
+        ("mask ignored", torch.ones_like(mask)),
+        ("last position of each block dropped", mask & ~last),
+    ):
+        why = table_fault(ft.matmul_bucket_max_v2_cuda(c, q, fault_mask, s), ref, c, q, int8)
+        require(why is not None, f"bucket_max_v2: planted fault '{name}' passes the check")
+        found[name] = why
+    return found
 
 
 def table_bytes(arms, n: int, batch: int, width: int, out_bytes: int) -> float:
@@ -866,6 +937,10 @@ def check_tables(gen) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
             err = check_table(got, ref, c, q, int8)
+            faults = None
+            if arm == "dense" and block == 8192 and dtype != "float32":
+                faults = v2_planted_faults(c, q, mask, s, ref, int8)
+                log("bucket_max_v2 planted faults", dtype, json.dumps(faults))
             del got, ref
             ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10)
             plain_ms = cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=2)
@@ -880,7 +955,7 @@ def check_tables(gen) -> tuple[dict, dict]:
             case = dict(
                 n=n, block=ft.choose_block_rows(n), dtype=dtype, arm=arm, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                products_ms=products,
+                products_ms=products, planted_faults_caught=faults,
             )
             log("bucket_max_v2", json.dumps(case))
             bucket_cases.append(case)
@@ -1454,10 +1529,13 @@ def run_store_int8(data, card: str) -> dict:
     store.candidate_impl = "section"
     same_rows_with_plain_tables(store, data, top_k, first, "store_int8")
     q_dense, q_sparse, _ = data["queries"](1)
-    profile = device_profile(
-        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
-    )
-    log("store_int8 profile", json.dumps(profile))
+    profiles = {}
+    for impl in ("section", "bucket"):  # one batch of each candidate path
+        store.candidate_impl = impl
+        profiles[impl] = device_profile(
+            lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+        )
+        log(f"store_int8 {impl} profile", json.dumps(profiles[impl]))
     ms = float(np.median(times))
     result = dict(
         card=card, rows=STORE_ROWS, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
@@ -1816,6 +1894,7 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
             replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
             launches=launches["flash_attention_partial"],
+            registers=build.get("flash_partial_wgmma_kernel", {}).get("registers"),
             **partial,
         ),
         dict(
@@ -1840,6 +1919,8 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/section.cu",
             replaces="verbatim_rag_tpu/ops/fused_topk.py:255",
             launches=launches["bucket_max_v2"],
+            registers_int8=build.get("bucket_v2_wgmma_kernelILb1E", {}).get("registers"),
+            registers_bf16=build.get("bucket_v2_wgmma_kernelILb0E", {}).get("registers"),
             **bucket,
         ),
         dict(

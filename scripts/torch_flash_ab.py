@@ -6,13 +6,18 @@ Imports `verbatim_rag_tpu_torch` from DIR (default: the checkout holding this
 script), builds its flash kernels into DIR/build/kernels, and times them at
 ModernBERT-base heads (B=8, H=12, D=64, bf16) with the ragged lengths of
 `chip_smoke.py` (a zero-length row included): the forward at S=8192 and the
-backward (dq + dk/dv) at S=4096 and 8192, each global and with window 128.
-Beside each time it prints the bound (the larger of the bytes over 3.35 TB/s
-and the least FLOP over 989 TFLOP/s, as `chip_smoke.py` counts them), the
-backward's FLOP in the dq + dk/dv split (14·D a live pair and head against
-the least 10·D), and the time of `scaled_dot_product_attention` (forward, or
-its backward) on the same inputs with the equivalent boolean mask. Prints one
-JSON line; needs one GPU.
+backward (dq + dk/dv) at S=4096 and 8192, each global and with window 128;
+and the ring step's partial at long_sp's block shape (B=1, Sq=Sk=6144, a row
+of 22,830 tokens) at k_offset 0 (every key live), 18432 (4,398 live keys)
+and 24576 (a dead block). Beside each time it prints the bound (the larger of
+the bytes over 3.35 TB/s and the least FLOP over 989 TFLOP/s, as
+`chip_smoke.py` counts them), the backward's FLOP in the dq + dk/dv split
+(14·D a live pair and head against the least 10·D), and the time of
+`scaled_dot_product_attention` (forward, or its backward) on the same inputs
+with the equivalent boolean mask; for the partial also
+`aten::_scaled_dot_product_efficient_attention` with its logsumexp, the key
+mask as bias ((o, lse): what (numer, m, l) holds, up to a per-row rescale).
+Prints one JSON line; needs one GPU.
 
 An A/B of two trees in one call, on one card: unpack the parent commit into a
 git-ignored directory and run the script in turns,
@@ -119,6 +124,36 @@ def main() -> None:
             del qt, kt, vt, mask
         del q, k, v, g
         torch.cuda.empty_cache()
+
+    # The partial: one KV block of a 4-shard ring over one 22,830-token row.
+    seq, length = 6144, 22830
+    lens = torch.tensor([length], dtype=torch.int32, device="cuda")
+    q, k, v = (
+        torch.randn(1, seq, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+        for _ in range(3)
+    )
+    for k_offset in (0, 3 * seq, 4 * seq):
+        live_keys = max(0, min(seq, length - k_offset))
+        ms = smoke.cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, k_offset), reps=20)
+        b_ms, b_by = smoke.bound(
+            3 * seq * H * D * 2 + seq * H * D * 4 + 2 * H * seq * 4 + 4,
+            4 * H * D * seq * live_keys, smoke.PEAK_BF16_FLOPS,
+        )
+        case = dict(
+            kernel="partial", seq_q=seq, seq_k=seq, k_offset=k_offset, live_keys=live_keys, ms=ms,
+            bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+        )
+        if live_keys:
+            live = torch.arange(seq, device="cuda") < live_keys
+            mask = live[None, None, None, :].expand(1, 1, seq, seq)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            with torch.no_grad():
+                case["sdpa_ms"] = smoke.cuda_ms(
+                    lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10
+                )
+                case["library_ms"], case["library_note"] = smoke.efficient_attention_ms(qt, kt, vt, live)
+            del qt, kt, vt, mask
+        result["cases"].append(case)
     print(json.dumps(result), flush=True)
 
 

@@ -1,0 +1,205 @@
+"""Time the PyTorch port's bucket-table kernels of one source tree on the card.
+
+    python3 scripts/torch_table_ab.py [--tree DIR] [--label NAME] [--seed 0] [--decompose]
+
+Imports `verbatim_rag_tpu_torch` from DIR (default: the checkout holding this
+script), builds its `csrc/section.cu` into DIR/build/kernels, and times, at
+B=512 queries:
+
+- bucket-max v2 on int8 rows at the int8 store's serving point (N=1,007,616
+  unit-norm rows quantized per row, blocks of 8192; the dense arm d=384 and the
+  sketch arm d=768, 1% of the rows masked);
+- bucket-max v2 on bf16 rows at `chip_smoke.py`'s bucket_ab shapes (N=999,424
+  normal rows, blocks of 16384, d=384 and 768, every row live);
+- controls that this work leaves alone: the section kernel on the int8 arms
+  (both in one launch) and bucket-max v1 on the bf16 rows;
+- yardsticks: the product alone, `torch._int_mm` (int8) or `torch.mm` (bf16)
+  of the prepared queries against the rows: the same products without the
+  bucket reduction, so not the same function.
+
+Beside each time it prints the bound (the larger of the bytes the function
+must move over 3.35 TB/s and its operations over 1,979 TOP/s int8 or 989
+TFLOP/s bf16, as `chip_smoke.py` counts them). With ``--decompose`` (a tree
+whose v2 runs on wgmma) it also builds three variants of that kernel from the
+tree's source and times them on the same inputs: without the row loads (the
+producer only signals), without the epilogue, and with neither, which says
+how much of the time the stream, the products and the epilogue each hold.
+Prints one JSON line; needs one GPU.
+
+An A/B of two trees in one call, on one card, as for `torch_flash_ab.py`:
+
+    git archive <parent> | tar -x -C build/parent
+    for t in build/parent . . build/parent; do python3 scripts/torch_table_ab.py --tree $t; done
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+#: Text substitutions that make the decomposition variants of the v2 wgmma
+#: kernel (`bucket_v2_wgmma_kernel` in `csrc/section.cu`).
+_EPILOGUE = "#pragma unroll\n    for (int n = 0; n < 16; ++n) {"
+_LOAD = """          mbar_arrive_expect_tx(&full[s], kV2StageBytes);
+          tma_load_rows(ring + s * kV2StageBytes, &x_map, &full[s], c * kChunk,
+                        static_cast<int>(row0));"""
+#: Without the epilogue, one accumulator value is still read: products whose
+#: results nothing reads are dead code that ptxas may drop.
+_NO_EPILOGUE = (
+    "best[0] = fmaxf(best[0], static_cast<float>(acc[0]));\n"
+    "    if (p < 0) for (int n = 0; n < 16; ++n) {"
+)
+VARIANTS = {
+    "no_row_loads": {_LOAD: "          mbar_arrive(&full[s]);"},
+    "no_epilogue": {_EPILOGUE: _NO_EPILOGUE},
+    "products_only": {_LOAD: "          mbar_arrive(&full[s]);", _EPILOGUE: _NO_EPILOGUE},
+}
+
+
+def _smoke():
+    """`chip_smoke.py` of this checkout, for its timing, bound and input helpers."""
+    spec = importlib.util.spec_from_file_location("_chip_smoke", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def build_variants(tree: Path, cuda_build) -> dict:
+    """``{name: ctypes library}`` of the decomposition variants, compiled in
+    parallel from the tree's `section.cu` (the first match of each pattern is
+    replaced, every pattern must be found)."""
+    csrc = tree / "verbatim_rag_tpu_torch" / "csrc"
+    source = (csrc / "section.cu").read_text()
+    out = tree / "build" / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, subs in VARIANTS.items():
+        text = source
+        for old, new in subs.items():
+            if old not in text:
+                raise SystemExit(f"torch_table_ab: {name}: the v2 kernel's source has changed")
+            text = text.replace(old, new, 1)
+        src = csrc / f"_variant_{name}.cu"  # beside hopper.cuh, which it includes
+        src.write_text(text)
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(src)]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), src)
+    libs = {}
+    for name, (proc, src) in jobs.items():
+        log, _ = proc.communicate()
+        src.unlink()
+        if proc.returncode:
+            raise SystemExit(f"torch_table_ab: variant {name} failed to build:\n{log[-2000:]}")
+        libs[name] = ctypes.CDLL(str(out / f"{name}.so"))
+    return libs
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", default=str(HERE))
+    parser.add_argument("--label", default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--decompose", action="store_true")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("torch_table_ab: no CUDA device\n")
+        raise SystemExit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tree = Path(args.tree).resolve()
+    os.environ["VERBATIM_TORCH_BUILD_DIR"] = str(tree / "build" / "kernels")
+    sys.path.insert(0, str(tree))
+    from verbatim_rag_tpu_torch.ops import cuda_build
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    assert Path(ft.__file__).resolve().is_relative_to(tree), ft.__file__
+    smoke = _smoke()
+    cuda_build.build_all(("section",))
+    variants = build_variants(tree, cuda_build) if args.decompose else {}
+    load = cuda_build.load
+
+    def timed(fn, reps=10):
+        return smoke.cuda_ms(fn, reps=reps)
+
+    def variant_times(c, q, mask, s):
+        times = {}
+        for name, lib in variants.items():
+            cuda_build.load = lambda _name, lib=lib: lib
+            try:
+                times[name] = timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s))
+            finally:
+                cuda_build.load = load
+        return times
+
+    batch = 512
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    result = dict(tree=args.label or str(tree), card=smoke.gpu_name_and_limit(), cases=[])
+
+    # int8 at the serving point: v2 per arm, section over both arms.
+    n, block = 123 * 8192, 8192
+    arms, mask = smoke.table_arms(gen, n, batch, "int8")
+    corpora, queries, scales = zip(*arms)
+    for arm, (c, q, s) in zip(("dense", "sketch"), arms):
+        qi = ft.prepare_queries(q, c)[0]
+        b_ms, b_by = smoke.bound(
+            smoke.table_bytes([(c, q, s)], n, batch, n // block * 128, 8),
+            2.0 * batch * n * c.shape[1], smoke.PEAK_INT8_OPS,
+        )
+        result["cases"].append(dict(
+            kernel="bucket_max_v2", dtype="int8", arm=arm, n=n, d=c.shape[1],
+            ms=timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s)),
+            products_ms=timed(lambda: torch._int_mm(qi, c.t()), reps=5),
+            bound_ms=b_ms, bound_by=b_by, **variant_times(c, q, mask, s),
+        ))
+    b_ms, b_by = smoke.bound(
+        smoke.table_bytes(arms, n, batch, n // block * 128, 4),
+        sum(2.0 * batch * n * c.shape[1] for c in corpora), smoke.PEAK_INT8_OPS,
+    )
+    result["cases"].append(dict(
+        kernel="section_tables", dtype="int8", n=n, d=[c.shape[1] for c in corpora],
+        ms=timed(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block)),
+        bound_ms=b_ms, bound_by=b_by,
+    ))
+    del arms, corpora, queries, scales, mask
+    torch.cuda.empty_cache()
+
+    # bf16 at bucket_ab's shapes: v2, and v1 as the control.
+    n = smoke.AB_ROWS
+    for d in (384, 768):
+        c = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
+        q = torch.randn(batch, d, generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        mask = torch.ones(n, dtype=torch.bool, device="cuda")
+        qb = q.to(torch.bfloat16)
+        width = n // ft.choose_block_rows(n) * 128
+        b_ms, b_by = smoke.bound(
+            n * d * 2 + batch * d * 4 + n + batch * width * 8, 2.0 * batch * n * d, smoke.PEAK_BF16_FLOPS
+        )
+        result["cases"].append(dict(
+            kernel="bucket_max_v2", dtype="bfloat16", n=n, d=d,
+            ms=timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask)),
+            products_ms=timed(lambda: torch.mm(qb, c.t()), reps=5),
+            bound_ms=b_ms, bound_by=b_by, **variant_times(c, q, mask, None),
+        ))
+        v1_ms, v1_by = smoke.v1_bound(n, batch, d, torch.bfloat16)
+        result["cases"].append(dict(
+            kernel="bucket_max_v1", dtype="bfloat16", n=n, d=d,
+            ms=timed(lambda: ft.matmul_bucket_max_cuda(c, q, mask)), bound_ms=v1_ms, bound_by=v1_by,
+        ))
+        del c, q, qb, mask
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """The build report of `chip_smoke.py`: registers, spills and SASS counts.
 
 The GPU machine's `nvcc -Xptxas -v` log and `cuobjdump -sass` listing are
-parsed into one line per kernel; the build phase fails when a bf16 flash
-kernel spills, holds no wgmma (HGMMA) or TMA load (UTMALDG), or still holds
-an mma.sync (HMMA). Here the parsers run on sample text and a stand-in
-`cuobjdump`, so a change of format on the card's toolkit shows up as a test
-failure rather than as a check that passes on nothing.
+parsed into one line per kernel; the build phase fails when a wgmma kernel
+(the bf16 flash forward, partial and backward, bucket-max v2 on int8 and
+bf16 rows) spills, holds no wgmma (HGMMA, or IGMMA on int8) or TMA load
+(UTMALDG), or still holds an mma.sync (HMMA, IMMA). Here the parsers and the
+check run on sample text and a stand-in `cuobjdump`, so a change of format on
+the card's toolkit shows up as a test failure rather than as a check that
+passes on nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ NS = "_GLOBAL__N__a514531_18_flash_attention_cu_2c138979"
 FWD = f"_ZN{len(NS)}{NS}22flash_fwd_wgmma_kernelE14CUtensorMap_stS0_S0_PKiP13__nv_bfloat16Pfiiif"
 F32 = f"_ZN{len(NS)}{NS}16flash_fwd_kernelILb1EEEvPKfS2_S2_PKiPfS4_S4_S4_iiiiif"
 PARTIAL = f"_ZN{len(NS)}{NS}24flash_partial_mma_kernelEPK13__nv_bfloat16S2_S2_PKiPfS4_S4_iiiif"
+PARTIAL_WGMMA = f"_ZN{len(NS)}{NS}26flash_partial_wgmma_kernelE14CUtensorMap_stS0_S0_PKiPfS3_S3_iiiif"
+SEC = "_GLOBAL__N__7c2e91d4_10_section_cu_5b0e1a7d"
+V2_INT8 = f"_ZN{len(SEC)}{SEC}22bucket_v2_wgmma_kernelILb1EEEv14CUtensorMap_stS0_PKfS3_PKhPfPiiiiiii"
+V2_BF16 = f"_ZN{len(SEC)}{SEC}22bucket_v2_wgmma_kernelILb0EEEv14CUtensorMap_stS0_PKfS3_PKhPfPiiiiiii"
 
 PTXAS_LOG = f"""ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '{F32}' for 'sm_90a'
@@ -32,6 +38,10 @@ ptxas info    : Compiling entry function '{FWD}' for 'sm_90a'
 ptxas info    : Function properties for {FWD}
     48 bytes stack frame, 60 bytes spill stores, 64 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 48 bytes cumulative stack size
+ptxas info    : Compiling entry function '{V2_INT8}' for 'sm_90a'
+ptxas info    : Function properties for {V2_INT8}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 156 registers, used 2 barriers, 464 bytes cmem[0]
 """
 
 SASS = f"""
@@ -42,13 +52,18 @@ SASS = f"""
         /*0120*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR16], R88 ;
 		Function : {PARTIAL}
         /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+		Function : {V2_INT8}
+        /*0100*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0110*/                   IGMMA.64x128x32.S8.S8 R24, gdesc[UR12], RZ, !UPT ;
 """
 
 
 @pytest.mark.parametrize(
     "mangled,name",
     [(FWD, "flash_fwd_wgmma_kernel"), (F32, "flash_fwd_kernelILb1E"),
-     (PARTIAL, "flash_partial_mma_kernel"), ("_Z12plain_kerneli", "plain_kernel")],
+     (PARTIAL, "flash_partial_mma_kernel"), ("_Z12plain_kerneli", "plain_kernel"),
+     (PARTIAL_WGMMA, "flash_partial_wgmma_kernel"), (V2_INT8, "bucket_v2_wgmma_kernelILb1E"),
+     (V2_BF16, "bucket_v2_wgmma_kernelILb0E")],
 )
 def test_kernel_name_reads_length_prefixed_symbols(mangled, name):
     assert chip_smoke.kernel_name(mangled) == name
@@ -58,23 +73,60 @@ def test_ptxas_report_gives_registers_and_spills_per_kernel():
     assert chip_smoke.ptxas_report(PTXAS_LOG) == {
         "flash_fwd_kernelILb1E": {"registers": 155, "spill_bytes": 0},
         "flash_fwd_wgmma_kernel": {"registers": 168, "spill_bytes": 124},
+        "bucket_v2_wgmma_kernelILb1E": {"registers": 156, "spill_bytes": 0},
     }
 
 
-def test_sass_counts_with_a_stand_in_cuobjdump(tmp_path, monkeypatch):
+def _stand_in_cuobjdump(tmp_path, monkeypatch, sass: str) -> None:
     cuda_home = tmp_path / "cuda"
     (cuda_home / "bin").mkdir(parents=True)
     for tool, body in (
         ("nvcc", "import sys; sys.exit(1)\n"),
-        ("cuobjdump", f"import sys; assert sys.argv[1] == '-sass'; print({SASS!r})\n"),
+        ("cuobjdump", f"import sys; assert sys.argv[1] == '-sass'; print({sass!r})\n"),
     ):
         path = cuda_home / "bin" / tool
         path.write_text(f"#!{sys.executable}\n{body}")
         path.chmod(path.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setenv("CUDA_HOME", str(cuda_home))
     assert cuda_build._nvcc() == str(cuda_home / "bin" / "nvcc")
+
+
+def test_sass_counts_with_a_stand_in_cuobjdump(tmp_path, monkeypatch):
+    _stand_in_cuobjdump(tmp_path, monkeypatch, SASS)
     counts = chip_smoke.sass_counts(tmp_path / "lib.so")
+    zero = dict.fromkeys(chip_smoke.SASS_OPS, 0)
     assert counts == {
-        "flash_fwd_wgmma_kernel": {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0},
-        "flash_partial_mma_kernel": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 1},
+        "flash_fwd_wgmma_kernel": {**zero, "HGMMA": 2, "UTMALDG": 1},
+        "flash_partial_mma_kernel": {**zero, "HMMA": 1},
+        "bucket_v2_wgmma_kernelILb1E": {**zero, "IGMMA": 1, "UTMALDG": 1},
     }
+
+
+def _wgmma_listing(mma_sync_in: str | None = None) -> str:
+    """SASS of every kernel in `WGMMA_KERNELS`, each with a TMA load and a
+    wgmma (IGMMA for the int8 v2 kernel); ``mma_sync_in`` also gets an IMMA."""
+    lines = []
+    for kernels in chip_smoke.WGMMA_KERNELS.values():
+        for kernel in kernels:
+            name, flag = kernel.split("ILb") if "ILb" in kernel else (kernel, "")
+            mangled = f"_ZN{len(SEC)}{SEC}{len(name)}{name}" + (f"ILb{flag}E" if flag else "") + "Ev"
+            gmma = "IGMMA.64x128x32.S8.S8" if kernel.endswith("ILb1E") else "HGMMA.64x128x16.F32.BF16"
+            lines += [f"\t\tFunction : {mangled}", "        UTMALDG.2D [UR8], [UR4] ;",
+                      f"        {gmma} R24, gdesc[UR12], RZ, !UPT ;"]
+            if kernel == mma_sync_in:
+                lines.append("        IMMA.16832.S8.S8 R4, R8, R12, R4 ;")
+    return "\n".join(lines) + "\n"
+
+
+@pytest.mark.parametrize("mma_sync_in", [None, "bucket_v2_wgmma_kernelILb1E"])
+def test_build_check_on_every_wgmma_kernel(tmp_path, monkeypatch, mma_sync_in):
+    """The build check passes when every wgmma kernel, the int8 v2 kernel's
+    IGMMA included, holds wgmma and TMA loads, and fails on an IMMA."""
+    _stand_in_cuobjdump(tmp_path, monkeypatch, _wgmma_listing(mma_sync_in))
+    if mma_sync_in is None:
+        result = chip_smoke.check_build({})
+        assert set(result) == {k for ks in chip_smoke.WGMMA_KERNELS.values() for k in ks}
+        assert result["bucket_v2_wgmma_kernelILb1E"]["sass"]["IGMMA"] == 1
+    else:
+        with pytest.raises(SystemExit, match="mma.sync left"):
+            chip_smoke.check_build({})

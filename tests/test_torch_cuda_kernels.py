@@ -274,6 +274,39 @@ def test_flash_partial_kernel_matches_plain(cuda, dtype, seq_q, seq_k, k_offset)
         assert _bf16_row_ratio(numer, e_numer, rows) <= 1.0
 
 
+@pytest.mark.parametrize(
+    "seq_q,seq_k,k_offset,lens",
+    [
+        (300, 1000, 0, (1000, 1000)),  # Sq ≠ Sk, every key live
+        (777, 500, 400, (650, 0)),  # partly live; a zero-length row
+        (129, 256, 512, (512, 300)),  # a dead block: every row ends before it
+        (64, 0, 0, (5, 0)),  # an empty KV block
+    ],
+)
+def test_flash_partial_bf16_edges(cuda, seq_q, seq_k, k_offset, lens):
+    """The wgmma partial on several 128-row q tiles and 128-key tiles: live,
+    partly live and dead blocks and an empty one; dead rows exactly
+    (-1e30, 0, 0)."""
+    rng = np.random.default_rng(seq_q + seq_k)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(2, s, 12, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+        for s in (seq_q, seq_k, seq_k)
+    )
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    numer, m, l = fa.flash_attention_partial(q, k, v, lengths, k_offset)
+    torch.cuda.synchronize()
+    live_b = (lengths > k_offset) & (seq_k > 0)
+    dead = (~live_b)[:, None, None].expand_as(m)
+    assert (m[dead] == fa.NEG_INF).all() and (l[dead] == 0).all()
+    assert (numer.transpose(1, 2)[dead] == 0).all()
+    live = ~dead
+    if live.any():  # the plain version needs a key to take its max over
+        e_numer, e_m, e_l = fa.flash_attention_partial_reference(q, k, v, lengths, k_offset)
+        assert bool(((m - e_m).abs() <= 1e-5 * e_m.abs() + 1e-6)[live].all())
+        torch.testing.assert_close(l[live], e_l[live], rtol=1e-4, atol=0)
+        assert _bf16_row_ratio(numer, e_numer, live.transpose(1, 2)) <= 1.0
+
+
 def test_flash_partial_refuses_grad_on_cuda(cuda):
     q = torch.zeros(1, 8, 1, 64, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="backward"):
@@ -529,6 +562,56 @@ def test_bucket_kernel_matches_plain(cuda, n, b, d, dtype):
 
     _assert_tables_match(got, expected, q, scores, block, exact=dtype == "int8")
     assert (got[0][:, 5] <= -1e29).all()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize(
+    "n,b,d",
+    [
+        (9 * 2048, 70, 384),  # blocks of 2048 (16 positions), a ragged batch
+        (3 * 8192, 512, 768),  # blocks of 8192; bf16 rows of 1536 B take 64-query tiles
+        (2 * 16384, 70, 400),  # blocks of 16384 (128 positions); rows of 400 / 800 B
+        (640, 3, 720),  # one block of 5 positions; bf16 rows of 1440 B (odd positions)
+        (16384, 130, 64),  # one block of 128 positions; int8 rows of 64 B
+        (4096, 70, 1344),  # int8 1344 B: 64 queries, 8 stages; bf16 2688 B: 3 stages
+        (128, 9, 1344),  # a block of 128 rows: one position
+    ],
+)
+def test_bucket_v2_wgmma_geometries(cuda, n, b, d, dtype):
+    """The int8 / bf16 v2 kernel at every block size, one block of N ≤ 16384,
+    ragged batches, row bytes off the 128-byte chunk, both query tiles (two
+    warpgroups of 64 queries, or one) and shallow rings; int8 bit-equal, bf16
+    within 2⁻¹⁵·|q|; the dead lane 5 of every block is -1e30."""
+    ((corpus, q, scale),) = _rows_and_queries(n, (d,), b, seed=n + d, dtype=dtype, device=cuda)
+    mask = _test_mask(n, cuda)
+    before = ft.launches
+    got = ft.matmul_bucket_max_v2(corpus, q, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    expected = ft.matmul_bucket_max_v2_reference(corpus, q, mask, scale)
+    block = ft.choose_block_rows(n)
+
+    def scores():
+        return torch.where(mask, q.to(corpus.dtype).float() @ corpus.float().T, -1e30)
+
+    _assert_tables_match(got, expected, q, scores, block, exact=dtype == "int8")
+    assert (got[0][:, 5::128] <= -1e29).all()
+
+
+def test_bucket_v2_takes_unaligned_mask_and_scales(cuda):
+    """A mask and scales that start off a 16-byte boundary (views into larger
+    tensors) give the same int8 table as aligned copies."""
+    ((corpus, q, scale),) = _rows_and_queries(4096, (128,), 20, seed=3, dtype="int8", device=cuda)
+    big_mask = torch.ones(4097, dtype=torch.bool, device=cuda)
+    big_mask[1::9] = False
+    big_scale = torch.cat([torch.ones(1, device=cuda), scale.reshape(-1)])
+    mask, scale_view = big_mask[1:], big_scale[1:]
+    assert mask.data_ptr() % 16 and scale_view.data_ptr() % 16
+    got = ft.matmul_bucket_max_v2(corpus, q, mask, scale=scale_view)
+    expected = ft.matmul_bucket_max_v2(corpus, q, mask.clone(), scale=scale_view.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), expected[0].view(torch.int32))
+    assert torch.equal(got[1], expected[1])
 
 
 def test_section_kernel_mixed_arm_kinds(cuda):

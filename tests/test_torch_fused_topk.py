@@ -190,6 +190,44 @@ def test_kernel_rows_refused():
             fused_topk.check_kernel_rows(torch.zeros(4, 64, dtype=dtype), "bucket")
 
 
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [384, 768, 1024])
+def test_v2_kernel_geometry(dtype, d):
+    """v2's CTA fits shared memory at the repo's widths and one beyond: int8
+    and bf16 rows on the wgmma kernel (128 queries while their tile fits beside
+    a 4-deep ring, else 64 walked by one warpgroup, a ring of 4-8 stages),
+    float32 rows on the FMA tile as before."""
+    row_bytes = d * torch.tensor([], dtype=dtype).element_size()
+    smem = fused_topk.kernel_smem_bytes(dtype, row_bytes, v2=True)
+    assert smem <= 232448
+    assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", v2=True) == row_bytes
+    queries = fused_topk.tile_queries(dtype, row_bytes, v2=True)
+    if dtype == torch.float32:
+        assert queries == 32 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes)
+        return
+    chunks = -(-row_bytes // 128)
+    got_queries, stages = fused_topk.v2_geometry(row_bytes)
+    assert queries == got_queries == (128 if row_bytes <= 1152 else 64)
+    assert 4 <= stages <= 8
+    assert smem == chunks * queries * 128 + stages * 16384 + 4 * 640 + (9 + 2 * stages) * 8 + 1024
+    assert fused_topk._v2_smem(queries, row_bytes, stages + 1) > 232448 or stages == 8
+
+
+def test_v2_kernel_geometry_edges():
+    """The widest rows each tile takes, and the limit of v2's wgmma kernel
+    (2944 bytes, 64 queries and two stages) against the shared walk's (2688
+    bytes)."""
+    assert fused_topk.v2_geometry(1152)[0] == 128 and fused_topk.v2_geometry(1168)[0] == 64
+    assert fused_topk.v2_geometry(2944) == (64, 2)
+    assert fused_topk.v2_geometry(2960)[1] < 2
+    wide = torch.zeros(4, 1472, dtype=torch.bfloat16)  # 2944 bytes
+    assert fused_topk.check_kernel_rows(wide, "bucket", v2=True) == 2944
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_topk.check_kernel_rows(wide, "bucket")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_topk.check_kernel_rows(torch.zeros(4, 1480, dtype=torch.bfloat16), "bucket", v2=True)
+
+
 @pytest.mark.parametrize("x", ["rows", "queries"])
 def test_quantize_int8_bit_equal(x):
     """Stored rows are quantized as the JAX store does (numpy, a true

@@ -36,7 +36,8 @@
 //
 // Three kernels:
 //
-//   bf16 forward — wgmma fed by TMA (Hopper's own path to the tensor cores).
+//   bf16 forward and bf16 partial — wgmma fed by TMA (Hopper's own path to
+//          the tensor cores), one body (`wgmma_attention`) for both entries.
 //          One CTA per (128-row q tile, b·h): two consumer warpgroups of 64
 //          rows and one producer warp. The producer loads the Q tile once and
 //          streams 128-key K and V tiles through a ring of shared-memory
@@ -49,13 +50,12 @@
 //          MN-major through the descriptor's transpose bit: no Vᵀ copy), and
 //          normalises in the epilogue. Length and band masks are evaluated
 //          only on tiles that straddle an edge; a warpgroup with no live pair
-//          in a tile skips its products. l sums the unrounded P; P is rounded
-//          to bf16 for P·V (the plain version rounds the normalised
-//          probabilities, so the two differ by a bf16 rounding).
-//   bf16 partial — tensor cores through mma.sync m16n8k16, 4 warps of 16 q
-//          rows, 64-key tiles loaded synchronously with V stored transposed;
-//          P stays in registers (FlashAttention-2's register reuse) and is
-//          kept unrounded in l.
+//          in a tile skips its products; a CTA whose keys are all dead loads
+//          nothing. l sums the unrounded P; P is rounded to bf16 for P·V (the
+//          plain version rounds the normalised probabilities, so the two
+//          differ by a bf16 rounding). The partial keeps the same raw row max
+//          and exp2 domain inside and writes m · scale (natural-log domain)
+//          and the unnormalised float32 numerator in 8-byte stores.
 //   f32  — plain FMA on the CUDA cores, 4 threads per q row, p passed to the
 //          P·V loop by warp shuffle (forward and partial).
 //
@@ -265,215 +265,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 partial: tensor cores through mma.sync --------------------------------------
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;  // 16 q rows per warp
-constexpr int kSmemPad = 8;                  // bf16 padding per shared row (bank spread)
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A (16×16, row-major): reg0 (g, 2t..2t+1), reg1 (g+8, 2t..), reg2 (g, 2t+8..),
-//                         reg3 (g+8, 2t+8..)
-//   B (16×8, k × n):      reg0 (k = 2t..2t+1, n = g), reg1 (k = 2t+8..2t+9, n = g)
-//   C (16×8, f32):        c0,c1 (g, 2t..2t+1), c2,c3 (g+8, 2t..2t+1)
-// Writes the float32 numerator [B, Sq, H, D] and m, l [B, H, Sq].
-__global__ void __launch_bounds__(kMmaThreads)
-flash_partial_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                         float* __restrict__ numer, float* __restrict__ m_out,
-                         float* __restrict__ l_out, int seq_q, int seq_k, int heads,
-                         int k_offset, float scale) {
-  constexpr int kDSteps = D / 16;        // k-steps of Q·Kᵀ
-  constexpr int kDTiles = D / 8;         // n-tiles of O
-  constexpr int kKeyTiles = kBlockK / 8;  // n-tiles of S
-  constexpr int kKeySteps = kBlockK / 16;  // k-steps of P·V
-  constexpr int kKStride = D + kSmemPad;
-  constexpr int kVStride = kBlockK + kSmemPad;
-
-  __shared__ __align__(16) __nv_bfloat16 k_tile[kBlockK * kKStride];  // [key][d]
-  __shared__ __align__(16) __nv_bfloat16 vt_tile[D * kVStride];       // [d][key]
-
-  const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int h = bh % heads;
-  const int q_start = blockIdx.x * kBlockQ;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = q_start + (tid / 32) * 16 + g;  // this thread's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
-
-  const int len = key_limit(lengths[b], k_offset, seq_k);
-
-  const long long tok_stride = (long long)heads * D;
-  const long long q_base = (long long)b * seq_q * tok_stride + (long long)h * D;
-  const long long kv_base = (long long)b * seq_k * tok_stride + (long long)h * D;
-
-  unsigned qa[kDSteps][4];
-#pragma unroll
-  for (int kc = 0; kc < kDSteps; ++kc) {
-    const int d = kc * 16 + 2 * t;
-    const __nv_bfloat16* q0 = q + q_base + (long long)row0 * tok_stride + d;
-    const __nv_bfloat16* q1 = q + q_base + (long long)row1 * tok_stride + d;
-    qa[kc][0] = row0 < seq_q ? load_u32(q0) : 0u;
-    qa[kc][1] = row1 < seq_q ? load_u32(q1) : 0u;
-    qa[kc][2] = row0 < seq_q ? load_u32(q0 + 8) : 0u;
-    qa[kc][3] = row1 < seq_q ? load_u32(q1 + 8) : 0u;
-  }
-
-  float o[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  // No band: every key tile below the block's live keys.
-  const int kt_end = (len + kBlockK - 1) / kBlockK;
-
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // the previous tile has been consumed
-    constexpr int kChunks = D / 8;  // 16-byte chunks per key row
-    for (int i = tid; i < kBlockK * kChunks; i += kMmaThreads) {
-      const int kk = i / kChunks;
-      const int c = (i - kk * kChunks) * 8;
-      const int key = k0 + kk;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < seq_k) {
-        const long long off = kv_base + (long long)key * tok_stride + c;
-        kv = *reinterpret_cast<const uint4*>(k + off);
-        vv = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(&k_tile[kk * kKStride + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_tile[(c + e) * kVStride + kk] = ve[e];
-    }
-    __syncthreads();
-
-    // S = Q·Kᵀ: 8 n-tiles of 8 keys.
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < kDSteps; ++kc) {
-        const __nv_bfloat16* kp = &k_tile[(j * 8 + g) * kKStride + kc * 16 + 2 * t];
-        mma_bf16(s[j], qa[kc], load_u32(kp), load_u32(kp + 8));
-      }
-    }
-
-    // Scale, mask, row max (each row's 64 scores live in the 4 lanes of a quad).
-    unsigned valid = 0u;
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = k0 + j * 8 + 2 * t + (e & 1) < len;
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
-        valid |= ok ? (1u << (j * 4 + e)) : 0u;
-        if (e < 2)
-          mx0 = fmaxf(mx0, s[j][e]);
-        else
-          mx1 = fmaxf(mx1, s[j][e]);
-      }
-    }
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float new0 = fmaxf(m0, mx0);
-    const float new1 = fmaxf(m1, mx1);
-    const float corr0 = expf(m0 - new0);
-    const float corr1 = expf(m1 - new1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float m_row = e < 2 ? new0 : new1;
-        s[j][e] = (valid >> (j * 4 + e)) & 1u ? expf(s[j][e] - m_row) : 0.f;
-        if (e < 2)
-          ps0 += s[j][e];
-        else
-          ps1 += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o_);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o_);
-    }
-    l0 = l0 * corr0 + ps0;
-    l1 = l1 * corr1 + ps1;
-    m0 = new0;
-    m1 = new1;
-#pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      o[j][0] *= corr0;
-      o[j][1] *= corr0;
-      o[j][2] *= corr1;
-      o[j][3] *= corr1;
-    }
-
-    // O += P·V: P's A fragments are S's accumulators of n-tiles 2kc, 2kc+1.
-#pragma unroll
-    for (int kc = 0; kc < kKeySteps; ++kc) {
-      const unsigned pa[4] = {
-          hopper::pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-          hopper::pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-          hopper::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          hopper::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]),
-      };
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) {
-        const __nv_bfloat16* vp = &vt_tile[(j * 8 + g) * kVStride + kc * 16 + 2 * t];
-        mma_bf16(o[j], pa, load_u32(vp), load_u32(vp + 8));
-      }
-    }
-  }
-
-  // Unnormalised float32 numerator, and the row's m and l.
-  float* np = numer + q_base;
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (row0 < seq_q)
-      *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
-          make_float2(o[j][0], o[j][1]);
-    if (row1 < seq_q)
-      *reinterpret_cast<float2*>(np + (long long)row1 * tok_stride + d) =
-          make_float2(o[j][2], o[j][3]);
-  }
-  if (t == 0) {  // the quad's four lanes hold the same m and l
-    const long long r = (long long)bh * seq_q;
-    if (row0 < seq_q) {
-      m_out[r + row0] = m0;
-      l_out[r + row0] = l0;
-    }
-    if (row1 < seq_q) {
-      m_out[r + row1] = m1;
-      l_out[r + row1] = l1;
-    }
-  }
-}
-
-// ---- bf16 forward: wgmma fed by TMA ----------------------------------------------------
+// ---- bf16 forward and partial: wgmma fed by TMA -----------------------------------------
 
 constexpr int kFwdRows = 128;  // q rows a CTA: two consumer warpgroups of 64
 constexpr int kFwdKeys = 128;  // keys a K/V tile
@@ -485,12 +277,26 @@ constexpr int kFwdTileBytes = kFwdKeys * hopper::kRowBytes;
 constexpr int kFwdBarOffset = kFwdQBytes + kFwdStages * 2 * kFwdTileBytes;
 constexpr int kFwdSmem = kFwdBarOffset + (1 + 2 * kFwdStages) * 8 + 1024;  // + alignment slack
 
-__global__ void __launch_bounds__(kFwdThreads, 1)
-flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
-                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
-                       int heads, int window, float scale) {
+// Outputs of the wgmma body: the forward's normalised bf16 rows (and lse on
+// request), or the partial's float32 numerator, m and l.
+struct FwdOut {
+  __nv_bfloat16* out;  // forward: [B, Sq, H, D]
+  float* lse;          // forward: [B, H, Sq] or null
+  float* numer;        // partial: [B, Sq, H, D]
+  float* m;            // partial: [B, H, Sq]
+  float* l;            // partial: [B, H, Sq]
+};
+
+// One CTA: 128 q rows of one (b, h) against the key tiles that can hold a
+// live key of the block [k_offset, k_offset + seq_k) (the forward: the whole
+// sequence, k_offset 0, seq_k = seq_q). A CTA whose block holds no live key
+// loads nothing and writes its rows' empty state.
+template <bool kPartial>
+__device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const CUtensorMap* k_map,
+                                                const CUtensorMap* v_map,
+                                                const int* __restrict__ lengths, FwdOut res,
+                                                int seq_q, int seq_k, int heads, int window,
+                                                int k_offset, float scale) {
   using namespace hopper;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_base_1024(smem_raw);
@@ -504,15 +310,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int b = bh / heads;
   const int h = bh % heads;
   const int q_start = blockIdx.x * kFwdRows;
-  const int len = key_limit(lengths[b], 0, seq);
+  const int len = key_limit(lengths[b], k_offset, seq_k);
   int kt_begin, kt_end;
   key_tile_range<kFwdRows, kFwdKeys>(q_start, len, window, &kt_begin, &kt_end);
+  const bool any_tile = kt_begin < kt_end;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(&kv_full[s], 1);
-      mbar_init(&kv_empty[s], kFwdConsumers);
+      mbar_init(&kv_empty[s], kFwdConsumers / 32);  // one arrival per consumer warp
     }
     fence_barrier_init();
   }
@@ -520,15 +327,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x >= kFwdConsumers) {
     // Producer warp: one thread loads Q, then keeps the K/V ring full.
-    if (threadIdx.x == kFwdConsumers) {
+    if (threadIdx.x == kFwdConsumers && any_tile) {
       mbar_arrive_expect_tx(q_full, kFwdQBytes);
-      tma_load_tile(q_tile, &q_map, q_full, h, q_start, b);
+      tma_load_tile(q_tile, q_map, q_full, h, q_start, b);
       for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
         const int s = i % kFwdStages;
         if (i >= kFwdStages) mbar_wait(&kv_empty[s], (i / kFwdStages - 1) & 1);
         mbar_arrive_expect_tx(&kv_full[s], 2 * kFwdTileBytes);
-        tma_load_tile(kv_tiles + 2 * s * kFwdTileBytes, &k_map, &kv_full[s], h, kt * kFwdKeys, b);
-        tma_load_tile(kv_tiles + (2 * s + 1) * kFwdTileBytes, &v_map, &kv_full[s], h,
+        tma_load_tile(kv_tiles + 2 * s * kFwdTileBytes, k_map, &kv_full[s], h, kt * kFwdKeys, b);
+        tma_load_tile(kv_tiles + (2 * s + 1) * kFwdTileBytes, v_map, &kv_full[s], h,
                       kt * kFwdKeys, b);
       }
     }
@@ -554,7 +361,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // quad's four partial sums are added in the epilogue).
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  mbar_wait(q_full, 0);
+  if (any_tile) mbar_wait(q_full, 0);
   const uint64_t q_desc = desc_sw128(q_tile + wg * 64 * kRowBytes);
 
   for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
@@ -562,7 +369,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(&kv_full[s], (i / kFwdStages) & 1);
     const int k0 = kt * kFwdKeys;
     const int k_last = k0 + kFwdKeys - 1;
-    if (wg_row < seq && any_live(wg_row, k0, k_last, len, window)) {
+    if (wg_row < seq_q && any_live(wg_row, k0, k_last, len, window)) {
       const uint8_t* k_tile = kv_tiles + 2 * s * kFwdTileBytes;
       const uint8_t* v_tile = k_tile + kFwdTileBytes;
       float sc[64];
@@ -634,7 +441,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_wait<0>();
       fence_regs(o);
     }
-    mbar_arrive(&kv_empty[s]);
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&kv_empty[s]);  // its warpgroup's products are done
   }
 
 #pragma unroll
@@ -643,40 +450,103 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
   const long long tok_stride = (long long)heads * D;
-  __nv_bfloat16* op = out + (long long)b * seq * tok_stride + (long long)h * D;
-  const float den0 = fmaxf(l0, 1e-20f);
-  const float den1 = fmaxf(l1, 1e-20f);
+  const long long base = (long long)b * seq_q * tok_stride + (long long)h * D;
+  if constexpr (kPartial) {
+    // The unnormalised float32 numerator, 8 bytes a store; m in the scaled
+    // natural-log domain, -1e30 (not -inf) for a row with no live key.
+    float* np = res.numer + base;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
-          __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
-    if (row1 < seq)
-      *reinterpret_cast<__nv_bfloat162*>(op + (long long)row1 * tok_stride + d) =
-          __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
-  }
-  if (lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
-    float* lp = lse + (long long)bh * seq;
-    if (row0 < seq) lp[row0] = l0 > 0.f ? m0 * scale + logf(l0) : 0.f;
-    if (row1 < seq) lp[row1] = l1 > 0.f ? m1 * scale + logf(l1) : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (row0 < seq_q)
+        *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
+            make_float2(o[4 * j], o[4 * j + 1]);
+      if (row1 < seq_q)
+        *reinterpret_cast<float2*>(np + (long long)row1 * tok_stride + d) =
+            make_float2(o[4 * j + 2], o[4 * j + 3]);
+    }
+    if (t == 0) {  // the quad's four lanes hold the same m and l
+      const long long r = (long long)bh * seq_q;
+      if (row0 < seq_q) {
+        res.m[r + row0] = m0 == -INFINITY ? kNegInf : m0 * scale;
+        res.l[r + row0] = l0;
+      }
+      if (row1 < seq_q) {
+        res.m[r + row1] = m1 == -INFINITY ? kNegInf : m1 * scale;
+        res.l[r + row1] = l1;
+      }
+    }
+  } else {
+    __nv_bfloat16* op = res.out + base;
+    const float den0 = fmaxf(l0, 1e-20f);
+    const float den1 = fmaxf(l1, 1e-20f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int d = j * 8 + 2 * t;
+      if (row0 < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
+            __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
+      if (row1 < seq_q)
+        *reinterpret_cast<__nv_bfloat162*>(op + (long long)row1 * tok_stride + d) =
+            __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
+    }
+    if (res.lse != nullptr && t == 0) {  // the quad's four lanes hold the same m and l
+      float* lp = res.lse + (long long)bh * seq_q;
+      if (row0 < seq_q) lp[row0] = l0 > 0.f ? m0 * scale + logf(l0) : 0.f;
+      if (row1 < seq_q) lp[row1] = l1 > 0.f ? m1 * scale + logf(l1) : 0.f;
+    }
   }
 }
 
-int launch_fwd_bf16(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                    float* lse, int batch, int seq, int heads, int window, float scale,
-                    cudaStream_t stream) {
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
+                       int heads, int window, float scale) {
+  wgmma_attention<false>(&q_map, &k_map, &v_map, lengths, FwdOut{out, lse, nullptr, nullptr, nullptr},
+                         seq, seq, heads, window, 0, scale);
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_partial_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const int* __restrict__ lengths, float* __restrict__ numer,
+                           float* __restrict__ m, float* __restrict__ l, int seq_q, int seq_k,
+                           int heads, int k_offset, float scale) {
+  wgmma_attention<true>(&q_map, &k_map, &v_map, lengths, FwdOut{nullptr, nullptr, numer, m, l},
+                        seq_q, seq_k, heads, -1, k_offset, scale);
+}
+
+// The bf16 forward (k_offset < 0) or one ring step's partial (k_offset >= 0,
+// numer/m/l given): tensor maps over q (seq_q) and k, v (seq_k), then one CTA
+// per (128-row q tile, b·h).
+int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths, FwdOut res,
+                 int batch, int seq_q, int seq_k, int heads, int window, int k_offset, float scale,
+                 cudaStream_t stream) {
+  const bool partial = k_offset >= 0;
+  // An empty KV block is never loaded (no key is live); its maps span q.
+  const void* kv_k = seq_k > 0 ? k : q;
+  const void* kv_v = seq_k > 0 ? v : q;
+  const int kv_seq = seq_k > 0 ? seq_k : seq_q;
   CUtensorMap q_map, k_map, v_map;
-  if (int rc = hopper::make_tile_map(&q_map, q, batch, seq, heads, kFwdRows)) return rc;
-  if (int rc = hopper::make_tile_map(&k_map, k, batch, seq, heads, kFwdKeys)) return rc;
-  if (int rc = hopper::make_tile_map(&v_map, v, batch, seq, heads, kFwdKeys)) return rc;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (int rc = hopper::make_tile_map(&q_map, q, batch, seq_q, heads, kFwdRows)) return rc;
+  if (int rc = hopper::make_tile_map(&k_map, kv_k, batch, kv_seq, heads, kFwdKeys)) return rc;
+  if (int rc = hopper::make_tile_map(&v_map, kv_v, batch, kv_seq, heads, kFwdKeys)) return rc;
+  const void* kernel = partial ? reinterpret_cast<const void*>(flash_partial_wgmma_kernel)
+                               : reinterpret_cast<const void*>(flash_fwd_wgmma_kernel);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((seq + kFwdRows - 1) / kFwdRows, batch * heads);
-  flash_fwd_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
-      q_map, k_map, v_map, lengths, static_cast<__nv_bfloat16*>(out), lse, seq, heads, window,
-      scale);
+  const dim3 grid((seq_q + kFwdRows - 1) / kFwdRows, batch * heads);
+  if (partial)
+    flash_partial_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
+        q_map, k_map, v_map, lengths, res.numer, res.m, res.l, seq_q, seq_k, heads, k_offset,
+        scale);
+  else
+    flash_fwd_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
+        q_map, k_map, v_map, lengths, res.out, res.lse, seq_q, heads, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -696,7 +566,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
   float* lse_out = static_cast<float*>(lse);
   if (dtype == 1)
-    return launch_fwd_bf16(q, k, v, len, out, lse_out, batch, seq, heads, window, scale, s);
+    return launch_wgmma(q, k, v, len,
+                        FwdOut{static_cast<__nv_bfloat16*>(out), lse_out, nullptr, nullptr, nullptr},
+                        batch, seq, seq, heads, window, -1, scale, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
   flash_fwd_kernel<false><<<grid, kThreads, 0, s>>>(
@@ -719,22 +591,16 @@ extern "C" int flash_attention_partial(const void* q, const void* k, const void*
   if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
   const float scale = 1.0f / sqrtf((float)D);
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
-  if (dtype == 0) {
-    flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), len, static_cast<float*>(numer), nullptr, mo, lo, seq_q,
-        seq_k, heads, -1, k_offset, scale);
-  } else if (dtype == 1) {
-    flash_partial_mma_kernel<<<grid, kMmaThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), len, static_cast<float*>(numer), mo, lo, seq_q,
-        seq_k, heads, k_offset, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1)
+    return launch_wgmma(q, k, v, len, FwdOut{nullptr, nullptr, static_cast<float*>(numer), mo, lo},
+                        batch, seq_q, seq_k, heads, -1, k_offset, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
+  flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      len, static_cast<float*>(numer), nullptr, mo, lo, seq_q, seq_k, heads, -1, k_offset, scale);
   return (int)cudaGetLastError();
 }

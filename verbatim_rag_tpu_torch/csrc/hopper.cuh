@@ -1,15 +1,20 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels of
-// `flash_attention.cu` and `flash_attention_bwd.cu`: TMA tensor maps and tile
-// loads, mbarriers, and warpgroup MMA (wgmma) on 128-byte-swizzled shared
-// tiles. Hand-written PTX; nothing here allocates or synchronises the device.
+// Hopper (sm_90a) building blocks shared by the wgmma kernels of
+// `flash_attention.cu`, `flash_attention_bwd.cu` and `section.cu`: TMA tensor
+// maps and tile loads, bulk copies, mbarriers, and warpgroup MMA (wgmma) on
+// 128-byte-swizzled shared tiles. Hand-written PTX; nothing here allocates or
+// synchronises the device.
 //
-// Every tile is a [rows][64] bf16 slab of one head of a [B, S, H, 64]
-// contiguous tensor: 128 bytes a row, which is exactly one 128-byte swizzle
-// span. TMA writes it swizzled (16-byte chunk c of row r lands at chunk
-// c ^ (r % 8)), rows past S zero-filled; wgmma reads it through a descriptor
-// with the same swizzle, either K-major (the 64 values of a row are the
-// contraction: Q·Kᵀ, dO·Vᵀ) or MN-major (rows are the contraction: P·V,
-// dS·K, Pᵀ·dO, dSᵀ·Q), so no product needs a transposed copy.
+// Every tile is a slab of rows of 128 bytes, which is exactly one 128-byte
+// swizzle span: for attention, [rows][64] bf16 of one head of a
+// [B, S, H, 64] contiguous tensor; for the bucket tables, 128-byte chunks of
+// row-major [N, d] rows (64 bf16 or 128 int8 values). TMA writes it swizzled
+// (16-byte chunk c of row r lands at chunk c ^ (r % 8)), rows and bytes past
+// the tensor zero-filled; wgmma reads it through a descriptor with the same
+// swizzle, either K-major (the 128 bytes of a row are the contraction: Q·Kᵀ,
+// dO·Vᵀ, queries·rowsᵀ) or MN-major (rows are the contraction: P·V, dS·K,
+// Pᵀ·dO, dSᵀ·Q), so no product needs a transposed copy. A K-major k-step is
+// 32 bytes in every type (16 bf16, 32 int8), so one descriptor step serves
+// both.
 
 #pragma once
 
@@ -39,6 +44,23 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
   const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
   const CUresult rc = cuTensorMapEncodeTiled(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// A TMA map over a row-major [n_rows, row_bytes] byte matrix (int8 codes or
+// bf16 values alike) whose box is 128 bytes of `rows` consecutive rows:
+// coordinates (byte, row). Bytes past a row and rows past n_rows are
+// zero-filled. Returns 0 or a CUDA error code.
+inline int make_rows_map(CUtensorMap* map, const void* base, long long n_rows, int row_bytes,
+                         int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)n_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {128u, (cuuint32_t)rows};
+  const cuuint32_t elem_strides[2] = {1u, 1u};
+  const CUresult rc = cuTensorMapEncodeTiled(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
       elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
@@ -115,6 +137,27 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: the box of a `make_rows_map` map at (byte, row) into shared memory at
+// dst (1024-byte aligned), counted against the barrier like tma_load_tile.
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int byte, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(byte), "r"(row)
+      : "memory");
+}
+
+// Bulk copy of `bytes` contiguous bytes (a multiple of 16, both addresses
+// 16-byte aligned) into shared memory, counted against the barrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- device: wgmma -----------------------------------------------------------------
 
 // Descriptor of a 128-byte-swizzled tile of 128-byte rows at p (K-major or
@@ -147,6 +190,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
@@ -182,6 +230,21 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64×128] (+)= A·Bᵀ on int8: A [64 × 32] and B [128 × 32] s8 codes, both
+// K-major in shared memory (the only layout integer wgmma takes), exact s32
+// sums. scale_d = 0 overwrites D. The s32 accumulator has the f32 layout
+// documented below.
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64×64] += A·B: A [64 × 16] from registers (see `acc_to_a`), B [16 × 64]
 // MN-major in shared memory (rows of 64 contiguous values; the descriptor's
 // transpose bit), so a row-major tile serves as B with no transposed copy.
@@ -196,7 +259,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
-// Accumulator layout of a wgmma m64nN tile (f32): warp w of the warpgroup
+// Accumulator layout of a wgmma m64nN tile (f32 or s32): warp w of the warpgroup
 // holds rows 16w + g and 16w + g + 8 (g = lane / 4, t = lane % 4); element
 // 4j + e is (row 16w + g + 8·(e / 2), column 8j + 2t + e % 2). That is the
 // mma.sync C layout per 8-column tile, and the register-A layout of the next

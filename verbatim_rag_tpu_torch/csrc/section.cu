@@ -37,8 +37,10 @@
 //
 // Layout: rows are row-major [N, d] (the TPU kernel wants transposed [d, N]
 // copies for its MXU; here the corpus rows are B operands as they lie), d·elt
-// a multiple of 16 bytes. One CTA of 8 warps owns a tile of queries × 128
-// lanes of one column block and walks the block's positions:
+// a multiple of 16 bytes. bucket_max_v2 on int8 and bf16 rows runs on its own
+// kernel, wgmma fed by TMA (`bucket_v2_wgmma_kernel`, described where it is
+// defined). The other walks share this one: one CTA of 8 warps owns a tile of
+// queries × 128 lanes of one column block and walks the block's positions:
 //   - the query tile stays in shared memory for the whole walk;
 //   - the corpus is streamed in stages of 128 rows × 128 bytes through a
 //     3-deep cp.async ring;
@@ -65,13 +67,18 @@
 // it; the float32 arms at the same shape take 0.59 T multiply-adds, 17.8 ms
 // at the 67 TFLOP/s CUDA-core rate. v1 at B=512, N=999,424, bf16: 0.80 ms
 // (d=768) / 0.40 ms (d=384) of tensor-core operations against 1.54 / 0.77 GB.
-// mma.sync, not wgmma, and an epilogue of ~10 instructions per score keep
-// the tensor-core kinds above that bound; a TMA/wgmma pipeline is later work.
+// On the shared walk, mma.sync and an epilogue of ~10 instructions per score
+// issued by the warps that issue the products keep the tensor-core kinds
+// above that bound. The v2 wgmma kernel streams the rows by TMA and lets one
+// warpgroup's epilogue run beside the other's products; section and v1 can
+// move onto the same walk.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -476,10 +483,12 @@ __global__ void __launch_bounds__(kThreads, 2) bucket_tables_kernel(const Params
   const int blk = blockIdx.y;
   if (arm.kind == kF32) {
     run_tile<FmaTile, kMode>(prm, arm, blk, smem);
-  } else if (arm.kind == kBf16) {
-    run_tile<MmaTile<false>, kMode>(prm, arm, blk, smem);
-  } else if constexpr (kMode != kBucketV1) {  // v1 takes no int8 rows
-    run_tile<MmaTile<true>, kMode>(prm, arm, blk, smem);
+  } else if constexpr (kMode != kBucketV2) {  // v2's int8 and bf16 rows: bucket_v2_wgmma_kernel
+    if (arm.kind == kBf16) {
+      run_tile<MmaTile<false>, kMode>(prm, arm, blk, smem);
+    } else if constexpr (kMode != kBucketV1) {  // v1 takes no int8 rows
+      run_tile<MmaTile<true>, kMode>(prm, arm, blk, smem);
+    }
   }
 }
 
@@ -519,6 +528,265 @@ int launch(const Params& prm, int n_arms, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((prm.batch + rows_per_tile - 1) / rows_per_tile, prm.n_blocks, n_arms);
   bucket_tables_kernel<kMode><<<grid, kThreads, smem, stream>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- bucket-max v2 on int8 and bf16 rows: wgmma fed by TMA -----------------------------
+//
+// One CTA of 288 threads (two consumer warpgroups and one TMA producer warp)
+// owns `queries` (128 or 64) queries × the 128 lanes of one column block and
+// walks the block's positions p. The query tile is loaded once and stays in
+// shared memory as ceil(row_bytes / 128) chunks of [queries][128 B]; the
+// position's 128 rows stream through a ring of `stages` 16 KB stages
+// (128 rows × 128 bytes, one chunk), each with a full and an empty mbarrier.
+// Per position the producer also bulk-copies the rows' mask bytes and, for
+// int8, their c_scale into a side slot (4 slots, own barriers), so the
+// epilogue reads them from shared memory.
+//   queries = 128: warpgroup w takes queries 64w..64w+63 against every
+//     position; both read each stage, which is free after 256 arrivals;
+//   queries = 64 (rows too wide for a 128-query tile beside a 4-deep ring,
+//     such as bf16 d = 768): warpgroup 0 walks alone through the whole ring.
+//     Splitting the positions between the warpgroups (each through half the
+//     ring: a warpgroup must meet its stages in order, as an mbarrier's parity
+//     wait cannot tell a phase from the one two later) measured slower:
+//     half of a 7-stage ring cannot hide the loads of 12-chunk positions.
+// Each position is one accumulator of 64 queries × 128 lanes (wgmma m64n128,
+// k32 s8·s8→s32 or k16 bf16→f32, both operands K-major: the queries' and
+// rows' bytes are the contraction), issued one chunk (4 k-steps) a commit; a
+// stage is released as soon as the products of the next chunk are in
+// flight, and ring slots and phases are counted, not divided out (a runtime
+// % and / a chunk measured costly). At d = 384-768 a position is
+// only 3-12 chunks, so each warpgroup's drain (wgmma.wait 0) and epilogue at
+// every position are what keep the tensor cores from their rate. Measured
+// slower, and so not taken: the query tiles of a column block as one
+// cluster; the warpgroups taking turns to issue (ping-pong: one waits for
+// the other's whole mainloop); two accumulators per warpgroup issuing the
+// next position before the epilogue (past 168 registers, so no producer
+// warp: loads issued from inside a consumer warpgroup starve the ring).
+constexpr int kV2Consumers = 2 * hopper::kWarpgroup;
+constexpr int kV2Threads = kV2Consumers + 32;
+constexpr int kV2StageBytes = kLanes * kChunk;       // 128 rows × 128 bytes
+constexpr int kV2Side = 4;                           // positions of side data in flight
+constexpr int kV2SideBytes = kLanes * 4 + kLanes;    // c_scale [128] float32, then mask [128]
+constexpr int kV2MaxStages = 8;
+
+int v2_smem_bytes(int queries, int n_chunks, int stages) {
+  return n_chunks * queries * kChunk + stages * kV2StageBytes + kV2Side * kV2SideBytes +
+         (1 + 2 * stages + 2 * kV2Side) * 8 + 1024;  // + barriers, + alignment slack
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kV2Threads, 1)
+bucket_v2_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap x_map,
+                       const float* __restrict__ qscale, const float* __restrict__ cscale,
+                       const uint8_t* __restrict__ mask, float* __restrict__ out,
+                       int* __restrict__ out_pos, int batch, int block, int n_blocks,
+                       int n_chunks, int queries, int stages) {
+  using namespace hopper;
+  using Acc = std::conditional_t<kInt8, int, float>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_base_1024(smem_raw);
+  const int q_chunk_bytes = queries * kChunk;
+  uint8_t* q_tile = smem;                                  // chunk c at c · q_chunk_bytes
+  uint8_t* ring = smem + n_chunks * q_chunk_bytes;         // stage s at s · kV2StageBytes
+  uint8_t* side = ring + stages * kV2StageBytes;           // slot j at j · kV2SideBytes
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(side + kV2Side * kV2SideBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + stages;
+  uint64_t* side_full = empty + stages;
+  uint64_t* side_empty = side_full + kV2Side;
+
+  const bool split = queries == 128;  // else warpgroup 0 walks alone
+  const int q0 = blockIdx.x * queries;
+  const int n_pos = block / kLanes;
+  const long long block_row0 = static_cast<long long>(blockIdx.y) * block;
+
+  if (threadIdx.x == 0) {
+    const int consumers = split ? kV2Consumers : kWarpgroup;  // arrivals that free a slot
+    mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+    for (int j = 0; j < kV2Side; ++j) {
+      mbar_init(&side_full[j], 1);
+      mbar_init(&side_empty[j], consumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kV2Consumers) {
+    // Producer: the query tile, then per position its side data and chunks.
+    if (threadIdx.x == kV2Consumers) {
+      mbar_arrive_expect_tx(q_full, n_chunks * q_chunk_bytes);
+      for (int c = 0; c < n_chunks; ++c)
+        tma_load_rows(q_tile + c * q_chunk_bytes, &q_map, q_full, c * kChunk, q0);
+      const uint32_t side_tx = (kInt8 ? kLanes * 4 : 0) + kLanes;
+      int next = 0;  // the ring's next slot, and how many times it has gone round
+      uint32_t lap = 0;
+      for (int p = 0; p < n_pos; ++p) {
+        const long long row0 = block_row0 + static_cast<long long>(p) * kLanes;
+        const int j = p % kV2Side;
+        if (p >= kV2Side) mbar_wait(&side_empty[j], ((p / kV2Side) - 1) & 1);
+        mbar_arrive_expect_tx(&side_full[j], side_tx);
+        uint8_t* slot = side + j * kV2SideBytes;
+        if (kInt8) bulk_load(slot, cscale + row0, kLanes * 4, &side_full[j]);
+        bulk_load(slot + kLanes * 4, mask + row0, kLanes, &side_full[j]);
+        for (int c = 0; c < n_chunks; ++c) {
+          const int s = next;
+          if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], kV2StageBytes);
+          tma_load_rows(ring + s * kV2StageBytes, &x_map, &full[s], c * kChunk,
+                        static_cast<int>(row0));
+          if (++next == stages) {
+            next = 0;
+            ++lap;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: this thread holds queries wq + r and wq + r + 8 of the tile
+  // and lanes 8j + 2t + {0, 1} (the accumulator layout, see hopper.cuh).
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 1 && !split) return;  // 64 queries: warpgroup 0 walks alone
+  const int tw = threadIdx.x % kWarpgroup;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wq = split ? 64 * wg : 0;
+  const int r = tw / 32 * 16 + g;
+  float qs[2] = {0.f, 0.f};
+  if constexpr (kInt8) {
+    for (int h = 0; h < 2; ++h) {
+      const int b = q0 + wq + r + 8 * h;
+      qs[h] = b < batch ? qscale[b] : 0.f;
+    }
+  }
+  Acc acc[64];
+  float best[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) best[x] = kNegInf;
+
+  mbar_wait(q_full, 0);
+  const uint64_t q_desc = desc_sw128(q_tile + wq * kChunk);
+  int next = 0, prev = 0;  // this warpgroup's next stage of its ring, the one before
+  uint32_t lap = 0;
+  for (int p = 0; p < n_pos; ++p) {
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = next;
+      mbar_wait(&full[s], lap & 1);
+      const uint64_t a = q_desc + static_cast<uint64_t>((c * q_chunk_bytes) >> 4);
+      const uint64_t x = desc_sw128(ring + s * kV2StageBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 32; ++ks) {
+        if constexpr (kInt8)
+          wgmma_m64n128k32_s8_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
+        else
+          wgmma_m64n128k16_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
+      }
+      wgmma_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wgmma_wait<1>();
+        mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++next == stages) {
+        next = 0;
+        ++lap;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[prev]);
+
+    // Position p: scale, pack, mask, running maximum (the float operations
+    // and order of the plain version, so int8 tables are bit-equal).
+    const int j = p % kV2Side;
+    mbar_wait(&side_full[j], (p / kV2Side) & 1);
+    const uint8_t* slot = side + j * kV2SideBytes;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int col = 8 * n + 2 * t;
+      const uint32_t m2 = *reinterpret_cast<const uint16_t*>(slot + kLanes * 4 + col);
+      float2 c2 = make_float2(0.f, 0.f);
+      if constexpr (kInt8) c2 = *reinterpret_cast<const float2*>(slot + col * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * n + e;
+        float v;
+        if constexpr (kInt8)
+          v = __fmul_rn(__fmul_rn(__int2float_rn(acc[x]), qs[e >> 1]), e & 1 ? c2.y : c2.x);
+        else
+          v = acc[x];
+        v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
+        // A masked row would fold in -1e30, which best never falls below.
+        if ((m2 >> (8 * (e & 1))) & 0xFFu) best[x] = fmaxf(best[x], v);
+      }
+    }
+    mbar_arrive(&side_empty[j]);
+  }
+
+  const long long width = static_cast<long long>(n_blocks) * kLanes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = q0 + wq + r + 8 * h;
+    if (b >= batch) continue;
+    const long long row_base = static_cast<long long>(b) * width + blockIdx.y * kLanes + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const int b0 = __float_as_int(best[4 * n + 2 * h]);
+      const int b1 = __float_as_int(best[4 * n + 2 * h + 1]);
+      *reinterpret_cast<float2*>(out + row_base + 8 * n) =
+          make_float2(__int_as_float(b0 & ~kPosMask), __int_as_float(b1 & ~kPosMask));
+      *reinterpret_cast<int2*>(out_pos + row_base + 8 * n) =
+          make_int2(b0 & kPosMask, b1 & kPosMask);
+    }
+  }
+}
+
+int launch_v2_wgmma(const void* q, const void* corpus, const void* qscale, const void* cscale,
+                    const void* mask, void* out, void* out_pos, int row_bytes, int kind, int batch,
+                    long long n_rows, int block, int queries, int stages, cudaStream_t stream) {
+  const int n_chunks = (row_bytes + kChunk - 1) / kChunk;
+  const int smem = v2_smem_bytes(queries, n_chunks, stages);
+  const bool int8 = kind == kInt8;
+  if (row_bytes <= 0 || row_bytes % 16 != 0 || (queries != 64 && queries != 128) ||
+      stages < 2 || stages > kV2MaxStages || smem > kMaxSmem || block <= 0 ||
+      block % kLanes != 0 || block / kLanes > kPosMask + 1 || n_rows % block != 0 ||
+      n_rows / block > 65535 || n_rows >= (1ll << 31) || mask == nullptr ||
+      (int8 && (qscale == nullptr || cscale == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(corpus) |
+       reinterpret_cast<uintptr_t>(cscale) | reinterpret_cast<uintptr_t>(mask)) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  CUtensorMap q_map, x_map;
+  if (int rc = hopper::make_rows_map(&q_map, q, batch, row_bytes, queries)) return rc;
+  if (int rc = hopper::make_rows_map(&x_map, corpus, n_rows, row_bytes, kLanes)) return rc;
+  const void* kernel = int8 ? reinterpret_cast<const void*>(bucket_v2_wgmma_kernel<true>)
+                            : reinterpret_cast<const void*>(bucket_v2_wgmma_kernel<false>);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_blocks = static_cast<int>(n_rows / block);
+  const dim3 grid((batch + queries - 1) / queries, n_blocks);
+  const float* qs = static_cast<const float*>(qscale);
+  const float* cs = static_cast<const float*>(cscale);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  float* ov = static_cast<float*>(out);
+  int* op = static_cast<int*>(out_pos);
+  if (int8)
+    bucket_v2_wgmma_kernel<true><<<grid, kV2Threads, smem, stream>>>(
+        q_map, x_map, qs, cs, mk, ov, op, batch, block, n_blocks, n_chunks, queries, stages);
+  else
+    bucket_v2_wgmma_kernel<false><<<grid, kV2Threads, smem, stream>>>(
+        q_map, x_map, qs, cs, mk, ov, op, batch, block, n_blocks, n_chunks, queries, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,12 +833,20 @@ extern "C" int section_tables(int n_arms, const void* const* q, const void* cons
 // q [batch, d], corpus [n_rows, d] of `kind`, qscale [batch] / cscale
 // [n_rows] float32 for int8, mask [n_rows] bool; out_val [batch,
 // n_rows/block·128] float32 (low 7 bits cleared), out_pos the same shape
-// int32 (position in the bucket). Returns the CUDA error code.
+// int32 (position in the bucket). int8 and bf16 rows run on wgmma with a
+// tile of `queries` (64 or 128) and a ring of `stages` (2-8); q, corpus,
+// cscale and mask 16-byte aligned. float32 rows take the FMA tile and ignore
+// both. Returns the CUDA error code.
 extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qscale,
                              const void* cscale, const void* mask, void* out_val, void* out_pos,
                              int row_bytes, int kind, int batch, long long n_rows, int block,
-                             void* stream) {
+                             int queries, int stages, void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (kind == kInt8 || kind == kBf16) {
+    return launch_v2_wgmma(q, corpus, qscale, cscale, mask, out_val, out_pos, row_bytes, kind,
+                           batch, n_rows, block, queries, stages,
+                           static_cast<cudaStream_t>(stream));
+  }
   Params prm = make_params(batch, n_rows, block);
   prm.arm[0] = make_arm(q, corpus, qscale, cscale, out_val, out_pos, row_bytes, kind);
   prm.mask_sel = static_cast<const uint8_t*>(mask);

@@ -25,7 +25,9 @@ table of (value with the low bits cleared, global row) is written; the
 :func:`matmul_bucket_max_v2_reference` is the plain PyTorch version (scores
 per block, pack, select, a [B, P, 128] maximum), the CPU path and the
 kernel's oracle. :func:`matmul_bucket_max_v2_cuda` launches
-`csrc/section.cu::bucket_max_v2`, which replaces the TPU kernels
+`csrc/section.cu::bucket_max_v2` (int8 and bf16 rows on wgmma fed by TMA,
+with the query tile and ring depth of :func:`v2_geometry`; float32 rows on
+the FMA tile), which replaces the TPU kernels
 `_bucket_max_v2_onedot_kernel` and `_bucket_max_v2_chunked_kernel`. The two
 TPU variants compute the same function and are both served by the one CUDA
 kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
@@ -137,31 +139,68 @@ _SMEM_STAGES = 3 * 128 * 144
 #: v1 on the tensor-core tile: each lane-warp's (value, lane) per query.
 _SMEM_V1_REDUCE = 2 * 64 * 8
 
+#: v2 on int8 / bf16 rows (`bucket_v2_wgmma_kernel`): the query tile as
+#: 128-byte chunks of [queries][128 B], a ring of 16 KB stages (128 rows ×
+#: 128 bytes), 4 side slots of c_scale and mask (640 bytes each), the
+#: mbarriers and 1024 bytes of alignment slack. Mirrors `v2_smem_bytes`.
+_V2_STAGE_BYTES = 128 * 128
+_V2_SIDE_BYTES = 4 * (128 * 4 + 128)
+_V2_MIN_STAGES, _V2_TILE_STAGES, _V2_MAX_STAGES = 2, 4, 8
 
-def tile_queries(dtype) -> int:
-    """Queries per CTA: 32 for float32 rows (FMA tile), 64 otherwise."""
-    return 32 if dtype == torch.float32 else 64
+
+def _v2_smem(queries: int, row_bytes: int, stages: int) -> int:
+    chunks = -(-row_bytes // 128)
+    barriers = (1 + 2 * stages + 2 * 4) * 8
+    return chunks * queries * 128 + stages * _V2_STAGE_BYTES + _V2_SIDE_BYTES + barriers + 1024
 
 
-def kernel_smem_bytes(dtype, row_bytes: int, v1: bool = False) -> int:
-    """Shared memory of one CTA: the query tile (rows padded to 128 bytes
-    plus 16), the three stages and, for v1 on tensor cores, the reduction."""
+def v2_geometry(row_bytes: int) -> tuple[int, int]:
+    """(queries a CTA, ring stages) of the v2 wgmma kernel for int8 or bf16
+    rows of ``row_bytes``: 128 queries (two warpgroups of 64) when their tile
+    fits beside a 4-deep ring (up to 1152 bytes a row: int8 d ≤ 1152, bf16
+    d ≤ 576), else 64 (one warpgroup); then the deepest ring up to 8 stages
+    that fits. The stage count is below 2 when even that does not fit
+    (`check_kernel_rows` refuses such rows)."""
+    queries = 128 if _v2_smem(128, row_bytes, _V2_TILE_STAGES) <= _SMEM_LIMIT else 64
+    stages = _V2_MAX_STAGES
+    while stages >= _V2_MIN_STAGES and _v2_smem(queries, row_bytes, stages) > _SMEM_LIMIT:
+        stages -= 1
+    return queries, stages
+
+
+def tile_queries(dtype, row_bytes: int = 0, v2: bool = False) -> int:
+    """Queries per CTA: 32 for float32 rows (FMA tile); for int8 and bf16
+    rows 64 on the shared walk (section, v1) and `v2_geometry`'s on v2's."""
+    if dtype == torch.float32:
+        return 32
+    return v2_geometry(row_bytes)[0] if v2 else 64
+
+
+def kernel_smem_bytes(dtype, row_bytes: int, v1: bool = False, v2: bool = False) -> int:
+    """Shared memory of one CTA. The shared walk: the query tile (rows padded
+    to 128 bytes plus 16), the three stages and, for v1 on tensor cores, the
+    reduction. v2 on int8 or bf16 rows: `v2_geometry`'s tile and ring (at
+    least 2 stages)."""
+    if v2 and dtype != torch.float32:
+        queries, stages = v2_geometry(row_bytes)
+        return _v2_smem(queries, row_bytes, max(stages, _V2_MIN_STAGES))
     padded = -(-row_bytes // 128) * 128
     reduce = _SMEM_V1_REDUCE if v1 and dtype != torch.float32 else 0
     return tile_queries(dtype) * (padded + 16) + _SMEM_STAGES + reduce
 
 
-def check_kernel_rows(corpus, what: str, v1: bool = False) -> int:
+def check_kernel_rows(corpus, what: str, v1: bool = False, v2: bool = False) -> int:
     """Row width in bytes that `csrc/section.cu` takes for ``corpus``, or a
     raise: int8, bfloat16 or float32 rows, 16-byte multiples (the kernel
     copies rows in 16-byte pieces), and a query tile that fits shared memory
-    (up to 2688 bytes a row for int8 and bf16, 5504 for float32)."""
+    (up to 2688 bytes a row for int8 and bf16 on the shared walk, 2944 on
+    v2's wgmma kernel, 5504 for float32)."""
     if corpus.dtype not in KERNEL_KINDS:
         raise TypeError(
             f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
         )
     row_bytes = corpus.shape[1] * corpus.element_size()
-    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, v1) > _SMEM_LIMIT:
+    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, v1, v2) > _SMEM_LIMIT:
         raise ValueError(
             f"the {what} kernel takes rows of a 16-byte multiple whose query tile "
             f"fits shared memory, got {corpus.shape[1]} × {corpus.element_size()} bytes"
@@ -208,15 +247,19 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
     block_rows = choose_block_rows(n)
     if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
         raise ValueError("matmul_bucket_max_v2_cuda needs CUDA tensors")
-    row_bytes = check_kernel_rows(corpus, "bucket")
+    row_bytes = check_kernel_rows(corpus, "bucket", v2=True)
     if mask.dtype != torch.bool or mask.shape != (n,):
         raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
+    corpus = corpus.contiguous()
+    if corpus.data_ptr() % 16:
+        raise ValueError("the bucket kernel reads corpus rows by TMA: they must be 16-byte aligned")
     qp, q_scale = prepare_queries(q, corpus)
     c_scale = None
     if corpus.dtype == torch.int8:
-        c_scale = scale.reshape(-1).float().contiguous()
-    corpus = corpus.contiguous()
-    mask = mask.contiguous()
+        c_scale = _aligned(scale.reshape(-1).float().contiguous())
+    mask = _aligned(mask.contiguous())
+    # int8 / bf16 rows: the wgmma kernel's tile and ring; float32 ignores them.
+    queries, stages = (0, 0) if corpus.dtype == torch.float32 else v2_geometry(row_bytes)
     lib = cuda_build.load("section")
     width = (n // block_rows) * BUCKET
     vals = torch.empty((qp.shape[0], width), dtype=torch.float32, device=corpus.device)
@@ -225,12 +268,12 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
         fn = lib.bucket_max_v2
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         rc = fn(
             qp.data_ptr(), corpus.data_ptr(), _ptr(q_scale), _ptr(c_scale), mask.data_ptr(),
             vals.data_ptr(), pos.data_ptr(), row_bytes,
-            KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows,
+            KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows, queries, stages,
             torch.cuda.current_stream(corpus.device).cuda_stream,
         )
         cuda_build.check(rc, "bucket_max_v2")
@@ -240,6 +283,12 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    wgmma kernel bulk-copies the mask and scales)."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def matmul_bucket_max_v2(
