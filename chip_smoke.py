@@ -10,9 +10,11 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              spilled bytes (`-Xptxas -v`) and the wgmma (HGMMA, IGMMA on
              int8), TMA load (UTMALDG) and mma.sync (HMMA, IMMA) instructions
              in the SASS of the wgmma kernels (`WGMMA_KERNELS`: the bf16 flash
-             forward, partial and backward, bucket-max v2 on int8 and bf16
-             rows; `cuobjdump -sass`): each must hold wgmma and UTMALDG, no
-             mma.sync, and spill nothing;
+             forward, partial and backward; the table walk's section and
+             bucket-max v2 kernels on int8 and bf16 rows and its bucket-max v1
+             kernel on bf16 rows; `cuobjdump -sass`): each must hold wgmma and
+             UTMALDG, no mma.sync, and spill nothing; no kernel of the
+             section library may hold mma.sync;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes, with timings, bounds and the library
              yardstick:
@@ -36,7 +38,12 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              2⁻¹⁵·|q| and each differing row a winner whose exact score is
              within that of the plain one's; on v2's int8 and bf16 dense
              arms at N=1,007,616 two planted faults (the mask ignored; the
-             last position of each block dropped) must fail that check;
+             last position of each block dropped) must fail that check, and
+             on the section kernel at the same shape three (the mask
+             ignored; the last position dropped; arm 1 reading arm 0's
+             rows); section calls that mix row kinds (int8 + float32, bf16 +
+             int8, three bf16 arms of 64, 384 and 768 columns) at N=32,768,
+             a ragged batch of 300, each arm held to the plain version;
              bucket-max v1 (128 consecutive rows a bucket, highest-lane
              argmax) on bf16 and float32 rows at B=512, N=999,424, d ∈ {384,
              768} and at one block (N=16384, a ragged batch of 70), dead rows
@@ -169,13 +176,20 @@ FLASH_RTOL = 2e-2
 FLASH_SEQS = (512, 777, 4099, 8192)
 FLASH_BWD_SEQS = (512, 777, 4096, 4099, 8192)
 #: Kernels that must run on wgmma fed by TMA (the bf16 forward, partial and
-#: backward; bucket-max v2 on int8 and bf16 rows): the build phase counts
-#: their HGMMA and UTMALDG instructions.
+#: backward; the table walk's section and bucket-max v2 kernels on int8
+#: (ILb1E) and bf16 (ILb0E) rows, and its bucket-max v1 kernel on bf16 rows):
+#: the build phase counts their HGMMA / IGMMA and UTMALDG instructions.
 WGMMA_KERNELS = {
     "flash_attention": ("flash_fwd_wgmma_kernel", "flash_partial_wgmma_kernel"),
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
-    "section": ("bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E"),
+    "section": (
+        "bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E",
+        "section_wgmma_kernelILb1E", "section_wgmma_kernelILb0E", "bucket_v1_wgmma_kernel",
+    ),
 }
+#: Libraries none of whose kernels may hold mma.sync (HMMA, IMMA): the table
+#: kernels run on wgmma (int8, bf16) or on the CUDA cores (float32).
+NO_MMA_SYNC = ("section",)
 #: Partial-kernel check: l's relative limit (float32 sums of the same P).
 PARTIAL_L_RTOL = 1e-4
 #: The long_sp phase: shards on the one card, and the largest difference
@@ -318,7 +332,8 @@ def sass_counts(library: Path) -> dict:
 def check_build(build_logs: dict) -> dict:
     """Print every kernel's registers and spills; require the wgmma kernels
     to spill nothing, to hold wgmma (HGMMA, or IGMMA on int8) and UTMALDG
-    instructions, and no mma.sync (HMMA, IMMA)."""
+    instructions, and no mma.sync (HMMA, IMMA); require no kernel of a
+    `NO_MMA_SYNC` library to hold mma.sync."""
     from verbatim_rag_tpu_torch.ops import cuda_build
 
     result = {}
@@ -331,6 +346,10 @@ def check_build(build_logs: dict) -> dict:
             result[kernel] = dict(info)
     for name, kernels in WGMMA_KERNELS.items():
         counts = sass_counts(cuda_build._target(name))
+        if name in NO_MMA_SYNC:
+            for kernel, c in counts.items():
+                mma_sync = c.get("HMMA", 0) + c.get("IMMA", 0)
+                require(mma_sync == 0, f"{kernel}: mma.sync left in the {name} library {c}")
         for kernel in kernels:
             c = counts.get(kernel, {})
             log(f"  {name}: {kernel}: SASS {json.dumps(c)}")
@@ -792,28 +811,36 @@ def check_rescore(gen) -> dict:
     return result
 
 
-def table_arms(gen, n: int, batch: int, dtype: str):
-    """Dense (384) and sketch (768) arms at the serving shape: unit-norm rows
-    as int8 codes + scales, bf16 or float32, float32 queries, a mask with
-    dead rows."""
+def table_arm(gen, n: int, batch: int, d: int, dtype: str):
+    """One arm: unit-norm rows [n, d] as int8 codes + scales, bf16 or
+    float32, and float32 queries [batch, d]."""
     import torch
 
     from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
 
-    arms = []
-    for d in (384, 768):
-        rows = torch.randn(n, d, generator=gen, device="cuda")
-        rows /= rows.norm(dim=1, keepdim=True)
-        q = torch.randn(batch, d, generator=gen, device="cuda")
-        if dtype == "int8":
-            codes, scale = quantize_rows_int8(rows)
-            arms.append((codes, q, scale))
-        else:
-            arms.append((rows.to(getattr(torch, dtype)), q, None))
-        del rows
+    rows = torch.randn(n, d, generator=gen, device="cuda")
+    rows /= rows.norm(dim=1, keepdim=True)
+    q = torch.randn(batch, d, generator=gen, device="cuda")
+    if dtype == "int8":
+        codes, scale = quantize_rows_int8(rows)
+        return codes, q, scale
+    return rows.to(getattr(torch, dtype)), q, None
+
+
+def table_mask(gen, n: int):
+    """1% of the rows dead at random and 5000 in a run from the middle."""
+    import torch
+
     mask = torch.rand(n, generator=gen, device="cuda") > 0.01
     mask[n // 2 : n // 2 + 5000] = False
-    return arms, mask
+    return mask
+
+
+def table_arms(gen, n: int, batch: int, dtype: str):
+    """Dense (384) and sketch (768) arms at the serving shape (`table_arm`)
+    and a mask with dead rows."""
+    arms = [table_arm(gen, n, batch, d, dtype) for d in (384, 768)]
+    return arms, table_mask(gen, n)
 
 
 def table_fault(got, expected, rows, q, int8: bool) -> str | None:
@@ -875,6 +902,79 @@ def v2_planted_faults(c, q, mask, s, ref, int8: bool) -> dict:
     return found
 
 
+def section_fault(got, expected, corpora, queries, block: int, int8: bool) -> str | None:
+    """`table_fault` of the first section table (decoded) that does not hold
+    to its plain version's, or None."""
+    n = corpora[0].shape[0]
+    for g, e, c, q in zip(got, expected, corpora, queries):
+        why = table_fault(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
+        if why is not None:
+            return why
+    return None
+
+
+def section_planted_faults(corpora, queries, mask, scales, block: int, ref, int8: bool) -> dict:
+    """The section kernel run with each planted fault, held to the true
+    plain tables: the mask ignored, the last position of each block dropped
+    (its rows masked), and arm 1 reading arm 0's rows (with arm 1's queries
+    cut to arm 0's width). Each must fail the check."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    n, d0 = corpora[0].shape
+    last = (torch.arange(n, device=mask.device) % block) // 128 == block // 128 - 1
+    runs = {
+        "mask ignored": (corpora, queries, None, scales),
+        "last position of each block dropped": (corpora, queries, mask & ~last, scales),
+        "arm 1 reading arm 0's rows": (
+            (corpora[0], corpora[0]), (queries[0], queries[1][:, :d0].contiguous()), mask,
+            (scales[0], scales[0]),
+        ),
+    }
+    found = {}
+    for name, (c, q, m, s) in runs.items():
+        why = section_fault(sec.section_tables_cuda(c, q, m, s, block), ref, corpora, queries, block, int8)
+        require(why is not None, f"section_tables: planted fault '{name}' passes the check")
+        found[name] = why
+    return found
+
+
+#: Section calls that mix row kinds (one launch per kind) or tile sizes (the
+#: 768-wide bf16 arm takes 64-query tiles, the others 128): each arm's
+#: (columns, row dtype).
+SECTION_MIXES = {
+    "int8 dense + float32 sketch": ((384, "int8"), (768, "float32")),
+    "bf16 dense + int8 sketch": ((384, "bfloat16"), (768, "int8")),
+    "three bf16 arms of different widths": ((64, "bfloat16"), (384, "bfloat16"), (768, "bfloat16")),
+}
+
+
+def check_section_mixed(gen) -> dict:
+    """Each `SECTION_MIXES` call at N=32,768 (blocks of 8192), a ragged batch
+    of 300 and the dead-row mask, every arm held to the plain version (int8
+    arms bit-equal); the max abs error of the live values per mix."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    n, batch, block = 4 * 8192, 300, 8192
+    result = {}
+    for name, spec in SECTION_MIXES.items():
+        arms = [table_arm(gen, n, batch, d, dtype) for d, dtype in spec]
+        mask = table_mask(gen, n)
+        corpora, queries, scales = zip(*arms)
+        got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+        torch.cuda.synchronize()
+        ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+        result[name] = max(
+            check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, c.dtype == torch.int8)
+            for g, e, c, q in zip(got, ref, corpora, queries)
+        )
+    log("section mixed kinds", json.dumps(result))
+    return result
+
+
 def table_bytes(arms, n: int, batch: int, width: int, out_bytes: int) -> float:
     """Bytes a table function must move: each arm's rows (and scales), the
     bool mask, the queries, and its output tables."""
@@ -914,6 +1014,10 @@ def check_tables(gen) -> tuple[dict, dict]:
             check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
             for g, e, c, q in zip(got, ref, corpora, queries)
         )
+        faults = None
+        if block == 8192 and dtype != "float32":
+            faults = section_planted_faults(corpora, queries, mask, scales, block, ref, int8)
+            log("section_tables planted faults", dtype, json.dumps(faults))
         del got, ref
         ms = cuda_ms(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block), reps=10)
         plain_ms = cuda_ms(lambda: sec.section_tables_reference(corpora, queries, mask, scales, block), reps=2)
@@ -927,7 +1031,7 @@ def check_tables(gen) -> tuple[dict, dict]:
             )
         case = dict(
             n=n, block=block, dtype=dtype, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, products_ms=products,
+            bound_ms=b_ms, bound_by=b_by, products_ms=products, planted_faults_caught=faults,
         )
         log("section", json.dumps(case))
         section_cases.append(case)
@@ -966,12 +1070,17 @@ def check_tables(gen) -> tuple[dict, dict]:
     # arms of one hybrid batch added together.
     def headline(cases, dtype):
         rows = [c for c in cases if c["n"] == 123 * 8192 and c["dtype"] == dtype]
-        out = {k: sum(c[k] for c in rows) for k in ("ms", "plain_ms", "bound_ms", "products_ms")}
+        out = {
+            k: None if any(c[k] is None for c in rows) else sum(c[k] for c in rows)
+            for k in ("ms", "plain_ms", "bound_ms", "products_ms")
+        }
         out.update(max_abs_err=max(c["max_abs_err"] for c in rows), bound_by=rows[0]["bound_by"])
         return out
 
     section = dict(headline(section_cases, "int8"), library_ms=None, cases=section_cases)
+    section["bfloat16"] = headline(section_cases, "bfloat16")
     section["float32"] = headline(section_cases, "float32")
+    section["mixed_kinds_max_abs_err"] = check_section_mixed(gen)
     bucket = dict(headline(bucket_cases, "int8"), library_ms=None, cases=bucket_cases)
     bucket["float32"] = headline(bucket_cases, "float32")
     return section, bucket
@@ -1911,6 +2020,8 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/section.cu",
             replaces="verbatim_rag_tpu/ops/section.py:106",
             launches=launches["section"],
+            registers_int8=build.get("section_wgmma_kernelILb1E", {}).get("registers"),
+            registers_bf16=build.get("section_wgmma_kernelILb0E", {}).get("registers"),
             **section,
         ),
         dict(
@@ -1929,6 +2040,7 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/section.cu",
             replaces="verbatim_rag_tpu/ops/fused_topk.py:42",
             launches=launches["bucket_max_v1"],
+            registers=build.get("bucket_v1_wgmma_kernel", {}).get("registers"),
             ab_overlap_k256={
                 f"d{d}": {arm: bucket_ab[f"d{d}"][arm]["overlap"] for arm in ("v1", "v2_onedot")}
                 for d in (384, 768)

@@ -6,13 +6,13 @@ Imports `verbatim_rag_tpu_torch` from DIR (default: the checkout holding this
 script), builds its `csrc/section.cu` into DIR/build/kernels, and times, at
 B=512 queries:
 
-- bucket-max v2 on int8 rows at the int8 store's serving point (N=1,007,616
-  unit-norm rows quantized per row, blocks of 8192; the dense arm d=384 and the
-  sketch arm d=768, 1% of the rows masked);
-- bucket-max v2 on bf16 rows at `chip_smoke.py`'s bucket_ab shapes (N=999,424
-  normal rows, blocks of 16384, d=384 and 768, every row live);
-- controls that this work leaves alone: the section kernel on the int8 arms
-  (both in one launch) and bucket-max v1 on the bf16 rows;
+- the section kernel on int8 and on bf16 rows at the int8 store's serving
+  point (N=1,007,616 unit-norm rows, blocks of 8192; the dense arm d=384 and
+  the sketch arm d=768 in one call, 1% of the rows masked);
+- bucket-max v1 on bf16 rows at `chip_smoke.py`'s bucket_ab shapes
+  (N=999,424 normal rows, d=384 and 768, every row live);
+- controls: bucket-max v2 on the same int8 arms (one launch each) and on the
+  same bf16 rows;
 - yardsticks: the product alone, `torch._int_mm` (int8) or `torch.mm` (bf16)
   of the prepared queries against the rows: the same products without the
   bucket reduction, so not the same function.
@@ -20,10 +20,11 @@ B=512 queries:
 Beside each time it prints the bound (the larger of the bytes the function
 must move over 3.35 TB/s and its operations over 1,979 TOP/s int8 or 989
 TFLOP/s bf16, as `chip_smoke.py` counts them). With ``--decompose`` (a tree
-whose v2 runs on wgmma) it also builds three variants of that kernel from the
-tree's source and times them on the same inputs: without the row loads (the
-producer only signals), without the epilogue, and with neither, which says
-how much of the time the stream, the products and the epilogue each hold.
+whose int8 / bf16 tables run on the wgmma walk, `table_walk`) it also builds
+three variants of the walk from the tree's source and times every case on
+them: without the row loads (the producer only signals), without the
+per-position epilogue, and with neither, which says how much of the time the
+stream, the products and the epilogue each hold.
 Prints one JSON line; needs one GPU.
 
 An A/B of two trees in one call, on one card, as for `torch_flash_ab.py`:
@@ -45,17 +46,17 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
 
-#: Text substitutions that make the decomposition variants of the v2 wgmma
-#: kernel (`bucket_v2_wgmma_kernel` in `csrc/section.cu`).
-_EPILOGUE = "#pragma unroll\n    for (int n = 0; n < 16; ++n) {"
-_LOAD = """          mbar_arrive_expect_tx(&full[s], kV2StageBytes);
-          tma_load_rows(ring + s * kV2StageBytes, &x_map, &full[s], c * kChunk,
+#: Text substitutions that make the decomposition variants of the wgmma walk
+#: (`table_walk` in `csrc/section.cu`, shared by section, v2 and v1).
+_EPILOGUE = "    {  // Position p's epilogue on the drained accumulator."
+_LOAD = """          mbar_arrive_expect_tx(&full[s], kWalkStageBytes);
+          tma_load_rows(ring + s * kWalkStageBytes, &arm.x_map, &full[s], c * kChunk,
                         static_cast<int>(row0));"""
 #: Without the epilogue, one accumulator value is still read: products whose
 #: results nothing reads are dead code that ptxas may drop.
 _NO_EPILOGUE = (
-    "best[0] = fmaxf(best[0], static_cast<float>(acc[0]));\n"
-    "    if (p < 0) for (int n = 0; n < 16; ++n) {"
+    "    if (acc[0] == static_cast<Acc>(-12345)) arm.out[0] = 0.f;\n"
+    "    if (p < 0) {"
 )
 VARIANTS = {
     "no_row_loads": {_LOAD: "          mbar_arrive(&full[s]);"},
@@ -85,7 +86,7 @@ def build_variants(tree: Path, cuda_build) -> dict:
         text = source
         for old, new in subs.items():
             if old not in text:
-                raise SystemExit(f"torch_table_ab: {name}: the v2 kernel's source has changed")
+                raise SystemExit(f"torch_table_ab: {name}: the walk's source has changed")
             text = text.replace(old, new, 1)
         src = csrc / f"_variant_{name}.cu"  # beside hopper.cuh, which it includes
         src.write_text(text)
@@ -131,12 +132,12 @@ def main() -> None:
     def timed(fn, reps=10):
         return smoke.cuda_ms(fn, reps=reps)
 
-    def variant_times(c, q, mask, s):
+    def variant_times(fn):
         times = {}
         for name, lib in variants.items():
             cuda_build.load = lambda _name, lib=lib: lib
             try:
-                times[name] = timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s))
+                times[name] = timed(fn)
             finally:
                 cuda_build.load = load
         return times
@@ -145,35 +146,44 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     result = dict(tree=args.label or str(tree), card=smoke.gpu_name_and_limit(), cases=[])
 
-    # int8 at the serving point: v2 per arm, section over both arms.
-    n, block = 123 * 8192, 8192
-    arms, mask = smoke.table_arms(gen, n, batch, "int8")
-    corpora, queries, scales = zip(*arms)
-    for arm, (c, q, s) in zip(("dense", "sketch"), arms):
-        qi = ft.prepare_queries(q, c)[0]
-        b_ms, b_by = smoke.bound(
-            smoke.table_bytes([(c, q, s)], n, batch, n // block * 128, 8),
-            2.0 * batch * n * c.shape[1], smoke.PEAK_INT8_OPS,
-        )
+    def case(kernel, fn, ops, moved, peak, products=None, **info):
+        b_ms, b_by = smoke.bound(moved, ops, peak)
         result["cases"].append(dict(
-            kernel="bucket_max_v2", dtype="int8", arm=arm, n=n, d=c.shape[1],
-            ms=timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s)),
-            products_ms=timed(lambda: torch._int_mm(qi, c.t()), reps=5),
-            bound_ms=b_ms, bound_by=b_by, **variant_times(c, q, mask, s),
+            kernel=kernel, **info, ms=timed(fn),
+            products_ms=None if products is None else timed(products, reps=5),
+            bound_ms=b_ms, bound_by=b_by, **variant_times(fn),
         ))
-    b_ms, b_by = smoke.bound(
-        smoke.table_bytes(arms, n, batch, n // block * 128, 4),
-        sum(2.0 * batch * n * c.shape[1] for c in corpora), smoke.PEAK_INT8_OPS,
-    )
-    result["cases"].append(dict(
-        kernel="section_tables", dtype="int8", n=n, d=[c.shape[1] for c in corpora],
-        ms=timed(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block)),
-        bound_ms=b_ms, bound_by=b_by,
-    ))
-    del arms, corpora, queries, scales, mask
-    torch.cuda.empty_cache()
 
-    # bf16 at bucket_ab's shapes: v2, and v1 as the control.
+    # The serving point: section over both arms (measured), v2 per arm (control).
+    n, block = 123 * 8192, 8192
+    for dtype in ("int8", "bfloat16"):
+        arms, mask = smoke.table_arms(gen, n, batch, dtype)
+        corpora, queries, scales = zip(*arms)
+        scales = scales if dtype == "int8" else (None, None)
+        peak = smoke.PEAK_INT8_OPS if dtype == "int8" else smoke.PEAK_BF16_FLOPS
+        product = torch._int_mm if dtype == "int8" else torch.mm
+        prepared = [ft.prepare_queries(q, c)[0] for c, q in zip(corpora, queries)]
+        case(
+            "section_tables",
+            lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block),
+            sum(2.0 * batch * n * c.shape[1] for c in corpora),
+            smoke.table_bytes(arms, n, batch, n // block * 128, 4), peak,
+            products=lambda: [product(p, c.t()) for p, c in zip(prepared, corpora)],
+            dtype=dtype, n=n, d=[c.shape[1] for c in corpora],
+        )
+        if dtype == "int8":
+            for arm, (c, q, s), qi in zip(("dense", "sketch"), arms, prepared):
+                case(
+                    "bucket_max_v2", lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s),
+                    2.0 * batch * n * c.shape[1],
+                    smoke.table_bytes([(c, q, s)], n, batch, n // block * 128, 8), peak,
+                    products=lambda: torch._int_mm(qi, c.t()), dtype=dtype, arm=arm, n=n,
+                    d=c.shape[1],
+                )
+        del arms, corpora, queries, scales, mask, prepared
+        torch.cuda.empty_cache()
+
+    # bf16 at bucket_ab's shapes: v1 (measured), v2 (control).
     n = smoke.AB_ROWS
     for d in (384, 768):
         c = torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -182,20 +192,18 @@ def main() -> None:
         mask = torch.ones(n, dtype=torch.bool, device="cuda")
         qb = q.to(torch.bfloat16)
         width = n // ft.choose_block_rows(n) * 128
-        b_ms, b_by = smoke.bound(
-            n * d * 2 + batch * d * 4 + n + batch * width * 8, 2.0 * batch * n * d, smoke.PEAK_BF16_FLOPS
-        )
-        result["cases"].append(dict(
-            kernel="bucket_max_v2", dtype="bfloat16", n=n, d=d,
-            ms=timed(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask)),
-            products_ms=timed(lambda: torch.mm(qb, c.t()), reps=5),
-            bound_ms=b_ms, bound_by=b_by, **variant_times(c, q, mask, None),
-        ))
         v1_ms, v1_by = smoke.v1_bound(n, batch, d, torch.bfloat16)
         result["cases"].append(dict(
             kernel="bucket_max_v1", dtype="bfloat16", n=n, d=d,
-            ms=timed(lambda: ft.matmul_bucket_max_cuda(c, q, mask)), bound_ms=v1_ms, bound_by=v1_by,
+            ms=timed(lambda: ft.matmul_bucket_max_cuda(c, q, mask)),
+            products_ms=timed(lambda: torch.mm(qb, c.t()), reps=5), bound_ms=v1_ms, bound_by=v1_by,
+            **variant_times(lambda: ft.matmul_bucket_max_cuda(c, q, mask)),
         ))
+        case(
+            "bucket_max_v2", lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask), 2.0 * batch * n * d,
+            n * d * 2 + batch * d * 4 + n + batch * width * 8, smoke.PEAK_BF16_FLOPS,
+            dtype="bfloat16", n=n, d=d,
+        )
         del c, q, qb, mask
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)

@@ -3,8 +3,9 @@
 `scripts/torch_flash_ab.py` and `scripts/torch_table_ab.py` time kernels on
 the card only: here each must refuse with exit code 2 and print no result.
 The table script's ``--decompose`` variants are made by replacing exact
-source text of the v2 wgmma kernel; every pattern must still be found in
-`csrc/section.cu`, or the variants would silently time the unchanged kernel.
+source text of the wgmma table walk (`table_walk`, which the section, v2 and
+v1 kernels share); every pattern must still be found in it, or the variants
+would silently time the unchanged kernels.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def test_table_ab_variant_patterns_match_the_kernel_source():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     source = (ROOT / "verbatim_rag_tpu_torch" / "csrc" / "section.cu").read_text()
-    kernel = source[source.index("bucket_v2_wgmma_kernel(") : source.index("int launch_v2_wgmma(")]
+    kernel = source[source.index("void table_walk(") : source.index("section_wgmma_kernel(const")]
     for name, subs in module.VARIANTS.items():
         for old in subs:
             assert old in kernel, name

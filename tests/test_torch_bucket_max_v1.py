@@ -180,16 +180,19 @@ def test_int8_corpus_refused():
 
 
 @pytest.mark.parametrize(
-    "n,batch,dtype,n_sm,expected",
+    "n,batch,dtype,row_bytes,n_sm,expected",
     [
-        (999_424, 512, torch.bfloat16, 132, 16384),  # 61 blocks × 8 query tiles
-        (16384, 512, torch.bfloat16, 132, 1024),
-        (16384, 512, torch.float32, 132, 1024),
-        (384, 5, torch.float32, 132, 384),  # blocks of ≤ 1024 rows stay whole
-        (3 * 16384, 64, torch.bfloat16, 132, 1024),  # 48 blocks: the 1024-row floor
-        (2 * 16384, 512, torch.float32, 4, 16384),
+        (999_424, 512, torch.bfloat16, 768, 132, 8192),  # d=384: 4 query tiles × 122 blocks
+        (999_424, 512, torch.bfloat16, 1536, 132, 16384),  # d=768: 8 query tiles × 61 blocks
+        (16384, 512, torch.bfloat16, 768, 132, 1024),
+        (16384, 512, torch.float32, 1536, 132, 1024),
+        (384, 5, torch.float32, 256, 132, 384),  # blocks of ≤ 1024 rows stay whole
+        (3 * 16384, 64, torch.bfloat16, 768, 132, 1024),  # 48 blocks: the 1024-row floor
+        (2 * 16384, 512, torch.float32, 1536, 4, 16384),
     ],
 )
-def test_v1_block_rows(n, batch, dtype, n_sm, expected):
-    block = ft.v1_block_rows(n, batch, dtype, n_sm)
+def test_v1_block_rows(n, batch, dtype, row_bytes, n_sm, expected):
+    """The largest block that leaves the grid two waves of one CTA an SM:
+    at the bucket_ab shapes both widths come to 488 CTAs (3.7 waves)."""
+    block = ft.v1_block_rows(n, batch, dtype, n_sm, row_bytes)
     assert block == expected and n % block == 0 and block % BUCKET == 0

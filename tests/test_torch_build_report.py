@@ -2,9 +2,11 @@
 
 The GPU machine's `nvcc -Xptxas -v` log and `cuobjdump -sass` listing are
 parsed into one line per kernel; the build phase fails when a wgmma kernel
-(the bf16 flash forward, partial and backward, bucket-max v2 on int8 and
-bf16 rows) spills, holds no wgmma (HGMMA, or IGMMA on int8) or TMA load
-(UTMALDG), or still holds an mma.sync (HMMA, IMMA). Here the parsers and the
+(the bf16 flash forward, partial and backward; the table walk's section and
+bucket-max v2 kernels on int8 and bf16 rows and its v1 kernel on bf16 rows)
+spills, holds no wgmma (HGMMA, or IGMMA on int8) or TMA load (UTMALDG), or
+still holds an mma.sync (HMMA, IMMA), and when any kernel of the section
+library holds an mma.sync. Here the parsers and the
 check run on sample text and a stand-in `cuobjdump`, so a change of format on
 the card's toolkit shows up as a test failure rather than as a check that
 passes on nothing.
@@ -130,3 +132,15 @@ def test_build_check_on_every_wgmma_kernel(tmp_path, monkeypatch, mma_sync_in):
     else:
         with pytest.raises(SystemExit, match="mma.sync left"):
             chip_smoke.check_build({})
+
+
+def test_build_check_refuses_mma_sync_anywhere_in_the_section_library(tmp_path, monkeypatch):
+    """A kernel of the section library outside `WGMMA_KERNELS` (the float32
+    FMA walk) that holds an mma.sync fails the build check too."""
+    fma = f"_ZN{len(SEC)}{SEC}17fma_tables_kernelILi0EEEvN12_GLOBAL__N_16ParamsE"
+    clean = _wgmma_listing() + f"\t\tFunction : {fma}\n        FFMA R4, R8, R12, R4 ;\n"
+    _stand_in_cuobjdump(tmp_path / "clean", monkeypatch, clean)
+    assert "fma_tables_kernel" not in chip_smoke.check_build({})
+    _stand_in_cuobjdump(tmp_path / "hmma", monkeypatch, clean + "        HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n")
+    with pytest.raises(SystemExit, match="mma.sync left in the section library"):
+        chip_smoke.check_build({})

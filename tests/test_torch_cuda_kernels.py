@@ -615,13 +615,16 @@ def test_bucket_v2_takes_unaligned_mask_and_scales(cuda):
 
 
 def test_section_kernel_mixed_arm_kinds(cuda):
-    """A float32 dense arm (32-query tiles) beside an int8 sketch arm
-    (64-query tiles) in one launch."""
+    """A float32 dense arm (the FMA walk's 32-query tiles) beside an int8
+    sketch arm (the wgmma walk's 128-query tiles): one launch a kind, counted
+    as one call."""
     (dense,) = _rows_and_queries(8192, (384,), 100, seed=1, dtype="float32", device=cuda)
     (sketch,) = _rows_and_queries(8192, (768,), 100, seed=2, dtype="int8", device=cuda)
     corpora, queries, scales = zip(dense, sketch)
     mask = _test_mask(8192, cuda)
+    before = sec.launches
     got = sec.section_bucket_tables(corpora, queries, mask, scales=scales, block_cols=8192)
+    assert sec.launches == before + 1
     expected = sec.section_tables_reference(corpora, queries, mask, scales, 8192)
     torch.cuda.synchronize()
     assert torch.equal(got[1].view(torch.int32), expected[1].view(torch.int32))
@@ -629,6 +632,73 @@ def test_section_kernel_mixed_arm_kinds(cuda):
         _decode(got[0], 8192), _decode(expected[0], 8192), queries[0],
         lambda: torch.where(mask, queries[0] @ corpora[0].T, -1e30), 8192, exact=False,
     )
+
+
+def _section_case(cuda, n, block, b, dims, dtype, seed, masked=True):
+    """Section tables of the kernel against the plain version's (int8
+    bit-equal, bf16 within 2⁻¹⁵·|q|)."""
+    arms = _rows_and_queries(n, dims, b, seed=seed, dtype=dtype, device=cuda)
+    corpora, queries, scales = zip(*arms)
+    scales = scales if dtype == "int8" else (None,) * len(arms)
+    mask = _test_mask(n, cuda) if masked else None
+    before = sec.launches
+    got = sec.section_bucket_tables(corpora, queries, mask, scales=scales, block_cols=block)
+    torch.cuda.synchronize()
+    assert sec.launches == before + 1
+    expected = sec.section_tables_reference(corpora, queries, mask, scales, block)
+    for g, e, c, q in zip(got, expected, corpora, queries):
+        assert g.shape == e.shape == (b, n // block * 128)
+
+        def scores(c=c, q=q):
+            s = q.to(c.dtype).float() @ c.float().T
+            return s if mask is None else torch.where(mask, s, -1e30)
+
+        _assert_tables_match(
+            _decode(g, block), _decode(e, block), q, scores, block, exact=dtype == "int8"
+        )
+        if masked:  # lane 5 of every block is dead
+            assert (g[:, 5::128] <= -1e29).all()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("row_bytes", [16, 144, 1152, 1168, 2944])
+def test_section_wgmma_walk_row_widths(cuda, dtype, row_bytes):
+    """Rows at the wgmma walk's tile and ring edges (one chunk; past a chunk;
+    the widest 128-query tile and the first 64-query one; the widest row, two
+    stages), a ragged batch of 70 and a dead bucket in every block."""
+    d = row_bytes // (1 if dtype == "int8" else 2)
+    _section_case(cuda, 2 * 8192, 8192, 70, (d,), dtype, seed=row_bytes)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_section_wgmma_walk_128_positions_at_1m_rows(cuda, dtype):
+    """N = 1,048,576 in blocks of 16384: 128 positions, the pack's limit."""
+    _section_case(cuda, 64 * 16384, 16384, 70, (64, 128), dtype, seed=7)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_section_wgmma_walk_three_arms_of_different_widths(cuda, dtype, masked):
+    """Three arms in one launch, each with its own maps, tile and ring: 16,
+    384 and 1472 columns (bf16 rows of 2944 bytes take 64-query tiles beside
+    128-query ones)."""
+    _section_case(cuda, 2 * 8192, 8192, 200, (16, 384, 1472), dtype, seed=11, masked=masked)
+
+
+@pytest.mark.parametrize("row_bytes", [16, 144, 1152, 1168, 2944])
+def test_bucket_v1_wgmma_walk_row_widths(cuda, row_bytes):
+    """v1 on bf16 rows at the walk's tile and ring edges, a ragged batch of 70
+    and a dead bucket (-1e30 at its highest lane)."""
+    n, b, d = 16384, 70, row_bytes // 2
+    ((corpus, q, _),) = _rows_and_queries(n, (d,), b, seed=row_bytes, dtype="bfloat16", device=cuda)
+    mask = _v1_mask(n, cuda)
+    before = ft.launches_v1
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches_v1 == before + 1
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    assert _v1_check(got, expected, q, corpus, mask, V1_LIMITS["bfloat16"])
+    assert (got[0][:, 5] == -1e30).all() and (got[1][:, 5] == 5 * 128 + 127).all()
 
 
 def test_table_kernels_refuse_other_row_types(cuda):

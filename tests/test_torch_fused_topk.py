@@ -159,30 +159,34 @@ def test_bucket_support_and_validation():
 
 
 @pytest.mark.parametrize(
-    "dtype,d,v1,row_bytes",
+    "dtype,d,mode,row_bytes",
     [
-        (torch.float32, 384, False, 1536),  # the dense arm
-        (torch.float32, 768, False, 3072),  # the sketch arm
-        (torch.float32, 768, True, 3072),
-        (torch.float32, 1376, False, 5504),  # the widest float32 row
-        (torch.bfloat16, 1344, True, 2688),  # the widest bf16 / int8 row
-        (torch.int8, 2688, False, 2688),
+        (torch.float32, 384, "section", 1536),  # the dense arm
+        (torch.float32, 768, "section", 3072),  # the sketch arm
+        (torch.float32, 768, "v1", 3072),
+        (torch.float32, 1376, "section", 5504),  # the widest float32 row
+        (torch.bfloat16, 1472, "v1", 2944),  # the widest bf16 / int8 row
+        (torch.int8, 2944, "section", 2944),
     ],
 )
-def test_kernel_rows_accepted(dtype, d, v1, row_bytes):
+def test_kernel_rows_accepted(dtype, d, mode, row_bytes):
     """The shape and shared-memory rule of `csrc/section.cu`: float32 rows
     take the 32-query FMA tile, so 768 float32 columns fit beside the three
-    stages (32 · 3,088 + 55,296 = 154,112 bytes of the 232,448)."""
+    stages (32 · 3,088 + 55,296 = 154,112 bytes of the 232,448); int8 and
+    bf16 rows take the wgmma walk's tile (64 queries at 2944 bytes)."""
     corpus = torch.zeros(4, d, dtype=dtype)
-    assert fused_topk.check_kernel_rows(corpus, "bucket", v1=v1) == row_bytes
-    assert fused_topk.kernel_smem_bytes(dtype, row_bytes, v1) <= 232448
-    assert fused_topk.tile_queries(dtype) == (32 if dtype == torch.float32 else 64)
+    assert fused_topk.check_kernel_rows(corpus, "bucket", mode) == row_bytes
+    assert fused_topk.kernel_smem_bytes(dtype, row_bytes, mode) <= 232448
+    assert fused_topk.tile_queries(dtype, row_bytes, mode) == (32 if dtype == torch.float32 else 64)
 
 
 def test_kernel_rows_refused():
     assert fused_topk.kernel_smem_bytes(torch.float32, 3072) == 32 * 3088 + 3 * 128 * 144
-    assert fused_topk.kernel_smem_bytes(torch.bfloat16, 1536, v1=True) == 64 * 1552 + 3 * 128 * 144 + 1024
-    for dtype, d in ((torch.float32, 1380), (torch.float32, 6), (torch.bfloat16, 1352), (torch.int8, 2696)):
+    # v1 on bf16 d = 768: 64 queries × 12 chunks, 7 stages, 4 side slots of 640 bytes.
+    assert fused_topk.kernel_smem_bytes(torch.bfloat16, 1536, "v1") == (
+        12 * 64 * 128 + 7 * 16384 + 4 * 640 + (1 + 14 + 8) * 8 + 1024
+    )
+    for dtype, d in ((torch.float32, 1380), (torch.float32, 6), (torch.bfloat16, 1480), (torch.int8, 2960)):
         with pytest.raises(ValueError, match="16-byte multiple"):
             fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket")
     for dtype in (torch.float16, torch.float64, torch.int32):
@@ -194,38 +198,53 @@ def test_kernel_rows_refused():
 @pytest.mark.parametrize("d", [384, 768, 1024])
 def test_v2_kernel_geometry(dtype, d):
     """v2's CTA fits shared memory at the repo's widths and one beyond: int8
-    and bf16 rows on the wgmma kernel (128 queries while their tile fits beside
+    and bf16 rows on the wgmma walk (128 queries while their tile fits beside
     a 4-deep ring, else 64 walked by one warpgroup, a ring of 4-8 stages),
     float32 rows on the FMA tile as before."""
     row_bytes = d * torch.tensor([], dtype=dtype).element_size()
-    smem = fused_topk.kernel_smem_bytes(dtype, row_bytes, v2=True)
+    smem = fused_topk.kernel_smem_bytes(dtype, row_bytes, "v2")
     assert smem <= 232448
-    assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", v2=True) == row_bytes
-    queries = fused_topk.tile_queries(dtype, row_bytes, v2=True)
+    assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", "v2") == row_bytes
+    queries = fused_topk.tile_queries(dtype, row_bytes, "v2")
     if dtype == torch.float32:
-        assert queries == 32 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes)
+        assert queries == 32 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes, "section")
         return
     chunks = -(-row_bytes // 128)
-    got_queries, stages = fused_topk.v2_geometry(row_bytes)
+    got_queries, stages = fused_topk.walk_geometry(row_bytes, "v2")
     assert queries == got_queries == (128 if row_bytes <= 1152 else 64)
     assert 4 <= stages <= 8
     assert smem == chunks * queries * 128 + stages * 16384 + 4 * 640 + (9 + 2 * stages) * 8 + 1024
-    assert fused_topk._v2_smem(queries, row_bytes, stages + 1) > 232448 or stages == 8
+    assert fused_topk._walk_smem(queries, row_bytes, stages + 1, "v2") > 232448 or stages == 8
 
 
 def test_v2_kernel_geometry_edges():
-    """The widest rows each tile takes, and the limit of v2's wgmma kernel
-    (2944 bytes, 64 queries and two stages) against the shared walk's (2688
-    bytes)."""
-    assert fused_topk.v2_geometry(1152)[0] == 128 and fused_topk.v2_geometry(1168)[0] == 64
-    assert fused_topk.v2_geometry(2944) == (64, 2)
-    assert fused_topk.v2_geometry(2960)[1] < 2
-    wide = torch.zeros(4, 1472, dtype=torch.bfloat16)  # 2944 bytes
-    assert fused_topk.check_kernel_rows(wide, "bucket", v2=True) == 2944
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_topk.check_kernel_rows(wide, "bucket")
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_topk.check_kernel_rows(torch.zeros(4, 1480, dtype=torch.bfloat16), "bucket", v2=True)
+    """The widest rows each tile takes, and the limit of the wgmma walk (2944
+    bytes, 64 queries and two stages), the same for section, v2 and v1."""
+    for mode in ("section", "v2", "v1"):
+        assert fused_topk.walk_geometry(1152, mode)[0] == 128
+        assert fused_topk.walk_geometry(1168, mode)[0] == 64
+        assert fused_topk.walk_geometry(2944, mode) == (64, 2)
+        assert fused_topk.walk_geometry(2960, mode)[1] < 2
+        wide = torch.zeros(4, 1472, dtype=torch.bfloat16)  # 2944 bytes
+        assert fused_topk.check_kernel_rows(wide, "bucket", mode) == 2944
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_topk.check_kernel_rows(torch.zeros(4, 1480, dtype=torch.bfloat16), "bucket", mode)
+
+
+def test_walk_side_slot_bytes_match_the_kernel_source():
+    """The Python mirror of the wgmma walk's shared memory counts the side
+    slots as `csrc/section.cu` lays them out: c_scale and the mask bytes for
+    v2 and v1 (`kSideBytesV2`), c_scale and mask_add as float32 for section
+    (`kSideBytesSection`); so section's ring is shallower where they differ."""
+    import re
+    from pathlib import Path
+
+    source = (Path(fused_topk.__file__).parent.parent / "csrc" / "section.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kSideBytes\w+) = (\d+);", source))
+    assert int(consts["kSideBytesV2"]) == fused_topk._WALK_SIDE_BYTES["v2"] == 640
+    assert int(consts["kSideBytesSection"]) == fused_topk._WALK_SIDE_BYTES["section"] == 1024
+    assert fused_topk._WALK_SIDE_BYTES["v1"] == fused_topk._WALK_SIDE_BYTES["v2"]
+    assert fused_topk._walk_smem(64, 1536, 7, "section") - fused_topk._walk_smem(64, 1536, 7, "v2") == 4 * 384
 
 
 @pytest.mark.parametrize("x", ["rows", "queries"])

@@ -168,6 +168,39 @@ def test_geometry_validation():
         section.section_bucket_tables((torch.zeros(256, 16, dtype=torch.int8),), (q,), None, block_cols=256)
 
 
+@pytest.mark.parametrize(
+    "arms,expected",
+    [
+        # the int8 store with a float32 sketch: one launch a kind, arm order kept
+        (
+            [(torch.int8, 384), (torch.float32, 3072)],
+            [(torch.int8, [0], [(128, 8)]), (torch.float32, [1], [(32, 0)])],
+        ),
+        # bf16 dense + int8 sketch
+        (
+            [(torch.bfloat16, 768), (torch.int8, 768)],
+            [(torch.bfloat16, [0], [(128, 7)]), (torch.int8, [1], [(128, 7)])],
+        ),
+        # three arms, two kinds: the bf16 arms share a launch and mix tile sizes
+        (
+            [(torch.bfloat16, 768), (torch.int8, 2944), (torch.bfloat16, 1536)],
+            [(torch.bfloat16, [0, 2], [(128, 7), (64, 7)]), (torch.int8, [1], [(64, 2)])],
+        ),
+        # one kind: one launch
+        (
+            [(torch.int8, 384), (torch.int8, 768), (torch.int8, 1168)],
+            [(torch.int8, [0, 1, 2], [(128, 8), (128, 7), (64, 8)])],
+        ),
+    ],
+)
+def test_plan_section_launches(arms, expected):
+    """`section_tables_cuda` launches once per row kind on the same stream,
+    each int8 / bf16 arm with the wgmma walk's tile and ring for section's
+    side slots (`walk_geometry(row_bytes, "section")`), float32 arms on the
+    FMA walk's 32-query tile; the call counts as one launch."""
+    assert section.plan_section_launches(arms) == expected
+
+
 def _hybrid_inputs(rng, n, d, dp, b, m, qm, vocab):
     dense = rng.normal(size=(n, d)).astype(np.float32)
     dense /= np.linalg.norm(dense, axis=1, keepdims=True)

@@ -1,11 +1,11 @@
 // Bucket tables for the candidate stage, hand-written for Hopper (sm_90a).
 //
-// Three entry points share one main loop:
+// Three entry points share one function family:
 //
 //   section_tables — replaces the TPU kernel
 //     `verbatim_rag_tpu/ops/section.py::_make_section_kernel` (pallas_call in
 //     `section_bucket_tables`): up to three arms (dense, SPLADE sketch, ...) in
-//     one launch, one packed table per arm, additive mask;
+//     one call, one packed table per arm, additive mask;
 //   bucket_max_v2  — replaces `verbatim_rag_tpu/ops/fused_topk.py`
 //     `_bucket_max_v2_onedot_kernel` / `_bucket_max_v2_chunked_kernel`
 //     (pallas_call in `matmul_bucket_max_v2`): one corpus, the mask applied by
@@ -30,36 +30,36 @@
 // bucket_max_v1 scores bf16 or float32 rows the same way (masked rows score
 // exactly -1e30, by a select) and writes, for bucket g = row / 128, the
 // maximum over the bucket's 128 lanes and the global row of the highest lane
-// that holds it. Stage p of column block `block` is exactly bucket
+// that holds it. Position p of column block `block` is exactly bucket
 // block·B/128 + p, so v1 is a third epilogue of the same walk: after each
 // position the tile is reduced across lanes instead of folded into a running
-// maximum per lane. The result does not depend on the block size.
+// maximum per lane. The result does not depend on the block size, and nothing
+// is packed, so a block may hold more than 128 positions.
 //
 // Layout: rows are row-major [N, d] (the TPU kernel wants transposed [d, N]
 // copies for its MXU; here the corpus rows are B operands as they lie), d·elt
-// a multiple of 16 bytes. bucket_max_v2 on int8 and bf16 rows runs on its own
-// kernel, wgmma fed by TMA (`bucket_v2_wgmma_kernel`, described where it is
-// defined). The other walks share this one: one CTA of 8 warps owns a tile of
-// queries × 128 lanes of one column block and walks the block's positions:
-//   - the query tile stays in shared memory for the whole walk;
-//   - the corpus is streamed in stages of 128 rows × 128 bytes through a
-//     3-deep cp.async ring;
-//   - int8 and bf16 rows (MmaTile): 64 queries; each warp computes 16
-//     queries × 64 lanes with mma.sync (m16n8k32 s8·s8→s32 for int8, m16n8k16
-//     bf16→f32); in bytes both take the same fragments, so one shared-memory
-//     layout (rows padded by 16 bytes: conflict-free 32-bit fragment loads)
-//     serves both;
-//   - float32 rows (FmaTile): 32 queries, so that a 768-wide query tile
-//     (32 × 3,088 B) and the three stages fit the 227 KB a block may use;
-//     warp w computes queries 4w..4w+3 against all 128 lanes, each thread 4
-//     queries × lanes {l, l+32, l+64, l+96} with 16-byte shared loads
-//     (conflict-free with the 144-byte row stride; the query loads are warp
-//     broadcasts) and 64 FMAs per 8 loads;
-//   - after the last stage of a position the accumulators are scaled, packed,
-//     masked and folded into a running maximum held in registers (section,
-//     v2), or reduced across the 128 lanes and written out (v1).
-// Grid: x = query tiles (fastest, so the tiles of one column block run
-// together and share its rows in L2), y = column blocks, z = arms.
+// a multiple of 16 bytes. One CTA owns a tile of queries × the 128 lanes of
+// one column block and walks the block's positions. Grid: x = query tiles
+// (fastest, so the tiles of one column block run together and share its rows
+// in L2), y = column blocks, z = section arms. Two walks:
+//   - int8 and bf16 rows: the wgmma walk (`table_walk`, described where it is
+//     defined), behind three kernels, one a mode: `section_wgmma_kernel`,
+//     `bucket_v2_wgmma_kernel` (both int8 and bf16) and
+//     `bucket_v1_wgmma_kernel` (bf16). TMA streams the rows, a producer warp
+//     keeps the ring full, wgmma m64n128 takes them from shared memory, and
+//     one warpgroup's epilogue runs beside the other's products. A
+//     section_tables call with arms of both kinds launches once a kind.
+//   - float32 rows: the FMA walk (`fma_tables_kernel`): 8 warps own 32
+//     queries (so that a 768-wide query tile, 32 × 3,088 B, and three stages
+//     fit the 227 KB a block may use) in shared memory for the whole walk;
+//     the corpus streams in stages of 128 rows × 128 bytes through a 3-deep
+//     cp.async ring; warp w computes queries 4w..4w+3 against all 128 lanes,
+//     each thread 4 queries × lanes {l, l+32, l+64, l+96} with 16-byte
+//     shared loads (conflict-free with the 144-byte row stride; the query
+//     loads are warp broadcasts) and 64 FMAs per 8 loads; after the last
+//     stage of a position the accumulators are packed, masked and folded
+//     into a running maximum (section, v2) or reduced across the 128 lanes
+//     by warp shuffles and written out (v1).
 //
 // Bounds on an H100 SXM: at the serving point (B=512, N=1,007,616, dense 384
 // + sketch 768 int8) 1.19 T int8 operations (0.60 ms at 1,979 TOP/s) against
@@ -67,11 +67,9 @@
 // it; the float32 arms at the same shape take 0.59 T multiply-adds, 17.8 ms
 // at the 67 TFLOP/s CUDA-core rate. v1 at B=512, N=999,424, bf16: 0.80 ms
 // (d=768) / 0.40 ms (d=384) of tensor-core operations against 1.54 / 0.77 GB.
-// On the shared walk, mma.sync and an epilogue of ~10 instructions per score
-// issued by the warps that issue the products keep the tensor-core kinds
-// above that bound. The v2 wgmma kernel streams the rows by TMA and lets one
-// warpgroup's epilogue run beside the other's products; section and v1 can
-// move onto the same walk.
+// On the wgmma walk a position is only 3-12 chunks at d = 384-768, so each
+// warpgroup's drain and epilogue at every position keep the tensor cores
+// from their rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,31 +81,476 @@
 namespace {
 
 constexpr int kLanes = 128;        // bucket width: table columns per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 128;        // bytes of a row per stage
-constexpr int kPad = 16;           // shared-memory row padding
-constexpr int kStageStride = kChunk + kPad;
-constexpr int kStages = 3;
-constexpr int kStageBytes = kLanes * kStageStride;
 constexpr int kMaxArms = 3;
 constexpr int kPosMask = 0x7F;
 constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
-constexpr int kV1ReduceBytes = 2 * 64 * 8;  // v1, MmaTile: two lane-warps' (value, lane) a query
 constexpr float kNegInf = -1e30f;
 
 enum Kind : int { kBf16 = 0, kInt8 = 1, kF32 = 2 };
 enum Mode : int { kSection = 0, kBucketV2 = 1, kBucketV1 = 2 };
 
+// v1's order on (value, lane): the larger value, then the higher lane.
+__device__ __forceinline__ void keep_best(float& v, int& l, float ov, int ol) {
+  if (ov > v || (ov == v && ol > l)) {
+    v = ov;
+    l = ol;
+  }
+}
+
+// ---- the wgmma walk: int8 and bf16 rows, fed by TMA ------------------------------------
+//
+// One CTA of 288 threads (two consumer warpgroups and one TMA producer warp)
+// owns `queries` (128 or 64) queries × the 128 lanes of one column block and
+// walks the block's positions p. The query tile is loaded once and stays in
+// shared memory as ceil(row_bytes / 128) chunks of [queries][128 B]; the
+// position's 128 rows stream through a ring of `stages` 16 KB stages
+// (128 rows × 128 bytes, one chunk), each with a full and an empty mbarrier.
+// Per position the producer also bulk-copies the rows' side data into a side
+// slot (4 slots, own barriers), so the epilogue reads it from shared memory:
+// c_scale for int8, then the mask (v2, v1: its bytes; section: mask_add as
+// float32, none when the call has no mask).
+//   queries = 128: warpgroup w takes queries 64w..64w+63 against every
+//     position; both read each stage, which is free after 256 arrivals;
+//   queries = 64 (rows too wide for a 128-query tile beside a 4-deep ring,
+//     such as bf16 d = 768): warpgroup 0 walks alone through the whole ring.
+//     Splitting the positions between the warpgroups (each through half the
+//     ring: a warpgroup must meet its stages in order, as an mbarrier's parity
+//     wait cannot tell a phase from the one two later) measured slower:
+//     half of a 7-stage ring cannot hide the loads of 12-chunk positions.
+// Each position is one accumulator of 64 queries × 128 lanes (wgmma m64n128,
+// k32 s8·s8→s32 or k16 bf16→f32, both operands K-major: the queries' and
+// rows' bytes are the contraction), issued one chunk (4 k-steps) a commit; a
+// stage is released as soon as the products of the next chunk are in
+// flight, and ring slots and phases are counted, not divided out (a runtime
+// % and / a chunk measured costly). After the drain (wgmma.wait 0) the
+// position's epilogue runs on the accumulator:
+//   section, v2: scale, pack, mask and fold into a running maximum per
+//     (query, lane) held in registers, written once at the end;
+//   v1: each thread reduces its 32 lanes of its two queries to (value, lane)
+//     in four independent chains a query (one serial chain of 32
+//     compare-selects measured 4-8% slower at d = 768 / 384); a query's 128
+//     lanes live in one quad (hopper.cuh's accumulator layout), so two
+//     shuffle rounds finish the bucket, and the quad's first thread writes
+//     it (4-byte stores at a stride of N/128 floats).
+// A section call's arms share one grid: blockIdx.z is the arm, each arm has
+// its own maps, tile and ring, the grid's x is sized for the narrowest tile
+// and a CTA past its arm's batch exits. Measured slower, and so not taken:
+// the query tiles of a column block as one cluster; the warpgroups taking
+// turns to issue (ping-pong: one waits for the other's whole mainloop); two
+// accumulators per warpgroup issuing the next position before the epilogue
+// (past 168 registers, so no producer warp: loads issued from inside a
+// consumer warpgroup starve the ring).
+constexpr int kWalkConsumers = 2 * hopper::kWarpgroup;
+constexpr int kWalkThreads = kWalkConsumers + 32;
+constexpr int kWalkStageBytes = kLanes * kChunk;  // 128 rows × 128 bytes
+constexpr int kWalkSide = 4;                      // positions of side data in flight
+constexpr int kWalkMaxStages = 8;
+// A side slot: c_scale [128] float32 (int8 rows), then the mask: v2 and v1
+// its bytes [128], section mask_add [128] float32.
+constexpr int kSideBytesV2 = 640;
+constexpr int kSideBytesSection = 1024;
+static_assert(kSideBytesV2 == kLanes * 4 + kLanes && kSideBytesSection == kLanes * 8,
+              "side slot layout");
+
+__host__ __device__ constexpr int side_bytes(int mode) {
+  return mode == kSection ? kSideBytesSection : kSideBytesV2;
+}
+
+int walk_smem_bytes(int mode, int queries, int n_chunks, int stages) {
+  return n_chunks * queries * kChunk + stages * kWalkStageBytes + kWalkSide * side_bytes(mode) +
+         (1 + 2 * stages + 2 * kWalkSide) * 8 + 1024;  // + barriers, + alignment slack
+}
+
+struct WalkArm {
+  CUtensorMap q_map;    // queries [batch, row_bytes]: boxes of 128 B × `queries` rows
+  CUtensorMap x_map;    // rows [n_rows, row_bytes]: boxes of 128 B × 128 rows
+  const float* qscale;  // [batch] (int8)
+  const float* cscale;  // [n_rows] (int8)
+  float* out;           // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
+  int* out_pos;         // v2: position in the bucket; v1: global row (out's shape)
+  int n_chunks;         // ceil(row_bytes / 128)
+  int queries;          // 128 or 64
+  int stages;           // ring depth, 2-8
+};
+
+struct WalkParams {
+  WalkArm arm[kMaxArms];
+  const void* mask;  // v2, v1: [n_rows] bytes; section: mask_add [n_rows] float32 or null
+  int batch;
+  int block;
+  int n_blocks;
+};
+
+template <int kMode, bool kInt8>
+__device__ __forceinline__ void table_walk(const WalkParams& prm) {
+  using namespace hopper;
+  using Acc = std::conditional_t<kInt8, int, float>;
+  constexpr int kSide = side_bytes(kMode);
+  constexpr int kMaskBytes = kMode == kSection ? kLanes * 4 : kLanes;
+  const WalkArm& arm = prm.arm[kMode == kSection ? blockIdx.z : 0];
+  const int queries = arm.queries;
+  const int q0 = blockIdx.x * queries;
+  if (kMode == kSection && q0 >= prm.batch) return;  // another arm's narrower tile sized the grid
+  const int n_chunks = arm.n_chunks;
+  const int stages = arm.stages;
+  const bool has_mask = kMode != kSection || prm.mask != nullptr;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_base_1024(smem_raw);
+  const int q_chunk_bytes = queries * kChunk;
+  uint8_t* q_tile = smem;                                  // chunk c at c · q_chunk_bytes
+  uint8_t* ring = smem + n_chunks * q_chunk_bytes;         // stage s at s · kWalkStageBytes
+  uint8_t* side = ring + stages * kWalkStageBytes;         // slot j at j · kSide
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(side + kWalkSide * kSide);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + stages;
+  uint64_t* side_full = empty + stages;
+  uint64_t* side_empty = side_full + kWalkSide;
+
+  const bool split = queries == 128;  // else warpgroup 0 walks alone
+  const int n_pos = prm.block / kLanes;
+  const long long block_row0 = static_cast<long long>(blockIdx.y) * prm.block;
+
+  if (threadIdx.x == 0) {
+    const int consumers = split ? kWalkConsumers : kWarpgroup;  // arrivals that free a slot
+    mbar_init(q_full, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], consumers);
+    }
+    for (int j = 0; j < kWalkSide; ++j) {
+      mbar_init(&side_full[j], 1);
+      mbar_init(&side_empty[j], consumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWalkConsumers) {
+    // Producer: the query tile, then per position its side data and chunks.
+    if (threadIdx.x == kWalkConsumers) {
+      mbar_arrive_expect_tx(q_full, n_chunks * q_chunk_bytes);
+      for (int c = 0; c < n_chunks; ++c)
+        tma_load_rows(q_tile + c * q_chunk_bytes, &arm.q_map, q_full, c * kChunk, q0);
+      const uint8_t* mask = static_cast<const uint8_t*>(prm.mask);
+      const uint32_t side_tx = (kInt8 ? kLanes * 4 : 0) + (has_mask ? kMaskBytes : 0);
+      int next = 0;  // the ring's next slot, and how many times it has gone round
+      uint32_t lap = 0;
+      for (int p = 0; p < n_pos; ++p) {
+        const long long row0 = block_row0 + static_cast<long long>(p) * kLanes;
+        const int j = p % kWalkSide;
+        if (p >= kWalkSide) mbar_wait(&side_empty[j], ((p / kWalkSide) - 1) & 1);
+        mbar_arrive_expect_tx(&side_full[j], side_tx);
+        uint8_t* slot = side + j * kSide;
+        if (kInt8) bulk_load(slot, arm.cscale + row0, kLanes * 4, &side_full[j]);
+        if (has_mask)
+          bulk_load(slot + kLanes * 4, mask + row0 * (kMaskBytes / kLanes), kMaskBytes,
+                    &side_full[j]);
+        for (int c = 0; c < n_chunks; ++c) {
+          const int s = next;
+          if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], kWalkStageBytes);
+          tma_load_rows(ring + s * kWalkStageBytes, &arm.x_map, &full[s], c * kChunk,
+                        static_cast<int>(row0));
+          if (++next == stages) {
+            next = 0;
+            ++lap;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: this thread holds queries wq + r and wq + r + 8 of the tile
+  // and lanes 8j + 2t + {0, 1} (the accumulator layout, see hopper.cuh).
+  const int wg = threadIdx.x / kWarpgroup;
+  if (wg == 1 && !split) return;  // 64 queries: warpgroup 0 walks alone
+  const int tw = threadIdx.x % kWarpgroup;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int wq = split ? 64 * wg : 0;
+  const int r = tw / 32 * 16 + g;
+  float qs[2] = {0.f, 0.f};
+  if constexpr (kInt8) {
+    for (int h = 0; h < 2; ++h) {
+      const int b = q0 + wq + r + 8 * h;
+      qs[h] = b < prm.batch ? arm.qscale[b] : 0.f;
+    }
+  }
+  Acc acc[64];
+  float best[kMode == kBucketV1 ? 1 : 64];  // section, v2: running maxima
+#pragma unroll
+  for (int x = 0; x < (kMode == kBucketV1 ? 1 : 64); ++x) best[x] = kNegInf;
+
+  mbar_wait(q_full, 0);
+  const uint64_t q_desc = desc_sw128(q_tile + wq * kChunk);
+  int next = 0, prev = 0;  // this warpgroup's next stage of its ring, the one before
+  uint32_t lap = 0;
+  for (int p = 0; p < n_pos; ++p) {
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = next;
+      mbar_wait(&full[s], lap & 1);
+      const uint64_t a = q_desc + static_cast<uint64_t>((c * q_chunk_bytes) >> 4);
+      const uint64_t x = desc_sw128(ring + s * kWalkStageBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 32; ++ks) {
+        if constexpr (kInt8)
+          wgmma_m64n128k32_s8_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
+        else
+          wgmma_m64n128k16_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
+      }
+      wgmma_commit();
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        wgmma_wait<1>();
+        mbar_arrive(&empty[prev]);
+      }
+      prev = s;
+      if (++next == stages) {
+        next = 0;
+        ++lap;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[prev]);
+
+    const int j = p % kWalkSide;
+    mbar_wait(&side_full[j], (p / kWalkSide) & 1);
+    const uint8_t* slot = side + j * kSide;
+    {  // Position p's epilogue on the drained accumulator.
+      if constexpr (kMode == kBucketV1) {
+        // Each thread's 32 lanes of its two queries, then the quad's 128.
+        // Within the thread four independent chains per query (n mod 4) meet
+        // their lanes in ascending order, so ">=" keeps the highest lane
+        // among equals; the chains and the quad merge by keep_best.
+        float bv[2][4];
+        int bl[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            bv[h][k] = -__int_as_float(0x7f800000);
+            bl[h][k] = -1;
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          const int col = 8 * n + 2 * t;
+          const uint32_t m2 = *reinterpret_cast<const uint16_t*>(slot + kLanes * 4 + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = (m2 >> (8 * (e & 1))) & 0xFFu ? static_cast<float>(acc[4 * n + e])
+                                                          : kNegInf;
+            float& cv = bv[e >> 1][n & 3];
+            if (v >= cv) {
+              cv = v;
+              bl[e >> 1][n & 3] = col + (e & 1);
+            }
+          }
+        }
+        const long long bucket = static_cast<long long>(blockIdx.y) * n_pos + p;
+        const long long n_buckets = static_cast<long long>(prm.n_blocks) * n_pos;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          keep_best(bv[h][0], bl[h][0], bv[h][1], bl[h][1]);
+          keep_best(bv[h][2], bl[h][2], bv[h][3], bl[h][3]);
+          keep_best(bv[h][0], bl[h][0], bv[h][2], bl[h][2]);
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, bv[h][0], o);
+            const int ol = __shfl_xor_sync(0xffffffffu, bl[h][0], o);
+            keep_best(bv[h][0], bl[h][0], ov, ol);
+          }
+          const int b = q0 + wq + r + 8 * h;
+          if (t == 0 && b < prm.batch) {
+            const long long idx = static_cast<long long>(b) * n_buckets + bucket;
+            arm.out[idx] = bv[h][0];
+            arm.out_pos[idx] = static_cast<int>(bucket * kLanes + bl[h][0]);
+          }
+        }
+      } else {
+        // Scale, pack, mask, running maximum (the float operations and order
+        // of the plain version, so int8 tables are bit-equal).
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          const int col = 8 * n + 2 * t;
+          float2 c2 = make_float2(0.f, 0.f);
+          if constexpr (kInt8) c2 = *reinterpret_cast<const float2*>(slot + col * 4);
+          uint32_t m2 = 0;
+          float2 a2 = make_float2(0.f, 0.f);
+          if constexpr (kMode == kBucketV2)
+            m2 = *reinterpret_cast<const uint16_t*>(slot + kLanes * 4 + col);
+          else if (has_mask)
+            a2 = *reinterpret_cast<const float2*>(slot + kLanes * 4 + col * 4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * n + e;
+            float v;
+            if constexpr (kInt8)
+              v = __fmul_rn(__fmul_rn(__int2float_rn(acc[x]), qs[e >> 1]), e & 1 ? c2.y : c2.x);
+            else
+              v = acc[x];
+            v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
+            if constexpr (kMode == kBucketV2) {
+              // A masked row would fold in -1e30, which best never falls below.
+              if ((m2 >> (8 * (e & 1))) & 0xFFu) best[x] = fmaxf(best[x], v);
+            } else {
+              // No mask adds nothing: -0.0 + 0.0 would turn a packed -0.0 into +0.0.
+              if (has_mask) v = __fadd_rn(v, e & 1 ? a2.y : a2.x);
+              best[x] = fmaxf(best[x], v);
+            }
+          }
+        }
+      }
+    }
+    mbar_arrive(&side_empty[j]);
+  }
+  if constexpr (kMode == kBucketV1) return;
+
+  const long long width = static_cast<long long>(prm.n_blocks) * kLanes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = q0 + wq + r + 8 * h;
+    if (b >= prm.batch) continue;
+    const long long row_base = static_cast<long long>(b) * width + blockIdx.y * kLanes + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      const float v0 = best[4 * n + 2 * h];
+      const float v1 = best[4 * n + 2 * h + 1];
+      if constexpr (kMode == kBucketV2) {
+        const int b0 = __float_as_int(v0);
+        const int b1 = __float_as_int(v1);
+        *reinterpret_cast<float2*>(arm.out + row_base + 8 * n) =
+            make_float2(__int_as_float(b0 & ~kPosMask), __int_as_float(b1 & ~kPosMask));
+        *reinterpret_cast<int2*>(arm.out_pos + row_base + 8 * n) =
+            make_int2(b0 & kPosMask, b1 & kPosMask);
+      } else {
+        *reinterpret_cast<float2*>(arm.out + row_base + 8 * n) = make_float2(v0, v1);
+      }
+    }
+  }
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+section_wgmma_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kSection, kInt8>(prm);
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+bucket_v2_wgmma_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kBucketV2, kInt8>(prm);
+}
+
+__global__ void __launch_bounds__(kWalkThreads, 1)
+bucket_v1_wgmma_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kBucketV1, false>(prm);
+}
+
+template <int kMode, bool kInt8>
+int start_walk(const WalkParams& prm, dim3 grid, int smem, cudaStream_t stream) {
+  void (*kernel)(WalkParams);
+  if constexpr (kMode == kSection)
+    kernel = section_wgmma_kernel<kInt8>;
+  else if constexpr (kMode == kBucketV2)
+    kernel = bucket_v2_wgmma_kernel<kInt8>;
+  else
+    kernel = bucket_v1_wgmma_kernel;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kWalkThreads, smem, stream>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One arm of a walk launch as the C entries receive it.
+struct WalkArgs {
+  const void* q;
+  const void* corpus;
+  const void* qscale;
+  const void* cscale;
+  void* out;
+  void* out_pos;
+  int row_bytes;
+  int queries;
+  int stages;
+};
+
+template <int kMode>
+int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, int batch,
+                long long n_rows, int block, cudaStream_t stream) {
+  const bool packed = kMode != kBucketV1;
+  if (n_arms < 1 || n_arms > kMaxArms || block <= 0 || block % kLanes != 0 ||
+      (packed && block / kLanes > kPosMask + 1) || n_rows % block != 0 ||
+      n_rows / block > 65535 || n_rows >= (1ll << 31) ||
+      (kMode != kSection && mask == nullptr) || (kMode == kBucketV1 && int8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(mask) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  WalkParams prm = {};
+  int smem = 0;
+  int min_queries = 128;
+  for (int a = 0; a < n_arms; ++a) {
+    const WalkArgs& w = args[a];
+    const int n_chunks = (w.row_bytes + kChunk - 1) / kChunk;
+    const int bytes = walk_smem_bytes(kMode, w.queries, n_chunks, w.stages);
+    if (w.row_bytes <= 0 || w.row_bytes % 16 != 0 || (w.queries != 64 && w.queries != 128) ||
+        w.stages < 2 || w.stages > kWalkMaxStages || bytes > kMaxSmem ||
+        (int8 && (w.qscale == nullptr || w.cscale == nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if ((reinterpret_cast<uintptr_t>(w.q) | reinterpret_cast<uintptr_t>(w.corpus) |
+         reinterpret_cast<uintptr_t>(w.cscale)) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    WalkArm& arm = prm.arm[a];
+    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, w.queries)) return rc;
+    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, kLanes))
+      return rc;
+    arm.qscale = static_cast<const float*>(w.qscale);
+    arm.cscale = static_cast<const float*>(w.cscale);
+    arm.out = static_cast<float*>(w.out);
+    arm.out_pos = static_cast<int*>(w.out_pos);
+    arm.n_chunks = n_chunks;
+    arm.queries = w.queries;
+    arm.stages = w.stages;
+    smem = bytes > smem ? bytes : smem;
+    min_queries = w.queries < min_queries ? w.queries : min_queries;
+  }
+  prm.mask = mask;
+  prm.batch = batch;
+  prm.block = block;
+  prm.n_blocks = static_cast<int>(n_rows / block);
+  const dim3 grid((batch + min_queries - 1) / min_queries, prm.n_blocks, n_arms);
+  if constexpr (kMode == kBucketV1) {
+    return start_walk<kMode, false>(prm, grid, smem, stream);
+  } else {
+    return int8 ? start_walk<kMode, true>(prm, grid, smem, stream)
+                : start_walk<kMode, false>(prm, grid, smem, stream);
+  }
+}
+
+// ---- the FMA walk: float32 rows ---------------------------------------------------------
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 16;           // shared-memory row padding
+constexpr int kStageStride = kChunk + kPad;
+constexpr int kStages = 3;
+constexpr int kStageBytes = kLanes * kStageStride;
+
 struct Arm {
-  const uint8_t* q;       // [batch, d] int8 codes, bf16 or float32
-  const uint8_t* corpus;  // [n_rows, d]
-  const float* qscale;    // [batch] (int8 arms)
-  const float* cscale;    // [n_rows] (int8 arms)
+  const uint8_t* q;       // [batch, d] float32
+  const uint8_t* corpus;  // [n_rows, d] float32
   float* out;             // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
   int* out_pos;           // v2: position in the bucket; v1: global row (out's shape)
   int row_bytes;
-  int kind;
 };
 
 struct Params {
@@ -131,153 +574,13 @@ __device__ __forceinline__ void cp_async_wait_stages() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                    uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                    uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// v1's order on (value, lane): the larger value, then the higher lane.
-__device__ __forceinline__ void keep_best(float& v, int& l, float ov, int ol) {
-  if (ov > v || (ov == v && ol > l)) {
-    v = ov;
-    l = ol;
-  }
-}
-
 __device__ __forceinline__ float masked(const Params& prm, long long row, float v) {
   return __ldg(prm.mask_sel + row) != 0 ? v : kNegInf;
 }
 
-__device__ __forceinline__ void write_v1(const Params& prm, const Arm& arm, int b,
-                                         long long bucket, float v, int lane) {
-  const long long idx = static_cast<long long>(b) * (prm.n_rows / kLanes) + bucket;
-  arm.out[idx] = v;
-  arm.out_pos[idx] = static_cast<int>(bucket * kLanes + lane);
-}
-
-// Tensor-core tile (int8 codes or bf16): 64 queries × 128 lanes, 8 warps as
-// 4 (queries) × 2 (lanes), each warp 16 queries × 64 lanes. A thread's output
-// (nt, i) is the m16n8 accumulator fragment's: query warp_q + g + 8·(i >> 1),
-// lane warp_l + nt·8 + t·2 + (i & 1).
-template <bool kInt8>
-struct MmaTile {
-  using Acc = std::conditional_t<kInt8, int, float>;
-  static constexpr int kQueries = 64;
-  static constexpr int kA = 8;
-  static constexpr int kB = 4;
-
-  Acc acc[kA][kB];
-  float best[kA][kB];
-  float qscale[2];
-  int g, t, warp_q, warp_l;
-
-  __device__ MmaTile(const Arm& arm, int q0, int batch) {
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x & 31;
-    g = lane >> 2;
-    t = lane & 3;
-    warp_q = (warp & 3) * 16;
-    warp_l = (warp >> 2) * 64;
-    for (int h = 0; h < 2; ++h) {
-      const int b = q0 + warp_q + g + 8 * h;
-      qscale[h] = kInt8 && b < batch ? arm.qscale[b] : 0.f;
-    }
-  }
-
-  __device__ int query(int a, int b) const { return warp_q + g + 8 * (b >> 1); }
-  __device__ int lane(int a, int b) const { return warp_l + a * 8 + t * 2 + (b & 1); }
-
-  __device__ float score(const Arm& arm, int a, int b, long long row) const {
-    if constexpr (kInt8) {
-      return __fmul_rn(__fmul_rn(__int2float_rn(acc[a][b]), qscale[b >> 1]),
-                       __ldg(arm.cscale + row));
-    } else {
-      return acc[a][b];
-    }
-  }
-
-  // Accumulate `bytes` of every row: the stage against the query tile's
-  // bytes [q_off, q_off + bytes). Bytes past a row are zero on both sides.
-  __device__ void mac(const uint8_t* q_s, int q_stride, const uint8_t* stage, int q_off,
-                      int bytes) {
-    const int k_steps = (bytes + 31) / 32;
-    for (int ks = 0; ks < k_steps; ++ks) {
-      const uint8_t* qa = q_s + (warp_q + g) * q_stride + q_off + ks * 32 + t * 4;
-      const uint32_t a0 = ld32(qa);
-      const uint32_t a1 = ld32(qa + 8 * q_stride);
-      const uint32_t a2 = ld32(qa + 16);
-      const uint32_t a3 = ld32(qa + 8 * q_stride + 16);
-#pragma unroll
-      for (int nt = 0; nt < kA; ++nt) {
-        const uint8_t* cb = stage + (warp_l + nt * 8 + g) * kStageStride + ks * 32 + t * 4;
-        mma(acc[nt], a0, a1, a2, a3, ld32(cb), ld32(cb + 16));
-      }
-    }
-  }
-
-  // v1: reduce the 64 queries × 128 lanes of bucket `bucket` (rows
-  // row0 .. row0 + 127) across lanes: within the thread, over the four
-  // threads of a fragment row group, then across the two lane-warps through
-  // shared memory.
-  __device__ void reduce_v1(const Params& prm, const Arm& arm, long long row0, long long bucket,
-                            int q0, uint8_t* red) {
-    float* red_v = reinterpret_cast<float*>(red);
-    int* red_l = reinterpret_cast<int*>(red + 2 * kQueries * 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float bv = -__int_as_float(0x7f800000);
-      int bl = -1;
-#pragma unroll
-      for (int a = 0; a < kA; ++a) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int l = lane(a, 2 * h + e);
-          keep_best(bv, bl, masked(prm, row0 + l, score(arm, a, 2 * h + e, row0 + l)), l);
-        }
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
-        keep_best(bv, bl, ov, ol);
-      }
-      if (t == 0) {
-        const int slot = (warp_l / 64) * kQueries + warp_q + g + 8 * h;
-        red_v[slot] = bv;
-        red_l[slot] = bl;
-      }
-    }
-    __syncthreads();
-    const int r = threadIdx.x;
-    if (r < kQueries && q0 + r < prm.batch) {
-      float bv = red_v[r];
-      int bl = red_l[r];
-      keep_best(bv, bl, red_v[kQueries + r], red_l[kQueries + r]);
-      write_v1(prm, arm, q0 + r, bucket, bv, bl);
-    }
-  }
-};
-
-// CUDA-core tile (float32 rows): 32 queries × 128 lanes. Warp w owns queries
-// 4w..4w+3 against all 128 lanes; thread l of the warp owns output (a, b) =
-// query 4w + a, lane l + 32·b.
+// The CUDA-core tile: 32 queries × 128 lanes. Warp w owns queries 4w..4w+3
+// against all 128 lanes; thread l of the warp owns output (a, b) = query
+// 4w + a, lane l + 32·b.
 struct FmaTile {
   static constexpr int kQueries = 32;
   static constexpr int kA = 4;
@@ -287,14 +590,13 @@ struct FmaTile {
   float best[kA][kB];
   int qg, lg;
 
-  __device__ FmaTile(const Arm&, int, int) {
+  __device__ FmaTile() {
     qg = threadIdx.x / 32;
     lg = threadIdx.x & 31;
   }
 
-  __device__ int query(int a, int b) const { return qg * kA + a; }
-  __device__ int lane(int a, int b) const { return lg + 32 * b; }
-  __device__ float score(const Arm&, int a, int b, long long) const { return acc[a][b]; }
+  __device__ int query(int a) const { return qg * kA + a; }
+  __device__ int lane(int b) const { return lg + 32 * b; }
 
   __device__ void mac(const uint8_t* q_s, int q_stride, const uint8_t* stage, int q_off,
                       int bytes) {
@@ -325,14 +627,14 @@ struct FmaTile {
   // v1: every lane of a query lives in one warp: reduce within the thread,
   // then over the warp with shuffles.
   __device__ void reduce_v1(const Params& prm, const Arm& arm, long long row0, long long bucket,
-                            int q0, uint8_t*) {
+                            int q0) {
 #pragma unroll
     for (int a = 0; a < kA; ++a) {
       float bv = -__int_as_float(0x7f800000);
       int bl = -1;
 #pragma unroll
       for (int b = 0; b < kB; ++b) {
-        keep_best(bv, bl, masked(prm, row0 + lane(a, b), acc[a][b]), lane(a, b));
+        keep_best(bv, bl, masked(prm, row0 + lane(b), acc[a][b]), lane(b));
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
@@ -340,25 +642,27 @@ struct FmaTile {
         const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
         keep_best(bv, bl, ov, ol);
       }
-      const int b = q0 + query(a, 0);
-      if (lg == 0 && b < prm.batch) write_v1(prm, arm, b, bucket, bv, bl);
+      const int bq = q0 + query(a);
+      if (lg == 0 && bq < prm.batch) {
+        const long long idx = static_cast<long long>(bq) * (prm.n_rows / kLanes) + bucket;
+        arm.out[idx] = bv;
+        arm.out_pos[idx] = static_cast<int>(bucket * kLanes + bl);
+      }
     }
   }
 };
 
-// One arm's tile: Tile::kQueries queries × 128 lanes of column block `blk`.
-template <class Tile, int kMode>
-__device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int blk,
-                                         uint8_t* smem) {
-  const int q0 = blockIdx.x * Tile::kQueries;
-  if (q0 >= prm.batch) return;  // a narrower tile of another arm sized the grid
+// One arm's tile: 32 queries × 128 lanes of column block `blk`.
+template <int kMode>
+__device__ __forceinline__ void run_fma_tile(const Params& prm, const Arm& arm, int blk,
+                                             uint8_t* smem) {
+  const int q0 = blockIdx.x * FmaTile::kQueries;
   const int tid = threadIdx.x;
   const int row_bytes = arm.row_bytes;
   const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
   const int q_stride = padded + kPad;
   uint8_t* q_s = smem;
-  uint8_t* stages = smem + Tile::kQueries * q_stride;
-  uint8_t* red = stages + kStages * kStageBytes;
+  uint8_t* stages = smem + FmaTile::kQueries * q_stride;
 
   const int n_chunks = padded / kChunk;
   const int n_pos = prm.block / kLanes;
@@ -367,7 +671,7 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
 
   // Query tile: rows past the batch and bytes past the row are zero.
   const int q_pieces = padded / 16;
-  for (int i = tid; i < Tile::kQueries * q_pieces; i += kThreads) {
+  for (int i = tid; i < FmaTile::kQueries * q_pieces; i += kThreads) {
     const int r = i / q_pieces;
     const int c = (i - r * q_pieces) * 16;
     uint8_t* dst = q_s + r * q_stride + c;
@@ -395,11 +699,11 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
     }
   };
 
-  Tile tile(arm, q0, prm.batch);
+  FmaTile tile;
 #pragma unroll
-  for (int a = 0; a < Tile::kA; ++a) {
+  for (int a = 0; a < FmaTile::kA; ++a) {
 #pragma unroll
-    for (int b = 0; b < Tile::kB; ++b) {
+    for (int b = 0; b < FmaTile::kB; ++b) {
       tile.acc[a][b] = 0;
       tile.best[a][b] = kNegInf;
     }
@@ -425,15 +729,15 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
     if (++chunk == n_chunks) {
       const long long row0 = block_row0 + p * kLanes;
       if constexpr (kMode == kBucketV1) {
-        tile.reduce_v1(prm, arm, row0, block_row0 / kLanes + p, q0, red);
+        tile.reduce_v1(prm, arm, row0, block_row0 / kLanes + p, q0);
       } else {
-        // Position p: scale, pack, mask, running maximum.
+        // Position p: pack, mask, running maximum.
 #pragma unroll
-        for (int a = 0; a < Tile::kA; ++a) {
+        for (int a = 0; a < FmaTile::kA; ++a) {
 #pragma unroll
-          for (int b = 0; b < Tile::kB; ++b) {
-            const long long row = row0 + tile.lane(a, b);
-            float v = tile.score(arm, a, b, row);
+          for (int b = 0; b < FmaTile::kB; ++b) {
+            const long long row = row0 + tile.lane(b);
+            float v = tile.acc[a][b];
             v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
             if constexpr (kMode == kBucketV2) {
               if (__ldg(prm.mask_sel + row) == 0) v = kNegInf;
@@ -445,9 +749,9 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
         }
       }
 #pragma unroll
-      for (int a = 0; a < Tile::kA; ++a) {
+      for (int a = 0; a < FmaTile::kA; ++a) {
 #pragma unroll
-        for (int b = 0; b < Tile::kB; ++b) tile.acc[a][b] = 0;
+        for (int b = 0; b < FmaTile::kB; ++b) tile.acc[a][b] = 0;
       }
       chunk = 0;
       ++p;
@@ -458,12 +762,12 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
 
   const long long width = static_cast<long long>(prm.n_blocks) * kLanes;
 #pragma unroll
-  for (int a = 0; a < Tile::kA; ++a) {
+  for (int a = 0; a < FmaTile::kA; ++a) {
+    const int bq = q0 + tile.query(a);
+    if (bq >= prm.batch) continue;
 #pragma unroll
-    for (int b = 0; b < Tile::kB; ++b) {
-      const int bq = q0 + tile.query(a, b);
-      if (bq >= prm.batch) continue;
-      const long long col = static_cast<long long>(blk) * kLanes + tile.lane(a, b);
+    for (int b = 0; b < FmaTile::kB; ++b) {
+      const long long col = static_cast<long long>(blk) * kLanes + tile.lane(b);
       const long long idx = static_cast<long long>(bq) * width + col;
       if constexpr (kMode == kBucketV2) {
         const int bits = __float_as_int(tile.best[a][b]);
@@ -477,316 +781,36 @@ __device__ __forceinline__ void run_tile(const Params& prm, const Arm& arm, int 
 }
 
 template <int kMode>
-__global__ void __launch_bounds__(kThreads, 2) bucket_tables_kernel(const Params prm) {
+__global__ void __launch_bounds__(kThreads, 2) fma_tables_kernel(const Params prm) {
   extern __shared__ __align__(16) uint8_t smem[];
-  const Arm& arm = prm.arm[blockIdx.z];
-  const int blk = blockIdx.y;
-  if (arm.kind == kF32) {
-    run_tile<FmaTile, kMode>(prm, arm, blk, smem);
-  } else if constexpr (kMode != kBucketV2) {  // v2's int8 and bf16 rows: bucket_v2_wgmma_kernel
-    if (arm.kind == kBf16) {
-      run_tile<MmaTile<false>, kMode>(prm, arm, blk, smem);
-    } else if constexpr (kMode != kBucketV1) {  // v1 takes no int8 rows
-      run_tile<MmaTile<true>, kMode>(prm, arm, blk, smem);
-    }
-  }
+  run_fma_tile<kMode>(prm, prm.arm[blockIdx.z], blockIdx.y, smem);
 }
 
-int tile_queries(int kind) { return kind == kF32 ? FmaTile::kQueries : MmaTile<false>::kQueries; }
-
-int smem_bytes(int kind, int row_bytes, int mode) {
+int fma_smem_bytes(int row_bytes) {
   const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
-  const int reduce = mode == kBucketV1 && kind != kF32 ? kV1ReduceBytes : 0;
-  return tile_queries(kind) * (padded + kPad) + kStages * kStageBytes + reduce;
+  return FmaTile::kQueries * (padded + kPad) + kStages * kStageBytes;
 }
 
 template <int kMode>
-int launch(const Params& prm, int n_arms, cudaStream_t stream) {
+int launch_fma(const Params& prm, int n_arms, cudaStream_t stream) {
   int smem = 0;
-  int rows_per_tile = MmaTile<false>::kQueries;
   for (int a = 0; a < n_arms; ++a) {
-    const Arm& arm = prm.arm[a];
-    const int rb = arm.row_bytes;
-    if (rb <= 0 || rb % 16 != 0 || arm.kind < kBf16 || arm.kind > kF32) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    if (arm.kind == kInt8 &&
-        (kMode == kBucketV1 || arm.qscale == nullptr || arm.cscale == nullptr)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    smem = smem_bytes(arm.kind, rb, kMode) > smem ? smem_bytes(arm.kind, rb, kMode) : smem;
-    rows_per_tile = tile_queries(arm.kind) < rows_per_tile ? tile_queries(arm.kind) : rows_per_tile;
+    const int rb = prm.arm[a].row_bytes;
+    if (rb <= 0 || rb % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    smem = fma_smem_bytes(rb) > smem ? fma_smem_bytes(rb) : smem;
   }
   const bool packed = kMode != kBucketV1;
-  if (smem > kMaxSmem || prm.block <= 0 || prm.block % kLanes != 0 ||
-      (packed && prm.block / kLanes > kPosMask + 1) || prm.n_rows % prm.block != 0 ||
-      prm.n_blocks > 65535 || (kMode != kSection && prm.mask_sel == nullptr)) {
+  if (n_arms < 1 || n_arms > kMaxArms || smem > kMaxSmem || prm.block <= 0 ||
+      prm.block % kLanes != 0 || (packed && prm.block / kLanes > kPosMask + 1) ||
+      prm.n_rows % prm.block != 0 || prm.n_blocks > 65535 ||
+      (kMode != kSection && prm.mask_sel == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(bucket_tables_kernel<kMode>,
+  cudaError_t err = cudaFuncSetAttribute(fma_tables_kernel<kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((prm.batch + rows_per_tile - 1) / rows_per_tile, prm.n_blocks, n_arms);
-  bucket_tables_kernel<kMode><<<grid, kThreads, smem, stream>>>(prm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- bucket-max v2 on int8 and bf16 rows: wgmma fed by TMA -----------------------------
-//
-// One CTA of 288 threads (two consumer warpgroups and one TMA producer warp)
-// owns `queries` (128 or 64) queries × the 128 lanes of one column block and
-// walks the block's positions p. The query tile is loaded once and stays in
-// shared memory as ceil(row_bytes / 128) chunks of [queries][128 B]; the
-// position's 128 rows stream through a ring of `stages` 16 KB stages
-// (128 rows × 128 bytes, one chunk), each with a full and an empty mbarrier.
-// Per position the producer also bulk-copies the rows' mask bytes and, for
-// int8, their c_scale into a side slot (4 slots, own barriers), so the
-// epilogue reads them from shared memory.
-//   queries = 128: warpgroup w takes queries 64w..64w+63 against every
-//     position; both read each stage, which is free after 256 arrivals;
-//   queries = 64 (rows too wide for a 128-query tile beside a 4-deep ring,
-//     such as bf16 d = 768): warpgroup 0 walks alone through the whole ring.
-//     Splitting the positions between the warpgroups (each through half the
-//     ring: a warpgroup must meet its stages in order, as an mbarrier's parity
-//     wait cannot tell a phase from the one two later) measured slower:
-//     half of a 7-stage ring cannot hide the loads of 12-chunk positions.
-// Each position is one accumulator of 64 queries × 128 lanes (wgmma m64n128,
-// k32 s8·s8→s32 or k16 bf16→f32, both operands K-major: the queries' and
-// rows' bytes are the contraction), issued one chunk (4 k-steps) a commit; a
-// stage is released as soon as the products of the next chunk are in
-// flight, and ring slots and phases are counted, not divided out (a runtime
-// % and / a chunk measured costly). At d = 384-768 a position is
-// only 3-12 chunks, so each warpgroup's drain (wgmma.wait 0) and epilogue at
-// every position are what keep the tensor cores from their rate. Measured
-// slower, and so not taken: the query tiles of a column block as one
-// cluster; the warpgroups taking turns to issue (ping-pong: one waits for
-// the other's whole mainloop); two accumulators per warpgroup issuing the
-// next position before the epilogue (past 168 registers, so no producer
-// warp: loads issued from inside a consumer warpgroup starve the ring).
-constexpr int kV2Consumers = 2 * hopper::kWarpgroup;
-constexpr int kV2Threads = kV2Consumers + 32;
-constexpr int kV2StageBytes = kLanes * kChunk;       // 128 rows × 128 bytes
-constexpr int kV2Side = 4;                           // positions of side data in flight
-constexpr int kV2SideBytes = kLanes * 4 + kLanes;    // c_scale [128] float32, then mask [128]
-constexpr int kV2MaxStages = 8;
-
-int v2_smem_bytes(int queries, int n_chunks, int stages) {
-  return n_chunks * queries * kChunk + stages * kV2StageBytes + kV2Side * kV2SideBytes +
-         (1 + 2 * stages + 2 * kV2Side) * 8 + 1024;  // + barriers, + alignment slack
-}
-
-template <bool kInt8>
-__global__ void __launch_bounds__(kV2Threads, 1)
-bucket_v2_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap x_map,
-                       const float* __restrict__ qscale, const float* __restrict__ cscale,
-                       const uint8_t* __restrict__ mask, float* __restrict__ out,
-                       int* __restrict__ out_pos, int batch, int block, int n_blocks,
-                       int n_chunks, int queries, int stages) {
-  using namespace hopper;
-  using Acc = std::conditional_t<kInt8, int, float>;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = smem_base_1024(smem_raw);
-  const int q_chunk_bytes = queries * kChunk;
-  uint8_t* q_tile = smem;                                  // chunk c at c · q_chunk_bytes
-  uint8_t* ring = smem + n_chunks * q_chunk_bytes;         // stage s at s · kV2StageBytes
-  uint8_t* side = ring + stages * kV2StageBytes;           // slot j at j · kV2SideBytes
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(side + kV2Side * kV2SideBytes);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + stages;
-  uint64_t* side_full = empty + stages;
-  uint64_t* side_empty = side_full + kV2Side;
-
-  const bool split = queries == 128;  // else warpgroup 0 walks alone
-  const int q0 = blockIdx.x * queries;
-  const int n_pos = block / kLanes;
-  const long long block_row0 = static_cast<long long>(blockIdx.y) * block;
-
-  if (threadIdx.x == 0) {
-    const int consumers = split ? kV2Consumers : kWarpgroup;  // arrivals that free a slot
-    mbar_init(q_full, 1);
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], consumers);
-    }
-    for (int j = 0; j < kV2Side; ++j) {
-      mbar_init(&side_full[j], 1);
-      mbar_init(&side_empty[j], consumers);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kV2Consumers) {
-    // Producer: the query tile, then per position its side data and chunks.
-    if (threadIdx.x == kV2Consumers) {
-      mbar_arrive_expect_tx(q_full, n_chunks * q_chunk_bytes);
-      for (int c = 0; c < n_chunks; ++c)
-        tma_load_rows(q_tile + c * q_chunk_bytes, &q_map, q_full, c * kChunk, q0);
-      const uint32_t side_tx = (kInt8 ? kLanes * 4 : 0) + kLanes;
-      int next = 0;  // the ring's next slot, and how many times it has gone round
-      uint32_t lap = 0;
-      for (int p = 0; p < n_pos; ++p) {
-        const long long row0 = block_row0 + static_cast<long long>(p) * kLanes;
-        const int j = p % kV2Side;
-        if (p >= kV2Side) mbar_wait(&side_empty[j], ((p / kV2Side) - 1) & 1);
-        mbar_arrive_expect_tx(&side_full[j], side_tx);
-        uint8_t* slot = side + j * kV2SideBytes;
-        if (kInt8) bulk_load(slot, cscale + row0, kLanes * 4, &side_full[j]);
-        bulk_load(slot + kLanes * 4, mask + row0, kLanes, &side_full[j]);
-        for (int c = 0; c < n_chunks; ++c) {
-          const int s = next;
-          if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
-          mbar_arrive_expect_tx(&full[s], kV2StageBytes);
-          tma_load_rows(ring + s * kV2StageBytes, &x_map, &full[s], c * kChunk,
-                        static_cast<int>(row0));
-          if (++next == stages) {
-            next = 0;
-            ++lap;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  // Consumers: this thread holds queries wq + r and wq + r + 8 of the tile
-  // and lanes 8j + 2t + {0, 1} (the accumulator layout, see hopper.cuh).
-  const int wg = threadIdx.x / kWarpgroup;
-  if (wg == 1 && !split) return;  // 64 queries: warpgroup 0 walks alone
-  const int tw = threadIdx.x % kWarpgroup;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t = threadIdx.x & 3;
-  const int wq = split ? 64 * wg : 0;
-  const int r = tw / 32 * 16 + g;
-  float qs[2] = {0.f, 0.f};
-  if constexpr (kInt8) {
-    for (int h = 0; h < 2; ++h) {
-      const int b = q0 + wq + r + 8 * h;
-      qs[h] = b < batch ? qscale[b] : 0.f;
-    }
-  }
-  Acc acc[64];
-  float best[64];
-#pragma unroll
-  for (int x = 0; x < 64; ++x) best[x] = kNegInf;
-
-  mbar_wait(q_full, 0);
-  const uint64_t q_desc = desc_sw128(q_tile + wq * kChunk);
-  int next = 0, prev = 0;  // this warpgroup's next stage of its ring, the one before
-  uint32_t lap = 0;
-  for (int p = 0; p < n_pos; ++p) {
-    for (int c = 0; c < n_chunks; ++c) {
-      const int s = next;
-      mbar_wait(&full[s], lap & 1);
-      const uint64_t a = q_desc + static_cast<uint64_t>((c * q_chunk_bytes) >> 4);
-      const uint64_t x = desc_sw128(ring + s * kV2StageBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kChunk / 32; ++ks) {
-        if constexpr (kInt8)
-          wgmma_m64n128k32_s8_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
-        else
-          wgmma_m64n128k16_ss(acc, a + ks * kDescKStep, x + ks * kDescKStep, c | ks);
-      }
-      wgmma_commit();
-      if (c > 0) {  // the previous chunk's products are done: free its stage
-        wgmma_wait<1>();
-        mbar_arrive(&empty[prev]);
-      }
-      prev = s;
-      if (++next == stages) {
-        next = 0;
-        ++lap;
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    mbar_arrive(&empty[prev]);
-
-    // Position p: scale, pack, mask, running maximum (the float operations
-    // and order of the plain version, so int8 tables are bit-equal).
-    const int j = p % kV2Side;
-    mbar_wait(&side_full[j], (p / kV2Side) & 1);
-    const uint8_t* slot = side + j * kV2SideBytes;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const int col = 8 * n + 2 * t;
-      const uint32_t m2 = *reinterpret_cast<const uint16_t*>(slot + kLanes * 4 + col);
-      float2 c2 = make_float2(0.f, 0.f);
-      if constexpr (kInt8) c2 = *reinterpret_cast<const float2*>(slot + col * 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * n + e;
-        float v;
-        if constexpr (kInt8)
-          v = __fmul_rn(__fmul_rn(__int2float_rn(acc[x]), qs[e >> 1]), e & 1 ? c2.y : c2.x);
-        else
-          v = acc[x];
-        v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
-        // A masked row would fold in -1e30, which best never falls below.
-        if ((m2 >> (8 * (e & 1))) & 0xFFu) best[x] = fmaxf(best[x], v);
-      }
-    }
-    mbar_arrive(&side_empty[j]);
-  }
-
-  const long long width = static_cast<long long>(n_blocks) * kLanes;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int b = q0 + wq + r + 8 * h;
-    if (b >= batch) continue;
-    const long long row_base = static_cast<long long>(b) * width + blockIdx.y * kLanes + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const int b0 = __float_as_int(best[4 * n + 2 * h]);
-      const int b1 = __float_as_int(best[4 * n + 2 * h + 1]);
-      *reinterpret_cast<float2*>(out + row_base + 8 * n) =
-          make_float2(__int_as_float(b0 & ~kPosMask), __int_as_float(b1 & ~kPosMask));
-      *reinterpret_cast<int2*>(out_pos + row_base + 8 * n) =
-          make_int2(b0 & kPosMask, b1 & kPosMask);
-    }
-  }
-}
-
-int launch_v2_wgmma(const void* q, const void* corpus, const void* qscale, const void* cscale,
-                    const void* mask, void* out, void* out_pos, int row_bytes, int kind, int batch,
-                    long long n_rows, int block, int queries, int stages, cudaStream_t stream) {
-  const int n_chunks = (row_bytes + kChunk - 1) / kChunk;
-  const int smem = v2_smem_bytes(queries, n_chunks, stages);
-  const bool int8 = kind == kInt8;
-  if (row_bytes <= 0 || row_bytes % 16 != 0 || (queries != 64 && queries != 128) ||
-      stages < 2 || stages > kV2MaxStages || smem > kMaxSmem || block <= 0 ||
-      block % kLanes != 0 || block / kLanes > kPosMask + 1 || n_rows % block != 0 ||
-      n_rows / block > 65535 || n_rows >= (1ll << 31) || mask == nullptr ||
-      (int8 && (qscale == nullptr || cscale == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(corpus) |
-       reinterpret_cast<uintptr_t>(cscale) | reinterpret_cast<uintptr_t>(mask)) % 16 != 0) {
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  }
-  CUtensorMap q_map, x_map;
-  if (int rc = hopper::make_rows_map(&q_map, q, batch, row_bytes, queries)) return rc;
-  if (int rc = hopper::make_rows_map(&x_map, corpus, n_rows, row_bytes, kLanes)) return rc;
-  const void* kernel = int8 ? reinterpret_cast<const void*>(bucket_v2_wgmma_kernel<true>)
-                            : reinterpret_cast<const void*>(bucket_v2_wgmma_kernel<false>);
-  const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int n_blocks = static_cast<int>(n_rows / block);
-  const dim3 grid((batch + queries - 1) / queries, n_blocks);
-  const float* qs = static_cast<const float*>(qscale);
-  const float* cs = static_cast<const float*>(cscale);
-  const uint8_t* mk = static_cast<const uint8_t*>(mask);
-  float* ov = static_cast<float*>(out);
-  int* op = static_cast<int*>(out_pos);
-  if (int8)
-    bucket_v2_wgmma_kernel<true><<<grid, kV2Threads, smem, stream>>>(
-        q_map, x_map, qs, cs, mk, ov, op, batch, block, n_blocks, n_chunks, queries, stages);
-  else
-    bucket_v2_wgmma_kernel<false><<<grid, kV2Threads, smem, stream>>>(
-        q_map, x_map, qs, cs, mk, ov, op, batch, block, n_blocks, n_chunks, queries, stages);
+  const dim3 grid((prm.batch + FmaTile::kQueries - 1) / FmaTile::kQueries, prm.n_blocks, n_arms);
+  fma_tables_kernel<kMode><<<grid, kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -799,71 +823,92 @@ Params make_params(int batch, long long n_rows, int block) {
   return prm;
 }
 
-Arm make_arm(const void* q, const void* corpus, const void* qscale, const void* cscale, void* out,
-             void* out_pos, int row_bytes, int kind) {
+Arm make_arm(const void* q, const void* corpus, void* out, void* out_pos, int row_bytes) {
   return Arm{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
-             static_cast<const float*>(qscale), static_cast<const float*>(cscale),
-             static_cast<float*>(out), static_cast<int*>(out_pos), row_bytes, kind};
+             static_cast<float*>(out), static_cast<int*>(out_pos), row_bytes};
 }
 
 }  // namespace
 
 // Row kinds: 0 = bf16, 1 = int8 codes, 2 = float32.
 //
-// Per arm a < n_arms: q[a] [batch, d_a] and corpus[a] [n_rows, d_a] of kind
-// kind[a], qscale[a] [batch] and cscale[a] [n_rows] float32 for int8 arms,
+// Arms a < n_arms, all of row kind `kind`: q[a] [batch, d_a] and corpus[a]
+// [n_rows, d_a], qscale[a] [batch] and cscale[a] [n_rows] float32 for int8,
 // out[a] [batch, n_rows/block·128] float32; mask_add [n_rows] float32 or
-// null. All contiguous. Returns the CUDA error code of the launch.
+// null. int8 and bf16 arms run on the wgmma walk, each with its tile of
+// queries[a] (64 or 128) and ring of stages[a] (2-8); q, corpus, cscale and
+// mask_add 16-byte aligned. float32 arms take the FMA walk and ignore both.
+// All contiguous. Returns the CUDA error code of the launch.
 extern "C" int section_tables(int n_arms, const void* const* q, const void* const* corpus,
                               const void* const* qscale, const void* const* cscale,
-                              void* const* out, const int* row_bytes, const int* kind,
-                              const void* mask_add, int batch, long long n_rows, int block,
-                              void* stream) {
-  if (n_arms < 1 || n_arms > kMaxArms) return static_cast<int>(cudaErrorInvalidValue);
-  if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  Params prm = make_params(batch, n_rows, block);
-  for (int a = 0; a < n_arms; ++a) {
-    prm.arm[a] = make_arm(q[a], corpus[a], qscale[a], cscale[a], out[a], nullptr, row_bytes[a],
-                          kind[a]);
+                              void* const* out, const int* row_bytes, const int* queries,
+                              const int* stages, int kind, const void* mask_add, int batch,
+                              long long n_rows, int block, void* stream) {
+  if (n_arms < 1 || n_arms > kMaxArms || kind < kBf16 || kind > kF32) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  prm.mask_add = static_cast<const float*>(mask_add);
-  return launch<kSection>(prm, n_arms, static_cast<cudaStream_t>(stream));
+  if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (kind == kF32) {
+    Params prm = make_params(batch, n_rows, block);
+    for (int a = 0; a < n_arms; ++a) {
+      prm.arm[a] = make_arm(q[a], corpus[a], out[a], nullptr, row_bytes[a]);
+    }
+    prm.mask_add = static_cast<const float*>(mask_add);
+    return launch_fma<kSection>(prm, n_arms, static_cast<cudaStream_t>(stream));
+  }
+  WalkArgs args[kMaxArms];
+  for (int a = 0; a < n_arms; ++a) {
+    args[a] = WalkArgs{q[a],      corpus[a],    qscale[a], cscale[a], out[a],
+                       nullptr,   row_bytes[a], queries[a], stages[a]};
+  }
+  return launch_walk<kSection>(args, n_arms, kind == kInt8, mask_add, batch, n_rows, block,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // q [batch, d], corpus [n_rows, d] of `kind`, qscale [batch] / cscale
 // [n_rows] float32 for int8, mask [n_rows] bool; out_val [batch,
 // n_rows/block·128] float32 (low 7 bits cleared), out_pos the same shape
-// int32 (position in the bucket). int8 and bf16 rows run on wgmma with a
-// tile of `queries` (64 or 128) and a ring of `stages` (2-8); q, corpus,
-// cscale and mask 16-byte aligned. float32 rows take the FMA tile and ignore
-// both. Returns the CUDA error code.
+// int32 (position in the bucket). int8 and bf16 rows run on the wgmma walk
+// with a tile of `queries` (64 or 128) and a ring of `stages` (2-8); q,
+// corpus, cscale and mask 16-byte aligned. float32 rows take the FMA walk and
+// ignore both. Returns the CUDA error code.
 extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qscale,
                              const void* cscale, const void* mask, void* out_val, void* out_pos,
                              int row_bytes, int kind, int batch, long long n_rows, int block,
                              int queries, int stages, void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   if (kind == kInt8 || kind == kBf16) {
-    return launch_v2_wgmma(q, corpus, qscale, cscale, mask, out_val, out_pos, row_bytes, kind,
-                           batch, n_rows, block, queries, stages,
-                           static_cast<cudaStream_t>(stream));
+    const WalkArgs args{q, corpus, qscale, cscale, out_val, out_pos, row_bytes, queries, stages};
+    return launch_walk<kBucketV2>(&args, 1, kind == kInt8, mask, batch, n_rows, block,
+                                  static_cast<cudaStream_t>(stream));
   }
+  if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
   Params prm = make_params(batch, n_rows, block);
-  prm.arm[0] = make_arm(q, corpus, qscale, cscale, out_val, out_pos, row_bytes, kind);
+  prm.arm[0] = make_arm(q, corpus, out_val, out_pos, row_bytes);
   prm.mask_sel = static_cast<const uint8_t*>(mask);
-  return launch<kBucketV2>(prm, 1, static_cast<cudaStream_t>(stream));
+  return launch_fma<kBucketV2>(prm, 1, static_cast<cudaStream_t>(stream));
 }
 
 // q [batch, d], corpus [n_rows, d] bf16 (kind 0) or float32 (kind 2), mask
 // [n_rows] bool; out_val [batch, n_rows/128] float32 (each bucket's
 // maximum, -1e30 where all its rows are masked), out_row the same shape int32
 // (global row of the highest lane holding it). `block` (a 128-multiple that
-// divides n_rows) only sets the work per CTA. Returns the CUDA error code.
+// divides n_rows) only sets the work per CTA. bf16 rows run on the wgmma walk
+// with a tile of `queries` and a ring of `stages`, q, corpus and mask 16-byte
+// aligned; float32 rows take the FMA walk and ignore both. Returns the CUDA
+// error code.
 extern "C" int bucket_max_v1(const void* q, const void* corpus, const void* mask, void* out_val,
                              void* out_row, int row_bytes, int kind, int batch, long long n_rows,
-                             int block, void* stream) {
+                             int block, int queries, int stages, void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (kind == kBf16) {
+    const WalkArgs args{q, corpus, nullptr, nullptr, out_val, out_row, row_bytes, queries, stages};
+    return launch_walk<kBucketV1>(&args, 1, false, mask, batch, n_rows, block,
+                                  static_cast<cudaStream_t>(stream));
+  }
+  if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
   Params prm = make_params(batch, n_rows, block);
-  prm.arm[0] = make_arm(q, corpus, nullptr, nullptr, out_val, out_row, row_bytes, kind);
+  prm.arm[0] = make_arm(q, corpus, out_val, out_row, row_bytes);
   prm.mask_sel = static_cast<const uint8_t*>(mask);
-  return launch<kBucketV1>(prm, 1, static_cast<cudaStream_t>(stream));
+  return launch_fma<kBucketV1>(prm, 1, static_cast<cudaStream_t>(stream));
 }

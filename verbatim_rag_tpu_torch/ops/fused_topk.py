@@ -25,14 +25,15 @@ table of (value with the low bits cleared, global row) is written; the
 :func:`matmul_bucket_max_v2_reference` is the plain PyTorch version (scores
 per block, pack, select, a [B, P, 128] maximum), the CPU path and the
 kernel's oracle. :func:`matmul_bucket_max_v2_cuda` launches
-`csrc/section.cu::bucket_max_v2` (int8 and bf16 rows on wgmma fed by TMA,
-with the query tile and ring depth of :func:`v2_geometry`; float32 rows on
-the FMA tile), which replaces the TPU kernels
+`csrc/section.cu::bucket_max_v2`, which replaces the TPU kernels
 `_bucket_max_v2_onedot_kernel` and `_bucket_max_v2_chunked_kernel`. The two
 TPU variants compute the same function and are both served by the one CUDA
 kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
 
 The kernels read int8 (v2 only), bf16 or float32 rows (`check_kernel_rows`).
+int8 and bf16 rows run on the wgmma walk of `csrc/section.cu` (one main loop
+for section, v2 and v1, each with its epilogue) with the query tile and ring
+depth of :func:`walk_geometry`; float32 rows on the FMA walk.
 """
 
 from __future__ import annotations
@@ -132,80 +133,93 @@ def _positions(block_rows: int, device) -> torch.Tensor:
 #: Row kinds of `csrc/section.cu`.
 KERNEL_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
-#: Shared memory a CTA of `csrc/section.cu` may use, and what it takes
-#: besides its query tile (three 128-row stages of 144 bytes a row).
+#: Shared memory a CTA of `csrc/section.cu` may use, and what the FMA walk
+#: takes besides its query tile (three 128-row stages of 144 bytes a row).
 _SMEM_LIMIT = 232448
 _SMEM_STAGES = 3 * 128 * 144
-#: v1 on the tensor-core tile: each lane-warp's (value, lane) per query.
-_SMEM_V1_REDUCE = 2 * 64 * 8
 
-#: v2 on int8 / bf16 rows (`bucket_v2_wgmma_kernel`): the query tile as
-#: 128-byte chunks of [queries][128 B], a ring of 16 KB stages (128 rows ×
-#: 128 bytes), 4 side slots of c_scale and mask (640 bytes each), the
-#: mbarriers and 1024 bytes of alignment slack. Mirrors `v2_smem_bytes`.
-_V2_STAGE_BYTES = 128 * 128
-_V2_SIDE_BYTES = 4 * (128 * 4 + 128)
-_V2_MIN_STAGES, _V2_TILE_STAGES, _V2_MAX_STAGES = 2, 4, 8
+#: The wgmma walk (`table_walk`): the query tile as 128-byte chunks of
+#: [queries][128 B], a ring of 16 KB stages (128 rows × 128 bytes), 4 side
+#: slots, the mbarriers and 1024 bytes of alignment slack. Mirrors
+#: `walk_smem_bytes`. A side slot holds c_scale [128] float32, then the mask:
+#: its bytes for v2 and v1 (`kSideBytesV2`), mask_add [128] float32 for
+#: section (`kSideBytesSection`). The keys are the walk's epilogues (`mode`).
+_WALK_STAGE_BYTES = 128 * 128
+_WALK_SIDE_SLOTS = 4
+_WALK_SIDE_BYTES = {"section": 128 * 4 + 128 * 4, "v2": 128 * 4 + 128, "v1": 128 * 4 + 128}
+_WALK_MIN_STAGES, _WALK_TILE_STAGES, _WALK_MAX_STAGES = 2, 4, 8
 
 
-def _v2_smem(queries: int, row_bytes: int, stages: int) -> int:
+def _walk_smem(queries: int, row_bytes: int, stages: int, mode: str = "v2") -> int:
     chunks = -(-row_bytes // 128)
-    barriers = (1 + 2 * stages + 2 * 4) * 8
-    return chunks * queries * 128 + stages * _V2_STAGE_BYTES + _V2_SIDE_BYTES + barriers + 1024
+    side = _WALK_SIDE_SLOTS * _WALK_SIDE_BYTES[mode]
+    barriers = (1 + 2 * stages + 2 * _WALK_SIDE_SLOTS) * 8
+    return chunks * queries * 128 + stages * _WALK_STAGE_BYTES + side + barriers + 1024
 
 
-def v2_geometry(row_bytes: int) -> tuple[int, int]:
-    """(queries a CTA, ring stages) of the v2 wgmma kernel for int8 or bf16
-    rows of ``row_bytes``: 128 queries (two warpgroups of 64) when their tile
-    fits beside a 4-deep ring (up to 1152 bytes a row: int8 d ≤ 1152, bf16
-    d ≤ 576), else 64 (one warpgroup); then the deepest ring up to 8 stages
-    that fits. The stage count is below 2 when even that does not fit
-    (`check_kernel_rows` refuses such rows)."""
-    queries = 128 if _v2_smem(128, row_bytes, _V2_TILE_STAGES) <= _SMEM_LIMIT else 64
-    stages = _V2_MAX_STAGES
-    while stages >= _V2_MIN_STAGES and _v2_smem(queries, row_bytes, stages) > _SMEM_LIMIT:
+def walk_geometry(row_bytes: int, mode: str = "v2") -> tuple[int, int]:
+    """(queries a CTA, ring stages) of the wgmma walk for int8 or bf16 rows
+    of ``row_bytes`` under epilogue ``mode``: 128 queries (two warpgroups of
+    64) when their tile fits beside a 4-deep ring (up to 1152 bytes a row:
+    int8 d ≤ 1152, bf16 d ≤ 576), else 64 (one warpgroup); then the deepest
+    ring up to 8 stages that fits. The stage count is below 2 when even that
+    does not fit (`check_kernel_rows` refuses such rows)."""
+    fits = _walk_smem(128, row_bytes, _WALK_TILE_STAGES, mode) <= _SMEM_LIMIT
+    queries = 128 if fits else 64
+    stages = _WALK_MAX_STAGES
+    while stages >= _WALK_MIN_STAGES and _walk_smem(queries, row_bytes, stages, mode) > _SMEM_LIMIT:
         stages -= 1
     return queries, stages
 
 
-def tile_queries(dtype, row_bytes: int = 0, v2: bool = False) -> int:
-    """Queries per CTA: 32 for float32 rows (FMA tile); for int8 and bf16
-    rows 64 on the shared walk (section, v1) and `v2_geometry`'s on v2's."""
+def tile_queries(dtype, row_bytes: int, mode: str = "v2") -> int:
+    """Queries per CTA: 32 for float32 rows (FMA walk), `walk_geometry`'s
+    for int8 and bf16 rows."""
     if dtype == torch.float32:
         return 32
-    return v2_geometry(row_bytes)[0] if v2 else 64
+    return walk_geometry(row_bytes, mode)[0]
 
 
-def kernel_smem_bytes(dtype, row_bytes: int, v1: bool = False, v2: bool = False) -> int:
-    """Shared memory of one CTA. The shared walk: the query tile (rows padded
-    to 128 bytes plus 16), the three stages and, for v1 on tensor cores, the
-    reduction. v2 on int8 or bf16 rows: `v2_geometry`'s tile and ring (at
-    least 2 stages)."""
-    if v2 and dtype != torch.float32:
-        queries, stages = v2_geometry(row_bytes)
-        return _v2_smem(queries, row_bytes, max(stages, _V2_MIN_STAGES))
-    padded = -(-row_bytes // 128) * 128
-    reduce = _SMEM_V1_REDUCE if v1 and dtype != torch.float32 else 0
-    return tile_queries(dtype) * (padded + 16) + _SMEM_STAGES + reduce
+def kernel_smem_bytes(dtype, row_bytes: int, mode: str = "v2") -> int:
+    """Shared memory of one CTA. The FMA walk (float32 rows): the query tile
+    (rows padded to 128 bytes plus 16) and the three stages. The wgmma walk
+    (int8, bf16): `walk_geometry`'s tile and ring (at least 2 stages)."""
+    if dtype == torch.float32:
+        return 32 * (-(-row_bytes // 128) * 128 + 16) + _SMEM_STAGES
+    queries, stages = walk_geometry(row_bytes, mode)
+    return _walk_smem(queries, row_bytes, max(stages, _WALK_MIN_STAGES), mode)
 
 
-def check_kernel_rows(corpus, what: str, v1: bool = False, v2: bool = False) -> int:
-    """Row width in bytes that `csrc/section.cu` takes for ``corpus``, or a
-    raise: int8, bfloat16 or float32 rows, 16-byte multiples (the kernel
-    copies rows in 16-byte pieces), and a query tile that fits shared memory
-    (up to 2688 bytes a row for int8 and bf16 on the shared walk, 2944 on
-    v2's wgmma kernel, 5504 for float32)."""
+def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
+    """Row width in bytes that `csrc/section.cu` takes for ``corpus`` under
+    epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows, 16-byte
+    multiples (TMA boxes and cp.async pieces), and a query tile that fits
+    shared memory (up to 2944 bytes a row for int8 and bf16 on the wgmma
+    walk, 5504 for float32 on the FMA walk)."""
     if corpus.dtype not in KERNEL_KINDS:
         raise TypeError(
             f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
         )
     row_bytes = corpus.shape[1] * corpus.element_size()
-    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, v1, v2) > _SMEM_LIMIT:
+    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, mode) > _SMEM_LIMIT:
         raise ValueError(
             f"the {what} kernel takes rows of a 16-byte multiple whose query tile "
-            f"fits shared memory, got {corpus.shape[1]} × {corpus.element_size()} bytes"
+            f"fits shared memory (up to 2944 bytes for int8 and bf16, 5504 for "
+            f"float32), got {corpus.shape[1]} × {corpus.element_size()} bytes"
         )
     return row_bytes
+
+
+def kernel_operands(corpus, q, what: str):
+    """(contiguous corpus, prepared queries, their int8 scales or None) for a
+    launch. The kernels copy rows in 16-byte pieces (TMA boxes, cp.async),
+    so rows must start 16-byte aligned: a corpus view that does not raises,
+    queries are copied."""
+    corpus = corpus.contiguous()
+    if corpus.data_ptr() % 16:
+        raise ValueError(f"the {what} kernel reads corpus rows in 16-byte pieces: align them")
+    qp, q_scale = prepare_queries(q, corpus)
+    return corpus, _aligned(qp), q_scale
 
 
 def globalize_rows(pos: torch.Tensor, block_rows: int, n: int) -> torch.Tensor:
@@ -247,19 +261,16 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
     block_rows = choose_block_rows(n)
     if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
         raise ValueError("matmul_bucket_max_v2_cuda needs CUDA tensors")
-    row_bytes = check_kernel_rows(corpus, "bucket", v2=True)
+    row_bytes = check_kernel_rows(corpus, "bucket", "v2")
     if mask.dtype != torch.bool or mask.shape != (n,):
         raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
-    corpus = corpus.contiguous()
-    if corpus.data_ptr() % 16:
-        raise ValueError("the bucket kernel reads corpus rows by TMA: they must be 16-byte aligned")
-    qp, q_scale = prepare_queries(q, corpus)
+    corpus, qp, q_scale = kernel_operands(corpus, q, "bucket")
     c_scale = None
     if corpus.dtype == torch.int8:
         c_scale = _aligned(scale.reshape(-1).float().contiguous())
     mask = _aligned(mask.contiguous())
-    # int8 / bf16 rows: the wgmma kernel's tile and ring; float32 ignores them.
-    queries, stages = (0, 0) if corpus.dtype == torch.float32 else v2_geometry(row_bytes)
+    # int8 / bf16 rows: the wgmma walk's tile and ring; float32 ignores them.
+    queries, stages = (0, 0) if corpus.dtype == torch.float32 else walk_geometry(row_bytes, "v2")
     lib = cuda_build.load("section")
     width = (n // block_rows) * BUCKET
     vals = torch.empty((qp.shape[0], width), dtype=torch.float32, device=corpus.device)
@@ -287,7 +298,7 @@ def _ptr(t) -> int | None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data is not 16-byte aligned (the
-    wgmma kernel bulk-copies the mask and scales)."""
+    wgmma walk loads queries by TMA and bulk-copies the mask and scales)."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -379,12 +390,14 @@ def matmul_bucket_max_reference(corpus, q, mask):
     return torch.cat(vals, dim=1), torch.cat(rows, dim=1)
 
 
-def v1_block_rows(n: int, batch: int, dtype, n_sm: int) -> int:
+def v1_block_rows(n: int, batch: int, dtype, n_sm: int, row_bytes: int) -> int:
     """Rows per column block of the v1 kernel. Any 128-multiple that divides
     ``n`` gives the same table, so take the largest ≤ 16384 and halve it
-    (down to 1024) while the grid holds fewer than two CTAs per SM."""
+    (down to 1024) while the grid holds fewer than two waves of one CTA an
+    SM (the wgmma walk's 288-thread CTA takes a whole SM; the FMA walk's
+    32-query tiles are counted the same way)."""
     block = min(n, BLOCK_ROWS)
-    tiles = -(-batch // tile_queries(dtype))
+    tiles = -(-batch // tile_queries(dtype, row_bytes, "v1"))
     while (n // block) * tiles < 2 * n_sm and block > 1024:
         half = block // 2
         if half % BUCKET or n % half:
@@ -400,28 +413,30 @@ def matmul_bucket_max_cuda(corpus, q, mask):
     if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
         raise ValueError("matmul_bucket_max_cuda needs CUDA tensors")
     n, d = corpus.shape
-    row_bytes = check_kernel_rows(corpus, "bucket v1", v1=True)
+    row_bytes = check_kernel_rows(corpus, "bucket v1", "v1")
     if q.dim() != 2 or q.shape[1] != d:
         raise ValueError(f"queries must be [B, {d}], got {tuple(q.shape)}")
     if mask.dtype != torch.bool or mask.shape != (n,):
         raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
-    qp = q.to(corpus.dtype).contiguous()
-    corpus = corpus.contiguous()
-    mask = mask.contiguous()
+    corpus, qp, _ = kernel_operands(corpus, q, "bucket v1")
+    mask = _aligned(mask.contiguous())
     batch = qp.shape[0]
     vals = torch.empty((batch, n // BUCKET), dtype=torch.float32, device=corpus.device)
     rows = torch.empty((batch, n // BUCKET), dtype=torch.int32, device=corpus.device)
     if vals.numel():
         n_sm = torch.cuda.get_device_properties(corpus.device).multi_processor_count
-        block = v1_block_rows(n, batch, corpus.dtype, n_sm)
+        block = v1_block_rows(n, batch, corpus.dtype, n_sm, row_bytes)
+        # bf16 rows: the wgmma walk's tile and ring; float32 ignores them.
+        float32 = corpus.dtype == torch.float32
+        queries, stages = (0, 0) if float32 else walk_geometry(row_bytes, "v1")
         fn = cuda_build.load("section").bucket_max_v1
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         rc = fn(
             qp.data_ptr(), corpus.data_ptr(), mask.data_ptr(), vals.data_ptr(), rows.data_ptr(),
-            row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block,
+            row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block, queries, stages,
             torch.cuda.current_stream(corpus.device).cuda_stream,
         )
         cuda_build.check(rc, "bucket_max_v1")

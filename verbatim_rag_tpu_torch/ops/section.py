@@ -19,8 +19,10 @@ are the same.
 column block, pack, mask, a [B, P, 128] maximum), the CPU path and the
 kernel's oracle; :func:`section_tables_cuda` launches
 `csrc/section.cu::section_tables`, which replaces the TPU kernel
-`_make_section_kernel`. :func:`section_bucket_tables` dispatches on the
-tensors' device.
+`_make_section_kernel`: int8 and bf16 arms on the wgmma walk, float32 arms on
+the FMA walk, one launch for the arms of each row kind
+(:func:`plan_section_launches`). :func:`section_bucket_tables` dispatches on
+the tensors' device.
 """
 
 from __future__ import annotations
@@ -37,12 +39,15 @@ from .fused_topk import (
     _POS_BITS,
     _POS_MASK,
     KERNEL_KINDS,
+    _aligned,
     _pack_pos,
     _positions,
     _ptr,
     block_scores,
     check_kernel_rows,
+    kernel_operands,
     prepare_queries,
+    walk_geometry,
 )
 
 #: Corpus rows per column block at the default (one winner per 64 rows).
@@ -107,8 +112,24 @@ def section_tables_reference(corpora, queries, mask, scales, block_cols: int):
     return tuple(tables)
 
 
+def plan_section_launches(arms) -> list[tuple]:
+    """How `section_tables_cuda` launches arms of ``(dtype, row_bytes)``: one
+    launch per row kind, kinds in the order of their first arm, as
+    ``(dtype, arm indices, per-arm (queries, ring stages))``. A launch of int8
+    or bf16 arms runs the wgmma walk with each arm's `walk_geometry`; float32
+    arms run the FMA walk's 32-query tile (no ring stages to choose: 0)."""
+    plan: dict = {}
+    for i, (dtype, row_bytes) in enumerate(arms):
+        geometry = (32, 0) if dtype == torch.float32 else walk_geometry(row_bytes, "section")
+        _, idx, geometries = plan.setdefault(dtype, (dtype, [], []))
+        idx.append(i)
+        geometries.append(geometry)
+    return list(plan.values())
+
+
 def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
-    """Launch the CUDA kernel once for all arms: the plain version's tables."""
+    """Launch the CUDA kernels for all arms (one launch per row kind, counted
+    as one call): the plain version's tables."""
     global launches
     n = corpora[0].shape[0]
     n_arms = len(corpora)
@@ -119,10 +140,10 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
         raise ValueError("section_tables_cuda needs CUDA tensors")
     arms = []
     for corpus, q, scale in zip(corpora, queries, scales):
-        row_bytes = check_kernel_rows(corpus, "section")
-        qp, q_scale = prepare_queries(q, corpus)
-        c_scale = None if scale is None else scale.reshape(-1).float().contiguous()
-        arms.append((corpus.contiguous(), qp, q_scale, c_scale, row_bytes))
+        row_bytes = check_kernel_rows(corpus, "section", "section")
+        corpus, qp, q_scale = kernel_operands(corpus, q, "section")
+        c_scale = None if scale is None else _aligned(scale.reshape(-1).float().contiguous())
+        arms.append((corpus, qp, q_scale, c_scale, row_bytes))
     batch = queries[0].shape[0]
     width = (n // block_cols) * LANE
     tables = tuple(
@@ -132,32 +153,35 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
     if batch == 0 or n == 0:
         return tables
     mask_add = None if mask is None else torch.where(mask, 0.0, NEG_INF).float().contiguous()
-    pointers = ctypes.c_void_p * MAX_ARMS
-    ints = ctypes.c_int * MAX_ARMS
 
-    def column(values):
-        return pointers(*values, *([None] * (MAX_ARMS - len(values))))
+    def pointers(values):
+        return (ctypes.c_void_p * MAX_ARMS)(*values, *([None] * (MAX_ARMS - len(values))))
 
-    lib = cuda_build.load("section")
-    fn = lib.section_tables
+    def ints(values):
+        return (ctypes.c_int * MAX_ARMS)(*values, *([0] * (MAX_ARMS - len(values))))
+
+    fn = cuda_build.load("section").section_tables
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p,
     ]
-    rc = fn(
-        n_arms,
-        column([a[1].data_ptr() for a in arms]),
-        column([a[0].data_ptr() for a in arms]),
-        column([_ptr(a[2]) for a in arms]),
-        column([_ptr(a[3]) for a in arms]),
-        column([t.data_ptr() for t in tables]),
-        ints(*[a[4] for a in arms], *([0] * (MAX_ARMS - n_arms))),
-        ints(*[KERNEL_KINDS[a[0].dtype] for a in arms], *([0] * (MAX_ARMS - n_arms))),
-        _ptr(mask_add),
-        batch, n, block_cols,
-        torch.cuda.current_stream(corpora[0].device).cuda_stream,
-    )
-    cuda_build.check(rc, "section_tables")
+    stream = torch.cuda.current_stream(corpora[0].device).cuda_stream
+    for dtype, idx, geometries in plan_section_launches([(a[0].dtype, a[4]) for a in arms]):
+        group = [arms[i] for i in idx]
+        rc = fn(
+            len(group),
+            pointers([a[1].data_ptr() for a in group]),
+            pointers([a[0].data_ptr() for a in group]),
+            pointers([_ptr(a[2]) for a in group]),
+            pointers([_ptr(a[3]) for a in group]),
+            pointers([tables[i].data_ptr() for i in idx]),
+            ints([a[4] for a in group]),
+            ints([g[0] for g in geometries]),
+            ints([g[1] for g in geometries]),
+            KERNEL_KINDS[dtype], _ptr(mask_add), batch, n, block_cols, stream,
+        )
+        cuda_build.check(rc, "section_tables")
     launches += 1
     return tables
 
