@@ -14,7 +14,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              bucket-max v2 kernels on int8 and bf16 rows and its bucket-max v1
              kernel on bf16 rows; `cuobjdump -sass`): each must hold wgmma and
              UTMALDG, no mma.sync, and spill nothing; no kernel of the
-             section library may hold mma.sync;
+             section library may hold mma.sync; the float32 table walk
+             (`FMA_KERNELS`, its three modes) must hold UTMALDG and no
+             tensor-core instruction (HGMMA, IGMMA, HMMA, IMMA: never TF32)
+             and spill nothing, and the rescore kernel must spill nothing;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes, with timings, bounds and the library
              yardstick:
@@ -29,17 +32,20 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              length mask dropped) must fail that check;
              exact rescore at B=512, C=256, m=128, qm=32 over a 1M-row
              forward index with missing (−1) candidates, int32/float32 and
-             int16/float16 slots; rtol 1e-5;
+             int16/float16 slots; rtol 1e-5, −1e30 exactly where missing;
+             three planted faults (every candidate row shifted by one; each
+             query's last live term dropped; the int16/float16 index with
+             its weights zeroed past slot m/2) must fail that check;
              section tables (both arms, dense 384 + sketch 768) and
              bucket-max v2 (each arm) at B=512 over N=1,007,616 rows (blocks
              of 8192; int8, bf16 and float32 rows) and N=1,048,576 (blocks
              of 16384; int8 and bf16), dead rows in the mask: int8 tables
              bit-equal to the plain version; bf16 and float32 values within
              2⁻¹⁵·|q| and each differing row a winner whose exact score is
-             within that of the plain one's; on v2's int8 and bf16 dense
-             arms at N=1,007,616 two planted faults (the mask ignored; the
-             last position of each block dropped) must fail that check, and
-             on the section kernel at the same shape three (the mask
+             within that of the plain one's; on v2's int8, bf16 and float32
+             dense arms at N=1,007,616 two planted faults (the mask ignored;
+             the last position of each block dropped) must fail that check,
+             and on the section kernel at the same shape three (the mask
              ignored; the last position dropped; arm 1 reading arm 0's
              rows); section calls that mix row kinds (int8 + float32, bf16 +
              int8, three bf16 arms of 64, 384 and 768 columns) at N=32,768,
@@ -190,6 +196,16 @@ WGMMA_KERNELS = {
 #: Libraries none of whose kernels may hold mma.sync (HMMA, IMMA): the table
 #: kernels run on wgmma (int8, bf16) or on the CUDA cores (float32).
 NO_MMA_SYNC = ("section",)
+#: Kernels that must run on the CUDA cores fed by TMA: the float32 table walk
+#: in its three modes (section, v2, v1). The build phase requires UTMALDG and
+#: no tensor-core instruction (HGMMA, IGMMA, HMMA, IMMA: float32 dots are
+#: never TF32) in their SASS, and no spill.
+FMA_KERNELS = {
+    "section": ("fma_walk_kernelILi0E", "fma_walk_kernelILi1E", "fma_walk_kernelILi2E"),
+}
+#: Kernels that must not spill, whatever they run on (every instance of a
+#: template counts: the rescore has one per slot type).
+NO_SPILL = ("rescore_kernel",)
 #: Partial-kernel check: l's relative limit (float32 sums of the same P).
 PARTIAL_L_RTOL = 1e-4
 #: The long_sp phase: shards on the one card, and the largest difference
@@ -231,6 +247,39 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
+    """(mean device time in ms, records) of the kernels whose name holds
+    ``kernel``, from ``torch.profiler`` around ``reps`` calls of ``fn``
+    (after one warm-up call): the kernel's own time, where `cuda_ms` of a
+    kernel shorter than its wrapper's host time measures the host. The
+    profiler may miss a launch at the start of its window, so a window with
+    fewer than ``reps`` records is taken once more and the fuller one kept;
+    it must hold at least ``reps // 2``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = (0.0, 0)
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [
+            e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key
+        ]
+        count = sum(e.count for e in rows)
+        if count > best[1]:
+            best = (sum(e.self_device_time_total for e in rows), count)
+        if count == reps:
+            break
+    total_us, count = best
+    require(reps // 2 <= count <= reps, f"{kernel}: {count} device records for {reps} calls")
+    return total_us / 1e3 / count, count
+
+
 def device_profile(fn, top: int = 8) -> dict:
     """Run ``fn`` once under ``torch.profiler``: wall ms, summed kernel ms,
     idle share of the device, and the kernels that took the most time."""
@@ -270,34 +319,38 @@ def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
 
 def kernel_name(mangled: str) -> str:
     """The kernel's own name inside a mangled symbol: the last of its
-    length-prefixed names (namespaces first), with a bool template flag."""
+    length-prefixed names (namespaces first), with a bool or int template
+    flag."""
     pos = 3 if mangled.startswith("_ZN") else 2
     name = mangled
     while pos < len(mangled) and mangled[pos].isdigit():
         digits = re.match(r"\d+", mangled[pos:]).group()
         start = pos + len(digits)
         name, pos = mangled[start : start + int(digits)], start + int(digits)
-    flag = re.match(r"ILb[01]E", mangled[pos:])
+    flag = re.match(r"IL[bi]\d+E", mangled[pos:])
     return name + (flag.group() if flag else "")
 
 
 def ptxas_report(log_text: str) -> dict:
-    """``{kernel: {"registers": n, "spill_bytes": n}}`` from ``-Xptxas -v``."""
+    """``{kernel: {"registers": n, "spill_bytes": n}}`` from ``-Xptxas -v``.
+    Instances of a template that `kernel_name` does not tell apart (the
+    rescore's slot types) merge: the most registers, the most spilled."""
     report, current = {}, None
     for line in log_text.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
             current = kernel_name(entry.group(1))
-            report[current] = {"registers": None, "spill_bytes": 0}
+            report.setdefault(current, {"registers": None, "spill_bytes": 0})
             continue
         if current is None:
             continue
+        info = report[current]
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
-            report[current]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+            info["spill_bytes"] = max(info["spill_bytes"], int(spill.group(1)) + int(spill.group(2)))
         used = re.search(r"Used (\d+) registers", line)
         if used:
-            report[current]["registers"] = int(used.group(1))
+            info["registers"] = max(info["registers"] or 0, int(used.group(1)))
     return report
 
 
@@ -333,7 +386,9 @@ def check_build(build_logs: dict) -> dict:
     """Print every kernel's registers and spills; require the wgmma kernels
     to spill nothing, to hold wgmma (HGMMA, or IGMMA on int8) and UTMALDG
     instructions, and no mma.sync (HMMA, IMMA); require no kernel of a
-    `NO_MMA_SYNC` library to hold mma.sync."""
+    `NO_MMA_SYNC` library to hold mma.sync; require the `FMA_KERNELS` to hold
+    UTMALDG, no tensor-core instruction, and to spill nothing, and the
+    `NO_SPILL` kernels to spill nothing."""
     from verbatim_rag_tpu_torch.ops import cuda_build
 
     result = {}
@@ -359,6 +414,20 @@ def check_build(build_logs: dict) -> dict:
             if kernel in result:
                 require(result[kernel]["spill_bytes"] == 0, f"{kernel} spills: {result[kernel]}")
             result.setdefault(kernel, {}).update(sass=c)
+    for name, kernels in FMA_KERNELS.items():
+        counts = sass_counts(cuda_build._target(name))
+        for kernel in kernels:
+            c = counts.get(kernel, {})
+            log(f"  {name}: {kernel}: SASS {json.dumps(c)}")
+            tensor_core = sum(c.get(op, 0) for op in ("HGMMA", "IGMMA", "HMMA", "IMMA"))
+            require(tensor_core == 0, f"{kernel}: a tensor-core instruction in the float32 walk {c}")
+            require(c.get("UTMALDG", 0) > 0, f"{kernel}: no TMA load in its SASS {c}")
+            if kernel in result:
+                require(result[kernel]["spill_bytes"] == 0, f"{kernel} spills: {result[kernel]}")
+            result.setdefault(kernel, {}).update(sass=c)
+    for kernel in NO_SPILL:
+        if kernel in result:
+            require(result[kernel]["spill_bytes"] == 0, f"{kernel} spills: {result[kernel]}")
     return result
 
 
@@ -745,10 +814,12 @@ def efficient_attention_ms(qt, kt, vt, live) -> tuple[float | None, str]:
     )
 
 
-def check_rescore(gen) -> dict:
+def rescore_inputs(gen):
+    """The rescore's serving point: B=512 queries of qm=32 terms, C=256
+    candidates each (some missing, -1) over a 1M-row forward index of m=128
+    int32 / float32 slots (1-128 live, pads id 0 / weight 0); half of each
+    query's terms come from its candidate rows so that scores are not all 0."""
     import torch
-
-    from verbatim_rag_tpu_torch.ops import rescore as rs
 
     B, C, N, m, qm, vocab = 512, 256, 1_000_000, 128, 32, 30522
     sp_ids = torch.randint(1, vocab, (N, m), generator=gen, device="cuda", dtype=torch.int32)
@@ -760,35 +831,96 @@ def check_rescore(gen) -> dict:
     cand = torch.randint(0, N, (B, C), generator=gen, device="cuda", dtype=torch.int32)
     cand[:, -5:] = -1
     cand[::7, :20] = -1
-    # Half the query terms come from candidate rows so scores are not all 0.
     q_ids = torch.randint(1, vocab, (B, qm), generator=gen, device="cuda", dtype=torch.int32)
     src = cand[:, : qm // 2].clamp(min=0).long()
     q_ids[:, : qm // 2] = sp_ids[src, torch.arange(qm // 2, device="cuda")[None, :]]
     q_w = torch.rand((B, qm), generator=gen, device="cuda")
+    return cand, sp_ids, sp_w, q_ids, q_w
 
+
+def rescore_bound(cand, m: int, qm: int, slot_bytes: int) -> tuple[float, str]:
+    """The rescore's bound: the live candidates' rows (``slot_bytes`` a
+    slot), the candidate ids, the query terms and the scores against a
+    compare-select a (slot, term) pair on the CUDA cores."""
+    n_valid = int((cand >= 0).sum())
+    B, C = cand.shape
+    return bound(
+        n_valid * m * slot_bytes + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm, PEAK_FP32_OPS
+    )
+
+
+def rescore_fault(got, ref, valid) -> str | None:
+    """Why a rescore does not hold to the plain version's, or None: -1e30
+    exactly where the candidate is missing, elsewhere rel ≤ 1e-5."""
+    if not bool(((got <= -1e29) == ~valid).all()) or not bool((got[~valid] == -1e30).all()):
+        return "missing candidates differ"
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
+    if not bool((rel <= 1e-5).all()):
+        return f"max rel err {float(rel.max())}"
+    return None
+
+
+def rescore_planted_faults(cand, ids, w, q_ids, q_w, ref, valid, faults) -> dict:
+    """The kernel run on each planted fault's inputs (``faults``: name →
+    (cand, ids, w, q_ids, q_w) changes), held to the true plain scores
+    ``ref``: each must fail `rescore_fault`."""
+    from verbatim_rag_tpu_torch.ops import rescore as rs
+
+    found = {}
+    for name, change in faults.items():
+        args = dict(cand=cand, ids=ids, w=w, q_ids=q_ids, q_w=q_w)
+        args.update(change())
+        got = rs.exact_rescore_cuda(args["cand"], args["ids"], args["w"], args["q_ids"], args["q_w"])
+        why = rescore_fault(got, ref, valid)
+        require(why is not None, f"rescore: planted fault '{name}' passes the check")
+        found[name] = why
+    return found
+
+
+def check_rescore(gen) -> dict:
+    """The rescore kernel against its plain version at the serving point
+    (B=512, C=256, m=128, qm=32 over a 1M-row forward index, missing
+    candidates) on int32/float32 and int16/float16 slots, rel ≤ 1e-5; three
+    planted faults (every candidate row shifted by one; each query's last
+    live term dropped; the int16/float16 index with its weights zeroed past
+    slot m/2) must fail that check."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import rescore as rs
+
+    cand, sp_ids, sp_w, q_ids, q_w = rescore_inputs(gen)
+    (N, m), qm = sp_ids.shape, q_ids.shape[1]
     got = rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w)
     torch.cuda.synchronize()
     ref = rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w)
     valid = cand >= 0
-    require(bool(((got <= -1e29) == ~valid).all()), "rescore: -1 rows differ")
+    why = rescore_fault(got, ref, valid)
+    require(why is None, f"rescore: {why}")
     rel = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
     err = float((got - ref)[valid].abs().max())
-    require(bool((rel <= 1e-5).all()), f"rescore: max rel err {float(rel.max())}")
     require(float((got[valid] > 0).float().mean()) > 0.05, "rescore: too few matches to check")
+    # The last live term of each query: its highest index with a nonzero weight.
+    last = (torch.arange(qm, device="cuda")[None, :] * (q_w != 0)).argmax(dim=1, keepdim=True)
+    faults = rescore_planted_faults(cand, sp_ids, sp_w, q_ids, q_w, ref, valid, {
+        "every candidate row shifted by one": lambda: dict(
+            cand=torch.where(cand >= 0, (cand + 1) % N, cand)
+        ),
+        "each query's last live term dropped": lambda: dict(q_w=q_w.scatter(1, last, 0.0)),
+    })
+    log("rescore planted faults", json.dumps(faults))
+    # ms: CUDA events around calls, as for every kernel. The wrapper's host
+    # time (tens of µs) comes close to the kernel's, so its device time from
+    # the profiler stands beside it, with the records it rests on.
     ms = cuda_ms(lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), reps=20)
+    device_ms, records = kernel_device_ms(
+        lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), 20, "rescore_kernel"
+    )
     plain_ms = cuda_ms(lambda: rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w), reps=3)
-    n_valid = int(valid.sum())
-
-    def rescore_bound(slot_bytes: int):
-        return bound(
-            n_valid * m * slot_bytes + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm,
-            PEAK_FP32_OPS,
-        )
-
-    b_ms, b_by = rescore_bound(8)
+    b_ms, b_by = rescore_bound(cand, m, qm, 8)
     result = dict(
-        max_abs_err=err, max_rel_err=float(rel.max()), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_abs_err=err, max_rel_err=float(rel.max()), ms=ms, device_ms=device_ms,
+        device_records=records, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        planted_faults_caught=faults,
     )
     # The store's narrow forward index: int16 ids (vocab < 32768) and float16
     # weights, read straight from the [N, m] rows and widened in registers.
@@ -797,15 +929,25 @@ def check_rescore(gen) -> dict:
     got = rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w)
     torch.cuda.synchronize()
     ref = rs.exact_rescore_oneshot(cand, ids16, w16, q_ids, q_w)
-    require(bool(((got <= -1e29) == ~valid).all()), "rescore int16/float16: -1 rows differ")
+    why = rescore_fault(got, ref, valid)
+    require(why is None, f"rescore int16/float16: {why}")
     rel16 = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
-    require(bool((rel16 <= 1e-5).all()), f"rescore int16/float16: max rel err {float(rel16.max())}")
-    b16_ms, b16_by = rescore_bound(4)
+    faults16 = rescore_planted_faults(cand, ids16, w16, q_ids, q_w, ref, valid, {
+        "weights zeroed past slot m/2": lambda: dict(
+            w=torch.where(torch.arange(m, device="cuda")[None, :] < m // 2, w16, 0.0)
+        ),
+    })
+    log("rescore int16/float16 planted faults", json.dumps(faults16))
+    b16_ms, b16_by = rescore_bound(cand, m, qm, 4)
+    device16_ms, records16 = kernel_device_ms(
+        lambda: rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w), 20, "rescore_kernel"
+    )
     result["int16_float16"] = dict(
         max_abs_err=float((got - ref)[valid].abs().max()), max_rel_err=float(rel16.max()),
         ms=cuda_ms(lambda: rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w), reps=20),
+        device_ms=device16_ms, device_records=records16,
         plain_ms=cuda_ms(lambda: rs.exact_rescore_oneshot(cand, ids16, w16, q_ids, q_w), reps=3),
-        bound_ms=b16_ms, bound_by=b16_by, library_ms=None,
+        bound_ms=b16_ms, bound_by=b16_by, library_ms=None, planted_faults_caught=faults16,
     )
     log("rescore", json.dumps(result))
     return result
@@ -1015,7 +1157,7 @@ def check_tables(gen) -> tuple[dict, dict]:
             for g, e, c, q in zip(got, ref, corpora, queries)
         )
         faults = None
-        if block == 8192 and dtype != "float32":
+        if block == 8192:
             faults = section_planted_faults(corpora, queries, mask, scales, block, ref, int8)
             log("section_tables planted faults", dtype, json.dumps(faults))
         del got, ref
@@ -1042,7 +1184,7 @@ def check_tables(gen) -> tuple[dict, dict]:
             ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
             err = check_table(got, ref, c, q, int8)
             faults = None
-            if arm == "dense" and block == 8192 and dtype != "float32":
+            if arm == "dense" and block == 8192:
                 faults = v2_planted_faults(c, q, mask, s, ref, int8)
                 log("bucket_max_v2 planted faults", dtype, json.dumps(faults))
             del got, ref
@@ -2012,6 +2154,7 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/rescore.cu",
             replaces="verbatim_rag_tpu/ops/rescore.py:41",
             launches=launches["rescore"],
+            registers=build.get("rescore_kernel", {}).get("registers"),
             **rescore,
         ),
         dict(
@@ -2022,6 +2165,7 @@ def main() -> None:
             launches=launches["section"],
             registers_int8=build.get("section_wgmma_kernelILb1E", {}).get("registers"),
             registers_bf16=build.get("section_wgmma_kernelILb0E", {}).get("registers"),
+            registers_f32=build.get("fma_walk_kernelILi0E", {}).get("registers"),
             **section,
         ),
         dict(
@@ -2032,6 +2176,7 @@ def main() -> None:
             launches=launches["bucket_max_v2"],
             registers_int8=build.get("bucket_v2_wgmma_kernelILb1E", {}).get("registers"),
             registers_bf16=build.get("bucket_v2_wgmma_kernelILb0E", {}).get("registers"),
+            registers_f32=build.get("fma_walk_kernelILi1E", {}).get("registers"),
             **bucket,
         ),
         dict(
@@ -2041,6 +2186,7 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/fused_topk.py:42",
             launches=launches["bucket_max_v1"],
             registers=build.get("bucket_v1_wgmma_kernel", {}).get("registers"),
+            registers_f32=build.get("fma_walk_kernelILi2E", {}).get("registers"),
             ab_overlap_k256={
                 f"d{d}": {arm: bucket_ab[f"d{d}"][arm]["overlap"] for arm in ("v1", "v2_onedot")}
                 for d in (384, 768)

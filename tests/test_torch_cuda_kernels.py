@@ -405,6 +405,72 @@ def test_rescore_kernel_refuses_narrow_index_dtypes(cuda):
             rs.exact_rescore_dispatch(*narrow)
 
 
+def _rescore_edge_inputs(case, seed=0):
+    """Inputs of one `RESCORE_EDGES` case (numpy): duplicate ids within a row
+    and within a query, query terms of id 0 with nonzero weight, all-pad
+    rows (and a non-finite query weight, which stops the kernel skipping
+    zero weights), rows past N, and widths off the kernel's 32-slot ranges."""
+    b, c, n, m, qm = case["shape"]
+    rng = np.random.default_rng(seed)
+    vocab = case.get("vocab", 3 * max(m, qm))
+    sp_ids = rng.integers(0, vocab, size=(n, m)).astype(np.int32)
+    sp_w = rng.random((n, m), dtype=np.float32)
+    q_ids = rng.integers(0, vocab, size=(b, qm)).astype(np.int32)
+    q_w = rng.random((b, qm), dtype=np.float32)
+    cand = rng.integers(-1, n, size=(b, c)).astype(np.int32)
+    if case.get("dups"):
+        sp_ids[:, 1::3] = sp_ids[:, :1]  # one id many times in a row
+        q_ids[:, 1::4] = q_ids[:, :1]  # and in a query
+        q_ids[:, 2] = 0  # id 0 with a nonzero weight
+    if case.get("pad_rows"):
+        sp_ids[::2] = 0
+        sp_w[::2] = 0.0
+        sp_w[1::2, m // 2 :] = 0.0  # pads past the middle of the other rows
+    if case.get("inf_weight"):
+        q_ids[0, 0], q_w[0, 0] = 0, np.inf  # 0 · inf is NaN on every pad slot of query 0
+    if case.get("past_n"):
+        cand[:, ::5] = n + rng.integers(0, 3, size=cand[:, ::5].shape)
+    return cand, sp_ids, sp_w, q_ids, q_w
+
+
+RESCORE_EDGES = {
+    "duplicate ids in rows and queries": dict(shape=(8, 64, 300, 128, 32), dups=True),
+    "all-pad rows": dict(shape=(6, 40, 200, 128, 16), pad_rows=True),
+    "all-pad rows, an infinite query weight": dict(shape=(6, 40, 200, 128, 16), pad_rows=True, inf_weight=True),
+    "m=5": dict(shape=(5, 33, 100, 5, 3)),
+    "m=130 (a partial range of 32 slots)": dict(shape=(5, 33, 100, 130, 40)),
+    "m=128": dict(shape=(5, 300, 400, 128, 32)),
+    "qm=1": dict(shape=(7, 50, 100, 128, 1)),
+    "qm=1100 (three chunks)": dict(shape=(3, 40, 500, 128, 1100), dups=True),
+    "rows past N": dict(shape=(4, 60, 100, 64, 16), past_n=True),
+    "B=1": dict(shape=(1, 256, 1000, 128, 32)),
+}
+
+
+@pytest.mark.parametrize("ids_dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("case", sorted(RESCORE_EDGES))
+def test_rescore_kernel_edges(cuda, case, ids_dtype):
+    """The hash-table kernel on its edges, int32 and int16 ids (float16
+    weights with int16 ids): rtol 1e-5 against the plain version, -1e30
+    exactly for rows < 0 or ≥ N."""
+    cand, sp_ids, sp_w, q_ids, q_w = (
+        torch.from_numpy(a).to(cuda) for a in _rescore_edge_inputs(RESCORE_EDGES[case])
+    )
+    if ids_dtype == torch.int16:
+        sp_ids, sp_w = sp_ids.to(torch.int16), sp_w.to(torch.float16)
+    before = rs.launches
+    got = rs.exact_rescore_dispatch(cand, sp_ids, sp_w, q_ids, q_w)
+    torch.cuda.synchronize()
+    assert rs.launches == before + 1
+    miss = (cand < 0) | (cand >= sp_ids.shape[0])
+    expected = rs.exact_rescore_oneshot(torch.where(miss, -1, cand), sp_ids, sp_w, q_ids, q_w)
+    assert (got[miss] == -1e30).all()
+    torch.testing.assert_close(got[~miss], expected[~miss], rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert (got[~miss] != 0).any() or RESCORE_EDGES[case].get("pad_rows")
+    if RESCORE_EDGES[case].get("inf_weight"):
+        assert torch.equal(got[0].isnan(), expected[0].isnan()) and expected[0].isnan().any()
+
+
 def test_store_on_cuda_matches_cpu(cuda):
     from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider
     from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
@@ -615,7 +681,7 @@ def test_bucket_v2_takes_unaligned_mask_and_scales(cuda):
 
 
 def test_section_kernel_mixed_arm_kinds(cuda):
-    """A float32 dense arm (the FMA walk's 32-query tiles) beside an int8
+    """A float32 dense arm (the FMA walk's 128-query tiles) beside an int8
     sketch arm (the wgmma walk's 128-query tiles): one launch a kind, counted
     as one call."""
     (dense,) = _rows_and_queries(8192, (384,), 100, seed=1, dtype="float32", device=cuda)
@@ -708,11 +774,69 @@ def test_table_kernels_refuse_other_row_types(cuda):
         sec.section_bucket_tables((half,), (q,), None, block_cols=256)
     with pytest.raises(TypeError, match="float32 rows"):
         ft.matmul_bucket_max_v2(half, q, mask)
-    wide = torch.zeros(256, 1380, device=cuda)
+    wide = torch.zeros(256, 1480, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
-        ft.matmul_bucket_max_v2(wide, torch.zeros(2, 1380, device=cuda), mask)
+        ft.matmul_bucket_max_v2(wide, torch.zeros(2, 1480, device=cuda), mask)
     with pytest.raises(ValueError, match="no\\s+scale in v1"):
         ft.matmul_bucket_max(torch.zeros(256, 32, dtype=torch.int8, device=cuda), q, mask)
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize(
+    "n,block,b,dims",
+    [
+        (2 * 8192, 8192, 200, (4,)),  # d = 4: one partial chunk; 200 queries: a ragged tile
+        (2 * 8192, 8192, 130, (768,)),  # 24 chunks, a tile of 2 queries past 128
+        (2 * 8192, 8192, 300, (16, 384, 772)),  # three arms, 772: a ragged last chunk
+        (64 * 16384, 16384, 40, (36,)),  # 128 positions, the pack's limit
+    ],
+)
+def test_section_fma_walk(cuda, n, block, b, dims, masked):
+    """The float32 walk (128-query tiles, rows and queries streamed by TMA)
+    at its edges: batches off the tile, d = 4 and 768, three arms in one
+    launch, masked or not; within 2⁻¹⁵·|q| of the plain version."""
+    _section_case(cuda, n, block, b, dims, "float32", seed=n + b, masked=masked)
+
+
+def test_section_mixes_float32_and_bf16_arms(cuda):
+    """A float32 arm between two bf16 arms: one launch a kind, the float32
+    one on the FMA walk, the bf16 ones on the wgmma walk."""
+    n, block, b = 2 * 8192, 8192, 150
+    arms = [
+        _rows_and_queries(n, (d,), b, seed=d, dtype=dtype, device=cuda)[0]
+        for d, dtype in ((384, "bfloat16"), (768, "float32"), (64, "bfloat16"))
+    ]
+    corpora, queries, _ = zip(*arms)
+    mask = _test_mask(n, cuda)
+    before = sec.launches
+    got = sec.section_bucket_tables(corpora, queries, mask, scales=(None,) * 3, block_cols=block)
+    torch.cuda.synchronize()
+    assert sec.launches == before + 1
+    expected = sec.section_tables_reference(corpora, queries, mask, (None,) * 3, block)
+    for g, e, c, q in zip(got, expected, corpora, queries):
+        _assert_tables_match(
+            _decode(g, block), _decode(e, block), q,
+            lambda c=c, q=q: torch.where(mask, q.to(c.dtype).float() @ c.float().T, -1e30),
+            block, exact=False,
+        )
+
+
+@pytest.mark.parametrize("n,b,d", [(16384, 200, 4), (4 * 2048, 130, 768), (2 * 16384, 129, 68)])
+def test_bucket_v2_fma_walk(cuda, n, b, d):
+    """v2 on float32 rows: batches off the 128-query tile, d = 4, 68 and
+    768; the dead lane 5 of every block is -1e30."""
+    ((corpus, q, _),) = _rows_and_queries(n, (d,), b, seed=n + d, dtype="float32", device=cuda)
+    mask = _test_mask(n, cuda)
+    before = ft.launches
+    got = ft.matmul_bucket_max_v2(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    expected = ft.matmul_bucket_max_v2_reference(corpus, q, mask)
+    block = ft.choose_block_rows(n)
+    _assert_tables_match(
+        got, expected, q, lambda: torch.where(mask, q @ corpus.T, -1e30), block, exact=False
+    )
+    assert (got[0][:, 5::128] <= -1e29).all()
 
 
 V1_LIMITS = {"bfloat16": 2.0**-15, "float32": 2.0**-18}
@@ -765,6 +889,21 @@ def test_bucket_v1_kernel_matches_plain(cuda, n, b, d, dtype):
         ft.matmul_bucket_max(corpus, q, torch.ones_like(mask)), expected, q, corpus, mask,
         V1_LIMITS[dtype],
     )
+
+
+@pytest.mark.parametrize("n,b,d", [(16384, 200, 4), (2 * 16384, 130, 768)])
+def test_bucket_v1_fma_walk(cuda, n, b, d):
+    """v1 on float32 rows: batches off the 128-query tile, d = 4 and 768;
+    a dead bucket gives (-1e30, its highest lane)."""
+    ((corpus, q, _),) = _rows_and_queries(n, (d,), b, seed=d + b, dtype="float32", device=cuda)
+    mask = _v1_mask(n, cuda)
+    before = ft.launches_v1
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches_v1 == before + 1
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    assert _v1_check(got, expected, q, corpus, mask, V1_LIMITS["float32"])
+    assert (got[0][:, 5] == -1e30).all() and (got[1][:, 5] == 5 * 128 + 127).all()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

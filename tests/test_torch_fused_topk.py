@@ -171,22 +171,28 @@ def test_bucket_support_and_validation():
 )
 def test_kernel_rows_accepted(dtype, d, mode, row_bytes):
     """The shape and shared-memory rule of `csrc/section.cu`: float32 rows
-    take the 32-query FMA tile, so 768 float32 columns fit beside the three
-    stages (32 · 3,088 + 55,296 = 154,112 bytes of the 232,448); int8 and
-    bf16 rows take the wgmma walk's tile (64 queries at 2944 bytes)."""
+    take the FMA walk's 128-query tile, whose queries stream beside the rows
+    (4 stages of 32 KB and 64 KB of running maxima: 197,696 bytes of the
+    232,448 at any width); int8 and bf16 rows take the wgmma walk's tile (64
+    queries at 2944 bytes)."""
     corpus = torch.zeros(4, d, dtype=dtype)
     assert fused_topk.check_kernel_rows(corpus, "bucket", mode) == row_bytes
     assert fused_topk.kernel_smem_bytes(dtype, row_bytes, mode) <= 232448
-    assert fused_topk.tile_queries(dtype, row_bytes, mode) == (32 if dtype == torch.float32 else 64)
+    assert fused_topk.tile_queries(dtype, row_bytes, mode) == (128 if dtype == torch.float32 else 64)
 
 
 def test_kernel_rows_refused():
-    assert fused_topk.kernel_smem_bytes(torch.float32, 3072) == 32 * 3088 + 3 * 128 * 144
+    # The FMA walk: 4 stages of rows and queries, the running maxima (not
+    # for v1), 8 mbarriers and 1024 bytes of slack, whatever the row width.
+    assert fused_topk.kernel_smem_bytes(torch.float32, 3072) == 4 * 32768 + 65536 + 64 + 1024
+    assert fused_topk.kernel_smem_bytes(torch.float32, 16, "v1") == 4 * 32768 + 64 + 1024
+    wide = torch.zeros(4, 1380)  # 5520 bytes: past the old 32-query tile, taken now
+    assert fused_topk.check_kernel_rows(wide, "bucket", "section") == 5520
     # v1 on bf16 d = 768: 64 queries × 12 chunks, 7 stages, 4 side slots of 640 bytes.
     assert fused_topk.kernel_smem_bytes(torch.bfloat16, 1536, "v1") == (
         12 * 64 * 128 + 7 * 16384 + 4 * 640 + (1 + 14 + 8) * 8 + 1024
     )
-    for dtype, d in ((torch.float32, 1380), (torch.float32, 6), (torch.bfloat16, 1480), (torch.int8, 2960)):
+    for dtype, d in ((torch.float32, 1381), (torch.float32, 6), (torch.bfloat16, 1480), (torch.int8, 2960)):
         with pytest.raises(ValueError, match="16-byte multiple"):
             fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket")
     for dtype in (torch.float16, torch.float64, torch.int32):
@@ -200,14 +206,15 @@ def test_v2_kernel_geometry(dtype, d):
     """v2's CTA fits shared memory at the repo's widths and one beyond: int8
     and bf16 rows on the wgmma walk (128 queries while their tile fits beside
     a 4-deep ring, else 64 walked by one warpgroup, a ring of 4-8 stages),
-    float32 rows on the FMA tile as before."""
+    float32 rows on the FMA walk's 128-query tile."""
     row_bytes = d * torch.tensor([], dtype=dtype).element_size()
     smem = fused_topk.kernel_smem_bytes(dtype, row_bytes, "v2")
     assert smem <= 232448
     assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", "v2") == row_bytes
     queries = fused_topk.tile_queries(dtype, row_bytes, "v2")
     if dtype == torch.float32:
-        assert queries == 32 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes, "section")
+        assert queries == 128 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes, "section")
+        assert fused_topk.table_geometry(dtype, row_bytes, "v2") == (128, 0)
         return
     chunks = -(-row_bytes // 128)
     got_queries, stages = fused_topk.walk_geometry(row_bytes, "v2")
@@ -245,6 +252,29 @@ def test_walk_side_slot_bytes_match_the_kernel_source():
     assert int(consts["kSideBytesSection"]) == fused_topk._WALK_SIDE_BYTES["section"] == 1024
     assert fused_topk._WALK_SIDE_BYTES["v1"] == fused_topk._WALK_SIDE_BYTES["v2"]
     assert fused_topk._walk_smem(64, 1536, 7, "section") - fused_topk._walk_smem(64, 1536, 7, "v2") == 4 * 384
+
+
+@pytest.mark.parametrize("mode", ["section", "v2", "v1"])
+def test_fma_walk_geometry_matches_the_kernel_source(mode):
+    """The Python mirror of the float32 walk's shared memory and tile
+    (`fma_smem_bytes`, `kFmaQueries`, `kFmaStages` in `csrc/section.cu`):
+    128 queries, a ring of 4 stages of 32 KB (rows and queries), the running
+    maxima for section and v2; one size a mode, whatever the row width."""
+    import re
+    from pathlib import Path
+
+    source = (Path(fused_topk.__file__).parent.parent / "csrc" / "section.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kFma\w+) = ([^;]+);", source))
+    assert int(consts["kFmaQueries"]) == fused_topk.FMA_QUERIES == 128
+    assert int(consts["kFmaStages"]) == 4
+    assert consts["kFmaHalfStage"] == "128 * kChunk" and consts["kFmaStageBytes"] == "2 * kFmaHalfStage"
+    assert consts["kFmaBestBytes"] == "kFmaQueries * kLanes * 4"
+    best = 0 if mode == "v1" else 65536
+    assert fused_topk._FMA_SMEM[mode] == 4 * 32768 + best + 2 * 4 * 8 + 1024 <= 232448
+    for d in (4, 384, 768, 4096):
+        assert fused_topk.table_geometry(torch.float32, 4 * d, mode) == (128, 0)
+        assert fused_topk.kernel_smem_bytes(torch.float32, 4 * d, mode) == fused_topk._FMA_SMEM[mode]
+    assert fused_topk.table_geometry(torch.bfloat16, 768, mode) == fused_topk.walk_geometry(768, mode)
 
 
 @pytest.mark.parametrize("x", ["rows", "queries"])

@@ -66,6 +66,45 @@ JAX_IMPLS = {
 }
 
 
+def _setup_repeats(b=4, c=12, n=80, m=24, qm=10, seed=0):
+    """`_setup`'s forward index and queries with what a hash table of the
+    query's terms must still count: the same id several times in a row and
+    in a query (each (slot, term) pair that matches adds its product), a
+    query term of id 0 with a nonzero weight (matching every pad slot, whose
+    weight 0 adds 0, and every live slot of id 0), and rows of both."""
+    cand, sp_ids, sp_w, q_ids, q_w = _setup(b=b, c=c, n=n, m=m, qm=qm, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    sp_ids[::3, 1::4] = sp_ids[::3, :1]  # duplicate ids within rows
+    sp_ids[1::5, 2] = 0  # a live slot of id 0
+    sp_w[1::5, 2] = 0.5
+    q_ids[:, 1::3] = q_ids[:, :1]  # duplicate ids within a query
+    q_w[:, 1::3] = rng.gamma(2.0, 1.0, size=q_w[:, 1::3].shape).astype(np.float32)
+    q_ids[:, -1] = 0  # id 0 with a nonzero weight
+    q_w[:, -1] = 0.75
+    cand[:, 1] = cand[:, 0]  # the same row twice among a query's candidates
+    return cand, sp_ids, sp_w, q_ids, q_w
+
+
+REPEAT_SHAPES = [
+    dict(b=4, c=12, n=80, m=24, qm=10),
+    dict(b=3, c=9, n=60, m=5, qm=7, seed=2),
+    dict(b=2, c=20, n=200, m=130, qm=40, seed=6),
+]
+
+
+@pytest.mark.parametrize("jax_impl", sorted(JAX_IMPLS))
+@pytest.mark.parametrize("shape", REPEAT_SHAPES, ids=lambda s: "b{b}c{c}m{m}q{qm}".format(**s))
+def test_repeated_ids_and_id_zero_match_jax(jax_impl, shape):
+    """Duplicate ids in rows and queries and a query term of id 0: the port's
+    plain versions (one-shot and scan) against each JAX implementation."""
+    arrays = _setup_repeats(**shape)
+    assert (arrays[3] == 0).any() and (arrays[3][:, 1] == arrays[3][:, 0]).all()
+    expected = np.asarray(JAX_IMPLS[jax_impl](*map(jnp.asarray, arrays)))
+    for fn in (rs.exact_rescore_oneshot, exact_rescore_device):
+        got = fn(*map(torch.from_numpy, arrays)).numpy()
+        _check(got, expected, arrays[0])
+
+
 def _check(got, expected, cand):
     miss = cand < 0
     assert got.dtype == np.float32 and got.shape == expected.shape

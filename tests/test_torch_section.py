@@ -174,7 +174,7 @@ def test_geometry_validation():
         # the int8 store with a float32 sketch: one launch a kind, arm order kept
         (
             [(torch.int8, 384), (torch.float32, 3072)],
-            [(torch.int8, [0], [(128, 8)]), (torch.float32, [1], [(32, 0)])],
+            [(torch.int8, [0], [(128, 8)]), (torch.float32, [1], [(128, 0)])],
         ),
         # bf16 dense + int8 sketch
         (
@@ -197,7 +197,8 @@ def test_plan_section_launches(arms, expected):
     """`section_tables_cuda` launches once per row kind on the same stream,
     each int8 / bf16 arm with the wgmma walk's tile and ring for section's
     side slots (`walk_geometry(row_bytes, "section")`), float32 arms on the
-    FMA walk's 32-query tile; the call counts as one launch."""
+    FMA walk's 128-query tile (its ring depth is the kernel's own: 0); the
+    call counts as one launch."""
     assert section.plan_section_launches(arms) == expected
 
 

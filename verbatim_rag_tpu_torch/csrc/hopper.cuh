@@ -49,18 +49,21 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
   return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// A TMA map over a row-major [n_rows, row_bytes] byte matrix (int8 codes or
-// bf16 values alike) whose box is 128 bytes of `rows` consecutive rows:
-// coordinates (byte, row). Bytes past a row and rows past n_rows are
-// zero-filled. Returns 0 or a CUDA error code.
+// A TMA map over a row-major [n_rows, row_bytes] matrix whose box is 128
+// bytes of `rows` consecutive rows: int8 codes or bf16 values as bytes
+// (coordinates (byte, row)), or, with `f32`, float32 values (coordinates
+// (column, row), a box of 32 columns). Bytes past a row and rows past n_rows
+// are zero-filled. Returns 0 or a CUDA error code.
 inline int make_rows_map(CUtensorMap* map, const void* base, long long n_rows, int row_bytes,
-                         int rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)n_rows};
+                         int rows, bool f32 = false) {
+  const int elt = f32 ? 4 : 1;
+  const cuuint64_t dims[2] = {(cuuint64_t)(row_bytes / elt), (cuuint64_t)n_rows};
   const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {128u, (cuuint32_t)rows};
+  const cuuint32_t box[2] = {128u / elt, (cuuint32_t)rows};
   const cuuint32_t elem_strides[2] = {1u, 1u};
   const CUresult rc = cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+      const_cast<void*>(base), dims, strides, box,
       elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;

@@ -49,23 +49,16 @@
 //     keeps the ring full, wgmma m64n128 takes them from shared memory, and
 //     one warpgroup's epilogue runs beside the other's products. A
 //     section_tables call with arms of both kinds launches once a kind.
-//   - float32 rows: the FMA walk (`fma_tables_kernel`): 8 warps own 32
-//     queries (so that a 768-wide query tile, 32 × 3,088 B, and three stages
-//     fit the 227 KB a block may use) in shared memory for the whole walk;
-//     the corpus streams in stages of 128 rows × 128 bytes through a 3-deep
-//     cp.async ring; warp w computes queries 4w..4w+3 against all 128 lanes,
-//     each thread 4 queries × lanes {l, l+32, l+64, l+96} with 16-byte
-//     shared loads (conflict-free with the 144-byte row stride; the query
-//     loads are warp broadcasts) and 64 FMAs per 8 loads; after the last
-//     stage of a position the accumulators are packed, masked and folded
-//     into a running maximum (section, v2) or reduced across the 128 lanes
-//     by warp shuffles and written out (v1).
+//   - float32 rows: the FMA walk (`fma_walk_kernel`, one kernel a mode,
+//     described where it is defined): a producer warp streams rows and
+//     queries by TMA through a counted ring, eight consumer warps hold 128
+//     queries × 128 lanes as 8 × 8 tiles a thread, on the CUDA cores.
 //
 // Bounds on an H100 SXM: at the serving point (B=512, N=1,007,616, dense 384
 // + sketch 768 int8) 1.19 T int8 operations (0.60 ms at 1,979 TOP/s) against
 // 1.17 GB of rows, scales and mask (0.35 ms at 3.35 TB/s), so operations bound
-// it; the float32 arms at the same shape take 0.59 T multiply-adds, 17.8 ms
-// at the 67 TFLOP/s CUDA-core rate. v1 at B=512, N=999,424, bf16: 0.80 ms
+// it; the float32 arms at the same shape take 0.59 T multiply-adds, 17.7 ms
+// at the 67 TFLOP/s CUDA-core rate (operations bound them too). v1 at B=512, N=999,424, bf16: 0.80 ms
 // (d=768) / 0.40 ms (d=384) of tensor-core operations against 1.54 / 0.77 GB.
 // On the wgmma walk a position is only 3-12 chunks at d = 384-768, so each
 // warpgroup's drain and epilogue at every position keep the tensor cores
@@ -536,296 +529,301 @@ int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, i
   }
 }
 
-// ---- the FMA walk: float32 rows ---------------------------------------------------------
+// ---- the FMA walk: float32 rows, fed by TMA --------------------------------------------
+//
+// float32 dots run on the CUDA cores (FFMA, never TF32), so this walk is bound
+// by its FMA issue rate: the H100's 67 TFLOP/s is 128 FMAs a clock an SM. What
+// keeps it from that rate is the shared-memory loads that feed each FMA and
+// how often a column block's rows are read. One CTA of 288 threads (eight
+// consumer warps and one TMA producer warp) owns 128 queries × the 128 lanes
+// of one column block and walks the block's positions p:
+//   - per position, the producer streams the 128 rows and the 128 queries
+//     chunk by chunk (32 floats of each, two 16 KB TMA boxes of a FLOAT32
+//     map, 128-byte swizzle) into a ring of kFmaStages 32 KB stages, each with a
+//     full and an empty mbarrier, counted, not divided out. The query tile
+//     (128 × d floats, 384 KB at d = 768) cannot stay resident, so it streams
+//     beside the rows as in a GEMM mainloop; all 512 queries of a batch stay
+//     in L2, and a 512-query batch reads each column block 4 times;
+//   - consumer thread t holds 8 queries × 8 lanes: queries qg + 16a and lanes
+//     lg + 16b (qg = 2·warp + lane / 16, lg = lane % 16), 64 accumulators.
+//     Per 16 bytes of k it loads 8 query and 8 row float4s (a warp reads 2
+//     queries, broadcast, and 16 consecutive rows, which the swizzle puts in
+//     distinct banks) for 256 FMAs: 16 FMAs a load;
+//   - after a position's last chunk the accumulators are packed, masked and
+//     folded into the running maxima (section, v2), which live in shared
+//     memory (64 KB, each thread its own 64 words: 64 accumulators and 64
+//     maxima in registers would pass what ptxas gives a 288-thread CTA), or
+//     reduced across the 128 lanes (v1: within the thread over its 8 lanes in
+//     ascending order, then over the 16 threads of its half-warp by
+//     shuffles) and written out. ptxas gives a 288-thread CTA at most 168
+//     registers, which the 64 accumulators and their operands take, so the
+//     position's mask is read after its chunks, not held across them.
+constexpr int kFmaQueries = 128;
+constexpr int kFmaConsumers = 256;
+constexpr int kFmaThreads = kFmaConsumers + 32;
+constexpr int kFmaHalfStage = 128 * kChunk;        // 128 rows (or queries) × 32 floats
+constexpr int kFmaStageBytes = 2 * kFmaHalfStage;  // the rows, then the queries
+constexpr int kFmaStages = 4;
+constexpr int kFmaBestBytes = kFmaQueries * kLanes * 4;  // section, v2: running maxima
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 16;           // shared-memory row padding
-constexpr int kStageStride = kChunk + kPad;
-constexpr int kStages = 3;
-constexpr int kStageBytes = kLanes * kStageStride;
+constexpr int fma_smem_bytes(int mode) {
+  return kFmaStages * kFmaStageBytes + (mode == kBucketV1 ? 0 : kFmaBestBytes) +
+         2 * kFmaStages * 8 + 1024;  // + barriers, + alignment slack
+}
 
-struct Arm {
-  const uint8_t* q;       // [batch, d] float32
-  const uint8_t* corpus;  // [n_rows, d] float32
-  float* out;             // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
-  int* out_pos;           // v2: position in the bucket; v1: global row (out's shape)
-  int row_bytes;
+struct FmaArm {
+  CUtensorMap q_map;  // queries [batch, d] float32: boxes of 32 columns × 128 queries
+  CUtensorMap x_map;  // rows [n_rows, d] float32: boxes of 32 columns × 128 rows
+  float* out;         // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
+  int* out_pos;       // v2: position in the bucket; v1: global row (out's shape)
+  int n_chunks;       // ceil(d / 32)
 };
 
-struct Params {
-  Arm arm[kMaxArms];
-  const float* mask_add;   // section_tables: [n_rows] or null
-  const uint8_t* mask_sel; // bucket_max_v1 / v2: [n_rows] 0/1
+struct FmaParams {
+  FmaArm arm[kMaxArms];
+  const void* mask;  // section: mask_add [n_rows] float32 or null; v2, v1: [n_rows] bytes
   int batch;
-  long long n_rows;
   int block;
   int n_blocks;
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-__device__ __forceinline__ float masked(const Params& prm, long long row, float v) {
-  return __ldg(prm.mask_sel + row) != 0 ? v : kNegInf;
-}
-
-// The CUDA-core tile: 32 queries × 128 lanes. Warp w owns queries 4w..4w+3
-// against all 128 lanes; thread l of the warp owns output (a, b) = query
-// 4w + a, lane l + 32·b.
-struct FmaTile {
-  static constexpr int kQueries = 32;
-  static constexpr int kA = 4;
-  static constexpr int kB = 4;
-
-  float acc[kA][kB];
-  float best[kA][kB];
-  int qg, lg;
-
-  __device__ FmaTile() {
-    qg = threadIdx.x / 32;
-    lg = threadIdx.x & 31;
-  }
-
-  __device__ int query(int a) const { return qg * kA + a; }
-  __device__ int lane(int b) const { return lg + 32 * b; }
-
-  __device__ void mac(const uint8_t* q_s, int q_stride, const uint8_t* stage, int q_off,
-                      int bytes) {
-    for (int k = 0; k < bytes; k += 16) {
-      float4 qv[kA], cv[kB];
-#pragma unroll
-      for (int a = 0; a < kA; ++a) {
-        qv[a] = *reinterpret_cast<const float4*>(q_s + (qg * kA + a) * q_stride + q_off + k);
-      }
-#pragma unroll
-      for (int b = 0; b < kB; ++b) {
-        cv[b] = *reinterpret_cast<const float4*>(stage + (lg + 32 * b) * kStageStride + k);
-      }
-#pragma unroll
-      for (int a = 0; a < kA; ++a) {
-#pragma unroll
-        for (int b = 0; b < kB; ++b) {
-          float s = acc[a][b];
-          s = fmaf(qv[a].x, cv[b].x, s);
-          s = fmaf(qv[a].y, cv[b].y, s);
-          s = fmaf(qv[a].z, cv[b].z, s);
-          acc[a][b] = fmaf(qv[a].w, cv[b].w, s);
-        }
-      }
-    }
-  }
-
-  // v1: every lane of a query lives in one warp: reduce within the thread,
-  // then over the warp with shuffles.
-  __device__ void reduce_v1(const Params& prm, const Arm& arm, long long row0, long long bucket,
-                            int q0) {
-#pragma unroll
-    for (int a = 0; a < kA; ++a) {
-      float bv = -__int_as_float(0x7f800000);
-      int bl = -1;
-#pragma unroll
-      for (int b = 0; b < kB; ++b) {
-        keep_best(bv, bl, masked(prm, row0 + lane(b), acc[a][b]), lane(b));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-        const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
-        keep_best(bv, bl, ov, ol);
-      }
-      const int bq = q0 + query(a);
-      if (lg == 0 && bq < prm.batch) {
-        const long long idx = static_cast<long long>(bq) * (prm.n_rows / kLanes) + bucket;
-        arm.out[idx] = bv;
-        arm.out_pos[idx] = static_cast<int>(bucket * kLanes + bl);
-      }
-    }
-  }
-};
-
-// One arm's tile: 32 queries × 128 lanes of column block `blk`.
 template <int kMode>
-__device__ __forceinline__ void run_fma_tile(const Params& prm, const Arm& arm, int blk,
-                                             uint8_t* smem) {
-  const int q0 = blockIdx.x * FmaTile::kQueries;
-  const int tid = threadIdx.x;
-  const int row_bytes = arm.row_bytes;
-  const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
-  const int q_stride = padded + kPad;
-  uint8_t* q_s = smem;
-  uint8_t* stages = smem + FmaTile::kQueries * q_stride;
-
-  const int n_chunks = padded / kChunk;
+__global__ void __launch_bounds__(kFmaThreads, 1)
+fma_walk_kernel(const __grid_constant__ FmaParams prm) {
+  using namespace hopper;
+  const FmaArm& arm = prm.arm[kMode == kSection ? blockIdx.z : 0];
+  const int q0 = blockIdx.x * kFmaQueries;
+  const int n_chunks = arm.n_chunks;
   const int n_pos = prm.block / kLanes;
-  const int total = n_pos * n_chunks;
-  const long long block_row0 = static_cast<long long>(blk) * prm.block;
+  const long long block_row0 = static_cast<long long>(blockIdx.y) * prm.block;
 
-  // Query tile: rows past the batch and bytes past the row are zero.
-  const int q_pieces = padded / 16;
-  for (int i = tid; i < FmaTile::kQueries * q_pieces; i += kThreads) {
-    const int r = i / q_pieces;
-    const int c = (i - r * q_pieces) * 16;
-    uint8_t* dst = q_s + r * q_stride + c;
-    if (q0 + r < prm.batch && c < row_bytes) {
-      cp_async16(dst, arm.q + static_cast<long long>(q0 + r) * row_bytes + c);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_base_1024(smem_raw);  // stage s at s · kFmaStageBytes
+  float* best = reinterpret_cast<float*>(ring + kFmaStages * kFmaStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<uint8_t*>(best) +
+                                               (kMode == kBucketV1 ? 0 : kFmaBestBytes));
+  uint64_t* empty = full + kFmaStages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFmaStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFmaConsumers);
     }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  auto load_stage = [&](int it) {
-    const int p = it / n_chunks;
-    const int off0 = (it - p * n_chunks) * kChunk;
-    uint8_t* stage = stages + (it % kStages) * kStageBytes;
-    const uint8_t* src = arm.corpus + (block_row0 + p * kLanes) * row_bytes;
-    for (int i = tid; i < kLanes * (kChunk / 16); i += kThreads) {
-      const int r = i / (kChunk / 16);
-      const int c = (i % (kChunk / 16)) * 16;
-      uint8_t* dst = stage + r * kStageStride + c;
-      if (off0 + c < row_bytes) {
-        cp_async16(dst, src + static_cast<long long>(r) * row_bytes + off0 + c);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-    }
-  };
-
-  FmaTile tile;
-#pragma unroll
-  for (int a = 0; a < FmaTile::kA; ++a) {
-#pragma unroll
-    for (int b = 0; b < FmaTile::kB; ++b) {
-      tile.acc[a][b] = 0;
-      tile.best[a][b] = kNegInf;
-    }
-  }
-
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < total) load_stage(s);
-    cp_async_commit();
-  }
-
-  int p = 0;
-  int chunk = 0;
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait_stages();
-    __syncthreads();
-    if (it + kStages - 1 < total) load_stage(it + kStages - 1);
-    cp_async_commit();
-
-    const int left = row_bytes - chunk * kChunk;
-    tile.mac(q_s, q_stride, stages + (it % kStages) * kStageBytes, chunk * kChunk,
-             left < kChunk ? left : kChunk);
-
-    if (++chunk == n_chunks) {
-      const long long row0 = block_row0 + p * kLanes;
-      if constexpr (kMode == kBucketV1) {
-        tile.reduce_v1(prm, arm, row0, block_row0 / kLanes + p, q0);
-      } else {
-        // Position p: pack, mask, running maximum.
-#pragma unroll
-        for (int a = 0; a < FmaTile::kA; ++a) {
-#pragma unroll
-          for (int b = 0; b < FmaTile::kB; ++b) {
-            const long long row = row0 + tile.lane(b);
-            float v = tile.acc[a][b];
-            v = __int_as_float((__float_as_int(v) & ~kPosMask) | p);
-            if constexpr (kMode == kBucketV2) {
-              if (__ldg(prm.mask_sel + row) == 0) v = kNegInf;
-            } else if (prm.mask_add != nullptr) {
-              v = __fadd_rn(v, __ldg(prm.mask_add + row));
-            }
-            tile.best[a][b] = fmaxf(tile.best[a][b], v);
+  if (threadIdx.x >= kFmaConsumers) {
+    // Producer: per position, its rows and the queries, one chunk a stage.
+    if (threadIdx.x == kFmaConsumers) {
+      int next = 0;  // the ring's next slot, and how many times it has gone round
+      uint32_t lap = 0;
+      for (int p = 0; p < n_pos; ++p) {
+        const int row0 = static_cast<int>(block_row0 + static_cast<long long>(p) * kLanes);
+        for (int c = 0; c < n_chunks; ++c) {
+          const int s = next;
+          if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
+          uint8_t* stage = ring + s * kFmaStageBytes;
+          mbar_arrive_expect_tx(&full[s], kFmaStageBytes);
+          tma_load_rows(stage, &arm.x_map, &full[s], c * 32, row0);
+          tma_load_rows(stage + kFmaHalfStage, &arm.q_map, &full[s], c * 32, q0);
+          if (++next == kFmaStages) {
+            next = 0;
+            ++lap;
           }
         }
       }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int lg = tid & 15;                      // lanes lg + 16b
+  const int qg = (tid >> 5) * 2 + ((tid >> 4) & 1);  // queries qg + 16a
+  // Row r's 16-byte piece k sits at piece k ^ (r % 8) of its 128 bytes, and
+  // r % 8 is lg % 8 for every row of the thread (qg % 8 for its queries).
+  const int x_rows = lg & 7, x_queries = qg & 7;
+  const bool has_mask = kMode != kSection || prm.mask != nullptr;
+  if constexpr (kMode != kBucketV1) {
 #pragma unroll
-      for (int a = 0; a < FmaTile::kA; ++a) {
+    for (int x = 0; x < 64; ++x) best[x * kFmaConsumers + tid] = kNegInf;
+  }
+
+  int next = 0;
+  uint32_t lap = 0;
+  for (int p = 0; p < n_pos; ++p) {
+    const long long row0 = block_row0 + static_cast<long long>(p) * kLanes;
+    float acc[8][8];
 #pragma unroll
-        for (int b = 0; b < FmaTile::kB; ++b) tile.acc[a][b] = 0;
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = next;
+      mbar_wait(&full[s], lap & 1);
+      const uint8_t* rows = ring + s * kFmaStageBytes + lg * kChunk;
+      const uint8_t* qs = ring + s * kFmaStageBytes + kFmaHalfStage + qg * kChunk;
+#pragma unroll
+      for (int k = 0; k < kChunk / 16; ++k) {
+        float4 qv[8];
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+          qv[a] = *reinterpret_cast<const float4*>(qs + a * 16 * kChunk + ((k ^ x_queries) << 4));
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const float4 rv =
+              *reinterpret_cast<const float4*>(rows + b * 16 * kChunk + ((k ^ x_rows) << 4));
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            float v = acc[a][b];
+            v = fmaf(qv[a].x, rv.x, v);
+            v = fmaf(qv[a].y, rv.y, v);
+            v = fmaf(qv[a].z, rv.z, v);
+            acc[a][b] = fmaf(qv[a].w, rv.w, v);
+          }
+        }
       }
-      chunk = 0;
-      ++p;
+      mbar_arrive(&empty[s]);
+      if (++next == kFmaStages) {
+        next = 0;
+        ++lap;
+      }
+    }
+
+    {  // Position p's epilogue: the mask, then the fold (section, v2) or reduction (v1).
+      // The position's mask for the thread's 8 rows, read after its chunks: 8
+      // registers held across them would pass the register cap.
+      float madd[8];  // section: mask_add
+      bool live[8];   // v2, v1: the mask
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const long long row = row0 + lg + 16 * b;
+        if constexpr (kMode == kSection) {
+          madd[b] = has_mask ? __ldg(static_cast<const float*>(prm.mask) + row) : 0.f;
+        } else {
+          live[b] = __ldg(static_cast<const uint8_t*>(prm.mask) + row) != 0;
+        }
+      }
+      if constexpr (kMode == kBucketV1) {
+        const long long bucket = static_cast<long long>(blockIdx.y) * n_pos + p;
+        const long long n_buckets = static_cast<long long>(prm.n_blocks) * n_pos;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          // The thread's lanes ascend with b, so ">=" keeps the highest lane
+          // among equals; the half-warp's 16 threads merge by keep_best.
+          float bv = -__int_as_float(0x7f800000);
+          int bl = -1;
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const float v = live[b] ? acc[a][b] : kNegInf;
+            if (v >= bv) {
+              bv = v;
+              bl = lg + 16 * b;
+            }
+          }
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+            const int ol = __shfl_xor_sync(0xffffffffu, bl, o);
+            keep_best(bv, bl, ov, ol);
+          }
+          const int bq = q0 + qg + 16 * a;
+          if (lg == 0 && bq < prm.batch) {
+            const long long idx = static_cast<long long>(bq) * n_buckets + bucket;
+            arm.out[idx] = bv;
+            arm.out_pos[idx] = static_cast<int>(bucket * kLanes + bl);
+          }
+        }
+      } else {
+        // Pack, mask, running maximum (the plain version's float operations).
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            float v = __int_as_float((__float_as_int(acc[a][b]) & ~kPosMask) | p);
+            float& m = best[(a * 8 + b) * kFmaConsumers + tid];
+            if constexpr (kMode == kBucketV2) {
+              // A masked row would fold in -1e30, which the maximum never falls below.
+              if (live[b]) m = fmaxf(m, v);
+            } else {
+              // No mask adds nothing: -0.0 + 0.0 would turn a packed -0.0 into +0.0.
+              if (has_mask) v = __fadd_rn(v, madd[b]);
+              m = fmaxf(m, v);
+            }
+          }
+        }
+      }
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::);
   if constexpr (kMode == kBucketV1) return;
 
   const long long width = static_cast<long long>(prm.n_blocks) * kLanes;
 #pragma unroll
-  for (int a = 0; a < FmaTile::kA; ++a) {
-    const int bq = q0 + tile.query(a);
+  for (int a = 0; a < 8; ++a) {
+    const int bq = q0 + qg + 16 * a;
     if (bq >= prm.batch) continue;
+    const long long row_base = static_cast<long long>(bq) * width + blockIdx.y * kLanes + lg;
 #pragma unroll
-    for (int b = 0; b < FmaTile::kB; ++b) {
-      const long long col = static_cast<long long>(blk) * kLanes + tile.lane(b);
-      const long long idx = static_cast<long long>(bq) * width + col;
+    for (int b = 0; b < 8; ++b) {
+      const float v = best[(a * 8 + b) * kFmaConsumers + tid];
       if constexpr (kMode == kBucketV2) {
-        const int bits = __float_as_int(tile.best[a][b]);
-        arm.out[idx] = __int_as_float(bits & ~kPosMask);
-        arm.out_pos[idx] = bits & kPosMask;
+        const int bits = __float_as_int(v);
+        arm.out[row_base + 16 * b] = __int_as_float(bits & ~kPosMask);
+        arm.out_pos[row_base + 16 * b] = bits & kPosMask;
       } else {
-        arm.out[idx] = tile.best[a][b];
+        arm.out[row_base + 16 * b] = v;
       }
     }
   }
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads, 2) fma_tables_kernel(const Params prm) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  run_fma_tile<kMode>(prm, prm.arm[blockIdx.z], blockIdx.y, smem);
-}
-
-int fma_smem_bytes(int row_bytes) {
-  const int padded = (row_bytes + kChunk - 1) / kChunk * kChunk;
-  return FmaTile::kQueries * (padded + kPad) + kStages * kStageBytes;
-}
+// One arm of an FMA walk launch as the C entries receive it.
+struct FmaArgs {
+  const void* q;
+  const void* corpus;
+  void* out;
+  void* out_pos;
+  int row_bytes;
+};
 
 template <int kMode>
-int launch_fma(const Params& prm, int n_arms, cudaStream_t stream) {
-  int smem = 0;
-  for (int a = 0; a < n_arms; ++a) {
-    const int rb = prm.arm[a].row_bytes;
-    if (rb <= 0 || rb % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    smem = fma_smem_bytes(rb) > smem ? fma_smem_bytes(rb) : smem;
-  }
+int launch_fma(const FmaArgs* args, int n_arms, const void* mask, int batch, long long n_rows,
+               int block, cudaStream_t stream) {
   const bool packed = kMode != kBucketV1;
-  if (n_arms < 1 || n_arms > kMaxArms || smem > kMaxSmem || prm.block <= 0 ||
-      prm.block % kLanes != 0 || (packed && prm.block / kLanes > kPosMask + 1) ||
-      prm.n_rows % prm.block != 0 || prm.n_blocks > 65535 ||
-      (kMode != kSection && prm.mask_sel == nullptr)) {
+  constexpr int smem = fma_smem_bytes(kMode);
+  static_assert(smem <= kMaxSmem, "the FMA walk's ring and maxima pass shared memory");
+  if (n_arms < 1 || n_arms > kMaxArms || block <= 0 || block % kLanes != 0 ||
+      (packed && block / kLanes > kPosMask + 1) || n_rows % block != 0 ||
+      n_rows / block > 65535 || n_rows >= (1ll << 31) || (kMode != kSection && mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(fma_tables_kernel<kMode>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((prm.batch + FmaTile::kQueries - 1) / FmaTile::kQueries, prm.n_blocks, n_arms);
-  fma_tables_kernel<kMode><<<grid, kThreads, smem, stream>>>(prm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-Params make_params(int batch, long long n_rows, int block) {
-  Params prm = {};
+  FmaParams prm = {};
+  for (int a = 0; a < n_arms; ++a) {
+    const FmaArgs& w = args[a];
+    if (w.row_bytes <= 0 || w.row_bytes % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if ((reinterpret_cast<uintptr_t>(w.q) | reinterpret_cast<uintptr_t>(w.corpus)) % 16 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+    FmaArm& arm = prm.arm[a];
+    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, kFmaQueries, true))
+      return rc;
+    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, kLanes, true))
+      return rc;
+    arm.out = static_cast<float*>(w.out);
+    arm.out_pos = static_cast<int*>(w.out_pos);
+    arm.n_chunks = (w.row_bytes + kChunk - 1) / kChunk;
+  }
+  prm.mask = mask;
   prm.batch = batch;
-  prm.n_rows = n_rows;
   prm.block = block;
-  prm.n_blocks = block > 0 ? static_cast<int>(n_rows / block) : 0;
-  return prm;
-}
-
-Arm make_arm(const void* q, const void* corpus, void* out, void* out_pos, int row_bytes) {
-  return Arm{static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(corpus),
-             static_cast<float*>(out), static_cast<int*>(out_pos), row_bytes};
+  prm.n_blocks = static_cast<int>(n_rows / block);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      fma_walk_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((batch + kFmaQueries - 1) / kFmaQueries, prm.n_blocks, n_arms);
+  fma_walk_kernel<kMode><<<grid, kFmaThreads, smem, stream>>>(prm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -837,8 +835,9 @@ Arm make_arm(const void* q, const void* corpus, void* out, void* out_pos, int ro
 // out[a] [batch, n_rows/block·128] float32; mask_add [n_rows] float32 or
 // null. int8 and bf16 arms run on the wgmma walk, each with its tile of
 // queries[a] (64 or 128) and ring of stages[a] (2-8); q, corpus, cscale and
-// mask_add 16-byte aligned. float32 arms take the FMA walk and ignore both.
-// All contiguous. Returns the CUDA error code of the launch.
+// mask_add 16-byte aligned. float32 arms take the FMA walk, whose tile and
+// ring are its own (queries and stages are not read); q and corpus 16-byte
+// aligned. All contiguous. Returns the CUDA error code of the launch.
 extern "C" int section_tables(int n_arms, const void* const* q, const void* const* corpus,
                               const void* const* qscale, const void* const* cscale,
                               void* const* out, const int* row_bytes, const int* queries,
@@ -849,12 +848,12 @@ extern "C" int section_tables(int n_arms, const void* const* q, const void* cons
   }
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   if (kind == kF32) {
-    Params prm = make_params(batch, n_rows, block);
+    FmaArgs args[kMaxArms];
     for (int a = 0; a < n_arms; ++a) {
-      prm.arm[a] = make_arm(q[a], corpus[a], out[a], nullptr, row_bytes[a]);
+      args[a] = FmaArgs{q[a], corpus[a], out[a], nullptr, row_bytes[a]};
     }
-    prm.mask_add = static_cast<const float*>(mask_add);
-    return launch_fma<kSection>(prm, n_arms, static_cast<cudaStream_t>(stream));
+    return launch_fma<kSection>(args, n_arms, mask_add, batch, n_rows, block,
+                                static_cast<cudaStream_t>(stream));
   }
   WalkArgs args[kMaxArms];
   for (int a = 0; a < n_arms; ++a) {
@@ -870,8 +869,8 @@ extern "C" int section_tables(int n_arms, const void* const* q, const void* cons
 // n_rows/block·128] float32 (low 7 bits cleared), out_pos the same shape
 // int32 (position in the bucket). int8 and bf16 rows run on the wgmma walk
 // with a tile of `queries` (64 or 128) and a ring of `stages` (2-8); q,
-// corpus, cscale and mask 16-byte aligned. float32 rows take the FMA walk and
-// ignore both. Returns the CUDA error code.
+// corpus, cscale and mask 16-byte aligned. float32 rows take the FMA walk
+// (`queries` and `stages` not read). Returns the CUDA error code.
 extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qscale,
                              const void* cscale, const void* mask, void* out_val, void* out_pos,
                              int row_bytes, int kind, int batch, long long n_rows, int block,
@@ -883,10 +882,9 @@ extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qsca
                                   static_cast<cudaStream_t>(stream));
   }
   if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
-  Params prm = make_params(batch, n_rows, block);
-  prm.arm[0] = make_arm(q, corpus, out_val, out_pos, row_bytes);
-  prm.mask_sel = static_cast<const uint8_t*>(mask);
-  return launch_fma<kBucketV2>(prm, 1, static_cast<cudaStream_t>(stream));
+  const FmaArgs args{q, corpus, out_val, out_pos, row_bytes};
+  return launch_fma<kBucketV2>(&args, 1, mask, batch, n_rows, block,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // q [batch, d], corpus [n_rows, d] bf16 (kind 0) or float32 (kind 2), mask
@@ -895,8 +893,8 @@ extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qsca
 // (global row of the highest lane holding it). `block` (a 128-multiple that
 // divides n_rows) only sets the work per CTA. bf16 rows run on the wgmma walk
 // with a tile of `queries` and a ring of `stages`, q, corpus and mask 16-byte
-// aligned; float32 rows take the FMA walk and ignore both. Returns the CUDA
-// error code.
+// aligned; float32 rows take the FMA walk (`queries` and `stages` not read).
+// Returns the CUDA error code.
 extern "C" int bucket_max_v1(const void* q, const void* corpus, const void* mask, void* out_val,
                              void* out_row, int row_bytes, int kind, int batch, long long n_rows,
                              int block, int queries, int stages, void* stream) {
@@ -907,8 +905,7 @@ extern "C" int bucket_max_v1(const void* q, const void* corpus, const void* mask
                                   static_cast<cudaStream_t>(stream));
   }
   if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
-  Params prm = make_params(batch, n_rows, block);
-  prm.arm[0] = make_arm(q, corpus, out_val, out_row, row_bytes);
-  prm.mask_sel = static_cast<const uint8_t*>(mask);
-  return launch_fma<kBucketV1>(prm, 1, static_cast<cudaStream_t>(stream));
+  const FmaArgs args{q, corpus, out_val, out_row, row_bytes};
+  return launch_fma<kBucketV1>(&args, 1, mask, batch, n_rows, block,
+                               static_cast<cudaStream_t>(stream));
 }

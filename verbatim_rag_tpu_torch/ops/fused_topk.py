@@ -33,7 +33,8 @@ kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
 The kernels read int8 (v2 only), bf16 or float32 rows (`check_kernel_rows`).
 int8 and bf16 rows run on the wgmma walk of `csrc/section.cu` (one main loop
 for section, v2 and v1, each with its epilogue) with the query tile and ring
-depth of :func:`walk_geometry`; float32 rows on the FMA walk.
+depth of :func:`walk_geometry`; float32 rows on the FMA walk (128-query
+tiles, queries and rows streamed by TMA; :func:`table_geometry`).
 """
 
 from __future__ import annotations
@@ -133,10 +134,18 @@ def _positions(block_rows: int, device) -> torch.Tensor:
 #: Row kinds of `csrc/section.cu`.
 KERNEL_KINDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
-#: Shared memory a CTA of `csrc/section.cu` may use, and what the FMA walk
-#: takes besides its query tile (three 128-row stages of 144 bytes a row).
+#: Shared memory a CTA of `csrc/section.cu` may use.
 _SMEM_LIMIT = 232448
-_SMEM_STAGES = 3 * 128 * 144
+
+#: The FMA walk (`fma_walk_kernel`, float32 rows): 128 queries a CTA and a
+#: ring of its own depth (4 stages of 32 KB: 128 rows and 128 queries × 32
+#: floats, both streamed), so its shared memory is one size a mode, whatever
+#: the row width: the ring, the running maxima of section and v2 (128 × 128
+#: float32; v1 keeps none), the mbarriers and 1024 bytes of alignment slack.
+#: Mirrors `fma_smem_bytes`.
+FMA_QUERIES = 128
+_FMA_SMEM_V1 = 4 * 2 * 128 * 128 + 2 * 4 * 8 + 1024
+_FMA_SMEM = {"section": _FMA_SMEM_V1 + 128 * 128 * 4, "v2": _FMA_SMEM_V1 + 128 * 128 * 4, "v1": _FMA_SMEM_V1}
 
 #: The wgmma walk (`table_walk`): the query tile as 128-byte chunks of
 #: [queries][128 B], a ring of 16 KB stages (128 rows × 128 bytes), 4 side
@@ -172,20 +181,28 @@ def walk_geometry(row_bytes: int, mode: str = "v2") -> tuple[int, int]:
     return queries, stages
 
 
-def tile_queries(dtype, row_bytes: int, mode: str = "v2") -> int:
-    """Queries per CTA: 32 for float32 rows (FMA walk), `walk_geometry`'s
-    for int8 and bf16 rows."""
+def table_geometry(dtype, row_bytes: int, mode: str = "v2") -> tuple[int, int]:
+    """(queries a CTA, ring stages) of the walk that takes rows of ``dtype``:
+    `walk_geometry` for int8 and bf16; for float32 rows the FMA walk's
+    128-query tile, whatever their width (the queries stream beside the
+    rows), and 0 stages: its ring depth is the kernel's own."""
     if dtype == torch.float32:
-        return 32
-    return walk_geometry(row_bytes, mode)[0]
+        return FMA_QUERIES, 0
+    return walk_geometry(row_bytes, mode)
+
+
+def tile_queries(dtype, row_bytes: int, mode: str = "v2") -> int:
+    """Queries per CTA (`table_geometry`)."""
+    return table_geometry(dtype, row_bytes, mode)[0]
 
 
 def kernel_smem_bytes(dtype, row_bytes: int, mode: str = "v2") -> int:
-    """Shared memory of one CTA. The FMA walk (float32 rows): the query tile
-    (rows padded to 128 bytes plus 16) and the three stages. The wgmma walk
-    (int8, bf16): `walk_geometry`'s tile and ring (at least 2 stages)."""
+    """Shared memory of one CTA. The FMA walk (float32 rows): its ring and,
+    for section and v2, the running maxima, whatever the row width. The
+    wgmma walk (int8, bf16): `walk_geometry`'s tile and ring (at least 2
+    stages)."""
     if dtype == torch.float32:
-        return 32 * (-(-row_bytes // 128) * 128 + 16) + _SMEM_STAGES
+        return _FMA_SMEM[mode]
     queries, stages = walk_geometry(row_bytes, mode)
     return _walk_smem(queries, row_bytes, max(stages, _WALK_MIN_STAGES), mode)
 
@@ -193,9 +210,9 @@ def kernel_smem_bytes(dtype, row_bytes: int, mode: str = "v2") -> int:
 def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
     """Row width in bytes that `csrc/section.cu` takes for ``corpus`` under
     epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows, 16-byte
-    multiples (TMA boxes and cp.async pieces), and a query tile that fits
-    shared memory (up to 2944 bytes a row for int8 and bf16 on the wgmma
-    walk, 5504 for float32 on the FMA walk)."""
+    multiples (TMA boxes), and for int8 and bf16 a query tile that fits
+    shared memory (up to 2944 bytes a row on the wgmma walk; the FMA walk
+    streams float32 queries, so it takes any width)."""
     if corpus.dtype not in KERNEL_KINDS:
         raise TypeError(
             f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
@@ -204,15 +221,15 @@ def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
     if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, mode) > _SMEM_LIMIT:
         raise ValueError(
             f"the {what} kernel takes rows of a 16-byte multiple whose query tile "
-            f"fits shared memory (up to 2944 bytes for int8 and bf16, 5504 for "
-            f"float32), got {corpus.shape[1]} × {corpus.element_size()} bytes"
+            f"fits shared memory (up to 2944 bytes for int8 and bf16), got "
+            f"{corpus.shape[1]} × {corpus.element_size()} bytes"
         )
     return row_bytes
 
 
 def kernel_operands(corpus, q, what: str):
     """(contiguous corpus, prepared queries, their int8 scales or None) for a
-    launch. The kernels copy rows in 16-byte pieces (TMA boxes, cp.async),
+    launch. The kernels copy rows in 16-byte pieces (TMA boxes),
     so rows must start 16-byte aligned: a corpus view that does not raises,
     queries are copied."""
     corpus = corpus.contiguous()
@@ -269,8 +286,7 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
     if corpus.dtype == torch.int8:
         c_scale = _aligned(scale.reshape(-1).float().contiguous())
     mask = _aligned(mask.contiguous())
-    # int8 / bf16 rows: the wgmma walk's tile and ring; float32 ignores them.
-    queries, stages = (0, 0) if corpus.dtype == torch.float32 else walk_geometry(row_bytes, "v2")
+    queries, stages = table_geometry(corpus.dtype, row_bytes, "v2")
     lib = cuda_build.load("section")
     width = (n // block_rows) * BUCKET
     vals = torch.empty((qp.shape[0], width), dtype=torch.float32, device=corpus.device)
@@ -394,8 +410,7 @@ def v1_block_rows(n: int, batch: int, dtype, n_sm: int, row_bytes: int) -> int:
     """Rows per column block of the v1 kernel. Any 128-multiple that divides
     ``n`` gives the same table, so take the largest ≤ 16384 and halve it
     (down to 1024) while the grid holds fewer than two waves of one CTA an
-    SM (the wgmma walk's 288-thread CTA takes a whole SM; the FMA walk's
-    32-query tiles are counted the same way)."""
+    SM (a CTA of either walk takes a whole SM)."""
     block = min(n, BLOCK_ROWS)
     tiles = -(-batch // tile_queries(dtype, row_bytes, "v1"))
     while (n // block) * tiles < 2 * n_sm and block > 1024:
@@ -426,9 +441,7 @@ def matmul_bucket_max_cuda(corpus, q, mask):
     if vals.numel():
         n_sm = torch.cuda.get_device_properties(corpus.device).multi_processor_count
         block = v1_block_rows(n, batch, corpus.dtype, n_sm, row_bytes)
-        # bf16 rows: the wgmma walk's tile and ring; float32 ignores them.
-        float32 = corpus.dtype == torch.float32
-        queries, stages = (0, 0) if float32 else walk_geometry(row_bytes, "v1")
+        queries, stages = table_geometry(corpus.dtype, row_bytes, "v1")
         fn = cuda_build.load("section").bucket_max_v1
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [

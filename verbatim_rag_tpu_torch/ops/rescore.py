@@ -5,7 +5,8 @@ Port of `verbatim_rag_tpu/ops/rescore.py`. :func:`exact_rescore_oneshot` is
 the plain version (one broadcast compare-select-reduce over
 [B, C, m, qm]); :func:`exact_rescore_cuda` launches `csrc/rescore.cu`, which
 replaces the TPU kernel `_rescore_kernel` and reads candidate rows straight
-from the [N, m] forward index. :func:`exact_rescore_dispatch` is the store's
+from the [N, m] forward index, looking each slot up in a shared-memory hash
+table of the query's terms. :func:`exact_rescore_dispatch` is the store's
 "pallas" rescore impl: the plain version for CPU tensors, the kernel for
 CUDA tensors, for any m and qm.
 

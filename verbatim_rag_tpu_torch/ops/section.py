@@ -47,7 +47,7 @@ from .fused_topk import (
     check_kernel_rows,
     kernel_operands,
     prepare_queries,
-    walk_geometry,
+    table_geometry,
 )
 
 #: Corpus rows per column block at the default (one winner per 64 rows).
@@ -117,10 +117,10 @@ def plan_section_launches(arms) -> list[tuple]:
     launch per row kind, kinds in the order of their first arm, as
     ``(dtype, arm indices, per-arm (queries, ring stages))``. A launch of int8
     or bf16 arms runs the wgmma walk with each arm's `walk_geometry`; float32
-    arms run the FMA walk's 32-query tile (no ring stages to choose: 0)."""
+    arms run the FMA walk's 128-query tile (`table_geometry`)."""
     plan: dict = {}
     for i, (dtype, row_bytes) in enumerate(arms):
-        geometry = (32, 0) if dtype == torch.float32 else walk_geometry(row_bytes, "section")
+        geometry = table_geometry(dtype, row_bytes, "section")
         _, idx, geometries = plan.setdefault(dtype, (dtype, [], []))
         idx.append(i)
         geometries.append(geometry)
