@@ -29,7 +29,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              plus half a bf16 ulp of that max (both round probabilities to
              bf16, at different points, and the output is bf16). At S=8192
              global two planted faults (the last key tile dropped, one row's
-             length mask dropped) must fail that check;
+             length mask dropped) must fail that check; the forward's D=32 arm
+             at the providers' shape (B=64, H=12, D=32, bf16, global, S ∈
+             {256, 200}, ragged lengths with a zero-length row) held the same
+             way, with the same two planted faults at each S;
              exact rescore at B=512, C=256, m=128, qm=32 over a 1M-row
              forward index with missing (−1) candidates, int32/float32 and
              int16/float16 slots; rtol 1e-5, −1e30 exactly where missing;
@@ -68,6 +71,24 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              float32 table arms and the narrow rescore must launch); every
              highlight must index its chunk verbatim, every store tensor and
              parameter must be on the card;
+3a. serve  — `benchmarks/bench_serving.py`'s path without HTTP: the
+             repo's markdown (root, docs/, benchmarks/, examples/) repeated 16
+             times, ingested with `VerbatimRAG.add_documents_batch` through
+             `JaxDenseProvider(max_length=256, batch_size=64)` and
+             `JaxSpladeProvider(max_length=256, batch_size=32, max_nnz=64)`
+             (MiniLM width, 12 × 32 heads: the flash forward at D=32; random
+             weights from the seed) into a bf16 hybrid store; `warmup` (it
+             must launch the flash forward at both head dims and log no
+             failure); 64 questions through `query_batch` (median of 5 after
+             one untimed call, its peak device memory printed; the flow
+             phase's extractor at its 8192-token windows), each response's
+             retrieved chunks, highlights and answer equal to `query`'s for
+             the question; 8 concurrent `query_async` calls, each equal to
+             `query`; then the card's provider encodings of 512 chunk
+             texts held to the same weights on the CPU (tolerances at
+             `SERVE_DENSE_ATOL`), one `query_batch` split into encode,
+             retrieve, extract and template by synchronized host timers, and
+             one under `torch.profiler`;
 3b. bucket_ab — the port's counterpart of `benchmarks/bench_fused_bucket.py`:
              candidate top-k (k=256) of 512 unit queries over 999,424 normal
              bf16 rows at d ∈ {384, 768} by exact top-k over the score
@@ -137,7 +158,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3b and 6b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a, 3b and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -181,12 +202,27 @@ FLASH_RTOL = 2e-2
 #: are not a multiple of the kernels' 64- and 128-row tiles (the TMA edge).
 FLASH_SEQS = (512, 777, 4099, 8192)
 FLASH_BWD_SEQS = (512, 777, 4096, 4099, 8192)
+#: The forward's checks per head dim: 64 at ModernBERT-base's heads (B=8,
+#: H=12) and the extractor's windows, global and window=128, the planted
+#: faults and the headline at S=8192 global; 32 at the providers' shape
+#: (MiniLM's 12 × 32 heads, `max_length=256`, a dense batch of 64: 256 the
+#: providers' padded length, 200 off the 128-row tiles), global, the planted
+#: faults at both lengths. ``reps``: timed calls of the kernel, the plain
+#: version and SDPA.
+FLASH_CASES = {
+    64: dict(batch=8, heads=12, seqs=FLASH_SEQS, windows=(None, 128), faults=(8192,),
+             headline=8192, reps=(5, 2, 3)),
+    32: dict(batch=64, heads=12, seqs=(256, 200), windows=(None,), faults=(256, 200),
+             headline=256, reps=(50, 5, 20)),
+}
 #: Kernels that must run on wgmma fed by TMA (the bf16 forward, partial and
 #: backward; the table walk's section and bucket-max v2 kernels on int8
 #: (ILb1E) and bf16 (ILb0E) rows, and its bucket-max v1 kernel on bf16 rows):
 #: the build phase counts their HGMMA / IGMMA and UTMALDG instructions.
 WGMMA_KERNELS = {
-    "flash_attention": ("flash_fwd_wgmma_kernel", "flash_partial_wgmma_kernel"),
+    "flash_attention": (
+        "flash_fwd_wgmma_kernelILi64E", "flash_fwd_wgmma_kernelILi32E", "flash_partial_wgmma_kernel",
+    ),
     "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
     "section": (
         "bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E",
@@ -451,6 +487,16 @@ def attention_pairs(lengths, seq: int, window) -> int:
     return total
 
 
+def attention_rows(lengths, seq: int) -> tuple[int, int]:
+    """Rows of [S, H, D] an attention call must move for ``lengths``: query
+    rows of the batch rows with a live key (a row of length 0 is all zeros
+    whatever its queries), and key rows below each row's length (k and v
+    each). Outputs are written whole and counted by the caller."""
+    q_rows = seq * sum(1 for n in lengths if int(n) > 0)
+    kv_rows = sum(min(max(int(n), 0), seq) for n in lengths)
+    return q_rows, kv_rows
+
+
 def row_check(err, scale, live, floor: float = 0.0) -> tuple[float, float]:
     """Hold each live attention row (b, row, h) to its own scale.
 
@@ -480,26 +526,45 @@ def sdpa_mask(lens, seq: int, window):
     return allowed[:, None]
 
 
-def check_flash(gen) -> dict:
+def flash_lengths(batch: int, seq: int) -> list[int]:
+    """Ragged lengths of the forward checks: a full row, a zero-length row,
+    a row of one key, rows off the tiles' edges, and for batches past 8
+    random lengths below ``seq`` from a generator seeded by ``seq``."""
+    import torch
+
+    pattern = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq][:batch]
+    rest = torch.randint(2, seq, (batch - len(pattern),), generator=torch.Generator().manual_seed(seq))
+    return pattern + [int(x) for x in rest]
+
+
+def check_flash(gen, head_dim: int) -> dict:
+    """The bf16 forward at ``head_dim`` (`FLASH_CASES`) against its plain
+    version: each live row held to its own scale (`row_check`), the
+    zero-length row exactly 0; at the fault lengths (global) two planted
+    faults (each row's last 64-key tile dropped; row 2's length mask
+    dropped) must fail the check. Times by events and, for the kernel, its
+    device time, beside the plain version, SDPA and the bound."""
     import torch
     import torch.nn.functional as F
 
     from verbatim_rag_tpu_torch.ops import flash_attention as fa
 
-    B, H, D = 8, 12, 64
+    case_cfg = FLASH_CASES[head_dim]
+    B, H, D = case_cfg["batch"], case_cfg["heads"], head_dim
+    reps, plain_reps, library_reps = case_cfg["reps"]
     cases = []
     headline = None
-    for seq in FLASH_SEQS:
-        lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
+    for seq in case_cfg["seqs"]:
+        lengths = flash_lengths(B, seq)
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q, k, v = (
             torch.randn(B, seq, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
             for _ in range(3)
         )
         live = torch.arange(seq, device="cuda")[None, :] < lens[:, None]
-        for window in (None, 128):
+        for window in case_cfg["windows"]:
             outs = {"kernel": fa.flash_attention_cuda(q, k, v, lens, window)}
-            if seq == 8192 and window is None:
+            if seq in case_cfg["faults"] and window is None:
                 # Planted faults the check must catch, each held to the true
                 # lengths: the kernel run without each row's last key tile
                 # (rows longer than one tile), and without row 2's length mask.
@@ -525,40 +590,52 @@ def check_flash(gen) -> dict:
                     err[name], ratio[name] = max(err[name], e), max(ratio[name], r)
                 del ref
             out, max_err, worst = outs.pop("kernel"), err.pop("kernel"), ratio.pop("kernel")
-            require(bool((out[1] == 0).all()), f"flash S={seq} w={window}: zero-length row not 0")
+            what = f"flash D={D} S={seq} w={window}"
+            require(bool((out[1] == 0).all()), f"{what}: zero-length row not 0")
             require(
                 math.isfinite(worst) and worst <= 1.0,
-                f"flash S={seq} w={window}: max abs err {max_err}, worst row at {worst} of its limit",
+                f"{what}: max abs err {max_err}, worst row at {worst} of its limit",
             )
             for name, r in ratio.items():
-                require(r > 1.0, f"flash S={seq}: {name} passes the check ({r} of the limit)")
+                require(r > 1.0, f"{what}: {name} passes the check ({r} of the limit)")
             del outs, out
-            ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, lens, window), reps=5)
+
+            def kernel():
+                return fa.flash_attention_cuda(q, k, v, lens, window)
+
+            ms = cuda_ms(kernel, reps=reps)
+            # The kernel's own time: where a call is as short as its wrapper's
+            # host time, events around back-to-back calls measure the host.
+            device_ms, _ = kernel_device_ms(kernel, 10, f"flash_fwd_wgmma_kernel<{D}>")
 
             def plain():
                 for b0 in range(0, B, rows):
                     sl = slice(b0, b0 + rows)
                     fa.attention_reference(q[sl], k[sl], v[sl], lens[sl], window)
 
-            plain_ms = cuda_ms(plain, reps=2)
+            plain_ms = cuda_ms(plain, reps=plain_reps)
             # Library yardstick: SDPA with the equivalent boolean mask ([B,H,S,D]).
             mask = sdpa_mask(lens, seq, window)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             library_ms = cuda_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=3
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=library_reps
             )
             del qt, kt, vt, mask
             pairs = attention_pairs(lengths, seq, window)
-            b_ms, b_by = bound(4 * B * seq * H * D * 2 + 4 * B, 4 * H * D * pairs, PEAK_BF16_FLOPS)
+            q_rows, kv_rows = attention_rows(lengths, seq)
+            b_ms, b_by = bound(
+                (q_rows + 2 * kv_rows + B * seq) * H * D * 2 + 4 * B, 4 * H * D * pairs, PEAK_BF16_FLOPS
+            )
             case = dict(
-                seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                batch=B, heads=H, head_dim=D, seq=seq, window=window, max_abs_err=max_err,
+                worst_row_of_limit=worst, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             )
             if ratio:
                 case["planted_faults_worst_row_of_limit"] = ratio
             log("flash", json.dumps(case))
             cases.append(case)
-            if seq == 8192 and window is None:
+            if seq == case_cfg["headline"] and window is None:
                 headline = case
         del q, k, v
         torch.cuda.empty_cache()
@@ -668,10 +745,15 @@ def check_flash_bwd(gen) -> dict:
             )
             del qt, kt, vt, o, go, mask
             pairs = attention_pairs(lengths, seq, window)
+            q_rows, kv_rows = attention_rows(lengths, seq)
             # The bound counts the least work (five products: 10·D FLOP a
             # live pair and head); the dq + dk/dv split does seven (14·D).
+            # Bytes: q, g, lse and delta of the live rows, k and v up to each
+            # row's length, dq, dk and dv written whole.
             b_ms, b_by = bound(
-                7 * B * seq * H * D * 2 + 2 * B * H * seq * 4 + 4 * B, 10 * H * D * pairs, PEAK_BF16_FLOPS
+                (2 * q_rows + 2 * kv_rows + 3 * B * seq) * H * D * 2 + 2 * H * q_rows * 4 + 4 * B,
+                10 * H * D * pairs,
+                PEAK_BF16_FLOPS,
             )
             case = dict(
                 seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst,
@@ -1410,6 +1492,7 @@ def kernel_counters() -> dict:
 
     return {
         "flash_attention": (flash_attention, "launches"),
+        "flash_attention_d32": (flash_attention, "launches_d32"),
         "flash_bwd_dq": (flash_attention, "bwd_dq_launches"),
         "flash_bwd_dkv": (flash_attention, "bwd_dkv_launches"),
         "flash_attention_partial": (flash_attention, "partial_launches"),
@@ -1517,6 +1600,305 @@ def run_flow(seed: int, card: str):
     result["launches"] = counts
     log("flow", json.dumps(result))
     return extractor, result
+
+
+#: The serve phase: `benchmarks/bench_serving.py`'s index (neural dense +
+#: SPLADE providers at MiniLM width, `max_length=256`, batches of 64 and 32,
+#: 64 terms a text; the repo's markdown repeated 16 times) and its
+#: micro-batcher's largest batch (64 questions) through `query_batch`.
+SERVE_REPEAT = 16
+SERVE_DIRS = ("docs", "benchmarks", "examples")
+SERVE_QUESTIONS = 64
+SERVE_TIMED = 5
+SERVE_ASYNC = 8
+#: Provider check: the card's encodings of SERVE_CHECK_TEXTS chunk texts held
+#: to the same weights on the CPU (the plain versions: float32 products of
+#: the same bf16-rounded operands, attention in float32 with bf16
+#: probabilities). Both round activations to bf16 at the same points but sum
+#: in other orders and round P at other points, so values may differ by a
+#: few bf16 ulps: dense max |Δ| within SERVE_DENSE_ATOL (four bf16 ulps of a
+#: unit vector's ≈ 0.05 entries) and cosine at least SERVE_DENSE_COS;
+#: SPLADE's top-64 ids at least SERVE_SPLADE_OVERLAP shared on average
+#: (weights near the 64th can swap), and where an id is in both, its weights
+#: within SERVE_SPLADE_RTOL (two bf16 ulps) of each other.
+SERVE_CHECK_TEXTS = 512
+SERVE_DENSE_ATOL = 1e-3
+SERVE_DENSE_COS = 0.9999
+SERVE_SPLADE_OVERLAP = 0.95
+SERVE_SPLADE_RTOL = 1e-2
+SERVE_TOPICS = (
+    "the section tables", "the exact sparse rescore", "bucket-max", "flash attention",
+    "the int8 store", "sequence parallelism", "the span extractor", "hybrid retrieval",
+    "reciprocal rank fusion", "training the highlighter", "the ModernBERT encoder", "SPLADE",
+    "the dense provider", "the micro-batcher", "metadata filters", "solar panels",
+)
+SERVE_TEMPLATES = (
+    "How does {} work?", "What limits {}?", "Why is {} fast on the card?", "Where is {} measured?",
+)
+
+
+def serve_corpus():
+    """`bench_serving.py`'s documents: every non-empty markdown file at the
+    root and under `SERVE_DIRS`, repeated SERVE_REPEAT times with the copy's
+    number in its title."""
+    from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+
+    paths = sorted(ROOT.glob("*.md")) + [
+        p for d in SERVE_DIRS for p in sorted((ROOT / d).rglob("*.md"))
+    ]
+    sources = []
+    for path in paths:
+        text = path.read_text(encoding="utf-8", errors="ignore")
+        if text.strip():
+            sources.append((path, text))
+    return [
+        DocumentSchema(content=text, title=f"{path.name}#{i}", source=str(path.relative_to(ROOT)))
+        for i in range(SERVE_REPEAT)
+        for path, text in sources
+    ]
+
+
+def serve_questions() -> list[str]:
+    return [t.format(topic) for topic in SERVE_TOPICS for t in SERVE_TEMPLATES][:SERVE_QUESTIONS]
+
+
+def retrieved_ids(response) -> list[tuple]:
+    return [(d.metadata["document_id"], d.metadata["chunk_index"]) for d in response.documents]
+
+
+def answer_of(response) -> tuple:
+    """A response's retrieved chunks, each with its highlights, and its answer."""
+    docs = tuple(
+        (d.metadata["document_id"], d.metadata["chunk_index"], tuple((h.start, h.end, h.text) for h in d.highlights))
+        for d in response.documents
+    )
+    return docs, response.answer
+
+
+def check_providers(dense, sparse, texts) -> dict:
+    """The card's dense and SPLADE encodings of ``texts`` against the same
+    weights on the CPU (see SERVE_DENSE_ATOL and SERVE_SPLADE_OVERLAP)."""
+    import numpy as np
+
+    from verbatim_rag_tpu_torch.models import JaxDenseProvider, JaxSpladeProvider
+
+    cpu_dense = JaxDenseProvider(
+        params=dense.model.state_dict(), config=dense.config, max_length=dense.max_length,
+        batch_size=dense.batch_size, device="cpu",
+    )
+    cpu_sparse = JaxSpladeProvider(
+        params=sparse.model.state_dict(), config=sparse.config, max_length=sparse.max_length,
+        batch_size=sparse.batch_size, max_nnz=sparse.max_nnz, device="cpu",
+    )
+    got, ref = dense.embed_batch(texts), cpu_dense.embed_batch(texts)
+    cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(ref, axis=1))
+    dense_err = float(np.abs(got - ref).max())
+    require(
+        dense_err <= SERVE_DENSE_ATOL and float(cos.min()) >= SERVE_DENSE_COS,
+        f"serve: dense provider on the card vs the CPU: max |d| {dense_err}, min cosine {cos.min()}",
+    )
+    g_ids, g_w = sparse.embed_batch_arrays(texts)
+    r_ids, r_w = cpu_sparse.embed_batch_arrays(texts)
+    overlaps, rel = [], 0.0
+    for gi, gw, ri, rw in zip(g_ids, g_w, r_ids, r_w):
+        ref_w = {int(t): float(w) for t, w in zip(ri, rw) if w > 0}
+        got_w = {int(t): float(w) for t, w in zip(gi, gw) if w > 0}
+        shared = set(ref_w) & set(got_w)
+        overlaps.append(len(shared) / max(len(ref_w), 1))
+        for t in shared:
+            rel = max(rel, abs(got_w[t] - ref_w[t]) / max(abs(ref_w[t]), 1e-6))
+    overlap = float(np.mean(overlaps))
+    require(
+        overlap >= SERVE_SPLADE_OVERLAP and rel <= SERVE_SPLADE_RTOL,
+        f"serve: SPLADE provider on the card vs the CPU: top-{sparse.max_nnz} overlap {overlap}, "
+        f"relative weight error {rel}",
+    )
+    return dict(
+        texts=len(texts), dense_max_abs_err=dense_err, dense_min_cosine=float(cos.min()),
+        splade_overlap_mean=overlap, splade_overlap_min=float(np.min(overlaps)),
+        splade_max_rel_err_shared=rel,
+    )
+
+
+def serve_split(rag, questions) -> dict:
+    """One `query_batch` with host timers (synchronized) around its stages:
+    the providers' encodes, the rest of `VerbatimIndex.query_batch` (the
+    store's search), `extract_spans_multi`, and the rest (templates and
+    responses). Timers are instance attributes, removed afterwards."""
+    import torch
+
+    spent = {"encode": 0.0, "retrieve": 0.0, "extract": 0.0}
+    shapes = []
+
+    def timed(obj, name, stage):
+        fn = getattr(obj, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t0
+            return out
+
+        setattr(obj, name, wrapper)
+        return obj, name
+
+    forward_probs = rag.extractor._forward_probs
+
+    def record(ids, mask):
+        shapes.append((list(ids.shape), int(mask.sum())))
+        return forward_probs(ids, mask)
+
+    rag.extractor._forward_probs = record
+    patched = [
+        (rag.extractor, "_forward_probs"),
+        timed(rag.index.dense_provider, "embed_batch_device", "encode"),
+        timed(rag.index.sparse_provider, "embed_query_arrays_device", "encode"),
+        timed(rag.index, "query_batch", "retrieve"),
+        timed(rag.extractor, "extract_spans_multi", "extract"),
+    ]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rag.query_batch(questions)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for obj, name in patched:
+        delattr(obj, name)
+    retrieve = spent["retrieve"] - spent["encode"]
+    return dict(
+        wall_ms=wall * 1e3, encode_ms=spent["encode"] * 1e3, retrieve_ms=retrieve * 1e3,
+        extract_ms=spent["extract"] * 1e3,
+        template_ms=(wall - spent["retrieve"] - spent["extract"]) * 1e3,
+        extractor_slices=[dict(rows_by_seq=shape, live_tokens=live) for shape, live in shapes],
+    )
+
+
+def run_serve(extractor, seed: int, card: str) -> dict:
+    """`bench_serving.py`'s path without HTTP: ingest the repo's markdown
+    through the neural providers, warm up, then 64 questions through
+    `query_batch` (each equal to `query`) and 8 through `query_async`."""
+    import asyncio
+    import logging
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine import VerbatimIndex
+    from verbatim_rag_tpu_torch.models import JaxDenseProvider, JaxSpladeProvider
+    from verbatim_rag_tpu_torch.rag import VerbatimRAG
+
+    t_phase = time.perf_counter()
+    dense = JaxDenseProvider(max_length=256, batch_size=64, seed=seed)
+    sparse = JaxSpladeProvider(max_length=256, batch_size=32, max_nnz=64, seed=seed)
+    require(dense.config.head_dim == 32 and sparse.config.head_dim == 32, "serve: not MiniLM heads")
+    index = VerbatimIndex(dense_provider=dense, sparse_provider=sparse)
+    rag = VerbatimRAG(index, extractor=extractor)
+    docs = serve_corpus()
+    questions = serve_questions()
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rag.add_documents_batch(docs)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    n_chunks = index.inspect()["num_chunks"]
+    log(f"serve: {len(docs)} documents, {n_chunks} chunks ingested in {ingest_s:.3f} s")
+    ingest_counts = read_counts()
+    require(ingest_counts["flash_attention_d32"] > 0, f"serve: ingest launches {ingest_counts}")
+
+    warned = []
+    handler = logging.Handler(level=logging.WARNING)
+    handler.emit = lambda record: warned.append(record.getMessage())
+    core_log = logging.getLogger("verbatim_rag_tpu_torch.rag.core")
+    core_log.addHandler(handler)
+    before = read_counts()
+    t0 = time.perf_counter()
+    rag.warmup()
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    core_log.removeHandler(handler)
+    after = read_counts()
+    d32 = after["flash_attention_d32"] - before["flash_attention_d32"]
+    d64 = (after["flash_attention"] - after["flash_attention_d32"]) - (
+        before["flash_attention"] - before["flash_attention_d32"]
+    )
+    require(not warned, f"serve: warm-up logged {warned}")
+    require(d32 > 0 and d64 > 0, f"serve: warm-up launched the flash forward {d32} times at D=32, {d64} at D=64")
+
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    batch = rag.query_batch(questions)  # untimed first call
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = []
+    for _ in range(SERVE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rag.query_batch(questions)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    singles = [rag.query(q) for q in questions]
+    differ = [i for i, (a, b) in enumerate(zip(batch, singles)) if retrieved_ids(a) != retrieved_ids(b)]
+    require(not differ, f"serve: query_batch retrieved other chunks than query for questions {differ}")
+    # The batch pads every window to its longest and `query` to its own, so a
+    # leak between rows of the extractor's pass would show here.
+    differ = [i for i, (a, b) in enumerate(zip(batch, singles)) if answer_of(a) != answer_of(b)]
+    require(not differ, f"serve: query_batch answered or highlighted otherwise than query for {differ}")
+    n_highlights = 0
+    for response in batch:
+        require(len(response.documents) == rag.k, f"serve: {len(response.documents)} documents")
+        for doc in response.documents:
+            for h in doc.highlights:
+                require(doc.content[h.start : h.end] == h.text, "serve: highlight not verbatim")
+                n_highlights += 1
+
+    async def gather():
+        return await asyncio.gather(*(rag.query_async(q) for q in questions[:SERVE_ASYNC]))
+
+    t0 = time.perf_counter()
+    concurrent = asyncio.run(gather())
+    torch.cuda.synchronize()
+    async_s = time.perf_counter() - t0
+    require(
+        all(answer_of(a) == answer_of(b) for a, b in zip(concurrent, singles)),
+        "serve: query_async answered otherwise than query",
+    )
+    counts = read_counts()
+    require(
+        counts["flash_attention_d32"] > 0
+        and counts["flash_attention"] > counts["flash_attention_d32"]
+        and counts["rescore"] > 0,
+        f"serve: launches {counts}",
+    )
+    for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj"):
+        require(getattr(index.store, name).is_cuda, f"serve: store.{name} not on cuda")
+    require(
+        all(p.is_cuda for m in (dense.model, sparse.model, extractor.model) for p in m.parameters()),
+        "serve: a parameter not on cuda",
+    )
+
+    providers = check_providers(dense, sparse, index.store._enhanced[:SERVE_CHECK_TEXTS])
+    log("serve providers", json.dumps(providers))
+    split = serve_split(rag, questions)
+    log("serve split", json.dumps(split))
+    profile = device_profile(lambda: rag.query_batch(questions), top=10)
+    log("serve profile", json.dumps(profile))
+    result = dict(
+        card=card, documents=len(docs), chunks=n_chunks, ingest_s=ingest_s, warmup_s=warmup_s,
+        questions=len(questions), k=rag.k, extractor_window=extractor.max_length,
+        query_batch_s=times, query_batch_s_median=float(np.median(times)),
+        questions_per_s=len(questions) / float(np.median(times)),
+        memory_before_gb=base_gb, query_batch_peak_gb=peak_gb, highlights=n_highlights,
+        async_queries=SERVE_ASYNC, async_s=async_s, providers=providers, split=split,
+        launches=counts, launches_flash_d32=counts["flash_attention_d32"],
+        launches_flash_d64=counts["flash_attention"] - counts["flash_attention_d32"],
+        phase_s=time.perf_counter() - t_phase,
+    )
+    log("serve", json.dumps(result))
+    log(f"serve: {result['phase_s']:.1f} s")
+    del index, rag
+    return result
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -2094,7 +2476,8 @@ def main() -> None:
     build = check_build(build_logs)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    flash = check_flash(gen)
+    flash = check_flash(gen, 64)
+    flash_d32 = check_flash(gen, 32)
     flash_bwd = check_flash_bwd(gen)
     partial = check_flash_partial(gen)
     rescore = check_rescore(gen)
@@ -2103,6 +2486,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     extractor, flow = run_flow(args.seed, card)
+    serve = run_serve(extractor, args.seed, card)
+    torch.cuda.empty_cache()
     bucket_ab = run_bucket_ab(gen, card)
     data = bench_data(args.seed)
     store = run_store(data, card)
@@ -2114,7 +2499,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
 
-    phases = (flow, bucket_ab, store, store_int8, long_ctx, long_sp, train)
+    phases = (flow, serve, bucket_ab, store, store_int8, long_ctx, long_sp, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
@@ -2122,9 +2507,18 @@ def main() -> None:
             route="cuda",
             source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
             replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
-            launches=launches["flash_attention"],
-            registers=build.get("flash_fwd_wgmma_kernel", {}).get("registers"),
+            launches=launches["flash_attention"] - launches["flash_attention_d32"],
+            registers=build.get("flash_fwd_wgmma_kernelILi64E", {}).get("registers"),
             **flash,
+        ),
+        dict(
+            name="flash_attention_fwd_d32",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
+            launches=launches["flash_attention_d32"],
+            registers=build.get("flash_fwd_wgmma_kernelILi32E", {}).get("registers"),
+            **flash_d32,
         ),
         dict(
             name="flash_attention_bwd",

@@ -140,10 +140,14 @@ def test_compile_filter_equal(flt):
 
 
 def test_config_presets_equal():
-    for name in ("tiny_test_config", "modernbert_base_config", "demo_highlighter_config"):
+    for name in (
+        "tiny_test_config", "modernbert_base_config", "demo_highlighter_config",
+        "minilm_config", "bert_base_config",
+    ):
         ours, theirs = getattr(config, name)(), getattr(jax_config, name)()
         assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
     assert config.modernbert_base_config().head_dim == 64
+    assert config.minilm_config().head_dim == 32 and config.bert_base_config().head_dim == 64
 
 
 @pytest.mark.parametrize("path", sorted(EXAMPLES.glob("*.md")), ids=lambda p: p.name)

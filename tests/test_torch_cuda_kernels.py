@@ -236,8 +236,54 @@ def test_matmul_f32_cuda_grads_match_plain(cuda):
         assert torch.equal(got, expected)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seq,window", [(256, None), (200, None), (333, 128), (77, 7)])
+def test_flash_kernel_head_dim_32_matches_plain(cuda, dtype, seq, window):
+    """The forward's D = 32 arm (MiniLM's heads: 64-byte rows, the 64-byte
+    swizzle, m64n32 P·V), ragged lengths with a zero-length row and a row of
+    one key, at the same tolerances as D = 64; its launches count at D = 32."""
+    lengths = np.array([seq, 0, 1, seq // 2 + 3, seq - 1, 17], np.int32)
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(6, seq, 12, 32, seq))
+    lens = torch.from_numpy(lengths).to(cuda)
+    before = (fa.launches, fa.launches_d32)
+    got = fa.flash_attention(q, k, v, lens, window)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_d32) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    expected = fa.attention_reference(q, k, v, lens, window)
+    live = torch.arange(seq, device=cuda)[None, :] < lens[:, None]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got[live], expected[live], rtol=1e-5, atol=1e-5)
+    else:
+        assert _bf16_row_ratio(got, expected, live) <= 1.0
+    assert (got[1] == 0).all()
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    torch.testing.assert_close(out, got, rtol=0, atol=0)
+    torch.testing.assert_close(lse, fa.attention_lse_reference(q, k, v, lens, window)[1], rtol=1e-5, atol=1e-4)
+
+
+def test_head_dim_32_refused_by_the_backward_and_the_partial(cuda):
+    """The backward and the ring step's partial are compiled for D = 64 only:
+    at D = 32 each raises ValueError, a differentiable forward included
+    (before any launch), instead of running another path."""
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(2, 40, 3, 32, 5))
+    lens = torch.tensor([40, 9], dtype=torch.int32, device=cuda)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens)
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.partial_launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, torch.ones_like(q))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_partial(q, k, v, lens, 0)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(*leaves, lens)
+    after = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.partial_launches)
+    assert after == before
+
+
 def test_flash_kernel_refuses_unsupported_head_dim(cuda):
     q = torch.zeros(1, 8, 1, 8, device=cuda)
+    assert 8 not in fa.FORWARD_HEAD_DIMS
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, q, q, torch.ones(1, dtype=torch.int32, device=cuda))
 

@@ -138,6 +138,39 @@ def test_spans_match_jax(jax_params, case):
         assert len(port_ex._plan(question, contexts[0])["rows"]) > 1
 
 
+def test_slices_bound_tokens_and_match_jax(jax_params, monkeypatch):
+    """A burst is scored in slices of at most SLICE_TOKENS tokens (here a
+    few rows each, where the JAX package takes 512 rows a slice), and the
+    spans stay those of the JAX extractor."""
+    from verbatim_rag_tpu_torch.models import highlighter
+
+    params, state = jax_params
+    contexts = [_doc(12 + 3 * seed, seed) for seed in range(40)]
+    question = "how do solar panels store energy for the grid at night"
+    kwargs = dict(max_length=8192, doc_stride=256, min_span_chars=10)
+    jax_ex = JaxExtractor(params=params, config=jax_tiny_config(**OVERRIDES), **kwargs)
+    jax_ex.threshold = _threshold_in_gap(jax_ex, question, contexts[:8])
+    port_ex = ModelSpanExtractor(
+        params=state, config=tiny_test_config(**OVERRIDES), threshold=jax_ex.threshold,
+        device="cpu", **kwargs,
+    )
+    shapes = []
+    forward = port_ex._forward_probs
+
+    def spy(ids, mask):
+        shapes.append(ids.shape)
+        return forward(ids, mask)
+
+    port_ex._forward_probs = spy
+    monkeypatch.setattr(highlighter, "SLICE_TOKENS", 1000)
+    got = port_ex.process_batch(question, contexts)
+    assert got == jax_ex.process_batch(question, contexts)
+    assert any(spans for spans in got)
+    seq = shapes[0][1]
+    assert len(shapes) == -(-64 // (1000 // seq)) > 1
+    assert all(rows * width <= 1000 and width == seq for rows, width in shapes)
+
+
 def test_extract_spans_returns_verbatim_substrings(jax_params):
     _, state = jax_params
     extractor = ModelSpanExtractor(

@@ -1,7 +1,9 @@
 """The PyTorch port runs its main path without JAX or the JAX package.
 
 A fresh interpreter ingests the example documents, answers a question with
-the default extractor on the CPU, runs a hybrid query over an int8 index
+the default extractor on the CPU, ingests them again through the neural
+dense and SPLADE providers (`add_documents_batch`) and answers two questions
+with one `query_batch`, runs a hybrid query over an int8 index
 (the section path) and over a float32 index with an int16 / float16 forward
 index (the section path), calls the bucket-max v1 entry points, takes one training step of the token highlighter and
 saves and loads its checkpoint, scores a document in one sequence-parallel
@@ -33,6 +35,19 @@ index = VerbatimIndex(
 index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
 response = VerbatimRAG(index).query("How efficient are solar panels?")
 ok = all(d.content[h.start:h.end] == h.text for d in response.documents for h in d.highlights)
+
+from verbatim_rag_tpu_torch.models import JaxDenseProvider, JaxSpladeProvider, minilm_config
+ncfg = minilm_config(hidden_size=64, num_heads=2, num_layers=2, intermediate_size=128, vocab_size=1024,
+                     max_position_embeddings=128, compute_dtype="float32")
+neural = VerbatimIndex(
+    dense_provider=JaxDenseProvider(config=ncfg, max_length=128, batch_size=4, device="cpu"),
+    sparse_provider=JaxSpladeProvider(config=ncfg, max_length=128, batch_size=4, max_nnz=32, device="cpu"),
+    device="cpu",
+)
+neural_rag = VerbatimRAG(neural)
+neural_rag.add_documents_batch([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+neural_batch = neural_rag.query_batch(["How efficient are solar panels?", "Why is offshore wind steadier?"])
+neural_ok = all(d.content[h.start:h.end] == h.text for r in neural_batch for d in r.documents for h in d.highlights)
 int8 = VerbatimIndex(
     dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu",
     dense_dtype="int8", sketch_dtype="int8",
@@ -89,6 +104,9 @@ print(json.dumps({
     "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
     "docs": len(response.documents),
     "verbatim": ok,
+    "neural_chunks": neural.inspect()["num_chunks"],
+    "neural_batch_docs": [len(r.documents) for r in neural_batch],
+    "neural_verbatim": neural_ok,
 }))
 """
 
@@ -120,6 +138,8 @@ def test_main_path_loads_no_jax():
     result = _run(FLOW)
     assert result["jax"] == [] and result["reference"] == []
     assert result["docs"] > 0 and result["verbatim"]
+    assert result["neural_chunks"] > 0 and result["neural_verbatim"]
+    assert result["neural_batch_docs"] == [5, 5]
     assert result["int8_impl"] == "section" and result["int8_hits"] > 0
     assert result["narrow_hits"] > 0
     assert result["narrow_dtypes"] == ["torch.int16", "torch.float16", "torch.float32"]

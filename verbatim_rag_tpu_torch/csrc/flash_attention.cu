@@ -28,13 +28,16 @@
 // no live key in the block writes exactly m = -1e30, l = 0, numer = 0, so the
 // merge never meets -inf − -inf.
 //
-// Inputs and outputs are contiguous with D = 64, q, k, v in bfloat16 or
-// float32; scores, softmax statistics and accumulators are float32. Any S is
-// taken: the ragged edge is masked here, nothing is padded by the caller. Key
+// Inputs and outputs are contiguous, q, k, v in bfloat16 or float32. The
+// forward takes head dims D = 64 (ModernBERT's 12 × 64 heads, the extractor)
+// and D = 32 (MiniLM's 12 × 32 heads, the dense and SPLADE providers), each
+// its own instantiation of the same kernels; the partial takes D = 64.
+// Scores, softmax statistics and accumulators are float32. Any S is taken:
+// the ragged edge is masked here, nothing is padded by the caller. Key
 // tiles past the live keys, or outside the band on local layers, are never
 // loaded, so local layers cost O(S·window) and a dead KV block costs nothing.
 //
-// Three kernels:
+// Three kernels (the forward's two at each head dim):
 //
 //   bf16 forward and bf16 partial — wgmma fed by TMA (Hopper's own path to
 //          the tensor cores), one body (`wgmma_attention`) for both entries.
@@ -46,7 +49,7 @@
 //          both operands K-major in shared memory), the online softmax in
 //          registers (exp2 with log2(e) folded into the scale; row max and sum
 //          over the four lanes of a quad), packs P to bf16 straight into the A
-//          registers of O += P·V (wgmma m64n64 with A from registers and V read
+//          registers of O += P·V (wgmma m64nD with A from registers and V read
 //          MN-major through the descriptor's transpose bit: no Vᵀ copy), and
 //          normalises in the epilogue. Length and band masks are evaluated
 //          only on tiles that straddle an edge; a warpgroup with no live pair
@@ -56,6 +59,10 @@
 //          differ by a bf16 rounding). The partial keeps the same raw row max
 //          and exp2 domain inside and writes m · scale (natural-log domain)
 //          and the unnormalised float32 numerator in 8-byte stores.
+//          At D = 32 a head row is 64 bytes: the tiles take the 64-byte
+//          swizzle (TMA map and descriptors alike), S = Q·Kᵀ takes two k16
+//          steps instead of four, and O += P·V is m64n32 with V's 64-byte
+//          rows read MN-major; the ring and the softmax are unchanged.
 //   f32  — plain FMA on the CUDA cores, 4 threads per q row, p passed to the
 //          P·V loop by warp shuffle (forward and partial).
 //
@@ -67,7 +74,12 @@
 // the exp runs as a single ex2 after one FMA and the masks stay off interior
 // tiles. Local layers are memory-bound (q, k, v and o read or written once);
 // their 128-key tiles cover the 129-key band of a 64-row warpgroup in two
-// tiles.
+// tiles. At D = 32 (the providers: B = 64, S = 256, H = 12, global) the
+// forward is memory-bound: q, k, v and o are 4·B·S·H·D·2 = 50 MB, 15 µs at
+// 3.35 TB/s, against 4·H·D·S²·B = 6.4 GFLOP, 6.5 µs at 989 TFLOP/s; what
+// its design does about the bytes is to read each q, k and v row once a
+// CTA and write each output row once (the 128-row q tile holds all of a
+// 256-key sequence's rows in two CTAs).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +88,6 @@
 
 namespace {
 
-constexpr int D = 64;  // head dim: ModernBERT's 12 × 64 heads
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreadsPerRow = 4;
@@ -112,7 +123,7 @@ __device__ __forceinline__ void key_tile_range(int q_start, int len, int window,
 
 // ---- float32: FMA on the CUDA cores ------------------------------------------------
 
-template <bool kPartial>
+template <bool kPartial, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
@@ -272,10 +283,17 @@ constexpr int kFwdKeys = 128;  // keys a K/V tile
 constexpr int kFwdStages = 2;  // K/V ring depth
 constexpr int kFwdConsumers = 2 * hopper::kWarpgroup;
 constexpr int kFwdThreads = kFwdConsumers + 32;  // + the TMA producer warp
-constexpr int kFwdQBytes = kFwdRows * hopper::kRowBytes;
-constexpr int kFwdTileBytes = kFwdKeys * hopper::kRowBytes;
-constexpr int kFwdBarOffset = kFwdQBytes + kFwdStages * 2 * kFwdTileBytes;
-constexpr int kFwdSmem = kFwdBarOffset + (1 + 2 * kFwdStages) * 8 + 1024;  // + alignment slack
+
+// Shared memory of the wgmma body at head dim D: the Q tile, the K/V ring,
+// then the barriers (D = 64: 16 + 64 KB; D = 32: 8 + 32 KB).
+template <int D>
+struct FwdSmem {
+  static constexpr int kRowBytes = hopper::head_row_bytes<D>();
+  static constexpr int kQBytes = kFwdRows * kRowBytes;
+  static constexpr int kTileBytes = kFwdKeys * kRowBytes;
+  static constexpr int kBarOffset = kQBytes + kFwdStages * 2 * kTileBytes;
+  static constexpr int kBytes = kBarOffset + (1 + 2 * kFwdStages) * 8 + 1024;  // + alignment slack
+};
 
 // Outputs of the wgmma body: the forward's normalised bf16 rows (and lse on
 // request), or the partial's float32 numerator, m and l.
@@ -291,18 +309,22 @@ struct FwdOut {
 // live key of the block [k_offset, k_offset + seq_k) (the forward: the whole
 // sequence, k_offset 0, seq_k = seq_q). A CTA whose block holds no live key
 // loads nothing and writes its rows' empty state.
-template <bool kPartial>
+template <bool kPartial, int D>
 __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const CUtensorMap* k_map,
                                                 const CUtensorMap* v_map,
                                                 const int* __restrict__ lengths, FwdOut res,
                                                 int seq_q, int seq_k, int heads, int window,
                                                 int k_offset, float scale) {
   using namespace hopper;
+  using Smem = FwdSmem<D>;
+  constexpr int kRowBytes = Smem::kRowBytes;
+  constexpr int kFwdQBytes = Smem::kQBytes;
+  constexpr int kFwdTileBytes = Smem::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_base_1024(smem_raw);
   uint8_t* q_tile = smem;
   uint8_t* kv_tiles = smem + kFwdQBytes;  // stage s: K at 2s, V at 2s + 1 (tiles of kFwdTileBytes)
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kFwdBarOffset);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Smem::kBarOffset);
   uint64_t* kv_full = q_full + 1;
   uint64_t* kv_empty = kv_full + kFwdStages;
 
@@ -354,15 +376,15 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
   const int half = window / 2;
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x·scale) = 2^(x·scale_log2)
 
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   // Running max of the raw scores; l0, l1 sum this thread's columns only (the
   // quad's four partial sums are added in the epilogue).
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   if (any_tile) mbar_wait(q_full, 0);
-  const uint64_t q_desc = desc_sw128(q_tile + wg * 64 * kRowBytes);
+  const uint64_t q_desc = desc_sw<kRowBytes>(q_tile + wg * 64 * kRowBytes);
 
   for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
     const int s = i % kFwdStages;
@@ -376,8 +398,8 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
       wgmma_fence();
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc)
-        wgmma_m64n128k16_ss(sc, q_desc + kc * kDescKStep, desc_sw128(k_tile) + kc * kDescKStep,
-                            kc);
+        wgmma_m64n128k16_ss(sc, q_desc + kc * kDescKStep,
+                            desc_sw<kRowBytes>(k_tile) + kc * kDescKStep, kc);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -425,7 +447,7 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
       l0 = l0 * corr0 + ps0;
       l1 = l1 * corr1 + ps1;
 #pragma unroll
-      for (int e = 0; e < 32; ++e) o[e] *= e & 2 ? corr1 : corr0;
+      for (int e = 0; e < D / 2; ++e) o[e] *= e & 2 ? corr1 : corr0;
 
       // O += P·V: P's bf16 pairs are the A registers, V is read MN-major.
       uint32_t pa[8][4];
@@ -433,10 +455,10 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
       fence_regs(o);
       fence_regs(pa);
       wgmma_fence();
-      const uint64_t v_desc = desc_sw128(v_tile);
+      const uint64_t v_desc = desc_sw<kRowBytes>(v_tile);
 #pragma unroll
       for (int kc = 0; kc < kFwdKeys / 16; ++kc)
-        wgmma_m64n64k16_rs(o, pa[kc], v_desc + kc * kDescRowStep);
+        wgmma_pv<D>(o, pa[kc], v_desc + kc * desc_row_step<kRowBytes>());
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -456,7 +478,7 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
     // natural-log domain, -1e30 (not -inf) for a row with no live key.
     float* np = res.numer + base;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int d = j * 8 + 2 * t;
       if (row0 < seq_q)
         *reinterpret_cast<float2*>(np + (long long)row0 * tok_stride + d) =
@@ -481,7 +503,7 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
     const float den0 = fmaxf(l0, 1e-20f);
     const float den1 = fmaxf(l1, 1e-20f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int d = j * 8 + 2 * t;
       if (row0 < seq_q)
         *reinterpret_cast<__nv_bfloat162*>(op + (long long)row0 * tok_stride + d) =
@@ -498,14 +520,16 @@ __device__ __forceinline__ void wgmma_attention(const CUtensorMap* q_map, const 
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, const int* __restrict__ lengths,
                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int seq,
                        int heads, int window, float scale) {
-  wgmma_attention<false>(&q_map, &k_map, &v_map, lengths, FwdOut{out, lse, nullptr, nullptr, nullptr},
-                         seq, seq, heads, window, 0, scale);
+  wgmma_attention<false, D>(&q_map, &k_map, &v_map, lengths,
+                            FwdOut{out, lse, nullptr, nullptr, nullptr}, seq, seq, heads, window,
+                            0, scale);
 }
 
 __global__ void __launch_bounds__(kFwdThreads, 1)
@@ -515,66 +539,85 @@ flash_partial_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const int* __restrict__ lengths, float* __restrict__ numer,
                            float* __restrict__ m, float* __restrict__ l, int seq_q, int seq_k,
                            int heads, int k_offset, float scale) {
-  wgmma_attention<true>(&q_map, &k_map, &v_map, lengths, FwdOut{nullptr, nullptr, numer, m, l},
-                        seq_q, seq_k, heads, -1, k_offset, scale);
+  wgmma_attention<true, 64>(&q_map, &k_map, &v_map, lengths,
+                            FwdOut{nullptr, nullptr, numer, m, l}, seq_q, seq_k, heads, -1,
+                            k_offset, scale);
 }
 
 // The bf16 forward (k_offset < 0) or one ring step's partial (k_offset >= 0,
-// numer/m/l given): tensor maps over q (seq_q) and k, v (seq_k), then one CTA
-// per (128-row q tile, b·h).
+// numer/m/l given; D = 64 only): tensor maps over q (seq_q) and k, v
+// (seq_k), then one CTA per (128-row q tile, b·h).
+template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths, FwdOut res,
                  int batch, int seq_q, int seq_k, int heads, int window, int k_offset, float scale,
                  cudaStream_t stream) {
   const bool partial = k_offset >= 0;
+  if (partial && D != 64) return (int)cudaErrorInvalidValue;
+  constexpr int kSmem = FwdSmem<D>::kBytes;
   // An empty KV block is never loaded (no key is live); its maps span q.
   const void* kv_k = seq_k > 0 ? k : q;
   const void* kv_v = seq_k > 0 ? v : q;
   const int kv_seq = seq_k > 0 ? seq_k : seq_q;
   CUtensorMap q_map, k_map, v_map;
-  if (int rc = hopper::make_tile_map(&q_map, q, batch, seq_q, heads, kFwdRows)) return rc;
-  if (int rc = hopper::make_tile_map(&k_map, kv_k, batch, kv_seq, heads, kFwdKeys)) return rc;
-  if (int rc = hopper::make_tile_map(&v_map, kv_v, batch, kv_seq, heads, kFwdKeys)) return rc;
-  const void* kernel = partial ? reinterpret_cast<const void*>(flash_partial_wgmma_kernel)
-                               : reinterpret_cast<const void*>(flash_fwd_wgmma_kernel);
+  if (int rc = hopper::make_tile_map<D>(&q_map, q, batch, seq_q, heads, kFwdRows)) return rc;
+  if (int rc = hopper::make_tile_map<D>(&k_map, kv_k, batch, kv_seq, heads, kFwdKeys)) return rc;
+  if (int rc = hopper::make_tile_map<D>(&v_map, kv_v, batch, kv_seq, heads, kFwdKeys)) return rc;
+  const void* kernel = reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>);
+  if constexpr (D == 64)
+    if (partial) kernel = reinterpret_cast<const void*>(flash_partial_wgmma_kernel);
   const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq_q + kFwdRows - 1) / kFwdRows, batch * heads);
-  if (partial)
-    flash_partial_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
-        q_map, k_map, v_map, lengths, res.numer, res.m, res.l, seq_q, seq_k, heads, k_offset,
-        scale);
-  else
-    flash_fwd_wgmma_kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
-        q_map, k_map, v_map, lengths, res.out, res.lse, seq_q, heads, window, scale);
+  if constexpr (D == 64) {
+    if (partial) {
+      flash_partial_wgmma_kernel<<<grid, kFwdThreads, kSmem, stream>>>(
+          q_map, k_map, v_map, lengths, res.numer, res.m, res.l, seq_q, seq_k, heads, k_offset,
+          scale);
+      return (int)cudaGetLastError();
+    }
+  }
+  flash_fwd_wgmma_kernel<D><<<grid, kFwdThreads, kSmem, stream>>>(
+      q_map, k_map, v_map, lengths, res.out, res.lse, seq_q, heads, window, scale);
+  return (int)cudaGetLastError();
+}
+
+// The forward at head dim D: the wgmma body for bf16, the FMA kernel for
+// float32.
+template <int D>
+int launch_forward(const void* q, const void* k, const void* v, const int* len, void* out,
+                   float* lse, int batch, int seq, int heads, int window, int dtype,
+                   cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)D);  // 1/8 (D = 64): exact
+  if (dtype == 1)
+    return launch_wgmma<D>(q, k, v, len,
+                           FwdOut{static_cast<__nv_bfloat16*>(out), lse, nullptr, nullptr, nullptr},
+                           batch, seq, seq, heads, window, -1, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
+  flash_fwd_kernel<false, D><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      len, static_cast<float*>(out), lse, nullptr, nullptr, seq, seq, heads, window, 0, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window < 0 means global attention.
-// lse: [B, H, S] float32 logsumexp output, or null. head_dim must be 64.
+// lse: [B, H, S] float32 logsumexp output, or null. head_dim must be 32 or 64.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* lengths, void* out, void* lse, int batch, int seq,
                                    int heads, int head_dim, int window, int dtype, void* stream) {
-  if (head_dim != D) return (int)cudaErrorInvalidValue;
+  if (head_dim != 32 && head_dim != 64) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || seq <= 0 || heads <= 0) return (int)cudaSuccess;
   if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)D);  // 1/8: exact
   float* lse_out = static_cast<float*>(lse);
-  if (dtype == 1)
-    return launch_wgmma(q, k, v, len,
-                        FwdOut{static_cast<__nv_bfloat16*>(out), lse_out, nullptr, nullptr, nullptr},
-                        batch, seq, seq, heads, window, -1, scale, s);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<false><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      len, static_cast<float*>(out), lse_out, nullptr, nullptr, seq, seq, heads, window, 0, scale);
-  return (int)cudaGetLastError();
+  if (head_dim == 32)
+    return launch_forward<32>(q, k, v, len, out, lse_out, batch, seq, heads, window, dtype, s);
+  return launch_forward<64>(q, k, v, len, out, lse_out, batch, seq, heads, window, dtype, s);
 }
 
 // One KV block's unnormalised contribution: q [B, seq_q, H, D], k and v
@@ -586,6 +629,7 @@ extern "C" int flash_attention_partial(const void* q, const void* k, const void*
                                        const void* lengths, void* numer, void* m, void* l,
                                        int batch, int seq_q, int seq_k, int heads, int head_dim,
                                        int k_offset, int dtype, void* stream) {
+  constexpr int D = 64;
   if (seq_k < 0 || k_offset < 0 || head_dim != D) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || seq_q <= 0 || heads <= 0) return (int)cudaSuccess;
   if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -595,11 +639,11 @@ extern "C" int flash_attention_partial(const void* q, const void* k, const void*
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
   if (dtype == 1)
-    return launch_wgmma(q, k, v, len, FwdOut{nullptr, nullptr, static_cast<float*>(numer), mo, lo},
+    return launch_wgmma<D>(q, k, v, len, FwdOut{nullptr, nullptr, static_cast<float*>(numer), mo, lo},
                         batch, seq_q, seq_k, heads, -1, k_offset, scale, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
+  flash_fwd_kernel<true, D><<<grid, kThreads, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       len, static_cast<float*>(numer), nullptr, mo, lo, seq_q, seq_k, heads, -1, k_offset, scale);
   return (int)cudaGetLastError();

@@ -4,17 +4,19 @@
 // 128-byte-swizzled shared tiles. Hand-written PTX; nothing here allocates or
 // synchronises the device.
 //
-// Every tile is a slab of rows of 128 bytes, which is exactly one 128-byte
-// swizzle span: for attention, [rows][64] bf16 of one head of a
-// [B, S, H, 64] contiguous tensor; for the bucket tables, 128-byte chunks of
-// row-major [N, d] rows (64 bf16 or 128 int8 values). TMA writes it swizzled
-// (16-byte chunk c of row r lands at chunk c ^ (r % 8)), rows and bytes past
-// the tensor zero-filled; wgmma reads it through a descriptor with the same
-// swizzle, either K-major (the 128 bytes of a row are the contraction: Q·Kᵀ,
-// dO·Vᵀ, queries·rowsᵀ) or MN-major (rows are the contraction: P·V, dS·K,
-// Pᵀ·dO, dSᵀ·Q), so no product needs a transposed copy. A K-major k-step is
-// 32 bytes in every type (16 bf16, 32 int8), so one descriptor step serves
-// both.
+// Every attention tile is a slab of rows of one head of a [B, S, H, D]
+// contiguous bf16 tensor: D = 64 gives rows of 128 bytes, exactly one
+// 128-byte swizzle span (ModernBERT's heads); D = 32 rows of 64 bytes, one
+// 64-byte swizzle span (MiniLM's heads). The bucket tables use 128-byte
+// chunks of row-major [N, d] rows (64 bf16 or 128 int8 values). TMA writes a
+// tile swizzled (with the 128-byte swizzle 16-byte chunk c of row r lands at
+// chunk c ^ (r % 8); with the 64-byte one at c ^ ((r / 2) % 4)), rows and
+// bytes past the tensor zero-filled; wgmma reads it through a descriptor with
+// the same swizzle, either K-major (the bytes of a row are the contraction:
+// Q·Kᵀ, dO·Vᵀ, queries·rowsᵀ) or MN-major (rows are the contraction: P·V,
+// dS·K, Pᵀ·dO, dSᵀ·Q), so no product needs a transposed copy. A K-major
+// k-step is 32 bytes in every type (16 bf16, 32 int8), so one descriptor
+// step serves both swizzles and both types.
 
 #pragma once
 
@@ -25,26 +27,38 @@
 
 namespace hopper {
 
-constexpr int kHeadDim = 64;            // values a row: ModernBERT's 12 × 64 heads
+constexpr int kHeadDim = 64;            // the backward's head dim: ModernBERT's 12 × 64 heads
 constexpr int kRowBytes = kHeadDim * 2;  // bf16: one 128-byte swizzle span
 constexpr int kWarpgroup = 128;
 
+// Bytes of one bf16 head row of dim D: 128 (D = 64) or 64 (D = 32), each one
+// swizzle span of the same width.
+template <int D>
+__host__ __device__ constexpr int head_row_bytes() {
+  static_assert(D == 32 || D == 64, "attention tiles take head dims 32 and 64");
+  return D * 2;
+}
+
 // ---- host: tensor maps ------------------------------------------------------------
 
-// A TMA map over a [batch, seq, heads, 64] contiguous bf16 tensor whose box is
-// `rows` consecutive positions of one (batch, head): coordinates (0, h, s, b).
+// A TMA map over a [batch, seq, heads, D] contiguous bf16 tensor whose box is
+// `rows` consecutive positions of one (batch, head): coordinates (0, h, s, b),
+// swizzled by the row's own width (128 bytes for D = 64, 64 for D = 32).
 // Rows past seq are zero-filled. Returns 0 or a CUDA error code.
+template <int D = kHeadDim>
 inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
                          int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)heads, (cuuint64_t)seq,
+  constexpr int kBytes = head_row_bytes<D>();
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)seq,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)kRowBytes, (cuuint64_t)heads * kRowBytes,
-                                 (cuuint64_t)seq * heads * kRowBytes};
-  const cuuint32_t box[4] = {(cuuint32_t)kHeadDim, 1u, (cuuint32_t)rows, 1u};
+  const cuuint64_t strides[3] = {(cuuint64_t)kBytes, (cuuint64_t)heads * kBytes,
+                                 (cuuint64_t)seq * heads * kBytes};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1u, (cuuint32_t)rows, 1u};
   const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
   const CUresult rc = cuTensorMapEncodeTiled(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      kBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
@@ -163,17 +177,28 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 // ---- device: wgmma -----------------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled tile of 128-byte rows at p (K-major or
-// MN-major alike): 8-row groups 1024 bytes apart (SBO), the leading offset
-// unused (one swizzle span covers the 64 values), layout type 1 = 128B.
-// A K-major k16 slice starts 32 bytes further per step (+2 in the address
-// field), an MN-major one 16 rows = 2048 bytes further (+128).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+// Descriptor of a swizzled tile of kBytes-byte rows at p (K-major or
+// MN-major alike), one swizzle span a row: 8-row groups 8·kBytes apart
+// (SBO), the leading offset unused (one span covers the row's values; for
+// MN-major it would be the stride between spans along N, and N is one span
+// here), layout type 1 = 128-byte swizzle, 2 = 64-byte swizzle. A K-major
+// k16 slice starts 32 bytes further per step (+2 in the address field), an
+// MN-major one 16 rows further (+16·kBytes / 16).
+template <int kBytes>
+__device__ __forceinline__ uint64_t desc_sw(const void* p) {
+  static_assert(kBytes == 128 || kBytes == 64, "swizzled rows of 128 or 64 bytes");
+  constexpr uint64_t kLayout = kBytes == 128 ? 1 : 2;
+  constexpr uint64_t kSbo = (8 * kBytes) >> 4;
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) | (kSbo << 32) | (kLayout << 62);
 }
-constexpr uint64_t kDescKStep = 32 >> 4;                // K-major: next 16 values
-constexpr uint64_t kDescRowStep = (16 * kRowBytes) >> 4;  // MN-major: next 16 rows
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) { return desc_sw<128>(p); }
+constexpr uint64_t kDescKStep = 32 >> 4;  // K-major: next 16 values
+template <int kBytes>
+__host__ __device__ constexpr uint64_t desc_row_step() {  // MN-major: next 16 rows
+  return (16 * kBytes) >> 4;
+}
+constexpr uint64_t kDescRowStep = desc_row_step<kRowBytes>();
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -260,6 +285,30 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// D[64×32] += A·B: as `wgmma_m64n64k16_rs` with B [16 × 32] MN-major (rows
+// of 32 contiguous values: 64 bytes, one 64-byte swizzle span).
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// O[64×D] += P·V for the attention head dims: m64n64 (D = 64) or m64n32
+// (D = 32), V MN-major.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (D == 64)
+    wgmma_m64n64k16_rs(d, a, desc_b);
+  else
+    wgmma_m64n32k16_rs(d, a, desc_b);
 }
 
 // Accumulator layout of a wgmma m64nN tile (f32 or s32): warp w of the warpgroup

@@ -4,10 +4,18 @@
 Documents are chunked, embedded in batches by the providers, and appended to
 the port's `DeviceVectorStore`; queries resolve their search type (hybrid
 iff both providers) and run one batched store query.
+
+With the neural providers (`models.providers`) the SPLADE terms of an ingest
+batch reach the store as padded arrays (no per-chunk dicts), and a query
+batch's dense embeddings and sparse terms stay on the device from the
+encoders into the store's search. ``VERBATIM_DEVICE_HANDOFF=0`` reads the
+query encodings back to the host first (the JAX package's A/B switch); both
+ways run on the device.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Iterable, Mapping, Sequence
 
 import numpy as np
@@ -177,8 +185,17 @@ class VerbatimIndex:
             for rec, vec in zip(records, dense):
                 rec["dense"] = vec
         if self.sparse_provider is not None:
-            for rec, sparse in zip(records, self.sparse_provider.embed_batch(enhanced)):
-                rec["sparse"] = sparse
+            if getattr(self.store, "accepts_sparse_arrays", False) and hasattr(
+                self.sparse_provider, "embed_batch_arrays"
+            ):
+                # Padded top-nnz arrays straight into the store's forward
+                # index: no per-chunk dict round trip.
+                sp_ids, sp_w = self.sparse_provider.embed_batch_arrays(enhanced)
+                for rec, row_ids, row_w in zip(records, sp_ids, sp_w):
+                    rec["sparse_arrays"] = (row_ids, row_w)
+            else:
+                for rec, sparse in zip(records, self.sparse_provider.embed_batch(enhanced)):
+                    rec["sparse"] = sparse
         self.store.add_vectors(records)
 
     # -- query ----------------------------------------------------------------------
@@ -247,12 +264,25 @@ class VerbatimIndex:
                     "provider or drop the method from the request"
                 )
 
+        # Device handoff (on by default): the neural providers' query
+        # encodings stay on the device into the store's search.
+        # VERBATIM_DEVICE_HANDOFF=0 materializes them on the host first (the
+        # path providers without device outputs always take).
+        handoff = os.environ.get("VERBATIM_DEVICE_HANDOFF", "1") != "0" and getattr(
+            self.store, "accepts_query_arrays", False
+        )
         dense_q = None
         if "dense" in methods and self.dense_provider is not None:
-            dense_q = np.asarray(self.dense_provider.embed_batch(list(texts)), np.float32)
+            if handoff and hasattr(self.dense_provider, "embed_batch_device"):
+                dense_q = self.dense_provider.embed_batch_device(list(texts))
+            else:
+                dense_q = np.asarray(self.dense_provider.embed_batch(list(texts)), np.float32)
         sparse_q = None
         if "sparse" in methods and self.sparse_provider is not None:
-            sparse_q = self.sparse_provider.embed_batch(list(texts))
+            if handoff and hasattr(self.sparse_provider, "embed_query_arrays_device"):
+                sparse_q = self.sparse_provider.embed_query_arrays_device(list(texts))
+            else:
+                sparse_q = self.sparse_provider.embed_batch(list(texts))
         text_q = list(texts) if "full_text" in methods and self.enable_full_text else None
 
         return self.store.query_batch(

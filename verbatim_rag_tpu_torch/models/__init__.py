@@ -1,12 +1,15 @@
-"""PyTorch models: encoder stack and the span-extraction highlighter."""
+"""PyTorch models: encoder stack, the span-extraction highlighter, SPLADE
+and the neural embedding providers."""
 
 from .config import (
     EncoderConfig,
+    bert_base_config,
     demo_highlighter_config,
+    minilm_config,
     modernbert_base_config,
     tiny_test_config,
 )
-from .encoder import Encoder, encoder_forward_sp
+from .encoder import Encoder, cls_pool, embed_texts, encoder_forward_sp, mean_pool
 from .highlighter import (
     HighlighterModel,
     ModelSpanExtractor,
@@ -17,6 +20,8 @@ from .highlighter import (
     token_relevance_probs,
     token_relevance_probs_sp,
 )
+from .providers import JaxDenseProvider, JaxSpladeProvider, provider_from_config
+from .splade import SpladeModel, init_splade_params, splade_forward, splade_topk_terms
 from .tokenizer import HashTokenizer, TokenizedBatch
 
 __all__ = [
@@ -24,15 +29,27 @@ __all__ = [
     "EncoderConfig",
     "HashTokenizer",
     "HighlighterModel",
+    "JaxDenseProvider",
+    "JaxSpladeProvider",
     "ModelSpanExtractor",
+    "SpladeModel",
     "TokenizedBatch",
+    "bert_base_config",
+    "cls_pool",
     "demo_highlighter_config",
+    "embed_texts",
     "encoder_forward_sp",
     "init_highlighter_params",
+    "init_splade_params",
+    "mean_pool",
+    "minilm_config",
     "modernbert_base_config",
     "params_from_jax",
     "params_to_jax",
+    "provider_from_config",
     "select_spans_from_token_probs",
+    "splade_forward",
+    "splade_topk_terms",
     "tiny_test_config",
     "token_relevance_probs",
     "token_relevance_probs_sp",

@@ -1,9 +1,10 @@
 """Encoder architecture configs.
 
-Copy of `verbatim_rag_tpu/models/config.py`, trimmed to the config
-dataclass, the presets the port's extractor uses (ModernBERT-base, the
-compact demo highlighter, and the unit-test size) and the training knobs
-(`TrainingConfig`). One dataclass covers both
+Copy of `verbatim_rag_tpu/models/config.py`: the config dataclass, the
+presets (MiniLM and BERT-base for the dense and SPLADE providers,
+ModernBERT-base and the compact demo highlighter for the extractor, and the
+unit-test size) and the training knobs (`TrainingConfig`). One dataclass
+covers both
 families: BERT (absolute positions, post-LN, GELU, global attention) and
 ModernBERT (RoPE, pre-LN, gated GeGLU, alternating local/global attention,
 no biases, final LN).
@@ -61,6 +62,36 @@ class EncoderConfig:
         if self.position_embedding_type != "rope":
             return True
         return layer_idx % self.global_attn_every_n_layers == 0
+
+
+def minilm_config(**overrides) -> EncoderConfig:
+    """all-MiniLM-L6-v2-shaped config (384-d dense embedder)."""
+    base = dict(
+        compute_dtype="bfloat16",
+        vocab_size=30522,
+        hidden_size=384,
+        num_layers=6,
+        num_heads=12,
+        intermediate_size=1536,
+        max_position_embeddings=512,
+    )
+    base.update(overrides)
+    return EncoderConfig(**base)
+
+
+def bert_base_config(**overrides) -> EncoderConfig:
+    """bert-base-uncased-shaped config (SPLADE backbones)."""
+    base = dict(
+        compute_dtype="bfloat16",
+        vocab_size=30522,
+        hidden_size=768,
+        num_layers=12,
+        num_heads=12,
+        intermediate_size=3072,
+        max_position_embeddings=512,
+    )
+    base.update(overrides)
+    return EncoderConfig(**base)
 
 
 def modernbert_base_config(**overrides) -> EncoderConfig:

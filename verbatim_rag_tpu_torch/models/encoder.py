@@ -18,8 +18,10 @@ Numerics follow the JAX forward:
 - every attention layer goes through `ops.flash_attention.flash_attention`:
   the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
-:func:`encoder_forward_sp` is the sequence-parallel forward over a mesh:
-ring attention on global layers, halo attention on local ones.
+:func:`embed_texts` is the dense provider's forward (masked mean pooling,
+then L2 normalisation). :func:`encoder_forward_sp` is the sequence-parallel
+forward over a mesh: ring attention on global layers, halo attention on
+local ones.
 """
 
 from __future__ import annotations
@@ -207,6 +209,34 @@ class Encoder(nn.Module):
         if self.final_ln is not None:
             h = self.final_ln(h, eps)
         return h.float()
+
+
+# -- pooling heads ------------------------------------------------------------------
+
+
+def mean_pool(hidden: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the sequence (sentence-transformers pooling)."""
+    mask = attention_mask.float()[..., None]
+    summed = torch.sum(hidden * mask, dim=1)
+    counts = torch.clamp(torch.sum(mask, dim=1), min=1e-9)
+    return summed / counts
+
+
+def cls_pool(hidden: torch.Tensor) -> torch.Tensor:
+    return hidden[:, 0, :]
+
+
+def embed_texts(
+    model: Encoder, input_ids: torch.Tensor, attention_mask: torch.Tensor, normalize: bool = True
+) -> torch.Tensor:
+    """Dense-embedding forward: encoder → masked mean → L2 norm (floored at
+    1e-12) — [B, hidden] float32."""
+    hidden = model(input_ids, attention_mask)
+    pooled = mean_pool(hidden, attention_mask)
+    if normalize:
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        pooled = pooled / torch.clamp(norm, min=1e-12)
+    return pooled
 
 
 def shard_replicas(model: nn.Module, devices) -> list[nn.Module]:

@@ -6,7 +6,8 @@ relevance to the question; char spans are cut where the token probability
 crosses a threshold, merged across small gaps, and length-filtered. Long
 contexts use sliding windows with stride overlap; overlapping probabilities
 are max-aggregated. Windows of every document run in one padded forward
-(row counts bucketed to powers of two, bursts scored in 512-row slices).
+(row counts bucketed to powers of two, bursts scored in slices of at most
+512 rows and `SLICE_TOKENS` tokens).
 
 The host-side planning, batching and decode are the JAX package's, unchanged;
 :meth:`ModelSpanExtractor._forward_probs` is the one model seam. With
@@ -28,6 +29,14 @@ from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.ops.ring_attention import shard_sequence
 
 from .config import EncoderConfig, demo_highlighter_config
+
+#: Most tokens (rows × padded length) one forward of a burst takes. The JAX
+#: package slices bursts by 512 rows alone; with windows of 4096 tokens such
+#: a slice is 2.1M tokens, and ModernBERT-base's float32 MLP product for it
+#: alone takes 18 GiB, more than an 80 GB card had left in a served burst.
+#: Each row's probabilities depend on that row only, so the slicing changes
+#: no result.
+SLICE_TOKENS = 512 * 2048
 from .encoder import Dense, Encoder, LayerNorm, compute_dtype, encoder_forward_sp, shard_replicas
 from .tokenizer import HashTokenizer, Tokenizer, bucket_length
 
@@ -97,12 +106,13 @@ def token_relevance_probs_sp(
 
 
 def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX highlighter (or sentence-classifier) parameter tree (numpy
-    leaves) → the port's state_dict.
+    """JAX encoder, highlighter, sentence-classifier or SPLADE parameter
+    tree (numpy leaves) → the port's state_dict.
 
     JAX stacks layers on a leading axis (``params["layers"]`` leaves are
     ``[L, ...]``); kernels are ``[in, out]`` on both sides; ``cls_head``,
-    ``classifier`` and ``sentence_classifier`` are optional.
+    ``classifier``, ``sentence_classifier`` and SPLADE's ``mlm_head``
+    (`models.splade.SpladeModel`) are optional.
     """
     out: dict[str, torch.Tensor] = {}
 
@@ -127,7 +137,7 @@ def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for i in range(n_layers):
         walk(f"layers.{i}.", params_np["layers"], i)
 
-    for top in ("final_ln", "classifier", "cls_head", "sentence_classifier"):
+    for top in ("final_ln", "classifier", "cls_head", "sentence_classifier", "mlm_head"):
         if top in params_np:
             walk(f"{top}.", params_np[top], slice(None))
     return out
@@ -345,11 +355,12 @@ class ModelSpanExtractor(SpanExtractor):
             ids[i, : len(row)] = row
             mask[i, : len(row)] = 1
 
-        # Bursts are scored in 512-row slices to bound the activation memory.
+        # Bursts are scored in slices to bound the activation memory.
+        step = max(1, min(512, SLICE_TOKENS // seq))
         probs = np.concatenate(
             [
-                self._forward_probs(ids[i : i + 512], mask[i : i + 512])
-                for i in range(0, n_padded, 512)
+                self._forward_probs(ids[i : i + step], mask[i : i + step])
+                for i in range(0, n_padded, step)
             ],
             axis=0,
         )

@@ -4,12 +4,18 @@ Port of `verbatim_rag_tpu/ops/flash_attention.py`. The kernels replace the
 TPU kernels of that module:
 
 - `csrc/flash_attention.cu` (tensor cores for bf16, FMA for float32) the
-  forward `_flash_kernel`, with the logsumexp output of
-  `flash_attention_tpu_lse` on request, and the ring step
+  forward `_flash_kernel` at head dims 32 (the MiniLM-shaped providers) and
+  64 (the ModernBERT extractor), with the logsumexp output of
+  `flash_attention_tpu_lse` on request, and, at head dim 64, the ring step
   `_flash_partial_kernel` (:func:`flash_attention_partial`: one KV block's
   unnormalised numerator, row max and denominator);
 - `csrc/flash_attention_bwd.cu` the FlashAttention-2 backward
-  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.
+  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, at head dim 64.
+
+Each entry takes the head dims of its kernel (:data:`FORWARD_HEAD_DIMS`,
+:data:`PARTIAL_HEAD_DIMS`, :data:`BACKWARD_HEAD_DIMS`); on CUDA any other
+raises ``ValueError``, a differentiable call included (its backward would
+need the kernel).
 
 :func:`attention_reference`, :func:`attention_lse_reference`,
 :func:`flash_attention_bwd_reference` and
@@ -36,14 +42,19 @@ from . import cuda_build
 
 NEG_INF = -1e30
 
-#: The one head dim the kernels are compiled for (ModernBERT's).
-KERNEL_HEAD_DIM = 64
+#: Head dims each kernel is compiled for: the forward at MiniLM's 32 and
+#: ModernBERT's 64; the ring step's partial and the backward at 64.
+FORWARD_HEAD_DIMS = (32, 64)
+PARTIAL_HEAD_DIMS = (64,)
+BACKWARD_HEAD_DIMS = (64,)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the main path's proof of use): the
-#: forward (with or without lse), the backward's dq and its dk/dv kernel, and
-#: the ring step's partial kernel.
+#: forward (with or without lse; ``launches_d32`` counts those at head dim
+#: 32 among them), the backward's dq and its dk/dv kernel, and the ring
+#: step's partial kernel.
 launches = 0
+launches_d32 = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 partial_launches = 0
@@ -121,9 +132,15 @@ def flash_attention_bwd_reference(q, k, v, lengths, out, lse, g, window=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_inputs(q, k, v, lengths, what: str, same_seq: bool = True) -> None:
-    """Device, dtype, shape, alignment and lengths of a kernel's inputs; k and
-    v may hold another sequence length than q when ``same_seq`` is false."""
+def _check_head_dim(head_dim: int, head_dims, what: str) -> None:
+    if head_dim not in head_dims:
+        raise ValueError(f"{what}: the kernel takes head_dim in {head_dims}, got {head_dim}")
+
+
+def _check_inputs(q, k, v, lengths, what: str, head_dims, same_seq: bool = True) -> None:
+    """Device, dtype, shape, head dim, alignment and lengths of a kernel's
+    inputs; k and v may hold another sequence length than q when
+    ``same_seq`` is false."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lengths.is_cuda):
         raise ValueError(f"{what} needs CUDA tensors")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -132,8 +149,7 @@ def _check_inputs(q, k, v, lengths, what: str, same_seq: bool = True) -> None:
     if q.dim() != 4 or k.shape != kv_shape or v.shape != kv_shape:
         raise ValueError(f"q, k, v must be [B, S, H, D] alike, got {q.shape}, {k.shape}, {v.shape}")
     batch, _, heads, head_dim = q.shape
-    if head_dim != KERNEL_HEAD_DIM:
-        raise ValueError(f"kernel head_dim must be {KERNEL_HEAD_DIM}, got {head_dim}")
+    _check_head_dim(head_dim, head_dims, what)
     if batch * heads > 65535:
         raise ValueError(f"batch*heads={batch * heads} exceeds the kernel grid (65535)")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
@@ -150,8 +166,8 @@ def _check_rows(x, q, name: str) -> None:
 
 
 def _forward(q, k, v, lengths, window, with_lse: bool):
-    global launches
-    _check_inputs(q, k, v, lengths, "flash_attention_cuda")
+    global launches, launches_d32
+    _check_inputs(q, k, v, lengths, "flash_attention_cuda", FORWARD_HEAD_DIMS)
     batch, seq, heads, head_dim = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -169,6 +185,7 @@ def _forward(q, k, v, lengths, window, with_lse: bool):
     )
     cuda_build.check(rc, "flash_attention_fwd")
     launches += 1
+    launches_d32 += head_dim == 32
     return out, lse
 
 
@@ -220,7 +237,7 @@ def flash_attention_bwd_cuda(q, k, v, lengths, out, lse, g, window=None):
     delta = rowsum(g ∘ out) is a torch reduction here, outside the kernels,
     as the JAX package computes it outside its Pallas calls.
     """
-    _check_inputs(q, k, v, lengths, "flash_attention_bwd_cuda")
+    _check_inputs(q, k, v, lengths, "flash_attention_bwd_cuda", BACKWARD_HEAD_DIMS)
     g = g.to(q.dtype).contiguous()
     if g.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"out and g must be {tuple(q.shape)}, got {tuple(out.shape)}, {tuple(g.shape)}")
@@ -256,7 +273,7 @@ def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
     """Launch the partial kernel: (numer [B, Sq, H, D], m [B, H, Sq],
     l [B, H, Sq]) float32, as :func:`flash_attention_partial_reference`."""
     global partial_launches
-    _check_inputs(q, k, v, lengths, "flash_attention_partial_cuda", same_seq=False)
+    _check_inputs(q, k, v, lengths, "flash_attention_partial_cuda", PARTIAL_HEAD_DIMS, same_seq=False)
     k_offset = int(k_offset)
     if not 0 <= k_offset < 2**31:
         raise ValueError(f"k_offset must be a non-negative int32 position, got {k_offset}")
@@ -299,13 +316,15 @@ def flash_attention_partial(q, k, v, lengths, k_offset: int):
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: the forward keeps (q, k, v, lengths,
     out, lse), the backward is the FA2 backward. CUDA tensors run the
-    kernels, CPU tensors the plain versions."""
+    kernels, CPU tensors the plain versions. On CUDA a head dim the backward
+    kernel does not take raises before the forward runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window):
         if q.device.type == "cpu":
             out, lse = attention_lse_reference(q, k, v, lengths, window)
         else:
+            _check_head_dim(q.shape[-1], BACKWARD_HEAD_DIMS, "flash_attention_bwd_cuda")
             out, lse = flash_attention_lse_cuda(q, k, v, lengths, window)
         ctx.window = window
         ctx.save_for_backward(q, k, v, lengths, out, lse)
