@@ -38,7 +38,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              int16/float16 slots; rtol 1e-5, −1e30 exactly where missing;
              three planted faults (every candidate row shifted by one; each
              query's last live term dropped; the int16/float16 index with
-             its weights zeroed past slot m/2) must fail that check;
+             its weights zeroed past slot m/2) must fail that check; the
+             same at the BM25 arm's width (m=256 int32/float32 slots over
+             2^17 ids, qm=64), with the weights zeroed past m/2 as its third
+             fault;
              section tables (both arms, dense 384 + sketch 768) and
              bucket-max v2 (each arm) at B=512 over N=1,007,616 rows (blocks
              of 8192; int8, bf16 and float32 rows) and N=1,048,576 (blocks
@@ -50,9 +53,13 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              the last position of each block dropped) must fail that check,
              and on the section kernel at the same shape three (the mask
              ignored; the last position dropped; arm 1 reading arm 0's
-             rows); section calls that mix row kinds (int8 + float32, bf16 +
-             int8, three bf16 arms of 64, 384 and 768 columns) at N=32,768,
-             a ragged batch of 300, each arm held to the plain version;
+             rows); the 3-way section launch (three int8 arms: dense 384,
+             SPLADE sketch 768, BM25 sketch 768) at N=1,007,616, bit-equal,
+             with one planted fault (arm 2 reading arm 1's rows) and
+             `torch._int_mm` of the three products as its yardstick; section
+             calls that mix row kinds (int8 + float32, bf16 + int8, three
+             bf16 arms of 64, 384 and 768 columns) at N=32,768, a ragged
+             batch of 300, each arm held to the plain version;
              bucket-max v1 (128 consecutive rows a bucket, highest-lane
              argmax) on bf16 and float32 rows at B=512, N=999,424, d ∈ {384,
              768} and at one block (N=16384, a ragged batch of 70), dead rows
@@ -76,8 +83,10 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              times, ingested with `VerbatimRAG.add_documents_batch` through
              `JaxDenseProvider(max_length=256, batch_size=64)` and
              `JaxSpladeProvider(max_length=256, batch_size=32, max_nnz=64)`
-             (MiniLM width, 12 × 32 heads: the flash forward at D=32; random
-             weights from the seed) into a bf16 hybrid store; `warmup` (it
+             (MiniLM width, 12 × 32 heads, `use_flash_attention=True`: the
+             flash forward at D=32 — MiniLM's own config leaves it off and
+             runs plain attention; random weights from the seed) into a bf16
+             hybrid store; `warmup` (it
              must launch the flash forward at both head dims and log no
              failure); 64 questions through `query_batch` (median of 5 after
              one untimed call, its peak device memory printed; the flow
@@ -108,6 +117,31 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              every query against the same store with the plain table
              versions (int8 tables are bit-equal, so no difference is
              allowed);
+5b. full_text — the store phase's records with synthetic texts (16-64
+             words drawn Zipf-like, weight r^-1.1, from a 30,000-word
+             vocabulary; all from the seed) in an int8 store with
+             `enable_full_text=True` (BM25: 256 terms a chunk over 2^17
+             slots), "auto" → section: the ingest's seconds with the
+             analyzer's share; 512-query 3-way batches (dense + sparse +
+             4-12-word text queries, top-10), one untimed and 8 timed by the
+             host clock and CUDA events, one section launch and two rescores
+             a batch, every query's rows equal to the same store's with the
+             plain table versions, a profiled batch; then 2 batches with
+             `candidate_impl="bucket"` (three v2 launches a batch), also
+             held to the plain tables. At 65,536 of the records (one
+             flush): 5% deleted by id (no deleted id returned; document
+             frequencies drop by exactly those rows' terms), `compact()`
+             (count; idf unchanged), `save` → `load(device="cuda")` (int8
+             codes and a 3-way batch's rows and scores equal). At 196,608:
+             a `sparse_mode="exact"` store, sparse-only and text-only
+             batches of 64, 8 queries each held to a float64 numpy scoring
+             (rows equal except where scores tie within 1e-6);
+5c. cli    — `python -m verbatim_rag_tpu_torch.rag.cli index
+             examples/example_docs --sparse --neural`, then `query ...
+             --json`, each its own process on the card: every highlight
+             verbatim, the retrieved chunks those of an in-process
+             `VerbatimIndex.load` + `VerbatimRAG.query` (whose launches,
+             the extractor's flash forward among them, are counted);
 6. long    — one ~20k-token document through the full-width extractor
              (3 windows at S=8192 through all 22 layers);
 6b. long_sp — the same document and weights through
@@ -158,7 +192,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a, 3b and 6b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a, 3b, 5b, 5c and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -283,14 +317,15 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
+def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float | None, int]:
     """(mean device time in ms, records) of the kernels whose name holds
     ``kernel``, from ``torch.profiler`` around ``reps`` calls of ``fn``
     (after one warm-up call): the kernel's own time, where `cuda_ms` of a
     kernel shorter than its wrapper's host time measures the host. The
-    profiler may miss a launch at the start of its window, so a window with
-    fewer than ``reps`` records is taken once more and the fuller one kept;
-    it must hold at least ``reps // 2``."""
+    profiler may miss launches in its window, so a window with fewer than
+    ``reps`` records is taken again, up to four windows, and the fullest
+    kept. A mean over fewer than ``reps // 2`` records is not reported: the
+    time is then None ("not measured") and the records stand beside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -298,7 +333,7 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
     fn()
     torch.cuda.synchronize()
     best = (0.0, 0)
-    for _ in range(2):
+    for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -307,12 +342,15 @@ def kernel_device_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
             e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel in e.key
         ]
         count = sum(e.count for e in rows)
+        require(count <= reps, f"{kernel}: {count} device records for {reps} calls")
         if count > best[1]:
             best = (sum(e.self_device_time_total for e in rows), count)
         if count == reps:
             break
     total_us, count = best
-    require(reps // 2 <= count <= reps, f"{kernel}: {count} device records for {reps} calls")
+    if count < reps // 2:
+        log(f"{kernel}: the profiler saw {count} of {reps} launches in four windows; device time not measured")
+        return None, count
     return total_us / 1e3 / count, count
 
 
@@ -896,14 +934,16 @@ def efficient_attention_ms(qt, kt, vt, live) -> tuple[float | None, str]:
     )
 
 
-def rescore_inputs(gen):
-    """The rescore's serving point: B=512 queries of qm=32 terms, C=256
-    candidates each (some missing, -1) over a 1M-row forward index of m=128
-    int32 / float32 slots (1-128 live, pads id 0 / weight 0); half of each
-    query's terms come from its candidate rows so that scores are not all 0."""
+def rescore_inputs(gen, m: int = 128, qm: int = 32, vocab: int = 30522):
+    """The rescore's serving point: B=512 queries of ``qm`` terms, C=256
+    candidates each (some missing, -1) over a 1M-row forward index of ``m``
+    int32 / float32 slots (1-m live, pads id 0 / weight 0) over ``vocab``
+    ids; half of each query's terms come from its candidate rows so that
+    scores are not all 0. The defaults are the SPLADE arm's shape; the BM25
+    arm's is m=256, qm=64 over 2^17 ids."""
     import torch
 
-    B, C, N, m, qm, vocab = 512, 256, 1_000_000, 128, 32, 30522
+    B, C, N = 512, 256, 1_000_000
     sp_ids = torch.randint(1, vocab, (N, m), generator=gen, device="cuda", dtype=torch.int32)
     sp_w = torch.rand((N, m), generator=gen, device="cuda")
     nnz = torch.randint(1, m + 1, (N, 1), generator=gen, device="cuda")
@@ -920,15 +960,20 @@ def rescore_inputs(gen):
     return cand, sp_ids, sp_w, q_ids, q_w
 
 
-def rescore_bound(cand, m: int, qm: int, slot_bytes: int) -> tuple[float, str]:
-    """The rescore's bound: the live candidates' rows (``slot_bytes`` a
-    slot), the candidate ids, the query terms and the scores against a
-    compare-select a (slot, term) pair on the CUDA cores."""
-    n_valid = int((cand >= 0).sum())
+def rescore_bound(cand, ids, w, qm: int) -> tuple[float, str]:
+    """The rescore's bound, counted from this run's data: of each live
+    candidate's row, the id and weight of every live slot (weight not 0) and
+    the weight alone of every pad slot, which is enough to know it adds
+    nothing; the candidate ids, the query terms and the scores; against a
+    compare-select of each live slot with each query term on the CUDA
+    cores."""
+    valid = cand >= 0
+    rows = cand[valid].long()
+    live = int((w[rows] != 0).sum())
+    pads = rows.numel() * w.shape[1] - live
     B, C = cand.shape
-    return bound(
-        n_valid * m * slot_bytes + B * C * 4 + B * qm * 8 + B * C * 4, n_valid * m * qm, PEAK_FP32_OPS
-    )
+    row_bytes = live * (ids.element_size() + w.element_size()) + pads * w.element_size()
+    return bound(row_bytes + B * C * 4 + B * qm * 8 + B * C * 4, live * qm, PEAK_FP32_OPS)
 
 
 def rescore_fault(got, ref, valid) -> str | None:
@@ -998,7 +1043,7 @@ def check_rescore(gen) -> dict:
         lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), 20, "rescore_kernel"
     )
     plain_ms = cuda_ms(lambda: rs.exact_rescore_oneshot(cand, sp_ids, sp_w, q_ids, q_w), reps=3)
-    b_ms, b_by = rescore_bound(cand, m, qm, 8)
+    b_ms, b_by = rescore_bound(cand, sp_ids, sp_w, qm)
     result = dict(
         max_abs_err=err, max_rel_err=float(rel.max()), ms=ms, device_ms=device_ms,
         device_records=records, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -1020,7 +1065,7 @@ def check_rescore(gen) -> dict:
         ),
     })
     log("rescore int16/float16 planted faults", json.dumps(faults16))
-    b16_ms, b16_by = rescore_bound(cand, m, qm, 4)
+    b16_ms, b16_by = rescore_bound(cand, ids16, w16, qm)
     device16_ms, records16 = kernel_device_ms(
         lambda: rs.exact_rescore_cuda(cand, ids16, w16, q_ids, q_w), 20, "rescore_kernel"
     )
@@ -1032,6 +1077,108 @@ def check_rescore(gen) -> dict:
         bound_ms=b16_ms, bound_by=b16_by, library_ms=None, planted_faults_caught=faults16,
     )
     log("rescore", json.dumps(result))
+    return result
+
+
+def check_rescore_bm25(gen) -> dict:
+    """The rescore at the BM25 arm's width: B=512, C=256, m=256 int32 /
+    float32 slots over 2^17 ids, qm=64, over a 1M-row forward index with
+    missing candidates; rel ≤ 1e-5 and -1e30 exactly where missing; three
+    planted faults (every candidate row shifted by one; each query's last
+    live term dropped; the weights zeroed past slot m/2) must fail that
+    check."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import rescore as rs
+
+    cand, ids, w, q_ids, q_w = rescore_inputs(gen, m=256, qm=64, vocab=1 << 17)
+    (N, m), qm = ids.shape, q_ids.shape[1]
+    got = rs.exact_rescore_cuda(cand, ids, w, q_ids, q_w)
+    torch.cuda.synchronize()
+    ref = rs.exact_rescore_oneshot(cand, ids, w, q_ids, q_w)
+    valid = cand >= 0
+    why = rescore_fault(got, ref, valid)
+    require(why is None, f"rescore at m=256: {why}")
+    require(float((got[valid] > 0).float().mean()) > 0.05, "rescore at m=256: too few matches to check")
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-6))[valid]
+    err = float((got - ref)[valid].abs().max())
+    last = (torch.arange(qm, device="cuda")[None, :] * (q_w != 0)).argmax(dim=1, keepdim=True)
+    faults = rescore_planted_faults(cand, ids, w, q_ids, q_w, ref, valid, {
+        "every candidate row shifted by one": lambda: dict(
+            cand=torch.where(cand >= 0, (cand + 1) % N, cand)
+        ),
+        "each query's last live term dropped": lambda: dict(q_w=q_w.scatter(1, last, 0.0)),
+        "weights zeroed past slot m/2": lambda: dict(
+            w=torch.where(torch.arange(m, device="cuda")[None, :] < m // 2, w, 0.0)
+        ),
+    })
+    log("rescore m=256 planted faults", json.dumps(faults))
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: rs.exact_rescore_cuda(cand, ids, w, q_ids, q_w), reps=20)
+    device_ms, records = kernel_device_ms(
+        lambda: rs.exact_rescore_cuda(cand, ids, w, q_ids, q_w), 20, "rescore_kernel"
+    )
+    plain_ms = cuda_ms(lambda: rs.exact_rescore_oneshot(cand, ids, w, q_ids, q_w), reps=2)
+    b_ms, b_by = rescore_bound(cand, ids, w, qm)
+    result = dict(
+        m=m, qm=qm, vocab=1 << 17, max_abs_err=err, max_rel_err=float(rel.max()), ms=ms,
+        device_ms=device_ms, device_records=records, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, planted_faults_caught=faults,
+    )
+    log("rescore m=256", json.dumps(result))
+    return result
+
+
+def check_section_three_arms(gen) -> dict:
+    """The 3-way section launch at the int8 store's geometry: three int8
+    arms (dense 384, SPLADE sketch 768, BM25 sketch 768) at B=512 over
+    N=1,007,616 rows (blocks of 8192), dead rows in the mask, tables
+    bit-equal to the plain version's; a planted fault (arm 2 reading arm
+    1's rows) must fail that check. Library yardstick: `torch._int_mm` of
+    the three products alone."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    n, batch, block = 123 * 8192, 512, 8192
+    arms = [table_arm(gen, n, batch, d, "int8") for d in (384, 768, 768)]
+    mask = table_mask(gen, n)
+    corpora, queries, scales = zip(*arms)
+    before = sec.launches
+    got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+    require(sec.launches == before + 1, "section three arms: not one launch")
+    torch.cuda.synchronize()
+    ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+    why = section_fault(got, ref, corpora, queries, block, True)
+    require(why is None, f"section three arms: {why}")
+    err = max(
+        float((g - e).abs()[e > -1e29].max()) for g, e in zip(got, ref)
+    )
+    del got
+    faulty = sec.section_tables_cuda(
+        (corpora[0], corpora[1], corpora[1]), queries, mask, (scales[0], scales[1], scales[1]), block
+    )
+    fault = section_fault(faulty, ref, corpora, queries, block, True)
+    require(fault is not None, "section three arms: planted fault 'arm 2 reading arm 1's rows' passes the check")
+    log("section three arms planted fault", json.dumps({"arm 2 reading arm 1's rows": fault}))
+    del ref, faulty
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: sec.section_tables_cuda(corpora, queries, mask, scales, block), reps=10)
+    plain_ms = cuda_ms(lambda: sec.section_tables_reference(corpora, queries, mask, scales, block), reps=2)
+    width = n // block * 128
+    b_ms, b_by = bound(
+        table_bytes(arms, n, batch, width, 4), sum(2.0 * batch * n * c.shape[1] for c in corpora),
+        PEAK_INT8_OPS,
+    )
+    prepared = [ft.prepare_queries(q, c)[0] for c, q in zip(corpora, queries)]
+    library_ms = cuda_ms(lambda: [torch._int_mm(p, c.t()) for p, c in zip(prepared, corpora)], reps=5)
+    result = dict(
+        n=n, block=block, arms=[int(c.shape[1]) for c in corpora], dtype="int8", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        planted_faults_caught={"arm 2 reading arm 1's rows": fault},
+    )
+    log("section three arms", json.dumps(result))
     return result
 
 
@@ -1785,12 +1932,16 @@ def run_serve(extractor, seed: int, card: str) -> dict:
     import torch
 
     from verbatim_rag_tpu_torch.engine import VerbatimIndex
-    from verbatim_rag_tpu_torch.models import JaxDenseProvider, JaxSpladeProvider
+    from verbatim_rag_tpu_torch.models import JaxDenseProvider, JaxSpladeProvider, minilm_config
     from verbatim_rag_tpu_torch.rag import VerbatimRAG
 
     t_phase = time.perf_counter()
-    dense = JaxDenseProvider(max_length=256, batch_size=64, seed=seed)
-    sparse = JaxSpladeProvider(max_length=256, batch_size=32, max_nnz=64, seed=seed)
+    # MiniLM leaves use_flash_attention off (plain attention, as in the JAX
+    # package); the serving phase sets it so the providers' encodes run the
+    # flash forward's D = 32 arm.
+    config = minilm_config(use_flash_attention=True)
+    dense = JaxDenseProvider(config=config, max_length=256, batch_size=64, seed=seed)
+    sparse = JaxSpladeProvider(config=config, max_length=256, batch_size=32, max_nnz=64, seed=seed)
     require(dense.config.head_dim == 32 and sparse.config.head_dim == 32, "serve: not MiniLM heads")
     index = VerbatimIndex(dense_provider=dense, sparse_provider=sparse)
     rag = VerbatimRAG(index, extractor=extractor)
@@ -1993,8 +2144,9 @@ def bench_data(seed: int) -> dict:
     return dict(dim=dim, nnz=nnz, vocab=vocab, batch=batch, records=records, queries=queries)
 
 
-def fill_store(data, **kwargs):
-    """A store on the card filled with the bench records; (store, ingest s, state GB)."""
+def fill_store(data, records=None, **kwargs):
+    """A store on the card filled with the bench records (or ``records``);
+    (store, ingest s, state GB)."""
     import torch
 
     from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
@@ -2004,11 +2156,14 @@ def fill_store(data, **kwargs):
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    store.add_vectors(data["records"])
+    store.add_vectors(data["records"] if records is None else records)
     store.flush()
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
-    arrays = ("_dense", "_dense_scale", "_sp_ids", "_sp_w", "_sp_proj", "_sp_proj_scale", "_valid_dev")
+    arrays = (
+        "_dense", "_dense_scale", "_sp_ids", "_sp_w", "_sp_proj", "_sp_proj_scale", "_valid_dev",
+        "_ft_ids", "_ft_tf", "_ft_w", "_ft_proj", "_ft_proj_scale",
+    )
     state_gb = sum(
         t.numel() * t.element_size() for t in (getattr(store, a) for a in arrays) if t is not None
     ) / 1e9
@@ -2115,7 +2270,7 @@ def run_store(data, card: str) -> dict:
     return result
 
 
-def same_rows_with_plain_tables(store, data, top_k: int, expected, what: str) -> None:
+def same_rows_with_plain_tables(store, data, top_k: int, expected, what: str, text_queries=None) -> None:
     """The first batch again with the table kernels' plain versions in their
     place: int8 tables are bit-equal and everything after them is the same
     code, so every query must give the same rows."""
@@ -2127,7 +2282,9 @@ def same_rows_with_plain_tables(store, data, top_k: int, expected, what: str) ->
     ft.matmul_bucket_max_v2_cuda = ft.matmul_bucket_max_v2_reference
     try:
         q_dense, q_sparse, _ = data["queries"](0)
-        plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+        plain = store.query_batch(
+            dense_queries=q_dense, sparse_queries=q_sparse, text_queries=text_queries, top_k=top_k
+        )
     finally:
         sec.section_tables_cuda, ft.matmul_bucket_max_v2_cuda = kernels
     for b in range(data["batch"]):
@@ -2179,6 +2336,373 @@ def run_store_int8(data, card: str) -> dict:
     log("store_int8", json.dumps(result))
     del store
     torch.cuda.empty_cache()
+    return result
+
+
+#: The full_text phase: the words of the synthetic texts (made from the
+#: seed), each text's word count, the query texts' word count, the Zipf
+#: exponent of word frequencies, and the sizes of its smaller stores.
+TEXT_VOCAB_WORDS = 30_000
+TEXT_WORDS = (16, 64)
+TEXT_QUERY_WORDS = (4, 12)
+TEXT_ZIPF = 1.1
+FT_HOUSEKEEPING_ROWS = 65_536
+FT_EXACT_ROWS = 196_608
+FT_EXACT_BATCH = 64
+FT_EXACT_CHECKED = 8
+FT_BUCKET_BATCHES = 2
+
+
+def text_corpus(seed: int, n: int) -> list[str]:
+    """``n`` synthetic chunk texts: 16-64 words each, drawn Zipf-like (rank
+    r with weight r^-1.1) from a 30,000-word vocabulary of random lowercase
+    words, everything made from the seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    letters = rng.integers(97, 123, size=(TEXT_VOCAB_WORDS, 10), dtype=np.uint8)
+    lengths = rng.integers(3, 11, size=TEXT_VOCAB_WORDS)
+    words = np.array([row[:k].tobytes().decode() for row, k in zip(letters, lengths)], dtype=object)
+    p = 1.0 / np.arange(1, TEXT_VOCAB_WORDS + 1) ** TEXT_ZIPF
+    counts = rng.integers(TEXT_WORDS[0], TEXT_WORDS[1] + 1, size=n)
+    drawn = words[rng.choice(TEXT_VOCAB_WORDS, size=int(counts.sum()), p=p / p.sum())]
+    ends = np.cumsum(counts)
+    return [" ".join(drawn[e - c : e]) for e, c in zip(ends.tolist(), counts.tolist())]
+
+
+def text_queries(texts, src, seed: int) -> list[str]:
+    """One query text per source row: 4-12 consecutive words of its text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in src:
+        words = texts[int(s)].split()
+        k = int(rng.integers(TEXT_QUERY_WORDS[0], TEXT_QUERY_WORDS[1] + 1))
+        start = int(rng.integers(0, max(len(words) - k, 0) + 1))
+        out.append(" ".join(words[start : start + k]))
+    return out
+
+
+def ft_batch(store, data, texts, i: int, top_k: int):
+    """The store phase's query batch ``i`` with 3-way text queries added."""
+    q_dense, q_sparse, src = data["queries"](i)
+    text_q = text_queries(texts, src, 1000 + i)
+    return store.query_batch(
+        dense_queries=q_dense, sparse_queries=q_sparse, text_queries=text_q, top_k=top_k
+    ), src, text_q
+
+
+def small_queries(records, texts, n_rows: int, batch: int, seed: int):
+    """A 3-way batch over the first ``n_rows`` records: dense and sparse
+    queries from source rows (as `bench_data`'s), text queries from theirs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_rows, size=batch)
+    q_dense = np.stack([records[s]["dense"] for s in src]) + 0.5 * rng.standard_normal(
+        (batch, len(records[0]["dense"])), dtype=np.float32
+    )
+    q_ids = np.stack([records[s]["sparse_arrays"][0][:32] for s in src])
+    q_w = rng.random(q_ids.shape, dtype=np.float32)
+    return q_dense, (q_ids, q_w), text_queries(texts, src, seed)
+
+
+def three_way(store, queries, top_k: int = 10):
+    q_dense, q_sparse, text_q = queries
+    return store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, text_queries=text_q, top_k=top_k)
+
+
+def hits(results) -> list[list[tuple]]:
+    return [[(h.id, h.score) for h in row] for row in results]
+
+
+def reference_topk(ids, weights, qvec, k: int):
+    """float64 top-k of Σ_j weights[n, j] · qvec[ids[n, j]] over every row
+    (rows with a score above 0): (rows, scores of every row)."""
+    import numpy as np
+
+    scores = (weights.astype(np.float64) * qvec[ids]).sum(axis=1)
+    order = np.lexsort((np.arange(scores.size), -scores))[:k]
+    return [int(r) for r in order if scores[r] > 0], scores
+
+
+def held_to_reference(rows, ref_rows, scores, what: str) -> int:
+    """Rows equal to the float64 reference's, except where their reference
+    scores tie within 1e-6 relative; the count of such tie swaps."""
+    swaps = 0
+    require(len(rows) == len(ref_rows), f"{what}: {len(rows)} rows, reference {len(ref_rows)}")
+    for got, ref in zip(rows, ref_rows):
+        if got == ref:
+            continue
+        swaps += 1
+        require(
+            abs(scores[got] - scores[ref]) <= 1e-6 * max(abs(scores[ref]), 1e-30),
+            f"{what}: row {got} (score {scores[got]}) where the reference has {ref} ({scores[ref]})",
+        )
+    return swaps
+
+
+def run_full_text(data, card: str, seed: int) -> dict:
+    """The BM25 full-text tier on the card (see the module docstring, 5b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine import analyzer
+    from verbatim_rag_tpu_torch.engine import store as store_mod
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    t_phase = time.perf_counter()
+    top_k, n_batches = 10, STORE_BATCHES
+    t0 = time.perf_counter()
+    texts = text_corpus(seed, STORE_ROWS)
+    records = [dict(rec, text=text) for rec, text in zip(data["records"], texts)]
+    texts_s = time.perf_counter() - t0
+    ft_kwargs = dict(dense_dtype="int8", sketch_dtype="int8", enable_full_text=True)
+
+    # Ingest, with the analyzer's share timed by a wrapper.
+    analyzer_s = [0.0]
+
+    def timed_analyze(*args, **kwargs):
+        t = time.perf_counter()
+        out = analyzer.analyze_texts(*args, **kwargs)
+        analyzer_s[0] += time.perf_counter() - t
+        return out
+
+    store_mod.analyze_texts = timed_analyze
+    reset_counts()
+    try:
+        store, ingest_s, state_gb = fill_store(data, records, **ft_kwargs)
+    finally:
+        store_mod.analyze_texts = analyzer.analyze_texts
+    require(store.candidate_impl == "section", f"full_text: impl {store.candidate_impl}")
+    require(
+        store.full_text_max_nnz == 256 and store.full_text_vocab == 1 << 17,
+        "full_text: not the default full-text shape",
+    )
+    ingest_counts = read_counts()
+    log(f"full_text: {STORE_ROWS} records ingested in {ingest_s:.1f} s (analyzer {analyzer_s[0]:.1f} s)")
+
+    # 3-way batches: one untimed, then timed by the host clock and CUDA events.
+    reset_counts()
+    first, src, first_text = ft_batch(store, data, texts, 0, top_k)
+    require(all(len(r) == top_k for r in first), "full_text: result shape")
+    require(all(math.isfinite(h.score) and h.score > 0 for r in first for h in r), "full_text: scores")
+    hit = float(np.mean([str(s) in {h.id for h in r} for s, r in zip(src, first)]))
+    host_ms, event_ms = [], []
+    for i in range(1, n_batches + 1):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out, _, _ = ft_batch(store, data, texts, i, top_k)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        require(len(out) == data["batch"], "full_text: batch size")
+    counts = read_counts()
+    per_batch = {k: v / (n_batches + 1) for k, v in counts.items() if v}
+    require(
+        counts["section"] == n_batches + 1 and counts["rescore"] == 2 * (n_batches + 1),
+        f"full_text: launches {counts} (one section launch and two rescores a batch)",
+    )
+    same_rows_with_plain_tables(store, data, top_k, first, "full_text", text_queries=first_text)
+    q_dense, q_sparse, src1 = data["queries"](1)
+    text1 = text_queries(texts, src1, 1001)
+    profile = device_profile(
+        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, text_queries=text1, top_k=top_k),
+        top=10,
+    )
+    log("full_text profile", json.dumps(profile))
+    # The BM25 query side on the host (analysis, idf dicts, host sketches,
+    # padding, upload) for one batch's text queries.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store._sparse_query_device(store._bm25_query_sparse(text1), store.full_text_vocab)
+    torch.cuda.synchronize()
+    text_prep_ms = (time.perf_counter() - t0) * 1e3
+
+    # candidate_impl="bucket": bucket-max v2 per arm (three launches a batch).
+    store.candidate_impl = "bucket"
+    before = read_counts()
+    bucket_first, _, _ = ft_batch(store, data, texts, 0, top_k)
+    bucket_ms = []
+    for i in range(1, FT_BUCKET_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ft_batch(store, data, texts, i, top_k)
+        bucket_ms.append((time.perf_counter() - t0) * 1e3)
+    after = read_counts()
+    require(
+        after["bucket_max_v2"] - before["bucket_max_v2"] == 3 * FT_BUCKET_BATCHES
+        and after["rescore"] - before["rescore"] == 2 * FT_BUCKET_BATCHES,
+        f"full_text bucket: launches {after} (from {before})",
+    )
+    same_rows_with_plain_tables(store, data, top_k, bucket_first, "full_text bucket", text_queries=first_text)
+    counts = read_counts()
+    del store
+    torch.cuda.empty_cache()
+
+    # Housekeeping at 65,536 rows, built in one flush: delete 5%, compact,
+    # save, load.
+    n_small = FT_HOUSEKEEPING_ROWS
+    small, small_ingest_s, _ = fill_store(data, records[:n_small], **ft_kwargs)
+    queries = small_queries(records, texts, n_small, data["batch"], seed + 2000)
+    rng = np.random.default_rng(seed + 3000)
+    dead_rows = np.sort(rng.choice(n_small, size=n_small // 20, replace=False))
+    dead = [records[r]["id"] for r in dead_rows]
+    df_before = small._doc_freq.copy()
+    dead_dev = torch.as_tensor(dead_rows, device=small.device)
+    ft_ids, ft_tf = small._ft_ids[dead_dev].cpu().numpy(), small._ft_tf[dead_dev].cpu().numpy()
+    expected_drop = np.bincount(ft_ids[ft_tf > 0], minlength=small.full_text_vocab)
+    small.delete(dead)
+    require(np.array_equal(df_before - small._doc_freq, expected_drop), "full_text: df drop after delete")
+    after_delete = three_way(small, queries)
+    require(not set(dead) & {h.id for r in after_delete for h in r}, "full_text: a deleted id was returned")
+    idf_before = small._bm25_query_sparse(queries[2])
+    t0 = time.perf_counter()
+    reclaimed = small.compact()
+    compact_s = time.perf_counter() - t0
+    require(reclaimed == len(dead) and small.count() == n_small - len(dead), "full_text: compact count")
+    require(small._bm25_query_sparse(queries[2]) == idf_before, "full_text: idf changed by compact")
+    compacted = three_way(small, queries)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        small.save(os.path.join(tmp, "ft"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = DeviceVectorStore.load(os.path.join(tmp, "ft"), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    require(
+        loaded._dense.device == small._dense.device and loaded.count() == small.count(),
+        "full_text: loaded store",
+    )
+    require(torch.equal(loaded._dense[:small.count()], small._dense[:small.count()]), "full_text: int8 codes")
+    require(hits(three_way(loaded, queries)) == hits(compacted), "full_text: the loaded store answers otherwise")
+    del small, loaded
+    torch.cuda.empty_cache()
+
+    # The exact sparse mode at 196,608 rows, held to a float64 scoring.
+    n_exact = FT_EXACT_ROWS
+    exact, exact_ingest_s, _ = fill_store(
+        data, records[:n_exact], enable_full_text=True, sparse_mode="exact"
+    )
+    q_dense, (q_ids, q_w), text_q = small_queries(records, texts, n_exact, FT_EXACT_BATCH, seed + 4000)
+    t0 = time.perf_counter()
+    sparse_out = exact.query_batch(sparse_queries=(q_ids, q_w), top_k=top_k)
+    sparse_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    text_out = exact.query_batch(text_queries=text_q, top_k=top_k)
+    text_ms = (time.perf_counter() - t0) * 1e3
+    sp_ids = exact._sp_ids[:n_exact].cpu().numpy()
+    sp_w = exact._sp_w[:n_exact].cpu().numpy()
+    ft_ids = exact._ft_ids[:n_exact].cpu().numpy()
+    tf = exact._ft_tf[:n_exact].cpu().numpy().astype(np.float64)
+    dl = exact._doc_len[:n_exact].astype(np.float64)
+    k1, b = exact.bm25_k1, exact.bm25_b
+    avgdl = max(dl.mean(), 1.0)
+    bm25_w = np.where(tf > 0, tf * (k1 + 1) / (tf + k1 * (1 - b + b * dl[:, None] / avgdl)), 0.0)
+    df = exact._doc_freq.astype(np.float64)
+    idf = np.log1p((n_exact - df + 0.5) / (df + 0.5))
+    swaps = 0
+    for i in range(FT_EXACT_CHECKED):
+        # The query's {term: weight} dict (a repeated id keeps its last
+        # weight), as the store reads an array payload in exact mode.
+        terms = dict(zip(q_ids[i].tolist(), q_w[i].tolist()))
+        qvec = np.zeros(exact.sparse_vocab, np.float64)
+        qvec[list(terms)] = list(terms.values())
+        ref_rows, scores = reference_topk(sp_ids, sp_w, qvec, top_k)
+        swaps += held_to_reference([int(h.id) for h in sparse_out[i]], ref_rows, scores, f"exact sparse {i}")
+        qvec = np.zeros(exact.full_text_vocab, np.float64)
+        terms, _, _ = analyzer.analyze(text_q[i], exact.full_text_vocab)
+        qvec[terms] = idf[terms]
+        ref_rows, scores = reference_topk(ft_ids, bm25_w, qvec, top_k)
+        swaps += held_to_reference([int(h.id) for h in text_out[i]], ref_rows, scores, f"exact text {i}")
+    require(all(len(r) == top_k for r in text_out[:FT_EXACT_CHECKED]), "full_text: exact text hits")
+    del exact
+    torch.cuda.empty_cache()
+
+    ms = float(np.median(host_ms))
+    result = dict(
+        card=card, rows=STORE_ROWS, texts_s=texts_s, ingest_s=ingest_s, analyzer_s=analyzer_s[0],
+        ingest_rest_s=ingest_s - analyzer_s[0], state_gb=state_gb, batch=data["batch"],
+        batch_ms_median=ms, batch_ms=host_ms, batch_event_ms=event_ms,
+        batch_event_ms_median=float(np.median(event_ms)), qps=data["batch"] / ms * 1e3,
+        source_row_in_top10=hit, launches_per_batch=per_batch, ingest_launches=ingest_counts,
+        idle_share=profile["idle_share"], text_query_prep_ms=text_prep_ms, bucket_batch_ms=bucket_ms,
+        housekeeping=dict(
+            rows=n_small, ingest_s=small_ingest_s, deleted=len(dead), compact_s=compact_s,
+            save_s=save_s, load_s=load_s,
+        ),
+        exact=dict(
+            rows=n_exact, ingest_s=exact_ingest_s, batch=FT_EXACT_BATCH, sparse_ms=sparse_ms,
+            text_ms=text_ms, checked=FT_EXACT_CHECKED, tie_swaps=swaps,
+        ),
+        launches=counts, phase_s=time.perf_counter() - t_phase,
+    )
+    log("full_text", json.dumps(result))
+    return result
+
+
+CLI_QUESTION = "How efficient are solar panels?"
+
+
+def run_cli(card: str) -> dict:
+    """The CLI's round trip on the card, each command its own process:
+    ``index examples/example_docs --sparse --neural``, then ``query ...
+    --json``; every highlight verbatim, and the retrieved chunks those of an
+    in-process `VerbatimIndex.load` + `VerbatimRAG.query` (whose extractor's
+    flash launches are counted)."""
+    import tempfile
+
+    from verbatim_rag_tpu_torch.engine import VerbatimIndex
+    from verbatim_rag_tpu_torch.rag import VerbatimRAG
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cli = [sys.executable, "-m", "verbatim_rag_tpu_torch.rag.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        db, out = os.path.join(tmp, "idx"), os.path.join(tmp, "resp.json")
+        seconds = {}
+        for name, argv in (
+            ("index", ["index", "examples/example_docs", "--db", db, "--sparse", "--neural"]),
+            ("query", ["query", CLI_QUESTION, "--db", db, "--json", out]),
+        ):
+            t0 = time.perf_counter()
+            proc = subprocess.run(cli + argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+            seconds[name] = time.perf_counter() - t0
+            require(proc.returncode == 0, f"cli {name}: exit {proc.returncode}: {proc.stderr[-2000:]}")
+            log(f"cli {name} ({seconds[name]:.1f} s):", proc.stdout.strip().splitlines()[0])
+        with open(out) as f:
+            response = json.load(f)
+        docs = response["documents"]
+        require(bool(docs), "cli: no documents")
+        n_highlights = 0
+        for d in docs:
+            for h in d["highlights"]:
+                require(d["content"][h["start"] : h["end"]] == h["text"], "cli: highlight not verbatim")
+                n_highlights += 1
+        reset_counts()
+        index = VerbatimIndex.load(db)
+        require(index.store._dense.is_cuda, "cli: the loaded index is not on the card")
+        in_process = VerbatimRAG(index).query(CLI_QUESTION)
+        counts = read_counts()
+        del index
+    key = lambda m: (m["document_id"], m["chunk_index"])  # noqa: E731
+    require(
+        [key(d["metadata"]) for d in docs] == [key(d.metadata) for d in in_process.documents],
+        "cli: the query process retrieved other chunks than the in-process load",
+    )
+    require(counts["flash_attention"] > 0 and counts["rescore"] > 0, f"cli: launches {counts}")
+    result = dict(
+        card=card, index_s=seconds["index"], query_s=seconds["query"], documents=len(docs),
+        highlights=n_highlights, launches=counts, phase_s=time.perf_counter() - t_phase,
+    )
+    log("cli", json.dumps(result))
     return result
 
 
@@ -2481,7 +3005,10 @@ def main() -> None:
     flash_bwd = check_flash_bwd(gen)
     partial = check_flash_partial(gen)
     rescore = check_rescore(gen)
+    rescore["bm25_width"] = check_rescore_bm25(gen)
+    torch.cuda.empty_cache()
     section, bucket = check_tables(gen)
+    section["three_arms"] = check_section_three_arms(gen)
     bucket_v1 = check_bucket_v1(gen)
     torch.cuda.empty_cache()
 
@@ -2492,14 +3019,17 @@ def main() -> None:
     data = bench_data(args.seed)
     store = run_store(data, card)
     store_int8 = run_store_int8(data, card)
+    full_text = run_full_text(data, card, args.seed)
     del data
+    torch.cuda.empty_cache()
+    cli = run_cli(card)
     long_ctx = run_long(extractor, args.seed, card)
     long_sp = run_long_sp(extractor, args.seed, card)
     del extractor
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
 
-    phases = (flow, serve, bucket_ab, store, store_int8, long_ctx, long_sp, train)
+    phases = (flow, serve, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(

@@ -32,6 +32,8 @@ from verbatim_rag_tpu.training import token_dataset as jax_token_dataset
 from verbatim_rag_tpu_torch.core.models import Highlight
 from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
 from verbatim_rag_tpu_torch.core.templates import TemplateManager
+from verbatim_rag_tpu.engine import native as jax_native
+from verbatim_rag_tpu_torch.engine import analyzer
 from verbatim_rag_tpu_torch.engine import embedding_providers as providers
 from verbatim_rag_tpu_torch.engine import filters
 from verbatim_rag_tpu_torch.engine import store
@@ -203,6 +205,21 @@ def test_pad_sparse_equal(entries, nnz):
 )
 def test_is_sparse_arrays_equal(payload):
     assert store._is_sparse_arrays(payload) == jax_store._is_sparse_arrays(payload)
+
+
+@pytest.mark.parametrize("i", range(len(TEXTS) + 1))
+def test_analyzer_copy_equal(i, monkeypatch):
+    """The BM25 analyzer's copied parts: FNV-1a per token, the Python
+    fallback (the JAX store's `_analyze` with its scanner unloaded), the
+    token cap and the scanner's unique-term limit."""
+    text = (TEXTS + ["Ü" * 3 + "K" + "ab" * 200])[i]
+    for token in text.split() or [""]:
+        assert analyzer.fnv1a(token) == jax_store._fnv1a(token)
+    assert analyzer.SCANNER_MAX_TERMS == jax_native.analyze_text_native.__defaults__[0]
+    assert analyzer.TOKEN_BYTES == 256
+    monkeypatch.setattr(jax_native, "analyze_text_native", lambda *a, **k: None)
+    for got, expected in zip(analyzer.analyze_fallback(text, 1000), jax_store._analyze(text, 1000)):
+        np.testing.assert_array_equal(got, expected)
 
 
 @pytest.mark.parametrize("n", [1, 384, 960, 2048, 8192, 16384, 123 * 8192, 999_424, 2048 * 17])

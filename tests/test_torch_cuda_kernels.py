@@ -1049,6 +1049,7 @@ TRAIN_OVERRIDES = dict(
     max_position_embeddings=4096, position_embedding_type="rope", norm_location="pre",
     activation="geglu", use_bias=False, final_norm=True, type_vocab_size=0,
     first_layer_no_attn_norm=True, layer_norm_eps=1e-5, local_attention_window=16,
+    use_flash_attention=True,
 )
 
 
@@ -1121,3 +1122,74 @@ def test_trainer_on_cuda_serves_its_checkpoint(cuda, tmp_path):
         expected = token_relevance_probs(model, ids, mask)
         got = token_relevance_probs(served.model, ids, mask)
     assert torch.equal(got, expected)
+
+
+def test_tiny_train_step_runs_on_the_card(cuda, tmp_path):
+    """``train --tiny`` on the card: `tiny_test_config` (4 heads of 8, flash
+    off as in the JAX package) trains through the plain attention, with no
+    flash launch, and writes a checkpoint the extractor serves."""
+    import json
+
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor
+    from verbatim_rag_tpu_torch.training import train as train_cli
+    from verbatim_rag_tpu_torch.training.token_dataset import make_synthetic_token_data
+
+    data = tmp_path / "data.json"
+    data.write_text(json.dumps([
+        {"question": e.question, "context": e.context, "answers": [list(s) for s in e.spans], "split": e.split}
+        for e in make_synthetic_token_data(10, seed=1)
+    ]))
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    argv = ["--data-path", str(data), "--tiny", "--mode", "token", "--device", "cuda", "--epochs", "1",
+            "--batch-size", "4", "--max-seq-length", "64", "--output-dir", str(tmp_path / "out")]
+    assert train_cli.main(argv) == 0
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == before
+    extractor = ModelSpanExtractor(model_path=str(tmp_path / "out" / "final"), device="cuda")
+    assert next(extractor.model.parameters()).is_cuda
+
+
+def test_section_kernel_three_int8_arms(cuda):
+    """The 3-way section launch: three int8 arms (dense 384, SPLADE sketch
+    768, BM25 sketch 768) in one call, tables bit-equal to the plain
+    version's."""
+    from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n, batch = 4 * 8192, 70
+    corpora, scales, queries = [], [], []
+    for d in (384, 768, 768):
+        codes, scale = quantize_rows_int8(torch.randn(n, d, generator=gen, device="cuda"))
+        corpora.append(codes)
+        scales.append(scale)
+        queries.append(torch.randn(batch, d, generator=gen, device="cuda"))
+    mask = torch.rand(n, generator=gen, device="cuda") > 0.05
+    before = sec.launches
+    got = sec.section_tables_cuda(corpora, queries, mask, scales, 8192)
+    assert sec.launches == before + 1
+    expected = sec.section_tables_reference(corpora, queries, mask, scales, 8192)
+    for g, e in zip(got, expected):
+        assert torch.equal(g.view(torch.int32), e.view(torch.int32))
+
+
+def test_rescore_kernel_at_the_bm25_width(cuda):
+    """The BM25 arm's rescore: m=256 int32 / float32 slots over a 2^17
+    vocabulary, 64 query terms, missing candidates; rtol 1e-5 against the
+    plain version, −1e30 exactly where a candidate is missing."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, m, b, c, qm, vocab = 50_000, 256, 64, 256, 64, 1 << 17
+    ids = torch.randint(1, vocab, (n, m), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand((n, m), generator=gen, device="cuda")
+    nnz = torch.randint(1, m + 1, (n, 1), generator=gen, device="cuda")
+    pad = torch.arange(m, device="cuda")[None, :] >= nnz
+    ids[pad], w[pad] = 0, 0.0
+    cand = torch.randint(0, n, (b, c), generator=gen, device="cuda", dtype=torch.int32)
+    cand[:, -7:] = -1
+    q_ids = torch.randint(1, vocab, (b, qm), generator=gen, device="cuda", dtype=torch.int32)
+    q_ids[:, : qm // 2] = ids[cand[:, : qm // 2].clamp(min=0).long(), torch.arange(qm // 2, device="cuda")]
+    q_w = torch.rand((b, qm), generator=gen, device="cuda")
+    got = rs.exact_rescore_cuda(cand, ids, w, q_ids, q_w)
+    expected = rs.exact_rescore_oneshot(cand, ids, w, q_ids, q_w)
+    valid = cand >= 0
+    assert torch.equal(got[~valid], torch.full_like(got[~valid], -1e30))
+    torch.testing.assert_close(got[valid], expected[valid], rtol=1e-5, atol=1e-6)
+    assert float((got[valid] > 0).float().mean()) > 0.05

@@ -88,3 +88,29 @@ def test_modernbert_layer_schedule_matches_config():
     config = tiny_test_config(**MODERNBERT)
     assert [config.is_global_layer(i) for i in range(4)] == [True, False, True, False]
     assert len(Encoder(config).layers) == 4
+
+
+@pytest.mark.parametrize("head_dim", [8, 32])
+@pytest.mark.parametrize("family", ["bert", "modernbert"])
+def test_flash_flag_off_runs_plain_attention_like_jax(monkeypatch, family, head_dim):
+    """``use_flash_attention=False`` (the JAX default, and MiniLM's) runs the
+    plain attention over the mask's additive bias, as JAX's
+    `encoder_forward` does, at any head dim: the flash entry is never
+    called. D = 8 is `tiny_test_config`'s (hidden 32, 4 heads), D = 32 the
+    MiniLM-shaped one (hidden 64, 2 heads); rtol/atol 5e-4."""
+    from verbatim_rag_tpu_torch.models import encoder as encoder_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("flash attention called with the flag off")
+
+    monkeypatch.setattr(encoder_mod, "flash_attention", refuse)
+    kwargs = dict(MODERNBERT if family == "modernbert" else {})
+    if head_dim == 32:
+        kwargs.update(hidden_size=64, num_heads=2, intermediate_size=64)
+    jax_config, params, model = _port_encoder(kwargs, seed=head_dim)
+    assert model.config.head_dim == head_dim and not model.config.use_flash_attention
+    ids, mask = _batch(jax_config.vocab_size, [21, 9, 0, 16], 21, seed=head_dim)
+    expected = np.asarray(encoder_forward(params, jax_config, jnp.asarray(ids), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, expected, rtol=5e-4, atol=5e-4)

@@ -8,7 +8,9 @@ with one `query_batch`, runs a hybrid query over an int8 index
 index (the section path), calls the bucket-max v1 entry points, takes one training step of the token highlighter and
 saves and loads its checkpoint, scores a document in one sequence-parallel
 pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
-module and no ``verbatim_rag_tpu`` module. The same holds for every module of the
+module and no ``verbatim_rag_tpu`` module. A second interpreter saves,
+loads and queries a full-text index and runs the CLI's ``index`` and
+``query``, under the same rule. The same holds for every module of the
 port imported on its own.
 """
 
@@ -110,6 +112,42 @@ print(json.dumps({
 }))
 """
 
+PERSIST = """
+import contextlib, io, json, sys, tempfile
+from pathlib import Path
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, VerbatimIndex
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.rag import cli
+
+docs = [DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))]
+tmp = tempfile.mkdtemp()
+index = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu",
+    enable_full_text=True, full_text_vocab=4096,
+)
+index.add_documents(docs)
+index.save(tmp + "/ft")
+loaded = VerbatimIndex.load(tmp + "/ft", device="cpu")
+weights = {"dense": 1.0, "sparse": 1.0, "full_text": 1.0}
+before = [[h.id for h in r] for r in index.query_batch(["solar panels", "wind"], k=3, hybrid_weights=weights)]
+after = [[h.id for h in r] for r in loaded.query_batch(["solar panels", "wind"], k=3, hybrid_weights=weights)]
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    cli.main(["index", "examples/example_docs", "--db", tmp + "/cli", "--sparse", "--device", "cpu"])
+    cli.main(["query", "How efficient are solar panels?", "--db", tmp + "/cli", "--json", tmp + "/r.json",
+              "--device", "cpu"])
+response = json.load(open(tmp + "/r.json"))
+print(json.dumps({
+    "same_rows": before == after and all(before),
+    "cli_indexed": "Indexed 2 documents" in out.getvalue(),
+    "cli_verbatim": bool(response["documents"]) and all(
+        d["content"][h["start"]:h["end"]] == h["text"] for d in response["documents"] for h in d["highlights"]
+    ),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -146,6 +184,15 @@ def test_main_path_loads_no_jax():
     assert result["v1_shapes"] == [[3, 16], [3, 16], [3, 5]]
     assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
     assert result["sp_rows"] == 1 and result["sp_whole"]
+
+
+def test_persistence_and_cli_load_no_jax():
+    """A full-text index saved, loaded and queried 3-way, then the CLI's
+    ``index`` and ``query`` on the CPU, in a fresh interpreter: no ``jax``
+    and no ``verbatim_rag_tpu`` module gets loaded."""
+    result = _run(PERSIST)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["same_rows"] and result["cli_indexed"] and result["cli_verbatim"]
 
 
 def test_every_port_module_imports_without_jax():

@@ -249,6 +249,19 @@ def test_describe_equals_jax_and_round_trips(models):
         assert ours.describe() == theirs.describe() and ours.describe()["reconstructible"]
         rebuilt = providers.provider_from_config(theirs.describe(), device="cpu")
         assert type(rebuilt) is cls[kind] and rebuilt.describe() == theirs.describe()
+        # The seed-only identity names the JAX package's weights: the rebuilt
+        # provider embeds within 5e-4 of the JAX provider.
+        if kind == "dense":
+            np.testing.assert_allclose(
+                rebuilt.embed_batch(list(TEXTS)), theirs.embed_batch(list(TEXTS)), atol=5e-4
+            )
+        else:
+            got, expected = rebuilt.embed_batch(list(TEXTS)), theirs.embed_batch(list(TEXTS))
+            for g, e in zip(got, expected):
+                assert g.keys() == e.keys()
+                np.testing.assert_allclose(
+                    [g[t] for t in e], [e[t] for t in e], atol=5e-4
+                )
         same = providers.provider_from_config(ours.describe(), device="cpu")
         for a, b in zip(same.model.state_dict().values(), ours.model.state_dict().values()):
             assert torch.equal(a, b)

@@ -159,10 +159,10 @@ def test_browsing_and_empty_store():
     [
         dict(dense_dtype="int4"),
         dict(sketch_dtype="int4"),
-        dict(candidate_impl="section", enable_full_text=True),  # the 3-way section
-        dict(enable_full_text=True),
-        dict(sparse_mode="exact"),
-        dict(sparse_ids_dtype="int16", enable_full_text=True),  # BM25 with the narrow index
+        dict(candidate_impl="section", enable_full_text=True, mesh=object()),  # the sharded 3-way
+        dict(enable_full_text=True, dense_dtype="int4"),
+        dict(sparse_mode="exact", mesh=object()),  # the sharded exact scan
+        dict(sparse_ids_dtype="int16", enable_full_text=True, sketch_dtype="int4"),
         dict(sparse_weight_dtype="float16", mesh=object()),
         dict(mesh=object()),
     ],
@@ -241,11 +241,18 @@ def test_comma_pair_candidate_impl_matches_jax(spec, caplog):
         assert "is not a valid spec" in got[0]
 
 
-def test_persistence_raises():
+def test_persistence_raises(tmp_path):
+    """Persistence is ported (`tests/test_torch_persistence.py`); what still
+    raises: loading onto a mesh (the parallel slice) and a missing file. An
+    empty store compacts nothing and saves and loads as empty."""
     store = DeviceVectorStore(device="cpu")
-    for call in (lambda: store.save("x"), store.compact, lambda: DeviceVectorStore.load("x")):
-        with pytest.raises(NotImplementedError):
-            call()
+    assert store.compact() == 0
+    store.save(str(tmp_path / "empty"))
+    assert DeviceVectorStore.load(str(tmp_path / "empty"), device="cpu").count() == 0
+    with pytest.raises(NotImplementedError, match="parallel slice"):
+        DeviceVectorStore.load(str(tmp_path / "empty"), mesh=object(), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        DeviceVectorStore.load(str(tmp_path / "x"), device="cpu")
 
 
 def test_default_device_is_cuda():

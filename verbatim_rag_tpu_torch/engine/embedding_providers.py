@@ -3,8 +3,9 @@
 Copy of `verbatim_rag_tpu/engine/embedding_providers.py`, trimmed to the two
 provider contracts and the deterministic, model-free providers (hashed
 bag-of-words dense; hashed tf sparse) that the offline path uses. Outputs are
-identical to the original (pinned by `tests/test_torch_copies.py`). Neural
-providers come with a later slice of the port.
+identical to the original (pinned by `tests/test_torch_copies.py`). The
+neural providers live in `models/providers.py`; :func:`provider_from_config`
+rebuilds either kind from its persisted identity.
 """
 
 from __future__ import annotations
@@ -92,3 +93,28 @@ class HashedSparseProvider(SparseEmbeddingProvider):
 
     def describe(self) -> dict:
         return {"class": "HashedSparseProvider", "vocab_size": self.vocab_size}
+
+
+def provider_from_config(config: dict | None, device=None):
+    """Rebuild a provider from its persisted `describe()` identity; neural
+    providers are placed on ``device`` (``None`` → ``cuda``).
+
+    :raises ValueError: for an identity this package cannot rebuild — an
+        index must load into the vector space that built it, or fail.
+    """
+    if not config:
+        return None
+    name = config.get("class")
+    if name == "HashedBowDenseProvider":
+        return HashedBowDenseProvider(dim=int(config.get("dim", 384)))
+    if name == "HashedSparseProvider":
+        return HashedSparseProvider(vocab_size=int(config.get("vocab_size", 30522)))
+    if name == "OpenAIEmbeddingProvider":
+        raise NotImplementedError(
+            "OpenAIEmbeddingProvider is not ported to the PyTorch package yet"
+        )
+    if name in ("JaxDenseProvider", "JaxSpladeProvider"):
+        from verbatim_rag_tpu_torch.models import providers as neural
+
+        return neural.provider_from_config(config, device=device)
+    raise ValueError(f"Cannot reconstruct embedding provider from identity {config!r}")

@@ -11,10 +11,17 @@ batch's dense embeddings and sparse terms stay on the device from the
 encoders into the store's search. ``VERBATIM_DEVICE_HANDOFF=0`` reads the
 query encodings back to the host first (the JAX package's A/B switch); both
 ways run on the device.
+
+`save` writes the store's files, ``<path>.docs.json`` and the providers'
+identities (``<path>.providers.json``) in the JAX package's format; `load`
+rebuilds the providers from those identities, so an index saved by either
+package loads in the other with the same vector space.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 from typing import Any, Iterable, Mapping, Sequence
 
@@ -24,10 +31,18 @@ from verbatim_rag_tpu_torch.ingestion.chunkers import ChunkerProvider, MarkdownC
 from verbatim_rag_tpu_torch.ingestion.document import Chunk, Document
 from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
 
-from .embedding_providers import DenseEmbeddingProvider, SparseEmbeddingProvider
+from .embedding_providers import (
+    DenseEmbeddingProvider,
+    HashedBowDenseProvider,
+    HashedSparseProvider,
+    SparseEmbeddingProvider,
+    provider_from_config,
+)
 from .filters import FilterSpec
 from .search_result import SearchResult
-from .store import DeviceVectorStore, VectorStore
+from .store import DeviceVectorStore, VectorStore, json_safe
+
+logger = logging.getLogger(__name__)
 
 
 class VerbatimIndex:
@@ -346,15 +361,79 @@ class VerbatimIndex:
             ),
         }
 
-    # -- persistence (later slice) -------------------------------------------------------
+    # -- persistence -------------------------------------------------------------------
 
     def save(self, path: str | None = None) -> None:
-        raise NotImplementedError(
-            "VerbatimIndex.save is not ported yet (the persistence and BM25 slice)"
-        )
+        """Write ``<path>.npz`` / ``.json`` (the store), ``<path>.docs.json``
+        (the documents) and ``<path>.providers.json`` (the providers'
+        identities, so `load` rebuilds the same vector space)."""
+        path = path or self.db_path
+        if not path:
+            raise ValueError("No path given and no db_path configured")
+        self.store.save(path)
+        with open(path + ".docs.json", "w") as f:
+            json.dump(self.documents, f, default=json_safe)
+        providers = {
+            "dense": self.dense_provider.describe() if self.dense_provider else None,
+            "sparse": self.sparse_provider.describe() if self.sparse_provider else None,
+        }
+        with open(path + ".providers.json", "w") as f:
+            json.dump(providers, f)
+
+    def load_documents(self, path: str | None = None) -> None:
+        path = path or self.db_path
+        with open(path + ".docs.json") as f:
+            self.documents = json.load(f)
 
     @classmethod
-    def load(cls, path: str, **kwargs) -> "VerbatimIndex":
-        raise NotImplementedError(
-            "VerbatimIndex.load is not ported yet (the persistence and BM25 slice)"
+    def load(
+        cls,
+        path: str,
+        mesh=None,
+        dense_provider: DenseEmbeddingProvider | None = None,
+        sparse_provider: SparseEmbeddingProvider | None = None,
+        device=None,
+    ) -> "VerbatimIndex":
+        """Load a saved index (either package's) onto ``device`` (``None`` →
+        ``cuda``), rebuilding the providers that built it from their
+        persisted identities; explicit providers override them. An index
+        saved without identities gets the hashed providers, with a warning.
+        A ``mesh`` raises (the parallel slice)."""
+        store = DeviceVectorStore.load(path, mesh=mesh, device=device)
+        providers_path = path + ".providers.json"
+        if os.path.exists(providers_path):
+            with open(providers_path) as f:
+                identities = json.load(f)
+            if dense_provider is None:
+                dense_provider = provider_from_config(identities.get("dense"), device=device)
+            if sparse_provider is None:
+                sparse_provider = provider_from_config(identities.get("sparse"), device=device)
+        else:
+            if dense_provider is None and store.dense_dim:
+                logger.warning(
+                    "Index at %s has no provider identity; assuming "
+                    "HashedBowDenseProvider(dim=%d). If it was built with a neural "
+                    "provider, retrieval will be meaningless: pass the original "
+                    "provider explicitly.",
+                    path,
+                    store.dense_dim,
+                )
+                dense_provider = HashedBowDenseProvider(dim=store.dense_dim)
+            if sparse_provider is None and store.sparse_vocab:
+                logger.warning(
+                    "Index at %s has no sparse provider identity; assuming "
+                    "HashedSparseProvider(vocab_size=%d).",
+                    path,
+                    store.sparse_vocab,
+                )
+                sparse_provider = HashedSparseProvider(vocab_size=store.sparse_vocab)
+        index = cls(
+            dense_provider=dense_provider,
+            sparse_provider=sparse_provider,
+            store=store,
+            enable_full_text=store.enable_full_text,
+            db_path=path,
         )
+        if os.path.exists(path + ".docs.json"):
+            index.load_documents(path)
+        return index

@@ -1,6 +1,6 @@
 """Device-resident hybrid vector store (port of
-`verbatim_rag_tpu/engine/store.py`: the bf16/f32 projected-sparse tier and
-the int8 tier).
+`verbatim_rag_tpu/engine/store.py`: the bf16 / float32 and int8 tiers, BM25
+full text, the exact sparse mode, compaction and persistence).
 
 Layout on the store's device (a CUDA device unless ``device="cpu"``):
 
@@ -11,29 +11,43 @@ Layout on the store's device (a CUDA device unless ``device="cpu"``):
             ``sparse_weight_dtype``), and its projected sketches ``[cap, d_p]`` in the dense family's
             float dtype, or int8 codes with a ``[cap, 1]`` scale column
             (``sketch_dtype="int8"``);
-- validity: ``[cap] bool`` — deletes flip it (tombstones).
+- full text (``enable_full_text``): the same forward-index layout over a
+            hashed analyzer vocabulary (`engine/analyzer.py`): term ids and
+            raw term frequencies ``[cap, fm]`` int32, their BM25-saturated
+            weights ``[cap, fm]`` f32, and projected BM25 sketches; document
+            lengths and document frequencies stay on the host;
+- validity: ``[cap] bool`` — deletes flip it (tombstones); `compact`
+            rebuilds the arrays without them.
 
 Text and metadata stay on the host. Writes queue in a host buffer; `flush()`
 writes them into the device arrays, whose capacity grows geometrically from
 ``block``. Unlike the JAX store (immutable arrays, a fresh buffer per
 write), rows are written in place into the preallocated arrays.
 
-Queries: dense-only, projected-sparse-only, and the 2-way hybrid, which runs
-as one call per batch: candidate selection, exact rescore (the CUDA kernel
-on the default ``rescore_impl="pallas"``) and weighted RRF, then one [B, k]
+Queries: each method alone (dense, sparse, full text), and the hybrids.
+Dense + sparse, with or without full text, runs as one call per batch on the
+projected tier: candidate selection, exact rescores (the CUDA kernel on the
+default ``rescore_impl="pallas"``) and weighted RRF, then one [B, k]
 readback. Candidate selection follows ``candidate_impl``: "xla" scores the
-[B, N] matrices and selects exactly (`ops/hybrid.py::hybrid_fused_topk`);
-"section" (what "auto" picks on the int8 tier) builds both arms' packed
-bucket tables in one kernel launch (`ops/section.py::hybrid_section_topk`);
+[B, N] matrices and selects exactly (`ops/hybrid.py::hybrid_fused_topk`,
+`hybrid_fused_topk_3way`); "section" (what "auto" picks on the int8 tier)
+builds every arm's packed bucket tables in one kernel launch
+(`ops/section.py::hybrid_section_topk`, `hybrid_section_topk_3way`);
 "bucket" runs the fused bucket-max kernel per arm (`ops/fused_topk.py`).
+``sparse_mode="exact"`` scores the sparse and full-text methods by scanning
+every forward-index row (`ops/sparse.py::sparse_topk`) and fuses methods on
+the host.
 
-Options of the JAX store that later slices serve raise
-``NotImplementedError`` naming the slice.
+`save` writes ``<path>.npz`` + ``<path>.json`` in the JAX store's format, so
+an index saved by either package loads in the other. The int4 tier and a
+mesh raise ``NotImplementedError`` naming their slice.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 from abc import ABC, abstractmethod
 from typing import Any, Mapping, Sequence
 
@@ -42,6 +56,7 @@ import torch
 
 from verbatim_rag_tpu_torch.device import resolve_device
 
+from .analyzer import analyze_texts
 from .filters import PROMOTED_FIELDS, FilterSpec, compile_filter, stable_hash64
 from .search_result import SearchResult
 
@@ -102,6 +117,16 @@ def _pad_sparse(
     return ids, weights
 
 
+def _nonzero_first(ids: np.ndarray, weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Forward-index rows [n, m] with each row's nonzero weights moved to the
+    front in their order and the pads after them (id 0, weight 0): what
+    `_pad_sparse` makes of the row's ``{id: weight}`` dict at width m."""
+    order = np.argsort(weights == 0, axis=1, kind="stable")
+    w = np.take_along_axis(weights, order, axis=1).astype(np.float32)
+    ids = np.where(w != 0, np.take_along_axis(ids, order, axis=1), 0).astype(np.int32)
+    return ids, w
+
+
 def _is_sparse_arrays(payload) -> bool:
     """True when a sparse query payload is an ``(ids, weights)`` array pair
     rather than a sequence of term→weight mappings."""
@@ -137,15 +162,21 @@ class DeviceVectorStore(VectorStore):
         sparse_vocab: int | None = 30522,
         sparse_max_nnz: int = 128,
         enable_full_text: bool = False,
+        full_text_vocab: int = 1 << 17,
+        full_text_max_nnz: int = 256,
         dense_dtype: str = "bfloat16",
         sketch_dtype: str | None = None,
         block: int = _BLOCK,
+        bm25_k1: float = 1.2,
+        bm25_b: float = 0.75,
         sparse_mode: str = "projected",
         projection_dim: int = 768,
         rescore_depth: int = 256,
         projection_seed: int = 0,
         mesh=None,
         approx_topk: bool = True,
+        auto_compact_threshold: float | None = None,
+        allow_exact_at_scale: bool = False,
         rescore_impl: str = "pallas",
         candidate_impl: str = "auto",
         sparse_weight_dtype: str = "float32",
@@ -175,10 +206,12 @@ class DeviceVectorStore(VectorStore):
             raise _not_in_slice("int4 dense and sketch rows", "the int4 capacity slice")
         if mesh is not None:
             raise _not_in_slice("a mesh", "the parallel slice")
-        if enable_full_text:
-            raise _not_in_slice("enable_full_text (BM25)", "the persistence and BM25 slice")
         if sparse_mode == "exact":
-            raise _not_in_slice("sparse_mode='exact'", "the persistence and BM25 slice")
+            logger.warning(
+                "sparse_mode='exact' scans every forward-index row per query — "
+                "correct, but far slower than 'projected' at large N. Intended "
+                "for validation runs."
+            )
         from verbatim_rag_tpu_torch.ops.hybrid import validate_candidate_impl
 
         if "," in candidate_impl:
@@ -218,9 +251,15 @@ class DeviceVectorStore(VectorStore):
         self.dense_dim = dense_dim
         self.sparse_vocab = sparse_vocab
         self.sparse_max_nnz = sparse_max_nnz
+        self.enable_full_text = enable_full_text
+        self.full_text_vocab = full_text_vocab
+        self.full_text_max_nnz = full_text_max_nnz
         self.dense_dtype = dense_dtype
         self.sketch_dtype = sketch_dtype
         self.block = block
+        self.bm25_k1 = bm25_k1
+        self.bm25_b = bm25_b
+        self.sparse_mode = sparse_mode
         self.projection_dim = projection_dim
         self.rescore_depth = rescore_depth
         self.projection_seed = projection_seed
@@ -234,6 +273,10 @@ class DeviceVectorStore(VectorStore):
         #: ("section", "bucket") serve, False sends every query to the exact
         #: "xla" program. Per-query override: search_params["approx_topk"].
         self.approx_topk = approx_topk
+        #: When set, `delete` compacts once the dead fraction reaches it.
+        self.auto_compact_threshold = auto_compact_threshold
+        #: Lets the exact sparse scan run above `EXACT_SCAN_MAX_ROWS` rows.
+        self.allow_exact_at_scale = allow_exact_at_scale
         self.rescore_impl = rescore_impl
         #: "xla", "section" or "bucket" (resolved from "auto" above).
         self.candidate_impl = candidate_impl
@@ -260,8 +303,19 @@ class DeviceVectorStore(VectorStore):
         self._sp_w = None  # [cap, m] f32 or f16
         self._sp_proj = None  # [cap, d_p] projected sparse sketches
         self._sp_proj_scale = None  # [cap, 1] f32 per-row scales (int8 only)
+        self._ft_ids = None  # [cap, fm] int32 analyzer slots
+        self._ft_tf = None  # [cap, fm] int32 raw term frequencies
+        self._ft_w = None  # [cap, fm] f32 BM25-saturated weights
+        self._ft_proj = None  # [cap, d_p] projected BM25 sketches
+        self._ft_proj_scale = None  # [cap, 1] f32 per-row scales (int8 only)
         self._valid_dev = None  # [cap] bool
         self._capacity = 0
+
+        # Full-text corpus statistics (host).
+        self._doc_len = np.zeros(0, dtype=np.float32)
+        self._doc_freq = (
+            np.zeros(full_text_vocab, dtype=np.int64) if enable_full_text else None
+        )
 
     # -- basic accessors -----------------------------------------------------
 
@@ -326,8 +380,11 @@ class DeviceVectorStore(VectorStore):
             self._pending_ids.add(rec["id"])
 
     def flush(self) -> None:
-        """Write pending records into the device arrays."""
+        """Write pending records into the device arrays (and refresh the
+        BM25 weights when a `reserve` left them stale)."""
         if not self._pending:
+            if self.enable_full_text and self._bm25_stale:
+                self._recompute_bm25()
             return
         pending, self._pending = self._pending, []
         self._pending_ids.clear()
@@ -368,6 +425,15 @@ class DeviceVectorStore(VectorStore):
                 sp_w_new[i, :m] = row_w
             elif sp_ids_new is not None and rec.get("sparse") is not None:
                 sp_ids_new[i], sp_w_new[i] = _pad_sparse(rec["sparse"], self.sparse_max_nnz)
+        if self.enable_full_text:
+            ft_ids_new, ft_tf_new, dl_new = self._full_text_rows(
+                [rec.get("text", "") for rec in pending]
+            )
+            self._doc_freq += np.bincount(
+                ft_ids_new[ft_tf_new > 0], minlength=self.full_text_vocab
+            )
+        else:
+            dl_new = np.zeros(n_new, np.float32)
 
         # Host columnar state.
         self._valid = np.concatenate([self._valid, np.ones(n_new, bool)])
@@ -381,6 +447,7 @@ class DeviceVectorStore(VectorStore):
                 count=n_new,
             )
             self._promoted[f] = np.concatenate([self._promoted[f], col])
+        self._doc_len = np.concatenate([self._doc_len, dl_new])
 
         # Capacity grows as in the JAX store, which sizes for the new rows
         # padded to a fixed row chunk.
@@ -392,6 +459,19 @@ class DeviceVectorStore(VectorStore):
             arr = self._grow_capacity(arr, new_cap, width, dtype)
             arr[offset : offset + n_new] = torch.as_tensor(new_rows).to(self.device, dtype)
             return arr
+
+        def _write_sketch(arr, scale_arr, proj_new):
+            """Write a sketch matrix's new rows (int8 codes and their scale
+            column on the int8 tier)."""
+            if self.sketch_dtype == "int8":
+                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+
+                codes, scale = quantize_rows_int8(proj_new)
+                return (
+                    _write(arr, codes, self.projection_dim, torch.int8),
+                    _write(scale_arr, scale, 1, torch.float32),
+                )
+            return _write(arr, proj_new, self.projection_dim, self._sketch_store_dtype), scale_arr
 
         if dense_new is not None:
             if self.dense_dtype == "int8":
@@ -411,28 +491,79 @@ class DeviceVectorStore(VectorStore):
             w_dev = torch.from_numpy(sp_w_new).to(self.device)
             self._sp_ids = _write(self._sp_ids, ids_dev, self.sparse_max_nnz, self._sp_ids_dtype)
             self._sp_w = _write(self._sp_w, w_dev, self.sparse_max_nnz, self._sp_w_dtype)
-            # Sketch the new rows on the device from their float32 weights
-            # (the JAX store sketches before any float16 rounding).
-            proj_new = project_rows(ids_dev, w_dev, self._projection_dev(self.sparse_vocab))
-            if self.sketch_dtype == "int8":
-                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+            if self.sparse_mode == "projected":
+                # Sketch the new rows on the device from their float32 weights
+                # (the JAX store sketches before any float16 rounding).
+                proj_new = project_rows(ids_dev, w_dev, self._projection_dev(self.sparse_vocab))
+                self._sp_proj, self._sp_proj_scale = _write_sketch(
+                    self._sp_proj, self._sp_proj_scale, proj_new
+                )
+        if self.enable_full_text:
+            fm = self.full_text_max_nnz
+            self._ft_ids = _write(self._ft_ids, ft_ids_new, fm, torch.int32)
+            self._ft_tf = _write(self._ft_tf, ft_tf_new, fm, torch.int32)
+            self._recompute_bm25()
+            if self.sparse_mode == "projected":
+                from verbatim_rag_tpu_torch.ops.sparse_projected import project_rows
 
-                codes, scale = quantize_rows_int8(proj_new)
-                self._sp_proj = _write(self._sp_proj, codes, self.projection_dim, torch.int8)
-                self._sp_proj_scale = _write(self._sp_proj_scale, scale, 1, torch.float32)
-            else:
-                self._sp_proj = _write(
-                    self._sp_proj, proj_new, self.projection_dim, self._sketch_store_dtype
+                # New rows are sketched with the current avgdl's saturation,
+                # computed on the host as the JAX store does; older sketches
+                # go stale as avgdl drifts, which only moves candidate
+                # selection (the rescore reads the fresh weights). `load` and
+                # `compact` rebuild every sketch in one flush.
+                n = len(self._ids)
+                avgdl = max(float(self._doc_len[:n].mean()) if n else 1.0, 1.0)
+                tf_new = ft_tf_new.astype(np.float32)
+                norm = self.bm25_k1 * (
+                    1.0 - self.bm25_b + self.bm25_b * dl_new[:, None] / avgdl
+                )
+                sat_new = np.where(
+                    tf_new > 0, tf_new * (self.bm25_k1 + 1.0) / (tf_new + norm), 0.0
+                ).astype(np.float32)
+                proj_new = project_rows(
+                    torch.from_numpy(ft_ids_new).to(self.device),
+                    torch.from_numpy(sat_new).to(self.device),
+                    self._projection_dev(self.full_text_vocab),
+                )
+                self._ft_proj, self._ft_proj_scale = _write_sketch(
+                    self._ft_proj, self._ft_proj_scale, proj_new
                 )
 
-        valid = torch.zeros(new_cap, dtype=torch.bool)
+        self._set_valid_dev(new_cap)
+        self._capacity = new_cap
+
+    def _full_text_rows(self, texts: Sequence[str]):
+        """The forward-index rows of ``texts``: (slots [n, fm] int32, raw
+        term frequencies [n, fm] int32, document lengths [n] float32).
+
+        A text with more than ``full_text_max_nnz`` unique terms keeps the
+        heaviest, picked as the JAX store picks them (``np.argsort(-tfs)``
+        over the analyzer's first-occurrence order, so ties resolve alike)."""
+        fm = self.full_text_max_nnz
+        slots, counts, offsets, lengths = analyze_texts(texts, self.full_text_vocab)
+        n = len(texts)
+        ft_ids = np.zeros((n, fm), np.int32)
+        ft_tf = np.zeros((n, fm), np.int32)
+        unique = np.diff(offsets)
+        doc = np.repeat(np.arange(n), unique)
+        col = np.arange(slots.size) - offsets[doc]
+        fits = unique[doc] <= fm
+        ft_ids[doc[fits], col[fits]] = slots[fits]
+        ft_tf[doc[fits], col[fits]] = counts[fits]
+        for i in np.flatnonzero(unique > fm):
+            terms, tfs = slots[offsets[i] : offsets[i + 1]], counts[offsets[i] : offsets[i + 1]]
+            top = np.argsort(-tfs)[:fm]
+            ft_ids[i], ft_tf[i] = terms[top], tfs[top]
+        return ft_ids, ft_tf, lengths.astype(np.float32)
+
+    def _set_valid_dev(self, cap: int) -> None:
+        valid = torch.zeros(cap, dtype=torch.bool)
         valid[: self._valid.size] = torch.from_numpy(self._valid)
         self._valid_dev = valid.to(self.device)
-        self._capacity = new_cap
 
     def _target_capacity(self, needed: int, first_flush: bool = False) -> int:
         """Next capacity: doubles from `block`. The first flush of an empty
-        store sizes tightly (next block multiple)."""
+        store sizes tightly (next block multiple, never below a `reserve`)."""
         if first_flush:
             return max(-(-needed // self.block) * self.block, self.block, self._capacity)
         cap = max(self._capacity, self.block)
@@ -448,6 +579,34 @@ class DeviceVectorStore(VectorStore):
         if old is not None:
             fresh[: old.shape[0]] = old
         return fresh
+
+    @property
+    def _bm25_stale(self) -> bool:
+        return self._ft_w is None and self._ft_tf is not None
+
+    def _recompute_bm25(self) -> None:
+        """Saturate every row's term frequencies at the current avgdl (which
+        counts tombstoned rows, as the JAX store's does)."""
+        from verbatim_rag_tpu_torch.ops.sparse import bm25_saturate
+
+        n = len(self._ids)
+        avgdl = max(float(self._doc_len[:n].mean()) if n else 1.0, 1.0)
+        dl_padded = np.zeros(int(self._ft_tf.shape[0]), np.float32)
+        dl_padded[:n] = self._doc_len[:n]
+        self._ft_w = bm25_saturate(
+            self._ft_tf,
+            torch.from_numpy(dl_padded).to(self.device),
+            torch.tensor(avgdl, dtype=torch.float32, device=self.device),
+            k1=self.bm25_k1,
+            b=self.bm25_b,
+        )
+
+    def _dense_rows_f32(self, n: int) -> np.ndarray:
+        """Host float32 copy of the first ``n`` dense rows (dequantized)."""
+        rows = self._dense[:n].float().cpu().numpy()
+        if self.dense_dtype == "int8":
+            rows = rows * self._dense_scale[:n].cpu().numpy()
+        return rows
 
     # -- projections ---------------------------------------------------------------
 
@@ -475,17 +634,31 @@ class DeviceVectorStore(VectorStore):
             ).to(self.device)
         return DeviceVectorStore._projection_dev_cache[key]
 
-    # -- deletes -----------------------------------------------------------------
+    # -- deletes and housekeeping ------------------------------------------------------
 
     def delete(self, ids: list[str]) -> None:
-        """Tombstone rows: flip the validity mask (host and device)."""
+        """Tombstone rows: flip the validity mask (host and device). Full
+        text: each newly deleted row's terms leave the document frequencies
+        (re-analyzed from its text, cut as at ingest), so idf stays that of
+        the live rows. With ``auto_compact_threshold`` set, compact once the
+        dead fraction reaches it."""
         self.flush()
         rows = [self._row_of[i] for i in ids if i in self._row_of]
         if not rows:
             return
+        if self.enable_full_text and self._doc_freq is not None:
+            live = sorted({r for r in rows if self._valid[r]})
+            ft_ids, ft_tf, _ = self._full_text_rows([self._texts[r] for r in live])
+            self._doc_freq -= np.bincount(ft_ids[ft_tf > 0], minlength=self.full_text_vocab)
         self._valid[rows] = False
         if self._valid_dev is not None:
             self._valid_dev[torch.as_tensor(rows, device=self.device)] = False
+        if self.auto_compact_threshold is not None:
+            n = len(self._ids)
+            dead = n - int(self._valid[:n].sum())
+            if n and dead / n >= self.auto_compact_threshold:
+                reclaimed = self.compact()
+                logger.info("auto-compacted %d tombstoned rows", reclaimed)
 
     def delete_document(self, document_id: str) -> None:
         self.flush()
@@ -496,15 +669,191 @@ class DeviceVectorStore(VectorStore):
         ]
         self.delete([self._ids[r] for r in rows])
 
+    def reserve(self, n_rows: int) -> None:
+        """Pre-size device capacity for a known corpus size: one allocation
+        instead of log2(n) growth copies during a large ingest."""
+        if n_rows <= self._capacity:
+            return
+        self.flush()
+        cap = max(-(-n_rows // self.block) * self.block, self.block)
+        grow = self._grow_capacity
+        if self.dense_dim:
+            width = self.dense_dim
+            self._dense = grow(self._dense, cap, width, self._dense_store_dtype)
+            if self.dense_dtype == "int8":
+                self._dense_scale = grow(self._dense_scale, cap, 1, torch.float32)
+        sketches = []
+        if self.sparse_vocab:
+            self._sp_ids = grow(self._sp_ids, cap, self.sparse_max_nnz, self._sp_ids_dtype)
+            self._sp_w = grow(self._sp_w, cap, self.sparse_max_nnz, self._sp_w_dtype)
+            sketches.append(("_sp_proj", "_sp_proj_scale"))
+        if self.enable_full_text:
+            self._ft_ids = grow(self._ft_ids, cap, self.full_text_max_nnz, torch.int32)
+            self._ft_tf = grow(self._ft_tf, cap, self.full_text_max_nnz, torch.int32)
+            sketches.append(("_ft_proj", "_ft_proj_scale"))
+            self._ft_w = None  # recomputed at the next flush, at this capacity
+        if self.sparse_mode == "projected":
+            for proj, scale in sketches:
+                setattr(self, proj, grow(
+                    getattr(self, proj), cap, self.projection_dim, self._sketch_store_dtype
+                ))
+                if self.sketch_dtype == "int8":
+                    setattr(self, scale, grow(getattr(self, scale), cap, 1, torch.float32))
+        self._set_valid_dev(cap)
+        self._capacity = cap
+
+    def _config(self) -> dict[str, Any]:
+        """The constructor arguments `save` persists (the JAX store's keys,
+        in its order: a file either package writes loads in the other)."""
+        return {
+            "dense_dim": self.dense_dim,
+            "sparse_vocab": self.sparse_vocab,
+            "sparse_max_nnz": self.sparse_max_nnz,
+            "enable_full_text": self.enable_full_text,
+            "full_text_vocab": self.full_text_vocab,
+            "full_text_max_nnz": self.full_text_max_nnz,
+            "dense_dtype": self.dense_dtype,
+            "sketch_dtype": self.sketch_dtype,
+            "block": self.block,
+            "sparse_mode": self.sparse_mode,
+            "projection_dim": self.projection_dim,
+            "rescore_depth": self.rescore_depth,
+            "projection_seed": self.projection_seed,
+            "approx_topk": self.approx_topk,
+            "auto_compact_threshold": self.auto_compact_threshold,
+            "allow_exact_at_scale": self.allow_exact_at_scale,
+            "rescore_impl": self.rescore_impl,
+            "candidate_impl": self.candidate_impl_requested,
+            "sparse_weight_dtype": self.sparse_weight_dtype,
+            "sparse_ids_dtype": self.sparse_ids_dtype,
+        }
+
     def compact(self, min_dead_fraction: float = 0.0) -> int:
-        raise _not_in_slice("compact()", "the persistence and BM25 slice")
+        """Reclaim tombstoned rows by rebuilding the arrays from the live
+        rows in one flush (dense rows dequantized, forward-index rows with
+        their nonzero terms first, as the JAX store's term dicts pad them;
+        full text re-analyzed). Returns the rows reclaimed."""
+        self.flush()
+        n = len(self._ids)
+        dead = n - int(self._valid[:n].sum())
+        if n == 0 or dead == 0 or dead / n < min_dead_fraction:
+            return 0
+
+        keep = np.flatnonzero(self._valid[:n])
+        sp_rows = None
+        if self._sp_ids is not None:
+            sp_rows = _nonzero_first(self._sp_ids[:n].cpu().numpy(), self._sp_w[:n].cpu().numpy())
+        dense_np = self._dense_rows_f32(n) if self._dense is not None else None
+        records = []
+        for row in keep:
+            rec: dict[str, Any] = {
+                "id": self._ids[row],
+                "text": self._texts[row],
+                "enhanced_text": self._enhanced[row],
+                "metadata": self._metadata[row],
+            }
+            if dense_np is not None:
+                rec["dense"] = dense_np[row]
+            if sp_rows is not None:
+                rec["sparse_arrays"] = (sp_rows[0][row], sp_rows[1][row])
+            records.append(rec)
+
+        fresh = DeviceVectorStore(**self._config(), device=self.device)
+        fresh.add_vectors(records)
+        fresh.flush()
+        self.__dict__.update(fresh.__dict__)
+        return dead
+
+    # -- persistence ---------------------------------------------------------------
 
     def save(self, path: str) -> None:
-        raise _not_in_slice("save()", "the persistence and BM25 slice")
+        """Persist to ``<path>.npz`` + ``<path>.json`` in the JAX store's
+        format: rows as float32 (int8 codes and scales beside them, restored
+        verbatim by `load`), the forward indexes, the full-text statistics,
+        the constructor's persisted arguments, ids, texts and metadata."""
+        self.flush()
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        n = len(self._ids)
+        arrays: dict[str, np.ndarray] = {"valid": self._valid[:n]}
+        if self._dense is not None:
+            arrays["dense"] = self._dense_rows_f32(n)
+            if self.dense_dtype == "int8":
+                arrays["dense_i8"] = self._dense[:n].cpu().numpy()
+                arrays["dense_scale"] = self._dense_scale[:n].cpu().numpy()
+        if self._sp_ids is not None:
+            arrays["sp_ids"] = self._sp_ids[:n].cpu().numpy()
+            arrays["sp_w"] = self._sp_w[:n].cpu().numpy()
+        if self.enable_full_text and self._ft_ids is not None:
+            arrays["ft_ids"] = self._ft_ids[:n].cpu().numpy()
+            arrays["ft_tf"] = self._ft_tf[:n].cpu().numpy()
+            arrays["doc_len"] = self._doc_len[:n]
+            arrays["doc_freq"] = self._doc_freq
+        np.savez_compressed(path + ".npz", **arrays)
+        with open(path + ".json", "w") as f:
+            json.dump(
+                {
+                    "config": self._config(),
+                    "ids": self._ids,
+                    "texts": self._texts,
+                    "enhanced": self._enhanced,
+                    "metadata": self._metadata,
+                },
+                f,
+                default=json_safe,
+            )
 
     @classmethod
-    def load(cls, path: str, **kwargs) -> "DeviceVectorStore":
-        raise _not_in_slice("load()", "the persistence and BM25 slice")
+    def load(cls, path: str, mesh=None, device=None) -> "DeviceVectorStore":
+        """Load a saved index (either package's) onto ``device`` (``None`` →
+        ``cuda``): every record re-ingested in one flush (the forward-index
+        rows with their nonzero terms first, as the JAX store's term dicts
+        pad them), the int8 codes and scales restored verbatim, tombstones
+        re-applied without auto-compaction. A ``mesh`` raises (the parallel
+        slice)."""
+        with open(path + ".json") as f:
+            meta = json.load(f)
+        store = cls(**meta["config"], mesh=mesh, device=device)
+        # Each member of the archive is read (and decompressed) once.
+        arrays = dict(np.load(path + ".npz", allow_pickle=False))
+        records = []
+        dense = arrays.get("dense")
+        sp_rows = None
+        if "sp_ids" in arrays:
+            sp_ids, sp_w = arrays["sp_ids"], arrays["sp_w"]
+            if sp_ids.shape[1] <= store.sparse_max_nnz:
+                sp_rows = _nonzero_first(sp_ids, sp_w)
+        for i, rid in enumerate(meta["ids"]):
+            rec: dict[str, Any] = {
+                "id": rid,
+                "text": meta["texts"][i],
+                "enhanced_text": meta["enhanced"][i],
+                "metadata": meta["metadata"][i],
+            }
+            if dense is not None:
+                rec["dense"] = dense[i]
+            if sp_rows is not None:
+                rec["sparse_arrays"] = (sp_rows[0][i], sp_rows[1][i])
+            elif "sp_ids" in arrays:  # a wider saved index: cut to the heaviest terms
+                rec["sparse"] = {int(t): float(w) for t, w in zip(sp_ids[i], sp_w[i]) if w != 0.0}
+            records.append(rec)
+        store.add_vectors(records)
+        store.flush()
+        if store.dense_dtype == "int8" and "dense_i8" in arrays and store._dense is not None:
+            codes = torch.from_numpy(np.asarray(arrays["dense_i8"], np.int8))
+            scales = torch.from_numpy(np.asarray(arrays["dense_scale"], np.float32))
+            store._dense[: codes.shape[0]] = codes.to(store.device)
+            store._dense_scale[: scales.shape[0]] = scales.to(store.device)
+        dead = [meta["ids"][i] for i in np.flatnonzero(~arrays["valid"].astype(bool))]
+        if dead:
+            # Tombstones only: compaction would re-quantize the rows whose
+            # codes were just restored.
+            threshold = store.auto_compact_threshold
+            store.auto_compact_threshold = None
+            try:
+                store.delete(dead)
+            finally:
+                store.auto_compact_threshold = threshold
+        return store
 
     # -- query --------------------------------------------------------------------
 
@@ -550,8 +899,11 @@ class DeviceVectorStore(VectorStore):
 
         - filter-only when no query vectors are given;
         - a single method runs alone;
-        - dense + sparse (or explicit ``hybrid_weights``) fetch ``top_k*2``
-          per method and fuse with weighted RRF.
+        - several methods (or explicit ``hybrid_weights``) fetch
+          ``top_k*2`` per method and fuse with weighted RRF.
+
+        ``text_queries`` serve the BM25 full-text method; a store built
+        without ``enable_full_text`` ignores them, as the JAX store does.
 
         ``search_params``: ``rescore_depth`` (sketch candidates rescored per
         query, bucketed to a power of two in [64, 4096]); ``approx_topk``
@@ -588,8 +940,8 @@ class DeviceVectorStore(VectorStore):
             )
         if sparse_queries is not None and self._sp_ids is not None:
             methods["sparse"] = sparse_queries
-        if text_queries is not None:
-            raise _not_in_slice("full-text queries", "the persistence and BM25 slice")
+        if text_queries is not None and self.enable_full_text:
+            methods["full_text"] = text_queries
 
         if search_type in ("dense", "sparse", "full_text"):
             if search_type not in methods:
@@ -602,14 +954,18 @@ class DeviceVectorStore(VectorStore):
         if not methods:
             asked = [
                 name
-                for name, q in (("dense", dense_queries), ("sparse", sparse_queries))
+                for name, q in (
+                    ("dense", dense_queries),
+                    ("sparse", sparse_queries),
+                    ("full_text", text_queries),
+                )
                 if q is not None
             ]
             if asked:
                 raise ValueError(
                     f"Query supplied for {asked} but the store has no matching "
                     "index (dense requires dense vectors at ingest; sparse a "
-                    "sparse index)"
+                    "sparse index; full_text enable_full_text=True)"
                 )
             if search_type not in (None, "filter"):
                 raise ValueError(
@@ -632,10 +988,18 @@ class DeviceVectorStore(VectorStore):
         weights = normalize_weights({m: [] for m in methods}, weights)
         fetch_k = min(top_k * 2, n)
 
-        if set(methods) == {"dense", "sparse"}:
+        if (
+            set(methods) in ({"dense", "sparse"}, {"dense", "sparse", "full_text"})
+            and self.sparse_mode == "projected"
+            and self._dense is not None
+            and self._sp_proj is not None
+            and ("full_text" not in methods or self._ft_proj is not None)
+        ):
+            # One call for every arm: 2-way, or 3-way with BM25 full text.
             scores, rows = self._hybrid_projected(
                 methods["dense"], methods["sparse"], top_k, fetch_k, mask,
                 weights, rrf_k, exact_topk=exact_topk, depth_override=depth_override,
+                text_q=methods.get("full_text"),
             )
             return self._materialize(scores, rows)
         all_rows, w_list = [], []
@@ -712,7 +1076,9 @@ class DeviceVectorStore(VectorStore):
         """Run one retrieval method → host (scores [B,k], rows [B,k]; -1 pad).
 
         Dense-only queries score the [B, N] matrix whatever the store's
-        ``candidate_impl`` (as in the JAX store, which runs `dense_topk`)."""
+        ``candidate_impl`` (as in the JAX store, which runs `dense_topk`).
+        Sparse and full-text queries take the projected search, or the exact
+        scan under ``sparse_mode="exact"``."""
         from verbatim_rag_tpu_torch.ops.dense import candidate_topk, normalize_rows
 
         k = min(k, self._capacity)
@@ -721,10 +1087,83 @@ class DeviceVectorStore(VectorStore):
             scores, rows = candidate_topk(self._dense, q, k, mask, scale=self._dense_scale)
             return scores.cpu().numpy(), rows.cpu().numpy()
         if name == "sparse":
-            return self._projected_search(
-                payload, k, mask, exact_topk=exact_topk, depth_override=depth_override
-            )
+            if self.sparse_mode == "projected":
+                return self._projected_search(
+                    payload, self._sp_proj, self._sp_ids, self._sp_w, self.sparse_vocab,
+                    k, mask, exact_topk=exact_topk, depth_override=depth_override,
+                    scale_dev=self._sp_proj_scale,
+                )
+            q_dense = self._densify_host(self._sparse_payload_dicts(payload), self.sparse_vocab)
+            return self._exact_sparse_topk(self._sp_ids, self._sp_w, q_dense, k, mask)
+        if name == "full_text":
+            q_sparse = self._bm25_query_sparse(payload)
+            if self.sparse_mode == "projected":
+                return self._projected_search(
+                    q_sparse, self._ft_proj, self._ft_ids, self._ft_w, self.full_text_vocab,
+                    k, mask, exact_topk=exact_topk, depth_override=depth_override,
+                    scale_dev=self._ft_proj_scale,
+                )
+            q_dense = self._densify_host(q_sparse, self.full_text_vocab)
+            return self._exact_sparse_topk(self._ft_ids, self._ft_w, q_dense, k, mask)
         raise ValueError(f"Unknown method {name!r}")
+
+    #: Above this many rows the exact scan is refused unless the store was
+    #: built with ``allow_exact_at_scale=True``: it scores every row per query.
+    EXACT_SCAN_MAX_ROWS = 200_000
+
+    def _exact_sparse_topk(self, ids_dev, w_dev, q_dense: np.ndarray, k: int, mask):
+        """The exact forward-index scan (`ops/sparse.py::sparse_topk`) of
+        densified queries [B, V] → host (scores, rows)."""
+        from verbatim_rag_tpu_torch.ops.sparse import sparse_topk
+
+        n = len(self._ids)
+        if n > self.EXACT_SCAN_MAX_ROWS and not self.allow_exact_at_scale:
+            raise RuntimeError(
+                f"Exact sparse scan over {n} rows refused: sparse_mode='exact' "
+                "(or full-text without projected sketches) scores every "
+                "forward-index row per query, far slower than "
+                "sparse_mode='projected' at this scale. Use projected mode, "
+                "or pass allow_exact_at_scale=True for validation runs."
+            )
+        q = torch.from_numpy(q_dense).to(self.device)
+        scores, rows = sparse_topk(ids_dev, w_dev, q, k, mask, block=self.block)
+        return scores.cpu().numpy(), rows.cpu().numpy()
+
+    @staticmethod
+    def _sparse_payload_dicts(payload) -> list[dict[int, float]]:
+        """Sparse query payload → list of {term: weight} dicts (an array
+        payload is read back once)."""
+        if not _is_sparse_arrays(payload):
+            return list(payload)
+        ids, w = (np.asarray(torch.as_tensor(x).cpu()) for x in payload)
+        return [
+            {int(t): float(x) for t, x in zip(ids[i], w[i]) if x != 0.0}
+            for i in range(len(ids))
+        ]
+
+    @staticmethod
+    def _densify_host(sparse_rows: Sequence[Mapping[int, float]], vocab: int) -> np.ndarray:
+        q = np.zeros((len(sparse_rows), vocab), np.float32)
+        for i, row in enumerate(sparse_rows):
+            for t, w in row.items():
+                t = int(t)
+                if 0 <= t < vocab:
+                    q[i, t] += float(w)
+        return q
+
+    def _bm25_query_sparse(self, texts: Sequence[str]) -> list[dict[int, float]]:
+        """BM25 query side: {term: idf(term)} per text, idf over the live
+        rows (N counts live rows; df drops a row's terms when it is
+        deleted), computed in float64 and rounded to float32."""
+        n_rows = len(self._ids)
+        n = max(int(self._valid[:n_rows].sum()), 1)
+        df = np.maximum(self._doc_freq.astype(np.float64), 0.0)
+        idf = np.log1p((n - df + 0.5) / (df + 0.5)).astype(np.float32)
+        slots, _, offsets, _ = analyze_texts(list(texts), self.full_text_vocab)
+        return [
+            {int(t): float(idf[t]) for t in slots[offsets[i] : offsets[i + 1]]}
+            for i in range(len(texts))
+        ]
 
     #: Query-nnz padding buckets (the JAX store's compile-shape buckets; kept
     #: so padded query arrays have the same shapes on both sides).
@@ -761,12 +1200,14 @@ class DeviceVectorStore(VectorStore):
         rrf_k: int,
         exact_topk: bool = True,
         depth_override: int | None = None,
+        text_q: Sequence[str] | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """The hybrid serving path in one call, then one [B, k] readback:
-        the section tables (`ops/section.py::hybrid_section_topk`) when
-        ``candidate_impl="section"`` can serve the query, else candidate
-        selection per arm (`ops/hybrid.py::hybrid_fused_topk`); exact
-        sparse rescore and weighted RRF either way."""
+        the section tables (`ops/section.py`) when ``candidate_impl="section"``
+        can serve the query, else candidate selection per arm
+        (`ops/hybrid.py`); exact sparse rescores and weighted RRF either way.
+        With ``text_q`` the BM25 arm joins as the third arm of the same call
+        (`hybrid_section_topk_3way`, `hybrid_fused_topk_3way`)."""
         from verbatim_rag_tpu_torch.ops.dense import normalize_rows
 
         depth = min(max(depth_override or self.rescore_depth, fetch_k), self._capacity)
@@ -777,32 +1218,49 @@ class DeviceVectorStore(VectorStore):
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
             q = torch.from_numpy(q).to(self.device)
         q_ids, q_w, q_proj = self._sparse_query_device(sparse_q, self.sparse_vocab)
+        section = self.candidate_impl == "section" and self._section_serves(exact_topk)
         common = dict(
             k=min(top_k, fetch_k),
             fetch_k=fetch_k,
             depth=depth,
             mask=mask,
-            dense_weight=float(weights.get("dense", 0.5)),
-            sparse_weight=float(weights.get("sparse", 0.5)),
             rrf_k=rrf_k,
             dense_scale=self._dense_scale,
             sketch_scale=self._sp_proj_scale,
             rescore_impl=self.rescore_impl,
         )
-        arrays = (self._dense, self._sp_proj, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w)
-        if self.candidate_impl == "section" and self._section_serves(exact_topk):
-            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk
+        if section:
+            common["block_cols"] = 16384 if self._capacity % 16384 == 0 else 8192
+        else:
+            common.update(exact_topk=exact_topk, candidate_impl=self._per_stage_candidate_impl)
+        if text_q is not None:
+            ft_ids, ft_w, ft_proj = self._sparse_query_device(
+                self._bm25_query_sparse(text_q), self.full_text_vocab
+            )
+            from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk_3way
+            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk_3way
 
-            scores, rows = hybrid_section_topk(
-                *arrays, **common,
-                block_cols=16384 if self._capacity % 16384 == 0 else 8192,
+            program = hybrid_section_topk_3way if section else hybrid_fused_topk_3way
+            scores, rows = program(
+                self._dense, self._sp_proj, self._sp_ids, self._sp_w,
+                self._ft_proj, self._ft_ids, self._ft_w,
+                q, q_proj, q_ids, q_w, ft_proj, ft_ids, ft_w,
+                dense_weight=float(weights.get("dense", 1 / 3)),
+                sparse_weight=float(weights.get("sparse", 1 / 3)),
+                ft_weight=float(weights.get("full_text", 1 / 3)),
+                ft_scale=self._ft_proj_scale,
+                **common,
             )
         else:
             from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk
+            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk
 
-            scores, rows = hybrid_fused_topk(
-                *arrays, **common, exact_topk=exact_topk,
-                candidate_impl=self._per_stage_candidate_impl,
+            program = hybrid_section_topk if section else hybrid_fused_topk
+            scores, rows = program(
+                self._dense, self._sp_proj, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
+                dense_weight=float(weights.get("dense", 0.5)),
+                sparse_weight=float(weights.get("sparse", 0.5)),
+                **common,
             )
         return scores.cpu().numpy(), rows.cpu().numpy()
 
@@ -837,20 +1295,21 @@ class DeviceVectorStore(VectorStore):
         return False
 
     def _projected_search(
-        self, q_sparse, k: int, mask, exact_topk: bool = True,
-        depth_override: int | None = None,
+        self, q_sparse, proj_corpus, ids_dev, weights_dev, vocab: int, k: int, mask,
+        exact_topk: bool = True, depth_override: int | None = None, scale_dev=None,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Two-phase sparse search on the device: sketch candidates, exact
-        forward-index rescore, final top-k."""
+        """Two-phase sparse search on the device over one sparse arm (SPLADE
+        or BM25): sketch candidates, exact forward-index rescore, final
+        top-k."""
         from verbatim_rag_tpu_torch.ops.hybrid import projected_sparse_topk
 
         depth = min(max(depth_override or self.rescore_depth, 2 * k), self._capacity)
-        q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, self.sparse_vocab)
+        q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, vocab)
         top_scores, top_rows = projected_sparse_topk(
-            self._sp_proj, self._sp_ids, self._sp_w, q_proj, q_ids, q_w,
+            proj_corpus, ids_dev, weights_dev, q_proj, q_ids, q_w,
             min(k, self._capacity), depth, mask,
             exact_topk=exact_topk,
-            sketch_scale=self._sp_proj_scale,
+            sketch_scale=scale_dev,
             rescore_impl=self.rescore_impl,
             candidate_impl=self._per_stage_candidate_impl,
         )

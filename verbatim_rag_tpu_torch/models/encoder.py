@@ -15,8 +15,12 @@ Numerics follow the JAX forward:
   the compute dtype; global layers use ``global_rope_theta``, local layers
   ``local_rope_theta`` and a ``local_attention_window`` band;
 - GELU is the exact erf form;
-- every attention layer goes through `ops.flash_attention.flash_attention`:
-  the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+- with ``config.use_flash_attention`` every attention layer goes through
+  `ops.flash_attention.flash_attention` (the CUDA kernel for CUDA tensors,
+  its plain version for CPU tensors); without it, as in the JAX forward,
+  attention is plain array math on any device and at any head dim:
+  :func:`attention` over the additive bias of :func:`build_bias` (padding
+  mask, plus the local band on local layers).
 
 :func:`embed_texts` is the dense provider's forward (masked mean pooling,
 then L2 normalisation). :func:`encoder_forward_sp` is the sequence-parallel
@@ -91,6 +95,34 @@ def rope(x: torch.Tensor, theta: float, positions: torch.Tensor) -> torch.Tensor
     sin = torch.sin(freq).to(x.dtype)[None, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+#: Additive bias of masked-out keys (the JAX encoder's ``NEG_INF``).
+NEG_INF = -1e30
+
+
+def attention(q, k, v, bias) -> torch.Tensor:
+    """Plain attention over [B, S, H, D] in the compute dtype: float32
+    logits (scaled by 1/√D) plus ``bias`` [B, 1, S, S], float32 softmax,
+    probabilities cast to v's dtype, float32 output [B, S, H, D]. Products
+    of bf16 operands are exact in float32, so both products run on float32
+    copies (the float32 accumulation XLA's ``preferred_element_type``
+    asks for)."""
+    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]), dtype=torch.float32))
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits * scale.to(logits.device) + bias
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+
+
+def build_bias(attention_mask, seq_len: int, is_global: bool, window: int) -> torch.Tensor:
+    """Additive attention bias [B, 1, S, S]: ``NEG_INF`` on padded keys, and
+    on local layers on keys farther than ``window // 2`` from the query."""
+    pad = (1.0 - attention_mask.float())[:, None, None, :] * NEG_INF
+    idx = torch.arange(seq_len, device=attention_mask.device)
+    dist = (idx[:, None] - idx[None, :]).abs()
+    local = torch.where(dist <= window // 2, 0.0, NEG_INF)[None, None]
+    return pad + (0.0 if is_global else 1.0) * local
 
 
 class EncoderLayer(nn.Module):
@@ -193,11 +225,18 @@ class Encoder(nn.Module):
                 theta = config.global_rope_theta if is_global else config.local_rope_theta
                 q = rope(q.to(dtype), theta, positions)
                 k = rope(k.to(dtype), theta, positions)
-            window = None if is_global or not use_rope else config.local_attention_window
-            ctx = flash_attention(
-                q.to(dtype).contiguous(), k.to(dtype).contiguous(),
-                v.to(dtype).contiguous(), lengths, window,
-            )
+            if config.use_flash_attention:
+                window = None if is_global or not use_rope else config.local_attention_window
+                ctx = flash_attention(
+                    q.to(dtype).contiguous(), k.to(dtype).contiguous(),
+                    v.to(dtype).contiguous(), lengths, window,
+                )
+            else:
+                bias = build_bias(
+                    attention_mask, seq_len, is_global or not use_rope,
+                    config.local_attention_window,
+                )
+                ctx = attention(q.to(dtype), k.to(dtype), v.to(dtype), bias)
             h = h + layer.attn["o"](ctx.reshape(batch, seq_len, -1), dtype)
             if not pre_ln:
                 h = layer.attn_ln(h, eps)

@@ -10,9 +10,10 @@ length-sorted chunks padded to the full batch. The class names stay
 package names the same providers in the other.
 
 The models live on ``device`` (``None`` → ``cuda``; without a GPU the
-constructor raises unless given ``device="cpu"``). Random weights come from
-a ``torch.Generator`` seeded by ``seed`` (other numbers than the JAX
-package's key gives). Forwards run under ``torch.inference_mode()``.
+constructor raises unless given ``device="cpu"``). Random weights are the
+JAX package's: ``init_*_params(jax.random.PRNGKey(seed))`` reproduced in
+numpy by `models.jax_prng`, so a seed-only identity names the same weights
+in both packages. Forwards run under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -76,11 +77,19 @@ def _dispatch_chunks(texts, batch_size, tokenizer, max_length, forward, device):
 
 def _build_model(cls, config, params, checkpoint, seed, device):
     """The provider's model on ``device``: ``params`` (a state_dict) when
-    given, else a checkpoint's weights, else random weights from ``seed``."""
-    model = cls(config, torch.Generator().manual_seed(seed))
+    given, else the JAX package's random weights from ``seed``
+    (`jax_prng.init_encoder_params` / `init_splade_params`), overwritten by
+    a checkpoint's weights when one is named."""
+    model = cls(config)
     if params is not None:
         model.load_state_dict(dict(params))
-    elif checkpoint:
+        return model.to(device).eval()
+    from .highlighter import params_from_jax
+    from .jax_prng import init_encoder_params, init_splade_params, prng_key
+
+    init = init_splade_params if cls is SpladeModel else init_encoder_params
+    model.load_state_dict(params_from_jax(init(prng_key(seed), config)))
+    if checkpoint:
         _load_params_npz(checkpoint, model)
     return model.to(device).eval()
 

@@ -1,6 +1,7 @@
-"""Whole-candidate-section selection: both hybrid arms' scores reduced to
+"""Whole-candidate-section selection: every hybrid arm's scores reduced to
 packed bucket tables in one kernel launch (port of
-`verbatim_rag_tpu/ops/section.py`, the 2-way program).
+`verbatim_rag_tpu/ops/section.py`: the 2-way program, and the 3-way one with
+the BM25 full-text sketches as a third arm).
 
 For each arm and each block of ``block_cols`` corpus rows, table column
 c = block·128 + lane holds the maximum over positions p of
@@ -271,9 +272,48 @@ def hybrid_section_topk(
     s_rows = _section_projected_arm(
         ts, sp_ids, sp_w, q_ids, q_w, fetch_k, depth, block_cols, n, rescore_impl
     )
-    total = dense_weight + sparse_weight
-    weights = torch.tensor(
-        [dense_weight, sparse_weight], dtype=torch.float32, device=d_rows.device
-    ) / torch.tensor(total, dtype=torch.float32, device=d_rows.device)
+    from .hybrid import _arm_weights
+
+    weights = _arm_weights((dense_weight, sparse_weight), d_rows.device)
     stacked = torch.stack([d_rows, s_rows])  # [2, B, fetch_k]
+    return rrf_fuse_device(stacked, weights, k=min(k, fetch_k), rrf_k=rrf_k)
+
+
+def hybrid_section_topk_3way(
+    dense_corpus, sketch_corpus, sp_ids, sp_w, ft_sketch, ft_ids, ft_w,
+    dense_q, sketch_q, q_ids, q_w, ft_q_proj, ft_q_ids, ft_q_w,
+    k: int, fetch_k: int, depth: int, mask=None,
+    dense_weight: float = 1.0, sparse_weight: float = 1.0, ft_weight: float = 1.0,
+    rrf_k: int = 60, dense_scale=None, sketch_scale=None, ft_scale=None,
+    rescore_impl: str = "pallas", block_cols: int = BLOCK_COLS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3-way hybrid (dense + SPLADE + BM25 full text) with the section
+    tables as its candidate stage: one launch for the three arms' tables
+    (the BM25 sketches read row-major like the others), then the table
+    top-ks, the SPLADE and BM25 arms' exact rescores and 3-way weighted RRF.
+    Drop-in contract of `ops/hybrid.py::hybrid_fused_topk_3way`.
+
+    Returns (fused RRF scores [B, k], rows [B, k]; −1 pads).
+    """
+    from .fusion import rrf_fuse_device
+    from .hybrid import _arm_weights
+
+    n = dense_corpus.shape[0]
+    scales = ()
+    if any(s is not None for s in (dense_scale, sketch_scale, ft_scale)):
+        scales = (dense_scale, sketch_scale, ft_scale)
+    td, ts, tf = section_bucket_tables(
+        (dense_corpus, sketch_corpus, ft_sketch), (dense_q, sketch_q, ft_q_proj), mask,
+        scales=scales, block_cols=block_cols,
+    )
+    _, d_rows = table_topk(td, fetch_k, block_cols, n)
+    d_rows = _pad_cols(d_rows, fetch_k)
+    s_rows = _section_projected_arm(
+        ts, sp_ids, sp_w, q_ids, q_w, fetch_k, depth, block_cols, n, rescore_impl
+    )
+    f_rows = _section_projected_arm(
+        tf, ft_ids, ft_w, ft_q_ids, ft_q_w, fetch_k, depth, block_cols, n, rescore_impl
+    )
+    weights = _arm_weights((dense_weight, sparse_weight, ft_weight), d_rows.device)
+    stacked = torch.stack([d_rows, s_rows, f_rows])  # [3, B, fetch_k]
     return rrf_fuse_device(stacked, weights, k=min(k, fetch_k), rrf_k=rrf_k)
