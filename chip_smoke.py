@@ -98,6 +98,25 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              `SERVE_DENSE_ATOL`), one `query_batch` split into encode,
              retrieve, extract and template by synchronized host timers, and
              one under `torch.profiler`;
+3c. http   — the port's server (`verbatim_rag_tpu_torch.api.app.create_app`
+             with the static `frontend/` mount, aiohttp on 127.0.0.1, port 0,
+             `API_DEBUG_TRACE=1`, micro-batches of up to 64) over the serve
+             phase's RAG (`dependencies.set_rag`), its warm-up awaited: status,
+             documents and templates; the 64 questions as concurrent
+             `/api/query` calls bracketed by `/api/debug/trace` start/stop,
+             each answer (chunks, highlights, text) equal to `query`'s, fewer
+             micro-batches than requests, requests/s, p50/p99 latency, the
+             card's busy ms from the trace and the idle share printed; two
+             NDJSON streams (events documents → progress → highlights →
+             answer, the answer equal to `query`'s; times to the documents and
+             answer events); `/api/query_async`; `/api/transform/verbatim`
+             over three retrieved chunks (their highlights equal to `query`'s);
+             four probes (400, 400, 400, 404, each with the CORS header); then
+             a fresh server that loads the saved index from `INDEX_PATH` and
+             warms up: same chunk count, one answer equal to `query`'s. No
+             warning may be logged; the flash forward at D=64 and D=32 and the
+             rescore must launch. The server's default extractor is the serve
+             phase's (see `run_http`);
 3b. bucket_ab — the port's counterpart of `benchmarks/bench_fused_bucket.py`:
              candidate top-k (k=256) of 512 unit queries over 999,424 normal
              bf16 rows at d ∈ {384, 768} by exact top-k over the score
@@ -192,7 +211,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a, 3b, 5b, 5c and 6b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3c, 5b, 5c and 6b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -1921,10 +1940,12 @@ def serve_split(rag, questions) -> dict:
     )
 
 
-def run_serve(extractor, seed: int, card: str) -> dict:
+def run_serve(extractor, seed: int, card: str):
     """`bench_serving.py`'s path without HTTP: ingest the repo's markdown
     through the neural providers, warm up, then 64 questions through
-    `query_batch` (each equal to `query`) and 8 through `query_async`."""
+    `query_batch` (each equal to `query`) and 8 through `query_async`.
+    Returns the result, the RAG and each question's `query` response (the
+    http phase serves the same RAG and holds every route to them)."""
     import asyncio
     import logging
 
@@ -2048,8 +2069,288 @@ def run_serve(extractor, seed: int, card: str) -> dict:
     )
     log("serve", json.dumps(result))
     log(f"serve: {result['phase_s']:.1f} s")
-    del index, rag
+    return result, rag, singles
+
+
+#: The http phase: the serve phase's RAG behind the port's aiohttp server on
+#: a socket. A micro-batch of 64 questions at 8192-token windows took
+#: 3.98-7.81 s (PERF.md §5): the client's timeout stands well above it.
+HTTP_TIMEOUT_S = 600
+HTTP_STREAMED = 2
+HTTP_TRANSFORM_CHUNKS = 3
+HTTP_PROBES = (  # (method, path, body: a str goes raw, status)
+    ("POST", "/api/query", {"question": ""}, 400),
+    ("POST", "/api/query", "not json", 400),
+    ("POST", "/api/query", {"question": "solar", "search_type": "bogus"}, 400),
+    ("GET", "/api/query", None, 404),
+)
+
+
+def json_answer(body: dict) -> tuple:
+    """`answer_of` for a response as it comes over the wire."""
+    docs = tuple(
+        (
+            d["metadata"]["document_id"],
+            d["metadata"]["chunk_index"],
+            tuple((h["start"], h["end"], h["text"]) for h in d["highlights"]),
+        )
+        for d in body["documents"]
+    )
+    return docs, body["answer"]
+
+
+async def ndjson_lines(content):
+    """Yield each line of an NDJSON body as soon as it is complete.
+
+    aiohttp's ``async for line in resp.content`` refuses a line longer than
+    twice its read buffer (128 KiB by default), and a ``highlights`` event
+    carries every retrieved chunk's whole text, so it reads raw pieces and
+    splits them itself."""
+    pending = bytearray()
+    async for piece in content.iter_any():
+        pending += piece
+        *lines, rest = bytes(pending).split(b"\n")
+        pending = bytearray(rest)
+        for line in lines:
+            yield line
+    if pending:
+        yield bytes(pending)
+
+
+def verbatim_highlights(body: dict, what: str) -> int:
+    n = 0
+    for d in body["documents"]:
+        for h in d["highlights"]:
+            require(d["content"][h["start"] : h["end"]] == h["text"], f"{what}: highlight not verbatim")
+            n += 1
+    return n
+
+
+def run_http(rag, extractor, singles, card: str) -> dict:
+    """The port's HTTP server (`verbatim_rag_tpu_torch.api.app.create_app`,
+    its micro-batcher, NDJSON stream, transform and trace routes) on
+    127.0.0.1, serving the serve phase's RAG; every answer is held to that
+    phase's `query` response for its question.
+
+    The server's default extractor and the transform's offline one are
+    `ModelSpanExtractor(device=...)`, whose default config draws its own
+    random weights; for this phase the class hands back the serve phase's
+    full-width extractor instead, so that an answer can be held to
+    ``singles``."""
+    import asyncio
+    import logging
+    import tempfile
+
+    import numpy as np
+    from aiohttp import ClientSession, ClientTimeout, web
+
+    from verbatim_rag_tpu_torch.api import app as api_app
+    from verbatim_rag_tpu_torch.api import dependencies as deps
+    from verbatim_rag_tpu_torch.models import highlighter
+
+    t_phase = time.perf_counter()
+    questions = serve_questions()
+    env_keys = ("API_DEBUG_TRACE", "MICRO_BATCH", "MICRO_BATCH_MAX", "INDEX_PATH", "VERBATIM_FORCE_PLATFORM")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(API_DEBUG_TRACE="1", MICRO_BATCH="1", MICRO_BATCH_MAX=str(SERVE_QUESTIONS))
+    os.environ.pop("VERBATIM_FORCE_PLATFORM", None)
+    default_extractor = highlighter.ModelSpanExtractor
+    highlighter.ModelSpanExtractor = lambda device=None, **kwargs: extractor
+    warned = []
+    handler = logging.Handler(level=logging.WARNING)
+    handler.emit = lambda record: warned.append(f"{record.name}: {record.getMessage()}")
+    package_log = logging.getLogger("verbatim_rag_tpu_torch")
+    package_log.addHandler(handler)
+    frontend = str(ROOT / "frontend")
+    result = dict(card=card)
+
+    async def serve(application):
+        runner = web.AppRunner(application)
+        await runner.setup()
+        await web.TCPSite(runner, "127.0.0.1", 0).start()
+        await application["warmup_task"]
+        require(not warned, f"http: the warm-up logged {warned}")
+        return runner, "http://127.0.0.1:%d" % runner.addresses[0][1]
+
+    async def call(session, method, url, body=None):
+        kwargs = {"data": body} if isinstance(body, str) else {"json": body}
+        t0 = time.perf_counter()
+        async with session.request(method, url, **kwargs) as resp:
+            text = await resp.text()
+            cors = resp.headers.get("Access-Control-Allow-Origin")
+            status = resp.status
+        seconds = time.perf_counter() - t0
+        data = json.loads(text) if text.startswith("{") else text
+        return status, data, cors, seconds
+
+    async def get_ok(session, url):
+        status, body, cors, _ = await call(session, "GET", url)
+        require(status == 200 and cors == "*", f"http: GET {url} gave {status}, CORS {cors}")
+        return body
+
+    async def phase():
+        n_chunks = rag.index.inspect()["num_chunks"]
+        deps.reset()
+        deps.set_rag(rag)
+        runner, url = await serve(api_app.create_app(static_dir=frontend))
+        try:
+            async with ClientSession(timeout=ClientTimeout(total=HTTP_TIMEOUT_S)) as session:
+                status = await get_ok(session, url + "/api/status")
+                require(status["status"] == "ok" and status["num_chunks"] == n_chunks, f"http: status {status}")
+                documents = (await get_ok(session, url + "/api/documents"))["documents"]
+                require(len(documents) == status["num_documents"], "http: /api/documents count")
+                templates = await get_ok(session, url + "/api/templates")
+                require(templates["current_mode"] == "static", f"http: templates {templates}")
+
+                # 64 concurrent questions through the micro-batcher, traced.
+                with tempfile.TemporaryDirectory() as logdir:
+                    started = await call(session, "POST", url + "/api/debug/trace", {"action": "start", "logdir": logdir})
+                    require(started[0] == 200, f"http: trace start {started[:2]}")
+                    t0 = time.perf_counter()
+                    burst = await asyncio.gather(
+                        *(call(session, "POST", url + "/api/query", {"question": q}) for q in questions)
+                    )
+                    wall_s = time.perf_counter() - t0
+                    stopped = await call(session, "POST", url + "/api/debug/trace", {"action": "stop"})
+                require(stopped[0] == 200, f"http: trace stop {stopped[:2]}")
+                busy_ms = stopped[1]["module_wall_ms"]
+                require(busy_ms is not None and busy_ms > 0, f"http: device busy {busy_ms} ms in the burst")
+                differ = []
+                n_highlights = 0
+                for i, (code, body, cors, _) in enumerate(burst):
+                    require(code == 200 and cors == "*", f"http: /api/query {i}: {code}, CORS {cors}")
+                    if json_answer(body) != answer_of(singles[i]):
+                        differ.append(i)
+                    n_highlights += verbatim_highlights(body, f"http /api/query {i}")
+                require(not differ, f"http: /api/query answered otherwise than query for {differ}")
+                batching = (await get_ok(session, url + "/api/status"))["micro_batching"]
+                require(
+                    batching["requests"] == len(questions) and batching["batches"] < len(questions),
+                    f"http: micro-batching {batching}",
+                )
+                latencies = np.array([b[3] for b in burst]) * 1e3
+                result.update(
+                    requests=len(questions), wall_s=wall_s, requests_per_s=len(questions) / wall_s,
+                    latency_ms_p50=float(np.percentile(latencies, 50)),
+                    latency_ms_p99=float(np.percentile(latencies, 99)),
+                    device_busy_ms=busy_ms, idle_share=(wall_s * 1e3 - busy_ms) / (wall_s * 1e3),
+                    micro_batching=batching, highlights=n_highlights,
+                )
+                log(
+                    f"http burst: {len(questions)} concurrent /api/query, {result['requests_per_s']:.3f} requests/s, "
+                    f"latency p50 {result['latency_ms_p50']:.1f} ms, p99 {result['latency_ms_p99']:.1f} ms, "
+                    f"device busy {busy_ms} ms of {wall_s * 1e3:.1f} ms (idle share {result['idle_share']:.4f}), "
+                    f"{batching['batches']} micro-batches (torch.profiler on) | {card}"
+                )
+
+                # The NDJSON stream.
+                streams = []
+                for i in range(HTTP_STREAMED):
+                    t0 = time.perf_counter()
+                    seen = []
+                    async with session.post(url + "/api/query/stream", json={"question": questions[i]}) as resp:
+                        require(
+                            resp.status == 200 and resp.headers["Content-Type"] == "application/x-ndjson"
+                            and resp.headers.get("Access-Control-Allow-Origin") == "*",
+                            f"http: stream {resp.status} {dict(resp.headers)}",
+                        )
+                        async for line in ndjson_lines(resp.content):
+                            if line.strip():
+                                seen.append((json.loads(line), time.perf_counter() - t0))
+                    types = [e["type"] for e, _ in seen]
+                    require(types == ["documents", "progress", "highlights", "answer"], f"http: stream events {types}")
+                    answer = seen[-1][0]["data"]
+                    require(json_answer(answer) == answer_of(singles[i]), f"http: stream {i} answered otherwise")
+                    verbatim_highlights(seen[2][0]["data"], "http stream")
+                    streams.append(dict(
+                        documents_ms=seen[0][1] * 1e3, answer_ms=seen[-1][1] * 1e3,
+                        timings=seen[-1][0]["timings"],
+                    ))
+                result["stream"] = streams
+                log(
+                    "http stream: "
+                    + "; ".join(f"documents at {s['documents_ms']:.1f} ms, answer at {s['answer_ms']:.1f} ms" for s in streams)
+                    + f" | {card}"
+                )
+
+                # The async route and the stateless transform.
+                i = HTTP_STREAMED
+                code, body, _, _ = await call(session, "POST", url + "/api/query_async", {"question": questions[i]})
+                require(code == 200 and json_answer(body) == answer_of(singles[i]), "http: /api/query_async differs")
+                best = max(
+                    range(len(singles)),
+                    key=lambda j: sum(len(d.highlights) for d in singles[j].documents[:HTTP_TRANSFORM_CHUNKS]),
+                )
+                chunks = singles[best].documents[:HTTP_TRANSFORM_CHUNKS]
+                context = [{"content": d.content, "title": d.title, "metadata": d.metadata} for d in chunks]
+                code, body, _, _ = await call(
+                    session, "POST", url + "/api/transform/verbatim", {"question": questions[best], "context": context}
+                )
+                require(code == 200, f"http: transform {code} {str(body)[:300]}")
+                got = [[(h["start"], h["end"], h["text"]) for h in d["highlights"]] for d in body["documents"]]
+                expected = [[(h.start, h.end, h.text) for h in d.highlights] for d in chunks]
+                require(got == expected, "http: the transform highlighted otherwise than query")
+                result["transform_highlights"] = verbatim_highlights(body, "http transform")
+                require(result["transform_highlights"] > 0, "http: the transform found no highlight")
+
+                # Probes.
+                for method, path, payload, expected_status in HTTP_PROBES:
+                    code, _, cors, _ = await call(session, method, url + path, payload)
+                    require(code == expected_status and cors == "*", f"http: {method} {path}: {code}, CORS {cors}")
+        finally:
+            await runner.cleanup()
+
+        # A fresh server that loads the index from INDEX_PATH.
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            rag.index.save(os.path.join(tmp, "idx"))
+            save_s = time.perf_counter() - t0
+            deps.reset()
+            os.environ["INDEX_PATH"] = os.path.join(tmp, "idx")
+            t0 = time.perf_counter()
+            runner, url = await serve(api_app.create_app(static_dir=frontend))
+            startup_s = time.perf_counter() - t0
+            try:
+                async with ClientSession(timeout=ClientTimeout(total=HTTP_TIMEOUT_S)) as session:
+                    status = await get_ok(session, url + "/api/status")
+                    require(status["num_chunks"] == n_chunks, f"http: loaded {status['num_chunks']} of {n_chunks}")
+                    code, body, _, _ = await call(session, "POST", url + "/api/query", {"question": questions[0]})
+                    require(code == 200 and json_answer(body) == answer_of(singles[0]), "http: the loaded server differs")
+                loaded = deps.get_index()
+                for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj"):
+                    require(getattr(loaded.store, name).is_cuda, f"http: loaded store.{name} not on cuda")
+                for provider in (loaded.dense_provider, loaded.sparse_provider):
+                    require(all(p.is_cuda for p in provider.model.parameters()), "http: loaded provider off the card")
+            finally:
+                await runner.cleanup()
+        result.update(save_s=save_s, startup_from_disk_s=startup_s)
+
+    reset_counts()
+    try:
+        asyncio.run(phase())
+    finally:
+        highlighter.ModelSpanExtractor = default_extractor
+        package_log.removeHandler(handler)
+        deps.reset()
+        api_app._transform_cache = None
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    counts = read_counts()
+    d32 = counts["flash_attention_d32"]
+    d64 = counts["flash_attention"] - d32
+    require(d64 > 0 and d32 > 0 and counts["rescore"] > 0, f"http: launches {counts}")
+    for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj"):
+        require(getattr(rag.index.store, name).is_cuda, f"http: store.{name} not on cuda")
+    require(all(p.is_cuda for p in extractor.model.parameters()), "http: an extractor parameter not on cuda")
+    require(not warned, f"http: logged {warned}")
+    result.update(launches=counts, launches_flash_d64=d64, launches_flash_d32=d32, phase_s=time.perf_counter() - t_phase)
+    log("http", json.dumps(result))
+    log(f"http: {result['phase_s']:.1f} s")
     return result
+
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -3013,7 +3314,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     extractor, flow = run_flow(args.seed, card)
-    serve = run_serve(extractor, args.seed, card)
+    serve, rag, singles = run_serve(extractor, args.seed, card)
+    http = run_http(rag, extractor, singles, card)
+    del rag, singles
     torch.cuda.empty_cache()
     bucket_ab = run_bucket_ab(gen, card)
     data = bench_data(args.seed)
@@ -3029,7 +3332,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
 
-    phases = (flow, serve, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train)
+    phases = (flow, serve, http, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(

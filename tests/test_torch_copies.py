@@ -8,6 +8,7 @@ import dataclasses
 import datetime
 import enum
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -317,3 +318,146 @@ def test_token_dataset_batches_bit_equal(tmp_path, max_length, stride):
             expected, 3, shuffle=True, seed=1
         ),
     )
+
+
+# -- the serving layer's copies (core, rag, api) ----------------------------------------
+
+from verbatim_rag_tpu.api import batching as jax_batching  # noqa: E402
+from verbatim_rag_tpu.api import config as jax_api_config  # noqa: E402
+from verbatim_rag_tpu.api import service as jax_service  # noqa: E402
+from verbatim_rag_tpu.core import llm_client as jax_llm_client  # noqa: E402
+from verbatim_rag_tpu.core import prompts as jax_prompts  # noqa: E402
+from verbatim_rag_tpu.core import span_verify as jax_span_verify  # noqa: E402
+from verbatim_rag_tpu.core import types as jax_types  # noqa: E402
+from verbatim_rag_tpu.core import universal_document as jax_udoc  # noqa: E402
+from verbatim_rag_tpu.rag import intent as jax_intent  # noqa: E402
+from verbatim_rag_tpu_torch.api import batching  # noqa: E402
+from verbatim_rag_tpu_torch.api import config as api_config  # noqa: E402
+from verbatim_rag_tpu_torch.api import service  # noqa: E402
+from verbatim_rag_tpu_torch.core import llm_client  # noqa: E402
+from verbatim_rag_tpu_torch.core import prompts  # noqa: E402
+from verbatim_rag_tpu_torch.core import span_verify  # noqa: E402
+from verbatim_rag_tpu_torch.core import types as core_types  # noqa: E402
+from verbatim_rag_tpu_torch.core import universal_document as udoc  # noqa: E402
+from verbatim_rag_tpu_torch.rag import intent  # noqa: E402
+
+PROMPT_FILES = sorted(p.relative_to(jax_prompts.PROMPTS_DIR) for p in jax_prompts.PROMPTS_DIR.rglob("*.txt"))
+
+
+@pytest.mark.parametrize("name", PROMPT_FILES, ids=str)
+def test_prompt_files_equal(name):
+    assert (prompts.PROMPTS_DIR / name).read_bytes() == (jax_prompts.PROMPTS_DIR / name).read_bytes()
+
+
+def test_prompt_bank_renders_equal():
+    assert prompts.list_prompts() == jax_prompts.list_prompts() and len(prompts.list_prompts()) == 5
+    variables = dict(question="q?", n_spans=2, spans_block="1. a", span_preview="a | b", citation_count=1,
+                     has_citations=True, documents="{}", template="[X]", placeholder_spec="- X: x", docs_text="d")
+    for name in prompts.list_prompts():
+        assert prompts.load_prompt(name) == jax_prompts.load_prompt(name)
+        assert prompts.load_prompt(name, **variables) == jax_prompts.load_prompt(name, **variables)
+    inline = "{% if n > 1 %}many {{ n }}{% else %}one{% endif %}"
+    assert [prompts.render_prompt(inline, n=n) for n in (1, 3)] == [jax_prompts.render_prompt(inline, n=n) for n in (1, 3)]
+    with pytest.raises(FileNotFoundError):
+        prompts.load_prompt("extraction/missing")
+
+
+SPAN_CASES = [
+    (["Solar panels convert sunlight", "  Solar  ", "", "absent words"], "Solar panels convert sunlight.", "exact", 0.8),
+    (["SOLAR PANELS convert sunlight!"], "Solar panels, convert   sunlight.", "fuzzy", 0.8),
+    (["Ünïcode WÖRDS mixed"], "Some ünïcode wörds — mixed; here", "fuzzy", 0.7),
+    (["completely different text"], "Solar panels convert sunlight.", "fuzzy", 0.9),
+    (["panels convert"], "", "fuzzy", 0.5),
+]
+
+
+@pytest.mark.parametrize("spans,doc,mode,threshold", SPAN_CASES)
+def test_span_verification_equal(spans, doc, mode, threshold):
+    assert span_verify.verify_spans(spans, doc, mode=mode, fuzzy_threshold=threshold) == (
+        jax_span_verify.verify_spans(spans, doc, mode=mode, fuzzy_threshold=threshold)
+    )
+    for span in spans:
+        assert span_verify.find_fuzzy_match(span, doc) == jax_span_verify.find_fuzzy_match(span, doc)
+        assert dataclasses.astuple(span_verify.normalize_tokens(span)) == dataclasses.astuple(
+            jax_span_verify.normalize_tokens(span)
+        )
+
+
+def test_documents_types_and_providers_equal():
+    data = {"text": "body", "title": "t", "metadata": {"a": 1}}
+    assert udoc.UniversalDocument.from_dict(data).to_context() == jax_udoc.UniversalDocument.from_dict(data).to_context()
+    assert udoc.UniversalDocument.from_text("x", source="s").to_context() == (
+        jax_udoc.UniversalDocument.from_text("x", source="s").to_context()
+    )
+    for bad in ({"content": ""}, ["not a dict"]):
+        with pytest.raises((TypeError, ValueError)) as ours:
+            udoc.UniversalDocument.from_dict(bad)
+        with pytest.raises((TypeError, ValueError)) as theirs:
+            jax_udoc.UniversalDocument.from_dict(bad)
+        assert str(ours.value) == str(theirs.value)
+    for obj in (SearchResult(id="a", text="t"), "text", object()):
+        assert isinstance(obj, core_types.HasText) == isinstance(obj, jax_types.HasText)
+
+
+def test_intent_records_and_prompt_equal():
+    assert dataclasses.asdict(intent.IntentDecision()) == dataclasses.asdict(jax_intent.IntentDecision())
+    specs = [("greet", ["hi", "hello"], "predefined", "Hi!", "greetings"), ("other", [], "skip", None, "")]
+    ours = intent.LLMIntentDetector(None, [intent.IntentSpec(*s) for s in specs])
+    theirs = jax_intent.LLMIntentDetector(None, [jax_intent.IntentSpec(*s) for s in specs])
+    assert ours._prompt("q?") == theirs._prompt("q?")
+    assert intent.LLMIntentDetector(None)._prompt("q") == jax_intent.LLMIntentDetector(None)._prompt("q")
+    assert intent.ROUTES == jax_intent.ROUTES
+
+
+@pytest.mark.parametrize(
+    "env",
+    [{}, {"API_PORT": "9001", "CORS_ORIGINS": " https://a.x , https://b.x ,", "MICRO_BATCH": "off",
+          "MICRO_BATCH_MAX": "16", "MICRO_BATCH_WAIT_MS": "2.5", "LLM_MODEL": "m", "API_DEBUG": "true"}],
+)
+def test_api_config_from_env_equal(monkeypatch, env):
+    for key in list(os.environ):
+        if key.startswith(("API_", "CORS_", "MICRO_BATCH", "LLM_", "INDEX_PATH", "TEMPLATES_PATH", "MAX_QUESTION", "LOG_LEVEL")):
+            monkeypatch.delenv(key)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    assert api_config.APIConfig.from_env().model_dump() == jax_api_config.APIConfig.from_env().model_dump()
+
+
+def test_api_service_and_batch_key_equal():
+    class Index:
+        def inspect(self):
+            return {"num_chunks": 3}
+
+    rag = type("Rag", (), {"index": Index()})()
+    ours, theirs = service.APIService(rag, 10), jax_service.APIService(rag, 10)
+    for question in ("  ok  ", "", 5, "x" * 11):
+        results = []
+        for svc, error in ((ours, service.ValidationError), (theirs, jax_service.ValidationError)):
+            try:
+                results.append(svc.validate_question(question))
+            except error as exc:
+                results.append(str(exc))
+        assert results[0] == results[1]
+    assert ours.health_check() == theirs.health_check()
+    params = {"k": 3, "filter": {"b": 1, "a": [1, 2]}, "rrf_k": 60, "when": datetime.date(2024, 1, 2)}
+    assert batching._params_key(params) == jax_batching._params_key(params)
+
+
+def test_llm_retry_rules_equal():
+    import httpx
+
+    request = httpx.Request("POST", "http://x/chat/completions")
+    errors = [httpx.ConnectError("x", request=request), ValueError("x")]
+    for status in (400, 404, 408, 429, 500, 503):
+        for headers in ({}, {"Retry-After": "3"}, {"Retry-After": "120"}, {"Retry-After": "Wed, 21 Oct 2015"}):
+            response = httpx.Response(status, headers=headers, request=request)
+            errors.append(httpx.HTTPStatusError("x", request=request, response=response))
+    for exc in errors:
+        assert llm_client._retryable(exc) == jax_llm_client._retryable(exc)
+        for attempt in range(7):
+            assert llm_client._retry_delay_s(attempt, exc) == jax_llm_client._retry_delay_s(attempt, exc)
+    holders = {"A": "a", "B": "b"}
+    for raw in ({"A": ["s", {"text": "t", "doc": 2}, {"doc": 1}, 3], "B": "x"}, [1], {}):
+        assert llm_client.LLMClient._normalize_structured_response(raw, holders) == (
+            jax_llm_client.LLMClient._normalize_structured_response(raw, holders)
+        )

@@ -10,8 +10,9 @@ saves and loads its checkpoint, scores a document in one sequence-parallel
 pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
 module and no ``verbatim_rag_tpu`` module. A second interpreter saves,
 loads and queries a full-text index and runs the CLI's ``index`` and
-``query``, under the same rule. The same holds for every module of the
-port imported on its own.
+``query``, under the same rule. A third starts the port's HTTP server on
+the CPU from a saved index and answers one ``/api/query`` over a socket.
+The same holds for every module of the port imported on its own.
 """
 
 from __future__ import annotations
@@ -148,6 +149,48 @@ print(json.dumps({
 }))
 """
 
+SERVE = """
+import asyncio, json, os, sys, tempfile
+from pathlib import Path
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, VerbatimIndex
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+
+tmp = tempfile.mkdtemp()
+index = VerbatimIndex(dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu")
+index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+index.save(tmp + "/idx")
+os.environ.update(INDEX_PATH=tmp + "/idx", VERBATIM_FORCE_PLATFORM="cpu")
+
+from aiohttp import ClientSession, web
+from verbatim_rag_tpu_torch.api import app, dependencies
+
+
+async def serve():
+    runner = web.AppRunner(app.create_app(static_dir="frontend"))
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    url = "http://127.0.0.1:%d" % site._server.sockets[0].getsockname()[1]
+    try:
+        await runner.app["warmup_task"]
+        async with ClientSession() as session:
+            async with session.post(url + "/api/query", json={"question": "How efficient are solar panels?"}) as r:
+                return r.status, await r.json()
+    finally:
+        await runner.cleanup()
+
+
+status, body = asyncio.run(serve())
+print(json.dumps({
+    "status": status,
+    "docs": len(body["documents"]),
+    "verbatim": all(d["content"][h["start"]:h["end"]] == h["text"] for d in body["documents"] for h in d["highlights"]),
+    "device": str(dependencies.get_rag().extractor.device),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -195,7 +238,17 @@ def test_persistence_and_cli_load_no_jax():
     assert result["same_rows"] and result["cli_indexed"] and result["cli_verbatim"]
 
 
+def test_http_server_answers_without_jax():
+    """The port's server started from a saved index on the CPU answers one
+    ``/api/query`` over a socket; no ``jax`` and no ``verbatim_rag_tpu``
+    module gets loaded."""
+    result = _run(SERVE)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["status"] == 200 and result["docs"] == 5 and result["verbatim"]
+    assert result["device"] == "cpu"
+
+
 def test_every_port_module_imports_without_jax():
     result = _run(IMPORT_ALL)
-    assert result["modules"] >= 20
+    assert result["modules"] >= 40
     assert result["jax"] == [] and result["reference"] == []

@@ -282,8 +282,14 @@ def test_cli_template_and_llm(tmp_path, capsys, monkeypatch):
         ]
         assert main(["template", "--templates", path]) == 1
     assert outputs["port"] == outputs["jax"]
-    with pytest.raises(NotImplementedError, match="LLM"):
-        cli.main(["query", "q", "--db", "x", "--llm", "--device", "cpu"])
+    # ``--llm`` is taken as the JAX CLI takes it: the index loads first, so a
+    # missing one fails the same way (the answer itself: test_torch_llm.py).
+    failures = []
+    for main, device in ((jax_cli.main, []), (cli.main, ["--device", "cpu"])):
+        with pytest.raises(FileNotFoundError) as exc:
+            main(["query", "q", "--db", "x", "--llm", "--model", "m", *device])
+        failures.append(str(exc.value))
+    assert failures[0] == failures[1]
 
 
 def test_compact_and_load_keep_the_jax_slot_layout(tmp_path):

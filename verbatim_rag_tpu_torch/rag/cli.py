@@ -9,12 +9,11 @@
 with the hashed providers, or with ``--neural`` the MiniLM-shaped dense and
 SPLADE providers, and saves it; ``query`` loads it (rebuilding the providers
 that built it), answers with the default extractor and static templates and
-prints the answer with its citations; ``template`` shows or sets the
-template state. ``index`` and ``query`` take ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch path). ``--llm`` raises
-``NotImplementedError``: the LLM clients are not ported yet, so ``query``
-accepts ``--model`` and ``--api-base`` only so that the JAX CLI's command
-lines parse, and reads neither.
+prints the answer with its citations (with ``--llm``, the prompted LLM
+extractor and contextual templates through an OpenAI-compatible endpoint:
+``--model``, ``--api-base``, the key from ``OPENAI_API_KEY``); ``template``
+shows or sets the template state. ``index`` and ``query`` take ``--device``
+(default ``cuda``; ``cpu`` runs the plain PyTorch path).
 """
 
 from __future__ import annotations
@@ -64,8 +63,6 @@ def _build_index(args):
 
 
 def _query(args):
-    if args.llm:
-        raise NotImplementedError("LLM extraction and templating are not ported to the PyTorch package yet")
     from verbatim_rag_tpu_torch.core.templates import TemplateManager
     from verbatim_rag_tpu_torch.engine.index import VerbatimIndex
     from verbatim_rag_tpu_torch.rag.core import VerbatimRAG
@@ -73,11 +70,18 @@ def _query(args):
     # The providers that built the index are rebuilt from its persisted
     # identity: query vectors must live in the indexed space.
     index = VerbatimIndex.load(args.db, device=args.device)
-    tm = TemplateManager(llm_client=None, default_mode="static")
+
+    llm_client = None
+    if args.llm:
+        from verbatim_rag_tpu_torch.core.llm_client import LLMClient
+
+        llm_client = LLMClient(model=args.model, api_base=args.api_base)
+
+    tm = TemplateManager(llm_client=llm_client, default_mode="static")
     if args.templates and os.path.exists(args.templates):
         tm.load(args.templates)
 
-    rag = VerbatimRAG(index, template_manager=tm, k=args.k)
+    rag = VerbatimRAG(index, llm_client=llm_client, template_manager=tm, k=args.k)
     response = rag.query(args.question)
 
     print(response.answer)
@@ -133,7 +137,6 @@ def main(argv: list[str] | None = None) -> int:
     p_query.add_argument("--db", default="./verbatim_index")
     p_query.add_argument("-k", type=int, default=5)
     p_query.add_argument("--llm", action="store_true", help="Use LLM extraction/templating")
-    # Read by nothing until the LLM clients are ported (see --llm).
     p_query.add_argument("--model", default="gpt-4o-mini")
     p_query.add_argument("--api-base", default="https://api.openai.com/v1")
     p_query.add_argument("--templates", default="")

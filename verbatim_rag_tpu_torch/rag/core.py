@@ -1,18 +1,19 @@
 """VerbatimRAG — the end-to-end orchestrator (port of
-`verbatim_rag_tpu/rag/core.py`, the offline path).
+`verbatim_rag_tpu/rag/core.py`).
 
-question → retrieve (`VerbatimIndex.query`) → extract verbatim spans
-(`ModelSpanExtractor` by default, on the index's device) → rank and split
-spans → template → clean → cited `QueryResponse`. :meth:`VerbatimRAG.query_batch`
+question → (intent short-circuit) → retrieve (`VerbatimIndex.query`) →
+extract verbatim spans → rank and split spans → template → clean → cited
+`QueryResponse`. The extractor defaults to `ModelSpanExtractor` on the
+index's device with no LLM client, and to the prompted `LLMSpanExtractor`
+with one (then the template mode defaults to ``contextual``). Structured
+template mode lets the LLM extract per placeholder, and every span is
+verified against its attributed document. :meth:`VerbatimRAG.query_batch`
 serves many questions with one retrieval dispatch and one extractor pass
 (`extract_spans_multi`), :meth:`VerbatimRAG.query_async` is the async
 mirror of :meth:`VerbatimRAG.query`, and :meth:`VerbatimRAG.warmup` runs one
 query at serving start-up.
 
-Not ported yet: LLM clients, intent detectors, rerankers and structured
-template mode; passing one raises ``NotImplementedError``, so the JAX
-package's branches for them (intent short-circuits, reranking, the
-structured fallback of the batched and async entries) are left out.
+Not ported yet: rerankers (``reranker=`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -22,16 +23,12 @@ import logging
 from typing import Any, Mapping
 
 from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
-from verbatim_rag_tpu_torch.core.models import QueryResponse
+from verbatim_rag_tpu_torch.core.models import QueryResponse, StructuredAnswer
 from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
 from verbatim_rag_tpu_torch.core.templates import TemplateManager
 
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet")
 
 
 class VerbatimRAG:
@@ -50,29 +47,32 @@ class VerbatimRAG:
         max_display_spans: int = 5,
         template_mode: str | None = None,
     ):
-        if llm_client is not None:
-            raise _not_ported("An LLM client")
-        if intent_detector is not None:
-            raise _not_ported("Intent detection")
         if reranker is not None:
-            raise _not_ported("Reranking")
-        if template_mode == "structured":
-            raise _not_ported("Structured template mode")
+            raise NotImplementedError(
+                "Reranking is not ported to the PyTorch package yet (it needs the cross-encoder)"
+            )
         self.index = index
+        self.llm_client = llm_client
         self.k = k
         self.max_display_spans = max_display_spans
 
         if extractor is not None:
             self.extractor = extractor
+        elif llm_client is not None:
+            from verbatim_rag_tpu_torch.core.extractors import LLMSpanExtractor
+
+            self.extractor = LLMSpanExtractor(llm_client=llm_client)
         else:
             from verbatim_rag_tpu_torch.models.highlighter import ModelSpanExtractor
 
             self.extractor = ModelSpanExtractor(device=getattr(index, "device", None))
 
+        default_mode = template_mode or ("contextual" if llm_client else "static")
         self.template_manager = template_manager or TemplateManager(
-            llm_client=None, default_mode=template_mode or "static"
+            llm_client=llm_client, default_mode=default_mode
         )
         self.response_builder = response_builder or ResponseBuilder()
+        self.intent_detector = intent_detector
         self._wire_routing_embeddings()
 
     def _wire_routing_embeddings(self) -> None:
@@ -105,7 +105,10 @@ class VerbatimRAG:
         search_type: str | None = None,
         template_mode: str | None = None,
     ) -> QueryResponse:
-        self._refuse_structured(template_mode)
+        decision = self._detect_intent(question)
+        if decision is not None and decision.route != "continue":
+            return self._short_circuit_response(question, decision)
+
         results = self.index.query(
             question,
             k=k or self.k,
@@ -116,6 +119,10 @@ class VerbatimRAG:
             search_params=search_params,
         )
         results = self._apply_reranker(question, results)
+
+        if self.template_manager.resolve_mode(template_mode) == "structured":
+            return self._query_structured(question, results)
+
         relevant_spans = self.extractor.extract_spans(question, results)
         return self._respond(question, results, relevant_spans, template_mode)
 
@@ -134,7 +141,15 @@ class VerbatimRAG:
     ) -> QueryResponse:
         """:meth:`query` for an event loop: retrieval in a worker thread, then
         the extractor's and the template manager's async entries."""
-        self._refuse_structured(template_mode)
+        if self.intent_detector is not None:
+            try:
+                decision = await self.intent_detector.detect_async(question)
+            except Exception as exc:
+                logger.warning("Intent detection failed: %s", exc)
+                decision = None
+            if decision is not None and decision.route != "continue":
+                return self._short_circuit_response(question, decision)
+
         results = await asyncio.to_thread(
             self.index.query,
             question,
@@ -145,6 +160,10 @@ class VerbatimRAG:
             rrf_k,
             search_params,
         )
+
+        if self.template_manager.resolve_mode(template_mode) == "structured":
+            return await asyncio.to_thread(self._query_structured, question, results)
+
         relevant_spans = await self.extractor.extract_spans_async(question, results)
         display, citation = self._rank_and_split_spans(relevant_spans)
         answer = await self.template_manager.process_async(
@@ -167,9 +186,31 @@ class VerbatimRAG:
         (`VerbatimIndex.query_batch`) and, for an extractor that has
         ``extract_spans_multi``, one extractor pass over every question's
         results; templating then runs per question. Each response equals
-        :meth:`query`'s for its question.
+        :meth:`query`'s for its question: intent short-circuits apply and keep
+        their positions, and structured template mode (its extraction is
+        template-driven, not batchable) falls back to per-question queries.
         """
-        self._refuse_structured(template_mode)
+        if self.template_manager.resolve_mode(template_mode) == "structured":
+            return [
+                self.query(
+                    q, k=k, filter=filter, hybrid_weights=hybrid_weights,
+                    rrf_k=rrf_k, search_params=search_params,
+                    search_type=search_type, template_mode=template_mode,
+                )
+                for q in questions
+            ]
+
+        short_circuits: dict[int, QueryResponse] = {}
+        if self.intent_detector is not None:
+            for i, q in enumerate(questions):
+                decision = self._detect_intent(q)
+                if decision is not None and decision.route != "continue":
+                    short_circuits[i] = self._short_circuit_response(q, decision)
+        live = [i for i in range(len(questions)) if i not in short_circuits]
+        if not live:
+            return [short_circuits[i] for i in range(len(questions))]
+        questions = [questions[i] for i in live]
+
         results_per_q = self.index.query_batch(
             list(questions),
             k=k or self.k,
@@ -186,10 +227,17 @@ class VerbatimRAG:
             spans_per_q = [
                 self.extractor.extract_spans(q, r) for q, r in zip(questions, reranked)
             ]
-        return [
+        responses = [
             self._respond(question, results, relevant_spans, template_mode)
             for question, results, relevant_spans in zip(questions, reranked, spans_per_q)
         ]
+        if not short_circuits:
+            return responses
+        # Re-interleave intent short-circuits at their original positions.
+        merged, live_iter = [], iter(responses)
+        for i in range(len(short_circuits) + len(responses)):
+            merged.append(short_circuits[i] if i in short_circuits else next(live_iter))
+        return merged
 
     def warmup(self) -> None:
         """Run one query at serving start-up (kernel builds, library
@@ -217,9 +265,23 @@ class VerbatimRAG:
 
     # -- internals ----------------------------------------------------------------------
 
-    def _refuse_structured(self, template_mode: str | None) -> None:
-        if self.template_manager.resolve_mode(template_mode) == "structured":
-            raise _not_ported("Structured template mode")
+    def _detect_intent(self, question: str):
+        if self.intent_detector is None:
+            return None
+        try:
+            return self.intent_detector.detect(question)
+        except Exception as exc:
+            logger.warning("Intent detection failed: %s", exc)
+            return None
+
+    def _short_circuit_response(self, question: str, decision) -> QueryResponse:
+        answer = decision.answer or "I can't help with that request."
+        return QueryResponse(
+            question=question,
+            answer=answer,
+            structured_answer=StructuredAnswer(text=answer, citations=[]),
+            documents=[],
+        )
 
     def _respond(self, question, results, relevant_spans, template_mode) -> QueryResponse:
         """Rank and split the spans, fill the template, build the response."""
@@ -240,6 +302,44 @@ class VerbatimRAG:
         """Reranking hook: no reranker is ported yet (the constructor refuses
         one), so retrieval order stays."""
         return results
+
+    def _query_structured(self, question: str, results: list[Any]) -> QueryResponse:
+        """Template-driven extraction: the structured template's placeholders
+        decide what gets extracted, and each span is verified against the
+        document it is attributed to (provenance)."""
+        if self.llm_client is None:
+            raise ValueError("Structured mode requires an LLM client")
+        from verbatim_rag_tpu_torch.core.span_verify import verify_spans
+
+        strategy = self.template_manager.strategies["structured"]
+        hints = strategy.get_placeholder_hints()
+        doc_texts = [getattr(r, "text", "") for r in results]
+        span_map = self.llm_client.extract_structured(
+            question, strategy.template, hints, doc_texts
+        )
+
+        verified_map: dict[str, list[dict]] = {}
+        relevant_spans: dict[str, list[str]] = {t: [] for t in doc_texts}
+        for name, items in span_map.items():
+            kept = []
+            for item in items:
+                doc_idx = int(item.get("doc", 0))
+                if not 0 <= doc_idx < len(doc_texts):
+                    continue
+                ok = verify_spans([item.get("text", "")], doc_texts[doc_idx])
+                if ok:
+                    kept.append({"text": ok[0], "doc": doc_idx})
+                    relevant_spans[doc_texts[doc_idx]].append(ok[0])
+            verified_map[name] = kept
+
+        answer = strategy.fill_with_spans(verified_map)
+        answer = self.response_builder.clean_answer(answer)
+        return self.response_builder.build_response(
+            question=question,
+            answer=answer,
+            search_results=results,
+            relevant_spans=relevant_spans,
+        )
 
     def _rank_and_split_spans(
         self, relevant_spans: Mapping[str, list[str]]
