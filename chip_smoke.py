@@ -182,7 +182,39 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              for OOM, 22 forward (lse), 22 dq and 22 dk/dv launches a step;
              then the saved checkpoint is served by
              `ModelSpanExtractor(model_path=...)` on the card (its token
-             probabilities equal the trained model's, every span verbatim).
+             probabilities equal the trained model's, every span verbatim);
+7b. checkpoints — checkpoints in and out, the other extractors and the
+             rerank stage: the train phase's checkpoint staged by
+             `utils.upload_to_hub.jax_checkpoint_to_hf_dir`, its config.json
+             and model.safetensors alone with a WordPiece tokenizer.json
+             trained here on the corpus's distinct chunks, served through the
+             HF branch (`hf_convert.load_span_extractor`): weights and token
+             probabilities equal the native checkpoint's exactly, 16 chunks'
+             spans verbatim, the flash forward launched 22 times for each
+             forward the windows predict; a sentence-head checkpoint at the
+             same width (the seeded `init_qa_model_params`, saved by
+             `Trainer`) served by `SentenceModelExtractor` over 64 distinct
+             chunks: probabilities within 2e-2 (the flash checks' bf16 limit)
+             of the same model through plain attention, kept sentences equal
+             wherever no probability lies within that of the threshold, 22
+             launches; then `VerbatimRAG(reranker=JaxReranker(JaxCrossEncoder(
+             minilm_config(use_flash_attention=True)), rerank_k=50), k=50)`
+             with the HF-loaded extractor over an index of the corpus's
+             distinct chunks (one copy, through the serve phase's providers):
+             `query_batch` of the 64 questions, one `query_async`, one stream
+             (stages retrieve, rerank, ...), no warning logged (the
+             reranker's catch never fired), each call given its question's
+             50 distinct retrieved passages and each response in the order of
+             the call's scores; against the same cross-encoder through plain
+             attention: the flash forward on one call's own q/k/v ([50, 512,
+             12, 32], every layer) row by row, with the kernels phase's
+             planted faults failing it; the pooled state each score is read
+             from within 2e-2 of each row's largest |value|; at most
+             `CKPT_DISCORDANT_MAX` of a call's passage pairs ordered otherwise
+             than by the plain scores; and a planted fault that hides the
+             passages from the kernel failing both; 6 D=32 flash launches per
+             scoring call; the rerank stage's wall time and, under
+             `torch.profiler`, the card's busy time.
 
 The kernels phase also holds the ring step's partial kernel (the
 `flash_attention_partial` entry of `csrc/flash_attention.cu`) against its
@@ -211,7 +243,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a-3c, 5b, 5c and 6b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3c, 5b, 5c, 6b and 7b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -227,6 +259,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -594,6 +627,21 @@ def flash_lengths(batch: int, seq: int) -> list[int]:
     return pattern + [int(x) for x in rest]
 
 
+def flash_faults(lens, seq: int, row: int) -> dict:
+    """Planted faults the flash checks must catch, as the lengths the kernel
+    is run with (each output is held to the true lengths): each row's last
+    key tile dropped (rows longer than one tile), and ``row``'s length mask
+    dropped."""
+    import torch
+
+    unmasked = lens.clone()
+    unmasked[row] = seq
+    return {
+        "fault: last key tile dropped": torch.where(lens > 64, (lens - 1) // 64 * 64, lens),
+        f"fault: row {row} length mask dropped": unmasked,
+    }
+
+
 def check_flash(gen, head_dim: int) -> dict:
     """The bf16 forward at ``head_dim`` (`FLASH_CASES`) against its plain
     version: each live row held to its own scale (`row_check`), the
@@ -622,16 +670,8 @@ def check_flash(gen, head_dim: int) -> dict:
         for window in case_cfg["windows"]:
             outs = {"kernel": fa.flash_attention_cuda(q, k, v, lens, window)}
             if seq in case_cfg["faults"] and window is None:
-                # Planted faults the check must catch, each held to the true
-                # lengths: the kernel run without each row's last key tile
-                # (rows longer than one tile), and without row 2's length mask.
-                cut = torch.where(lens > 64, (lens - 1) // 64 * 64, lens)
-                unmasked = lens.clone()
-                unmasked[2] = seq
-                outs["fault: last key tile dropped"] = fa.flash_attention_cuda(q, k, v, cut, None)
-                outs["fault: row 2 length mask dropped"] = fa.flash_attention_cuda(
-                    q, k, v, unmasked, None
-                )
+                for name, fault_lens in flash_faults(lens, seq, 2).items():
+                    outs[name] = fa.flash_attention_cuda(q, k, v, fault_lens, None)
             torch.cuda.synchronize()
             err = {name: 0.0 for name in outs}
             ratio = {name: 0.0 for name in outs}
@@ -3267,9 +3307,370 @@ def run_train(seed: int, card: str) -> dict:
         launches=counts,
     )
     log("train", json.dumps(result))
-    shutil.rmtree(out_dir, ignore_errors=True)
     del trainer, model
     torch.cuda.empty_cache()
+    return result
+
+
+CKPT_QUESTION = "How efficient are solar panels?"
+CKPT_SENTENCE_TEXTS = 64
+CKPT_RERANK_K = 50
+#: The flash checks' bf16 limit (`FLASH_RTOL`), on probabilities and on the
+#: cross-encoder's pooled state (as a share of each row's largest |value|).
+CKPT_PROBS_ATOL = FLASH_RTOL
+#: The largest share of a call's passage pairs that the flash scores may
+#: order otherwise than the plain scores: about twice the worst of the 64
+#: calls measured on an H100 (0.055, median 0.033; random weights score 50
+#: passages within a few bf16 roundings of each other). Hiding the passages
+#: from the kernel gives 1.0.
+CKPT_DISCORDANT_MAX = 0.1
+
+
+def predicted_forwards(extractor, pairs) -> int:
+    """Forwards that `ModelSpanExtractor._process_pairs` makes for ``pairs``:
+    rows padded to a power of two (then multiples of 512), scored in slices of
+    at most 512 rows and `SLICE_TOKENS` tokens."""
+    from verbatim_rag_tpu_torch.models.highlighter import SLICE_TOKENS
+    from verbatim_rag_tpu_torch.models.tokenizer import bucket_length
+
+    rows = [r for q, c in pairs for r in (extractor._plan(q, c) or {"rows": []})["rows"]]
+    if not rows:
+        return 0
+    seq = min(bucket_length(max(len(r) for r in rows)), extractor.max_length)
+    padded = next((b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512) if b >= len(rows)),
+                  -(-len(rows) // 512) * 512)
+    step = max(1, min(512, SLICE_TOKENS // seq))
+    return -(-padded // step)
+
+
+def rows_ratio(got, expected) -> float:
+    """Worst row of [B, H] vectors: max|got − expected| over H divided by
+    FLASH_RTOL·max|expected| of the row plus half a bf16 ulp of it
+    (`row_check`'s limit)."""
+    import torch
+
+    got, expected = torch.as_tensor(got).float(), torch.as_tensor(expected).float()
+    return row_check((got - expected).abs().amax(dim=-1), expected.abs().amax(dim=-1),
+                     torch.ones(len(got), dtype=torch.bool))[1]
+
+
+def discordant_share(a, b) -> float:
+    """Share of the pairs (i, j) that ``a`` orders otherwise than ``b`` (a
+    tie in one and not in the other counts)."""
+    import numpy as np
+
+    da, db = np.sign(a[:, None] - a[None, :]), np.sign(b[:, None] - b[None, :])
+    upper = np.triu(np.ones(da.shape, bool), 1)
+    return float((da != db)[upper].mean())
+
+
+def flash_on_layers(cross, question: str, texts) -> dict:
+    """The flash forward on the q/k/v each of the cross-encoder's layers hands
+    it for one scoring call, held to plain attention row by row
+    (`row_check`), and the planted faults of `flash_faults` (on the first
+    layer, the shortest row's mask dropped) failing the same check."""
+    import torch
+
+    from verbatim_rag_tpu_torch.models import encoder as encoder_module
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    captured = []
+
+    def capture(q, k, v, lengths, window=None):
+        captured.append((q, k, v, lengths, window))
+        return fa.flash_attention(q, k, v, lengths, window)
+
+    encoder_module.flash_attention = capture
+    try:
+        cross.pooled(question, texts)
+    finally:
+        encoder_module.flash_attention = fa.flash_attention
+    require(len(captured) == cross.config.num_layers, f"checkpoints: {len(captured)} flash calls captured")
+    worst, faults = 0.0, {}
+    for layer, (q, k, v, lens, window) in enumerate(captured):
+        seq = q.shape[1]
+        live = torch.arange(seq, device=q.device)[None, :, None] < lens[:, None, None]
+        live = live.expand(q.shape[:3])
+        outs = {"kernel": fa.flash_attention_cuda(q, k, v, lens, window)}
+        if layer == 0:
+            require(bool((lens > 64).any()) and int(lens.min()) < seq,
+                    f"checkpoints: lengths {lens.tolist()} leave a planted fault empty")
+            for name, fault_lens in flash_faults(lens, seq, int(lens.argmin())).items():
+                outs[name] = fa.flash_attention_cuda(q, k, v, fault_lens, window)
+        ref = fa.attention_reference(q, k, v, lens, window)
+        scale = ref.abs().amax(dim=-1)
+        for name, out in outs.items():
+            ratio = row_check((out.float() - ref).abs().amax(dim=-1), scale, live)[1]
+            if name == "kernel":
+                worst = max(worst, ratio)
+            else:
+                faults[name] = ratio
+    require(worst <= 1.0, f"checkpoints: the D = 32 flash forward at {worst} of its limit on the layers' q/k/v")
+    for name, ratio in faults.items():
+        require(ratio > 1.0, f"checkpoints: {name} passes the check ({ratio} of the limit)")
+    return dict(shape=list(captured[0][0].shape), layers=len(captured), worst_row_of_limit=worst,
+                planted_faults_of_limit=faults)
+
+
+def run_checkpoints(index, questions, final: Path, seed: int, card: str) -> dict:
+    """Checkpoints in and out, the sentence extractor and the rerank stage
+    (phase 7b). The main path runs between the reset and the read of the
+    launch counts; the comparisons with the native checkpoint and with plain
+    attention come after."""
+    import asyncio
+    import dataclasses
+    import logging
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine import VerbatimIndex
+    from verbatim_rag_tpu_torch.models import (
+        JaxCrossEncoder,
+        ModelSpanExtractor,
+        minilm_config,
+        token_relevance_probs,
+    )
+    from verbatim_rag_tpu_torch.models import encoder as encoder_module
+    from verbatim_rag_tpu_torch.models.hf_convert import load_span_extractor
+    from verbatim_rag_tpu_torch.models.sentence_extractor import SentenceModelExtractor
+    from verbatim_rag_tpu_torch.models.tokenizer import HashTokenizer, train_wordpiece_tokenizer
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+    from verbatim_rag_tpu_torch.rag import JaxReranker, StreamingRAG, VerbatimRAG
+    from verbatim_rag_tpu_torch.training.model import init_qa_model_params
+    from verbatim_rag_tpu_torch.training.trainer import Trainer
+    from verbatim_rag_tpu_torch.utils.profiling import synchronize
+    from verbatim_rag_tpu_torch.utils.upload_to_hub import jax_checkpoint_to_hf_dir
+
+    class Result:
+        def __init__(self, text):
+            self.text = text
+
+    t_phase = time.perf_counter()
+    device = "cuda"
+    work = ROOT / "build" / "chip_smoke_checkpoints"
+    shutil.rmtree(work, ignore_errors=True)
+    # The serve corpus repeats each file SERVE_REPEAT times: the rerank stage
+    # runs over an index of one copy through the serve index's providers,
+    # with k = rerank_k, so each call reranks distinct passages.
+    t0 = time.perf_counter()
+    docs = serve_corpus()
+    rerank_index = VerbatimIndex(dense_provider=index.dense_provider, sparse_provider=index.sparse_provider)
+    rerank_index.add_documents_bulk(docs[: len(docs) // SERVE_REPEAT])
+    rerank_index_s = time.perf_counter() - t0
+    n_chunks = rerank_index.inspect()["num_chunks"]
+    distinct = list(dict.fromkeys(c.text for c in rerank_index.get_all_chunks(limit=n_chunks)))
+    require(len(distinct) >= CKPT_RERANK_K, f"checkpoints: {len(distinct)} distinct chunks")
+    texts = distinct[:CKPT_SENTENCE_TEXTS]
+
+    # The train phase's checkpoint staged for the Hub, then its HF files alone
+    # (config.json, model.safetensors, a tokenizer.json trained here) through
+    # the HF branch of the loaders.
+    t0 = time.perf_counter()
+    jax_checkpoint_to_hf_dir(str(final), str(work / "staged"))
+    stage_s = time.perf_counter() - t0
+    hf_dir = work / "hf"
+    hf_dir.mkdir(parents=True)
+    for name in ("config.json", "model.safetensors"):
+        shutil.copy(work / "staged" / name, hf_dir / name)
+    train_wordpiece_tokenizer(hf_dir / "tokenizer.json", texts)
+    t0 = time.perf_counter()
+    served = load_span_extractor(str(hf_dir), device=device)
+    load_s = time.perf_counter() - t0
+    require(type(served).__name__ == "ModelSpanExtractor", f"checkpoints: HF dir served by {type(served)}")
+    require(type(served.tokenizer).__name__ == "HFTokenizer", "checkpoints: the HF tokenizer was not loaded")
+    config = served.config
+    # A sentence-head checkpoint at the same width.
+    sentence_model = init_qa_model_params(config, seed=seed, device=device)
+    Trainer(sentence_model, config, tokenizer=HashTokenizer(config.vocab_size)).save_checkpoint(
+        str(work / "sentence"))
+    del sentence_model
+    sentence = load_span_extractor(str(work / "sentence"), device=device)
+    require(isinstance(sentence, SentenceModelExtractor), f"checkpoints: sentence dir served by {type(sentence)}")
+    # The rerank stage: a MiniLM-width cross-encoder with flash on (D = 32),
+    # each scoring call recorded.
+    ce_config = minilm_config(use_flash_attention=True)
+    cross = JaxCrossEncoder(config=ce_config, seed=seed, device=device)
+    calls = []
+    flash_score = cross.score
+
+    def recorded_score(question, passages):
+        before = fa.launches_d32
+        t0 = time.perf_counter()
+        scores = flash_score(question, passages)
+        calls.append(dict(question=question, texts=list(passages), scores=scores,
+                          ms=(time.perf_counter() - t0) * 1e3, launches=fa.launches_d32 - before))
+        return scores
+
+    cross.score = recorded_score
+    reranker = JaxReranker(cross_encoder=cross, rerank_k=CKPT_RERANK_K)
+    rag = VerbatimRAG(rerank_index, extractor=served, reranker=reranker, k=CKPT_RERANK_K)
+    token_pairs = [(CKPT_QUESTION, t) for t in texts[:16]]
+    forwards = predicted_forwards(served, token_pairs)
+    warned = []
+    handler = logging.Handler(level=logging.WARNING)
+    handler.emit = lambda record: warned.append(record.getMessage())
+    rag_loggers = [logging.getLogger(n) for n in ("verbatim_rag_tpu_torch.rag.core",
+                                                  "verbatim_rag_tpu_torch.rag.streaming")]
+
+    # -- the main path ------------------------------------------------------------------
+    synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    spans = served.extract_spans(CKPT_QUESTION, [Result(t) for _, t in token_pairs])
+    synchronize(device)
+    extract_s = time.perf_counter() - t0
+    extract_launches = fa.launches
+    t0 = time.perf_counter()
+    kept = sentence.extract_spans(CKPT_QUESTION, [Result(t) for t in texts])
+    synchronize(device)
+    sentence_s = time.perf_counter() - t0
+    sentence_launches = fa.launches - extract_launches
+    for lg in rag_loggers:
+        lg.addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        batch = rag.query_batch(questions)
+        synchronize(device)
+        batch_s = time.perf_counter() - t0
+        single = asyncio.run(rag.query_async(questions[0]))
+        events = StreamingRAG(rag).stream_query_sync(questions[1])
+    finally:
+        for lg in rag_loggers:
+            lg.removeHandler(handler)
+    counts = read_counts()
+
+    # -- checks ---------------------------------------------------------------------------
+    # Token checkpoint: the native checkpoint's weights and probabilities
+    # exactly, launches as the layers and windows predict, spans verbatim.
+    native = ModelSpanExtractor(model_path=str(final), device=device)
+    state, reference = served.model.state_dict(), native.model.state_dict()
+    # Layer 0's attention norm is Identity in ModernBERT: HF files omit it and
+    # the loaders fill a unit norm (training's weight decay moved the native
+    # one, which the forward never reads).
+    skipped = {k for k in state if k.startswith("layers.0.attn_ln.")} if config.first_layer_no_attn_norm else set()
+    differ = sorted(k for k in state.keys() - skipped if not torch.equal(state[k], reference[k]))
+    require(state.keys() == reference.keys() and not differ,
+            f"checkpoints: HF-loaded weights differ from the native checkpoint's: {differ[:8]}")
+    row = served._plan(CKPT_QUESTION, " ".join(texts[:8]))["rows"][0]
+    ids = torch.tensor([row], dtype=torch.int32, device=device)
+    mask = torch.ones_like(ids)
+    with torch.no_grad():
+        probs_diff = float((token_relevance_probs(served.model, ids, mask)
+                            - token_relevance_probs(native.model, ids, mask)).abs().max())
+    del native
+    require(probs_diff == 0.0, f"checkpoints: HF-loaded probabilities differ by {probs_diff}")
+    require(all(s and s in text for text, ss in spans.items() for s in ss), "checkpoints: a span is not verbatim")
+    token_check = dict(
+        stage_s=stage_s, load_s=load_s, probs_max_diff=probs_diff, probe_tokens=len(row),
+        extract_s=extract_s, extract_launches=extract_launches,
+        predicted_launches=config.num_layers * forwards, spans=sum(len(s) for s in spans.values()),
+    )
+    log("checkpoints token", json.dumps(token_check))
+    require(extract_launches == config.num_layers * forwards,
+            f"checkpoints: {extract_launches} flash launches, {config.num_layers} layers x {forwards} forwards")
+
+    # Sentence extractor: probabilities within the bf16 limit of the same
+    # model through plain attention; kept sentences equal wherever no
+    # probability lies within that limit of the threshold.
+    plain_sentence = SentenceModelExtractor(
+        params=sentence.model.state_dict(), config=dataclasses.replace(config, use_flash_attention=False),
+        tokenizer=sentence.tokenizer, device=device,
+    )
+    sent_spans, sent_mask, flash_probs = sentence.sentence_probs(CKPT_QUESTION, texts)
+    _, _, plain_probs = plain_sentence.sentence_probs(CKPT_QUESTION, texts)
+    live = sent_mask > 0
+    sentence_diff = float(np.abs(flash_probs - plain_probs)[live].max())
+    require(sentence_diff <= CKPT_PROBS_ATOL,
+            f"checkpoints: sentence probabilities {sentence_diff} from plain attention's")
+    threshold = sentence.threshold
+    clear = live & (np.abs(plain_probs - threshold) > CKPT_PROBS_ATOL)
+    flipped = int((clear & ((flash_probs >= threshold) != (plain_probs >= threshold))).sum())
+    require(flipped == 0, f"checkpoints: {flipped} kept sentences differ from plain attention's")
+    for i, text in enumerate(texts):
+        spans_i = sent_spans[i][: sentence.max_sentences]
+        expected = [text[s:e] for j, (s, e) in enumerate(spans_i) if live[i, j] and flash_probs[i, j] >= threshold]
+        require(kept[text] == expected, f"checkpoints: extract_spans kept other sentences of chunk {i}")
+    n_kept = sum(len(v) for v in kept.values())
+    require(0 < n_kept < int(live.sum()), f"checkpoints: {n_kept} of {int(live.sum())} sentences kept")
+    sentence_check = dict(
+        texts=len(texts), sentences=int(live.sum()), kept=n_kept, compared_sentences=int(clear.sum()),
+        probs_max_diff=sentence_diff, seconds=sentence_s, launches=sentence_launches,
+    )
+    log("checkpoints sentence", json.dumps(sentence_check))
+    require(sentence_launches == config.num_layers,
+            f"checkpoints: the sentence extractor launched flash {sentence_launches} times")
+    del sentence, plain_sentence
+
+    # Rerank: no warning (the catch in `_apply_reranker` never fired); each
+    # call got its question's 50 retrieved passages, all distinct, and the
+    # response holds them in the order of the call's scores. Against the same
+    # cross-encoder through plain attention: the kernel on the layers' own
+    # q/k/v, the pooled state each score is read from (its dot with the score
+    # weights sums terms that cancel) at the bf16 limit of each row, and the
+    # passages' order; a planted fault that hides the passages from the
+    # kernel must fail both.
+    require(not warned, f"checkpoints: the RAG logged {warned}")
+    require(len(calls) == len(questions) + 2, f"checkpoints: {len(calls)} rerank calls")
+    batch_calls = calls[: len(questions)]
+    plain_cross = JaxCrossEncoder(params=cross.model.state_dict(),
+                                  config=dataclasses.replace(ce_config, use_flash_attention=False),
+                                  device=device)
+    retrieved = rerank_index.query_batch(questions, k=rag.k)
+    pooled_worst, discordant, plain_pooled = 0.0, [], {}
+    for call, response, results in zip(batch_calls, batch, retrieved):
+        q, passages = call["question"], call["texts"]
+        require(passages == [r.text for r in results] and len(set(passages)) == CKPT_RERANK_K,
+                f"checkpoints: the reranker of {q!r} got other than its 50 distinct retrieved passages")
+        by_score = [passages[i] for i in sorted(range(len(passages)), key=lambda i: -call["scores"][i])]
+        require([d.content for d in response.documents] == by_score,
+                f"checkpoints: the response to {q!r} is not in the order of its scores")
+        plain_pooled[q] = plain_cross.pooled(q, passages)
+        pooled_worst = max(pooled_worst, rows_ratio(cross.pooled(q, passages), plain_pooled[q]))
+        discordant.append(discordant_share(call["scores"], plain_cross.score(q, passages)))
+    require(pooled_worst <= 1.0, f"checkpoints: cross-encoder pooled state at {pooled_worst} of its limit")
+    require(max(discordant) <= CKPT_DISCORDANT_MAX,
+            f"checkpoints: flash scores order {max(discordant)} of a call's pairs otherwise than plain")
+    for got, question in ((single.model_dump(), questions[0]), (events[-1]["data"], questions[1])):
+        require(got == rag.query(question).model_dump(), f"checkpoints: async / stream answer of {question!r}")
+    stages = [t["stage"] for t in events[-1]["timings"]]
+    require(stages[:2] == ["retrieve", "rerank"], f"checkpoints: stream stages {stages}")
+    d32 = [c["launches"] for c in calls]
+    require(all(n == ce_config.num_layers for n in d32), f"checkpoints: cross-encoder flash launches {d32}")
+    q0, p0 = batch_calls[0]["question"], batch_calls[0]["texts"]
+    kernel_check = flash_on_layers(cross, q0, p0)
+    # The planted fault: every key past the fourth hidden from the kernel.
+    encoder_module.flash_attention = lambda q, k, v, lengths, window=None: fa.flash_attention(
+        q, k, v, torch.clamp(lengths, max=4), window)
+    try:
+        fault_pooled = rows_ratio(cross.pooled(q0, p0), plain_pooled[q0])
+        fault_discordant = discordant_share(flash_score(q0, p0), plain_cross.score(q0, p0))
+    finally:
+        encoder_module.flash_attention = fa.flash_attention
+    require(fault_pooled > 1.0, f"checkpoints: the passages hidden, the pooled state passes ({fault_pooled})")
+    require(fault_discordant > CKPT_DISCORDANT_MAX,
+            f"checkpoints: the passages hidden, the order passes ({fault_discordant})")
+    rerank_profile = device_profile(lambda: [reranker.rerank(q, r) for q, r in zip(questions, retrieved)])
+    batch_ms = [c["ms"] for c in batch_calls]
+    result = dict(
+        card=card, token=token_check, sentence=sentence_check,
+        rerank=dict(
+            questions=len(questions), chunks=n_chunks, index_s=rerank_index_s, k=rag.k,
+            rerank_k=CKPT_RERANK_K, batch_s=batch_s, batch_rerank_wall_s=sum(batch_ms) / 1e3,
+            batch_rerank_ms_median=float(np.median(batch_ms)),
+            stream_rerank_ms=next(t["elapsed_ms"] for t in events[-1]["timings"] if t["stage"] == "rerank"),
+            kernel=kernel_check, pooled_worst_row_of_limit=pooled_worst,
+            discordant_share_max=max(discordant), discordant_share_median=float(np.median(discordant)),
+            fault_passages_hidden=dict(pooled_of_limit=fault_pooled, discordant_share=fault_discordant),
+            cross_encoder_launches_d32=sum(d32), profile=rerank_profile,
+        ),
+        seconds=time.perf_counter() - t_phase, launches=counts,
+    )
+    log("checkpoints", json.dumps(result))
+    require(counts["flash_attention_d32"] > 0 and counts["rescore"] > 0
+            and counts["flash_attention"] > counts["flash_attention_d32"],
+            f"checkpoints: launches {counts}")
+    shutil.rmtree(work, ignore_errors=True)
     return result
 
 
@@ -3316,6 +3717,7 @@ def main() -> None:
     extractor, flow = run_flow(args.seed, card)
     serve, rag, singles = run_serve(extractor, args.seed, card)
     http = run_http(rag, extractor, singles, card)
+    serve_index = rag.index
     del rag, singles
     torch.cuda.empty_cache()
     bucket_ab = run_bucket_ab(gen, card)
@@ -3331,8 +3733,13 @@ def main() -> None:
     del extractor
     torch.cuda.empty_cache()
     train = run_train(args.seed, card)
+    checkpoints = run_checkpoints(
+        serve_index, serve_questions(), ROOT / "build" / "chip_smoke_train" / "final", args.seed, card
+    )
+    shutil.rmtree(ROOT / "build" / "chip_smoke_train", ignore_errors=True)
+    del serve_index
 
-    phases = (flow, serve, http, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train)
+    phases = (flow, serve, http, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train, checkpoints)
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(

@@ -461,3 +461,150 @@ def test_llm_retry_rules_equal():
         assert llm_client.LLMClient._normalize_structured_response(raw, holders) == (
             jax_llm_client.LLMClient._normalize_structured_response(raw, holders)
         )
+
+
+# -- checkpoints, extractors, rerankers, evaluation ----------------------------------------
+
+from verbatim_rag_tpu.models import hf_convert as jax_hf  # noqa: E402
+from verbatim_rag_tpu.models import sentence_extractor as jax_sentence  # noqa: E402
+from verbatim_rag_tpu.rag import rerankers as jax_rerankers  # noqa: E402
+from verbatim_rag_tpu.training import eval_f1 as jax_eval_f1  # noqa: E402
+from verbatim_rag_tpu.training import preprocess_ragbench as jax_ragbench  # noqa: E402
+from verbatim_rag_tpu_torch.models import hf_convert  # noqa: E402
+from verbatim_rag_tpu_torch.models import sentence_extractor  # noqa: E402
+from verbatim_rag_tpu_torch.rag import rerankers  # noqa: E402
+from verbatim_rag_tpu_torch.training import eval_f1  # noqa: E402
+from verbatim_rag_tpu_torch.training import preprocess_ragbench as ragbench  # noqa: E402
+
+SENTENCE_TEXTS = TEXTS + [
+    "One. Two!  Three?\nFour\n\n  five ... six",
+    "---\n...\n!!",
+    "no terminal punctuation here",
+]
+
+
+@pytest.mark.parametrize("text", SENTENCE_TEXTS)
+def test_split_sentences_equal(text):
+    assert sentence_extractor.split_sentences(text) == jax_sentence.split_sentences(text)
+
+
+def _numpy_state_dict(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for i in range(3):
+        sd[f"l.{i}.weight"] = rng.standard_normal((5, 4)).astype(np.float32)
+        if i != 1:
+            sd[f"l.{i}.bias"] = rng.standard_normal(5).astype(np.float64)
+    return sd
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_converter_helpers_equal(seed):
+    import torch
+
+    sd = _numpy_state_dict(seed)
+    sd["t.weight"] = torch.randn(3, 2, dtype=torch.float64)
+    for fn in ("_linear", "_norm"):
+        for prefix in ("l.0", "l.1", "t"):
+            for use_bias in (True, False):
+                args = (sd, prefix, use_bias) if fn == "_linear" else (sd, prefix)
+                got, expected = getattr(hf_convert, fn)(*args), getattr(jax_hf, fn)(*args)
+                assert got.keys() == expected.keys()
+                for key in got:
+                    np.testing.assert_array_equal(got[key], expected[key])
+                    assert got[key].dtype == expected[key].dtype == np.float32
+    layers = [{"a": {"k": np.full((2, 3), i, np.float32)}, "b": np.arange(i, i + 4, dtype=np.float32)}
+              for i in range(3)]
+    got, expected = hf_convert._stack_layers(layers), jax_hf._stack_layers(layers)
+    np.testing.assert_array_equal(got["a"]["k"], np.asarray(expected["a"]["k"]))
+    np.testing.assert_array_equal(got["b"], np.asarray(expected["b"]))
+
+
+HF_CONFIGS = [
+    {"model_type": "modernbert", "vocab_size": 100, "hidden_size": 32, "num_hidden_layers": 2,
+     "num_attention_heads": 2, "intermediate_size": 48},
+    {"model_type": "modernbert", "vocab_size": 100, "hidden_size": 32, "num_hidden_layers": 4,
+     "num_attention_heads": 4, "intermediate_size": 48, "max_position_embeddings": 512, "norm_eps": 1e-6,
+     "global_rope_theta": 1e5, "local_rope_theta": 1e3, "local_attention": 64, "global_attn_every_n_layers": 2},
+    {"vocab_size": 100, "hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 2,
+     "intermediate_size": 48},
+    {"model_type": "bert", "vocab_size": 100, "hidden_size": 32, "num_hidden_layers": 2,
+     "num_attention_heads": 2, "intermediate_size": 48, "type_vocab_size": 1, "layer_norm_eps": 1e-7,
+     "max_position_embeddings": 64},
+]
+
+
+@pytest.mark.parametrize("hf", HF_CONFIGS)
+def test_config_from_hf_equal(hf):
+    got = hf_convert.config_from_hf(hf)
+    assert dataclasses.asdict(got) == dataclasses.asdict(jax_hf.config_from_hf(hf))
+    assert hf_convert.hf_config_from_encoder(got) == jax_hf.hf_config_from_encoder(jax_hf.config_from_hf(hf))
+
+
+def test_reranker_adapter_defaults_equal():
+    hits = [SearchResult(id="a", text="plain"), type("R", (), {"text": "t", "enhanced_text": "e"})(),
+            type("R", (), {"text": "t", "enhanced_text": ""})(), object()]
+    for field in ("text", "enhanced_text", "missing"):
+        assert rerankers._texts_for(hits, field) == jax_rerankers._texts_for(hits, field)
+    for name in ("CohereReranker", "JinaReranker"):
+        ours, theirs = getattr(rerankers, name)("k"), getattr(jax_rerankers, name)("k")
+        assert vars(ours) == vars(theirs)
+    assert set(rerankers.__all__ if hasattr(rerankers, "__all__") else dir(rerankers)) >= {
+        "Reranker", "BaseReranker", "JaxReranker", "JinaV3Reranker", "CohereReranker", "JinaReranker"
+    }
+
+
+F1_CASES = [
+    (["Solar panels convert sunlight"], ["solar panels", "sunlight!"]),
+    ([], ["gold only"]),
+    (["predicted only", "twice twice"], []),
+    (["Ünïcode wörds, 22% efficient"], ["ünïcode WÖRDS 22"]),
+    ([], []),
+]
+
+
+def test_eval_f1_equal():
+    ours, theirs = eval_f1.F1Counts(), jax_eval_f1.F1Counts()
+    for predicted, gold in F1_CASES:
+        for text in predicted + gold:
+            assert eval_f1.words(text) == jax_eval_f1.words(text)
+        ours.add(predicted, gold)
+        theirs.add(predicted, gold)
+        assert dataclasses.astuple(ours) == dataclasses.astuple(theirs)
+        assert (ours.precision, ours.recall, ours.f1) == (theirs.precision, theirs.recall, theirs.f1)
+    examples = [{"question": "q", "context": " ".join(p + g), "answers": g} for p, g in F1_CASES]
+    examples.append({"question": "q", "context": "no answers key"})
+
+    def extract(question, context):
+        return context.split()[:3]
+
+    assert eval_f1.evaluate_extractor(extract, examples) == jax_eval_f1.evaluate_extractor(extract, examples)
+    assert eval_f1.evaluate_extractor(extract, []) == jax_eval_f1.evaluate_extractor(extract, [])
+
+
+@pytest.mark.parametrize("jsonl", [False, True])
+def test_eval_examples_load_equal(tmp_path, jsonl):
+    rows = [{"question": "q", "context": "c", "answers": ["c"]}, {"question": "r", "context": "d"}]
+    path = tmp_path / "rows.json"
+    path.write_text("\n\n".join(json.dumps(r) for r in rows) + "\n" if jsonl else json.dumps(rows))
+    assert eval_f1.load_examples(str(path)) == jax_eval_f1.load_examples(str(path)) == rows
+
+
+RAGBENCH_ROWS = [
+    {"question": "q1", "all_relevant_sentence_keys": ["0a", "1b"],
+     "documents_sentences": [[["0a", "First."], ["0b", "Second."]], [["1a", "  "], ["1b", "Third!"]]]},
+    {"question": "q2", "all_relevant_sentence_keys": None,
+     "documents_sentences": [[["0a", "Only."], ["bad"], "not a pair", ["0c", ""]]]},
+    {"question": "q3", "documents_sentences": [[], [["x", None]]]},
+    {"documents_sentences": None},
+    {"question": "q5", "all_relevant_sentence_keys": ["k"], "documents_sentences": [[("k", "Tuple item.")]]},
+]
+
+
+@pytest.mark.parametrize("row", RAGBENCH_ROWS)
+def test_ragbench_convert_example_equal(row):
+    got, expected = ragbench.convert_example(row), jax_ragbench.convert_example(row)
+    assert (got is None) == (expected is None)
+    if got is not None:
+        assert dataclasses.asdict(got) == dataclasses.asdict(expected)
+    assert ragbench.RAGBENCH_SUBSETS == jax_ragbench.RAGBENCH_SUBSETS

@@ -1193,3 +1193,107 @@ def test_rescore_kernel_at_the_bm25_width(cuda):
     assert torch.equal(got[~valid], torch.full_like(got[~valid], -1e30))
     torch.testing.assert_close(got[valid], expected[valid], rtol=1e-5, atol=1e-6)
     assert float((got[valid] > 0).float().mean()) > 0.05
+
+
+def test_hf_loaded_full_width_extractor_equals_the_native_one(cuda, tmp_path):
+    """A full-width ModernBERT-base trainer checkpoint staged for the Hub;
+    its config.json, model.safetensors and a tokenizer.json alone load
+    through the HF branch on the card: weights and token probabilities equal
+    the native checkpoint's exactly (the conversion is float32 transposes and
+    splits), the flash forward launches once a layer, and every span is
+    verbatim."""
+    import shutil
+
+    from verbatim_rag_tpu_torch.models import (
+        HashTokenizer,
+        ModelSpanExtractor,
+        init_highlighter_params,
+        modernbert_base_config,
+        token_relevance_probs,
+    )
+    from verbatim_rag_tpu_torch.models.tokenizer import train_wordpiece_tokenizer
+    from verbatim_rag_tpu_torch.training.trainer import Trainer
+    from verbatim_rag_tpu_torch.utils.upload_to_hub import jax_checkpoint_to_hf_dir
+
+    config = modernbert_base_config()
+    model = init_highlighter_params(config, seed=6, device="cuda")
+    native = tmp_path / "native"
+    Trainer(model, config, tokenizer=HashTokenizer(config.vocab_size)).save_checkpoint(str(native))
+    jax_checkpoint_to_hf_dir(str(native), str(tmp_path / "staged"))
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    for name in ("config.json", "model.safetensors"):
+        shutil.copy(tmp_path / "staged" / name, hf / name)
+    context = " ".join(
+        f"Solar panel {i} converts sunlight into electricity at {10 + i % 15} percent efficiency."
+        for i in range(120)
+    )
+    train_wordpiece_tokenizer(hf / "tokenizer.json", [context], vocab_size=2000)
+    served = ModelSpanExtractor(model_path=str(hf), device="cuda", threshold=0.5, min_span_chars=5)
+    reference = ModelSpanExtractor(model_path=str(native), device="cuda")
+    for key, value in reference.model.state_dict().items():
+        assert torch.equal(served.model.state_dict()[key], value), key
+    plan = served._plan("How efficient are solar panels?", context)
+    row = plan["rows"][0]
+    ids = torch.tensor([row], dtype=torch.int32, device=cuda)
+    mask = torch.ones_like(ids)
+    before = fa.launches
+    with torch.no_grad():
+        got = token_relevance_probs(served.model, ids, mask)
+    assert fa.launches == before + config.num_layers
+    with torch.no_grad():
+        expected = token_relevance_probs(reference.model, ids, mask)
+    assert torch.equal(got, expected)
+    spans = served.process("How efficient are solar panels?", context)
+    assert all(0 <= s < e <= len(context) for s, e in spans)
+
+
+def test_d32_cross_encoder_flash_matches_plain(cuda, monkeypatch):
+    """The cross-encoder at MiniLM width with flash on (head dim 32), 50
+    passages in one call: the kernel on each layer's own q/k/v against plain
+    attention, each live row to its bf16 limit; the pooled state (before the
+    score's dot, whose terms cancel) against the same weights through plain
+    attention, each row to 2e-2 of its largest |value|; the scores within
+    2e-2 of the largest. A planted fault that hides the passages from the
+    kernel (lengths cut to 4 keys) must fail the pooled check."""
+    import dataclasses
+
+    from verbatim_rag_tpu_torch.models import JaxCrossEncoder, minilm_config
+    from verbatim_rag_tpu_torch.models import encoder as encoder_module
+
+    config = minilm_config(use_flash_attention=True)
+    flash = JaxCrossEncoder(config=config, seed=0, device="cuda")
+    plain = JaxCrossEncoder(params=flash.model.state_dict(),
+                            config=dataclasses.replace(config, use_flash_attention=False), device="cuda")
+    question = "How efficient are solar panels?"
+    texts = [f"passage {i} about " + "solar wind storage grids " * (3 + i % 40) for i in range(50)]
+    before = fa.launches_d32
+    got = flash.score(question, texts)
+    assert fa.launches_d32 == before + config.num_layers
+    expected = plain.score(question, texts)
+    assert fa.launches_d32 == before + config.num_layers
+    assert got.shape == (50,) and np.isfinite(got).all()
+    limit = 2e-2 * float(np.abs(expected).max())
+    assert float(np.abs(got - expected).max()) <= limit
+
+    captured = []
+
+    def capture(q, k, v, lengths, window=None):
+        captured.append((q, k, v, lengths, window))
+        return fa.flash_attention(q, k, v, lengths, window)
+
+    monkeypatch.setattr(encoder_module, "flash_attention", capture)
+    got_pooled = torch.from_numpy(flash.pooled(question, texts))
+    assert len(captured) == config.num_layers
+    for q, k, v, lengths, window in captured:
+        assert q.shape[0] == 50 and q.shape[2:] == (12, 32)
+        live = torch.arange(q.shape[1], device=cuda)[None, :] < lengths[:, None]
+        out = fa.flash_attention_cuda(q, k, v, lengths, window)
+        assert _bf16_row_ratio(out, fa.attention_reference(q, k, v, lengths, window), live) <= 1.0
+    plain_pooled = torch.from_numpy(plain.pooled(question, texts))
+    rows = torch.ones(50, dtype=torch.bool)
+    assert _bf16_row_ratio(got_pooled, plain_pooled, rows) <= 1.0
+    monkeypatch.setattr(encoder_module, "flash_attention",
+                        lambda q, k, v, lengths, window=None: fa.flash_attention(
+                            q, k, v, torch.clamp(lengths, max=4), window))
+    assert _bf16_row_ratio(torch.from_numpy(flash.pooled(question, texts)), plain_pooled, rows) > 1.0

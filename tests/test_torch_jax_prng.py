@@ -29,7 +29,7 @@ NARROW = dict(hidden_size=64, num_heads=2, num_layers=3, intermediate_size=96, v
               max_position_embeddings=80)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 7, 42, 123456, 2**31 - 1, -5])
+@pytest.mark.parametrize("seed", [0, 1, 7, 42, 123456, 2**31 - 1, -5, 2**32 + 1, 2**40 + 5, -(2**40) - 3])
 def test_keys_and_splits_bit_equal(seed):
     key = jax.random.PRNGKey(seed)
     ours = jax_prng.prng_key(seed)

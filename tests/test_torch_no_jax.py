@@ -11,8 +11,12 @@ pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
 module and no ``verbatim_rag_tpu`` module. A second interpreter saves,
 loads and queries a full-text index and runs the CLI's ``index`` and
 ``query``, under the same rule. A third starts the port's HTTP server on
-the CPU from a saved index and answers one ``/api/query`` over a socket.
-The same holds for every module of the port imported on its own.
+the CPU from a saved index and answers one ``/api/query`` over a socket. A
+fourth stages a trainer checkpoint for the Hub, serves its HuggingFace files
+(with a ``tokenizer.json`` trained in the process) through the HF branch of
+the loaders, serves a sentence-head checkpoint through
+`SentenceModelExtractor`, and answers a question with a cross-encoder
+reranker. The same holds for every module of the port imported on its own.
 """
 
 from __future__ import annotations
@@ -191,6 +195,72 @@ print(json.dumps({
 }))
 """
 
+CHECKPOINTS = """
+import asyncio, json, shutil, sys, tempfile
+from pathlib import Path
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, VerbatimIndex
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.models import HashTokenizer, ModelSpanExtractor, init_highlighter_params
+from verbatim_rag_tpu_torch.models.config import minilm_config, tiny_test_config
+from verbatim_rag_tpu_torch.models.hf_convert import load_span_extractor
+from verbatim_rag_tpu_torch.models.tokenizer import train_wordpiece_tokenizer
+from verbatim_rag_tpu_torch.rag import JaxReranker, StreamingRAG, VerbatimRAG
+from verbatim_rag_tpu_torch.training.model import init_qa_model_params
+from verbatim_rag_tpu_torch.training.trainer import Trainer
+from verbatim_rag_tpu_torch.utils.upload_to_hub import jax_checkpoint_to_hf_dir
+
+tmp = Path(tempfile.mkdtemp())
+docs = [DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))]
+config = tiny_test_config(position_embedding_type="rope", norm_location="pre", activation="geglu",
+                          use_bias=False, final_norm=True, type_vocab_size=0, first_layer_no_attn_norm=True,
+                          global_attn_every_n_layers=2, local_attention_window=8, vocab_size=512)
+model = init_highlighter_params(config, seed=1, device="cpu")
+Trainer(model, config, tokenizer=HashTokenizer(512)).save_checkpoint(str(tmp / "ckpt"))
+jax_checkpoint_to_hf_dir(str(tmp / "ckpt"), str(tmp / "staged"))
+(tmp / "hf").mkdir()
+for name in ("config.json", "model.safetensors"):
+    shutil.copy(tmp / "staged" / name, tmp / "hf" / name)
+train_wordpiece_tokenizer(tmp / "hf" / "tokenizer.json", [d.content for d in docs], vocab_size=300)
+hf = load_span_extractor(str(tmp / "hf"), device="cpu", threshold=0.0, min_span_chars=1, merge_gap_chars=10**4)
+text = docs[0].content[:300]
+hf_spans = hf.process("solar", text)
+same_weights = all(bool((hf.model.state_dict()[k] == v).all()) for k, v in model.state_dict().items())
+
+sentence = init_qa_model_params(config, seed=2, device="cpu")
+Trainer(sentence, config, tokenizer=HashTokenizer(512)).save_checkpoint(str(tmp / "sentence"))
+sent = load_span_extractor(str(tmp / "sentence"), device="cpu", threshold=0.0)
+
+class R:
+    text = text
+
+kept = sent.extract_spans("solar", [R()])[text]
+
+index = VerbatimIndex(dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu")
+index.add_documents(docs)
+ce = minilm_config(hidden_size=64, num_heads=2, num_layers=2, intermediate_size=128, vocab_size=1024,
+                   max_position_embeddings=512, compute_dtype="float32", use_flash_attention=True)
+rag = VerbatimRAG(index, extractor=hf, reranker=JaxReranker(config=ce, device="cpu", rerank_k=3), k=4)
+question = "How efficient are solar panels?"
+response = rag.query(question)
+batch = rag.query_batch([question, "wind"])
+async_response = asyncio.run(rag.query_async(question))
+events = StreamingRAG(rag).stream_query_sync(question)
+print(json.dumps({
+    "hf_class": type(hf).__name__,
+    "hf_tokenizer": type(hf.tokenizer).__name__,
+    "hf_whole": hf_spans == [(0, len(text))],
+    "hf_same_weights": same_weights,
+    "sentence_class": type(sent).__name__,
+    "sentence_verbatim": bool(kept) and all(s in text for s in kept),
+    "reranked_docs": len(response.documents),
+    "batch_equal": batch[0].model_dump() == response.model_dump(),
+    "async_equal": async_response.model_dump() == response.model_dump(),
+    "stream_stages": [t["stage"] for t in events[-1]["timings"]],
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -246,6 +316,19 @@ def test_http_server_answers_without_jax():
     assert result["jax"] == [] and result["reference"] == []
     assert result["status"] == 200 and result["docs"] == 5 and result["verbatim"]
     assert result["device"] == "cpu"
+
+
+def test_checkpoints_extractors_and_rerank_load_no_jax():
+    """HF conversion both ways, the sentence extractor and a reranked query
+    (query, batch, async, stream) in a fresh interpreter: no ``jax`` and no
+    ``verbatim_rag_tpu`` module gets loaded."""
+    result = _run(CHECKPOINTS)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["hf_class"] == "ModelSpanExtractor" and result["hf_tokenizer"] == "HFTokenizer"
+    assert result["hf_whole"] and result["hf_same_weights"]
+    assert result["sentence_class"] == "SentenceModelExtractor" and result["sentence_verbatim"]
+    assert result["reranked_docs"] == 4 and result["batch_equal"] and result["async_equal"]
+    assert result["stream_stages"] == ["retrieve", "rerank", "extract", "highlight", "template"]
 
 
 def test_every_port_module_imports_without_jax():

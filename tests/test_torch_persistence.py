@@ -28,7 +28,7 @@ import jax
 import numpy as np
 import pytest
 
-from test_torch_full_text import FT, _ask, _corpus, _same
+from test_torch_full_text import FT, _ask, _corpus, _same, native_scanner  # noqa: F401
 from test_torch_pipeline import OVERRIDES
 from verbatim_rag_tpu.engine import VerbatimIndex as JaxIndex
 from verbatim_rag_tpu.engine.embedding_providers import (
@@ -49,6 +49,8 @@ from verbatim_rag_tpu_torch.models import highlighter
 from verbatim_rag_tpu_torch.models import providers
 from verbatim_rag_tpu_torch.models.config import minilm_config, tiny_test_config
 from verbatim_rag_tpu_torch.rag import cli
+
+pytestmark = pytest.mark.usefixtures("native_scanner")
 
 DOCS = sorted((Path(__file__).resolve().parent.parent / "examples" / "example_docs").glob("*.md"))
 

@@ -122,10 +122,16 @@ def test_default_extractor_follows_the_index_device():
     assert index.inspect()["num_chunks"] == 0
 
 
-@pytest.mark.parametrize("kwargs", [dict(reranker=object())])
+@pytest.mark.parametrize("kwargs", [dict(dense_dtype="int4"), dict(mesh=object())])
 def test_unported_options_raise(kwargs):
-    """Rerankers wait for the cross-encoder; LLM clients, intent detectors
-    and structured mode are ported (test_torch_llm.py)."""
+    """What the pipeline still refuses: the index's int4 tier and a mesh
+    (ROADMAP.md queue 1). Rerankers (test_torch_rerankers.py), LLM clients,
+    intent detectors and structured mode (test_torch_llm.py) are ported."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        VerbatimIndex(dense_provider=HashedBowDenseProvider(), device="cpu", **kwargs)
+
+
+def test_a_reranker_is_accepted():
     index = VerbatimIndex(dense_provider=HashedBowDenseProvider(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Reranking"):
-        VerbatimRAG(index, extractor=object(), **kwargs)
+    reranker = object()
+    assert VerbatimRAG(index, extractor=object(), reranker=reranker).reranker is reranker

@@ -4,8 +4,9 @@ The `SpanExtractor` contract (``extract_spans(question, results) ->
 {doc_text: [span, ...]}`` with a to-thread async default) and the prompted
 `LLMSpanExtractor`: batch / individual / auto modes, chunked batching with
 per-chunk fallback to individual calls, concurrent async extraction, custom
-Jinja2 prompts, and exact / fuzzy span verification. The neural extractor
-lives in `verbatim_rag_tpu_torch.models.highlighter`.
+Jinja2 prompts, and exact / fuzzy span verification. The neural extractors
+live in `verbatim_rag_tpu_torch.models.highlighter`; ``ModelSpanExtractor``
+and ``SemanticHighlightExtractor`` are re-exported from here lazily.
 
 The offline path imports this module, so the LLM client (httpx) and span
 verification are imported where they are used, not with the module.
@@ -221,3 +222,12 @@ class LLMSpanExtractor(SpanExtractor):
             mode=self.span_match_mode,
             fuzzy_threshold=self.fuzzy_threshold,
         )
+
+
+def __getattr__(name: str):
+    # Lazy re-export of the model-backed extractors; keeps core torch-free.
+    if name in ("ModelSpanExtractor", "SemanticHighlightExtractor"):
+        from verbatim_rag_tpu_torch.models import highlighter
+
+        return getattr(highlighter, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,5 +1,5 @@
-"""PyTorch models: encoder stack, the span-extraction highlighter, SPLADE
-and the neural embedding providers."""
+"""PyTorch models: encoder stack, the span-extraction highlighters, SPLADE,
+the cross-encoder and the neural embedding providers."""
 
 from .config import (
     EncoderConfig,
@@ -13,6 +13,7 @@ from .encoder import Encoder, cls_pool, embed_texts, encoder_forward_sp, mean_po
 from .highlighter import (
     HighlighterModel,
     ModelSpanExtractor,
+    SemanticHighlightExtractor,
     init_highlighter_params,
     params_from_jax,
     params_to_jax,
@@ -21,24 +22,38 @@ from .highlighter import (
     token_relevance_probs_sp,
 )
 from .providers import JaxDenseProvider, JaxSpladeProvider, provider_from_config
+from .reranker import (
+    CrossEncoderModel,
+    JaxCrossEncoder,
+    cross_encoder_pooled,
+    cross_encoder_scores,
+    init_cross_encoder_params,
+)
 from .splade import SpladeModel, init_splade_params, splade_forward, splade_topk_terms
-from .tokenizer import HashTokenizer, TokenizedBatch
+from .tokenizer import HashTokenizer, HFTokenizer, TokenizedBatch
 
 __all__ = [
+    "CrossEncoderModel",
     "Encoder",
     "EncoderConfig",
+    "HFTokenizer",
     "HashTokenizer",
     "HighlighterModel",
+    "JaxCrossEncoder",
     "JaxDenseProvider",
     "JaxSpladeProvider",
     "ModelSpanExtractor",
+    "SemanticHighlightExtractor",
     "SpladeModel",
     "TokenizedBatch",
     "bert_base_config",
     "cls_pool",
+    "cross_encoder_pooled",
+    "cross_encoder_scores",
     "demo_highlighter_config",
     "embed_texts",
     "encoder_forward_sp",
+    "init_cross_encoder_params",
     "init_highlighter_params",
     "init_splade_params",
     "mean_pool",

@@ -17,6 +17,7 @@ sequence-sharded pass over the mesh (:func:`token_relevance_probs_sp`).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -111,8 +112,9 @@ def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
     JAX stacks layers on a leading axis (``params["layers"]`` leaves are
     ``[L, ...]``); kernels are ``[in, out]`` on both sides; ``cls_head``,
-    ``classifier``, ``sentence_classifier`` and SPLADE's ``mlm_head``
-    (`models.splade.SpladeModel`) are optional.
+    ``classifier``, ``sentence_classifier``, SPLADE's ``mlm_head``
+    (`models.splade.SpladeModel`) and the cross-encoder's ``pooler`` and
+    ``score`` (`models.reranker.CrossEncoderModel`) are optional.
     """
     out: dict[str, torch.Tensor] = {}
 
@@ -137,7 +139,8 @@ def params_from_jax(params_np: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     for i in range(n_layers):
         walk(f"layers.{i}.", params_np["layers"], i)
 
-    for top in ("final_ln", "classifier", "cls_head", "sentence_classifier", "mlm_head"):
+    heads = ("final_ln", "classifier", "cls_head", "sentence_classifier", "mlm_head", "pooler", "score")
+    for top in heads:
         if top in params_np:
             walk(f"{top}.", params_np[top], slice(None))
     return out
@@ -224,8 +227,10 @@ class ModelSpanExtractor(SpanExtractor):
     ``params`` is a state_dict for :class:`HighlighterModel` (for example
     from :func:`params_from_jax`); without it the model is random-initialized
     from ``seed``. ``model_path`` names a checkpoint directory written by
-    `training.Trainer.save_checkpoint` (of either package); its weights,
-    config and tokenizer replace ``params``, ``config`` and ``tokenizer``.
+    `training.Trainer.save_checkpoint` (of either package) or a HuggingFace
+    token classifier (``config.json``, ``model.safetensors``,
+    ``tokenizer.json``); its weights, config and tokenizer replace
+    ``params``, ``config`` and ``tokenizer``.
     The model lives on ``device`` (``None`` → ``cuda``).
 
     ``sp_mesh`` (a `parallel.Mesh`) scores each context in ONE
@@ -266,7 +271,8 @@ class ModelSpanExtractor(SpanExtractor):
             if "classifier.kernel" not in params:
                 raise ValueError(
                     f"{model_path} holds no token-classification head (a sentence-classifier "
-                    "checkpoint is served by SentenceModelExtractor, not ported yet)"
+                    "checkpoint is served by SentenceModelExtractor: "
+                    "hf_convert.load_span_extractor picks it)"
                 )
         self.config = config or demo_highlighter_config()
         if params is None:
@@ -469,3 +475,44 @@ class ModelSpanExtractor(SpanExtractor):
                 break
             start += step
         return windows
+
+
+class SemanticHighlightExtractor(ModelSpanExtractor):
+    """Sentence/span-mode adapter over the token extractor.
+
+    mode="spans" is the token path unchanged; mode="sentences" snaps each
+    span out to the regex sentence boundaries around it and merges the
+    sentences that overlap.
+    """
+
+    def __init__(self, *args, mode: str = "spans", **kwargs):
+        if mode not in ("spans", "sentences"):
+            raise ValueError(f"mode must be 'spans' or 'sentences', got {mode!r}")
+        super().__init__(*args, **kwargs)
+        self.mode = mode
+
+    def _postprocess_spans(
+        self, context: str, spans: list[tuple[int, int]]
+    ) -> list[tuple[int, int]]:
+        """Snap spans to sentence boundaries (mode='sentences'). Runs inside
+        `_process_pairs`, so every entry point applies the mode."""
+        if self.mode == "spans" or not spans:
+            return spans
+        boundaries = [0]
+        for m in re.finditer(r"[.!?]\s+|\n+", context):
+            boundaries.append(m.end())
+        boundaries.append(len(context))
+
+        snapped = []
+        for s, e in spans:
+            lo = max(b for b in boundaries if b <= s)
+            hi = min(b for b in boundaries if b >= e)
+            snapped.append((lo, hi))
+        # Merge overlapping sentences.
+        merged: list[list[int]] = []
+        for s, e in sorted(snapped):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        return [(s, e) for s, e in merged]

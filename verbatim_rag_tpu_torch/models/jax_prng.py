@@ -7,11 +7,14 @@ reproduces the three calls those initialisers make, as JAX 0.9 runs them with
 its defaults (the ``threefry2x32`` generator, ``jax_threefry_partitionable``
 on):
 
-- :func:`prng_key` — ``jax.random.PRNGKey(seed)``: the key ``(seed >> 32,
-  seed & 0xFFFFFFFF)`` as two uint32 words (a 32-bit seed gives ``(0, seed)``);
+- :func:`prng_key` — ``jax.random.PRNGKey(seed)``: the key ``(0, seed &
+  0xFFFFFFFF)`` as two uint32 words (without x64 JAX keeps a seed's low 32
+  bits);
 - :func:`split` — ``jax.random.split(key, num)``: the Threefry-2x32 hash of
   the 64-bit counters ``0 .. num-1`` (high word, low word) under the key; each
   output pair is a new key;
+- :func:`fold_in` — ``jax.random.fold_in(key, data)``: the hash of the
+  counter pair ``(0, data)`` under the key;
 - :func:`normal` — ``jax.random.normal(key, shape, float32)``: 32 random bits
   per element (the hash of its flat index, both output words xor-ed), a
   uniform in [nextafter(-1, 0), 1) made from the top 23 bits, then
@@ -23,8 +26,9 @@ Keys and bits are bit-equal to ``jax.random``'s. The normals agree to float32
 rounding: XLA's ``log1p`` inside ``erf_inv`` is its own approximation, so a
 draw may differ from JAX's in its last bits (the tests hold them to rtol 1e-5).
 
-:func:`init_encoder_params` and :func:`init_splade_params` are the JAX
-package's initialisers on top of these (same key order, same layout: layers
+:func:`init_encoder_params`, :func:`init_splade_params` and
+:func:`init_cross_encoder_params` are the JAX package's initialisers on top
+of these (same key order, same layout: layers
 stacked on a leading axis), returning numpy trees that
 `models.highlighter.params_from_jax` loads into the port's modules.
 """
@@ -58,7 +62,8 @@ def threefry2x32(key, x0: np.ndarray, x1: np.ndarray) -> tuple[np.ndarray, np.nd
             b |= tmp
             b ^= a
         a += ks[(i + 1) % 3]
-        b += ks[(i + 2) % 3] + np.uint32(i + 1)
+        with np.errstate(over="ignore"):  # uint32 scalar sums wrap, as the arrays' do
+            b += ks[(i + 2) % 3] + np.uint32(i + 1)
     return a, b
 
 
@@ -72,12 +77,10 @@ def _counters(shape) -> tuple[np.ndarray, np.ndarray]:
 
 
 def prng_key(seed: int) -> np.ndarray:
-    """``jax.random.PRNGKey(seed)`` as a uint32 array [2] (a seed that fits
-    32 bits gives ``(0, seed mod 2^32)``, as JAX without x64 does)."""
-    seed = int(seed)
-    if -(1 << 31) <= seed < (1 << 32):
-        return np.array([0, seed & 0xFFFFFFFF], np.uint32)
-    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+    """``jax.random.PRNGKey(seed)`` as a uint32 array [2]: ``(0, seed mod
+    2^32)``, as JAX without x64 (the JAX package's setting) makes it from any
+    integer seed, wider ones included."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], np.uint32)
 
 
 def split(key, num: int = 2) -> np.ndarray:
@@ -85,6 +88,12 @@ def split(key, num: int = 2) -> np.ndarray:
     hi, lo = _counters((num,))
     a, b = threefry2x32(key, hi, lo)
     return np.stack([a, b], axis=1)
+
+
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)``: a uint32 key [2]."""
+    a, b = threefry2x32(key, np.zeros(1, np.uint32), np.array([data & 0xFFFFFFFF], np.uint32))
+    return np.array([a[0], b[0]], np.uint32)
 
 
 def random_bits(key, shape) -> np.ndarray:
@@ -210,5 +219,23 @@ def init_splade_params(key, config: EncoderConfig) -> dict[str, Any]:
         },
         "ln": {"scale": np.ones((h,), np.float32), "bias": np.zeros((h,), np.float32)},
         "output_bias": np.zeros((config.vocab_size,), np.float32),
+    }
+    return params
+
+
+def init_cross_encoder_params(key, config: EncoderConfig) -> dict[str, Any]:
+    """JAX `models/reranker.py::init_cross_encoder_params` in numpy: the
+    encoder from the first half of ``split(key)``; the pooler from the second,
+    the score head from that key folded with 1."""
+    k_enc, k_head = split(key)
+    params = init_encoder_params(k_enc, config)
+    h = config.hidden_size
+    params["pooler"] = {
+        "kernel": normal(k_head, (h, h)) * np.float32(0.02),
+        "bias": np.zeros((h,), np.float32),
+    }
+    params["score"] = {
+        "kernel": normal(fold_in(k_head, 1), (h, 1)) * np.float32(0.02),
+        "bias": np.zeros((1,), np.float32),
     }
     return params

@@ -33,7 +33,7 @@ from verbatim_rag_tpu_torch.engine.embedding_providers import (
 from .config import EncoderConfig, minilm_config
 from .encoder import Encoder, embed_texts
 from .splade import SpladeModel, splade_topk_terms
-from .tokenizer import HashTokenizer, Tokenizer
+from .tokenizer import HashTokenizer, HFTokenizer, Tokenizer
 
 
 def _length_sorted_chunks(texts: Sequence[str], batch_size: int):
@@ -283,7 +283,10 @@ def provider_from_config(config: dict, device=None) -> Any:
     if tok_cfg.get("class") == "HashTokenizer":
         tokenizer = HashTokenizer(vocab_size=int(tok_cfg.get("vocab_size", 30522)))
     elif tok_cfg.get("class") == "HFTokenizer":
-        raise NotImplementedError("HFTokenizer is not ported to the PyTorch package yet")
+        path = tok_cfg.get("path")
+        if not path:
+            raise ValueError("HFTokenizer identity has no path; cannot reconstruct")
+        tokenizer = HFTokenizer(path)
     common = dict(
         config=enc,
         tokenizer=tokenizer,

@@ -1,10 +1,12 @@
 """Host-side tokenization for the encoders.
 
-Copy of `verbatim_rag_tpu/models/tokenizer.py`, trimmed to the file-free
+Copy of `verbatim_rag_tpu/models/tokenizer.py`: the file-free
 :class:`HashTokenizer` (word-level hashing into the configured vocab with
-BERT-style special ids) and its Python regex scanner. Ids, offsets and the
-padded batch layout are identical to the original (pinned by
-`tests/test_torch_copies.py`).
+BERT-style special ids, its Python regex scanner) and :class:`HFTokenizer`,
+which wraps a checkpoint's ``tokenizer.json`` through the ``tokenizers``
+library (imported in its constructor, so nothing on the offline path needs
+it). Ids, offsets and the padded batch layout are identical to the original
+(pinned by `tests/test_torch_copies.py` and `tests/test_torch_hf_convert.py`).
 """
 
 from __future__ import annotations
@@ -175,3 +177,81 @@ class HashTokenizer(Tokenizer):
                 row += [(0, 0)] * (pos - len(row))
                 offs_out.append(row)
         return TokenizedBatch(batch, mask, offs_out)
+
+
+class HFTokenizer(Tokenizer):
+    """Wraps a HuggingFace fast tokenizer file (tokenizer.json)."""
+
+    def __init__(self, path: str, buckets=DEFAULT_BUCKETS):
+        from tokenizers import Tokenizer as RustTokenizer
+
+        self._tok = (
+            RustTokenizer.from_file(path)
+            if path.endswith(".json")
+            else RustTokenizer.from_pretrained(path)
+        )
+        self.path = path
+        self.buckets = buckets
+        self.pad_id = self._tok.token_to_id("[PAD]") or 0
+        self.cls_id = self._tok.token_to_id("[CLS]") or 101
+        self.sep_id = self._tok.token_to_id("[SEP]") or 102
+        self._tok.no_padding()
+        self._tok.no_truncation()
+
+    def describe(self) -> dict:
+        return {"class": "HFTokenizer", "path": self.path}
+
+    def encode_batch(
+        self,
+        texts: list[str],
+        max_length: int = 512,
+        pair: list[str] | None = None,
+        with_offsets: bool = False,
+    ) -> TokenizedBatch:
+        inputs = list(zip(texts, pair)) if pair is not None else list(texts)
+        encodings = self._tok.encode_batch(inputs)
+        rows = [e.ids[:max_length] for e in encodings]
+        offs = [list(e.offsets[:max_length]) for e in encodings]
+
+        seq = min(bucket_length(max(len(r) for r in rows), self.buckets), max_length)
+        batch = np.full((len(rows), seq), self.pad_id, np.int32)
+        mask = np.zeros((len(rows), seq), np.int32)
+        for i, ids in enumerate(rows):
+            ids = ids[:seq]
+            batch[i, : len(ids)] = ids
+            mask[i, : len(ids)] = 1
+            offs[i] = offs[i][:seq]
+        return TokenizedBatch(batch, mask, offs if with_offsets else None)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.get_vocab_size()
+
+
+BERT_SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def train_wordpiece_tokenizer(path: str, texts, vocab_size: int = 8000):
+    """Train a BERT-style WordPiece ``tokenizer.json`` on ``texts`` (BERT
+    normalizer and specials, ``[CLS] a [SEP] b [SEP]`` pairs) and save it at
+    ``path``. A directory staged from a checkpoint trained with
+    :class:`HashTokenizer` has no tokenizer file; this gives the tests and
+    the smoke run one. Returns the `tokenizers.Tokenizer`."""
+    from tokenizers import Tokenizer as RustTokenizer
+    from tokenizers import models, normalizers, pre_tokenizers, processors, trainers
+
+    tok = RustTokenizer(models.WordPiece(unk_token="[UNK]"))
+    tok.normalizer = normalizers.BertNormalizer(lowercase=True)
+    tok.pre_tokenizer = pre_tokenizers.BertPreTokenizer()
+    tok.train_from_iterator(
+        list(texts),
+        trainers.WordPieceTrainer(vocab_size=vocab_size, special_tokens=list(BERT_SPECIAL_TOKENS)),
+    )
+    cls_id, sep_id = tok.token_to_id("[CLS]"), tok.token_to_id("[SEP]")
+    tok.post_processor = processors.TemplateProcessing(
+        single="[CLS] $A [SEP]",
+        pair="[CLS] $A [SEP] $B [SEP]",
+        special_tokens=[("[CLS]", cls_id), ("[SEP]", sep_id)],
+    )
+    tok.save(str(path))
+    return tok

@@ -2,8 +2,8 @@
 `verbatim_rag_tpu/rag/core.py`).
 
 question → (intent short-circuit) → retrieve (`VerbatimIndex.query`) →
-extract verbatim spans → rank and split spans → template → clean → cited
-`QueryResponse`. The extractor defaults to `ModelSpanExtractor` on the
+(rerank) → extract verbatim spans → rank and split spans → template → clean
+→ cited `QueryResponse`. The extractor defaults to `ModelSpanExtractor` on the
 index's device with no LLM client, and to the prompted `LLMSpanExtractor`
 with one (then the template mode defaults to ``contextual``). Structured
 template mode lets the LLM extract per placeholder, and every span is
@@ -11,9 +11,9 @@ verified against its attributed document. :meth:`VerbatimRAG.query_batch`
 serves many questions with one retrieval dispatch and one extractor pass
 (`extract_spans_multi`), :meth:`VerbatimRAG.query_async` is the async
 mirror of :meth:`VerbatimRAG.query`, and :meth:`VerbatimRAG.warmup` runs one
-query at serving start-up.
-
-Not ported yet: rerankers (``reranker=`` raises ``NotImplementedError``).
+query at serving start-up. A ``reranker`` (`rag.rerankers`) reorders each
+question's results before extraction; if it raises, the retrieval order
+stays and a warning is logged.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ logger = logging.getLogger(__name__)
 
 
 class VerbatimRAG:
-    """question → retrieve → extract → template → cited answer."""
+    """question → retrieve → (rerank) → extract → template → cited answer."""
 
     def __init__(
         self,
@@ -47,10 +47,6 @@ class VerbatimRAG:
         max_display_spans: int = 5,
         template_mode: str | None = None,
     ):
-        if reranker is not None:
-            raise NotImplementedError(
-                "Reranking is not ported to the PyTorch package yet (it needs the cross-encoder)"
-            )
         self.index = index
         self.llm_client = llm_client
         self.k = k
@@ -73,6 +69,7 @@ class VerbatimRAG:
         )
         self.response_builder = response_builder or ResponseBuilder()
         self.intent_detector = intent_detector
+        self.reranker = reranker
         self._wire_routing_embeddings()
 
     def _wire_routing_embeddings(self) -> None:
@@ -160,6 +157,11 @@ class VerbatimRAG:
             rrf_k,
             search_params,
         )
+        if self.reranker is not None:
+            try:
+                results = await self.reranker.rerank_async(question, results)
+            except Exception as exc:
+                logger.warning("Reranker failed; keeping retrieval order: %s", exc)
 
         if self.template_manager.resolve_mode(template_mode) == "structured":
             return await asyncio.to_thread(self._query_structured, question, results)
@@ -299,9 +301,13 @@ class VerbatimRAG:
         )
 
     def _apply_reranker(self, question: str, results: list[Any]) -> list[Any]:
-        """Reranking hook: no reranker is ported yet (the constructor refuses
-        one), so retrieval order stays."""
-        return results
+        if self.reranker is None or not results:
+            return results
+        try:
+            return self.reranker.rerank(question, results)
+        except Exception as exc:
+            logger.warning("Reranker failed; keeping retrieval order: %s", exc)
+            return results
 
     def _query_structured(self, question: str, results: list[Any]) -> QueryResponse:
         """Template-driven extraction: the structured template's placeholders

@@ -8,8 +8,8 @@ and the per-stage ``timings``; per-stage error events; plus a sync
 collector. The per-call k is passed through without shared state. A stage
 that launches kernels ends by synchronizing the index's device (in a worker
 thread, so the event loop never waits on the card), and its host-clock time
-runs to the kernels' end, not to their launch. No reranker is ported, so
-there is no rerank stage.
+runs to the kernels' end, not to their launch. With a reranker, a ``rerank``
+stage follows retrieval; if it raises, the retrieval order stays.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ class StreamingRAG:
                 yield {"type": "answer", "data": response.model_dump(), "done": True}
                 return
 
-        # Stage 1: retrieval → documents without highlights.
+        # Stage 1: retrieval (+rerank) → documents without highlights.
         try:
             with timer.stage("retrieve"):
                 results = await asyncio.to_thread(
@@ -66,6 +66,13 @@ class StreamingRAG:
                     hybrid_weights, rrf_k, search_params,
                 )
                 await asyncio.to_thread(synchronize, device)
+            if rag.reranker is not None:
+                try:
+                    with timer.stage("rerank"):
+                        results = await rag.reranker.rerank_async(question, results)
+                        await asyncio.to_thread(synchronize, device)
+                except Exception as exc:
+                    logger.warning("Reranker failed; keeping order: %s", exc)
         except Exception as exc:
             logger.error("Retrieval failed: %s", exc)
             yield {"type": "error", "stage": "retrieval", "message": str(exc)}
