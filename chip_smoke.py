@@ -136,6 +136,42 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              every query against the same store with the plain table
              versions (int8 tables are bit-equal, so no difference is
              allowed);
+5a. int4   — the same records in an int4 store (dense 384 and sketch 768
+             packed two codes a byte, `candidate_impl="auto"` → "xla": the
+             rescore kernel, no table kernel), one batch and 8 timed by the
+             host clock and CUDA events; rows checked against the same store
+             with the plain rescore on every query (ties within 1e-6 as in
+             the store phase); the stored codes and scales of 65,536 sampled
+             rows bit-equal to a numpy quantization of the very float32 rows
+             the flush quantized; the dense and sketch matrices' resident
+             bytes beside the int8 store's, `torch.cuda.max_memory_allocated`
+             and the top-10 overlap with the int8 store's section rows
+             (reported, not gated); one batch over 3,997,696 records when
+             four times the 1M fill is under 60 s;
+5d. mesh   — `DeviceVectorStore(mesh=make_mesh(dp=2, tp=2, devices=[cuda] * 4),
+             dense_dtype="int8", sketch_dtype="int8", block=4 * 8192)` over the
+             same records, every array row-sharded in 4 shards on the one
+             card (they run one after another: no scaling is measured). (a)
+             "auto" → "xla": one batch and 8 timed, exactly one rescore
+             launch per shard a batch, rows checked against the plain
+             rescore as above, and against the unsharded int8 store with
+             `candidate_impl="xla"`: the dense arm equal, and every query
+             equal unless its sparse arm differs, where the mesh store's
+             (each shard's own top-256 candidates, a superset) must score at
+             least as high at each position; (b) "section": 4 section launches
+             a batch, (c) "bucket": 2 v2 launches per shard a batch, each
+             with one rescore per shard, rows equal to the same store with
+             the plain tables, each shard's int8 section and v2 tables
+             bit-equal to the plain version, no fallback logged; (d) a 3-way
+             batch through the section path of a mesh store over the
+             full_text phase's first 65,536 records (text included), at the
+             full table depth, equal to the unsharded section store's except
+             queries where an arm holds a tie; (e) 5% deleted by id,
+             `compact()`, `save` → `load(path, mesh=...)`, and the unsharded
+             store saved and loaded onto the mesh: rows and scores equal;
+             (f) a `sparse_mode="exact"` mesh store at 196,608 rows, 64
+             sparse-only queries equal to the unsharded scan's (ties within
+             1e-6). Median batch ms by CUDA events, sharded and unsharded;
 5b. full_text — the store phase's records with synthetic texts (16-64
              words drawn Zipf-like, weight r^-1.1, from a 30,000-word
              vocabulary; all from the seed) in an int8 store with
@@ -243,7 +279,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a-3c, 5b, 5c, 6b and 7b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3c, 5a-5d, 6b and 7b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -2482,7 +2518,10 @@ def bench_data(seed: int) -> dict:
         q_w = r.random((batch, qm), dtype=np.float32)
         return q_dense, (q_ids, q_w), src
 
-    return dict(dim=dim, nnz=nnz, vocab=vocab, batch=batch, records=records, queries=queries)
+    return dict(
+        dim=dim, nnz=nnz, vocab=vocab, batch=batch, records=records, queries=queries,
+        arrays=dict(dense=dense, ids=ids, weights=weights),
+    )
 
 
 def fill_store(data, records=None, **kwargs):
@@ -2505,9 +2544,7 @@ def fill_store(data, records=None, **kwargs):
         "_dense", "_dense_scale", "_sp_ids", "_sp_w", "_sp_proj", "_sp_proj_scale", "_valid_dev",
         "_ft_ids", "_ft_tf", "_ft_w", "_ft_proj", "_ft_proj_scale",
     )
-    state_gb = sum(
-        t.numel() * t.element_size() for t in (getattr(store, a) for a in arrays) if t is not None
-    ) / 1e9
+    state_gb = sum(t.nbytes for t in (getattr(store, a) for a in arrays) if t is not None) / 1e9
     return store, ingest_s, state_gb
 
 
@@ -2566,33 +2603,7 @@ def run_store(data, card: str) -> dict:
     times, gc_ms = timed_batches(store, data, 1, n_batches, top_k)
     counts = read_counts()
     require(counts["rescore"] == n_batches + 1, f"store: launches {counts}")
-
-    # The first batch with the plain rescore must give the same rows on every
-    # query. A query may differ only where the rescore's float32 sums, taken
-    # in another order, reorder a near-tie: its sparse arm (the sparse-only
-    # query at the hybrid's fetch depth, 2·top_k) must then differ, and only
-    # at positions whose exact scores tie within 1e-6 relative.
-    q_dense, q_sparse, _ = data["queries"](0)
-    kernel_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
-    store.rescore_impl = "oneshot"
-    plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
-    plain_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
-    store.rescore_impl = "pallas"
-    differ = 0
-    for b in range(data["batch"]):
-        if [h.id for h in first[b]] == [h.id for h in plain[b]]:
-            continue
-        differ += 1
-        pairs = list(zip(kernel_sparse[b], plain_sparse[b]))
-        require(
-            len(kernel_sparse[b]) == len(plain_sparse[b])
-            and any(x.id != y.id for x, y in pairs)
-            and all(
-                x.id == y.id or abs(x.score - y.score) <= 1e-6 * max(x.score, y.score)
-                for x, y in pairs
-            ),
-            f"store: query {b} rows differ from the plain rescore's without a score tie",
-        )
+    differ = same_rows_with_plain_rescore(store, data, first, top_k, "store")
     q_dense, q_sparse, _ = data["queries"](1)
     profile = device_profile(
         lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
@@ -2609,6 +2620,39 @@ def run_store(data, card: str) -> dict:
     del store
     torch.cuda.empty_cache()
     return result
+
+
+def same_rows_with_plain_rescore(store, data, first, top_k: int, what: str) -> int:
+    """The first batch with the plain rescore must give the same rows on
+    every query. A query may differ only where the rescore's float32 sums,
+    taken in another order, reorder a near-tie: its sparse arm (the
+    sparse-only query at the hybrid's fetch depth, 2·top_k) must then differ,
+    and only at positions whose exact scores tie within 1e-6 relative.
+    Returns the count of such queries."""
+    q_dense, q_sparse, _ = data["queries"](0)
+    kernel_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    store.rescore_impl = "oneshot"
+    try:
+        plain = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+        plain_sparse = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    finally:
+        store.rescore_impl = "pallas"
+    differ = 0
+    for b in range(data["batch"]):
+        if [h.id for h in first[b]] == [h.id for h in plain[b]]:
+            continue
+        differ += 1
+        pairs = list(zip(kernel_sparse[b], plain_sparse[b]))
+        require(
+            len(kernel_sparse[b]) == len(plain_sparse[b])
+            and any(x.id != y.id for x, y in pairs)
+            and all(
+                x.id == y.id or abs(x.score - y.score) <= 1e-6 * max(x.score, y.score)
+                for x, y in pairs
+            ),
+            f"{what}: query {b} rows differ from the plain rescore's without a score tie",
+        )
+    return differ
 
 
 def same_rows_with_plain_tables(store, data, top_k: int, expected, what: str, text_queries=None) -> None:
@@ -2645,6 +2689,8 @@ def run_store_int8(data, card: str) -> dict:
     store, ingest_s, state_gb = fill_store(data, dense_dtype="int8", sketch_dtype="int8")
     require(store.candidate_impl == "section", f"store_int8: impl {store.candidate_impl}")
     first, hit = first_batch(store, data, top_k, "store_int8")
+    data["int8_first_rows"] = [[h.id for h in r] for r in first]  # the int4 phase's yardstick
+    data["int8_bytes"] = matrix_bytes(store)
     times, gc_ms = timed_batches(store, data, 1, n_batches, top_k)
     store.candidate_impl = "bucket"
     bucket_first, bucket_hit = first_batch(store, data, top_k, "store_int8 bucket")
@@ -2678,6 +2724,534 @@ def run_store_int8(data, card: str) -> dict:
     del store
     torch.cuda.empty_cache()
     return result
+
+
+def matrix_bytes(store) -> dict:
+    """Resident bytes of a store's dense and sketch matrices, each with its
+    scale column."""
+    def nbytes(*arrays):
+        return sum(a.nbytes for a in arrays if a is not None)
+
+    return dict(
+        dense=nbytes(store._dense, store._dense_scale),
+        sketch=nbytes(store._sp_proj, store._sp_proj_scale),
+    )
+
+
+def event_batches(store, data, first: int, count: int, top_k: int, **query):
+    """Host ms and CUDA-event ms of each of ``count`` hybrid batches."""
+    import torch
+
+    host, events = [], []
+    for i in range(first, first + count):
+        b_dense, b_sparse, _ = data["queries"](i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = store.query_batch(dense_queries=b_dense, sparse_queries=b_sparse, top_k=top_k, **query)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+        require(len(out) == data["batch"], "batch size")
+    return host, events
+
+
+def numpy_int4(x):
+    """The JAX package's numpy int4 quantization, written out here: codes
+    in [-7, 7] half to even, scale max|x|/7 floored at 1e-12, column j in the
+    low nibble of byte j and column j + d/2 in its high nibble."""
+    import numpy as np
+
+    x = x.astype(np.float32)
+    half = x.shape[-1] // 2
+    scale = np.clip(np.max(np.abs(x), axis=-1, keepdims=True) / 7.0, 1e-12, None)
+    codes = np.clip(np.round(x / scale), -7, 7).astype(np.int8)
+    packed = ((codes[..., :half] & 0xF) | ((codes[..., half:] & 0xF) << 4)).astype(np.int8)
+    return packed, scale.astype(np.float32)
+
+
+#: The int4 phase: how many rows' codes are held to numpy, and the rows of
+#: its one large batch (`benchmarks/bench_capacity_4m.py --int4`'s N), run
+#: when four times the 1M fill would take less than `INT4_4M_FILL_S`.
+INT4_CHECKED_ROWS = 65_536
+INT4_4M_ROWS = 3_997_696
+INT4_4M_FILL_S = 60.0
+
+
+def run_int4(data, card: str, seed: int) -> dict:
+    """The int4 tier (see the module docstring, 5a)."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import dense as dense_mod
+
+    top_k, n_batches = 10, STORE_BATCHES
+    # The float32 rows the flush quantizes (dense 384, sketch 768 columns),
+    # kept for a sample of rows to hold the stored codes to numpy's.
+    rows = np.random.default_rng(seed + 5000).choice(STORE_ROWS, size=INT4_CHECKED_ROWS, replace=False)
+    idx = torch.as_tensor(rows, device="cuda")
+    quantized = {}
+    quantize = dense_mod.quantize_rows_int4
+
+    def keep_rows(x):
+        quantized[x.shape[1]] = x[idx].cpu().numpy()
+        return quantize(x)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dense_mod.quantize_rows_int4 = keep_rows
+    try:
+        store, ingest_s, state_gb = fill_store(data, dense_dtype="int4", sketch_dtype="int4")
+    finally:
+        dense_mod.quantize_rows_int4 = quantize
+    require(store.candidate_impl == "xla", f"int4: impl {store.candidate_impl}")
+    first, hit = first_batch(store, data, top_k, "int4")
+    host_ms, event_ms = event_batches(store, data, 1, n_batches, top_k)
+    counts = read_counts()
+    require(
+        counts["rescore"] == n_batches + 1 and counts["section"] == counts["bucket_max_v2"] == 0,
+        f"int4: launches {counts}",
+    )
+    differ = same_rows_with_plain_rescore(store, data, first, top_k, "int4")
+
+    # The stored codes and scales bit-equal to numpy's quantization of the
+    # same float32 rows.
+    require(sorted(quantized) == [data["dim"], store.projection_dim], f"int4: quantized {sorted(quantized)}")
+    for name, codes, scale, width in (
+        ("dense", store._dense, store._dense_scale, data["dim"]),
+        ("sketch", store._sp_proj, store._sp_proj_scale, store.projection_dim),
+    ):
+        want_codes, want_scale = numpy_int4(quantized[width])
+        require(np.array_equal(codes[idx].cpu().numpy(), want_codes), f"int4: {name} codes differ from numpy's")
+        require(
+            np.array_equal(scale[idx].cpu().numpy().view(np.int32), want_scale.view(np.int32)),
+            f"int4: {name} scales differ from numpy's",
+        )
+    overlap = float(np.mean([
+        len({h.id for h in r} & set(i8)) / top_k for r, i8 in zip(first, data["int8_first_rows"])
+    ]))
+    q_dense, q_sparse, _ = data["queries"](1)
+    profile = device_profile(
+        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    )
+    log("int4 profile", json.dumps(profile))
+    result = dict(
+        card=card, rows=STORE_ROWS, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
+        batch=data["batch"], batch_ms=host_ms, batch_ms_median=float(np.median(host_ms)),
+        batch_event_ms=event_ms, batch_event_ms_median=float(np.median(event_ms)),
+        qps=data["batch"] / float(np.median(host_ms)) * 1e3, source_row_in_top10=hit,
+        queries_differing_from_plain_on_a_tie=differ, codes_checked_rows=INT4_CHECKED_ROWS,
+        bytes=matrix_bytes(store), int8_bytes=data["int8_bytes"],
+        top10_overlap_with_int8_section=overlap, idle_share=profile["idle_share"],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts,
+    )
+    del store
+    torch.cuda.empty_cache()
+    result["rows_4m"] = run_int4_4m(data, seed) if 4 * ingest_s < INT4_4M_FILL_S else (
+        f"not run: four times the 1M fill ({4 * ingest_s:.1f} s) is not under {INT4_4M_FILL_S} s"
+    )
+    log("int4", json.dumps(result))
+    return result
+
+
+def run_int4_4m(data, seed: int) -> dict:
+    """One 512-query hybrid batch over an int4 store of 3,997,696 records
+    (dense 384, sketch 768, 128-nnz forward index). Block k of the store
+    phase's 1M rows enters with its dense columns permuted by a permutation
+    made from the seed and its term ids shifted by k · 7919 (mod the
+    vocabulary): new rows and terms, made in seconds, with no copy of a row
+    in another block."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    rng = np.random.default_rng(seed + 6000)
+    n, dim, nnz, vocab = INT4_4M_ROWS, data["dim"], data["nnz"], data["vocab"]
+    src = data["arrays"]
+    t0 = time.perf_counter()
+    blocks = -(-n // STORE_ROWS)
+    dense = np.concatenate(
+        [src["dense"][:, rng.permutation(dim) if k else np.arange(dim)] for k in range(blocks)]
+    )[:n]
+    ids = np.concatenate([(src["ids"] + k * 7919 - 1) % (vocab - 1) + 1 for k in range(blocks)])[:n]
+    weights = np.concatenate([src["weights"]] * blocks)[:n]
+    records = [{"id": str(i), "dense": dense[i], "sparse_arrays": (ids[i], weights[i])} for i in range(n)]
+    make_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    store = DeviceVectorStore(
+        dense_dim=dim, sparse_vocab=vocab, sparse_max_nnz=nnz, dense_dtype="int4", sketch_dtype="int4"
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.add_vectors(records)
+    store.flush()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    del records
+    q_dense, q_sparse, _ = data["queries"](0)
+    out = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=10)
+    require(len(out) == data["batch"] and all(len(r) == 10 for r in out), "int4 4M: result shape")
+    host_ms, event_ms = event_batches(store, data, 1, 1, 10)
+    result = dict(
+        rows=n, capacity=store._capacity, records_s=make_s, ingest_s=ingest_s,
+        bytes=matrix_bytes(store), batch_ms=host_ms[0], batch_event_ms=event_ms[0],
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    del store
+    torch.cuda.empty_cache()
+    return result
+
+
+#: The mesh phase: the mesh (dp × tp, every shard on the one card), the
+#: rows of its 3-way / lifecycle store and of its exact-mode store, and the
+#: timed batches of its section and bucket programs.
+MESH_DP, MESH_TP = 2, 2
+MESH_SHARDS = MESH_DP * MESH_TP
+MESH_TEXT_ROWS = 65_536
+MESH_EXACT_ROWS = 196_608
+MESH_TABLE_BATCHES = 2
+
+
+def sparse_dominates(got, ref) -> bool:
+    """A mesh store's sparse arm against the unsharded store's at the same
+    depth: its candidates are a superset (each shard keeps its own top
+    ``depth``), so position by position its exact scores are at least the
+    unsharded ones (within 1e-6 relative)."""
+    return len(got) >= len(ref) and all(
+        g.score >= r.score - 1e-6 * max(abs(r.score), 1e-30) for g, r in zip(got, ref)
+    )
+
+
+def held_to_unsharded(store, ref, data, top_k: int, what: str) -> dict:
+    """The mesh store's first hybrid batch against the unsharded store's on
+    the same records: the dense arm (dense-only at the fetch depth) equal,
+    and every query's rows and scores equal unless its sparse arm differs,
+    where the mesh store's must dominate (`sparse_dominates`)."""
+    q_dense, q_sparse, _ = data["queries"](0)
+    query = dict(dense_queries=q_dense, sparse_queries=q_sparse)
+    got, want = store.query_batch(top_k=top_k, **query), ref.query_batch(top_k=top_k, **query)
+    dense_got = store.query_batch(dense_queries=q_dense, top_k=2 * top_k)
+    dense_want = ref.query_batch(dense_queries=q_dense, top_k=2 * top_k)
+    sparse_got = store.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    sparse_want = ref.query_batch(sparse_queries=q_sparse, top_k=2 * top_k)
+    differ = 0
+    for b in range(data["batch"]):
+        require(
+            [h.id for h in dense_got[b]] == [h.id for h in dense_want[b]],
+            f"{what}: query {b} dense rows differ from the unsharded store's",
+        )
+        if hits([got[b]]) == hits([want[b]]):
+            continue
+        differ += 1
+        require(
+            [h.id for h in sparse_got[b]] != [h.id for h in sparse_want[b]]
+            and sparse_dominates(sparse_got[b], sparse_want[b]),
+            f"{what}: query {b} differs from the unsharded store's without a better sparse arm",
+        )
+    return dict(results=got, queries_with_a_better_sparse_arm=differ)
+
+
+def section_arm_ties(store, queries, top_k: int, depth: int):
+    """Queries of a 3-way batch where an arm of a single-device section
+    store holds two equal values among its top 2·top_k + 1 (the dense arm's
+    table values with the position bits cleared, the projected arms' exact
+    scores above 0): there a mesh store, which merges its shards' lists by
+    those values in shard order, may rank the tied rows otherwise. A [B]
+    bool tensor."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.dense import topk
+    from verbatim_rag_tpu_torch.ops.hybrid import rescore_fn
+    from verbatim_rag_tpu_torch.ops.section import section_bucket_tables, table_topk
+
+    q_dense, q_sparse, text_q = queries
+    q = np.asarray(q_dense, np.float32)
+    q = torch.from_numpy(q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)).cuda()
+    q_ids, q_w, sq = store._sparse_query_device(q_sparse, store.sparse_vocab)
+    f_ids, f_w, fq = store._sparse_query_device(store._bm25_query_sparse(text_q), store.full_text_vocab)
+    n, fetch = store._capacity, 2 * top_k + 1
+    bc = 16384 if n % 16384 == 0 else 8192
+    td, ts, tf = section_bucket_tables(
+        (store._dense, store._sp_proj, store._ft_proj), (q, sq, fq), store._valid_dev,
+        scales=(store._dense_scale, store._sp_proj_scale, store._ft_proj_scale), block_cols=bc,
+    )
+    vals, _ = table_topk(td, fetch, bc, n)
+    tied = (vals[:, 1:] == vals[:, :-1]).any(dim=1)
+    for table, ids, w, qi, qw in (
+        (ts, store._sp_ids, store._sp_w, q_ids, q_w), (tf, store._ft_ids, store._ft_w, f_ids, f_w)
+    ):
+        _, cand = table_topk(table, depth, bc, n)
+        top, _ = topk(rescore_fn(store.rescore_impl)(cand.contiguous(), ids, w, qi, qw), fetch)
+        tied |= ((top[:, 1:] == top[:, :-1]) & (top[:, 1:] > 0)).any(dim=1)
+    return tied.cpu()
+
+
+def held_unless_tied(got, want, tied, what: str) -> int:
+    """Rows and scores equal on every query but those ``tied`` marks; the
+    count of tied queries that differ."""
+    differ = 0
+    for b, (g, w) in enumerate(zip(got, want)):
+        if hits([g]) == hits([w]):
+            continue
+        require(bool(tied[b]), f"{what}: query {b} differs from the unsharded store's without a tie")
+        differ += 1
+    return differ
+
+
+def same_hits_within(got, want, what: str) -> None:
+    """Rows equal except where their scores tie within 1e-6 relative, and
+    scores within that."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        require(len(g) == len(w), f"{what}: query {b} has {len(g)} hits, the reference {len(w)}")
+        for x, y in zip(g, w):
+            require(
+                abs(x.score - y.score) <= 1e-6 * max(abs(y.score), 1e-30),
+                f"{what}: query {b}: {x.id} ({x.score}) where the reference has {y.id} ({y.score})",
+            )
+
+
+def shard_tables_bit_equal(store, data, what: str) -> dict:
+    """Each shard's int8 section tables (both arms) and bucket-max v2 tables
+    (the dense arm) from the kernels, bit-equal to their plain versions on
+    the shard's rows, and each kernel's time on one shard."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+    from verbatim_rag_tpu_torch.ops.dense import normalize_rows
+
+    q_dense, (q_ids, q_w), _ = data["queries"](0)
+    dq = normalize_rows(torch.from_numpy(q_dense).cuda())
+    _, _, sq = store._sparse_query_device((q_ids, q_w), store.sparse_vocab)
+    block = 16384 if store._capacity // MESH_SHARDS % 16384 == 0 else 8192
+    out = {}
+    for i in range(MESH_SHARDS):
+        corpora = (store._dense.shards[i], store._sp_proj.shards[i])
+        scales = (store._dense_scale.shards[i], store._sp_proj_scale.shards[i])
+        mask = store._valid_dev.shards[i]
+        args = (corpora, (dq, sq), mask, scales, block)
+        for got, ref in zip(sec.section_tables_cuda(*args), sec.section_tables_reference(*args)):
+            require(torch.equal(got, ref), f"{what}: shard {i} section tables differ from the plain version")
+        v2 = (corpora[0], dq, mask, scales[0])
+        for got, ref in zip(ft.matmul_bucket_max_v2_cuda(*v2), ft.matmul_bucket_max_v2_reference(*v2)):
+            require(torch.equal(got, ref), f"{what}: shard {i} bucket-max v2 tables differ from the plain version")
+        if i == 0:
+            out = dict(
+                shard_rows=corpora[0].shape[0],
+                section_ms=median_ms(lambda: sec.section_tables_cuda(*args)),
+                section_plain_ms=median_ms(lambda: sec.section_tables_reference(*args), reps=3),
+                bucket_max_v2_ms=median_ms(lambda: ft.matmul_bucket_max_v2_cuda(*v2)),
+                bucket_max_v2_plain_ms=median_ms(lambda: ft.matmul_bucket_max_v2_reference(*v2), reps=3),
+            )
+    return out
+
+
+def shard_rescore_ms(store, data) -> dict:
+    """The rescore kernel and its plain version on shard 0's forward index,
+    at the candidates the shard's section tables give (depth 256)."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import rescore
+    from verbatim_rag_tpu_torch.ops.dense import normalize_rows
+    from verbatim_rag_tpu_torch.ops.section import section_bucket_tables, table_topk
+
+    _, (q_ids, q_w), _ = data["queries"](0)
+    q_ids, q_w, sq = store._sparse_query_device((q_ids, q_w), store.sparse_vocab)
+    ids, w = store._sp_ids.shards[0], store._sp_w.shards[0]
+    n = ids.shape[0]
+    (table,) = section_bucket_tables(
+        (store._sp_proj.shards[0],), (sq,), store._valid_dev.shards[0],
+        scales=(store._sp_proj_scale.shards[0],),
+    )
+    _, cand = table_topk(table, store.rescore_depth, 8192, n)
+    cand = cand.contiguous()
+    got = rescore.exact_rescore_cuda(cand, ids, w, q_ids, q_w)
+    ref = rescore.exact_rescore_oneshot(cand, ids, w, q_ids, q_w)
+    live = cand >= 0
+    require(torch.allclose(got[live], ref[live], rtol=1e-5, atol=1e-6), "mesh: shard 0 rescore differs")
+    return dict(
+        candidates=list(cand.shape),
+        rescore_ms=median_ms(lambda: rescore.exact_rescore_cuda(cand, ids, w, q_ids, q_w)),
+        rescore_plain_ms=median_ms(lambda: rescore.exact_rescore_oneshot(cand, ids, w, q_ids, q_w), reps=3),
+    )
+
+
+def run_mesh(data, card: str, seed: int) -> dict:
+    """The row-sharded mesh store (see the module docstring, 5d)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+    from verbatim_rag_tpu_torch.parallel import RowSharded, make_mesh
+
+    t_phase = time.perf_counter()
+    top_k, n_batches = 10, STORE_BATCHES
+    mesh = make_mesh(dp=MESH_DP, tp=MESH_TP, devices=[torch.device("cuda")] * MESH_SHARDS)
+    int8 = dict(dense_dtype="int8", sketch_dtype="int8")
+    block = MESH_SHARDS * 8192
+
+    # (a) "auto" → "xla": one rescore launch per shard a batch, held to the
+    # unsharded int8 store with candidate_impl="xla".
+    reset_counts()
+    store, ingest_s, state_gb = fill_store(data, mesh=mesh, block=block, **int8)
+    capacity = store._capacity
+    require(store.candidate_impl == "xla", f"mesh: auto resolved to {store.candidate_impl}")
+    require(
+        isinstance(store._dense, RowSharded) and len(store._dense.shards) == MESH_SHARDS
+        and store._capacity % (MESH_SHARDS * 8192) == 0,
+        "mesh: the store is not row-sharded over the mesh",
+    )
+    first, hit = first_batch(store, data, top_k, "mesh xla")
+    xla_host, xla_events = event_batches(store, data, 1, n_batches, top_k)
+    counts = read_counts()
+    require(
+        counts["rescore"] == MESH_SHARDS * (n_batches + 1) and counts["section"] == 0
+        and counts["bucket_max_v2"] == 0,
+        f"mesh xla: launches {counts}",
+    )
+    launches = dict(xla=counts)
+    differ = same_rows_with_plain_rescore(store, data, first, top_k, "mesh xla")
+    ref, _, _ = fill_store(data, candidate_impl="xla", **int8)
+    ref_host, ref_events = event_batches(ref, data, 1, n_batches, top_k)
+    held = held_to_unsharded(store, ref, data, top_k, "mesh xla")
+    del ref
+    torch.cuda.empty_cache()
+    q_dense, q_sparse, _ = data["queries"](1)
+    profile = device_profile(
+        lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+    )
+    log("mesh xla profile", json.dumps(profile))
+
+    # (b) "section": one section launch per shard a batch; (c) "bucket": two
+    # v2 launches per shard a batch. Each held to the plain tables.
+    tables = {}
+    for impl, kernel, per_shard_batch in (("section", "section", 1), ("bucket", "bucket_max_v2", 2)):
+        store.candidate_impl = impl
+        reset_counts()
+        impl_first, _ = first_batch(store, data, top_k, f"mesh {impl}")
+        host, events = event_batches(store, data, 1, MESH_TABLE_BATCHES, top_k)
+        counts = read_counts()
+        require(
+            counts[kernel] == per_shard_batch * MESH_SHARDS * (MESH_TABLE_BATCHES + 1)
+            and counts["rescore"] == MESH_SHARDS * (MESH_TABLE_BATCHES + 1),
+            f"mesh {impl}: launches {counts}",
+        )
+        require(not store._warned_section_fallback, f"mesh {impl}: fell back {store._warned_section_fallback}")
+        launches[impl] = counts
+        same_rows_with_plain_tables(store, data, top_k, impl_first, f"mesh {impl}")
+        overlap = float(np.mean([
+            len({h.id for h in r} & {h.id for h in x}) / top_k for r, x in zip(impl_first, first)
+        ]))
+        tables[impl] = dict(
+            batch_ms=host, batch_event_ms=events, batch_event_ms_median=float(np.median(events)),
+            top10_overlap_with_xla=overlap,
+        )
+    per_shard = shard_tables_bit_equal(store, data, "mesh")
+    per_shard.update(shard_rescore_ms(store, data))
+    store.candidate_impl = "xla"
+    del store
+    torch.cuda.empty_cache()
+
+    # (d) One 3-way batch through the section path of a mesh store over the
+    # full_text phase's first 65,536 records, and (e) its lifecycle.
+    texts = bench_texts(data, seed)
+    n_small = MESH_TEXT_ROWS
+    records = [dict(rec, text=text) for rec, text in zip(data["records"][:n_small], texts[:n_small])]
+    ft = dict(enable_full_text=True, candidate_impl="section", **int8)
+    queries = small_queries(records, texts, n_small, data["batch"], seed + 7000)
+    full_depth = {"rescore_depth": 512}  # every table entry, sharded or not
+    # The unsharded store takes the mesh's block too, so that the file it
+    # saves loads onto the mesh ("section" there needs 4 · 8192-row blocks).
+    small, _, _ = fill_store(data, records, mesh=mesh, block=block, **ft)
+    small_ref, _, _ = fill_store(data, records, block=block, **ft)
+    q_dense, q_sparse, text_q = queries
+    deep = dict(dense_queries=q_dense, sparse_queries=q_sparse, text_queries=text_q, top_k=top_k,
+                search_params=full_depth)
+    reset_counts()
+    got = small.query_batch(**deep)
+    launches["three_way"] = read_counts()
+    require(
+        launches["three_way"]["section"] == MESH_SHARDS and launches["three_way"]["rescore"] == 2 * MESH_SHARDS,
+        f"mesh 3-way: launches {launches['three_way']}",
+    )
+    three_way_tied = held_unless_tied(
+        got, small_ref.query_batch(**deep), section_arm_ties(small_ref, queries, top_k, 512), "mesh 3-way"
+    )
+    rng = np.random.default_rng(seed + 8000)
+    dead = [records[r]["id"] for r in rng.choice(n_small, size=n_small // 20, replace=False)]
+    for s in (small, small_ref):
+        s.delete(dead)
+        require(s.compact() == len(dead), "mesh: compact count")
+    compacted = small.query_batch(**deep)
+    compacted_tied = held_unless_tied(
+        compacted, small_ref.query_batch(**deep), section_arm_ties(small_ref, queries, top_k, 512),
+        "mesh compacted",
+    )
+    require(not set(dead) & {h.id for r in compacted for h in r}, "mesh: a deleted id was returned")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        small.save(os.path.join(tmp, "mesh"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = DeviceVectorStore.load(os.path.join(tmp, "mesh"), mesh=mesh)
+        load_s = time.perf_counter() - t0
+        small_ref.save(os.path.join(tmp, "single"))
+        from_single = DeviceVectorStore.load(os.path.join(tmp, "single"), mesh=mesh)
+    for what, s in (("loaded", loaded), ("saved unsharded", from_single)):
+        require(isinstance(s._dense, RowSharded) and s.mesh is mesh, f"mesh: {what} store is not sharded")
+        require(hits(s.query_batch(**deep)) == hits(compacted), f"mesh: the {what} store answers otherwise")
+    del small, small_ref, loaded, from_single
+    torch.cuda.empty_cache()
+
+    # (f) The exact sparse mode at 196,608 rows, held to the unsharded scan.
+    n_exact = MESH_EXACT_ROWS
+    exact_recs = data["records"][:n_exact]
+    exact, _, _ = fill_store(data, exact_recs, mesh=mesh, block=block, sparse_mode="exact")
+    exact_ref, _, _ = fill_store(data, exact_recs, sparse_mode="exact")
+    _, q_sparse, _ = small_queries(data["records"], texts, n_exact, FT_EXACT_BATCH, seed + 9000)
+    same_hits_within(
+        exact.query_batch(sparse_queries=q_sparse, top_k=top_k),
+        exact_ref.query_batch(sparse_queries=q_sparse, top_k=top_k),
+        "mesh exact",
+    )
+    del exact, exact_ref
+    torch.cuda.empty_cache()
+
+    result = dict(
+        card=card, mesh=dict(dp=MESH_DP, tp=MESH_TP, devices="one card, repeated"),
+        rows=STORE_ROWS, capacity=capacity, state_gb=state_gb, ingest_s=ingest_s,
+        source_row_in_top10=hit, batch=data["batch"],
+        xla=dict(
+            batch_ms=xla_host, batch_event_ms=xla_events, batch_event_ms_median=float(np.median(xla_events)),
+            unsharded_batch_event_ms=ref_events, unsharded_batch_event_ms_median=float(np.median(ref_events)),
+            queries_differing_from_plain_on_a_tie=differ,
+            queries_with_a_better_sparse_arm=held["queries_with_a_better_sparse_arm"],
+            idle_share=profile["idle_share"],
+        ),
+        **tables, per_shard=per_shard,
+        three_way=dict(
+            rows=n_small, deleted=len(dead), save_s=save_s, load_s=load_s,
+            queries_differing_on_a_tie=three_way_tied, compacted_queries_differing_on_a_tie=compacted_tied,
+        ),
+        exact=dict(rows=n_exact, batch=FT_EXACT_BATCH),
+        launches={k: sum(c[k] for c in launches.values()) for k in launches["xla"]},
+        launches_by_program=launches, phase_s=time.perf_counter() - t_phase,
+    )
+    log("mesh", json.dumps(result))
+    return result
+
+
+def bench_texts(data, seed: int) -> list[str]:
+    """The full_text phase's synthetic texts of the store records, made once."""
+    if "texts" not in data:
+        data["texts"] = text_corpus(seed, STORE_ROWS)
+    return data["texts"]
 
 
 #: The full_text phase: the words of the synthetic texts (made from the
@@ -2798,7 +3372,7 @@ def run_full_text(data, card: str, seed: int) -> dict:
     t_phase = time.perf_counter()
     top_k, n_batches = 10, STORE_BATCHES
     t0 = time.perf_counter()
-    texts = text_corpus(seed, STORE_ROWS)
+    texts = bench_texts(data, seed)
     records = [dict(rec, text=text) for rec, text in zip(data["records"], texts)]
     texts_s = time.perf_counter() - t0
     ft_kwargs = dict(dense_dtype="int8", sketch_dtype="int8", enable_full_text=True)
@@ -3724,6 +4298,8 @@ def main() -> None:
     data = bench_data(args.seed)
     store = run_store(data, card)
     store_int8 = run_store_int8(data, card)
+    int4 = run_int4(data, card, args.seed)
+    mesh = run_mesh(data, card, args.seed)
     full_text = run_full_text(data, card, args.seed)
     del data
     torch.cuda.empty_cache()
@@ -3739,7 +4315,12 @@ def main() -> None:
     shutil.rmtree(ROOT / "build" / "chip_smoke_train", ignore_errors=True)
     del serve_index
 
-    phases = (flow, serve, http, bucket_ab, store, store_int8, full_text, cli, long_ctx, long_sp, train, checkpoints)
+    phases = (
+        flow, serve, http, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
+        checkpoints,
+    )
+    by_program = mesh["launches_by_program"]
+    per_shard = mesh["per_shard"]
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
     kernels = [
         dict(
@@ -3789,6 +4370,11 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/rescore.py:41",
             launches=launches["rescore"],
             registers=build.get("rescore_kernel", {}).get("registers"),
+            mesh=dict(
+                launches=sum(c["rescore"] for c in by_program.values()), shards=MESH_SHARDS,
+                shard_ms=per_shard["rescore_ms"], shard_plain_ms=per_shard["rescore_plain_ms"],
+                shard_candidates=per_shard["candidates"],
+            ),
             **rescore,
         ),
         dict(
@@ -3800,6 +4386,11 @@ def main() -> None:
             registers_int8=build.get("section_wgmma_kernelILb1E", {}).get("registers"),
             registers_bf16=build.get("section_wgmma_kernelILb0E", {}).get("registers"),
             registers_f32=build.get("fma_walk_kernelILi0E", {}).get("registers"),
+            mesh=dict(
+                launches=sum(c["section"] for c in by_program.values()), shards=MESH_SHARDS,
+                shard_rows=per_shard["shard_rows"], shard_ms=per_shard["section_ms"],
+                shard_plain_ms=per_shard["section_plain_ms"],
+            ),
             **section,
         ),
         dict(
@@ -3811,6 +4402,11 @@ def main() -> None:
             registers_int8=build.get("bucket_v2_wgmma_kernelILb1E", {}).get("registers"),
             registers_bf16=build.get("bucket_v2_wgmma_kernelILb0E", {}).get("registers"),
             registers_f32=build.get("fma_walk_kernelILi1E", {}).get("registers"),
+            mesh=dict(
+                launches=sum(c["bucket_max_v2"] for c in by_program.values()), shards=MESH_SHARDS,
+                shard_rows=per_shard["shard_rows"], shard_ms=per_shard["bucket_max_v2_ms"],
+                shard_plain_ms=per_shard["bucket_max_v2_plain_ms"],
+            ),
             **bucket,
         ),
         dict(

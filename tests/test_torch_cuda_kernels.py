@@ -1297,3 +1297,75 @@ def test_d32_cross_encoder_flash_matches_plain(cuda, monkeypatch):
                         lambda q, k, v, lengths, window=None: fa.flash_attention(
                             q, k, v, torch.clamp(lengths, max=4), window))
     assert _bf16_row_ratio(torch.from_numpy(flash.pooled(question, texts)), plain_pooled, rows) > 1.0
+
+
+def _hashed_records(n):
+    from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider
+
+    texts = [f"doc {i} about solar wind storage grid {i % 5} {i % 7}" for i in range(n)]
+    dense, sparse = HashedBowDenseProvider(64), HashedSparseProvider(4096)
+    records = [
+        {"id": str(i), "text": t, "dense": d, "sparse": s}
+        for i, (t, d, s) in enumerate(zip(texts, dense.embed_batch(texts), sparse.embed_batch(texts)))
+    ]
+    queries = ["solar grid 3", "wind storage 6", "doc 17"]
+    return records, dict(dense_queries=dense.embed_batch(queries), sparse_queries=sparse.embed_batch(queries))
+
+
+@pytest.mark.parametrize("impl,counter,per_shard", [("xla", rs, 1), ("section", sec, 1), ("bucket", ft, 2)])
+def test_mesh_store_on_cuda_matches_cpu_mesh(cuda, impl, counter, per_shard):
+    """A mesh store of two shards on the card launches each kernel once per
+    shard (bucket: once per shard and arm) and answers as the same mesh on
+    the CPU (the plain versions)."""
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+    from verbatim_rag_tpu_torch.parallel import RowSharded, make_mesh
+
+    records, query = _hashed_records(300)
+    results = []
+    for device in ("cpu", cuda):
+        store = DeviceVectorStore(
+            dense_dim=64, sparse_vocab=4096, sparse_max_nnz=16, block=2 * 8192,
+            dense_dtype="int8", sketch_dtype="int8", candidate_impl=impl,
+            mesh=make_mesh(dp=2, devices=[device] * 2),
+        )
+        store.add_vectors([dict(r) for r in records])
+        store.flush()
+        assert isinstance(store._dense, RowSharded) and store._dense.device.type == torch.device(device).type
+        before = counter.launches
+        out = store.query_batch(top_k=5, search_params={"rescore_depth": 64}, **query)
+        assert counter.launches - before == (2 * per_shard if device == cuda else 0)
+        results.append([[h.id for h in row] for row in out])
+    assert results[0] == results[1]
+
+
+def test_int4_store_on_cuda_matches_cpu(cuda):
+    """The int4 tier on the card (unpack + `torch._int_mm`, the rescore
+    kernel) answers as on the CPU, and never enters the bucket kernel."""
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    records, query = _hashed_records(300)
+    results = []
+    for device in ("cpu", cuda):
+        store = DeviceVectorStore(
+            dense_dim=64, sparse_vocab=4096, sparse_max_nnz=16, device=device,
+            dense_dtype="int4", sketch_dtype="int4", candidate_impl="bucket",
+        )
+        store.add_vectors([dict(r) for r in records])
+        before = ft.launches, rs.launches
+        out = store.query_batch(top_k=5, search_params={"rescore_depth": 64}, **query)
+        assert ft.launches == before[0] and rs.launches - before[1] == (device == cuda)
+        results.append([[h.id for h in row] for row in out])
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("tier", ["int8", "int4"])
+def test_row_quantization_on_cuda_is_bit_equal_to_cpu(cuda, tier):
+    """Stored rows quantize on the card bit-equal to the CPU (and so to the
+    JAX package's numpy): the per-row scale is a true division, not the
+    reciprocal multiply CUDA takes for a Python-scalar divisor."""
+    from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int4, quantize_rows_int8
+
+    quantize = quantize_rows_int4 if tier == "int4" else quantize_rows_int8
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(65536, 384)).astype(np.float32))
+    for got, want in zip(quantize(x.to(cuda)), quantize(x)):
+        assert torch.equal(got.cpu(), want)

@@ -5,7 +5,9 @@ the default extractor on the CPU, ingests them again through the neural
 dense and SPLADE providers (`add_documents_batch`) and answers two questions
 with one `query_batch`, runs a hybrid query over an int8 index
 (the section path) and over a float32 index with an int16 / float16 forward
-index (the section path), calls the bucket-max v1 entry points, takes one training step of the token highlighter and
+index (the section path), calls the bucket-max v1 entry points, queries a
+mesh index of four ``"cpu"`` devices with int4 sketches, takes one training
+step of the token highlighter and
 saves and loads its checkpoint, scores a document in one sequence-parallel
 pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
 module and no ``verbatim_rag_tpu`` module. A second interpreter saves,
@@ -94,6 +96,12 @@ with tempfile.TemporaryDirectory() as ckpt:
     )
 from verbatim_rag_tpu_torch.parallel import make_mesh
 
+mesh_index = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(),
+    mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4), sketch_dtype="int4",
+)
+mesh_index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+mesh_hits = mesh_index.query_batch(["How efficient are solar panels?", "wind"], k=3)
 sp = ModelSpanExtractor(sp_mesh=make_mesh(dp=1, tp=2, devices=["cpu"] * 2), device="cpu", threshold=0.0)
 sp_text = " ".join(Path("examples/example_docs/solar.md").read_text().split()[:150])
 sp_spans = sp.process("How efficient are solar panels?", sp_text)
@@ -102,6 +110,8 @@ print(json.dumps({
     "sp_whole": sp_spans == [(0, len(sp_text))],
     "train_loss": float(loss),
     "checkpoint_reloaded": reloaded,
+    "mesh_hits": [len(r) for r in mesh_hits],
+    "mesh_shards": [type(mesh_index.store._sp_proj).__name__, len(mesh_index.store._sp_proj.shards)],
     "int8_impl": int8.store.candidate_impl,
     "int8_hits": len(int8_hits),
     "narrow_hits": len(narrow_hits),
@@ -297,6 +307,7 @@ def test_main_path_loads_no_jax():
     assert result["v1_shapes"] == [[3, 16], [3, 16], [3, 5]]
     assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
     assert result["sp_rows"] == 1 and result["sp_whole"]
+    assert result["mesh_hits"] == [3, 3] and result["mesh_shards"] == ["RowSharded", 4]
 
 
 def test_persistence_and_cli_load_no_jax():

@@ -130,9 +130,9 @@ def test_a_saved_store_loads_in_the_other_package(tmp_path, name, saver, loader)
 
 
 def test_load_with_a_mesh_raises_and_missing_files_raise(tmp_path):
+    """Loading onto a mesh is ported (`tests/test_torch_mesh_store.py`); a
+    missing file still raises."""
     _filled(DeviceVectorStore, _corpus(60)).save(str(tmp_path / "idx"))
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        DeviceVectorStore.load(str(tmp_path / "idx"), mesh=object(), device="cpu")
     with pytest.raises(FileNotFoundError):
         DeviceVectorStore.load(str(tmp_path / "missing"), device="cpu")
 

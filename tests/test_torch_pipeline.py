@@ -122,13 +122,32 @@ def test_default_extractor_follows_the_index_device():
     assert index.inspect()["num_chunks"] == 0
 
 
-@pytest.mark.parametrize("kwargs", [dict(dense_dtype="int4"), dict(mesh=object())])
-def test_unported_options_raise(kwargs):
-    """What the pipeline still refuses: the index's int4 tier and a mesh
-    (ROADMAP.md queue 1). Rerankers (test_torch_rerankers.py), LLM clients,
-    intent detectors and structured mode (test_torch_llm.py) are ported."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        VerbatimIndex(dense_provider=HashedBowDenseProvider(), device="cpu", **kwargs)
+@pytest.mark.parametrize("option", ["int4", "mesh"])
+def test_unported_options_raise(option):
+    """The index's int4 tier and a mesh, which earlier slices refused, now
+    answer like the JAX package's index with the same option: the same
+    chunks in the same order, scores at rtol 5e-4. Rerankers
+    (test_torch_rerankers.py), LLM clients, intent detectors and structured
+    mode (test_torch_llm.py) are ported too."""
+    from verbatim_rag_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    if option == "int4":
+        jax_kw = port_kw = dict(dense_dtype="int4", sketch_dtype="int4")
+    else:
+        jax_kw = dict(mesh=jax_make_mesh(dp=2, tp=2, devices=jax.devices()[:4]))
+        port_kw = dict(mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4))
+    jax_index = JaxIndex(dense_provider=JaxDense(), sparse_provider=JaxSparse(), approx_topk=False, **jax_kw)
+    port_index = VerbatimIndex(
+        dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(),
+        approx_topk=False, **({"device": "cpu"} if option == "int4" else {}), **port_kw,
+    )
+    jax_index.add_documents([JaxSchema.from_file(str(p)) for p in DOCS])
+    port_index.add_documents([DocumentSchema.from_file(str(p)) for p in DOCS])
+    for question in QUESTIONS:
+        got, want = port_index.query(question, k=4), jax_index.query(question, k=4)
+        assert [h.text for h in got] == [h.text for h in want]
+        np.testing.assert_allclose([h.score for h in got], [h.score for h in want], rtol=5e-4, atol=5e-4)
 
 
 def test_a_reranker_is_accepted():

@@ -155,21 +155,35 @@ def test_browsing_and_empty_store():
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,mesh_size",
     [
-        dict(dense_dtype="int4"),
-        dict(sketch_dtype="int4"),
-        dict(candidate_impl="section", enable_full_text=True, mesh=object()),  # the sharded 3-way
-        dict(enable_full_text=True, dense_dtype="int4"),
-        dict(sparse_mode="exact", mesh=object()),  # the sharded exact scan
-        dict(sparse_ids_dtype="int16", enable_full_text=True, sketch_dtype="int4"),
-        dict(sparse_weight_dtype="float16", mesh=object()),
-        dict(mesh=object()),
+        (dict(candidate_impl="section", dense_dtype="int4"), None),
+        (dict(candidate_impl="section", dense_dtype="int8", sketch_dtype="int4"), None),
+        (dict(dense_dim=7, dense_dtype="int4"), None),
+        (dict(enable_full_text=True, projection_dim=9, sketch_dtype="int4"), None),
+        (dict(block=100), 8),  # rows would not shard evenly
+        (dict(block=6, sparse_mode="exact"), 4),
+        (dict(block=8192, candidate_impl="section", enable_full_text=True), 2),
+        (dict(block=8 * 8192, candidate_impl="section", sketch_dtype="int4"), 8),
     ],
 )
-def test_options_of_later_slices_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DeviceVectorStore(device="cpu", **kwargs)
+def test_options_of_later_slices_raise(kwargs, mesh_size):
+    """The int4 tier and a mesh, which earlier slices refused, raise only
+    where the JAX store raises, with its ``ValueError`` and message."""
+    from verbatim_rag_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    jax_kwargs, port_kwargs = dict(kwargs), dict(kwargs, device="cpu")
+    if mesh_size:
+        import jax
+
+        jax_kwargs["mesh"] = jax_make_mesh(dp=mesh_size, devices=jax.devices()[:mesh_size])
+        port_kwargs["mesh"] = make_mesh(dp=mesh_size, devices=["cpu"] * mesh_size)
+    with pytest.raises(ValueError) as want:
+        JaxStore(**jax_kwargs)
+    with pytest.raises(ValueError) as got:
+        DeviceVectorStore(**port_kwargs)
+    assert str(got.value) == str(want.value)
 
 
 NARROW_INDEX = [
@@ -242,15 +256,13 @@ def test_comma_pair_candidate_impl_matches_jax(spec, caplog):
 
 
 def test_persistence_raises(tmp_path):
-    """Persistence is ported (`tests/test_torch_persistence.py`); what still
-    raises: loading onto a mesh (the parallel slice) and a missing file. An
+    """Persistence is ported (`tests/test_torch_persistence.py`, onto a mesh
+    `tests/test_torch_mesh_store.py`); what still raises: a missing file. An
     empty store compacts nothing and saves and loads as empty."""
     store = DeviceVectorStore(device="cpu")
     assert store.compact() == 0
     store.save(str(tmp_path / "empty"))
     assert DeviceVectorStore.load(str(tmp_path / "empty"), device="cpu").count() == 0
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        DeviceVectorStore.load(str(tmp_path / "empty"), mesh=object(), device="cpu")
     with pytest.raises(FileNotFoundError):
         DeviceVectorStore.load(str(tmp_path / "x"), device="cpu")
 

@@ -398,8 +398,11 @@ class VerbatimIndex:
         ``cuda``), rebuilding the providers that built it from their
         persisted identities; explicit providers override them. An index
         saved without identities gets the hashed providers, with a warning.
-        A ``mesh`` raises (the parallel slice)."""
+        With a ``mesh`` the store is row-sharded over it at load time, and
+        the providers follow the store's device unless ``device`` is given."""
         store = DeviceVectorStore.load(path, mesh=mesh, device=device)
+        if device is None:
+            device = store.device
         providers_path = path + ".providers.json"
         if os.path.exists(providers_path):
             with open(providers_path) as f:

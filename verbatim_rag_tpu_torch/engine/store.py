@@ -1,16 +1,19 @@
 """Device-resident hybrid vector store (port of
-`verbatim_rag_tpu/engine/store.py`: the bf16 / float32 and int8 tiers, BM25
-full text, the exact sparse mode, compaction and persistence).
+`verbatim_rag_tpu/engine/store.py`: the bf16 / float32, int8 and int4 tiers,
+BM25 full text, the exact sparse mode, compaction, persistence and the
+row-sharded mesh store).
 
 Layout on the store's device (a CUDA device unless ``device="cpu"``):
 
 - dense:    ``[cap, d]`` row-normalized bf16 (or f32), or int8 codes with
-            a ``[cap, 1]`` float32 scale column (``dense_dtype="int8"``);
+            a ``[cap, 1]`` float32 scale column (``dense_dtype="int8"``), or
+            int4 codes packed two a byte, ``[cap, d/2]`` int8, with the same
+            scale column (``dense_dtype="int4"``, `ops/dense.py::Int4Rows`);
 - sparse:   forward index ``ids [cap, m]`` int32 (or int16,
             ``sparse_ids_dtype``) + ``weights [cap, m]`` f32 (or f16,
             ``sparse_weight_dtype``), and its projected sketches ``[cap, d_p]`` in the dense family's
-            float dtype, or int8 codes with a ``[cap, 1]`` scale column
-            (``sketch_dtype="int8"``);
+            float dtype, or int8 / packed int4 codes with a ``[cap, 1]``
+            scale column (``sketch_dtype="int8"`` / ``"int4"``);
 - full text (``enable_full_text``): the same forward-index layout over a
             hashed analyzer vocabulary (`engine/analyzer.py`): term ids and
             raw term frequencies ``[cap, fm]`` int32, their BM25-saturated
@@ -23,6 +26,12 @@ Text and metadata stay on the host. Writes queue in a host buffer; `flush()`
 writes them into the device arrays, whose capacity grows geometrically from
 ``block``. Unlike the JAX store (immutable arrays, a fresh buffer per
 write), rows are written in place into the preallocated arrays.
+
+With a ``mesh`` (`parallel/mesh.py`) every device array is row-sharded over
+the mesh's devices (`RowSharded`, dp-major, ``block`` a multiple of the mesh
+size), and re-placed whole when capacity grows; queries run through
+`parallel/sharded_search.py`, each kernel once per shard, and the shards'
+results merge on the mesh's first device, which is the store's ``device``.
 
 Queries: each method alone (dense, sparse, full text), and the hybrids.
 Dense + sparse, with or without full text, runs as one call per batch on the
@@ -39,12 +48,13 @@ every forward-index row (`ops/sparse.py::sparse_topk`) and fuses methods on
 the host.
 
 `save` writes ``<path>.npz`` + ``<path>.json`` in the JAX store's format, so
-an index saved by either package loads in the other. The int4 tier and a
-mesh raise ``NotImplementedError`` naming their slice.
+an index saved by either package loads in the other; ``load(path, mesh=...)``
+shards it at load time (placement is never persisted).
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -138,13 +148,10 @@ def _is_sparse_arrays(payload) -> bool:
     )
 
 
-def _not_in_slice(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch store yet ({slice_name})"
-    )
-
-
-_STORE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
+#: Device dtype of each tier; int4 codes are packed two a byte into int8.
+_STORE_DTYPES = {
+    "bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8, "int4": torch.int8,
+}
 
 
 class DeviceVectorStore(VectorStore):
@@ -189,29 +196,6 @@ class DeviceVectorStore(VectorStore):
             raise ValueError(
                 f"rescore_impl must be 'scan', 'oneshot' or 'pallas', got {rescore_impl!r}"
             )
-        if dense_dtype not in ("bfloat16", "float32", "int8", "int4"):
-            raise ValueError(f"unsupported dense_dtype {dense_dtype!r}")
-        if sketch_dtype not in (None, "bfloat16", "float32", "int8", "int4"):
-            raise ValueError(f"unsupported sketch_dtype {sketch_dtype!r}")
-        if sparse_weight_dtype not in ("float32", "float16"):
-            raise ValueError(f"unsupported sparse_weight_dtype {sparse_weight_dtype!r}")
-        if sparse_ids_dtype not in ("int32", "int16"):
-            raise ValueError(f"unsupported sparse_ids_dtype {sparse_ids_dtype!r}")
-        if sparse_ids_dtype == "int16" and sparse_vocab is not None and sparse_vocab > 32768:
-            raise ValueError(
-                f"sparse_ids_dtype='int16' holds vocab ids < 32768; "
-                f"sparse_vocab is {sparse_vocab}"
-            )
-        if dense_dtype == "int4" or sketch_dtype == "int4":
-            raise _not_in_slice("int4 dense and sketch rows", "the int4 capacity slice")
-        if mesh is not None:
-            raise _not_in_slice("a mesh", "the parallel slice")
-        if sparse_mode == "exact":
-            logger.warning(
-                "sparse_mode='exact' scans every forward-index row per query — "
-                "correct, but far slower than 'projected' at large N. Intended "
-                "for validation runs."
-            )
         from verbatim_rag_tpu_torch.ops.hybrid import validate_candidate_impl
 
         if "," in candidate_impl:
@@ -239,15 +223,78 @@ class DeviceVectorStore(VectorStore):
         if candidate_impl == "auto":
             # The JAX package's policy: the section kernel serves the int8
             # tier (both matrices int8) when the store selects approximately;
-            # a store built for exact selection takes the "xla" program.
+            # int4 stores, mesh stores (the per-shard section path is opt-in
+            # until measured on multi-chip hardware) and a store built for
+            # exact selection take the "xla" program.
             candidate_impl = (
                 "section"
-                if dense_dtype == "int8" and sketch_dtype == "int8" and approx_topk
+                if dense_dtype == "int8"
+                and sketch_dtype == "int8"
+                and mesh is None
+                and approx_topk
                 else "xla"
             )
-        if candidate_impl != "section":
+        if candidate_impl == "section":
+            if dense_dtype == "int4" or sketch_dtype == "int4":
+                raise ValueError(
+                    "candidate_impl='section' does not serve the int4 tier "
+                    "(the section kernel streams int8/bf16 blocks; no packed "
+                    "4-bit unpack) — use 'xla' for int4 stores"
+                )
+            if mesh is not None and block % (mesh.size * 8192) != 0:
+                raise ValueError(
+                    "candidate_impl='section' on a mesh needs each shard's "
+                    "capacity to tile the kernel's 8192-column grid: pass "
+                    f"block as a multiple of mesh.size*8192 ({mesh.size * 8192}), "
+                    f"got block={block}"
+                )
+        else:
             validate_candidate_impl(candidate_impl)
-        self.device = resolve_device(device)
+        if dense_dtype not in ("bfloat16", "float32", "int8", "int4"):
+            raise ValueError(
+                "dense_dtype must be 'bfloat16', 'float32', 'int8' or 'int4', "
+                f"got {dense_dtype!r}"
+            )
+        if sketch_dtype not in (None, "bfloat16", "float32", "int8", "int4"):
+            raise ValueError(
+                "sketch_dtype must be None, 'bfloat16', 'float32', 'int8' or "
+                f"'int4', got {sketch_dtype!r}"
+            )
+        if dense_dtype == "int4" and dense_dim % 2:
+            raise ValueError("int4 dense packing needs an even dense_dim")
+        if sketch_dtype == "int4" and projection_dim % 2:
+            raise ValueError("int4 sketch packing needs an even projection_dim")
+        if sparse_weight_dtype not in ("float32", "float16"):
+            raise ValueError(
+                "sparse_weight_dtype must be 'float32' or 'float16', "
+                f"got {sparse_weight_dtype!r}"
+            )
+        if sparse_ids_dtype not in ("int32", "int16"):
+            raise ValueError(
+                f"sparse_ids_dtype must be 'int32' or 'int16', got {sparse_ids_dtype!r}"
+            )
+        if sparse_ids_dtype == "int16" and sparse_vocab is not None and sparse_vocab > 32768:
+            raise ValueError(
+                f"sparse_ids_dtype='int16' holds vocab ids < 32768; "
+                f"sparse_vocab is {sparse_vocab}"
+            )
+        if mesh is not None and block % mesh.size != 0:
+            raise ValueError(
+                f"block ({block}) must be a multiple of the mesh size ({mesh.size}) "
+                "so index rows shard evenly"
+            )
+        if sparse_mode == "exact":
+            logger.warning(
+                "sparse_mode='exact' scans every forward-index row per query — "
+                "correct, but far slower than 'projected' at large N. Intended "
+                "for validation runs."
+            )
+        #: Optional `parallel.Mesh`: every device array is row-sharded over
+        #: its devices and queries run through `parallel/sharded_search.py`.
+        #: The store's ``device`` is then the mesh's first device (queries
+        #: land and merge there); a ``device`` of another type raises.
+        self.mesh = mesh
+        self.device = self._store_device(device, mesh)
         self.dense_dim = dense_dim
         self.sparse_vocab = sparse_vocab
         self.sparse_max_nnz = sparse_max_nnz
@@ -317,14 +364,62 @@ class DeviceVectorStore(VectorStore):
             np.zeros(full_text_vocab, dtype=np.int64) if enable_full_text else None
         )
 
+    @staticmethod
+    def _store_device(device, mesh) -> torch.device:
+        if mesh is None:
+            return resolve_device(device)
+        first = mesh.flat_devices[0]
+        if device is not None and torch.device(device).type != first.type:
+            raise ValueError(
+                f"device={device!r} differs from the mesh's devices ({first.type}); "
+                "a mesh store lives on its mesh"
+            )
+        return first
+
     # -- basic accessors -----------------------------------------------------
 
     @property
     def _dense_store_dtype(self) -> torch.dtype:
         """Device dtype of the dense matrix. ``int8`` is the capacity mode:
         per-row symmetric codes (`ops/dense.py::quantize_rows_int8`) with a
-        float32 scale column, half the bytes of bf16."""
+        float32 scale column, half the bytes of bf16; ``int4`` packs codes in
+        [-7, 7] two a byte (`quantize_rows_int4`), a quarter."""
         return _STORE_DTYPES[self.dense_dtype]
+
+    @property
+    def _dense_quantized(self) -> bool:
+        return self.dense_dtype in ("int8", "int4")
+
+    @property
+    def _sketch_quantized(self) -> bool:
+        return self.sketch_dtype in ("int8", "int4")
+
+    @property
+    def _dense_width(self) -> int:
+        """Stored column count of the dense matrix (int4 packs pairs)."""
+        return self.dense_dim // 2 if self.dense_dtype == "int4" else self.dense_dim
+
+    @property
+    def _sketch_width(self) -> int:
+        """Stored column count of the sketch matrices (int4 packs pairs)."""
+        return self.projection_dim // 2 if self.sketch_dtype == "int4" else self.projection_dim
+
+    def _dense_scoring_args(self):
+        """(corpus, scale) as the query programs take them: int4 codes travel
+        in the `Int4Rows` carrier with their scales, never as bare int8."""
+        if self.dense_dtype == "int4":
+            from verbatim_rag_tpu_torch.ops.dense import Int4Rows
+
+            return Int4Rows(self._dense, self._dense_scale), None
+        return self._dense, self._dense_scale
+
+    def _sketch_scoring_args(self, proj, scale):
+        """The same wrap for a sketch matrix (SPLADE or BM25)."""
+        if self.sketch_dtype == "int4":
+            from verbatim_rag_tpu_torch.ops.dense import Int4Rows
+
+            return Int4Rows(proj, scale), None
+        return proj, scale
 
     @property
     def _sketch_store_dtype(self) -> torch.dtype:
@@ -460,25 +555,27 @@ class DeviceVectorStore(VectorStore):
             arr[offset : offset + n_new] = torch.as_tensor(new_rows).to(self.device, dtype)
             return arr
 
-        def _write_sketch(arr, scale_arr, proj_new):
-            """Write a sketch matrix's new rows (int8 codes and their scale
-            column on the int8 tier)."""
-            if self.sketch_dtype == "int8":
-                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
+        def _quantize(rows, dtype: str):
+            """(codes, scales) of rows on the int8 or int4 tier."""
+            from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int4, quantize_rows_int8
 
-                codes, scale = quantize_rows_int8(proj_new)
+            return (quantize_rows_int4 if dtype == "int4" else quantize_rows_int8)(rows)
+
+        def _write_sketch(arr, scale_arr, proj_new):
+            """Write a sketch matrix's new rows (codes and their scale column
+            on the int8 and int4 tiers)."""
+            if self._sketch_quantized:
+                codes, scale = _quantize(proj_new, self.sketch_dtype)
                 return (
-                    _write(arr, codes, self.projection_dim, torch.int8),
+                    _write(arr, codes, self._sketch_width, torch.int8),
                     _write(scale_arr, scale, 1, torch.float32),
                 )
             return _write(arr, proj_new, self.projection_dim, self._sketch_store_dtype), scale_arr
 
         if dense_new is not None:
-            if self.dense_dtype == "int8":
-                from verbatim_rag_tpu_torch.ops.dense import quantize_rows_int8
-
-                codes, scale = quantize_rows_int8(torch.from_numpy(dense_new).to(self.device))
-                self._dense = _write(self._dense, codes, self.dense_dim, torch.int8)
+            if self._dense_quantized:
+                codes, scale = _quantize(torch.from_numpy(dense_new).to(self.device), self.dense_dtype)
+                self._dense = _write(self._dense, codes, self._dense_width, torch.int8)
                 self._dense_scale = _write(self._dense_scale, scale, 1, torch.float32)
             else:
                 self._dense = _write(
@@ -559,7 +656,21 @@ class DeviceVectorStore(VectorStore):
     def _set_valid_dev(self, cap: int) -> None:
         valid = torch.zeros(cap, dtype=torch.bool)
         valid[: self._valid.size] = torch.from_numpy(self._valid)
-        self._valid_dev = valid.to(self.device)
+        self._valid_dev = self._place(valid.to(self.device))
+
+    def _place(self, arr: torch.Tensor):
+        """Row-shard an array over the mesh (as it is without one)."""
+        if self.mesh is None:
+            return arr
+        from verbatim_rag_tpu_torch.parallel.mesh import row_sharding
+
+        return row_sharding(arr, self.mesh)
+
+    def _per_shard(self, fn, *arrays):
+        """``fn`` of row-aligned arrays, shard by shard on a mesh."""
+        if self.mesh is None:
+            return fn(*arrays)
+        return arrays[0].map(fn, *arrays[1:])
 
     def _target_capacity(self, needed: int, first_flush: bool = False) -> int:
         """Next capacity: doubles from `block`. The first flush of an empty
@@ -572,12 +683,26 @@ class DeviceVectorStore(VectorStore):
         return cap
 
     def _grow_capacity(self, old, cap: int, width: int, dtype):
-        """Allocate [cap, width] zeros and copy the old rows into the prefix."""
+        """Allocate [cap, width] zeros and copy the old rows into the prefix.
+
+        On a mesh each shard's row range moves with the capacity, so the old
+        rows are re-placed, shard by shard, into the new array's shards."""
         if old is not None and old.shape[0] >= cap:
             return old
-        fresh = torch.zeros((cap, width), dtype=dtype, device=self.device)
+        if self.mesh is None:
+            fresh = torch.zeros((cap, width), dtype=dtype, device=self.device)
+            if old is not None:
+                fresh[: old.shape[0]] = old
+            return fresh
+        from verbatim_rag_tpu_torch.parallel.mesh import RowSharded
+
+        m = cap // self.mesh.size
+        fresh = RowSharded(
+            [torch.zeros((m, width), dtype=dtype, device=d) for d in self.mesh.flat_devices]
+        )
         if old is not None:
-            fresh[: old.shape[0]] = old
+            for i, shard in enumerate(old.shards):
+                fresh[i * old.rows_per_shard : (i + 1) * old.rows_per_shard] = shard
         return fresh
 
     @property
@@ -593,18 +718,24 @@ class DeviceVectorStore(VectorStore):
         avgdl = max(float(self._doc_len[:n].mean()) if n else 1.0, 1.0)
         dl_padded = np.zeros(int(self._ft_tf.shape[0]), np.float32)
         dl_padded[:n] = self._doc_len[:n]
-        self._ft_w = bm25_saturate(
+        self._ft_w = self._per_shard(
+            lambda tf, dl: bm25_saturate(
+                tf, dl, torch.tensor(avgdl, dtype=torch.float32, device=tf.device),
+                k1=self.bm25_k1, b=self.bm25_b,
+            ),
             self._ft_tf,
-            torch.from_numpy(dl_padded).to(self.device),
-            torch.tensor(avgdl, dtype=torch.float32, device=self.device),
-            k1=self.bm25_k1,
-            b=self.bm25_b,
+            self._place(torch.from_numpy(dl_padded).to(self.device)),
         )
 
     def _dense_rows_f32(self, n: int) -> np.ndarray:
         """Host float32 copy of the first ``n`` dense rows (dequantized)."""
-        rows = self._dense[:n].float().cpu().numpy()
-        if self.dense_dtype == "int8":
+        rows = self._dense[:n]
+        if self.dense_dtype == "int4":
+            from verbatim_rag_tpu_torch.ops.dense import unpack_int4
+
+            rows = unpack_int4(rows)
+        rows = rows.float().cpu().numpy()
+        if self._dense_quantized:
             rows = rows * self._dense_scale[:n].cpu().numpy()
         return rows
 
@@ -678,9 +809,8 @@ class DeviceVectorStore(VectorStore):
         cap = max(-(-n_rows // self.block) * self.block, self.block)
         grow = self._grow_capacity
         if self.dense_dim:
-            width = self.dense_dim
-            self._dense = grow(self._dense, cap, width, self._dense_store_dtype)
-            if self.dense_dtype == "int8":
+            self._dense = grow(self._dense, cap, self._dense_width, self._dense_store_dtype)
+            if self._dense_quantized:
                 self._dense_scale = grow(self._dense_scale, cap, 1, torch.float32)
         sketches = []
         if self.sparse_vocab:
@@ -695,9 +825,9 @@ class DeviceVectorStore(VectorStore):
         if self.sparse_mode == "projected":
             for proj, scale in sketches:
                 setattr(self, proj, grow(
-                    getattr(self, proj), cap, self.projection_dim, self._sketch_store_dtype
+                    getattr(self, proj), cap, self._sketch_width, self._sketch_store_dtype
                 ))
-                if self.sketch_dtype == "int8":
+                if self._sketch_quantized:
                     setattr(self, scale, grow(getattr(self, scale), cap, 1, torch.float32))
         self._set_valid_dev(cap)
         self._capacity = cap
@@ -758,7 +888,7 @@ class DeviceVectorStore(VectorStore):
                 rec["sparse_arrays"] = (sp_rows[0][row], sp_rows[1][row])
             records.append(rec)
 
-        fresh = DeviceVectorStore(**self._config(), device=self.device)
+        fresh = DeviceVectorStore(**self._config(), mesh=self.mesh, device=self.device)
         fresh.add_vectors(records)
         fresh.flush()
         self.__dict__.update(fresh.__dict__)
@@ -768,17 +898,20 @@ class DeviceVectorStore(VectorStore):
 
     def save(self, path: str) -> None:
         """Persist to ``<path>.npz`` + ``<path>.json`` in the JAX store's
-        format: rows as float32 (int8 codes and scales beside them, restored
-        verbatim by `load`), the forward indexes, the full-text statistics,
-        the constructor's persisted arguments, ids, texts and metadata."""
+        format: rows as float32 (int8 or packed int4 codes and scales beside
+        them, restored verbatim by `load`), the forward indexes, the
+        full-text statistics, the constructor's persisted arguments, ids,
+        texts and metadata. A mesh store saves as any other: placement is
+        not persisted."""
         self.flush()
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         n = len(self._ids)
         arrays: dict[str, np.ndarray] = {"valid": self._valid[:n]}
         if self._dense is not None:
             arrays["dense"] = self._dense_rows_f32(n)
-            if self.dense_dtype == "int8":
-                arrays["dense_i8"] = self._dense[:n].cpu().numpy()
+            if self._dense_quantized:
+                key = "dense_i4" if self.dense_dtype == "int4" else "dense_i8"
+                arrays[key] = self._dense[:n].cpu().numpy()
                 arrays["dense_scale"] = self._dense_scale[:n].cpu().numpy()
         if self._sp_ids is not None:
             arrays["sp_ids"] = self._sp_ids[:n].cpu().numpy()
@@ -805,11 +938,11 @@ class DeviceVectorStore(VectorStore):
     @classmethod
     def load(cls, path: str, mesh=None, device=None) -> "DeviceVectorStore":
         """Load a saved index (either package's) onto ``device`` (``None`` →
-        ``cuda``): every record re-ingested in one flush (the forward-index
-        rows with their nonzero terms first, as the JAX store's term dicts
-        pad them), the int8 codes and scales restored verbatim, tombstones
-        re-applied without auto-compaction. A ``mesh`` raises (the parallel
-        slice)."""
+        ``cuda``), or row-sharded over ``mesh``: every record re-ingested in
+        one flush (the forward-index rows with their nonzero terms first, as
+        the JAX store's term dicts pad them), the int8 / int4 codes and
+        scales restored verbatim, tombstones re-applied without
+        auto-compaction."""
         with open(path + ".json") as f:
             meta = json.load(f)
         store = cls(**meta["config"], mesh=mesh, device=device)
@@ -838,8 +971,9 @@ class DeviceVectorStore(VectorStore):
             records.append(rec)
         store.add_vectors(records)
         store.flush()
-        if store.dense_dtype == "int8" and "dense_i8" in arrays and store._dense is not None:
-            codes = torch.from_numpy(np.asarray(arrays["dense_i8"], np.int8))
+        codes_key = {"int8": "dense_i8", "int4": "dense_i4"}.get(store.dense_dtype)
+        if codes_key in arrays and store._dense is not None:
+            codes = torch.from_numpy(np.asarray(arrays[codes_key], np.int8))
             scales = torch.from_numpy(np.asarray(arrays["dense_scale"], np.float32))
             store._dense[: codes.shape[0]] = codes.to(store.device)
             store._dense_scale[: scales.shape[0]] = scales.to(store.device)
@@ -1062,7 +1196,7 @@ class DeviceVectorStore(VectorStore):
         host[:n] = self._valid[:n]
         if filter_mask is not None:
             host[:n] &= filter_mask
-        return torch.from_numpy(host).to(self.device)
+        return self._place(torch.from_numpy(host).to(self.device))
 
     def _dense_queries(self, payload) -> torch.Tensor:
         if isinstance(payload, torch.Tensor):
@@ -1076,15 +1210,23 @@ class DeviceVectorStore(VectorStore):
         """Run one retrieval method → host (scores [B,k], rows [B,k]; -1 pad).
 
         Dense-only queries score the [B, N] matrix whatever the store's
-        ``candidate_impl`` (as in the JAX store, which runs `dense_topk`).
-        Sparse and full-text queries take the projected search, or the exact
-        scan under ``sparse_mode="exact"``."""
+        ``candidate_impl`` (as in the JAX store, which runs `dense_topk`;
+        `sharded_dense_topk` on a mesh). Sparse and full-text queries take
+        the projected search, or the exact scan under ``sparse_mode="exact"``."""
         from verbatim_rag_tpu_torch.ops.dense import candidate_topk, normalize_rows
 
         k = min(k, self._capacity)
         if name == "dense":
             q = normalize_rows(self._dense_queries(payload))
-            scores, rows = candidate_topk(self._dense, q, k, mask, scale=self._dense_scale)
+            dense_c, dense_s = self._dense_scoring_args()
+            if self.mesh is not None:
+                from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_dense_topk
+
+                scores, rows = sharded_dense_topk(
+                    dense_c, q, k, mask, self.mesh, exact_topk=exact_topk, corpus_scale=dense_s
+                )
+            else:
+                scores, rows = candidate_topk(dense_c, q, k, mask, scale=dense_s)
             return scores.cpu().numpy(), rows.cpu().numpy()
         if name == "sparse":
             if self.sparse_mode == "projected":
@@ -1112,8 +1254,9 @@ class DeviceVectorStore(VectorStore):
     EXACT_SCAN_MAX_ROWS = 200_000
 
     def _exact_sparse_topk(self, ids_dev, w_dev, q_dense: np.ndarray, k: int, mask):
-        """The exact forward-index scan (`ops/sparse.py::sparse_topk`) of
-        densified queries [B, V] → host (scores, rows)."""
+        """The exact forward-index scan (`ops/sparse.py::sparse_topk`, or
+        `sharded_sparse_topk` on a mesh) of densified queries [B, V] → host
+        (scores, rows)."""
         from verbatim_rag_tpu_torch.ops.sparse import sparse_topk
 
         n = len(self._ids)
@@ -1126,7 +1269,12 @@ class DeviceVectorStore(VectorStore):
                 "or pass allow_exact_at_scale=True for validation runs."
             )
         q = torch.from_numpy(q_dense).to(self.device)
-        scores, rows = sparse_topk(ids_dev, w_dev, q, k, mask, block=self.block)
+        if self.mesh is not None:
+            from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_sparse_topk
+
+            scores, rows = sharded_sparse_topk(ids_dev, w_dev, q, k, mask, self.mesh, block=self.block)
+        else:
+            scores, rows = sparse_topk(ids_dev, w_dev, q, k, mask, block=self.block)
         return scores.cpu().numpy(), rows.cpu().numpy()
 
     @staticmethod
@@ -1207,7 +1355,9 @@ class DeviceVectorStore(VectorStore):
         can serve the query, else candidate selection per arm
         (`ops/hybrid.py`); exact sparse rescores and weighted RRF either way.
         With ``text_q`` the BM25 arm joins as the third arm of the same call
-        (`hybrid_section_topk_3way`, `hybrid_fused_topk_3way`)."""
+        (`hybrid_section_topk_3way`, `hybrid_fused_topk_3way`). On a mesh the
+        same programs run per shard (`sharded_hybrid_section_topk`,
+        `sharded_hybrid_topk`, with the BM25 arm as their ``ft_arm``)."""
         from verbatim_rag_tpu_torch.ops.dense import normalize_rows
 
         depth = min(max(depth_override or self.rescore_depth, fetch_k), self._capacity)
@@ -1218,6 +1368,8 @@ class DeviceVectorStore(VectorStore):
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
             q = torch.from_numpy(q).to(self.device)
         q_ids, q_w, q_proj = self._sparse_query_device(sparse_q, self.sparse_vocab)
+        dense_c, dense_s = self._dense_scoring_args()
+        sketch_c, sketch_s = self._sketch_scoring_args(self._sp_proj, self._sp_proj_scale)
         section = self.candidate_impl == "section" and self._section_serves(exact_topk)
         common = dict(
             k=min(top_k, fetch_k),
@@ -1225,30 +1377,55 @@ class DeviceVectorStore(VectorStore):
             depth=depth,
             mask=mask,
             rrf_k=rrf_k,
-            dense_scale=self._dense_scale,
-            sketch_scale=self._sp_proj_scale,
+            dense_scale=dense_s,
+            sketch_scale=sketch_s,
             rescore_impl=self.rescore_impl,
         )
         if section:
-            common["block_cols"] = 16384 if self._capacity % 16384 == 0 else 8192
+            shard_rows = self._capacity // (self.mesh.size if self.mesh is not None else 1)
+            common["block_cols"] = 16384 if shard_rows % 16384 == 0 else 8192
         else:
             common.update(exact_topk=exact_topk, candidate_impl=self._per_stage_candidate_impl)
+        ft = None
         if text_q is not None:
             ft_ids, ft_w, ft_proj = self._sparse_query_device(
                 self._bm25_query_sparse(text_q), self.full_text_vocab
             )
+            ft_sketch, ft_scale = self._sketch_scoring_args(self._ft_proj, self._ft_proj_scale)
+            ft = (ft_sketch, self._ft_ids, self._ft_w, ft_proj, ft_ids, ft_w, ft_scale)
+
+        if self.mesh is not None:
+            from verbatim_rag_tpu_torch.parallel.sharded_search import (
+                sharded_hybrid_section_topk,
+                sharded_hybrid_topk,
+            )
+
+            program = sharded_hybrid_section_topk if section else sharded_hybrid_topk
+            ft_arm = None
+            if ft is not None:
+                ft_arm = (*ft[:6], float(weights.get("full_text", 0.5)), ft[6])
+            scores, rows = program(
+                dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
+                mesh=self.mesh,
+                dense_weight=float(weights.get("dense", 0.5)),
+                sparse_weight=float(weights.get("sparse", 0.5)),
+                ft_arm=ft_arm,
+                **common,
+            )
+        elif ft is not None:
             from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk_3way
             from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk_3way
 
+            ft_sketch, ft_ids_dev, ft_w_dev, ft_proj, ft_ids, ft_w, ft_scale = ft
             program = hybrid_section_topk_3way if section else hybrid_fused_topk_3way
             scores, rows = program(
-                self._dense, self._sp_proj, self._sp_ids, self._sp_w,
-                self._ft_proj, self._ft_ids, self._ft_w,
+                dense_c, sketch_c, self._sp_ids, self._sp_w,
+                ft_sketch, ft_ids_dev, ft_w_dev,
                 q, q_proj, q_ids, q_w, ft_proj, ft_ids, ft_w,
                 dense_weight=float(weights.get("dense", 1 / 3)),
                 sparse_weight=float(weights.get("sparse", 1 / 3)),
                 ft_weight=float(weights.get("full_text", 1 / 3)),
-                ft_scale=self._ft_proj_scale,
+                ft_scale=ft_scale,
                 **common,
             )
         else:
@@ -1257,7 +1434,7 @@ class DeviceVectorStore(VectorStore):
 
             program = hybrid_section_topk if section else hybrid_fused_topk
             scores, rows = program(
-                self._dense, self._sp_proj, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
+                dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
                 dense_weight=float(weights.get("dense", 0.5)),
                 sparse_weight=float(weights.get("sparse", 0.5)),
                 **common,
@@ -1269,19 +1446,22 @@ class DeviceVectorStore(VectorStore):
 
         Exactness: a query asking for exact selection (approx_topk=False)
         falls back to the "xla" program, since the tables keep one winner
-        per bucket. Geometry: the tables cut the rows into 8192-row blocks,
-        so the capacity must be a multiple of 8192 (the default block
-        guarantees it). Each fallback logs one warning per reason."""
+        per bucket. Geometry: the tables cut each shard's rows into 8192-row
+        blocks, so the capacity must be a multiple of (shards · 8192) (the
+        default block guarantees it without a mesh; the constructor checks
+        it on one). Each fallback logs one warning per reason."""
         reason = None
+        shards = self.mesh.size if self.mesh is not None else 1
         if exact_topk:
             reason = (
                 "exact selection requested (approx_topk=False) — the "
                 "kernel's bucket table is approximate by construction"
             )
-        elif self._capacity % 8192 != 0:
+        elif self._capacity % (shards * 8192) != 0:
             reason = (
                 f"capacity {self._capacity} does not tile the section "
-                "kernel's 8192-row blocks (custom block size?)"
+                f"kernel's 8192-row blocks over {shards} shard(s) "
+                "(custom block size?)"
             )
         if reason is None:
             return True
@@ -1300,12 +1480,18 @@ class DeviceVectorStore(VectorStore):
     ) -> tuple[np.ndarray, np.ndarray]:
         """Two-phase sparse search on the device over one sparse arm (SPLADE
         or BM25): sketch candidates, exact forward-index rescore, final
-        top-k."""
+        top-k (per shard and merged on a mesh)."""
         from verbatim_rag_tpu_torch.ops.hybrid import projected_sparse_topk
 
         depth = min(max(depth_override or self.rescore_depth, 2 * k), self._capacity)
         q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, vocab)
-        top_scores, top_rows = projected_sparse_topk(
+        proj_corpus, scale_dev = self._sketch_scoring_args(proj_corpus, scale_dev)
+        program = projected_sparse_topk
+        if self.mesh is not None:
+            from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_projected_sparse_topk
+
+            program = functools.partial(sharded_projected_sparse_topk, mesh=self.mesh)
+        top_scores, top_rows = program(
             proj_corpus, ids_dev, weights_dev, q_proj, q_ids, q_w,
             min(k, self._capacity), depth, mask,
             exact_topk=exact_topk,
@@ -1317,7 +1503,7 @@ class DeviceVectorStore(VectorStore):
 
     def _filter_only(self, mask, top_k, *query_args) -> list[list[SearchResult]]:
         batch = self._batch_size(*query_args)
-        rows = np.flatnonzero(mask.cpu().numpy()[: len(self._ids)])[:top_k]
+        rows = np.flatnonzero(mask[: len(self._ids)].cpu().numpy())[:top_k]
         hits = [self._result_for(int(r), 0.0) for r in rows]
         return [list(hits) for _ in range(max(batch, 1))]
 

@@ -1,5 +1,6 @@
 """Dense brute-force retrieval: matmul + top-k (port of
-`verbatim_rag_tpu/ops/dense.py`: bf16/f32 corpora and the int8 tier).
+`verbatim_rag_tpu/ops/dense.py`: bf16/f32 corpora and the int8 and int4
+tiers).
 
 Three rules carried over from the JAX package so scores and orders agree:
 
@@ -15,6 +16,8 @@ Three rules carried over from the JAX package so scores and orders agree:
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,6 +38,15 @@ def _quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, 
     return q, scale
 
 
+def _row_max_over(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``max|x| / divisor`` per row, a true float32 division on every device.
+
+    The divisor is a tensor on ``x``'s device: divided by a Python scalar,
+    a CUDA tensor is multiplied by the scalar's reciprocal instead, which can
+    differ in the last bit from the JAX store's numpy division."""
+    return x.abs().amax(dim=-1, keepdim=True) / x.new_tensor(divisor)
+
+
 def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 quantization of stored rows: ``x ≈ q * scale``.
 
@@ -43,7 +55,7 @@ def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     inputs. Returns (int8 [N, d], float32 scales [N, 1]).
     """
     x = x.float()
-    return _quantize_int8(x, x.abs().amax(dim=-1, keepdim=True) / 127.0)
+    return _quantize_int8(x, _row_max_over(x, 127.0))
 
 
 #: 1/127 in float32. The JAX package quantizes queries inside compiled
@@ -59,6 +71,55 @@ def quantize_queries_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     :func:`quantize_rows_int8`."""
     x = x.float()
     return _quantize_int8(x, x.abs().amax(dim=-1, keepdim=True) * _INV_127)
+
+
+class Int4Rows(NamedTuple):
+    """Row matrix quantized to 4 bits, two codes per int8 byte.
+
+    Byte ``j`` of a row holds column ``j`` in its low nibble and column
+    ``j + d/2`` in its high nibble (the JAX package's half-split layout:
+    unpacking is two shifts and a concatenation). Codes are symmetric in
+    [-7, 7] with a per-row float32 scale. The packed bytes are ``int8``, so
+    they travel in this carrier from the store to `dense_scores`: a bare
+    packed tensor would pass for int8 codes wherever a path routes on
+    ``dtype == torch.int8``.
+    """
+
+    packed: torch.Tensor  # [N, d//2] int8
+    scale: torch.Tensor  # [N, 1] f32
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.packed.shape[0], self.packed.shape[1] * 2)
+
+
+def quantize_rows_int4(x) -> Int4Rows:
+    """Symmetric per-row int4 quantization, packed two codes per byte:
+    ``x ≈ unpack_int4(packed) * scale``, scale ``max|x| / 7`` clipped below at
+    1e-12, codes rounded half to even and clipped to ±7. Takes numpy or torch
+    input and returns the same kind; bit-equal to the JAX package's on equal
+    float32 inputs. The column count must be even."""
+    if isinstance(x, np.ndarray):
+        rows = quantize_rows_int4(torch.from_numpy(np.ascontiguousarray(x)))
+        return Int4Rows(rows.packed.numpy(), rows.scale.numpy())
+    x = x.float()
+    if x.shape[-1] % 2:
+        raise ValueError(f"int4 packing needs an even column count, got {tuple(x.shape)}")
+    half = x.shape[-1] // 2
+    scale = torch.clamp(_row_max_over(x, 7.0), min=1e-12)
+    codes = torch.clamp(torch.round(x / scale), -7, 7).to(torch.int8)
+    lo = codes[..., :half] & 0xF
+    hi = codes[..., half:] & 0xF
+    return Int4Rows(lo | (hi << 4), scale)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[N, d//2] packed bytes → [N, d] int8 codes in [-7, 7].
+
+    Arithmetic shifts sign-extend the nibbles ((b << 4) >> 4 for the low
+    one); the half-split layout restores column order with a concatenation.
+    """
+    return torch.cat([(packed << 4) >> 4, packed >> 4], dim=-1)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -124,9 +185,14 @@ def int8_dots(qi: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 def dense_scores(corpus, queries, corpus_scale=None) -> torch.Tensor:
     """[B, N] cosine scores of row-normalized queries.
 
-    For an int8 corpus the queries are quantized per row on the fly and the
+    For an int8 corpus (or an :class:`Int4Rows` one, whose codes are
+    unpacked first) the queries are quantized per row on the fly and the
     int32 dots are rescaled: ``raw * (q_scale * corpus_scale.T)``.
     """
+    if isinstance(corpus, Int4Rows):
+        qi, q_scale = quantize_queries_int8(queries)
+        raw = int8_dots(qi, unpack_int4(corpus.packed))
+        return raw * (q_scale * corpus.scale.reshape(1, -1))
     if corpus.dtype == torch.int8:
         if corpus_scale is None:
             raise ValueError("int8 corpus requires corpus_scale")
@@ -183,10 +249,14 @@ def bucket_kernel_supported(corpus, scale, k: int | None = None) -> bool:
     candidates, and, for an int8 corpus, its per-row scale.
 
     Unlike the JAX package there is no backend test: on a CPU tensor the
-    bucket path runs its plain version, on a CUDA tensor the kernel.
+    bucket path runs its plain version, on a CUDA tensor the kernel. An
+    :class:`Int4Rows` corpus never rides it (the JAX package removed its
+    int4 arm): the int4 tier always takes the "xla" path.
     """
     from .fused_topk import bucket_table_width
 
+    if isinstance(corpus, Int4Rows):
+        return False
     if corpus.dtype == torch.int8 and scale is None:
         return False
     width = bucket_table_width(corpus.shape[0])
@@ -204,8 +274,8 @@ def candidate_topk(
     (`ops/fused_topk.py`), whose [B, N] scores never exist; it falls back to
     the "xla" path where its geometry or table width cannot serve the
     request. The bucket table keeps one winner per bucket, so a request for
-    exact selection (``exact_topk=True``) never takes it. Selection on the
-    "xla" path is exact either way.
+    exact selection (``exact_topk=True``) never takes it, nor does an
+    :class:`Int4Rows` corpus. Selection on the "xla" path is exact either way.
     """
     if impl not in ("xla", "bucket"):
         raise ValueError(f"unknown candidate impl {impl!r}")

@@ -29,10 +29,8 @@ def densify_queries(token_ids, values, vocab_size: int) -> torch.Tensor:
     return dense.index_put_((rows, token_ids.long()), values.float(), accumulate=True)
 
 
-def sparse_topk(token_ids, weights, q_dense, k: int, mask=None, block: int = 8192):
-    """Exact sparse top-k: (scores [B, k], rows [B, k]); a row whose score is
-    not above 0 (no term in common) is returned as −1, as an inverted index
-    never surfaces a non-matching document.
+def sparse_scores(token_ids, weights, q_dense, block: int = 8192) -> torch.Tensor:
+    """Exact sparse scores [B, N] of every forward-index row.
 
     The scan gathers ``[B, block, m]`` query weights a block of rows at a
     time, which bounds its memory whatever N is.
@@ -44,6 +42,14 @@ def sparse_topk(token_ids, weights, q_dense, k: int, mask=None, block: int = 819
         ids = token_ids[start : start + block].long()
         w = weights[start : start + block].float()
         scores[:, start : start + ids.shape[0]] = torch.einsum("bnm,nm->bn", q[:, ids], w)
+    return scores
+
+
+def sparse_topk(token_ids, weights, q_dense, k: int, mask=None, block: int = 8192):
+    """Exact sparse top-k over `sparse_scores`: (scores [B, k], rows [B, k]);
+    a row whose score is not above 0 (no term in common) is returned as −1,
+    as an inverted index never surfaces a non-matching document."""
+    scores = sparse_scores(token_ids, weights, q_dense, block)
     if mask is not None:
         scores = torch.where(mask[None, :], scores, NEG_INF)
     top, rows = topk(scores, k)
