@@ -219,6 +219,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              then the saved checkpoint is served by
              `ModelSpanExtractor(model_path=...)` on the card (its token
              probabilities equal the trained model's, every span verbatim);
+7a. train_mesh — the same weights and batches through
+             `Trainer(mesh=make_mesh(dp=2, tp=2, devices=[cuda] * 4))` (each
+             shard 6 heads and a quarter of every batch's rows, 4 shards in
+             turn on the one card), 3 steps: step 1 on a batch whose rows are
+             ordered by live labels (dp shards with different counts) held to
+             the single-device step on the same weights and batch: loss within
+             `MESH_LOSS_RTOL`, every gradient before clipping per tensor within
+             `MESH_GRAD_RTOL` (`tensor_errors`), every updated parameter within
+             `MESH_PARAM_RTOL`; two planted faults (wi's GEGLU output cut into
+             contiguous blocks; the loss as the mean of the dp shards' means)
+             must fail that check; 88 (22 × 4) forward-with-lse, dq and dk/dv
+             launches each step; step seconds (median of steps 2-3),
+             tokens/s, peak GB and a profiled step's idle share beside the
+             train phase's single-device numbers; kernels 1, 4 and 5 at the
+             phase's shapes (forward and backward at B=4, S=4096, H=6; the
+             partial at the SP block) against their plain versions with
+             times, bounds and library times; then `encoder_forward_sp` under
+             grad on one row at S=8192 in 4 shards (128 partial launches in
+             the forward; its backward is the plain VJP, as in JAX): every
+             parameter's gradient, the input embedding's among them, within
+             `SP_GRAD_RTOL` of the single-device flash backward's;
 7b. checkpoints — checkpoints in and out, the other extractors and the
              rerank stage: the train phase's checkpoint staged by
              `utils.upload_to_hub.jax_checkpoint_to_hf_dir`, its config.json
@@ -279,7 +300,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a-3c, 5a-5d, 6b and 7b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3c, 5a-5d, 6b, 7a and 7b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -3747,6 +3768,7 @@ def run_long_sp(extractor, seed: int, card: str) -> dict:
 TRAIN_STEPS = 4
 TRAIN_BATCH = 8
 TRAIN_SEQ = 4096
+TRAIN_HEADS = 12  # ModernBERT-base
 
 
 def train_examples(n: int, seed: int, tokenizer) -> list:
@@ -3878,10 +3900,367 @@ def run_train(seed: int, card: str) -> dict:
         step_s_median_2_to_4=median_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_s,
         live_tokens_per_s=sum(lengths) / TRAIN_STEPS / median_s, peak_memory_gb=peak_gb,
         train_s_with_checkpoint=train_s, served_spans=len(spans), served_probs_max_diff=probs_diff,
-        launches=counts,
+        idle_share=profile["idle_share"], launches=counts,
     )
     log("train", json.dumps(result))
     del trainer, model
+    torch.cuda.empty_cache()
+    return result, batches
+
+
+#: The train_mesh phase: the train phase's weights and batches as
+#: `Trainer(mesh=make_mesh(dp=2, tp=2, devices=[cuda] * 4))`, 3 steps; step 1
+#: held to the single-device step. Limits (bf16 operands; the mesh sums
+#: float32 partials over the tp shards in another order than one GEMM does):
+MESH_TRAIN_DP, MESH_TRAIN_TP = 2, 2
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_RTOL = 1e-4  # |loss − loss_single| / loss_single
+MESH_GRAD_RTOL = 5e-3  # per tensor, before clipping: `tensor_errors`
+MESH_PARAM_RTOL = 1e-4  # per tensor after the update: ‖p − p_single‖ / ‖p_single‖
+#: The SP backward: one row at S=8192 (8,000 live) in SP_SHARDS shards on the
+#: card, under grad, held to the single-device flash backward per tensor.
+SP_TRAIN_SEQ = 8192
+SP_TRAIN_LIVE = 8000
+SP_GRAD_RTOL = 5e-2
+
+
+def tensor_errors(got: dict, want: dict) -> dict:
+    """Per tensor ‖got − want‖ / ‖want‖, the denominator floored at 1e-4 of
+    the largest ‖want‖ (a tensor whose true gradient is near 0 has no scale
+    of its own)."""
+    floor = 1e-4 * max(float(w.float().norm()) for w in want.values())
+    return {
+        k: float((got[k].float() - want[k].float()).norm()) / max(float(want[k].float().norm()), floor)
+        for k in want
+    }
+
+
+def step_grads(trainer, batch, loss_fn) -> tuple[float, dict]:
+    """The loss and the gradient before clipping of every parameter the loss
+    reaches (ModernBERT's layer 0 has no attention norm), of one batch
+    through ``trainer``'s model (no update)."""
+    trainer.optimizer.zero_grad()
+    loss, _ = loss_fn(trainer.model, trainer.batch_to_device(batch))
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    return float(loss.detach()), grads
+
+
+def held_to_single(loss: float, grads: dict, ref_loss: float, ref_grads: dict) -> dict:
+    """Step 1's loss and gradients against the single-device step's, each
+    as its ratio to its limit (`worst` above 1 fails)."""
+    loss_ratio = abs(loss - ref_loss) / abs(ref_loss) / MESH_LOSS_RTOL
+    errors = tensor_errors(grads, ref_grads)
+    name = max(errors, key=errors.get)
+    return dict(
+        loss=loss, loss_of_limit=loss_ratio, grad_worst_rel=errors[name], grad_worst_tensor=name,
+        grad_of_limit=errors[name] / MESH_GRAD_RTOL, worst=max(loss_ratio, errors[name] / MESH_GRAD_RTOL),
+    )
+
+
+def shards_by_live_labels(batch):
+    """The batch with its rows ordered by live labels, so that dp shard 0
+    holds the fewest: shards whose live counts differ, where a mean of the
+    shards' means differs most from the global mean."""
+    import dataclasses
+
+    import numpy as np
+
+    order = np.argsort(batch.label_mask.sum(1), kind="stable")
+    return dataclasses.replace(batch, **{f.name: getattr(batch, f.name)[order] for f in dataclasses.fields(batch)})
+
+
+def mesh_kernel_rows(lengths, gen) -> dict:
+    """Kernels 1, 4 and 5 at this phase's shapes: the forward with lse and
+    the FA2 backward at a shard's B=4, S=4096, H=6 (global layer, the dp
+    shard's lengths), the ring step's partial at the SP shard's B=1,
+    Sq=Sk=2048, H=12 (a fully live block), each against its plain version
+    (forward and backward rows held as in the kernels phase), with ms,
+    bound and library times."""
+    import torch
+    import torch.nn.functional as F
+
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    B, S, H, D = len(lengths), TRAIN_SEQ, TRAIN_HEADS // MESH_TRAIN_TP, 64
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, k, v, g = (torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(4))
+    live = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, None)
+    ref_out, ref_lse = fa.attention_lse_reference(q, k, v, lens, None)
+    fwd_err, fwd_ratio = row_check((out.float() - ref_out).abs().amax(-1), ref_out.abs().amax(-1), live)
+    lse_err = float(((lse - ref_lse).abs() - 1e-5 * ref_lse.abs()).max())
+    require(fwd_ratio <= 1.0 and lse_err <= 1e-4, f"train_mesh: forward at H={H}: {fwd_ratio}, lse {lse_err}")
+    del ref_out, ref_lse
+    grads = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, None)
+    refs = fa.flash_attention_bwd_reference(q, k, v, lens, out, lse, g, None)
+    bwd_err, bwd_ratio = 0.0, 0.0
+    for got, ref in zip(grads, refs):
+        e, r = row_check((got.float() - ref.float()).abs().amax(-1), ref.float().abs().amax(-1), live, floor=1e-3)
+        bwd_err, bwd_ratio = max(bwd_err, e), max(bwd_ratio, r)
+    require(bwd_ratio <= 1.0, f"train_mesh: backward at H={H}: worst row at {bwd_ratio} of its limit")
+    del grads, refs
+    pairs = attention_pairs(lengths, S, None)
+    q_rows, kv_rows = attention_rows(lengths, S)
+    mask = sdpa_mask(lens, S, None)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    go = g.transpose(1, 2).contiguous()
+    fwd_bound = bound((q_rows + 2 * kv_rows + B * S) * H * D * 2 + 4 * B + 4 * B * H * S, 4 * H * D * pairs, PEAK_BF16_FLOPS)
+    bwd_bound = bound(
+        (2 * q_rows + 2 * kv_rows + 3 * B * S) * H * D * 2 + 2 * H * q_rows * 4 + 4 * B, 10 * H * D * pairs, PEAK_BF16_FLOPS
+    )
+    shape = dict(batch=B, seq=S, heads=H, head_dim=D, window=None, lengths=lengths)
+    rows = {
+        "flash_attention_fwd": dict(
+            shape, kernel="forward with lse", max_abs_err=fwd_err, worst_row_of_limit=fwd_ratio,
+            ms=cuda_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, lens, None), reps=10),
+            plain_ms=cuda_ms(lambda: fa.attention_lse_reference(q, k, v, lens, None), reps=2),
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=5),
+        ),
+        "flash_attention_bwd": dict(
+            shape, max_abs_err=bwd_err, worst_row_of_limit=bwd_ratio,
+            ms=cuda_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, None), reps=5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_reference(q, k, v, lens, out, lse, g, None), reps=1),
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            library_ms=cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), reps=3),
+        ),
+    }
+    del q, k, v, g, out, lse, qt, kt, vt, o, go, mask
+    torch.cuda.empty_cache()
+
+    # The partial at the SP shard's block, under grad: the kernel's forward
+    # and the plain backward (FlashAttentionPartial).
+    Sp, Hp = SP_TRAIN_SEQ // SP_SHARDS, TRAIN_HEADS
+    qp, kp, vp = (torch.randn(1, Sp, Hp, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    lens1 = torch.tensor([SP_TRAIN_LIVE], dtype=torch.int32, device="cuda")
+    numer, m, l = fa.flash_attention_partial_cuda(qp, kp, vp, lens1, 0)
+    ref_numer, ref_m, ref_l = fa.flash_attention_partial_reference(qp, kp, vp, lens1, 0)
+    part_err, part_ratio = row_check(
+        (numer - ref_numer).abs().amax(-1), ref_numer.abs().amax(-1), torch.ones_like(numer[..., 0], dtype=torch.bool)
+    )
+    require(part_ratio <= 1.0, f"train_mesh: partial at the SP block: worst row at {part_ratio} of its limit")
+    leaves = [x.clone().requires_grad_(True) for x in (qp, kp, vp)]
+    outs = fa.FlashAttentionPartial.apply(*leaves, lens1, 0)
+    cot = [torch.randn(x.shape, generator=gen, device="cuda") for x in outs]
+
+    def backward():
+        torch.autograd.grad(outs, leaves, cot, retain_graph=True)
+
+    live_k = torch.ones(Sp, dtype=torch.bool, device="cuda")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qp, kp, vp))
+    library_ms, library_note = efficient_attention_ms(qt, kt, vt, live_k)
+    p_bound = bound(3 * Sp * Hp * D * 2 + Sp * Hp * D * 4 + 2 * Hp * Sp * 4 + 4, 4 * Hp * D * Sp * Sp, PEAK_BF16_FLOPS)
+    rows["flash_attention_partial"] = dict(
+        batch=1, seq_q=Sp, seq_k=Sp, heads=Hp, head_dim=D, k_offset=0, max_abs_err=part_err,
+        worst_row_of_limit=part_ratio,
+        ms=cuda_ms(lambda: fa.flash_attention_partial_cuda(qp, kp, vp, lens1, 0), reps=10),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_partial_reference(qp, kp, vp, lens1, 0), reps=3),
+        backward_plain_ms=cuda_ms(backward, reps=3),
+        bound_ms=p_bound[0], bound_by=p_bound[1], library_ms=library_ms, library_note=library_note,
+    )
+    del qp, kp, vp, leaves, outs, cot, qt, kt, vt, numer, m, l, ref_numer, ref_m, ref_l
+    torch.cuda.empty_cache()
+    return rows
+
+
+def contiguous_wi(config, tp: int, t: int):
+    """The planted GEGLU fault: wi's output cut into contiguous tp blocks."""
+    width = 2 * config.intermediate_size // tp
+    return [slice(t * width, (t + 1) * width)]
+
+
+def mean_of_shard_means(model, batch):
+    """The planted loss fault: each dp shard's masked mean, then their mean."""
+    from verbatim_rag_tpu_torch.training.model import token_loss
+
+    means = [token_loss(shard, b)[0] for shard, b in zip(model.dp_shards(), batch)]
+    return sum(m.to(means[0].device) for m in means) / len(means), {}
+
+
+def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
+    """The train phase's weights and batches on a dp=2 × tp=2 mesh of the
+    card through `Trainer(mesh=...)`, 3 steps, step 1 held to the
+    single-device step (with two planted faults that must fail); then the
+    sequence-parallel forward under grad (`run_sp_backward`)."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.models import init_highlighter_params, modernbert_base_config
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+    from verbatim_rag_tpu_torch.parallel import mesh as mesh_module
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
+
+    config = modernbert_base_config()
+    tc = TrainingConfig(batch_size=TRAIN_BATCH, max_seq_length=TRAIN_SEQ, seed=seed)
+    first = shards_by_live_labels(batches[0])
+    per_shard = first.label_mask.reshape(MESH_TRAIN_DP, -1).sum(1).tolist()
+    require(len(set(per_shard)) == MESH_TRAIN_DP, f"train_mesh: shards' live labels {per_shard} do not differ")
+    model = init_highlighter_params(config, seed=seed, device="cuda")
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    single = Trainer(model, config, tc, loss_fn=token_loss)
+    ref_loss, ref_grads = step_grads(single, first, token_loss)
+    single.optimizer.step()
+    ref_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del single
+    model.load_state_dict(initial)
+    del initial
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(dp=MESH_TRAIN_DP, tp=MESH_TRAIN_TP, devices=[torch.device("cuda")] * 4)
+    trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
+    faults = {}
+    mesh_module.wi_columns, kept = contiguous_wi, mesh_module.wi_columns
+    try:
+        faults["wi cut contiguously"] = held_to_single(*step_grads(trainer, first, token_loss), ref_loss, ref_grads)
+    finally:
+        mesh_module.wi_columns = kept
+    faults["loss as the mean of the dp shards' means"] = held_to_single(
+        *step_grads(trainer, first, mean_of_shard_means), ref_loss, ref_grads
+    )
+    trainer.optimizer.zero_grad()
+    for name, h in faults.items():
+        require(h["worst"] > 1.0, f"train_mesh: planted fault '{name}' passes the check: {h}")
+    log("train_mesh faults", json.dumps(faults))
+
+    layers = config.num_layers * mesh.size
+    launches, per_step, step_s = None, [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate([first, *batches[1:MESH_TRAIN_STEPS]]):
+        reset_counts()
+        t0 = time.perf_counter()
+        if i == 0:  # step 1 by hand, to read its gradients before clipping
+            loss, grads = step_grads(trainer, batch, token_loss)
+            trainer.optimizer.step()
+        else:
+            loss = float(train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)[0])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        counts = read_counts()
+        require(
+            counts["flash_attention"] == layers and counts["flash_bwd_dq"] == layers
+            and counts["flash_bwd_dkv"] == layers and counts["flash_attention_partial"] == 0,
+            f"train_mesh: step {i + 1} launches {counts}, expected {layers} of each flash kernel",
+        )
+        require(math.isfinite(loss), f"train_mesh: step {i + 1} loss {loss}")
+        per_step.append(counts)
+        launches = counts if launches is None else {k: launches[k] + counts[k] for k in counts}
+        if i == 0:
+            held = held_to_single(loss, grads, ref_loss, ref_grads)
+            param_errors = tensor_errors(model.state_dict(), ref_params)
+            worst_param = max(param_errors, key=param_errors.get)
+            held.update(
+                param_worst_rel=param_errors[worst_param], param_worst_tensor=worst_param,
+                param_of_limit=param_errors[worst_param] / MESH_PARAM_RTOL,
+            )
+            held["worst"] = max(held["worst"], held["param_of_limit"])
+            require(held["worst"] <= 1.0, f"train_mesh: step 1 differs from the single-device step: {held}")
+            log("train_mesh held", json.dumps(held))
+            del grads, ref_grads, ref_params
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile_batch = trainer.batch_to_device(batches[MESH_TRAIN_STEPS])
+    profile = device_profile(lambda: train_step(trainer.model, trainer.optimizer, profile_batch, token_loss), top=12)
+    log("train_mesh profile", json.dumps(profile))
+    del trainer, profile_batch
+    torch.cuda.empty_cache()
+
+    kernels = mesh_kernel_rows([int(n) for n in first.attention_mask[: TRAIN_BATCH // MESH_TRAIN_DP].sum(1)], torch.Generator(device="cuda").manual_seed(seed))
+    sp = run_sp_backward(model, seed)
+    launches = {k: launches[k] + sp["launches"][k] for k in launches}
+    kernels["flash_attention_fwd"]["launches"] = launches["flash_attention"]
+    kernels["flash_attention_bwd"]["launches"] = launches["flash_bwd_dq"] + launches["flash_bwd_dkv"]
+    kernels["flash_attention_partial"]["launches"] = launches["flash_attention_partial"]
+    median_s = float(np.median(step_s[1:]))
+    result = dict(
+        card=card, dp=MESH_TRAIN_DP, tp=MESH_TRAIN_TP, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        layers=config.num_layers, live_labels_per_dp_shard=per_shard, step_s=step_s,
+        step_s_median_2_to_3=median_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_s,
+        peak_memory_gb=peak_gb, idle_share=profile["idle_share"],
+        single_device=dict(
+            step_s_median_2_to_4=train["step_s_median_2_to_4"], tokens_per_s=train["tokens_per_s"],
+            peak_memory_gb=train["peak_memory_gb"], idle_share=train["idle_share"],
+        ),
+        limits=dict(loss_rtol=MESH_LOSS_RTOL, grad_rtol=MESH_GRAD_RTOL, param_rtol=MESH_PARAM_RTOL),
+        held=held, worst_of_limit=held["worst"],
+        planted_faults_worst_of_limit={n: h["worst"] for n, h in faults.items()},
+        launches_per_step=per_step, sp_backward=sp, kernels=kernels, launches=launches,
+    )
+    log("train_mesh", json.dumps(result))
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_sp_backward(model, seed: int) -> dict:
+    """`encoder_forward_sp` under grad: one row at S=8192 (8,000 live) in
+    SP_SHARDS shards on the card (ring attention, the partial kernel, on the
+    global layers; halo attention on the local ones), a fixed random
+    projection of the hidden states as the loss; every parameter's gradient
+    (the input embedding's among them) held to the single-device flash
+    backward on the same row per tensor within SP_GRAD_RTOL."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.models import encoder_forward_sp
+    from verbatim_rag_tpu_torch.ops.ring_attention import shard_sequence
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    config = model.config
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(5, config.vocab_size, size=(1, SP_TRAIN_SEQ)).astype(np.int32))
+    mask = (torch.arange(SP_TRAIN_SEQ)[None, :] < SP_TRAIN_LIVE).to(torch.int32)
+    ids = ids * mask
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    probe = torch.randn(1, SP_TRAIN_SEQ, config.hidden_size, generator=gen, device="cuda")
+    live = mask.cuda().float()[..., None]
+    mesh = make_mesh(dp=1, tp=SP_SHARDS, devices=[torch.device("cuda")] * SP_SHARDS)
+
+    def grads_of(hidden) -> dict:
+        ((hidden * probe) * live).sum().backward()
+        out = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    shards = encoder_forward_sp(model, shard_sequence(ids, mesh), shard_sequence(mask, mesh), mesh)
+    counts = read_counts()
+    sp_grads = grads_of(torch.cat(shards, dim=1))
+    torch.cuda.synchronize()
+    sp_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del shards
+    global_layers = sum(config.is_global_layer(i) for i in range(config.num_layers))
+    expected = global_layers * SP_SHARDS**2
+    require(
+        counts["flash_attention_partial"] == expected and counts["flash_attention"] == 0,
+        f"train_mesh sp: launches {counts}, expected {expected} partial and no forward launch",
+    )
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_grads = grads_of(model(ids.cuda(), mask.cuda()))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    require(set(sp_grads) == set(ref_grads), "train_mesh sp: the SP backward reached other parameters")
+    errors = tensor_errors(sp_grads, ref_grads)
+    worst = max(errors, key=errors.get)
+    require(errors[worst] <= SP_GRAD_RTOL, f"train_mesh sp: gradient of {worst} differs by {errors[worst]}")
+    result = dict(
+        seq=SP_TRAIN_SEQ, live=SP_TRAIN_LIVE, shards=SP_SHARDS, seconds=sp_s, peak_memory_gb=peak_gb,
+        single_device_seconds=single_s, grad_rtol=SP_GRAD_RTOL, grad_worst_rel=errors[worst],
+        grad_worst_tensor=worst, grad_of_limit=errors[worst] / SP_GRAD_RTOL,
+        input_embedding_grad_rel=errors["embeddings.word"], launches=counts,
+    )
+    log("train_mesh sp", json.dumps(result))
+    del sp_grads, ref_grads
     torch.cuda.empty_cache()
     return result
 
@@ -4308,7 +4687,10 @@ def main() -> None:
     long_sp = run_long_sp(extractor, args.seed, card)
     del extractor
     torch.cuda.empty_cache()
-    train = run_train(args.seed, card)
+    train, train_batches = run_train(args.seed, card)
+    train_mesh = run_train_mesh(train_batches, args.seed, card, train)
+    del train_batches
+    torch.cuda.empty_cache()
     checkpoints = run_checkpoints(
         serve_index, serve_questions(), ROOT / "build" / "chip_smoke_train" / "final", args.seed, card
     )
@@ -4317,7 +4699,7 @@ def main() -> None:
 
     phases = (
         flow, serve, http, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
-        checkpoints,
+        train_mesh, checkpoints,
     )
     by_program = mesh["launches_by_program"]
     per_shard = mesh["per_shard"]
@@ -4330,6 +4712,7 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
             launches=launches["flash_attention"] - launches["flash_attention_d32"],
             registers=build.get("flash_fwd_wgmma_kernelILi64E", {}).get("registers"),
+            train_mesh=train_mesh["kernels"]["flash_attention_fwd"],
             **flash,
         ),
         dict(
@@ -4352,6 +4735,7 @@ def main() -> None:
             launches_dkv=launches["flash_bwd_dkv"],
             registers_dq=build.get("flash_bwd_dq_wgmma_kernel", {}).get("registers"),
             registers_dkv=build.get("flash_bwd_dkv_wgmma_kernel", {}).get("registers"),
+            train_mesh=train_mesh["kernels"]["flash_attention_bwd"],
             **flash_bwd,
         ),
         dict(
@@ -4361,6 +4745,7 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
             launches=launches["flash_attention_partial"],
             registers=build.get("flash_partial_wgmma_kernel", {}).get("registers"),
+            train_mesh=train_mesh["kernels"]["flash_attention_partial"],
             **partial,
         ),
         dict(

@@ -22,7 +22,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("script", ["torch_flash_ab.py", "torch_table_ab.py"])
+@pytest.mark.parametrize("script", ["torch_flash_ab.py", "torch_table_ab.py", "torch_train_mesh_cards.py"])
 def test_ab_script_refuses_without_a_gpu(script):
     proc = subprocess.run(
         [sys.executable, str(ROOT / "scripts" / script)], capture_output=True, text=True,

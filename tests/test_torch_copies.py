@@ -608,3 +608,26 @@ def test_ragbench_convert_example_equal(row):
     if got is not None:
         assert dataclasses.asdict(got) == dataclasses.asdict(expected)
     assert ragbench.RAGBENCH_SUBSETS == jax_ragbench.RAGBENCH_SUBSETS
+
+
+@pytest.mark.parametrize("global_batch,n_proc,rank", [(12, 4, 1), (8, 2, 1), (8, 1, 0), (10, 4, 3), (7, 2, 0)])
+def test_process_local_batch_slice_equal(monkeypatch, global_batch, n_proc, rank):
+    """`parallel/distributed.py::process_local_batch_slice` over the port's
+    process count and rank, against JAX's over ``jax.process_count`` and
+    ``jax.process_index``: the same slice, or the same ``ValueError``."""
+    import jax
+
+    from verbatim_rag_tpu.parallel import distributed as jax_distributed
+    from verbatim_rag_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(jax, "process_count", lambda: n_proc)
+    monkeypatch.setattr(jax, "process_index", lambda: rank)
+    monkeypatch.setattr(distributed, "process_count", lambda: n_proc)
+    monkeypatch.setattr(distributed, "process_index", lambda: rank)
+    outcomes = []
+    for fn in (distributed.process_local_batch_slice, jax_distributed.process_local_batch_slice):
+        try:
+            outcomes.append(fn(global_batch))
+        except ValueError as exc:
+            outcomes.append(str(exc))
+    assert outcomes[0] == outcomes[1]

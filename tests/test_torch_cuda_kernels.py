@@ -353,10 +353,94 @@ def test_flash_partial_bf16_edges(cuda, seq_q, seq_k, k_offset, lens):
         assert _bf16_row_ratio(numer, e_numer, live.transpose(1, 2)) <= 1.0
 
 
-def test_flash_partial_refuses_grad_on_cuda(cuda):
-    q = torch.zeros(1, 8, 1, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention_partial(q, q, q, torch.ones(1, dtype=torch.int32, device=cuda), 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_partial_gradients_on_cuda_match_plain(cuda, dtype):
+    """The ring step under grad on the card: the kernel's forward, the plain
+    backward (JAX's design). With fixed cotangents for (numer, m, l) the
+    gradients are the plain version's autograd on the same inputs (rtol
+    1e-5: the same float32 arithmetic); a row past its length gets none."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(2, 96, 2, 64, seed=3)[:1] + _qkv(2, 80, 2, 64, seed=4)[:2])
+    lens = torch.tensor([150, 20], dtype=torch.int32, device=cuda)
+    weights = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+               for s in ((2, 96, 2, 64), (2, 2, 96), (2, 2, 96))]
+    grads = []
+    for fn in (fa.flash_attention_partial, fa.flash_attention_partial_reference):
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        before = fa.partial_launches
+        outs = fn(*leaves, lens, 40)
+        assert fa.partial_launches - before == (1 if fn is fa.flash_attention_partial else 0)
+        sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+        grads.append([x.grad.float() for x in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert float(grads[0][1][1].abs().max()) == 0.0  # row 1's keys (offset 40 ≥ 20) are dead
+
+
+def test_ring_gradients_on_cuda_match_cpu(cuda):
+    """A ring of 4 shards on one card under grad: 16 partial launches, and
+    float32 gradients as the CPU ring's within 1e-4."""
+    from verbatim_rag_tpu_torch.ops.ring_attention import ring_attention, shard_sequence
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 256, 2, 64)).astype(np.float32))
+    lens = torch.tensor([200], dtype=torch.int32)
+    grads = []
+    for device in ("cpu", "cuda"):
+        mesh = make_mesh(dp=1, tp=4, devices=[device] * 4)
+        leaf = x.clone().to(device).requires_grad_(True)
+        before = fa.partial_launches
+        out = ring_attention(*(shard_sequence(leaf, mesh) for _ in range(3)), lens, mesh)
+        sum((o.float() ** 2).sum() for o in out).backward()
+        assert fa.partial_launches - before == (16 if device == "cuda" else 0)
+        grads.append(leaf.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-4)
+
+
+def test_tp_mesh_across_cuda_and_cpu_trains_like_one_device(cuda):
+    """A tp = 2 mesh of two distinct devices (the card and the CPU): shard 1
+    reads kept replicas on the CPU, its gradients reach the parameters on the
+    card, and after each fused AdamW update (which moves no version counter)
+    the replicas are refreshed. Two steps (float32, plain attention): each
+    step's gradients, before clipping, equal the single-device step's per
+    tensor within 1e-4 of the tensor's norm (floored at 1e-4 of the largest:
+    a key bias's true gradient is 0); stale replicas in step 2 would miss by
+    far more (the first update moves every weight by ≈ lr = 1e-3)."""
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig, tiny_test_config
+    from verbatim_rag_tpu_torch.models.highlighter import HighlighterModel
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, batch_to_device
+    from verbatim_rag_tpu_torch.training.token_dataset import TokenBatch
+
+    config = tiny_test_config()
+    rng = np.random.default_rng(2)
+    batches = []
+    for _ in range(2):
+        mask = (np.arange(32)[None, :] < rng.integers(8, 33, size=(4, 1))).astype(np.int32)
+        batches.append(TokenBatch(
+            input_ids=rng.integers(3, config.vocab_size, size=(4, 32)).astype(np.int32) * mask,
+            attention_mask=mask, labels=rng.integers(0, 2, size=(4, 32)).astype(np.int32) * mask,
+            label_mask=mask,
+        ))
+    tc = TrainingConfig(learning_rate=1e-3)
+    models = [HighlighterModel(config, torch.Generator().manual_seed(0)).to(cuda) for _ in range(2)]
+    meshed = Trainer(models[0], config, tc, mesh=make_mesh(dp=1, tp=2, devices=["cuda", "cpu"]), loss_fn=token_loss)
+    single = Trainer(models[1], config, tc, loss_fn=token_loss)
+    for step, batch in enumerate(batches):
+        grads = []
+        for trainer, placed in ((meshed, meshed.batch_to_device(batch)), (single, batch_to_device(batch, cuda))):
+            trainer.optimizer.zero_grad()
+            token_loss(trainer.model, placed)[0].backward()
+            grads.append({n: p.grad.clone() for n, p in trainer.model.named_parameters() if p.grad is not None})
+            trainer.optimizer.step()
+        assert set(grads[0]) == set(grads[1])
+        floor = 1e-4 * max(float(g.norm()) for g in grads[1].values())
+        for name, want in grads[1].items():
+            err = float((grads[0][name] - want).norm()) / max(float(want.norm()), floor)
+            assert err <= 1e-4, (step, name, err)
+    assert {key[2].type for key in meshed.model.replicas.buffers} == {"cpu"}
+
 
 
 def test_ring_attention_on_cuda_matches_cpu(cuda):

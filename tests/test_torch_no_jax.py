@@ -8,7 +8,8 @@ with one `query_batch`, runs a hybrid query over an int8 index
 index (the section path), calls the bucket-max v1 entry points, queries a
 mesh index of four ``"cpu"`` devices with int4 sketches, takes one training
 step of the token highlighter and
-saves and loads its checkpoint, scores a document in one sequence-parallel
+saves and loads its checkpoint, takes one step on a ``dp=2, tp=2`` mesh of
+``"cpu"`` devices (`parallel.distributed.initialize` a no-op), scores a document in one sequence-parallel
 pass over a ``tp=2`` mesh of ``"cpu"`` devices, and then must hold no ``jax``
 module and no ``verbatim_rag_tpu`` module. A second interpreter saves,
 loads and queries a full-text index and runs the CLI's ``index`` and
@@ -95,6 +96,15 @@ with tempfile.TemporaryDirectory() as ckpt:
         bool((served.model.state_dict()[k] == v).all()) for k, v in model.state_dict().items()
     )
 from verbatim_rag_tpu_torch.parallel import make_mesh
+from verbatim_rag_tpu_torch.parallel.distributed import initialize
+
+mesh_trainer = Trainer(
+    init_highlighter_params(config, seed=1, device="cpu"), config, loss_fn=token_loss,
+    mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4),
+)
+mesh_loss, _ = train_step(mesh_trainer.model, mesh_trainer.optimizer, mesh_trainer.batch_to_device(batch), token_loss)
+single_process = initialize() is False
+from verbatim_rag_tpu_torch.parallel import make_mesh
 
 mesh_index = VerbatimIndex(
     dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(),
@@ -109,6 +119,8 @@ print(json.dumps({
     "sp_rows": len(sp._plan("How efficient are solar panels?", sp_text)["rows"]),
     "sp_whole": sp_spans == [(0, len(sp_text))],
     "train_loss": float(loss),
+    "mesh_train_loss": float(mesh_loss),
+    "single_process": single_process,
     "checkpoint_reloaded": reloaded,
     "mesh_hits": [len(r) for r in mesh_hits],
     "mesh_shards": [type(mesh_index.store._sp_proj).__name__, len(mesh_index.store._sp_proj.shards)],
@@ -306,6 +318,7 @@ def test_main_path_loads_no_jax():
     assert result["narrow_dtypes"] == ["torch.int16", "torch.float16", "torch.float32"]
     assert result["v1_shapes"] == [[3, 16], [3, 16], [3, 5]]
     assert result["train_loss"] > 0 and result["checkpoint_reloaded"]
+    assert result["mesh_train_loss"] > 0 and result["single_process"]
     assert result["sp_rows"] == 1 and result["sp_whole"]
     assert result["mesh_hits"] == [3, 3] and result["mesh_shards"] == ["RowSharded", 4]
 

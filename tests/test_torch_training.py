@@ -48,6 +48,7 @@ from verbatim_rag_tpu_torch.models.highlighter import (
     token_relevance_probs,
 )
 from verbatim_rag_tpu_torch.models.tokenizer import HashTokenizer
+from verbatim_rag_tpu_torch.parallel.mesh import make_mesh
 from verbatim_rag_tpu_torch.training import model as port_model
 from verbatim_rag_tpu_torch.training import train as train_cli
 from verbatim_rag_tpu_torch.training import trainer as port_trainer
@@ -301,10 +302,15 @@ def test_sentence_checkpoint_round_trip_and_refusals(tmp_path):
     (tmp_path / "hf" / "config.json").write_text("{}")
     with pytest.raises(KeyError, match="vocab_size"):  # the HF branch reads the config's shape
         ModelSpanExtractor(model_path=str(tmp_path / "hf"), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port_trainer.Trainer(model, config, mesh=object())
     with pytest.raises(NotImplementedError, match="orbax"):
         trainer.save_checkpoint(str(tmp_path / "o"), format="orbax")
+    # A mesh trains (parity with JAX: tests/test_torch_parallel_training.py).
+    meshed = port_trainer.Trainer(
+        model, config, output_dir=str(tmp_path / "mesh"), mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    )
+    result = meshed.train(_sentence_batches(1), num_epochs=1)
+    assert np.isfinite(result["history"][0]["train_loss"]) and meshed.optimizer.count == 1
+    assert (tmp_path / "mesh" / "final" / "params.npz").exists()
 
 
 @pytest.mark.parametrize("mode", ["token", "sentence"])
@@ -327,5 +333,6 @@ def test_cli_trains_on_the_cpu(tmp_path, mode):
     if mode == "token":
         extractor = ModelSpanExtractor(model_path=str(out / "final"), device="cpu")
         assert extractor.config == tiny_test_config()
-    with pytest.raises(NotImplementedError, match="--dp/--tp"):
-        train_cli.main([*argv, "--dp", "2"])
+    # --dp 2 trains on a mesh of the CPU repeated twice (two rows of 4 a batch)
+    assert train_cli.main([*argv, "--dp", "2", "--output-dir", str(tmp_path / "dp")]) == 0
+    assert (tmp_path / "dp" / "final" / "params.npz").exists()

@@ -22,15 +22,24 @@ Numerics follow the JAX forward:
   :func:`attention` over the additive bias of :func:`build_bias` (padding
   mask, plus the local band on local layers).
 
+The forward is written once over parameter mappings (name → tensor, the
+``state_dict`` names). :func:`encoder_forward_tp` runs it for one data row
+of a mesh whose ``tp`` shards each hold their slices of the attention and
+MLP weights (`parallel.mesh.shard_params`): each shard runs its heads and its
+part of the MLP, and the partial o- and wo-projections are summed over the
+shards in order, their biases added once after the sum. ``Encoder.forward``
+is the same function with one shard holding everything.
+:func:`encoder_forward_sp` is the sequence-parallel forward over a mesh: ring
+attention on global layers, halo attention on local ones.
+
 :func:`embed_texts` is the dense provider's forward (masked mean pooling,
-then L2 normalisation). :func:`encoder_forward_sp` is the sequence-parallel
-forward over a mesh: ring attention on global layers, halo attention on
-local ones.
+then L2 normalisation).
 """
 
 from __future__ import annotations
 
-import copy
+import weakref
+from typing import Iterator, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +60,23 @@ def _normal(shape, generator, scale=0.02) -> nn.Parameter:
     return nn.Parameter(torch.randn(*shape, generator=generator) * scale)
 
 
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ kernel (+ bias)``: operands in ``dtype``, float32 result."""
+    lead = x.shape[:-1]
+    y = matmul_f32(x.reshape(-1, x.shape[-1]).to(dtype), kernel.to(dtype))
+    y = y.reshape(*lead, -1)
+    return y if bias is None else y + bias
+
+
+def layer_norm(x: torch.Tensor, scale, bias, eps: float) -> torch.Tensor:
+    """Float32 LayerNorm with the population variance."""
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * scale
+    return y if bias is None else y + bias
+
+
 class Dense(nn.Module):
     """``y = x @ kernel (+ bias)`` with a float32 result; kernel is [in, out]."""
 
@@ -60,12 +86,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out)) if use_bias else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        lead = x.shape[:-1]
-        y = matmul_f32(x.reshape(-1, x.shape[-1]).to(dtype), self.kernel.to(dtype))
-        y = y.reshape(*lead, -1)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return dense(x, self.kernel, self.bias, dtype)
 
 
 class LayerNorm(nn.Module):
@@ -75,13 +96,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
 
     def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
-        x = x.float()
-        mu = x.mean(dim=-1, keepdim=True)
-        var = x.var(dim=-1, unbiased=False, keepdim=True)
-        y = (x - mu) * torch.rsqrt(var + eps) * self.scale
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return layer_norm(x, self.scale, self.bias, eps)
 
 
 def rope(x: torch.Tensor, theta: float, positions: torch.Tensor) -> torch.Tensor:
@@ -144,14 +159,139 @@ class EncoderLayer(nn.Module):
         )
         self.mlp_ln = LayerNorm(h, ln_bias)
 
-    def mlp_forward(self, x, activation: str, dtype) -> torch.Tensor:
-        up = self.mlp["wi"](x, dtype)
-        if activation == "geglu":
-            gate, val = up.chunk(2, dim=-1)
-            hidden = F.gelu(gate.to(dtype), approximate="none") * val.to(dtype)
-        else:
-            hidden = F.gelu(up.to(dtype), approximate="none")
-        return self.mlp["wo"](hidden, dtype)
+
+# -- the forward over parameter mappings ---------------------------------------------
+
+
+def embed(p: Mapping, config: EncoderConfig, input_ids, token_type_ids=None, positions=None):
+    """Token (+ absolute position, + token type) embeddings; ``positions``
+    default to ``arange(S)`` (a sequence shard passes its global ones)."""
+    emb = p["embeddings.word"][input_ids]
+    if config.position_embedding_type == "absolute":
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        emb = emb + p["embeddings.position"][positions][None]
+    if config.type_vocab_size and "embeddings.token_type" in p:
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        emb = emb + p["embeddings.token_type"][token_type_ids]
+    if config.embedding_norm:
+        emb = _norm(p, "embeddings_ln", emb, config.layer_norm_eps)
+    return emb
+
+
+def _norm(p: Mapping, name: str, x, eps: float):
+    return layer_norm(x, p[f"{name}.scale"], p.get(f"{name}.bias"), eps)
+
+
+def _attn_in(p: Mapping, config: EncoderConfig, i: int, h):
+    """Layer i's attention input: its pre-norm, except ModernBERT's layer 0."""
+    if config.norm_location == "pre" and not (i == 0 and config.first_layer_no_attn_norm):
+        return _norm(p, f"layers.{i}.attn_ln", h, config.layer_norm_eps)
+    return h
+
+
+def _qkv(p: Mapping, pre: str, x, dtype, heads: int, head_dim: int, cols: slice):
+    """q, k, v [B, S, heads, D] from ``p``'s kernels; ``cols`` picks the
+    shard's heads from a replicated bias."""
+    out = []
+    for name in ("q", "k", "v"):
+        bias = p.get(f"{pre}attn.{name}.bias")
+        y = dense(x, p[f"{pre}attn.{name}.kernel"], None if bias is None else bias[cols], dtype)
+        out.append(y.reshape(*x.shape[:2], heads, head_dim))
+    return out
+
+
+def _attend(q, k, v, config: EncoderConfig, is_global: bool, positions, lengths, attention_mask):
+    """RoPE, then flash or plain attention over [B, S, H, D]."""
+    dtype = compute_dtype(config)
+    use_rope = config.position_embedding_type == "rope"
+    if use_rope:
+        theta = config.global_rope_theta if is_global else config.local_rope_theta
+        q = rope(q.to(dtype), theta, positions)
+        k = rope(k.to(dtype), theta, positions)
+    if config.use_flash_attention:
+        window = None if is_global or not use_rope else config.local_attention_window
+        return flash_attention(
+            q.to(dtype).contiguous(), k.to(dtype).contiguous(), v.to(dtype).contiguous(),
+            lengths, window,
+        )
+    bias = build_bias(
+        attention_mask, q.shape[1], is_global or not use_rope, config.local_attention_window
+    )
+    return attention(q.to(dtype), k.to(dtype), v.to(dtype), bias)
+
+
+def _mlp(p: Mapping, pre: str, x, activation: str, dtype, wo_bias: bool = False):
+    """The MLP; without wo's bias (the default) a tp shard's partial sum."""
+    up = dense(x, p[f"{pre}mlp.wi.kernel"], p.get(f"{pre}mlp.wi.bias"), dtype)
+    if activation == "geglu":
+        gate, val = up.chunk(2, dim=-1)
+        hidden = F.gelu(gate.to(dtype), approximate="none") * val.to(dtype)
+    else:
+        hidden = F.gelu(up.to(dtype), approximate="none")
+    return dense(hidden, p[f"{pre}mlp.wo.kernel"], p.get(f"{pre}mlp.wo.bias") if wo_bias else None, dtype)
+
+
+def tp_reduce(partials: Sequence[torch.Tensor], bias, device) -> torch.Tensor:
+    """The tp shards' partial projections summed in shard order onto
+    ``device``, then the replicated bias added once."""
+    out = partials[0].to(device)
+    for x in partials[1:]:
+        out = out + x.to(device)
+    return out if bias is None else out + bias
+
+
+def encoder_forward_tp(
+    params: Sequence[Mapping], devices, config: EncoderConfig, input_ids, attention_mask,
+    token_type_ids=None,
+) -> torch.Tensor:
+    """The encoder forward for one data row of a ``[dp, tp]`` mesh:
+    ``params[t]`` maps the ``state_dict`` names to shard t's tensors on
+    ``devices[t]`` (its column block of q/k/v and wi, its row block of o and
+    wo, the rest whole), inputs on ``devices[0]`` → hidden states [B, S,
+    hidden] float32 on ``devices[0]``.
+
+    Embeddings, norms and the residual stream run on ``devices[0]``; each
+    shard runs its ``num_heads / tp`` heads (q/k/v, RoPE, attention, its part
+    of the o-projection) and its part of the MLP; :func:`tp_reduce` sums the
+    partials. One shard holding every parameter is the single-device forward.
+    """
+    tp = len(params)
+    dtype = compute_dtype(config)
+    batch, seq_len = input_ids.shape
+    heads, head_dim = config.num_heads // tp, config.head_dim
+    width = heads * head_dim
+    pre_ln = config.norm_location == "pre"
+    eps = config.layer_norm_eps
+    home = params[0]
+    positions = [torch.arange(seq_len, device=d) for d in devices]
+    lengths = attention_mask.sum(dim=1).to(torch.int32)
+    lengths = [lengths.to(d) for d in devices]
+    masks = [attention_mask.to(d) for d in devices]
+
+    h = embed(home, config, input_ids.long(), token_type_ids)
+    for i in range(config.num_layers):
+        pre = f"layers.{i}."
+        is_global = config.is_global_layer(i)
+        a_in = _attn_in(home, config, i, h)
+        partials = []
+        for t, (p, dev) in enumerate(zip(params, devices)):
+            q, k, v = _qkv(p, pre, a_in.to(dev), dtype, heads, head_dim, slice(t * width, (t + 1) * width))
+            ctx = _attend(q, k, v, config, is_global, positions[t], lengths[t], masks[t])
+            partials.append(dense(ctx.reshape(batch, seq_len, width), p[f"{pre}attn.o.kernel"], None, dtype))
+        h = h + tp_reduce(partials, home.get(f"{pre}attn.o.bias"), devices[0])
+        if not pre_ln:
+            h = _norm(home, f"{pre}attn_ln", h, eps)
+        m_in = _norm(home, f"{pre}mlp_ln", h, eps) if pre_ln else h
+        partials = [_mlp(p, pre, m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)]
+        h = h + tp_reduce(partials, home.get(f"{pre}mlp.wo.bias"), devices[0])
+        if not pre_ln:
+            h = _norm(home, f"{pre}mlp_ln", h, eps)
+
+    if config.final_norm:
+        h = _norm(home, "final_ln", h, eps)
+    return h.float()
 
 
 class Encoder(nn.Module):
@@ -182,72 +322,11 @@ class Encoder(nn.Module):
         )
         self.final_ln = LayerNorm(h, config.use_bias) if config.final_norm else None
 
-    def embed(self, input_ids, token_type_ids=None, positions=None) -> torch.Tensor:
-        """Token (+ absolute position, + token type) embeddings; ``positions``
-        default to ``arange(S)`` (a sequence shard passes its global ones)."""
-        config = self.config
-        emb = self.embeddings["word"][input_ids]
-        if config.position_embedding_type == "absolute":
-            if positions is None:
-                positions = torch.arange(input_ids.shape[1], device=input_ids.device)
-            emb = emb + self.embeddings["position"][positions][None]
-        if config.type_vocab_size and "token_type" in self.embeddings:
-            if token_type_ids is None:
-                token_type_ids = torch.zeros_like(input_ids)
-            emb = emb + self.embeddings["token_type"][token_type_ids]
-        if self.embeddings_ln is not None:
-            emb = self.embeddings_ln(emb, config.layer_norm_eps)
-        return emb
-
     def forward(self, input_ids, attention_mask, token_type_ids=None) -> torch.Tensor:
-        config = self.config
-        dtype = compute_dtype(config)
-        batch, seq_len = input_ids.shape
-        heads, head_dim = config.num_heads, config.head_dim
-        pre_ln = config.norm_location == "pre"
-        eps = config.layer_norm_eps
-        use_rope = config.position_embedding_type == "rope"
-        positions = torch.arange(seq_len, device=input_ids.device)
-        lengths = attention_mask.sum(dim=1).to(torch.int32)
-
-        h = self.embed(input_ids.long(), token_type_ids)
-        for i, layer in enumerate(self.layers):
-            is_global = config.is_global_layer(i)
-            if pre_ln and not (i == 0 and config.first_layer_no_attn_norm):
-                a_in = layer.attn_ln(h, eps)
-            else:
-                a_in = h
-            q, k, v = (
-                layer.attn[name](a_in, dtype).reshape(batch, seq_len, heads, head_dim)
-                for name in ("q", "k", "v")
-            )
-            if use_rope:
-                theta = config.global_rope_theta if is_global else config.local_rope_theta
-                q = rope(q.to(dtype), theta, positions)
-                k = rope(k.to(dtype), theta, positions)
-            if config.use_flash_attention:
-                window = None if is_global or not use_rope else config.local_attention_window
-                ctx = flash_attention(
-                    q.to(dtype).contiguous(), k.to(dtype).contiguous(),
-                    v.to(dtype).contiguous(), lengths, window,
-                )
-            else:
-                bias = build_bias(
-                    attention_mask, seq_len, is_global or not use_rope,
-                    config.local_attention_window,
-                )
-                ctx = attention(q.to(dtype), k.to(dtype), v.to(dtype), bias)
-            h = h + layer.attn["o"](ctx.reshape(batch, seq_len, -1), dtype)
-            if not pre_ln:
-                h = layer.attn_ln(h, eps)
-            m_in = layer.mlp_ln(h, eps) if pre_ln else h
-            h = h + layer.mlp_forward(m_in, config.activation, dtype)
-            if not pre_ln:
-                h = layer.mlp_ln(h, eps)
-
-        if self.final_ln is not None:
-            h = self.final_ln(h, eps)
-        return h.float()
+        return encoder_forward_tp(
+            [dict(self.named_parameters())], [input_ids.device], self.config,
+            input_ids, attention_mask, token_type_ids,
+        )
 
 
 # -- pooling heads ------------------------------------------------------------------
@@ -278,28 +357,109 @@ def embed_texts(
     return pooled
 
 
-def shard_replicas(model: nn.Module, devices) -> list[nn.Module]:
-    """``model`` for each shard's device: the model itself where its
-    parameters live, a copy elsewhere (made once per distinct device)."""
-    home = next(model.parameters()).device
-    copies = {home: model}
-    for dev in devices:
-        if dev not in copies:
-            copies[dev] = copy.deepcopy(model).to(dev)
-    return [copies[dev] for dev in devices]
+# -- parameters on other devices -------------------------------------------------------
 
 
-def encoder_forward_sp(model: Encoder, ids_shards, mask_shards, mesh, axis: str = "tp") -> list[torch.Tensor]:
+class _Replicate(torch.autograd.Function):
+    """A kept buffer holding ``src``'s value on another device; the gradient
+    that lands on it is returned to ``src``."""
+
+    @staticmethod
+    def forward(ctx, src, buffer_box):
+        ctx.home = src.device
+        return buffer_box[0].detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.home), None
+
+
+class ReplicaBuffers:
+    """Kept copies of parameters (or their tp slices) on devices other than
+    their own, by key, each made at its first use.
+
+    :meth:`refresh` starts a new forward: each buffer is copied from its
+    source again at its first use after it, and once only, so that the
+    forward's users of one buffer (the dp rows of a mesh on one device)
+    share one copy. Parameters change in place under an optimizer (and
+    torch's fused AdamW moves no version counter), so a copy is never
+    trusted across forwards."""
+
+    def __init__(self):
+        self.buffers: dict = {}
+        self.generation = 0
+
+    def refresh(self) -> None:
+        self.generation += 1
+
+    def get(self, src: torch.Tensor, device, key) -> torch.Tensor:
+        """``src`` on ``device``: ``src`` itself where it lives, else its
+        kept buffer; under grad the buffer is linked to ``src``, so a
+        gradient that lands on it reaches ``src``."""
+        if src.device == device:
+            return src
+        buf, seen = self.buffers.get(key, (None, None))
+        if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+            buf, seen = torch.empty(src.shape, dtype=src.dtype, device=device), None
+        if seen != self.generation:
+            with torch.no_grad():
+                buf.copy_(src)
+            self.buffers[key] = (buf, self.generation)
+        if torch.is_grad_enabled() and src.requires_grad:
+            return _Replicate.apply(src, [buf])
+        return buf
+
+
+#: Each model's kept replicas for `shard_replicas`, by (name, device).
+_REPLICAS: "weakref.WeakKeyDictionary[nn.Module, ReplicaBuffers]" = weakref.WeakKeyDictionary()
+
+
+class ReplicaParams(Mapping):
+    """A model's parameters as seen from one device (name → tensor): the
+    parameters themselves on their own device, kept replicas
+    (:class:`ReplicaBuffers`) on any other."""
+
+    def __init__(self, model: nn.Module, device, replicas: ReplicaBuffers):
+        self.device = torch.device(device)
+        self._params = dict(model.named_parameters())
+        self._replicas = replicas
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._replicas.get(self._params[name], self.device, (name, self.device))
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._params)
+
+    def __len__(self) -> int:
+        return len(self._params)
+
+
+def shard_replicas(model: nn.Module, devices) -> list[ReplicaParams]:
+    """``model``'s parameters for each shard's device of one forward
+    (:class:`ReplicaParams`): the model keeps one replica per parameter and
+    distinct device, a device that appears again reuses it, and a mesh of
+    the model's own device reads the model's parameters with no copy."""
+    replicas = _REPLICAS.setdefault(model, ReplicaBuffers())
+    replicas.refresh()
+    return [ReplicaParams(model, dev, replicas) for dev in devices]
+
+
+def encoder_forward_sp(
+    model: Encoder, ids_shards, mask_shards, mesh, axis: str = "tp", params=None
+) -> list[torch.Tensor]:
     """Sequence-parallel encoder forward: lists of [B, S/n] id and mask
     shards (one per device of ``axis``, :func:`ops.ring_attention.shard_sequence`)
     → the list of hidden-state shards [B, S/n, hidden] float32.
 
     Activations stay on their shard's device; embeddings, LayerNorms, dense
-    layers, MLP and RoPE run per shard, RoPE and absolute positions at global
-    positions ``my·S/n + arange``. Global layers run exact ring attention,
-    local layers halo attention.
-    ``lengths`` is the mask summed over the shards. The function is the
-    single-device forward's: results match it up to float rounding.
+    layers, MLP and RoPE run per shard (on :func:`shard_replicas`), RoPE and
+    absolute positions at global positions ``my·S/n + arange``. Global layers
+    run exact ring attention, local layers halo attention. ``lengths`` is
+    the mask summed over the shards. The function is the single-device
+    forward's: results match it up to float rounding, and it is
+    differentiable: every shard's gradient reaches ``model``'s parameters.
+    ``params`` are the shards' :func:`shard_replicas` when the caller uses
+    them after the forward too (a head on the hidden states).
     """
     config = model.config
     dtype = compute_dtype(config)
@@ -308,24 +468,19 @@ def encoder_forward_sp(model: Encoder, ids_shards, mask_shards, mesh, axis: str 
     eps = config.layer_norm_eps
     use_rope = config.position_embedding_type == "rope"
     devices = [ids.device for ids in ids_shards]
-    models = shard_replicas(model, devices)
+    params = params or shard_replicas(model, devices)
     shard_len = ids_shards[0].shape[1]
     positions = [my * shard_len + torch.arange(shard_len, device=d) for my, d in enumerate(devices)]
     lengths = sum(m.to(devices[0]).sum(dim=1) for m in mask_shards).to(torch.int32)
 
-    h = [md.embed(ids.long(), None, pos) for md, ids, pos in zip(models, ids_shards, positions)]
+    h = [embed(p, config, ids.long(), None, pos) for p, ids, pos in zip(params, ids_shards, positions)]
     for i in range(config.num_layers):
+        pre = f"layers.{i}."
         is_global = config.is_global_layer(i)
         theta = config.global_rope_theta if is_global else config.local_rope_theta
         qs, ks, vs = [], [], []
-        for md, x, pos in zip(models, h, positions):
-            layer = md.layers[i]
-            a_in = layer.attn_ln(x, eps) if pre_ln and not (i == 0 and config.first_layer_no_attn_norm) else x
-            batch, seq = x.shape[:2]
-            q, k, v = (
-                layer.attn[name](a_in, dtype).reshape(batch, seq, heads, head_dim)
-                for name in ("q", "k", "v")
-            )
+        for p, x, pos in zip(params, h, positions):
+            q, k, v = _qkv(p, pre, _attn_in(p, config, i, x), dtype, heads, head_dim, slice(None))
             if use_rope:
                 q = rope(q.to(dtype), theta, pos)
                 k = rope(k.to(dtype), theta, pos)
@@ -336,16 +491,15 @@ def encoder_forward_sp(model: Encoder, ids_shards, mask_shards, mesh, axis: str 
             ctx = ring_attention(qs, ks, vs, lengths, mesh, axis)
         else:
             ctx = halo_attention(qs, ks, vs, lengths, config.local_attention_window, mesh, axis)
-        for my, (md, c) in enumerate(zip(models, ctx)):
-            layer = md.layers[i]
-            x = h[my] + layer.attn["o"](c.reshape(*c.shape[:2], -1), dtype)
+        for my, (p, c) in enumerate(zip(params, ctx)):
+            x = h[my] + dense(c.reshape(*c.shape[:2], -1), p[f"{pre}attn.o.kernel"], p.get(f"{pre}attn.o.bias"), dtype)
             if not pre_ln:
-                x = layer.attn_ln(x, eps)
-            m_in = layer.mlp_ln(x, eps) if pre_ln else x
-            x = x + layer.mlp_forward(m_in, config.activation, dtype)
+                x = _norm(p, f"{pre}attn_ln", x, eps)
+            m_in = _norm(p, f"{pre}mlp_ln", x, eps) if pre_ln else x
+            x = x + _mlp(p, pre, m_in, config.activation, dtype, wo_bias=True)
             if not pre_ln:
-                x = layer.mlp_ln(x, eps)
+                x = _norm(p, f"{pre}mlp_ln", x, eps)
             h[my] = x
-    if model.final_ln is not None:
-        h = [md.final_ln(x, eps) for md, x in zip(models, h)]
+    if config.final_norm:
+        h = [_norm(p, "final_ln", x, eps) for p, x in zip(params, h)]
     return [x.float() for x in h]

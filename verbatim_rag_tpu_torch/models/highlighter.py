@@ -38,7 +38,16 @@ from .config import EncoderConfig, demo_highlighter_config
 #: Each row's probabilities depend on that row only, so the slicing changes
 #: no result.
 SLICE_TOKENS = 512 * 2048
-from .encoder import Dense, Encoder, LayerNorm, compute_dtype, encoder_forward_sp, shard_replicas
+from .encoder import (
+    Dense,
+    Encoder,
+    LayerNorm,
+    compute_dtype,
+    dense,
+    encoder_forward_sp,
+    layer_norm,
+    shard_replicas,
+)
 from .tokenizer import HashTokenizer, Tokenizer, bucket_length
 
 
@@ -65,12 +74,18 @@ class HighlighterModel(Encoder):
             )
 
     def classifier_logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        dtype = compute_dtype(self.config)
-        if self.cls_head is not None:
-            hidden = self.cls_head["dense"](hidden, dtype)
-            hidden = F.gelu(hidden.float(), approximate="none")
-            hidden = self.cls_head["norm"](hidden, self.config.layer_norm_eps)
-        return self.classifier(hidden, dtype)  # [B, S, 2]
+        return classifier_logits(dict(self.named_parameters()), self.config, hidden)
+
+
+def classifier_logits(p, config: EncoderConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """The token head over a parameter mapping: the optional prediction head
+    (dense → GELU → LayerNorm), then the classifier — [B, S, 2] float32."""
+    dtype = compute_dtype(config)
+    if "cls_head.dense.kernel" in p:
+        hidden = dense(hidden, p["cls_head.dense.kernel"], p.get("cls_head.dense.bias"), dtype)
+        hidden = F.gelu(hidden.float(), approximate="none")
+        hidden = layer_norm(hidden, p["cls_head.norm.scale"], p.get("cls_head.norm.bias"), config.layer_norm_eps)
+    return dense(hidden, p["classifier.kernel"], p.get("classifier.bias"), dtype)
 
 
 def init_highlighter_params(
@@ -97,11 +112,11 @@ def token_relevance_probs_sp(
     sliding windows): lists of [B, S/n] id and mask shards → the list of
     [B, S/n] float32 probability shards (`models.encoder.encoder_forward_sp`:
     ring attention for global layers, halo exchange for local layers)."""
-    hidden = encoder_forward_sp(model, ids_shards, mask_shards, mesh, axis)
-    models = shard_replicas(model, [x.device for x in hidden])
+    params = shard_replicas(model, [ids.device for ids in ids_shards])
+    hidden = encoder_forward_sp(model, ids_shards, mask_shards, mesh, axis, params)
     out = []
-    for md, x, mask in zip(models, hidden, mask_shards):
-        probs = torch.softmax(md.classifier_logits(x).float(), dim=-1)[..., 1]
+    for p, x, mask in zip(params, hidden, mask_shards):
+        probs = torch.softmax(classifier_logits(p, model.config, x).float(), dim=-1)[..., 1]
         out.append(probs * mask.float())
     return out
 

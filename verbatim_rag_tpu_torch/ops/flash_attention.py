@@ -15,7 +15,9 @@ TPU kernels of that module:
 Each entry takes the head dims of its kernel (:data:`FORWARD_HEAD_DIMS`,
 :data:`PARTIAL_HEAD_DIMS`, :data:`BACKWARD_HEAD_DIMS`); on CUDA any other
 raises ``ValueError``, a differentiable call included (its backward would
-need the kernel).
+need the kernel). The ring step's partial is differentiable on both devices
+(:class:`FlashAttentionPartial`: the kernel forward, a plain backward, as in
+the JAX package).
 
 :func:`attention_reference`, :func:`attention_lse_reference`,
 :func:`flash_attention_bwd_reference` and
@@ -177,12 +179,13 @@ def _forward(q, k, v, lengths, window, with_lse: bool):
     fn = lib.flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        batch, seq, heads, head_dim, -1 if window is None else int(window),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            batch, seq, heads, head_dim, -1 if window is None else int(window),
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        )
     cuda_build.check(rc, "flash_attention_fwd")
     launches += 1
     launches_d32 += head_dim == 32
@@ -217,14 +220,16 @@ def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
         fn = lib.flash_bwd_dq
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        cuda_build.check(fn(*common, dq.data_ptr(), *shape), "flash_bwd_dq")
+        with torch.cuda.device(q.device):
+            cuda_build.check(fn(*common, dq.data_ptr(), *shape), "flash_bwd_dq")
         bwd_dq_launches += 1
     if "dkv" in kernels:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         fn = lib.flash_bwd_dkv
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape), "flash_bwd_dkv")
+        with torch.cuda.device(q.device):
+            cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape), "flash_bwd_dkv")
         bwd_dkv_launches += 1
     return dq, dk, dv
 
@@ -287,14 +292,46 @@ def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
     fn = lib.flash_attention_partial
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), numer.data_ptr(),
-        m.data_ptr(), l.data_ptr(), batch, seq_q, k.shape[1], heads, head_dim, k_offset,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), numer.data_ptr(),
+            m.data_ptr(), l.data_ptr(), batch, seq_q, k.shape[1], heads, head_dim, k_offset,
+            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        )
     cuda_build.check(rc, "flash_attention_partial")
     partial_launches += 1
     return numer, m, l
+
+
+class FlashAttentionPartial(torch.autograd.Function):
+    """Differentiable ring step (JAX's ``custom_vjp`` on the partial kernel):
+    the forward runs the kernel on CUDA and the plain version on the CPU and
+    keeps (q, k, v, lengths, k_offset); the backward recomputes
+    :func:`flash_attention_partial_reference` from them and takes its
+    vector-Jacobian product for the cotangents of all three outputs, as
+    JAX's ``_flash_partial_bwd`` does (its ``amax`` splits the max's
+    gradient evenly over ties, as ``jnp.max``'s does). JAX has no kernel
+    for this backward either."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, k_offset):
+        if q.device.type == "cpu":
+            out = flash_attention_partial_reference(q, k, v, lengths, k_offset)
+        else:
+            out = flash_attention_partial_cuda(q, k, v, lengths, k_offset)
+        ctx.k_offset = k_offset
+        ctx.save_for_backward(q, k, v, lengths)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_numer, g_m, g_l):
+        q, k, v, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(need) for x, need in zip((q, k, v), ctx.needs_input_grad)]
+            outs = flash_attention_partial_reference(*inputs, lengths, ctx.k_offset)
+            wanted = [x for x in inputs if x.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wanted, (g_numer, g_m, g_l)))
+        return (*(next(grads).to(x.dtype) if x.requires_grad else None for x in inputs), None, None)
 
 
 def flash_attention_partial(q, k, v, lengths, k_offset: int):
@@ -302,14 +339,13 @@ def flash_attention_partial(q, k, v, lengths, k_offset: int):
     softmax merge (`ops.ring_attention.ring_attention`).
 
     CPU tensors take the plain version, CUDA tensors the kernel; there is no
-    other path. ``k_offset`` is a host int. The CPU path is differentiable
-    through torch's autograd; the kernel has no backward yet, so on CUDA an
-    input that requires grad raises.
+    other path. ``k_offset`` is a host int. When grad is enabled and q, k or
+    v requires it, the call is differentiable (:class:`FlashAttentionPartial`).
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionPartial.apply(q, k, v, lengths, k_offset)
     if q.device.type == "cpu":
         return flash_attention_partial_reference(q, k, v, lengths, k_offset)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError("flash_attention_partial has no CUDA backward yet")
     return flash_attention_partial_cuda(q, k, v, lengths, k_offset)
 
 

@@ -297,12 +297,13 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        rc = fn(
-            qp.data_ptr(), corpus.data_ptr(), _ptr(q_scale), _ptr(c_scale), mask.data_ptr(),
-            vals.data_ptr(), pos.data_ptr(), row_bytes,
-            KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows, queries, stages,
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
+        with torch.cuda.device(corpus.device):
+            rc = fn(
+                qp.data_ptr(), corpus.data_ptr(), _ptr(q_scale), _ptr(c_scale), mask.data_ptr(),
+                vals.data_ptr(), pos.data_ptr(), row_bytes,
+                KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows, queries, stages,
+                torch.cuda.current_stream(corpus.device).cuda_stream,
+            )
         cuda_build.check(rc, "bucket_max_v2")
         launches += 1
     return vals, globalize_rows(pos, block_rows, n)
@@ -447,11 +448,12 @@ def matmul_bucket_max_cuda(corpus, q, mask):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        rc = fn(
-            qp.data_ptr(), corpus.data_ptr(), mask.data_ptr(), vals.data_ptr(), rows.data_ptr(),
-            row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block, queries, stages,
-            torch.cuda.current_stream(corpus.device).cuda_stream,
-        )
+        with torch.cuda.device(corpus.device):
+            rc = fn(
+                qp.data_ptr(), corpus.data_ptr(), mask.data_ptr(), vals.data_ptr(), rows.data_ptr(),
+                row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block, queries, stages,
+                torch.cuda.current_stream(corpus.device).cuda_stream,
+            )
         cuda_build.check(rc, "bucket_max_v1")
         launches_v1 += 1
     return vals, rows

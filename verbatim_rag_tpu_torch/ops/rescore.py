@@ -92,12 +92,13 @@ def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     )
-    rc = fn(
-        cand_rows.data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(), q_ids.data_ptr(),
-        q_w.data_ptr(), out.data_ptr(), batch, cands, n_rows, m, qm,
-        _ID_BYTES[sp_ids.dtype], _WEIGHT_BYTES[sp_w.dtype],
-        torch.cuda.current_stream(cand_rows.device).cuda_stream,
-    )
+    with torch.cuda.device(cand_rows.device):
+        rc = fn(
+            cand_rows.data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(), q_ids.data_ptr(),
+            q_w.data_ptr(), out.data_ptr(), batch, cands, n_rows, m, qm,
+            _ID_BYTES[sp_ids.dtype], _WEIGHT_BYTES[sp_w.dtype],
+            torch.cuda.current_stream(cand_rows.device).cuda_stream,
+        )
     cuda_build.check(rc, "sparse_rescore")
     launches += 1
     return out

@@ -170,18 +170,19 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
     stream = torch.cuda.current_stream(corpora[0].device).cuda_stream
     for dtype, idx, geometries in plan_section_launches([(a[0].dtype, a[4]) for a in arms]):
         group = [arms[i] for i in idx]
-        rc = fn(
-            len(group),
-            pointers([a[1].data_ptr() for a in group]),
-            pointers([a[0].data_ptr() for a in group]),
-            pointers([_ptr(a[2]) for a in group]),
-            pointers([_ptr(a[3]) for a in group]),
-            pointers([tables[i].data_ptr() for i in idx]),
-            ints([a[4] for a in group]),
-            ints([g[0] for g in geometries]),
-            ints([g[1] for g in geometries]),
-            KERNEL_KINDS[dtype], _ptr(mask_add), batch, n, block_cols, stream,
-        )
+        with torch.cuda.device(corpora[0].device):
+            rc = fn(
+                len(group),
+                pointers([a[1].data_ptr() for a in group]),
+                pointers([a[0].data_ptr() for a in group]),
+                pointers([_ptr(a[2]) for a in group]),
+                pointers([_ptr(a[3]) for a in group]),
+                pointers([tables[i].data_ptr() for i in idx]),
+                ints([a[4] for a in group]),
+                ints([g[0] for g in geometries]),
+                ints([g[1] for g in geometries]),
+                KERNEL_KINDS[dtype], _ptr(mask_add), batch, n, block_cols, stream,
+            )
         cuda_build.check(rc, "section_tables")
     launches += 1
     return tables

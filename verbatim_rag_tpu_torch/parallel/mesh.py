@@ -1,6 +1,7 @@
-"""Device meshes and row placement (port of
-`verbatim_rag_tpu/parallel/mesh.py`: the mesh, ``row_sharding`` and
-``replicated``).
+"""Device meshes, row placement and tensor-parallel parameters (port of
+`verbatim_rag_tpu/parallel/mesh.py`: the mesh, ``data_sharding``,
+``row_sharding``, ``replicated``, ``encoder_param_specs`` and
+``shard_params``).
 
 The JAX package is single-controller: one process drives every shard of a
 ``shard_map``. The port keeps that model. A :class:`Mesh` is a ``[dp, tp]``
@@ -10,9 +11,25 @@ chunks (`ops.ring_attention.shard_sequence`), a row-sharded array is a
 between the devices of such a list. A device may appear more than once: a
 mesh of repeated ``"cpu"`` devices stands in for JAX's virtual CPU devices,
 and ``[cuda:0] * n`` runs n shards on one card, one after another.
+
+Tensor parallelism follows the JAX package's rules (:func:`encoder_param_specs`):
+attention q/k/v and MLP wi are cut by output columns over ``tp``, o and wo by
+input rows, everything else is replicated. XLA runs such a placement as the
+unsharded function; the port runs each shard's part of a layer on its own
+device (`models.encoder.encoder_forward_tp`), so the cut must give each shard
+a self-contained part: heads for attention, and for a GEGLU MLP the same
+block of the gate half and of the value half of wi (JAX splits the global
+gate from the global value), with the matching row block of wo.
+:func:`shard_params` returns a :class:`ShardedModel` whose logical
+parameters stay the model's own: each shard reads its slices of them
+(views on the parameters' own device, kept copies on another:
+`models.encoder.ReplicaBuffers`), and gradients flow back into the model's parameters,
+summed over ``dp``.
 """
 
 from __future__ import annotations
+
+from typing import Iterator, Mapping
 
 import torch
 
@@ -175,3 +192,186 @@ def replicated(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
     appears more than once shares one copy)."""
     copies: dict[torch.device, torch.Tensor] = {}
     return [copies.setdefault(d, x.to(d)) for d in mesh.flat_devices]
+
+
+def data_sharding(x: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+    """A ``[B, ...]`` batch split by rows over ``dp`` (JAX's ``P("dp")``):
+    shard d holds rows ``[d·B/dp, (d+1)·B/dp)`` on ``mesh.devices[d][0]``.
+    Raises ``ValueError`` when B does not divide, as JAX's placement does."""
+    dp = mesh.shape["dp"]
+    if x.shape[0] % dp:
+        raise ValueError(f"batch of {x.shape[0]} rows does not divide evenly over dp={dp}")
+    n = x.shape[0] // dp
+    return [x[d * n : (d + 1) * n].to(mesh.devices[d][0]) for d in range(dp)]
+
+
+def encoder_param_specs(params) -> dict[str, tuple]:
+    """The tensor-parallel spec of each parameter (a model or a
+    ``state_dict``): name → one entry per dim, ``"tp"`` on the sharded dim,
+    ``()`` for a replicated parameter — JAX's ``PartitionSpec`` tree without
+    its stacked layer axis.
+
+    Rules (JAX's, by path):
+    - attention q/k/v kernels: output dim (heads) over tp → ``(None, "tp")``
+    - attention o kernel: input dim over tp → ``("tp", None)``
+    - mlp wi kernel: output (intermediate) dim over tp, and its bias
+    - mlp wo kernel: input (intermediate) dim over tp
+    - embeddings, norms and every other bias: replicated
+    """
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+
+    def spec_for(name: str, ndim: int) -> tuple:
+        parts = [part for part in name.split(".") if not part.isdigit()]
+        joined = "/".join(parts)
+        if "attn" in joined and joined.endswith("kernel"):
+            if "/o/" in joined or joined.endswith("o/kernel"):
+                return (*[None] * (ndim - 2), "tp", None)
+            return (*[None] * (ndim - 2), None, "tp")
+        if "mlp" in joined and joined.endswith("kernel"):
+            if "wi" in parts:
+                return (*[None] * (ndim - 2), None, "tp")
+            return (*[None] * (ndim - 2), "tp", None)
+        if "mlp" in joined and joined.endswith("bias") and "wi" in parts:
+            return (*[None] * (ndim - 1), "tp")
+        return ()
+
+    return {name: spec_for(name, value.dim()) for name, value in params.items()}
+
+
+def wi_columns(config, tp: int, t: int) -> list[slice]:
+    """Shard t's columns of wi's output: its block of the intermediate dim,
+    and for GEGLU that block of the gate half and of the value half."""
+    inter = config.intermediate_size
+    block = inter // tp
+    halves = 2 if config.activation == "geglu" else 1
+    return [slice(h * inter + t * block, h * inter + (t + 1) * block) for h in range(halves)]
+
+
+def tp_slice(name: str, value: torch.Tensor, spec: tuple, config, tp: int, t: int) -> torch.Tensor:
+    """Shard t's part of a parameter with a ``"tp"`` spec: a contiguous block
+    of the sharded dim, or wi's :func:`wi_columns` (a view of the parameter,
+    or for GEGLU the concatenation of two)."""
+    dim = spec.index("tp")
+    if ".mlp.wi." in f".{name}":
+        parts = [value.narrow(dim, s.start, s.stop - s.start) for s in wi_columns(config, tp, t)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+    block = value.shape[dim] // tp
+    return value.narrow(dim, t * block, block)
+
+
+class ShardParams(Mapping):
+    """Shard ``(d, t)``'s parameters (name → tensor on ``mesh.devices[d][t]``):
+    its slice of each tp-sharded parameter, each replicated one whole."""
+
+    def __init__(self, sharded: "ShardedModel", d: int, t: int):
+        self.sharded, self.t = sharded, t
+        self.device = sharded.mesh.devices[d][t]
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        sm = self.sharded
+        value, spec = sm.params[name], sm.specs[name]
+        part = None
+        if "tp" in spec and sm.tp > 1:
+            part = self.t
+            value = tp_slice(name, value, spec, sm.config, sm.tp, self.t)
+        return sm.replicas.get(value, self.device, (name, part, self.device))
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self.sharded.params)
+
+    def __len__(self) -> int:
+        return len(self.sharded.params)
+
+
+class DPShard:
+    """One data row of a :class:`ShardedModel`, called like the model:
+    ``shard(input_ids, attention_mask)`` → hidden states on the row's first
+    device (`models.encoder.encoder_forward_tp` over its tp shards). A dense
+    head of the model (``classifier``, ``sentence_classifier``) is an
+    attribute ``(x, dtype) → logits``, as on the model."""
+
+    def __init__(self, sharded: "ShardedModel", d: int):
+        self.config = sharded.config
+        self.devices = list(sharded.mesh.devices[d])
+        self.params = [ShardParams(sharded, d, t) for t in range(sharded.tp)]
+
+    def __call__(self, input_ids, attention_mask) -> torch.Tensor:
+        from verbatim_rag_tpu_torch.models.encoder import encoder_forward_tp
+
+        return encoder_forward_tp(self.params, self.devices, self.config, input_ids, attention_mask)
+
+    def __getattr__(self, name: str):
+        home = self.__dict__.get("params", [{}])[0]
+        if f"{name}.kernel" not in home:
+            raise AttributeError(name)
+        from verbatim_rag_tpu_torch.models.encoder import dense
+
+        return lambda x, dtype: dense(x, home[f"{name}.kernel"], home.get(f"{name}.bias"), dtype)
+
+
+class ShardedModel:
+    """A model placed on a ``[dp, tp]`` mesh (:func:`shard_params`).
+
+    The model's own parameters, on ``mesh.devices[0][0]``, are the logical
+    ones: ``parameters()``, ``state_dict()`` and a checkpoint are the
+    unsharded model's, and an optimizer over them updates each once. Shard
+    ``(d, t)`` reads its slices through a :class:`ShardParams`; the forward
+    of data row d is :meth:`dp_shards`' d-th entry.
+    """
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh):
+        from verbatim_rag_tpu_torch.models.encoder import ReplicaBuffers
+
+        self.module = model
+        self.mesh = mesh
+        self.config = model.config
+        self.tp = mesh.shape["tp"]
+        self.params = dict(model.named_parameters())
+        self.specs = encoder_param_specs(self.params)
+        #: kept copies on devices other than the parameters' own, by
+        #: (name, tp index or None, device)
+        self.replicas = ReplicaBuffers()
+
+    def parameters(self):
+        return self.module.parameters()
+
+    def named_parameters(self):
+        return self.module.named_parameters()
+
+    def state_dict(self):
+        return self.module.state_dict()
+
+    def load_state_dict(self, state):
+        return self.module.load_state_dict(state)
+
+    def dp_shards(self) -> list[DPShard]:
+        """The data rows' forwards, for one forward of the whole batch (the
+        kept copies are refreshed from the parameters)."""
+        self.replicas.refresh()
+        return [DPShard(self, d) for d in range(self.mesh.shape["dp"])]
+
+    def __call__(self, input_ids, attention_mask) -> torch.Tensor:
+        """The whole batch: rows split over dp (:func:`data_sharding`), each
+        row block through its tp shards, hidden states gathered on the first
+        device."""
+        ids, masks = data_sharding(input_ids, self.mesh), data_sharding(attention_mask, self.mesh)
+        out = [s(i, m) for s, i, m in zip(self.dp_shards(), ids, masks)]
+        return torch.cat([h.to(self.mesh.devices[0][0]) for h in out])
+
+
+def shard_params(model: torch.nn.Module, mesh: Mesh) -> ShardedModel:
+    """Place an encoder-family model on the mesh per
+    :func:`encoder_param_specs` (JAX's ``shard_params``). The model moves to
+    ``mesh.devices[0][0]`` and stays the holder of the parameters.
+
+    Raises ``ValueError`` when the heads, the hidden width or the
+    intermediate width does not divide over ``tp``, as JAX's placement
+    refuses an uneven cut."""
+    config = model.config
+    tp = mesh.shape["tp"]
+    for what in ("num_heads", "hidden_size", "intermediate_size"):
+        if getattr(config, what) % tp:
+            raise ValueError(f"{what} ({getattr(config, what)}) does not divide evenly over tp={tp}")
+    model.to(mesh.devices[0][0])
+    return ShardedModel(model, mesh)

@@ -10,7 +10,9 @@
   `ModelSpanExtractor`.
 
 A model carries its config; a batch is a dict of tensors on the model's
-device (`trainer.batch_to_device`).
+device (`trainer.batch_to_device`), or on a mesh the list of its data rows'
+dicts (`trainer.batch_to_mesh`), each loss then taking JAX's global masked
+mean over the rows (:func:`masked_loss`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.models.config import EncoderConfig
 from verbatim_rag_tpu_torch.models.encoder import Dense, Encoder, compute_dtype
+from verbatim_rag_tpu_torch.parallel import distributed
 
 
 class QAModel(Encoder):
@@ -59,47 +62,71 @@ def sentence_logits(
     return torch.where(sentence_mask[..., None] > 0, logits, 0.0)
 
 
-def _masked_loss(logits, labels, mask) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Masked mean cross-entropy and the counts the metrics are made from."""
+def masked_sums(logits, labels, mask) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The masked cross-entropy's sum and the counts the metrics are made
+    from (``n_sentences`` is the mask's sum: the loss's denominator)."""
     labels = labels.long()
     mask = mask.float()
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(log_probs, -1, labels[..., None])[..., 0]
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-
     preds = torch.argmax(logits, dim=-1)
-    aux = {
+    counts = {
         "n_sentences": mask.sum(),
         "n_correct": ((preds == labels).float() * mask).sum(),
         "tp": (((preds == 1) & (labels == 1)).float() * mask).sum(),
         "fp": (((preds == 1) & (labels == 0)).float() * mask).sum(),
         "fn": (((preds == 0) & (labels == 1)).float() * mask).sum(),
     }
-    return loss, aux
+    return (nll * mask).sum(), counts
 
 
-def sentence_loss(model: QAModel, batch: dict[str, torch.Tensor]):
-    """Masked mean cross-entropy over real sentences + metrics aux."""
-    logits = sentence_logits(
-        model,
-        batch["input_ids"],
-        batch["attention_mask"],
-        batch["boundaries"],
-        batch["sentence_mask"],
+def masked_loss(model, batch, logits_fn, mask_key: str):
+    """The masked mean cross-entropy of ``logits_fn(model, batch)`` and its
+    metric counts.
+
+    ``batch`` is a dict of tensors, or on a mesh (`parallel.mesh.ShardedModel`)
+    the list of its data rows' dicts (`trainer.batch_to_mesh`). The loss is
+    JAX's global masked mean: the shards' nll sums, added in row order on the
+    first row's device, over the global mask count (never a mean of the
+    shards' means: rows carry different numbers of live labels). Counts sum
+    over the rows; under a process group of more than one process they and
+    the denominator also sum over the group (`parallel.distributed`), so each
+    process's loss is its share of the global mean.
+    """
+    pairs = [(model, batch)] if isinstance(batch, dict) else list(zip(model.dp_shards(), batch))
+    sums = [masked_sums(logits_fn(m, b), b["labels"], b[mask_key]) for m, b in pairs]
+    nll, counts = sums[0]
+    for part, part_counts in sums[1:]:
+        nll = nll + part.to(nll.device)
+        counts = {k: v + part_counts[k].to(nll.device) for k, v in counts.items()}
+    counts = {k: v.to(nll.device) for k, v in distributed.all_reduce_sum(counts).items()}
+    return nll / torch.clamp(counts["n_sentences"], min=1.0), counts
+
+
+def _sentence_logits(model, batch):
+    return sentence_logits(
+        model, batch["input_ids"], batch["attention_mask"], batch["boundaries"], batch["sentence_mask"]
     )
-    return _masked_loss(logits, batch["labels"], batch["sentence_mask"])
 
 
-def token_loss(model, batch: dict[str, torch.Tensor]):
+def sentence_loss(model: QAModel, batch):
+    """Masked mean cross-entropy over real sentences + metrics aux."""
+    return masked_loss(model, batch, _sentence_logits, "sentence_mask")
+
+
+def _token_logits(model, batch):
+    hidden = model(batch["input_ids"], batch["attention_mask"])
+    return model.classifier(hidden, compute_dtype(model.config))  # [B, S, 2]
+
+
+def token_loss(model, batch):
     """Token-classification loss for the v2 highlighter.
 
     batch: input_ids/attention_mask [B, S], labels [B, S], label_mask [B, S]
     (1 only on context tokens). Uses the ``classifier`` head directly (as the
     JAX package does), so trained weights drop into `ModelSpanExtractor`.
     """
-    hidden = model(batch["input_ids"], batch["attention_mask"])
-    logits = model.classifier(hidden, compute_dtype(model.config))  # [B, S, 2]
-    return _masked_loss(logits, batch["labels"], batch["label_mask"])
+    return masked_loss(model, batch, _token_logits, "label_mask")
 
 
 def predict_sentence_relevance(

@@ -4,8 +4,9 @@
 Run: ``python -m verbatim_rag_tpu_torch.training.train --data-path data.json``
 (``--mode token`` trains the v2 highlighter that `ModelSpanExtractor`
 serves; ``--device cpu`` runs the plain versions of the kernels). The flags
-and defaults are the JAX CLI's; ``--dp/--tp`` above 1 (training on a mesh)
-come with the parallel slice of the port.
+and defaults are the JAX CLI's. ``--dp/--tp`` train on a ``[dp, tp]`` mesh
+(:func:`train_mesh`): on CUDA over every visible card (``dp·tp`` must be
+their count), with ``--device cpu`` over the CPU repeated ``dp·tp`` times.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import json
 import logging
 import os
 
+from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.models.config import (
     TrainingConfig,
     modernbert_base_config,
@@ -22,6 +24,7 @@ from verbatim_rag_tpu_torch.models.config import (
 )
 from verbatim_rag_tpu_torch.models.highlighter import init_highlighter_params
 from verbatim_rag_tpu_torch.models.tokenizer import HashTokenizer
+from verbatim_rag_tpu_torch.parallel.mesh import make_mesh
 
 from .dataset import QAData, QADatasetEncoder
 from .model import init_qa_model_params, sentence_loss, token_loss
@@ -53,8 +56,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--doc-stride", type=int, default=128, help="token mode windows")
     parser.add_argument("--device", default=None, help="torch device (default cuda)")
     args = parser.parse_args(argv)
-    if (args.dp or 1) > 1 or args.tp > 1:
-        raise NotImplementedError("--dp/--tp above 1 (mesh training) are not ported yet")
+    mesh = train_mesh(args.dp, args.tp, args.device)
 
     logging.basicConfig(level=logging.INFO)
     config = tiny_test_config() if args.tiny else modernbert_base_config()
@@ -67,7 +69,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     tokenizer = HashTokenizer(vocab_size=config.vocab_size)
     if args.mode == "token":
-        return _train_token(args, config, tc, tokenizer)
+        return _train_token(args, config, tc, tokenizer, mesh)
 
     data = QAData.from_json(args.data_path)
     train_samples = data.filter_split("train")
@@ -78,7 +80,7 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     model = init_qa_model_params(config, args.seed, args.device)
-    trainer = Trainer(model, config, tc, output_dir=args.output_dir, loss_fn=sentence_loss)
+    trainer = Trainer(model, config, tc, output_dir=args.output_dir, mesh=mesh, loss_fn=sentence_loss)
     if args.init_from:
         Trainer.load_checkpoint(args.init_from, trainer.model)
 
@@ -100,7 +102,19 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _train_token(args, config, tc, tokenizer) -> int:
+def train_mesh(dp: int | None, tp: int, device=None):
+    """The mesh of ``--dp/--tp`` (None when neither is given, as JAX's CLI):
+    on CUDA every visible card (`make_mesh` raises when ``dp·tp`` differs
+    from their count), on the CPU the one device repeated ``dp·tp`` times."""
+    if not dp and tp <= 1:
+        return None
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return make_mesh(dp=dp, tp=tp)
+    return make_mesh(dp=dp or 1, tp=tp, devices=[device] * ((dp or 1) * tp))
+
+
+def _train_token(args, config, tc, tokenizer, mesh) -> int:
     """Token-classification training: produces checkpoints that
     `ModelSpanExtractor(model_path=...)` serves (the v2 highlighter path)."""
     examples = load_token_examples(args.data_path)
@@ -110,7 +124,7 @@ def _train_token(args, config, tc, tokenizer) -> int:
         tokenizer, max_length=args.max_seq_length, doc_stride=args.doc_stride
     )
     model = init_highlighter_params(config, args.seed, args.device)
-    trainer = Trainer(model, config, tc, output_dir=args.output_dir, loss_fn=token_loss)
+    trainer = Trainer(model, config, tc, output_dir=args.output_dir, mesh=mesh, loss_fn=token_loss)
     if args.init_from:
         Trainer.load_checkpoint(args.init_from, trainer.model)
 

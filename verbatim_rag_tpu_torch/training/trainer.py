@@ -14,9 +14,18 @@ torch parameters (:class:`Optimizer`):
 - the rate is the schedule at the update count before the update, so with
   warmup the first update has rate 0.
 
+On a ``[dp, tp]`` mesh (``Trainer(mesh=...)``, JAX's sharded train step)
+the model is placed by `parallel.mesh.shard_params` and each batch split by
+rows over ``dp`` (:func:`batch_to_mesh`); the loss is the global masked
+mean over the rows (`model.masked_loss`), so one backward gives each
+parameter its gradient summed over ``dp``, with each tp slice's gradient in
+its own block of the parameter. Clipping and AdamW then run over the
+unsharded parameters, each once. Under a process group of more than one
+process (`parallel.distributed`) the gradients are summed over the group too
+before clipping, and only rank 0 writes checkpoints.
+
 Checkpoints are the JAX package's layout (`models/hf_convert.py`), so either
-package loads the other's. Training on a mesh comes with the parallel slice
-of the port; orbax checkpoints are not ported.
+package loads the other's; orbax checkpoints are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ import torch
 
 from verbatim_rag_tpu_torch.models.config import EncoderConfig, TrainingConfig
 from verbatim_rag_tpu_torch.models.hf_convert import load_params_npz, save_params_npz
+from verbatim_rag_tpu_torch.parallel import distributed
+from verbatim_rag_tpu_torch.parallel.mesh import data_sharding, shard_params
 
 from .dataset import EncodedBatch
 from .model import sentence_loss
@@ -113,21 +124,30 @@ def make_optimizer(
     return Optimizer(params, tc, total_steps)
 
 
-def train_step(model, optimizer: Optimizer, batch: dict[str, torch.Tensor], loss_fn=sentence_loss):
-    """One optimization step in place: loss → grads → clipped AdamW update.
+def train_step(model, optimizer: Optimizer, batch, loss_fn=sentence_loss):
+    """One optimization step in place: loss → grads (summed over the
+    process group, if any) → clipped AdamW update. ``batch`` is a dict of
+    tensors, or for a `parallel.mesh.ShardedModel` its rows' dicts.
 
-    :return: (loss, aux) as tensors.
+    :return: (loss, aux) as tensors; the loss summed over the process group.
     """
     optimizer.zero_grad()
     loss, aux = loss_fn(model, batch)
     loss.backward()
+    distributed.all_reduce_grads(optimizer.params)
     optimizer.step()
-    return loss.detach(), {k: v.detach() for k, v in aux.items()}
+    return _group_loss(loss), {k: v.detach() for k, v in aux.items()}
 
 
-def eval_step(model, batch: dict[str, torch.Tensor], loss_fn=sentence_loss):
+def eval_step(model, batch, loss_fn=sentence_loss):
     with torch.no_grad():
-        return loss_fn(model, batch)
+        loss, aux = loss_fn(model, batch)
+    return _group_loss(loss), aux
+
+
+def _group_loss(loss: torch.Tensor) -> torch.Tensor:
+    """The global loss: each process's loss is its share (`model.masked_loss`)."""
+    return distributed.all_reduce_sum({"loss": loss.detach()})["loss"].to(loss.device)
 
 
 def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
@@ -137,6 +157,15 @@ def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
         for f in dataclasses.fields(batch)
         if getattr(batch, f.name) is not None
     }
+
+
+def batch_to_mesh(batch, mesh) -> list[dict[str, torch.Tensor]]:
+    """A dataclass batch split by rows over the mesh's ``dp`` axis
+    (`parallel.mesh.data_sharding`, JAX's ``P("dp")``): one dict of tensors
+    per data row. Raises ``ValueError`` when the rows do not divide."""
+    fields = batch_to_device(batch, "cpu")
+    shards = {name: data_sharding(value, mesh) for name, value in fields.items()}
+    return [{name: parts[d] for name, parts in shards.items()} for d in range(mesh.shape["dp"])]
 
 
 def metrics_from_counts(counts: dict[str, float]) -> dict[str, float]:
@@ -156,10 +185,12 @@ class Trainer:
     """Epoch loop with dev evaluation and best-F1 checkpointing.
 
     ``model`` (a `QAModel` or `HighlighterModel`) is trained in place on its
-    own device. Each optimization step is logged in :attr:`steps` (loss,
-    global gradient norm, host seconds); a batch that runs out of device
-    memory before the update is skipped with its gradients dropped and
-    counted in :attr:`oom_skips`.
+    own device, or with ``mesh`` on a ``[dp, tp]`` mesh (:attr:`model` is
+    then its `parallel.mesh.ShardedModel`; the model's own parameters are the
+    ones updated and saved). Each optimization step is logged in
+    :attr:`steps` (loss, global gradient norm, host seconds); a batch that
+    runs out of device memory before the update is skipped with its
+    gradients dropped and counted in :attr:`oom_skips`.
     """
 
     def __init__(
@@ -173,9 +204,8 @@ class Trainer:
         total_steps: int | None = None,
         tokenizer=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("training on a mesh is not ported yet (the parallel slice)")
-        self.model = model
+        self.mesh = mesh
+        self.model = model if mesh is None else shard_params(model, mesh)
         self.encoder_config = encoder_config
         self.tc = training_config or TrainingConfig()
         self.output_dir = output_dir
@@ -184,7 +214,7 @@ class Trainer:
         #: same tokenizer (None → hash tokenizer at the config vocab)
         self.tokenizer = tokenizer
         # Size the (warmup+cosine) schedule to the actual run.
-        self.optimizer = make_optimizer(self.tc, model.parameters(), total_steps or 10_000)
+        self.optimizer = make_optimizer(self.tc, self.model.parameters(), total_steps or 10_000)
         self.best_f1 = -1.0
         self.history: list[dict] = []
         self.steps: list[dict] = []
@@ -193,6 +223,10 @@ class Trainer:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    def batch_to_device(self, batch):
+        """A dataclass batch on the model's device, or split over the mesh."""
+        return batch_to_device(batch, self.device) if self.mesh is None else batch_to_mesh(batch, self.mesh)
 
     def train(
         self,
@@ -212,7 +246,7 @@ class Trainer:
             t0 = time.time()
             losses = []
             for batch in make_train_iter(epoch):
-                device_batch = batch_to_device(batch, self.device)
+                device_batch = self.batch_to_device(batch)
                 started = time.perf_counter()
                 try:
                     loss, _aux = train_step(self.model, self.optimizer, device_batch, self.loss_fn)
@@ -250,15 +284,16 @@ class Trainer:
             logger.info("epoch %d: %s", epoch, record)
 
         self.save_checkpoint(os.path.join(self.output_dir, "final"))
-        with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
-            json.dump({"history": self.history, "best_f1": self.best_f1}, f, indent=2)
+        if distributed.process_index() == 0:
+            with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
+                json.dump({"history": self.history, "best_f1": self.best_f1}, f, indent=2)
         return {"history": self.history, "best_f1": self.best_f1}
 
     def evaluate(self, batches: list[EncodedBatch]) -> dict[str, float]:
         totals: dict[str, float] = {}
         losses = []
         for batch in batches:
-            loss, aux = eval_step(self.model, batch_to_device(batch, self.device), self.loss_fn)
+            loss, aux = eval_step(self.model, self.batch_to_device(batch), self.loss_fn)
             losses.append(float(loss))
             for key, value in aux.items():
                 totals[key] = totals.get(key, 0.0) + float(value)
@@ -270,9 +305,12 @@ class Trainer:
 
     def save_checkpoint(self, path: str, format: str = "npz") -> None:
         """Persist the parameters as ``params.npz`` (the JAX package's tree
-        layout) beside ``verbatim_config.json``."""
+        layout) beside ``verbatim_config.json``: the whole unsharded tree,
+        also after training on a mesh; under a process group, rank 0 writes."""
         if format != "npz":
             raise NotImplementedError(f"checkpoint format {format!r} is not ported (npz only)")
+        if distributed.process_index() != 0:
+            return
         os.makedirs(path, exist_ok=True)
         state = self.model.state_dict()
         save_params_npz(state, path)
