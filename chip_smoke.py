@@ -68,6 +68,14 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              scores lie within that; on small-integer rows with duplicates
              (exact dots) values and rows bit-equal; two planted faults (the
              mask ignored; ties to the lowest lane) must fail that check;
+             the wgmma walk's streamed arms (rows past 2944 bytes: int8
+             d ∈ {3072, 4096}, bf16 d = 1536) at B=512, N=1,048,576: section
+             tables one arm a width, then two arms of a kind and a call
+             mixing a resident 768-byte int8 arm with a streamed 3072-byte one
+             at B=32 (two launches), each with the three section faults,
+             bucket-max v2 with its two faults and v1 (bf16)
+             with the mask-ignored fault, each against its plain version
+             (int8 bit-equal), timed beside its bound and the product alone;
 3. flow    — the offline quickstart through the user entry points:
              `VerbatimIndex.add_documents` on `examples/example_docs` with the
              hashed providers, then `VerbatimRAG.query` with the full-width
@@ -117,6 +125,33 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              warning may be logged; the flash forward at D=64 and D=32 and the
              rescore must launch. The server's default extractor is the serve
              phase's (see `run_http`);
+3d. doc    — the serve corpus written as 368 HTML pages (`markdown_page`),
+             364 read by `DocumentProcessor.process_directory` and 4 fetched
+             from a server on 127.0.0.1 (`DocumentSchema.from_url`,
+             `process_url`; each equal to its file converted); an int8 index
+             (dense 3072 and sketch int8, "auto" → section: int8 rows of
+             3072 bytes, the wgmma walk's streamed arm) whose dense vectors
+             come from `OpenAIEmbeddingProvider("text-embedding-3-large")`
+             against a stub `/v1/embeddings` on the same server
+             (`HashedBowDenseProvider(3072)`'s vectors), its store tensors
+             bit-equal and its `query_batch` answers equal to an index built
+             from those vectors directly; `VerbatimDOC.process` of a
+             64-directive report (a header a serve topic, two `k` values:
+             exactly two `query_batch` calls, timed by CUDA events, with 2
+             section launches, both streamed, 2 rescores and flash ones;
+             the first section call, as recorded, run again and held
+             bit-equal to the plain tables, with two planted faults),
+             each directive's spans those of `query("<section>: <question>",
+             k)`, the splice and numbering those `Replacer` builds from those
+             answers (the `query` calls of one `stream_process`, which must
+             end in the same document); `verbatim_enhance` around
+             `IndexProvider.retrieve` answering 8 questions as
+             `VerbatimTransform.transform` does. The launches reported are
+             those of the main path's runs (ingest, process, stream_process,
+             enhance), each counted from zero; the stub's seconds and the
+             idle share of the report's first batch under `torch.profiler`
+             printed. The flow phase's extractor (full width, flash on)
+             answers;
 3b. bucket_ab — the port's counterpart of `benchmarks/bench_fused_bucket.py`:
              candidate top-k (k=256) of 512 unit queries over 999,424 normal
              bf16 rows at d ∈ {384, 768} by exact top-k over the score
@@ -300,7 +335,7 @@ must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
 head, the bound's count) and the work of the dq + dk/dv split (14·D).
 
-Each main-path phase (3-7, 3a-3c, 5a-5d, 6b, 7a and 7b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3d, 5a-5d, 6b, 7a and 7b) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -370,6 +405,8 @@ WGMMA_KERNELS = {
     "section": (
         "bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E",
         "section_wgmma_kernelILb1E", "section_wgmma_kernelILb0E", "bucket_v1_wgmma_kernel",
+        "bucket_v2_streamed_kernelILb1E", "bucket_v2_streamed_kernelILb0E",
+        "section_streamed_kernelILb1E", "section_streamed_kernelILb0E", "bucket_v1_streamed_kernel",
     ),
 }
 #: Libraries none of whose kernels may hold mma.sync (HMMA, IMMA): the table
@@ -1573,6 +1610,138 @@ def check_tables(gen) -> tuple[dict, dict]:
     return section, bucket
 
 
+#: Rows past 2944 bytes, whose query tile streams through the wgmma walk's
+#: ring: int8 at text-embedding-3-large's 3072 and at 4096, bf16 at
+#: text-embedding-ada-002's 1536. Each at N = 1,048,576 rows (blocks of
+#: 16384), B = 512; the section planted faults run on a second arm of the
+#: same kind (int8 3072 + 4096, bf16 1536 + 1536).
+WIDE_ROWS = ((3072, "int8"), (4096, "int8"), (1536, "bfloat16"))
+WIDE_N, WIDE_BLOCK = 64 * 16384, 16384
+
+
+def check_wide_tables(gen) -> dict:
+    """The wgmma walk's streamed arms against their plain versions:
+    section tables (one arm a width, timed; then two arms of the kind, and a
+    resident and a streamed int8 arm at 32 queries, with the three planted
+    faults), bucket-max v2 (each width, its two planted
+    faults) and bucket-max v1 (bf16 1536, the mask-ignored fault), with
+    times, bounds and the products alone (`torch._int_mm` for int8, a bf16
+    `torch.mm` into float32) as the yardstick."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    n, block, batch = WIDE_N, WIDE_BLOCK, 512
+    width = n // block * 128
+    out = {"section": [], "bucket_max_v2": [], "bucket_max_v1": []}
+
+    def product_ms(c, q):
+        qp = ft.prepare_queries(q, c)[0]
+        if c.dtype == torch.int8:
+            return cuda_ms(lambda: torch._int_mm(qp, c.t()), reps=5)
+        return cuda_ms(lambda: torch.mm(qp, c.t(), out_dtype=torch.float32), reps=5)
+
+    for d, dtype in WIDE_ROWS:
+        int8 = dtype == "int8"
+        peak = PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
+        c, q, s = table_arm(gen, n, batch, d, dtype)
+        mask = table_mask(gen, n)
+        row_bytes = c.shape[1] * c.element_size()
+        require(ft.walk_streams(row_bytes), f"wide {dtype} d={d}: the query tile does not stream")
+        geometry = ft.walk_geometry(row_bytes, "section")
+
+        before = sec.launches_streamed
+        got = sec.section_tables_cuda((c,), (q,), mask, (s,), block)
+        torch.cuda.synchronize()
+        require(sec.launches_streamed == before + 1, "wide section: not counted as streamed")
+        ref = sec.section_tables_reference((c,), (q,), mask, (s,), block)
+        err = check_table(sec_decode(got[0], block, n), sec_decode(ref[0], block, n), c, q, int8)
+        del got, ref
+        case = dict(
+            n=n, block=block, batch=batch, d=d, dtype=dtype, row_bytes=row_bytes, queries=geometry[0],
+            stages=geometry[1], max_abs_err=err,
+            ms=cuda_ms(lambda: sec.section_tables_cuda((c,), (q,), mask, (s,), block), reps=10),
+            plain_ms=cuda_ms(lambda: sec.section_tables_reference((c,), (q,), mask, (s,), block), reps=2),
+            products_ms=product_ms(c, q),
+        )
+        case["bound_ms"], case["bound_by"] = bound(
+            table_bytes([(c, q, s)], n, batch, width, 4), 2.0 * batch * n * d, peak
+        )
+        log("section wide", json.dumps(case))
+        out["section"].append(case)
+
+        got = ft.matmul_bucket_max_v2_cuda(c, q, mask, s)
+        torch.cuda.synchronize()
+        ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
+        err = check_table(got, ref, c, q, int8)
+        faults = v2_planted_faults(c, q, mask, s, ref, int8)
+        del got, ref
+        case = dict(
+            n=n, block=ft.choose_block_rows(n), batch=batch, d=d, dtype=dtype, max_abs_err=err,
+            ms=cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10),
+            plain_ms=cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=2),
+            products_ms=case["products_ms"], planted_faults_caught=faults,
+        )
+        case["bound_ms"], case["bound_by"] = bound(
+            table_bytes([(c, q, s)], n, batch, width, 8), 2.0 * batch * n * d, peak
+        )
+        log("bucket_max_v2 wide", json.dumps(case))
+        out["bucket_max_v2"].append(case)
+
+        if not int8:  # v1 reads bf16 and float32 rows
+            got = ft.matmul_bucket_max_cuda(c, q, mask)
+            torch.cuda.synchronize()
+            ref = ft.matmul_bucket_max_reference(c, q, mask)
+            why = v1_fails(got, ref, q, c, mask, V1_LIMITS[dtype])
+            require(why is None, f"bucket v1 wide d={d}: {why}")
+            live = ref[0] > -1e29
+            err = float((got[0] - ref[0]).abs()[live].max())
+            del got
+            fault = v1_fails(ft.matmul_bucket_max_cuda(c, q, torch.ones_like(mask)), ref, q, c, mask, V1_LIMITS[dtype])
+            require(fault is not None, f"bucket v1 wide d={d}: the mask-ignored fault passes the check")
+            del ref
+            case = dict(
+                n=n, batch=batch, d=d, dtype=dtype, max_abs_err=err, fault_mask_ignored=fault,
+                ms=cuda_ms(lambda: ft.matmul_bucket_max_cuda(c, q, mask), reps=10),
+                plain_ms=cuda_ms(lambda: ft.matmul_bucket_max_reference(c, q, mask), reps=2),
+                library_ms=product_ms(c, q),
+            )
+            case["bound_ms"], case["bound_by"] = v1_bound(n, batch, d, c.dtype)
+            log("bucket_max_v1 wide", json.dumps(case))
+            out["bucket_max_v1"].append(case)
+        del c, q, s, mask
+        torch.cuda.empty_cache()
+
+    # The section kernel's planted faults on two streamed arms of one kind,
+    # and on a call mixing layouts at the doc phase's batch (a resident
+    # 768-byte arm and a streamed 3072-byte one: two launches, 32 queries in
+    # a partial tile).
+    for dims, dtype, batch in (((3072, 4096), "int8", 512), ((1536, 1536), "bfloat16", 512),
+                               ((768, 3072), "int8", 32)):
+        int8 = dtype == "int8"
+        arms = [table_arm(gen, n, batch, d, dtype) for d in dims]
+        mask = table_mask(gen, n)
+        corpora, queries, scales = zip(*arms)
+        got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+        torch.cuda.synchronize()
+        ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+        err = max(
+            check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, int8)
+            for g, e, c, q in zip(got, ref, corpora, queries)
+        )
+        del got
+        faults = section_planted_faults(corpora, queries, mask, scales, block, ref, int8)
+        case = dict(n=n, block=block, batch=batch, dims=list(dims), dtype=dtype,
+                    streamed=[ft.walk_streams(c.shape[1] * c.element_size()) for c in corpora],
+                    max_abs_err=err, planted_faults_caught=faults)
+        log("section wide two arms", json.dumps(case))
+        out["section"].append(case)
+        del arms, corpora, queries, scales, mask, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def sec_decode(table, block: int, n: int):
     """A packed section table → (values, global rows), decoded in full."""
     import torch
@@ -1761,6 +1930,7 @@ def kernel_counters() -> dict:
         "flash_attention_partial": (flash_attention, "partial_launches"),
         "rescore": (rescore, "launches"),
         "section": (section, "launches"),
+        "section_streamed": (section, "launches_streamed"),
         "bucket_max_v2": (fused_topk, "launches"),
         "bucket_max_v1": (fused_topk, "launches_v1"),
     }
@@ -2448,6 +2618,412 @@ def run_http(rag, extractor, singles, card: str) -> dict:
     log(f"http: {result['phase_s']:.1f} s")
     return result
 
+
+
+#: The doc phase: the serve corpus as HTML pages, a few of them fetched over
+#: a local server by URL; dense vectors at text-embedding-3-large's width
+#: (3072, int8 rows of 3072 bytes: the wgmma walk's streamed arm) from an
+#: OpenAI-compatible stub on 127.0.0.1; a report of 64 directives, one per
+#: (topic, template) of the serve questions, under a header a topic, two
+#: `k` values (so two `query_batch` calls).
+DOC_DIM = 3072
+DOC_MODEL = "text-embedding-3-large"
+DOC_URL_PAGES = 4  # half through `DocumentSchema.from_url`, half through `process_url`
+DOC_KS = (5, 3)
+DOC_ENHANCED = 8
+
+
+def markdown_page(text: str, title: str) -> str:
+    """A markdown document as an HTML page: ``#`` headings as <h1>, deeper
+    ones as <h2>, every other run of lines as one <p>."""
+    import html
+
+    parts, para = [], []
+
+    def flush():
+        if para:
+            parts.append("<p>" + html.escape(" ".join(para)) + "</p>")
+            para.clear()
+
+    for line in text.splitlines():
+        m = re.match(r"^(#{1,6})\s+(.*)$", line)
+        if m:
+            flush()
+            tag = "h1" if len(m.group(1)) == 1 else "h2"
+            parts.append(f"<{tag}>{html.escape(m.group(2).strip())}</{tag}>")
+        elif line.strip():
+            para.append(line.strip())
+        else:
+            flush()
+    flush()
+    return f"<!DOCTYPE html><html><head><title>{html.escape(title)}</title></head><body>{''.join(parts)}</body></html>"
+
+
+class DocServer:
+    """A local HTTP server on 127.0.0.1 (port 0) in a thread: GET
+    ``/pages/<name>`` serves a file of ``pages``; POST ``/v1/embeddings``
+    answers as an OpenAI-compatible endpoint with `HashedBowDenseProvider`
+    vectors at the requested model's width. ``embed_s`` sums the seconds its
+    handler spent embedding and encoding."""
+
+    def __init__(self, pages: Path, dim: int):
+        import http.server
+        import threading
+
+        from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider
+
+        embed = HashedBowDenseProvider(dim=dim)
+        owner = self
+        self.embed_s, self.embed_requests, self.page_requests = 0.0, 0, 0
+        lock = threading.Lock()  # the handler threads add to the counts
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def _send(self, body: bytes, ctype: str, status: int = 200):
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = pages / self.path.removeprefix("/pages/")
+                if not self.path.startswith("/pages/") or not path.is_file():
+                    return self._send(b"not found", "text/plain", 404)
+                with lock:
+                    owner.page_requests += 1
+                self._send(path.read_bytes(), "text/html; charset=utf-8")
+
+            def do_POST(self):
+                t0 = time.perf_counter()
+                body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+                data = [
+                    {"object": "embedding", "index": i, "embedding": embed.embed_text(t).tolist()}
+                    for i, t in enumerate(body["input"])
+                ]
+                out = json.dumps({"object": "list", "data": data, "model": body["model"]}).encode()
+                with lock:
+                    owner.embed_s += time.perf_counter() - t0
+                    owner.embed_requests += 1
+                self._send(out, "application/json")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = "http://127.0.0.1:%d" % self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=30)
+
+
+def doc_report() -> tuple[str, list]:
+    """The report (a header a topic, its four templates' questions as
+    directives, the first two at the default k, the other two at the second
+    k) and its directives' (section, question, k)."""
+    lines, directives = ["# The system, by topic", ""], []
+    for topic in SERVE_TOPICS:
+        lines += [f"## {topic}", ""]
+        for j, template in enumerate(SERVE_TEMPLATES):
+            question = template.format(topic)
+            k = DOC_KS[0] if j < 2 else DOC_KS[1]
+            param = "" if k == DOC_KS[0] else f"|k={k}"
+            lines += [f"{question} [!query={question}{param}]", ""]
+            directives.append((topic, question, k))
+    return "\n".join(lines), directives
+
+
+def doc_hits(rows) -> list:
+    return [[(h.metadata["document_id"], h.metadata["chunk_index"], h.score) for h in r] for r in rows]
+
+
+def doc_section_check(calls) -> dict:
+    """The doc path's section call held to the plain version at the shapes
+    the path gave it: the first recorded call of `VerbatimDOC.process` (the
+    store's own rows, scales and mask, a 32-query batch, a partial tile; the
+    3072-byte dense arm streamed and the int8 sketch arm resident, so two
+    launches), both tables bit-equal, and the planted faults (the first
+    position of each block dropped, the queries in reverse order) caught."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    require(len(calls) == len(DOC_KS), f"doc: {len(calls)} section calls in process")
+    corpora, queries, mask, scales, block = calls[0]
+    n = corpora[0].shape[0]
+    row_bytes = [c.shape[1] * c.element_size() for c in corpora]
+    layouts = [ft.walk_streams(b) for b in row_bytes]
+    require(
+        all(c.dtype == torch.int8 for c in corpora) and layouts == [True, False] and mask is not None,
+        f"doc: section arms of {row_bytes} bytes, streamed {layouts}",
+    )
+    require(len(sec.plan_section_launches([(c.dtype, b) for c, b in zip(corpora, row_bytes)])) == 2,
+            "doc: the section call is not two launches")
+    got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+    torch.cuda.synchronize()
+    ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+    err = max(
+        check_table(sec_decode(g, block, n), sec_decode(e, block, n), c, q, True)
+        for g, e, c, q in zip(got, ref, corpora, queries)
+    )
+    # (The live rows fill the first block only in part, and every bucket
+    # holds live rows whose scores are not below a dead row's, so the faults
+    # are the first position of each block dropped, not the last, and the
+    # batch's queries in reverse order, not the mask ignored.)
+    first = (torch.arange(n, device=mask.device) % block) // 128 == 0
+    faults = {}
+    for name, fault_q, fault_mask in (
+        ("first position of each block dropped", queries, mask & ~first),
+        ("queries in reverse order", tuple(q.flip(0) for q in queries), mask),
+    ):
+        why = section_fault(
+            sec.section_tables_cuda(corpora, fault_q, fault_mask, scales, block), ref, corpora, queries, block, True
+        )
+        require(why is not None, f"doc: section planted fault '{name}' passes the check")
+        faults[name] = why
+    out = dict(
+        n=n, block=block, batch=queries[0].shape[0], row_bytes=row_bytes, streamed=layouts,
+        max_abs_err=err, planted_faults_caught=faults,
+    )
+    log("doc section at the path's shapes", json.dumps(out))
+    return out
+
+
+def run_doc(extractor, seed: int, card: str, device=None) -> dict:
+    """The orchestration modules on the card: HTML pages ingested through
+    `DocumentProcessor.process_directory` and, over a local server, through
+    `DocumentSchema.from_url` / `process_url`; an int8 index (dense 3072 and
+    sketch int8, "auto" → the section kernel's streamed arm, then the
+    rescore) whose dense vectors come from `OpenAIEmbeddingProvider` against
+    a stub on 127.0.0.1, held equal to the index built from the stub's
+    vectors directly; `VerbatimDOC.process` of a 64-directive report (two
+    `query_batch` calls, each directive's spans those of `query`, the splice
+    and numbering those `Replacer` builds from the `query` answers, which
+    one `stream_process` asks for); `verbatim_enhance` around
+    `IndexProvider.retrieve`
+    answering as `VerbatimTransform.transform` on the same contexts. The
+    serve phase's extractor (full width, flash on) answers."""
+    import asyncio
+    import tempfile
+
+    import torch
+
+    from verbatim_rag_tpu_torch.core import TemplateManager, VerbatimTransform, verbatim_enhance
+    from verbatim_rag_tpu_torch.engine import (
+        HashedBowDenseProvider,
+        HashedSparseProvider,
+        OpenAIEmbeddingProvider,
+        VerbatimIndex,
+    )
+    from verbatim_rag_tpu_torch.ingestion.document_processor import DocumentProcessor
+    from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+    from verbatim_rag_tpu_torch.rag import IndexProvider, VerbatimDOC, VerbatimRAG
+    from verbatim_rag_tpu_torch.rag.verbatim_doc import Processor
+
+    t_phase = time.perf_counter()
+    for key in [k for k in os.environ if k.lower().endswith("_proxy")]:
+        del os.environ[key]  # every request of the phase goes to 127.0.0.1
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_doc_"))
+    server = None
+    try:
+        local, remote = tmp / "local", tmp / "pages"
+        local.mkdir()
+        remote.mkdir()
+        corpus = serve_corpus()
+        for i, doc in enumerate(corpus):
+            folder = remote if i < DOC_URL_PAGES else local
+            (folder / f"{i:04d}.html").write_text(markdown_page(doc.content, doc.title), encoding="utf-8")
+        server = DocServer(remote, DOC_DIM)
+        t0 = time.perf_counter()
+        docs = list(DocumentProcessor().process_directory(str(local)))
+        urls = [f"{server.url}/pages/{p.name}" for p in sorted(remote.iterdir())]
+        half = DOC_URL_PAGES // 2
+        fetched = [DocumentSchema.from_url(u) for u in urls[:half]]
+        fetched += [DocumentProcessor().process_url(u) for u in urls[half:]]
+        convert_s = time.perf_counter() - t0
+        require(len(docs) == len(corpus) - DOC_URL_PAGES, f"doc: {len(docs)} pages converted")
+        require(
+            all(f.content == DocumentProcessor().extract_content_from_file(str(remote / u.rsplit("/", 1)[1]))
+                for f, u in zip(fetched, urls)),
+            "doc: a fetched page differs from the same file converted",
+        )
+        require(server.page_requests == DOC_URL_PAGES, f"doc: {server.page_requests} page requests")
+        sources = [*docs, *fetched]
+
+        def make_index(dense):
+            return VerbatimIndex(
+                dense_provider=dense, sparse_provider=HashedSparseProvider(), dense_dtype="int8",
+                sketch_dtype="int8", device=device,
+            )
+
+        index = make_index(OpenAIEmbeddingProvider(model=DOC_MODEL, api_base=server.url + "/v1"))
+        require(index.dense_provider.get_dimension() == DOC_DIM, "doc: the model's default width")
+        require(index.store.candidate_impl == "section", f"doc: impl {index.store.candidate_impl}")
+        # The main path's runs (ingest, process, stream_process, enhance),
+        # each with the counts zeroed just before it and read just after; the
+        # comparison runs between them are not counted.
+        main_runs = {}
+
+        def counted(name, fn):
+            reset_counts()
+            out = fn()
+            torch.cuda.synchronize()
+            main_runs[name] = read_counts() if name not in main_runs else {
+                k: v + main_runs[name][k] for k, v in read_counts().items()
+            }
+            return out
+
+        t0 = time.perf_counter()
+        counted("ingest", lambda: index.add_documents_bulk(sources))
+        ingest_s = time.perf_counter() - t0
+        n_chunks = index.inspect()["num_chunks"]
+        row_bytes = index.store._dense.shape[1] * index.store._dense.element_size()
+        require(ft.walk_streams(row_bytes) and row_bytes == DOC_DIM, f"doc: dense rows of {row_bytes} bytes")
+        log(f"doc: {len(sources)} pages, {n_chunks} chunks, converted in {convert_s:.2f} s, "
+            f"ingested in {ingest_s:.2f} s ({server.embed_requests} embedding requests, "
+            f"{server.embed_s:.2f} s in the stub)")
+
+        ref = make_index(HashedBowDenseProvider(dim=DOC_DIM))
+        ref.add_documents_bulk(sources)
+        for name in ("_dense", "_dense_scale", "_sp_proj", "_sp_proj_scale", "_sp_ids", "_sp_w"):
+            require(torch.equal(getattr(index.store, name), getattr(ref.store, name)), f"doc: store.{name} differs")
+        questions = serve_questions()
+        for k in DOC_KS:
+            require(
+                doc_hits(index.query_batch(questions, k=k)) == doc_hits(ref.query_batch(questions, k=k)),
+                f"doc: the stub's index answers otherwise than the vectors' at k={k}",
+            )
+        del ref
+
+        rag = VerbatimRAG(index, extractor=extractor)
+        report, directives = doc_report()
+        calls = []
+        batch = rag.query_batch
+
+        def timed_batch(qs, k=5, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = batch(qs, k=k, **kw)
+            end.record()
+            calls.append((len(qs), k, start, end))
+            return out
+
+        rag.query_batch = timed_batch
+        section_calls = []
+        section_tables = sec.section_bucket_tables
+
+        def recorded_tables(corpora, queries, mask, scales=(), block_cols=sec.BLOCK_COLS):
+            section_calls.append((corpora, queries, mask, scales, block_cols))
+            return section_tables(corpora, queries, mask, scales, block_cols)
+
+        sec.section_bucket_tables = recorded_tables
+        t0 = time.perf_counter()
+        try:
+            response = counted("process", lambda: VerbatimDOC(rag).process(report))
+        finally:
+            sec.section_bucket_tables = section_tables
+        process_s = time.perf_counter() - t0
+        del rag.query_batch
+        counts = main_runs["process"]
+        require(
+            [(n, k) for n, k, _, _ in calls] == [(32, DOC_KS[0]), (32, DOC_KS[1])],
+            f"doc: query_batch calls {[(n, k) for n, k, _, _ in calls]}",
+        )
+        batch_ms = [start.elapsed_time(end) for _, _, start, end in calls]
+        require(
+            counts["section"] == 2 and counts["section_streamed"] == 2 and counts["rescore"] == 2
+            and counts["flash_attention"] > 0,
+            f"doc: process launches {counts}",
+        )
+        require(
+            [(r.query.section, r.query.text, r.query.params.get("k", DOC_KS[0])) for r in response.queries]
+            == directives and not any(r.error for r in response.queries),
+            "doc: the directives parsed or ran otherwise",
+        )
+        path_tables = doc_section_check(section_calls)
+        del section_calls
+
+        # `stream_process` runs each directive through `query` in order: its
+        # calls are recorded and are the answers the batches are held to.
+        singles = []
+        query = rag.query
+
+        def recorded_query(question, k=5, **kw):
+            singles.append((question, k, query(question, k=k, **kw)))
+            return singles[-1][2]
+
+        async def events():
+            return [e async for e in VerbatimDOC(rag).stream_process(report)]
+
+        rag.query = recorded_query
+        t0 = time.perf_counter()
+        streamed = counted("stream_process", lambda: asyncio.run(events()))
+        stream_s = time.perf_counter() - t0
+        del rag.query
+        require(
+            [e["type"] for e in streamed] == ["start"] + ["progress", "query_complete"] * len(directives) + ["done"]
+            and streamed[-1]["document"] == response.document
+            and streamed[-1]["citations"] == response.citations,
+            "doc: stream_process ended otherwise than process",
+        )
+        processor = Processor(rag)
+        require(
+            [(q, k) for q, k, _ in singles]
+            == [(processor._question(r.query), r.query.params.get("k", DOC_KS[0])) for r in response.queries],
+            "doc: stream_process asked other questions than the directives",
+        )
+        expected = [processor._collect(r.query, s) for r, (_, _, s) in zip(response.queries, singles)]
+        differ = [i for i, (r, e) in enumerate(zip(response.queries, expected)) if r.spans != e.spans]
+        require(not differ, f"doc: directives {differ} got other spans than query")
+        spliced = VerbatimDOC(rag)._build_response(report, expected)
+        require(
+            response.document == spliced.document and response.citations == spliced.citations,
+            "doc: the splice or its numbering differs from Replacer's over the query answers",
+        )
+        # (The corpus quotes directive syntax, so spans may hold "[!query".)
+        n_spans = sum(len(r.spans) for r in response.queries)
+        require(n_spans > 0 and response.citations, f"doc: {n_spans} spans, {len(response.citations)} citations")
+
+        provider = IndexProvider(index)
+        transform = VerbatimTransform(extractor=extractor, template_manager=TemplateManager(default_mode="static"))
+        wrapped = verbatim_enhance(transform=transform)(lambda question: provider.retrieve(question))
+        enhanced = 0
+        for question in questions[:DOC_ENHANCED]:
+            got = counted("enhance", lambda: wrapped(question))
+            want = transform.transform(question, provider.retrieve(question))
+            require(got.model_dump() == want.model_dump(), f"doc: verbatim_enhance answered {question!r} otherwise")
+            enhanced += sum(len(d.highlights) for d in got.documents)
+
+        first = [processor._question(r.query) for r in response.queries if r.query.params.get("k", DOC_KS[0]) == DOC_KS[0]]
+        profile = device_profile(lambda: rag.query_batch(first, k=DOC_KS[0]))  # the report's first batch
+        log("doc profile", json.dumps(profile))
+        result = dict(
+            card=card, pages=len(sources), pages_by_url=DOC_URL_PAGES, chunks=n_chunks, dense_dim=DOC_DIM,
+            dense_row_bytes=row_bytes, convert_s=convert_s, ingest_s=ingest_s,
+            stub_embed_s=server.embed_s, stub_embed_requests=server.embed_requests,
+            directives=len(directives), query_batch_calls=len(calls),
+            query_batch_event_ms=batch_ms, process_s=process_s, stream_process_s=stream_s,
+            spans=n_spans, citations=len(response.citations), enhanced_highlights=enhanced,
+            idle_share=profile["idle_share"], profile_wall_ms=profile["wall_ms"],
+            profile_kernel_ms=profile["kernel_ms"], section_at_path_shapes=path_tables,
+            launches_by_run=main_runs,
+            launches={k: sum(run[k] for run in main_runs.values()) for k in main_runs["process"]},
+            phase_s=time.perf_counter() - t_phase,
+        )
+        log("doc", json.dumps(result))
+        log(f"doc: {result['phase_s']:.1f} s")
+        del rag, index
+        return result
+    finally:
+        if server is not None:
+            server.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def median_ms(fn, reps: int = 10) -> float:
@@ -4666,10 +5242,15 @@ def main() -> None:
     section["three_arms"] = check_section_three_arms(gen)
     bucket_v1 = check_bucket_v1(gen)
     torch.cuda.empty_cache()
+    wide = check_wide_tables(gen)
+    section["wide"] = wide["section"]
+    bucket["wide"] = wide["bucket_max_v2"]
+    bucket_v1["wide"] = wide["bucket_max_v1"]
 
     extractor, flow = run_flow(args.seed, card)
     serve, rag, singles = run_serve(extractor, args.seed, card)
     http = run_http(rag, extractor, singles, card)
+    doc = run_doc(extractor, args.seed, card)
     serve_index = rag.index
     del rag, singles
     torch.cuda.empty_cache()
@@ -4698,7 +5279,7 @@ def main() -> None:
     del serve_index
 
     phases = (
-        flow, serve, http, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
+        flow, serve, http, doc, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
         train_mesh, checkpoints,
     )
     by_program = mesh["launches_by_program"]
@@ -4768,9 +5349,12 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/section.cu",
             replaces="verbatim_rag_tpu/ops/section.py:106",
             launches=launches["section"],
+            launches_streamed=launches["section_streamed"],
             registers_int8=build.get("section_wgmma_kernelILb1E", {}).get("registers"),
             registers_bf16=build.get("section_wgmma_kernelILb0E", {}).get("registers"),
             registers_f32=build.get("fma_walk_kernelILi0E", {}).get("registers"),
+            registers_streamed_int8=build.get("section_streamed_kernelILb1E", {}).get("registers"),
+            registers_streamed_bf16=build.get("section_streamed_kernelILb0E", {}).get("registers"),
             mesh=dict(
                 launches=sum(c["section"] for c in by_program.values()), shards=MESH_SHARDS,
                 shard_rows=per_shard["shard_rows"], shard_ms=per_shard["section_ms"],

@@ -64,9 +64,10 @@ HERE = Path(__file__).resolve().parent.parent
 #: Text substitutions that make the decomposition variants of the wgmma walk
 #: (`table_walk` in `csrc/section.cu`, shared by section, v2 and v1).
 _EPILOGUE = "    {  // Position p's epilogue on the drained accumulator."
-_LOAD = """          mbar_arrive_expect_tx(&full[s], kWalkStageBytes);
-          tma_load_rows(ring + s * kWalkStageBytes, &arm.x_map, &full[s], c * kChunk,
-                        static_cast<int>(row0));"""
+_LOAD = """          mbar_arrive_expect_tx(&full[s], stage_bytes);
+          tma_load_rows(stage, &arm.x_map, &full[s], c * kChunk, static_cast<int>(row0));
+          if (streamed)
+            tma_load_rows(stage + kWalkStageBytes, &arm.q_map, &full[s], c * kChunk, q0);"""
 #: Without the epilogue, one accumulator value is still read: products whose
 #: results nothing reads are dead code that ptxas may drop.
 _NO_EPILOGUE = (
@@ -90,11 +91,12 @@ _FMA_NO_EPILOGUE = (
     "    if (p < 0) {"
 )
 _FMA_NO_LOAD = "          (void)stage;\n          mbar_arrive(&full[s]);"
+_WALK_NO_LOAD = "          (void)stage;\n          (void)streamed;\n          mbar_arrive(&full[s]);"
 VARIANTS = {
-    "no_row_loads": {_LOAD: "          mbar_arrive(&full[s]);", _FMA_LOAD: _FMA_NO_LOAD},
+    "no_row_loads": {_LOAD: _WALK_NO_LOAD, _FMA_LOAD: _FMA_NO_LOAD},
     "no_epilogue": {_EPILOGUE: _NO_EPILOGUE, _FMA_EPILOGUE: _FMA_NO_EPILOGUE},
     "products_only": {
-        _LOAD: "          mbar_arrive(&full[s]);", _EPILOGUE: _NO_EPILOGUE,
+        _LOAD: _WALK_NO_LOAD, _EPILOGUE: _NO_EPILOGUE,
         _FMA_LOAD: _FMA_NO_LOAD, _FMA_EPILOGUE: _FMA_NO_EPILOGUE,
     },
 }

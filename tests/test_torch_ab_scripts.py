@@ -7,7 +7,9 @@ source text of the wgmma table walk (`table_walk`, which the section, v2 and
 v1 kernels share), of the float32 walk (`fma_walk_kernel`) and of the
 rescore (its tile, blocks an SM and slot loads); every pattern must still
 be found in its kernel, or the variants would silently time the unchanged
-kernels.
+kernels. `scripts/torch_sass_diff.py` compares two trees' SASS kernel by
+kernel; its reading of a `cuobjdump -sass` listing is checked here on a
+canned one.
 """
 
 from __future__ import annotations
@@ -66,3 +68,32 @@ def test_table_ab_rescore_variants_match_the_kernel_source():
     assert {next(iter(subs)) for subs in module.RESCORE_VARIANTS.values()} == {
         module._TILE, module._BLOCKS, module._SLOT
     }
+
+
+#: Two kernels as `cuobjdump -sass` lists them (abridged).
+_SASS = """
+	code for sm_90a
+		Function : _ZN43_GLOBAL__N__b2aa269b_10_section_cu_ce0ff00720section_wgmma_kernelILb1EEEvNS_10WalkParamsE
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                /* 0x00000a00ff017b82 */
+                                                                         /* 0x000fe40000000800 */
+        /*0010*/              @!P0 BRA 0x120 ;                           /* 0x0000000000008947 */
+        /*0020*/             @UP0 UTMALDG.2D [UR8], [UR4] ;              /* 0x00000008040075b4 */
+        /*0030*/                   EXIT ;                                /* 0x000000000000794d */
+		..........
+
+		Function : _Z24bucket_v1_wgmma_kernel10WalkParams
+        /*0000*/                   S2R R0, SR_TID.X ;                    /* 0x0000000000007919 */
+        /*0010*/                   EXIT ;                                /* 0x000000000000794d */
+"""
+
+
+def test_sass_diff_reads_kernels_and_opcodes():
+    spec = importlib.util.spec_from_file_location("sass_diff", ROOT / "scripts" / "torch_sass_diff.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    kernels = module.split_sass(_SASS)
+    section = "_ZN43_GLOBAL__N__10_section_cu_ce0ff00720section_wgmma_kernelILb1EEEvNS_10WalkParamsE"
+    assert list(kernels) == [section, "_Z24bucket_v1_wgmma_kernel10WalkParams"]  # the file's hash dropped
+    assert module.opcodes(kernels[section]) == ["LDC", "BRA", "UTMALDG.2D", "EXIT"]
+    assert module.opcodes(kernels["_Z24bucket_v1_wgmma_kernel10WalkParams"]) == ["S2R", "EXIT"]

@@ -631,3 +631,59 @@ def test_process_local_batch_slice_equal(monkeypatch, global_batch, n_proc, rank
         except ValueError as exc:
             outcomes.append(str(exc))
     assert outcomes[0] == outcomes[1]
+
+
+# -- the copied orchestration modules: the same source ----------------------------------
+
+_SAME_SOURCE = {
+    "ingestion.html_convert": ("_Markdownifier", "html_to_markdown"),
+    "ingestion.document_processor": (
+        "_docling_convert", "_csv_to_markdown", "_json_to_markdown", "DocumentProcessor",
+    ),
+    "ingestion.extra_chunkers": (
+        "ChonkieChunkerProvider", "HeadingPathWrapper", "ChunkingStrategy", "chunk_with_strategy",
+    ),
+    "engine.embedding_providers": ("OpenAIEmbeddingProvider",),
+    "rag.verbatim_doc": (
+        "_parse_params", "DocQuery", "QueryResult", "Parser", "Processor", "_format_spans",
+        "Replacer", "VerbatimDocResponse", "VerbatimDOC",
+    ),
+    "rag.providers": ("IndexProvider", "VerbatimRAGProvider"),
+    "core.enhance": ("_to_context_dicts", "verbatim_enhance"),
+    "core.cli": ("_iter_records", "main"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(_SAME_SOURCE))
+def test_copied_orchestration_source_equals_the_original(module):
+    """Each JAX-free module this package copies keeps the original's code
+    for every class and function (the CLI's program name drops "-tpu");
+    the behaviour is held to JAX's in `test_torch_doc.py`,
+    `test_torch_ingestion_extras.py` and `test_torch_remote_embeddings.py`."""
+    import importlib
+    import inspect
+
+    ours = importlib.import_module(f"verbatim_rag_tpu_torch.{module}")
+    theirs = importlib.import_module(f"verbatim_rag_tpu.{module}")
+    for name in _SAME_SOURCE[module]:
+        got = inspect.getsource(getattr(ours, name))
+        want = inspect.getsource(getattr(theirs, name)).replace("verbatim-enhance-tpu", "verbatim-enhance")
+        assert got == want, f"{module}.{name} differs from the original"
+
+
+@pytest.mark.parametrize(
+    "shim",
+    ["extractors", "llm_client", "models", "response_builder", "templates", "transform", "universal_document"],
+)
+def test_rag_shims_reexport_the_ports_own_objects(shim):
+    """Each compat shim of `rag/` exports JAX's names, each bound to the
+    port's own object (JAX's shims bind JAX's)."""
+    import importlib
+
+    ours = importlib.import_module(f"verbatim_rag_tpu_torch.rag.{shim}")
+    theirs = importlib.import_module(f"verbatim_rag_tpu.rag.{shim}")
+    assert ours.__all__ == theirs.__all__
+    for name in ours.__all__:
+        obj = getattr(ours, name)
+        assert obj.__module__.startswith("verbatim_rag_tpu_torch."), (shim, name)
+        assert obj.__name__ == getattr(theirs, name).__name__

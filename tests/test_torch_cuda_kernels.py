@@ -897,6 +897,85 @@ def test_bucket_v1_wgmma_walk_row_widths(cuda, row_bytes):
     assert (got[0][:, 5] == -1e30).all() and (got[1][:, 5] == 5 * 128 + 127).all()
 
 
+#: Rows past 2944 bytes, whose query tile streams through the wgmma walk's
+#: ring: int8 at text-embedding-3-large's 3072 and at 4096, bf16 at
+#: text-embedding-ada-002's 1536 (3072 bytes).
+WIDE_ROWS = [("int8", 3072), ("int8", 4096), ("bfloat16", 1536)]
+
+
+def _planted_mask_fault_fails(check):
+    """A planted fault must fail ``check`` (which asserts)."""
+    with pytest.raises(AssertionError):
+        check()
+
+
+@pytest.mark.parametrize("dtype,d", WIDE_ROWS)
+def test_section_wgmma_walk_streams_wide_rows(cuda, dtype, d):
+    """A wide arm beside a resident 384-column arm in one launch, a ragged
+    batch of 200 (a full 128-query tile and a partial one), a dead bucket in
+    every block; the planted fault (the kernel run without the mask) fails."""
+    before = sec.launches_streamed
+    _section_case(cuda, 2 * 8192, 8192, 200, (384, d), dtype, seed=d)
+    assert sec.launches_streamed == before + 1
+    arms = _rows_and_queries(2 * 8192, (d,), 200, seed=d + 1, dtype=dtype, device=cuda)
+    corpora, queries, scales = zip(*arms)
+    scales = scales if dtype == "int8" else (None,)
+    mask = _test_mask(2 * 8192, cuda)
+    expected = sec.section_tables_reference(corpora, queries, mask, scales, 8192)
+    faulty = sec.section_tables_cuda(corpora, queries, None, scales, 8192)
+    torch.cuda.synchronize()
+    scores = lambda: torch.where(  # noqa: E731
+        mask, queries[0].to(corpora[0].dtype).float() @ corpora[0].float().T, -1e30
+    )
+    _planted_mask_fault_fails(
+        lambda: _assert_tables_match(
+            _decode(faulty[0], 8192), _decode(expected[0], 8192), queries[0], scores, 8192,
+            exact=dtype == "int8",
+        )
+    )
+
+
+@pytest.mark.parametrize("dtype,d", WIDE_ROWS)
+def test_bucket_v2_wgmma_walk_streams_wide_rows(cuda, dtype, d):
+    """v2 on wide rows at 4 blocks of 16384, a ragged batch of 200; the
+    planted fault (the mask ignored) fails."""
+    n = 4 * 16384
+    ((corpus, q, scale),) = _rows_and_queries(n, (d,), 200, seed=d + 2, dtype=dtype, device=cuda)
+    mask = _test_mask(n, cuda)
+    before = ft.launches
+    got = ft.matmul_bucket_max_v2(corpus, q, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    expected = ft.matmul_bucket_max_v2_reference(corpus, q, mask, scale)
+
+    def scores():
+        return torch.where(mask, q.to(corpus.dtype).float() @ corpus.float().T, -1e30)
+
+    _assert_tables_match(got, expected, q, scores, 16384, exact=dtype == "int8")
+    faulty = ft.matmul_bucket_max_v2_cuda(corpus, q, torch.ones_like(mask), scale)
+    torch.cuda.synchronize()
+    _planted_mask_fault_fails(
+        lambda: _assert_tables_match(faulty, expected, q, scores, 16384, exact=dtype == "int8")
+    )
+
+
+def test_bucket_v1_wgmma_walk_streams_wide_rows(cuda):
+    """v1 on bf16 rows of 1536 columns (3072 bytes), a ragged batch of 200,
+    a dead bucket; the planted fault (the mask ignored) fails."""
+    n, b, d = 4 * 16384, 200, 1536
+    ((corpus, q, _),) = _rows_and_queries(n, (d,), b, seed=d + 3, dtype="bfloat16", device=cuda)
+    mask = _v1_mask(n, cuda)
+    before = ft.launches_v1
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches_v1 == before + 1
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    assert _v1_check(got, expected, q, corpus, mask, V1_LIMITS["bfloat16"])
+    faulty = ft.matmul_bucket_max_cuda(corpus, q, torch.ones_like(mask))
+    torch.cuda.synchronize()
+    assert not _v1_check(faulty, expected, q, corpus, mask, V1_LIMITS["bfloat16"])
+
+
 def test_table_kernels_refuse_other_row_types(cuda):
     q, mask = torch.zeros(2, 32, device=cuda), torch.ones(256, dtype=torch.bool, device=cuda)
     half = torch.zeros(256, 32, device=cuda, dtype=torch.float16)
@@ -904,9 +983,9 @@ def test_table_kernels_refuse_other_row_types(cuda):
         sec.section_bucket_tables((half,), (q,), None, block_cols=256)
     with pytest.raises(TypeError, match="float32 rows"):
         ft.matmul_bucket_max_v2(half, q, mask)
-    wide = torch.zeros(256, 1480, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        ft.matmul_bucket_max_v2(wide, torch.zeros(2, 1480, device=cuda), mask)
+    ragged = torch.zeros(256, 1484, device=cuda, dtype=torch.bfloat16)  # 2968 bytes
+    with pytest.raises(ValueError, match="16-byte multiple"):
+        ft.matmul_bucket_max_v2(ragged, torch.zeros(2, 1484, device=cuda), mask)
     with pytest.raises(ValueError, match="no\\s+scale in v1"):
         ft.matmul_bucket_max(torch.zeros(256, 32, dtype=torch.int8, device=cuda), q, mask)
 

@@ -158,6 +158,16 @@ def test_bucket_support_and_validation():
         fused_topk.matmul_bucket_max_v2(torch.zeros(960, 16), q, torch.ones(960, dtype=torch.bool))
 
 
+def cta_smem(dtype, row_bytes: int, mode: str = "v2") -> int:
+    """Shared memory of one CTA by the Python mirrors of `csrc/section.cu`:
+    the FMA walk's one size a mode for float32 rows (`_FMA_SMEM`), else the
+    wgmma walk's tile and ring at `walk_geometry`'s (`_walk_smem`)."""
+    if dtype == torch.float32:
+        return fused_topk._FMA_SMEM[mode]
+    queries, stages = fused_topk.walk_geometry(row_bytes, mode)
+    return fused_topk._walk_smem(queries, row_bytes, stages, mode)
+
+
 @pytest.mark.parametrize(
     "dtype,d,mode,row_bytes",
     [
@@ -177,22 +187,22 @@ def test_kernel_rows_accepted(dtype, d, mode, row_bytes):
     queries at 2944 bytes)."""
     corpus = torch.zeros(4, d, dtype=dtype)
     assert fused_topk.check_kernel_rows(corpus, "bucket", mode) == row_bytes
-    assert fused_topk.kernel_smem_bytes(dtype, row_bytes, mode) <= 232448
+    assert cta_smem(dtype, row_bytes, mode) <= 232448
     assert fused_topk.tile_queries(dtype, row_bytes, mode) == (128 if dtype == torch.float32 else 64)
 
 
 def test_kernel_rows_refused():
     # The FMA walk: 4 stages of rows and queries, the running maxima (not
     # for v1), 8 mbarriers and 1024 bytes of slack, whatever the row width.
-    assert fused_topk.kernel_smem_bytes(torch.float32, 3072) == 4 * 32768 + 65536 + 64 + 1024
-    assert fused_topk.kernel_smem_bytes(torch.float32, 16, "v1") == 4 * 32768 + 64 + 1024
+    assert cta_smem(torch.float32, 3072) == 4 * 32768 + 65536 + 64 + 1024
+    assert cta_smem(torch.float32, 16, "v1") == 4 * 32768 + 64 + 1024
     wide = torch.zeros(4, 1380)  # 5520 bytes: past the old 32-query tile, taken now
     assert fused_topk.check_kernel_rows(wide, "bucket", "section") == 5520
     # v1 on bf16 d = 768: 64 queries × 12 chunks, 7 stages, 4 side slots of 640 bytes.
-    assert fused_topk.kernel_smem_bytes(torch.bfloat16, 1536, "v1") == (
+    assert cta_smem(torch.bfloat16, 1536, "v1") == (
         12 * 64 * 128 + 7 * 16384 + 4 * 640 + (1 + 14 + 8) * 8 + 1024
     )
-    for dtype, d in ((torch.float32, 1381), (torch.float32, 6), (torch.bfloat16, 1480), (torch.int8, 2960)):
+    for dtype, d in ((torch.float32, 1381), (torch.float32, 6), (torch.bfloat16, 1484), (torch.int8, 2968 + 1)):
         with pytest.raises(ValueError, match="16-byte multiple"):
             fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket")
     for dtype in (torch.float16, torch.float64, torch.int32):
@@ -208,12 +218,12 @@ def test_v2_kernel_geometry(dtype, d):
     a 4-deep ring, else 64 walked by one warpgroup, a ring of 4-8 stages),
     float32 rows on the FMA walk's 128-query tile."""
     row_bytes = d * torch.tensor([], dtype=dtype).element_size()
-    smem = fused_topk.kernel_smem_bytes(dtype, row_bytes, "v2")
+    smem = cta_smem(dtype, row_bytes, "v2")
     assert smem <= 232448
     assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", "v2") == row_bytes
     queries = fused_topk.tile_queries(dtype, row_bytes, "v2")
     if dtype == torch.float32:
-        assert queries == 128 and smem == fused_topk.kernel_smem_bytes(dtype, row_bytes, "section")
+        assert queries == 128 and smem == cta_smem(dtype, row_bytes, "section")
         assert fused_topk.table_geometry(dtype, row_bytes, "v2") == (128, 0)
         return
     chunks = -(-row_bytes // 128)
@@ -225,17 +235,55 @@ def test_v2_kernel_geometry(dtype, d):
 
 
 def test_v2_kernel_geometry_edges():
-    """The widest rows each tile takes, and the limit of the wgmma walk (2944
-    bytes, 64 queries and two stages), the same for section, v2 and v1."""
+    """The widest rows each tile takes, and the widest row that keeps its
+    query tile resident (2944 bytes, 64 queries and two stages); one chunk
+    more streams the tile through a 6-stage ring of 128 queries, the same
+    for section, v2 and v1."""
     for mode in ("section", "v2", "v1"):
         assert fused_topk.walk_geometry(1152, mode)[0] == 128
         assert fused_topk.walk_geometry(1168, mode)[0] == 64
         assert fused_topk.walk_geometry(2944, mode) == (64, 2)
-        assert fused_topk.walk_geometry(2960, mode)[1] < 2
+        assert not fused_topk.walk_streams(2944) and fused_topk.walk_streams(2960)
+        assert fused_topk.walk_geometry(2960, mode) == (128, 6)
         wide = torch.zeros(4, 1472, dtype=torch.bfloat16)  # 2944 bytes
         assert fused_topk.check_kernel_rows(wide, "bucket", mode) == 2944
-        with pytest.raises(ValueError, match="shared memory"):
-            fused_topk.check_kernel_rows(torch.zeros(4, 1480, dtype=torch.bfloat16), "bucket", mode)
+        wider = torch.zeros(4, 1480, dtype=torch.bfloat16)  # 2960 bytes: streamed
+        assert fused_topk.check_kernel_rows(wider, "bucket", mode) == 2960
+
+
+@pytest.mark.parametrize(
+    "dtype,d,mode",
+    [
+        (torch.int8, 3072, "section"),  # text-embedding-3-large
+        (torch.int8, 3072, "v2"),
+        (torch.int8, 4096, "section"),
+        (torch.int8, 4096, "v2"),
+        (torch.bfloat16, 1536, "section"),  # text-embedding-ada-002
+        (torch.bfloat16, 1536, "v2"),
+        (torch.bfloat16, 1536, "v1"),
+        (torch.bfloat16, 4096, "v1"),
+    ],
+)
+def test_wide_rows_stream_the_query_tile(dtype, d, mode):
+    """Rows past 2944 bytes, which the wgmma walk refused while its query
+    tile had to stay resident, are taken: the tile streams through the ring
+    beside the rows, 32 KB a stage (128 rows and 128 queries × 128 bytes),
+    6 stages, within shared memory. The mirror's resident limit is the
+    kernel source's `kWalkResidentChunks`."""
+    import re
+    from pathlib import Path
+
+    source = (Path(fused_topk.__file__).parent.parent / "csrc" / "section.cu").read_text()
+    resident = int(re.search(r"constexpr int kWalkResidentChunks = (\d+);", source).group(1))
+    assert resident == fused_topk._WALK_RESIDENT_CHUNKS == 2944 // 128
+    row_bytes = d * torch.tensor([], dtype=dtype).element_size()
+    assert fused_topk.check_kernel_rows(torch.zeros(4, d, dtype=dtype), "bucket", mode) == row_bytes
+    assert fused_topk.walk_streams(row_bytes)
+    assert fused_topk.walk_geometry(row_bytes, mode) == (128, 6)
+    side = 4 * fused_topk._WALK_SIDE_BYTES[mode]
+    smem = cta_smem(dtype, row_bytes, mode)
+    assert smem == 6 * (16384 + 128 * 128) + side + (1 + 12 + 8) * 8 + 1024 <= fused_topk._SMEM_LIMIT
+    assert fused_topk._walk_smem(128, row_bytes, 7, mode) > fused_topk._SMEM_LIMIT
 
 
 def test_walk_side_slot_bytes_match_the_kernel_source():
@@ -273,7 +321,7 @@ def test_fma_walk_geometry_matches_the_kernel_source(mode):
     assert fused_topk._FMA_SMEM[mode] == 4 * 32768 + best + 2 * 4 * 8 + 1024 <= 232448
     for d in (4, 384, 768, 4096):
         assert fused_topk.table_geometry(torch.float32, 4 * d, mode) == (128, 0)
-        assert fused_topk.kernel_smem_bytes(torch.float32, 4 * d, mode) == fused_topk._FMA_SMEM[mode]
+        assert cta_smem(torch.float32, 4 * d, mode) == fused_topk._FMA_SMEM[mode]
     assert fused_topk.table_geometry(torch.bfloat16, 768, mode) == fused_topk.walk_geometry(768, mode)
 
 

@@ -19,7 +19,10 @@ fourth stages a trainer checkpoint for the Hub, serves its HuggingFace files
 (with a ``tokenizer.json`` trained in the process) through the HF branch of
 the loaders, serves a sentence-head checkpoint through
 `SentenceModelExtractor`, and answers a question with a cross-encoder
-reranker. The same holds for every module of the port imported on its own.
+reranker. A fifth ingests HTML pages and a fetched URL, indexes them
+through a remote embedding provider served on 127.0.0.1, and runs
+`VerbatimDOC` and `verbatim_enhance` over the saved index. The same holds
+for every module of the port imported on its own.
 """
 
 from __future__ import annotations
@@ -283,6 +286,93 @@ print(json.dumps({
 }))
 """
 
+DOC = """
+import asyncio, http.server, json, os, sys, tempfile, threading
+from pathlib import Path
+for key in [k for k in os.environ if k.lower().endswith("_proxy")]:
+    del os.environ[key]  # the stub below is on 127.0.0.1: nothing may go through a proxy
+from verbatim_rag_tpu_torch.core import TemplateManager, VerbatimTransform, verbatim_enhance
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, OpenAIEmbeddingProvider, VerbatimIndex
+from verbatim_rag_tpu_torch.ingestion.document_processor import DocumentProcessor
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.models import ModelSpanExtractor
+from verbatim_rag_tpu_torch.models.config import tiny_test_config
+from verbatim_rag_tpu_torch.rag import IndexProvider, VerbatimDOC, VerbatimRAG
+
+stub = HashedBowDenseProvider(dim=64)
+
+
+class Embeddings(http.server.BaseHTTPRequestHandler):
+    def do_POST(self):
+        body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+        data = [{"index": i, "embedding": stub.embed_text(t).tolist()} for i, t in enumerate(body["input"])]
+        out = json.dumps({"data": data}).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(out)))
+        self.end_headers()
+        self.wfile.write(out)
+
+    def log_message(self, *args):
+        pass
+
+
+server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Embeddings)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+api = "http://127.0.0.1:%d/v1" % server.server_address[1]
+
+tmp = Path(tempfile.mkdtemp())
+(tmp / "pages").mkdir()
+for p in sorted(Path("examples/example_docs").glob("*.md")):
+    body = "".join("<h1>%s</h1>" % line[2:] if line.startswith("# ") else "<p>%s</p>" % line
+                   for line in p.read_text().splitlines() if line.strip())
+    (tmp / "pages" / (p.stem + ".html")).write_text("<html><body>" + body + "</body></html>")
+docs = list(DocumentProcessor().process_directory(str(tmp / "pages")))
+
+
+class Page:
+    text = "<h1>Remote</h1><p>Solar panels on a fetched page.</p>"
+    headers = {"content-type": "text/html"}
+
+
+DocumentProcessor.http_get = staticmethod(lambda url: Page())
+fetched = DocumentSchema.from_url("https://example.com/page")
+index = VerbatimIndex(
+    dense_provider=OpenAIEmbeddingProvider(model="m", api_base=api, dimension=64),
+    sparse_provider=HashedSparseProvider(), device="cpu", dense_dtype="int8", sketch_dtype="int8",
+)
+index.add_documents([*docs, fetched])
+index.save(str(tmp / "idx"))
+loaded = VerbatimIndex.load(str(tmp / "idx"), device="cpu")
+extractor = ModelSpanExtractor(config=tiny_test_config(), device="cpu", threshold=0.0)
+rag = VerbatimRAG(loaded, extractor=extractor, k=2)
+report = chr(10).join(["# Report", "## Solar", "[!query=How efficient are solar panels?]", "## Wind", "[!query=offshore wind|k=1,format=bullet]"])
+doc = VerbatimDOC(rag).process(report)
+
+
+async def events():
+    return [e async for e in VerbatimDOC(rag).stream_process(report)]
+
+
+streamed = asyncio.run(events())
+provider = IndexProvider(loaded)
+transform = VerbatimTransform(extractor=extractor, template_manager=TemplateManager(default_mode="static"))
+enhanced = verbatim_enhance(transform=transform)(lambda question: provider.retrieve(question, k=2))("solar panels")
+server.shutdown()
+print(json.dumps({
+    "pages": len(docs),
+    "fetched": "Remote" in fetched.content,
+    "provider": loaded.dense_provider.describe()["class"],
+    "impl": loaded.store.candidate_impl,
+    "spliced": "[!query" not in doc.document and len(doc.queries) == 2,
+    "citations": len(doc.citations),
+    "stream_done": streamed[-1]["type"] == "done" and streamed[-1]["document"] == doc.document,
+    "enhanced_docs": len(enhanced.documents),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -359,3 +449,18 @@ def test_every_port_module_imports_without_jax():
     result = _run(IMPORT_ALL)
     assert result["modules"] >= 40
     assert result["jax"] == [] and result["reference"] == []
+
+
+def test_doc_path_runs_without_jax():
+    """HTML pages through `process_directory`, a page through
+    `DocumentSchema.from_url` (its ``http_get`` seam), dense vectors from an
+    `OpenAIEmbeddingProvider` served by a stub on 127.0.0.1, an int8 index
+    saved and loaded, then `VerbatimDOC.process` and `stream_process` and
+    `verbatim_enhance` over it: no ``jax`` and no ``verbatim_rag_tpu`` module
+    gets loaded."""
+    result = _run(DOC)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["pages"] == 2 and result["fetched"]
+    assert result["provider"] == "OpenAIEmbeddingProvider" and result["impl"] == "section"
+    assert result["spliced"] and result["citations"] > 0 and result["stream_done"]
+    assert result["enhanced_docs"] == 2

@@ -191,10 +191,20 @@ def test_geometry_validation():
             [(torch.int8, 384), (torch.int8, 768), (torch.int8, 1168)],
             [(torch.int8, [0, 1, 2], [(128, 8), (128, 7), (64, 8)])],
         ),
+        # rows past 2944 bytes stream their query tile (128 queries, 6
+        # stages) in a launch of their own layout
+        (
+            [(torch.int8, 3072), (torch.int8, 768), (torch.bfloat16, 3072), (torch.int8, 4096)],
+            [
+                (torch.int8, [0, 3], [(128, 6), (128, 6)]), (torch.int8, [1], [(128, 7)]),
+                (torch.bfloat16, [2], [(128, 6)]),
+            ],
+        ),
     ],
 )
 def test_plan_section_launches(arms, expected):
-    """`section_tables_cuda` launches once per row kind on the same stream,
+    """`section_tables_cuda` launches once per row kind (and layout of the
+    query tile) on the same stream,
     each int8 / bf16 arm with the wgmma walk's tile and ring for section's
     side slots (`walk_geometry(row_bytes, "section")`), float32 arms on the
     FMA walk's 128-query tile (its ring depth is the kernel's own: 0); the

@@ -45,10 +45,13 @@
 //   - int8 and bf16 rows: the wgmma walk (`table_walk`, described where it is
 //     defined), behind three kernels, one a mode: `section_wgmma_kernel`,
 //     `bucket_v2_wgmma_kernel` (both int8 and bf16) and
-//     `bucket_v1_wgmma_kernel` (bf16). TMA streams the rows, a producer warp
-//     keeps the ring full, wgmma m64n128 takes them from shared memory, and
-//     one warpgroup's epilogue runs beside the other's products. A
-//     section_tables call with arms of both kinds launches once a kind.
+//     `bucket_v1_wgmma_kernel` (bf16), and their twins for rows past 2944
+//     bytes, whose query tile streams (`section_streamed_kernel`,
+//     `bucket_v2_streamed_kernel`, `bucket_v1_streamed_kernel`). TMA streams
+//     the rows, a producer warp keeps the ring full, wgmma m64n128 takes
+//     them from shared memory, and one warpgroup's epilogue runs beside the
+//     other's products. A section_tables call launches once for each row
+//     kind and layout among its arms.
 //   - float32 rows: the FMA walk (`fma_walk_kernel`, one kernel a mode,
 //     described where it is defined): a producer warp streams rows and
 //     queries by TMA through a counted ring, eight consumer warps hold 128
@@ -95,18 +98,32 @@ __device__ __forceinline__ void keep_best(float& v, int& l, float ov, int ol) {
 //
 // One CTA of 288 threads (two consumer warpgroups and one TMA producer warp)
 // owns `queries` (128 or 64) queries × the 128 lanes of one column block and
-// walks the block's positions p. The query tile is loaded once and stays in
-// shared memory as ceil(row_bytes / 128) chunks of [queries][128 B]; the
-// position's 128 rows stream through a ring of `stages` 16 KB stages
-// (128 rows × 128 bytes, one chunk), each with a full and an empty mbarrier.
+// walks the block's positions p. Two layouts, by the row width:
+//   resident (rows of up to kWalkResidentChunks chunks, 2944 bytes): the
+//     query tile is loaded once and stays in shared memory as
+//     ceil(row_bytes / 128) chunks of [queries][128 B]; the position's 128
+//     rows stream through a ring of `stages` 16 KB stages (128 rows × 128
+//     bytes, one chunk), each with a full and an empty mbarrier;
+//   streamed (wider rows, whose tile would not fit beside a 2-stage ring):
+//     a stage holds a chunk of the rows and the same chunk of the queries,
+//     [128 rows][128 B] then [queries][128 B] (32 KB at 128 queries), both
+//     TMA boxes counted against the stage's full barrier, as the FMA walk
+//     streams its float32 queries. The query tile is read again from L2 at
+//     every position; the A operand's descriptor is the stage's. Any row
+//     that is a 16-byte multiple fits: the ring is counted in whole stages.
+//     On an H100 SXM at 700 W (B=512, N=1,048,576, one int8 arm) the
+//     streamed 3072-byte rows took 3.1 ms, 53% of their bound, and the
+//     resident 2944-byte ones (64 queries, 2 stages) 9.3 ms.
 // Per position the producer also bulk-copies the rows' side data into a side
 // slot (4 slots, own barriers), so the epilogue reads it from shared memory:
 // c_scale for int8, then the mask (v2, v1: its bytes; section: mask_add as
 // float32, none when the call has no mask).
-//   queries = 128: warpgroup w takes queries 64w..64w+63 against every
-//     position; both read each stage, which is free after 256 arrivals;
-//   queries = 64 (rows too wide for a 128-query tile beside a 4-deep ring,
-//     such as bf16 d = 768): warpgroup 0 walks alone through the whole ring.
+//   queries = 128 (narrow resident rows, and every streamed row): warpgroup
+//     w takes queries 64w..64w+63 against every position; both read each
+//     stage, which is free after 256 arrivals;
+//   queries = 64 (resident rows too wide for a 128-query tile beside a
+//     4-deep ring, such as bf16 d = 768): warpgroup 0 walks alone through
+//     the whole ring.
 //     Splitting the positions between the warpgroups (each through half the
 //     ring: a warpgroup must meet its stages in order, as an mbarrier's parity
 //     wait cannot tell a phase from the one two later) measured slower:
@@ -139,6 +156,9 @@ constexpr int kWalkThreads = kWalkConsumers + 32;
 constexpr int kWalkStageBytes = kLanes * kChunk;  // 128 rows × 128 bytes
 constexpr int kWalkSide = 4;                      // positions of side data in flight
 constexpr int kWalkMaxStages = 8;
+// Rows of up to this many 128-byte chunks (2944 bytes) keep the query tile
+// resident (64 queries beside a 2-stage ring); wider rows stream it.
+constexpr int kWalkResidentChunks = 23;
 // A side slot: c_scale [128] float32 (int8 rows), then the mask: v2 and v1
 // its bytes [128], section mask_add [128] float32.
 constexpr int kSideBytesV2 = 640;
@@ -150,10 +170,27 @@ __host__ __device__ constexpr int side_bytes(int mode) {
   return mode == kSection ? kSideBytesSection : kSideBytesV2;
 }
 
-int walk_smem_bytes(int mode, int queries, int n_chunks, int stages) {
-  return n_chunks * queries * kChunk + stages * kWalkStageBytes + kWalkSide * side_bytes(mode) +
+__host__ __device__ constexpr bool walk_streams(int n_chunks) {
+  return n_chunks > kWalkResidentChunks;
+}
+
+// A ring stage: the rows' chunk, and for a streamed tile the queries' chunk.
+__host__ __device__ constexpr int walk_stage_bytes(int queries, int n_chunks) {
+  return kWalkStageBytes + (walk_streams(n_chunks) ? queries * kChunk : 0);
+}
+
+constexpr int walk_smem_bytes(int mode, int queries, int n_chunks, int stages) {
+  return (walk_streams(n_chunks) ? 0 : n_chunks * queries * kChunk) +
+         stages * walk_stage_bytes(queries, n_chunks) + kWalkSide * side_bytes(mode) +
          (1 + 2 * stages + 2 * kWalkSide) * 8 + 1024;  // + barriers, + alignment slack
 }
+static_assert(walk_smem_bytes(kSection, 64, kWalkResidentChunks, 2) <= kMaxSmem &&
+                  (kWalkResidentChunks + 1) * 64 * kChunk + 2 * kWalkStageBytes +
+                          kWalkSide * kSideBytesV2 + (1 + 4 + 2 * kWalkSide) * 8 + 1024 >
+                      kMaxSmem,
+              "the widest resident tile: 64 queries beside a 2-stage ring");
+static_assert(walk_smem_bytes(kSection, 128, kWalkResidentChunks + 1, 6) <= kMaxSmem,
+              "a streamed 128-query tile beside a 6-stage ring");
 
 struct WalkArm {
   CUtensorMap q_map;    // queries [batch, row_bytes]: boxes of 128 B × `queries` rows
@@ -175,7 +212,11 @@ struct WalkParams {
   int n_blocks;
 };
 
-template <int kMode, bool kInt8>
+// kStreamed: the launch's arms all stream their query tile (rows past
+// kWalkResidentChunks chunks) or none does; the resident kernels are
+// compiled without the streamed layout's code (a runtime choice cost them
+// 6-8% on an H100, in an A/B against the resident-only walk).
+template <int kMode, bool kInt8, bool kStreamed>
 __device__ __forceinline__ void table_walk(const WalkParams& prm) {
   using namespace hopper;
   using Acc = std::conditional_t<kInt8, int, float>;
@@ -188,13 +229,15 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
   const int n_chunks = arm.n_chunks;
   const int stages = arm.stages;
   const bool has_mask = kMode != kSection || prm.mask != nullptr;
+  constexpr bool streamed = kStreamed;  // the query tile rides in the ring
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_base_1024(smem_raw);
   const int q_chunk_bytes = queries * kChunk;
-  uint8_t* q_tile = smem;                                  // chunk c at c · q_chunk_bytes
-  uint8_t* ring = smem + n_chunks * q_chunk_bytes;         // stage s at s · kWalkStageBytes
-  uint8_t* side = ring + stages * kWalkStageBytes;         // slot j at j · kSide
+  const int stage_bytes = streamed ? kWalkStageBytes + q_chunk_bytes : kWalkStageBytes;  // 1024-multiples
+  uint8_t* q_tile = smem;                                  // resident: chunk c at c · q_chunk_bytes
+  uint8_t* ring = smem + (streamed ? 0 : n_chunks * q_chunk_bytes);  // stage s at s · stage_bytes
+  uint8_t* side = ring + stages * stage_bytes;             // slot j at j · kSide
   uint64_t* q_full = reinterpret_cast<uint64_t*>(side + kWalkSide * kSide);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + stages;
@@ -221,11 +264,14 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
   __syncthreads();
 
   if (threadIdx.x >= kWalkConsumers) {
-    // Producer: the query tile, then per position its side data and chunks.
+    // Producer: the resident query tile, then per position its side data and
+    // chunks (a streamed tile's chunk beside each of the rows').
     if (threadIdx.x == kWalkConsumers) {
-      mbar_arrive_expect_tx(q_full, n_chunks * q_chunk_bytes);
-      for (int c = 0; c < n_chunks; ++c)
-        tma_load_rows(q_tile + c * q_chunk_bytes, &arm.q_map, q_full, c * kChunk, q0);
+      if (!streamed) {
+        mbar_arrive_expect_tx(q_full, n_chunks * q_chunk_bytes);
+        for (int c = 0; c < n_chunks; ++c)
+          tma_load_rows(q_tile + c * q_chunk_bytes, &arm.q_map, q_full, c * kChunk, q0);
+      }
       const uint8_t* mask = static_cast<const uint8_t*>(prm.mask);
       const uint32_t side_tx = (kInt8 ? kLanes * 4 : 0) + (has_mask ? kMaskBytes : 0);
       int next = 0;  // the ring's next slot, and how many times it has gone round
@@ -243,9 +289,11 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
         for (int c = 0; c < n_chunks; ++c) {
           const int s = next;
           if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
-          mbar_arrive_expect_tx(&full[s], kWalkStageBytes);
-          tma_load_rows(ring + s * kWalkStageBytes, &arm.x_map, &full[s], c * kChunk,
-                        static_cast<int>(row0));
+          uint8_t* stage = ring + s * stage_bytes;
+          mbar_arrive_expect_tx(&full[s], stage_bytes);
+          tma_load_rows(stage, &arm.x_map, &full[s], c * kChunk, static_cast<int>(row0));
+          if (streamed)
+            tma_load_rows(stage + kWalkStageBytes, &arm.q_map, &full[s], c * kChunk, q0);
           if (++next == stages) {
             next = 0;
             ++lap;
@@ -277,7 +325,7 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
 #pragma unroll
   for (int x = 0; x < (kMode == kBucketV1 ? 1 : 64); ++x) best[x] = kNegInf;
 
-  mbar_wait(q_full, 0);
+  if (!streamed) mbar_wait(q_full, 0);
   const uint64_t q_desc = desc_sw128(q_tile + wq * kChunk);
   int next = 0, prev = 0;  // this warpgroup's next stage of its ring, the one before
   uint32_t lap = 0;
@@ -285,8 +333,15 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
     for (int c = 0; c < n_chunks; ++c) {
       const int s = next;
       mbar_wait(&full[s], lap & 1);
-      const uint64_t a = q_desc + static_cast<uint64_t>((c * q_chunk_bytes) >> 4);
-      const uint64_t x = desc_sw128(ring + s * kWalkStageBytes);
+      // A stage is released only after both operands' products are done
+      // (the wait below), so a streamed query chunk lives as long as its rows.
+      // (The A descriptor comes first, as in the resident-only walk: with
+      // the stage's address taken before it, ptxas scheduled the resident
+      // kernels' loop head otherwise.)
+      const uint64_t a = streamed
+                             ? desc_sw128(ring + s * stage_bytes + kWalkStageBytes + wq * kChunk)
+                             : q_desc + static_cast<uint64_t>((c * q_chunk_bytes) >> 4);
+      const uint64_t x = desc_sw128(ring + s * stage_bytes);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < kChunk / 32; ++ks) {
@@ -430,34 +485,58 @@ __device__ __forceinline__ void table_walk(const WalkParams& prm) {
 template <bool kInt8>
 __global__ void __launch_bounds__(kWalkThreads, 1)
 section_wgmma_kernel(const __grid_constant__ WalkParams prm) {
-  table_walk<kSection, kInt8>(prm);
+  table_walk<kSection, kInt8, false>(prm);
 }
 
 template <bool kInt8>
 __global__ void __launch_bounds__(kWalkThreads, 1)
 bucket_v2_wgmma_kernel(const __grid_constant__ WalkParams prm) {
-  table_walk<kBucketV2, kInt8>(prm);
+  table_walk<kBucketV2, kInt8, false>(prm);
 }
 
 __global__ void __launch_bounds__(kWalkThreads, 1)
 bucket_v1_wgmma_kernel(const __grid_constant__ WalkParams prm) {
-  table_walk<kBucketV1, false>(prm);
+  table_walk<kBucketV1, false, false>(prm);
 }
 
-template <int kMode, bool kInt8>
+// The same three walks with the query tile streamed (rows past 2944 bytes).
+template <bool kInt8>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+section_streamed_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kSection, kInt8, true>(prm);
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+bucket_v2_streamed_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kBucketV2, kInt8, true>(prm);
+}
+
+__global__ void __launch_bounds__(kWalkThreads, 1)
+bucket_v1_streamed_kernel(const __grid_constant__ WalkParams prm) {
+  table_walk<kBucketV1, false, true>(prm);
+}
+
+template <int kMode, bool kInt8, bool kStreamed>
 int start_walk(const WalkParams& prm, dim3 grid, int smem, cudaStream_t stream) {
   void (*kernel)(WalkParams);
   if constexpr (kMode == kSection)
-    kernel = section_wgmma_kernel<kInt8>;
+    kernel = kStreamed ? section_streamed_kernel<kInt8> : section_wgmma_kernel<kInt8>;
   else if constexpr (kMode == kBucketV2)
-    kernel = bucket_v2_wgmma_kernel<kInt8>;
+    kernel = kStreamed ? bucket_v2_streamed_kernel<kInt8> : bucket_v2_wgmma_kernel<kInt8>;
   else
-    kernel = bucket_v1_wgmma_kernel;
+    kernel = kStreamed ? bucket_v1_streamed_kernel : bucket_v1_wgmma_kernel;
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<grid, kWalkThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode, bool kInt8>
+int start_walk(const WalkParams& prm, dim3 grid, int smem, cudaStream_t stream, bool streamed) {
+  return streamed ? start_walk<kMode, kInt8, true>(prm, grid, smem, stream)
+                  : start_walk<kMode, kInt8, false>(prm, grid, smem, stream);
 }
 
 // One arm of a walk launch as the C entries receive it.
@@ -489,12 +568,14 @@ int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, i
   WalkParams prm = {};
   int smem = 0;
   int min_queries = 128;
+  const bool streamed = walk_streams((args[0].row_bytes + kChunk - 1) / kChunk);
   for (int a = 0; a < n_arms; ++a) {
     const WalkArgs& w = args[a];
     const int n_chunks = (w.row_bytes + kChunk - 1) / kChunk;
     const int bytes = walk_smem_bytes(kMode, w.queries, n_chunks, w.stages);
     if (w.row_bytes <= 0 || w.row_bytes % 16 != 0 || (w.queries != 64 && w.queries != 128) ||
         w.stages < 2 || w.stages > kWalkMaxStages || bytes > kMaxSmem ||
+        walk_streams(n_chunks) != streamed ||  // one layout a launch
         (int8 && (w.qscale == nullptr || w.cscale == nullptr))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -522,10 +603,10 @@ int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, i
   prm.n_blocks = static_cast<int>(n_rows / block);
   const dim3 grid((batch + min_queries - 1) / min_queries, prm.n_blocks, n_arms);
   if constexpr (kMode == kBucketV1) {
-    return start_walk<kMode, false>(prm, grid, smem, stream);
+    return start_walk<kMode, false>(prm, grid, smem, stream, streamed);
   } else {
-    return int8 ? start_walk<kMode, true>(prm, grid, smem, stream)
-                : start_walk<kMode, false>(prm, grid, smem, stream);
+    return int8 ? start_walk<kMode, true>(prm, grid, smem, stream, streamed)
+                : start_walk<kMode, false>(prm, grid, smem, stream, streamed);
   }
 }
 
@@ -834,8 +915,9 @@ int launch_fma(const FmaArgs* args, int n_arms, const void* mask, int batch, lon
 // [n_rows, d_a], qscale[a] [batch] and cscale[a] [n_rows] float32 for int8,
 // out[a] [batch, n_rows/block·128] float32; mask_add [n_rows] float32 or
 // null. int8 and bf16 arms run on the wgmma walk, each with its tile of
-// queries[a] (64 or 128) and ring of stages[a] (2-8); q, corpus, cscale and
-// mask_add 16-byte aligned. float32 arms take the FMA walk, whose tile and
+// queries[a] (64 or 128) and ring of stages[a] (2-8), all arms resident or
+// all streamed (rows past 2944 bytes); q, corpus, cscale and mask_add
+// 16-byte aligned. float32 arms take the FMA walk, whose tile and
 // ring are its own (queries and stages are not read); q and corpus 16-byte
 // aligned. All contiguous. Returns the CUDA error code of the launch.
 extern "C" int section_tables(int n_arms, const void* const* q, const void* const* corpus,

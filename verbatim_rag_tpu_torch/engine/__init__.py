@@ -9,6 +9,7 @@ from .embedding_providers import (
     DenseEmbeddingProvider,
     HashedBowDenseProvider,
     HashedSparseProvider,
+    OpenAIEmbeddingProvider,
     SparseEmbeddingProvider,
 )
 from .filters import FilterSpec, compile_filter
@@ -35,6 +36,7 @@ __all__ = [
     "HashedSparseProvider",
     "JaxDenseProvider",
     "JaxSpladeProvider",
+    "OpenAIEmbeddingProvider",
     "SearchResult",
     "SparseEmbeddingProvider",
     "VectorStore",

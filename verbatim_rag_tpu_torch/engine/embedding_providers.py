@@ -1,11 +1,14 @@
 """Embedding providers: text → dense vectors / sparse term-weight dicts.
 
-Copy of `verbatim_rag_tpu/engine/embedding_providers.py`, trimmed to the two
-provider contracts and the deterministic, model-free providers (hashed
-bag-of-words dense; hashed tf sparse) that the offline path uses. Outputs are
-identical to the original (pinned by `tests/test_torch_copies.py`). The
-neural providers live in `models/providers.py`; :func:`provider_from_config`
-rebuilds either kind from its persisted identity.
+Copy of `verbatim_rag_tpu/engine/embedding_providers.py`: the two provider
+contracts, the deterministic, model-free providers (hashed bag-of-words
+dense; hashed tf sparse) that the offline path uses, and the remote
+`OpenAIEmbeddingProvider` (an OpenAI-compatible ``/embeddings`` endpoint over
+httpx). Outputs are identical to the original (pinned by
+`tests/test_torch_copies.py` and `tests/test_torch_remote_embeddings.py`).
+The neural providers live in `models/providers.py`;
+:func:`provider_from_config` rebuilds any of them from its persisted
+identity.
 """
 
 from __future__ import annotations
@@ -95,6 +98,69 @@ class HashedSparseProvider(SparseEmbeddingProvider):
         return {"class": "HashedSparseProvider", "vocab_size": self.vocab_size}
 
 
+class OpenAIEmbeddingProvider(DenseEmbeddingProvider):
+    """Dense embeddings from an OpenAI-compatible /embeddings endpoint.
+
+    Parity: reference `embedding_providers.py:83-114` (`OpenAIProvider`,
+    text-embedding-ada-002, 1536-d) — implemented over httpx like the chat
+    client, so it also works against vLLM/TEI-style servers.
+    """
+
+    _DIMS = {
+        "text-embedding-ada-002": 1536,
+        "text-embedding-3-small": 1536,
+        "text-embedding-3-large": 3072,
+    }
+
+    def __init__(
+        self,
+        model: str = "text-embedding-ada-002",
+        api_base: str = "https://api.openai.com/v1",
+        api_key: str | None = None,
+        dimension: int | None = None,
+        batch_size: int = 256,
+    ):
+        import os
+
+        self.model = model
+        self.api_base = api_base.rstrip("/")
+        self.api_key = api_key or os.getenv("OPENAI_API_KEY") or "EMPTY"
+        self.dimension = dimension or self._DIMS.get(model, 1536)
+        self.batch_size = batch_size
+
+    def embed_text(self, text: str) -> np.ndarray:
+        return self.embed_batch([text])[0]
+
+    def embed_batch(self, texts: Sequence[str]) -> np.ndarray:
+        import httpx
+
+        out = []
+        for start in range(0, len(texts), self.batch_size):
+            chunk = list(texts[start : start + self.batch_size])
+            resp = httpx.post(
+                f"{self.api_base}/embeddings",
+                headers={"Authorization": f"Bearer {self.api_key}"},
+                json={"model": self.model, "input": chunk},
+                timeout=60.0,
+            )
+            resp.raise_for_status()
+            data = sorted(resp.json()["data"], key=lambda d: d["index"])
+            out.extend(np.asarray(d["embedding"], np.float32) for d in data)
+        return np.stack(out)
+
+    def get_dimension(self) -> int:
+        return self.dimension
+
+    def describe(self) -> dict:
+        # Never persist the api key.
+        return {
+            "class": "OpenAIEmbeddingProvider",
+            "model": self.model,
+            "api_base": self.api_base,
+            "dimension": self.dimension,
+        }
+
+
 def provider_from_config(config: dict | None, device=None):
     """Rebuild a provider from its persisted `describe()` identity; neural
     providers are placed on ``device`` (``None`` → ``cuda``).
@@ -110,8 +176,10 @@ def provider_from_config(config: dict | None, device=None):
     if name == "HashedSparseProvider":
         return HashedSparseProvider(vocab_size=int(config.get("vocab_size", 30522)))
     if name == "OpenAIEmbeddingProvider":
-        raise NotImplementedError(
-            "OpenAIEmbeddingProvider is not ported to the PyTorch package yet"
+        return OpenAIEmbeddingProvider(
+            model=config.get("model", "text-embedding-ada-002"),
+            api_base=config.get("api_base", "https://api.openai.com/v1"),
+            dimension=config.get("dimension"),
         )
     if name in ("JaxDenseProvider", "JaxSpladeProvider"):
         from verbatim_rag_tpu_torch.models import providers as neural

@@ -3,6 +3,7 @@ the cross-encoder and the neural embedding providers."""
 
 from .config import (
     EncoderConfig,
+    TrainingConfig,
     bert_base_config,
     demo_highlighter_config,
     minilm_config,
@@ -21,6 +22,7 @@ from .highlighter import (
     token_relevance_probs,
     token_relevance_probs_sp,
 )
+from .jax_prng import init_encoder_params
 from .providers import JaxDenseProvider, JaxSpladeProvider, provider_from_config
 from .reranker import (
     CrossEncoderModel,
@@ -46,6 +48,7 @@ __all__ = [
     "SemanticHighlightExtractor",
     "SpladeModel",
     "TokenizedBatch",
+    "TrainingConfig",
     "bert_base_config",
     "cls_pool",
     "cross_encoder_pooled",
@@ -54,6 +57,7 @@ __all__ = [
     "embed_texts",
     "encoder_forward_sp",
     "init_cross_encoder_params",
+    "init_encoder_params",
     "init_highlighter_params",
     "init_splade_params",
     "mean_pool",

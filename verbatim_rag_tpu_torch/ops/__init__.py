@@ -4,9 +4,39 @@ sparse rescore, section and bucket tables) with their plain PyTorch twins.
 
 As in the JAX package, the name ``ring_attention`` here is the function; the
 module is ``sys.modules["verbatim_rag_tpu_torch.ops.ring_attention"]``.
+``flash_attention`` stays the module (its launch counters are read there);
+the function is ``ops.flash_attention.flash_attention``.
 """
 
-from .flash_attention import flash_attention_partial
+from .dense import normalize_rows
+from .flash_attention import attention_reference, flash_attention_partial
+from .fusion import rrf_fuse_device, rrf_fuse_np
+from .hybrid import hybrid_topk
 from .ring_attention import halo_attention, ring_attention, shard_sequence
+from .sparse import bm25_idf, bm25_saturate, densify_queries, sparse_topk
+from .sparse_projected import (
+    exact_rescore,
+    project_rows,
+    project_sparse_queries,
+    projection_matrix,
+)
 
-__all__ = ["flash_attention_partial", "halo_attention", "ring_attention", "shard_sequence"]
+__all__ = [
+    "attention_reference",
+    "bm25_idf",
+    "bm25_saturate",
+    "densify_queries",
+    "exact_rescore",
+    "flash_attention_partial",
+    "halo_attention",
+    "hybrid_topk",
+    "normalize_rows",
+    "project_rows",
+    "project_sparse_queries",
+    "projection_matrix",
+    "ring_attention",
+    "rrf_fuse_device",
+    "rrf_fuse_np",
+    "shard_sequence",
+    "sparse_topk",
+]

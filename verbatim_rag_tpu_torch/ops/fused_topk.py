@@ -30,11 +30,13 @@ kernel's oracle. :func:`matmul_bucket_max_v2_cuda` launches
 TPU variants compute the same function and are both served by the one CUDA
 kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
 
-The kernels read int8 (v2 only), bf16 or float32 rows (`check_kernel_rows`).
-int8 and bf16 rows run on the wgmma walk of `csrc/section.cu` (one main loop
-for section, v2 and v1, each with its epilogue) with the query tile and ring
-depth of :func:`walk_geometry`; float32 rows on the FMA walk (128-query
-tiles, queries and rows streamed by TMA; :func:`table_geometry`).
+The kernels read int8 (v2 only), bf16 or float32 rows of any 16-byte
+multiple (`check_kernel_rows`). int8 and bf16 rows run on the wgmma walk of
+`csrc/section.cu` (one main loop for section, v2 and v1, each with its
+epilogue) with the query tile and ring depth of :func:`walk_geometry`; rows
+past 2944 bytes stream their query tile through the ring
+(:func:`walk_streams`). float32 rows run on the FMA walk (128-query tiles,
+queries and rows streamed by TMA; :func:`table_geometry`).
 """
 
 from __future__ import annotations
@@ -147,32 +149,47 @@ FMA_QUERIES = 128
 _FMA_SMEM_V1 = 4 * 2 * 128 * 128 + 2 * 4 * 8 + 1024
 _FMA_SMEM = {"section": _FMA_SMEM_V1 + 128 * 128 * 4, "v2": _FMA_SMEM_V1 + 128 * 128 * 4, "v1": _FMA_SMEM_V1}
 
-#: The wgmma walk (`table_walk`): the query tile as 128-byte chunks of
-#: [queries][128 B], a ring of 16 KB stages (128 rows × 128 bytes), 4 side
-#: slots, the mbarriers and 1024 bytes of alignment slack. Mirrors
-#: `walk_smem_bytes`. A side slot holds c_scale [128] float32, then the mask:
-#: its bytes for v2 and v1 (`kSideBytesV2`), mask_add [128] float32 for
-#: section (`kSideBytesSection`). The keys are the walk's epilogues (`mode`).
+#: The wgmma walk (`table_walk`) in one of two layouts. Resident (rows of
+#: up to `_WALK_RESIDENT_CHUNKS` chunks, 2944 bytes): the query tile as
+#: 128-byte chunks of [queries][128 B] beside a ring of 16 KB stages (128
+#: rows × 128 bytes). Streamed (wider rows): no resident tile; each stage
+#: holds a chunk of the rows and the same chunk of the queries (16 KB +
+#: queries × 128 B). Then 4 side slots, the mbarriers and 1024 bytes of
+#: alignment slack. Mirrors `walk_smem_bytes`. A side slot holds c_scale
+#: [128] float32, then the mask: its bytes for v2 and v1 (`kSideBytesV2`),
+#: mask_add [128] float32 for section (`kSideBytesSection`). The keys are the
+#: walk's epilogues (`mode`).
 _WALK_STAGE_BYTES = 128 * 128
+_WALK_RESIDENT_CHUNKS = 23
 _WALK_SIDE_SLOTS = 4
 _WALK_SIDE_BYTES = {"section": 128 * 4 + 128 * 4, "v2": 128 * 4 + 128, "v1": 128 * 4 + 128}
 _WALK_MIN_STAGES, _WALK_TILE_STAGES, _WALK_MAX_STAGES = 2, 4, 8
+
+
+def walk_streams(row_bytes: int) -> bool:
+    """Whether the wgmma walk streams the query tile through its ring (rows
+    wider than 2944 bytes) instead of keeping it resident. Mirrors
+    `walk_streams` in `csrc/section.cu`."""
+    return -(-row_bytes // 128) > _WALK_RESIDENT_CHUNKS
 
 
 def _walk_smem(queries: int, row_bytes: int, stages: int, mode: str = "v2") -> int:
     chunks = -(-row_bytes // 128)
     side = _WALK_SIDE_SLOTS * _WALK_SIDE_BYTES[mode]
     barriers = (1 + 2 * stages + 2 * _WALK_SIDE_SLOTS) * 8
+    if walk_streams(row_bytes):
+        return stages * (_WALK_STAGE_BYTES + queries * 128) + side + barriers + 1024
     return chunks * queries * 128 + stages * _WALK_STAGE_BYTES + side + barriers + 1024
 
 
 def walk_geometry(row_bytes: int, mode: str = "v2") -> tuple[int, int]:
     """(queries a CTA, ring stages) of the wgmma walk for int8 or bf16 rows
     of ``row_bytes`` under epilogue ``mode``: 128 queries (two warpgroups of
-    64) when their tile fits beside a 4-deep ring (up to 1152 bytes a row:
-    int8 d ≤ 1152, bf16 d ≤ 576), else 64 (one warpgroup); then the deepest
-    ring up to 8 stages that fits. The stage count is below 2 when even that
-    does not fit (`check_kernel_rows` refuses such rows)."""
+    64) when their tile fits beside a 4-deep ring (resident up to 1152
+    bytes a row: int8 d ≤ 1152, bf16 d ≤ 576; and every streamed row, past
+    2944 bytes, whose stages carry the queries: 32 KB a stage), else 64 (one
+    warpgroup); then the deepest ring up to 8 stages that fits (6 for a
+    streamed tile). Every 16-byte-multiple row gets at least 2 stages."""
     fits = _walk_smem(128, row_bytes, _WALK_TILE_STAGES, mode) <= _SMEM_LIMIT
     queries = 128 if fits else 64
     stages = _WALK_MAX_STAGES
@@ -196,32 +213,20 @@ def tile_queries(dtype, row_bytes: int, mode: str = "v2") -> int:
     return table_geometry(dtype, row_bytes, mode)[0]
 
 
-def kernel_smem_bytes(dtype, row_bytes: int, mode: str = "v2") -> int:
-    """Shared memory of one CTA. The FMA walk (float32 rows): its ring and,
-    for section and v2, the running maxima, whatever the row width. The
-    wgmma walk (int8, bf16): `walk_geometry`'s tile and ring (at least 2
-    stages)."""
-    if dtype == torch.float32:
-        return _FMA_SMEM[mode]
-    queries, stages = walk_geometry(row_bytes, mode)
-    return _walk_smem(queries, row_bytes, max(stages, _WALK_MIN_STAGES), mode)
-
-
 def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
     """Row width in bytes that `csrc/section.cu` takes for ``corpus`` under
-    epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows, 16-byte
-    multiples (TMA boxes), and for int8 and bf16 a query tile that fits
-    shared memory (up to 2944 bytes a row on the wgmma walk; the FMA walk
-    streams float32 queries, so it takes any width)."""
+    epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows of a
+    16-byte multiple (TMA boxes), of any width (the wgmma walk streams the
+    query tile of rows past 2944 bytes, the FMA walk always streams its
+    float32 queries)."""
     if corpus.dtype not in KERNEL_KINDS:
         raise TypeError(
             f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
         )
     row_bytes = corpus.shape[1] * corpus.element_size()
-    if row_bytes % 16 or kernel_smem_bytes(corpus.dtype, row_bytes, mode) > _SMEM_LIMIT:
+    if row_bytes % 16:
         raise ValueError(
-            f"the {what} kernel takes rows of a 16-byte multiple whose query tile "
-            f"fits shared memory (up to 2944 bytes for int8 and bf16), got "
+            f"the {what} kernel takes rows of a 16-byte multiple, got "
             f"{corpus.shape[1]} × {corpus.element_size()} bytes"
         )
     return row_bytes

@@ -21,7 +21,7 @@ column block, pack, mask, a [B, P, 128] maximum), the CPU path and the
 kernel's oracle; :func:`section_tables_cuda` launches
 `csrc/section.cu::section_tables`, which replaces the TPU kernel
 `_make_section_kernel`: int8 and bf16 arms on the wgmma walk, float32 arms on
-the FMA walk, one launch for the arms of each row kind
+the FMA walk, one launch for the arms of each row kind and layout
 (:func:`plan_section_launches`). :func:`section_bucket_tables` dispatches on
 the tensors' device.
 """
@@ -49,6 +49,7 @@ from .fused_topk import (
     kernel_operands,
     prepare_queries,
     table_geometry,
+    walk_streams,
 )
 
 #: Corpus rows per column block at the default (one winner per 64 rows).
@@ -57,8 +58,11 @@ BLOCK_COLS = 8192
 #: Arms one launch takes (the 3-way section with BM25 uses all three).
 MAX_ARMS = 3
 
-#: Kernel launches since the last reset (the main path's proof of use).
+#: Kernel launches since the last reset (the main path's proof of use), and
+#: those of them with an int8 or bf16 arm whose query tile streams through
+#: the wgmma walk's ring (rows past 2944 bytes, `walk_streams`).
 launches = 0
+launches_streamed = 0
 
 
 def unpack_table(best: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -115,23 +119,26 @@ def section_tables_reference(corpora, queries, mask, scales, block_cols: int):
 
 def plan_section_launches(arms) -> list[tuple]:
     """How `section_tables_cuda` launches arms of ``(dtype, row_bytes)``: one
-    launch per row kind, kinds in the order of their first arm, as
-    ``(dtype, arm indices, per-arm (queries, ring stages))``. A launch of int8
-    or bf16 arms runs the wgmma walk with each arm's `walk_geometry`; float32
-    arms run the FMA walk's 128-query tile (`table_geometry`)."""
+    launch per row kind and, for int8 and bf16, per layout of the query tile
+    (resident, or streamed past 2944 bytes: `walk_streams`), in the order of
+    their first arm, as ``(dtype, arm indices, per-arm (queries, ring
+    stages))``. A launch of int8 or bf16 arms runs the wgmma walk with each
+    arm's `walk_geometry`; float32 arms run the FMA walk's 128-query tile
+    (`table_geometry`)."""
     plan: dict = {}
     for i, (dtype, row_bytes) in enumerate(arms):
         geometry = table_geometry(dtype, row_bytes, "section")
-        _, idx, geometries = plan.setdefault(dtype, (dtype, [], []))
+        key = (dtype, dtype != torch.float32 and walk_streams(row_bytes))
+        _, idx, geometries = plan.setdefault(key, (dtype, [], []))
         idx.append(i)
         geometries.append(geometry)
     return list(plan.values())
 
 
 def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
-    """Launch the CUDA kernels for all arms (one launch per row kind, counted
-    as one call): the plain version's tables."""
-    global launches
+    """Launch the CUDA kernels for all arms (one launch per row kind and
+    layout, counted as one call): the plain version's tables."""
+    global launches, launches_streamed
     n = corpora[0].shape[0]
     n_arms = len(corpora)
     if n_arms > MAX_ARMS:
@@ -185,6 +192,8 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
             )
         cuda_build.check(rc, "section_tables")
     launches += 1
+    if any(a[0].dtype != torch.float32 and walk_streams(a[4]) for a in arms):
+        launches_streamed += 1
     return tables
 
 

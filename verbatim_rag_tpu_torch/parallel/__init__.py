@@ -4,6 +4,7 @@ tensor-parallel parameters (`mesh`), the row-sharded searches of
 (sequence-parallel attention lives in `ops.ring_attention`)."""
 
 from . import distributed
+from .distributed import global_mesh, initialize, process_local_batch_slice
 from .mesh import (
     Mesh,
     RowSharded,
@@ -24,7 +25,10 @@ __all__ = [
     "data_sharding",
     "distributed",
     "encoder_param_specs",
+    "global_mesh",
+    "initialize",
     "make_mesh",
+    "process_local_batch_slice",
     "replicate",
     "replicated",
     "row_sharding",

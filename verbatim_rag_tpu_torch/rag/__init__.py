@@ -1,7 +1,9 @@
-"""Orchestration layer: VerbatimRAG, streaming, intent, rerankers."""
+"""Orchestration layer: VerbatimRAG, streaming, intent, rerankers, providers,
+VerbatimDOC."""
 
 from .core import VerbatimRAG
 from .intent import IntentDecision, IntentDetector, IntentSpec, LLMIntentDetector
+from .providers import IndexProvider, VerbatimRAGProvider
 from .rerankers import (
     BaseReranker,
     CohereReranker,
@@ -11,10 +13,12 @@ from .rerankers import (
     Reranker,
 )
 from .streaming import StreamingRAG
+from .verbatim_doc import VerbatimDOC
 
 __all__ = [
     "BaseReranker",
     "CohereReranker",
+    "IndexProvider",
     "IntentDecision",
     "IntentDetector",
     "IntentSpec",
@@ -24,5 +28,7 @@ __all__ = [
     "LLMIntentDetector",
     "Reranker",
     "StreamingRAG",
+    "VerbatimDOC",
     "VerbatimRAG",
+    "VerbatimRAGProvider",
 ]
