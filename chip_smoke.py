@@ -10,7 +10,7 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              spilled bytes (`-Xptxas -v`) and the wgmma (HGMMA, IGMMA on
              int8), TMA load (UTMALDG) and mma.sync (HMMA, IMMA) instructions
              in the SASS of the wgmma kernels (`WGMMA_KERNELS`: the bf16 flash
-             forward, partial and backward; the table walk's section and
+             forward, partial and backward, each at head dims 64 and 32; the table walk's section and
              bucket-max v2 kernels on int8 and bf16 rows and its bucket-max v1
              kernel on bf16 rows; `cuobjdump -sass`): each must hold wgmma and
              UTMALDG, no mma.sync, and spill nothing; no kernel of the
@@ -275,6 +275,27 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              the forward; its backward is the plain VJP, as in JAX): every
              parameter's gradient, the input embedding's among them, within
              `SP_GRAD_RTOL` of the single-device flash backward's;
+7c. train_d32 — the token highlighter at full MiniLM width with flash on
+             (`minilm_config(use_flash_attention=True)`: hidden 384, 6
+             layers, 12 heads of 32, absolute positions, post-LN, bf16; every
+             layer global; random weights from the seed) through `Trainer`,
+             4 steps at batch 8, S=512 on examples of 300-480 context tokens
+             (ragged rows): step 1's loss and gradients held to the same step
+             with the plain FA2 backward (`D32_LOSS_RTOL`, `D32_GRAD_RTOL`
+             per tensor), with a planted fault (delta replaced by 0) that
+             must fail; 6 forward (lse), 6 dq and 6 dk/dv launches a step,
+             all at D=32; step seconds, peak GB and a profiled step's idle
+             share; then its checkpoint served by
+             `ModelSpanExtractor(model_path=..., sp_mesh=make_mesh(dp=1,
+             tp=4, devices=[cuda] * 4))`: 4 contexts in one pass at S=512 in
+             4 shards of 128 (every layer ring attention: 96 partial
+             launches at D=32, no forward launch), probabilities within
+             `SP_PROBS_ATOL` of the single-device extractor's on the same
+             rows, spans on token boundaries and equal to its spans unless a
+             probability lies within that of the threshold; then
+             `run_sp_backward` at S=512 (500 live): every gradient within
+             `SP_GRAD_RTOL` of the single-device flash backward's (which runs
+             kernels 1 and 4 at D=32), 96 partial launches;
 7b. checkpoints — checkpoints in and out, the other extractors and the
              rerank stage: the train phase's checkpoint staged by
              `utils.upload_to_hub.jax_checkpoint_to_hf_dir`, its config.json
@@ -319,7 +340,12 @@ for P·V, the plain version keeps it float32), dead rows exactly (-1e30, 0,
 0). Two planted faults (k_offset ignored; the last key tile dropped) must
 fail that check. Its times are taken at the main path's shape (B=1), beside
 SDPA and the memory-efficient attention kernel with its logsumexp (the
-library yardstick: (o, lse) carries what (numer, m, l) carries).
+library yardstick: (o, lse) carries what (numer, m, l) carries). Its D=32
+arm is held the same way at the train_d32 phase's SP block (B=1,
+Sq=Sk=128) and at 2048, one row of 3.5 blocks less 3 tokens, every
+k_offset of a 4-shard ring, the same two planted faults on each block, and
+timed at 128². Each timed case also reports the exps' own bound
+(`exp_bound_ms`: one exp a live pair and head at 16 a clock per SM).
 
 The kernels phase also holds the flash backward (`csrc/flash_attention_bwd.cu`)
 and the forward's logsumexp output against their plain versions at
@@ -333,9 +359,12 @@ cancels and the true gradient is 0). At S=8192 global two planted faults
 (the dk/dv kernel run without each row's last key tile; delta replaced by 0)
 must fail that check. A second backward call must give bit-equal gradients
 (no atomics). Each case reports the least work (10·D FLOP a live pair and
-head, the bound's count) and the work of the dq + dk/dv split (14·D).
+head, the bound's count), the work of the dq + dk/dv split (14·D) and the
+exps' own bound (`exp_bound_ms`). The D=32 arm is held the same way at
+S ∈ {512, 4096} (the train_d32 phase's S=512 its headline), global and
+window=128, the planted faults at S=4096 global.
 
-Each main-path phase (3-7, 3a-3d, 5a-5d, 6b, 7a and 7b) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3d, 5a-5d, 6b, 7a-7c) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -399,9 +428,13 @@ FLASH_CASES = {
 #: the build phase counts their HGMMA / IGMMA and UTMALDG instructions.
 WGMMA_KERNELS = {
     "flash_attention": (
-        "flash_fwd_wgmma_kernelILi64E", "flash_fwd_wgmma_kernelILi32E", "flash_partial_wgmma_kernel",
+        "flash_fwd_wgmma_kernelILi64E", "flash_fwd_wgmma_kernelILi32E",
+        "flash_partial_wgmma_kernelILi64E", "flash_partial_wgmma_kernelILi32E",
     ),
-    "flash_attention_bwd": ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"),
+    "flash_attention_bwd": (
+        "flash_bwd_dq_wgmma_kernelILi64E", "flash_bwd_dkv_wgmma_kernelILi64E",
+        "flash_bwd_dq_wgmma_kernelILi32E", "flash_bwd_dkv_wgmma_kernelILi32E",
+    ),
     "section": (
         "bucket_v2_wgmma_kernelILb1E", "bucket_v2_wgmma_kernelILb0E",
         "section_wgmma_kernelILb1E", "section_wgmma_kernelILb0E", "bucket_v1_wgmma_kernel",
@@ -422,8 +455,30 @@ FMA_KERNELS = {
 #: Kernels that must not spill, whatever they run on (every instance of a
 #: template counts: the rescore has one per slot type).
 NO_SPILL = ("rescore_kernel",)
+#: The backward's checks per head dim (B=8, H=12, the forward's ragged
+#: lengths, global and window=128): 64 at `FLASH_BWD_SEQS`, the planted
+#: faults at S=8192 and the headline at the train phase's S=4096; 32 at the
+#: train_d32 phase's S=512 (the headline) and at 4096 (many tiles), the
+#: planted faults at 4096.
+FLASH_BWD_CASES = {
+    64: dict(seqs=FLASH_BWD_SEQS, faults=8192, headline=4096),
+    32: dict(seqs=(512, 4096), faults=4096, headline=512),
+}
 #: Partial-kernel check: l's relative limit (float32 sums of the same P).
 PARTIAL_L_RTOL = 1e-4
+#: The partial's checks per head dim, each block at every k_offset of a
+#: 4-shard ring: 64 at the long_sp block (B=2, Sq=Sk=6144, rows of 22,830
+#: and 7,000 tokens: blocks live, partly live and dead); 32 at the train_d32
+#: phase's SP block (B=1, Sq=Sk=128) and at 2048 (many tiles), one row of
+#: 3.5 blocks less 3 (the last block partly live). ``headline``: the block
+#: timed beside its bound (one row, every key live).
+FLASH_PARTIAL_CASES = {
+    64: dict(blocks=(6144,), lengths=lambda s: [22830, 7000], headline=6144),
+    32: dict(blocks=(128, 2048), lengths=lambda s: [4 * s - s // 2 - 3], headline=128),
+}
+#: Exps the multi-function units of one SM return a clock (`ex2.approx`:
+#: CUDA's throughput table for compute capability 9.0).
+EXP_PER_SM_CLOCK = 16
 #: The long_sp phase: shards on the one card, and the largest difference
 #: allowed between its token probabilities and the single-device forward's.
 SP_SHARDS = 4
@@ -532,6 +587,21 @@ def bound(bytes_moved: float, ops: float, op_rate: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = ops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def exp_bound_ms(exps: float) -> float:
+    """Least time of ``exps`` exponentials on the multi-function units:
+    `EXP_PER_SM_CLOCK` a clock on each SM at the card's largest SM clock
+    (`nvidia-smi`'s clocks.max.sm)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    clock_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    rate = torch.cuda.get_device_properties(0).multi_processor_count * EXP_PER_SM_CLOCK * clock_hz
+    return exps / rate * 1e3
 
 
 # -- phase 1: build ---------------------------------------------------------------------
@@ -833,17 +903,20 @@ def check_flash(gen, head_dim: int) -> dict:
     return dict(headline, cases=cases)
 
 
-def check_flash_bwd(gen) -> dict:
-    """The forward's lse output and the FA2 backward kernels against their
-    plain versions; planted faults at S=8192 global; times, bounds, SDPA."""
+def check_flash_bwd(gen, head_dim: int) -> dict:
+    """The forward's lse output and the FA2 backward kernels at ``head_dim``
+    (`FLASH_BWD_CASES`) against their plain versions; planted faults at the
+    fault length, global; times, bounds (with the exps' own bound beside
+    them), SDPA."""
     import torch
     import torch.nn.functional as F
 
     from verbatim_rag_tpu_torch.ops import flash_attention as fa
 
-    B, H, D = 8, 12, 64
+    B, H, D = 8, 12, head_dim
+    case_cfg = FLASH_BWD_CASES[head_dim]
     cases = []
-    for seq in FLASH_BWD_SEQS:
+    for seq in case_cfg["seqs"]:
         lengths = [seq, 0, seq // 2 + 3, 17, seq - 1, seq // 3, 1, seq]
         lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
         q, k, v, g = (
@@ -860,7 +933,7 @@ def check_flash_bwd(gen) -> dict:
             )
             delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
             outs = {"kernel": fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)}
-            if seq == 8192 and window is None:
+            if seq == case_cfg["faults"] and window is None:
                 # Planted faults the check must catch, each held to the true
                 # lengths: the dk/dv kernel without each row's last key tile,
                 # and both kernels with delta replaced by 0.
@@ -904,17 +977,18 @@ def check_flash_bwd(gen) -> dict:
             again = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
             require(
                 all(torch.equal(a, b) for a, b in zip(grads, again)),
-                f"flash bwd S={seq} w={window}: two calls differ (the kernels must be deterministic)",
+                f"flash bwd D={D} S={seq} w={window}: two calls differ (the kernels must be deterministic)",
             )
             del again
-            require(lse_err <= 1e-4, f"flash lse S={seq} w={window}: error {lse_err} over 1e-4 + 1e-5·|lse|")
-            require(all(bool((x[1] == 0).all()) for x in grads), f"flash bwd S={seq} w={window}: zero-length row not 0")
+            what = f"flash bwd D={D} S={seq} w={window}"
+            require(lse_err <= 1e-4, f"flash lse D={D} S={seq} w={window}: error {lse_err} over 1e-4 + 1e-5·|lse|")
+            require(all(bool((x[1] == 0).all()) for x in grads), f"{what}: zero-length row not 0")
             require(
                 math.isfinite(worst) and worst <= 1.0,
-                f"flash bwd S={seq} w={window}: max abs err {max_err}, worst row at {worst} of its limit",
+                f"{what}: max abs err {max_err}, worst row at {worst} of its limit",
             )
             for name, r in ratio.items():
-                require(r > 1.0, f"flash bwd S={seq}: {name} passes the check ({r} of the limit)")
+                require(r > 1.0, f"{what}: {name} passes the check ({r} of the limit)")
             del outs, grads
             dq_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, window, ("dq",)), reps=3)
             dkv_ms = cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, window, ("dkv",)), reps=3)
@@ -940,16 +1014,20 @@ def check_flash_bwd(gen) -> dict:
             # The bound counts the least work (five products: 10·D FLOP a
             # live pair and head); the dq + dk/dv split does seven (14·D).
             # Bytes: q, g, lse and delta of the live rows, k and v up to each
-            # row's length, dq, dk and dv written whole.
+            # row's length, dq, dk and dv written whole. Beside it the exps'
+            # own bound: one exp a live pair and head (p, the least work; the
+            # split takes it twice), which at D = 32 weighs twice as much
+            # against the products as at D = 64.
             b_ms, b_by = bound(
                 (2 * q_rows + 2 * kv_rows + 3 * B * seq) * H * D * 2 + 2 * H * q_rows * 4 + 4 * B,
                 10 * H * D * pairs,
                 PEAK_BF16_FLOPS,
             )
             case = dict(
-                seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst,
+                head_dim=D, seq=seq, window=window, max_abs_err=max_err, worst_row_of_limit=worst,
                 lse_max_excess=lse_err, ms=dq_ms + dkv_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
                 wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                exp_bound_ms=exp_bound_ms(H * pairs), exp_bound_by="one exp a live pair and head",
                 library_ms=library_ms, least_gflop=10 * H * D * pairs / 1e9,
                 split_gflop=14 * H * D * pairs / 1e9, deterministic=True,
             )
@@ -960,28 +1038,25 @@ def check_flash_bwd(gen) -> dict:
             del out, lse, delta
         del q, k, v, g
         torch.cuda.empty_cache()
-    # Headline: the train phase's shape (S=4096), global layers.
-    headline = next(c for c in cases if c["seq"] == 4096 and c["window"] is None)
+    # Headline: the training path's shape, global layers.
+    headline = next(c for c in cases if c["seq"] == case_cfg["headline"] and c["window"] is None)
     return dict(headline, cases=cases)
 
 
-def check_flash_partial(gen) -> dict:
-    """The ring step's partial kernel against its plain version at every
-    k_offset of a 4-shard ring over 24576 tokens; planted faults; times at
-    the main path's shape (B=1) with bound, plain version and SDPA."""
+def check_flash_partial(gen, head_dim: int) -> dict:
+    """The ring step's partial kernel at ``head_dim`` (`FLASH_PARTIAL_CASES`)
+    against its plain version at every k_offset of a 4-shard ring over each
+    block; planted faults on each block; times at the headline block (B=1,
+    every key live) with bound, plain version and SDPA."""
     import torch
     import torch.nn.functional as F
 
     from verbatim_rag_tpu_torch.ops import flash_attention as fa
 
-    B, S, H, D = 2, 6144, 12, 64
-    lengths = [22830, 7000]
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    q, k, v = (
-        torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3)
-    )
+    case_cfg = FLASH_PARTIAL_CASES[head_dim]
+    H, D = 12, head_dim
 
-    def held(got, offset) -> dict:
+    def held(got, q, k, v, lens, offset) -> dict:
         """How the kernel's (numer, m, l) stand against the plain version's:
         the worst live row's error over its limit for each output, and
         whether every dead row is exactly (-1e30, 0, 0)."""
@@ -1008,36 +1083,44 @@ def check_flash_partial(gen) -> dict:
     def fails(h: dict) -> bool:
         return not h["dead_rows_exact"] or not (math.isfinite(h["worst"]) and h["worst"] <= 1.0)
 
-    cases = []
-    for offset in (0, S, 2 * S, 3 * S):
-        h = held(fa.flash_attention_partial_cuda(q, k, v, lens, offset), offset)
-        require(not fails(h), f"flash partial k_offset={offset}: {h}")
-        live_keys = [max(0, min(S, n - offset)) for n in lengths]
-        case = dict(k_offset=offset, live_keys=live_keys, **h)
-        case["ms"] = cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, offset), reps=10)
-        log("flash_partial", json.dumps(case))
-        cases.append(case)
-    # Planted faults the check must catch, each held to the true offset: the
-    # kernel run at k_offset 0 for the last block (row 1 is dead there), and
-    # without the last key tile of the first block.
-    faults = {
-        "fault: k_offset ignored": held(fa.flash_attention_partial_cuda(q, k, v, lens, 0), 3 * S),
-        "fault: last key tile dropped": held(
-            fa.flash_attention_partial_cuda(
-                q, k[:, : S - 64].contiguous(), v[:, : S - 64].contiguous(), lens, 0
+    cases, faults = [], {}
+    for S in case_cfg["blocks"]:
+        lengths = case_cfg["lengths"](S)
+        B = len(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q, k, v = (
+            torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3)
+        )
+        for offset in (0, S, 2 * S, 3 * S):
+            h = held(fa.flash_attention_partial_cuda(q, k, v, lens, offset), q, k, v, lens, offset)
+            require(not fails(h), f"flash partial D={D} S={S} k_offset={offset}: {h}")
+            live_keys = [max(0, min(S, n - offset)) for n in lengths]
+            case = dict(head_dim=D, batch=B, seq_q=S, seq_k=S, k_offset=offset, live_keys=live_keys, **h)
+            case["ms"] = cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, offset), reps=10)
+            log("flash_partial", json.dumps(case))
+            cases.append(case)
+        # Planted faults the check must catch, each held to the true offset:
+        # the kernel run at k_offset 0 for the last block (partly live, or
+        # dead for D = 64's row 1), and without the last key tile of the
+        # first block.
+        block_faults = {
+            "fault: k_offset ignored": held(fa.flash_attention_partial_cuda(q, k, v, lens, 0), q, k, v, lens, 3 * S),
+            "fault: last key tile dropped": held(
+                fa.flash_attention_partial_cuda(q, k[:, : S - 64].contiguous(), v[:, : S - 64].contiguous(), lens, 0),
+                q, k, v, lens, 0,
             ),
-            0,
-        ),
-    }
-    for name, h in faults.items():
-        require(fails(h), f"flash partial: {name} passes the check ({h})")
-    log("flash_partial faults", json.dumps(faults))
+        }
+        for name, h in block_faults.items():
+            require(fails(h), f"flash partial D={D} S={S}: {name} passes the check ({h})")
+            faults[f"{name} (S={S})"] = h
+        log("flash_partial faults", json.dumps(block_faults))
+        del q, k, v
+        torch.cuda.empty_cache()
 
     # Times at the main path's shape: one row, a fully live block.
-    q1, k1, v1 = (x[:1].contiguous() for x in (q, k, v))
-    lens1 = lens[:1].contiguous()
-    del q, k, v
-    torch.cuda.empty_cache()
+    S = case_cfg["headline"]
+    q1, k1, v1 = (torch.randn(1, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+    lens1 = torch.tensor([4 * S], dtype=torch.int32, device="cuda")
     ms = cuda_ms(lambda: fa.flash_attention_partial_cuda(q1, k1, v1, lens1, 0), reps=20)
     plain_ms = cuda_ms(lambda: fa.flash_attention_partial_reference(q1, k1, v1, lens1, 0), reps=3)
     # Library yardsticks with the same key mask: SDPA (the normalised output
@@ -1048,14 +1131,16 @@ def check_flash_partial(gen) -> dict:
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q1, k1, v1))
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10)
     library_ms, library_note = efficient_attention_ms(qt, kt, vt, live)
-    del qt, kt, vt, mask
-    pairs = S * min(S, lengths[0])
+    del qt, kt, vt, mask, q1, k1, v1
+    pairs = S * S
     b_ms, b_by = bound(
         3 * S * H * D * 2 + S * H * D * 4 + 2 * H * S * 4 + 4, 4 * H * D * pairs, PEAK_BF16_FLOPS
     )
     result = dict(
-        batch=1, seq_q=S, seq_k=S, heads=H, k_offset=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms, library_note=library_note, sdpa_ms=sdpa_ms,
+        head_dim=D, batch=1, seq_q=S, seq_k=S, heads=H, k_offset=0, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, exp_bound_ms=exp_bound_ms(H * pairs),
+        exp_bound_by="one exp a live pair and head", library_ms=library_ms,
+        library_note=library_note, sdpa_ms=sdpa_ms,
         max_abs_err=max(c["max_abs_err"] for c in cases),
         worst_of_limit=max(c["worst"] for c in cases),
         planted_faults_worst_of_limit={n: h["worst"] for n, h in faults.items()},
@@ -1926,8 +2011,11 @@ def kernel_counters() -> dict:
         "flash_attention": (flash_attention, "launches"),
         "flash_attention_d32": (flash_attention, "launches_d32"),
         "flash_bwd_dq": (flash_attention, "bwd_dq_launches"),
+        "flash_bwd_dq_d32": (flash_attention, "bwd_dq_launches_d32"),
         "flash_bwd_dkv": (flash_attention, "bwd_dkv_launches"),
+        "flash_bwd_dkv_d32": (flash_attention, "bwd_dkv_launches_d32"),
         "flash_attention_partial": (flash_attention, "partial_launches"),
+        "flash_attention_partial_d32": (flash_attention, "partial_launches_d32"),
         "rescore": (rescore, "launches"),
         "section": (section, "launches"),
         "section_streamed": (section, "launches_streamed"),
@@ -4347,11 +4435,12 @@ TRAIN_SEQ = 4096
 TRAIN_HEADS = 12  # ModernBERT-base
 
 
-def train_examples(n: int, seed: int, tokenizer) -> list:
-    """``n`` synthetic token-span examples of 2.2k-4k context tokens each:
-    `make_synthetic_token_data` clauses concatenated, their gold spans
-    shifted along, so each example is one window at max_seq_length 4096 and
-    a batch pads to 4096 with ragged rows."""
+def train_examples(n: int, seed: int, tokenizer, context_tokens: tuple[int, int] = (2200, 4000)) -> list:
+    """``n`` synthetic token-span examples of ``context_tokens`` context tokens each
+    (2.2k-4k by default): `make_synthetic_token_data` clauses concatenated,
+    their gold spans shifted along, so each example is one window at a
+    max_seq_length above the range (4096 by default) and a batch pads to it
+    with ragged rows."""
     import numpy as np
 
     from verbatim_rag_tpu_torch.training.token_dataset import (
@@ -4363,7 +4452,7 @@ def train_examples(n: int, seed: int, tokenizer) -> list:
     pool = iter(make_synthetic_token_data(n * 100, seed=seed))
     examples = []
     for _ in range(n):
-        target = int(rng.integers(2200, 4000))
+        target = int(rng.integers(*context_tokens))
         parts, spans, pos, tokens, question = [], [], 0, 0, None
         while tokens < target:
             ex = next(pool)
@@ -4522,15 +4611,19 @@ def step_grads(trainer, batch, loss_fn) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
-def held_to_single(loss: float, grads: dict, ref_loss: float, ref_grads: dict) -> dict:
-    """Step 1's loss and gradients against the single-device step's, each
-    as its ratio to its limit (`worst` above 1 fails)."""
-    loss_ratio = abs(loss - ref_loss) / abs(ref_loss) / MESH_LOSS_RTOL
+def held_to_single(
+    loss: float, grads: dict, ref_loss: float, ref_grads: dict,
+    loss_rtol: float = MESH_LOSS_RTOL, grad_rtol: float = MESH_GRAD_RTOL,
+) -> dict:
+    """Step 1's loss and gradients against a reference step's (by default
+    the single-device step's, at the mesh limits), each as its ratio to its
+    limit (`worst` above 1 fails)."""
+    loss_ratio = abs(loss - ref_loss) / abs(ref_loss) / loss_rtol
     errors = tensor_errors(grads, ref_grads)
     name = max(errors, key=errors.get)
     return dict(
         loss=loss, loss_of_limit=loss_ratio, grad_worst_rel=errors[name], grad_worst_tensor=name,
-        grad_of_limit=errors[name] / MESH_GRAD_RTOL, worst=max(loss_ratio, errors[name] / MESH_GRAD_RTOL),
+        grad_of_limit=errors[name] / grad_rtol, worst=max(loss_ratio, errors[name] / grad_rtol),
     )
 
 
@@ -4772,13 +4865,16 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
     return result
 
 
-def run_sp_backward(model, seed: int) -> dict:
-    """`encoder_forward_sp` under grad: one row at S=8192 (8,000 live) in
-    SP_SHARDS shards on the card (ring attention, the partial kernel, on the
-    global layers; halo attention on the local ones), a fixed random
-    projection of the hidden states as the loss; every parameter's gradient
-    (the input embedding's among them) held to the single-device flash
-    backward on the same row per tensor within SP_GRAD_RTOL."""
+def run_sp_backward(
+    model, seed: int, seq: int = SP_TRAIN_SEQ, live_tokens: int = SP_TRAIN_LIVE, label: str = "train_mesh sp"
+) -> dict:
+    """`encoder_forward_sp` under grad: one row at ``seq`` (``live_tokens``
+    live; S=8192 and 8,000 by default) in SP_SHARDS shards on the card (ring
+    attention, the partial kernel, on the global layers; halo attention on
+    the local ones), a fixed random projection of the hidden states as the
+    loss; every parameter's gradient (the input embedding's among them) held
+    to the single-device flash backward on the same row per tensor within
+    SP_GRAD_RTOL."""
     import numpy as np
     import torch
 
@@ -4788,11 +4884,11 @@ def run_sp_backward(model, seed: int) -> dict:
 
     config = model.config
     rng = np.random.default_rng(seed)
-    ids = torch.from_numpy(rng.integers(5, config.vocab_size, size=(1, SP_TRAIN_SEQ)).astype(np.int32))
-    mask = (torch.arange(SP_TRAIN_SEQ)[None, :] < SP_TRAIN_LIVE).to(torch.int32)
+    ids = torch.from_numpy(rng.integers(5, config.vocab_size, size=(1, seq)).astype(np.int32))
+    mask = (torch.arange(seq)[None, :] < live_tokens).to(torch.int32)
     ids = ids * mask
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    probe = torch.randn(1, SP_TRAIN_SEQ, config.hidden_size, generator=gen, device="cuda")
+    probe = torch.randn(1, seq, config.hidden_size, generator=gen, device="cuda")
     live = mask.cuda().float()[..., None]
     mesh = make_mesh(dp=1, tp=SP_SHARDS, devices=[torch.device("cuda")] * SP_SHARDS)
 
@@ -4818,25 +4914,240 @@ def run_sp_backward(model, seed: int) -> dict:
     expected = global_layers * SP_SHARDS**2
     require(
         counts["flash_attention_partial"] == expected and counts["flash_attention"] == 0,
-        f"train_mesh sp: launches {counts}, expected {expected} partial and no forward launch",
+        f"{label}: launches {counts}, expected {expected} partial and no forward launch",
     )
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref_grads = grads_of(model(ids.cuda(), mask.cuda()))
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
-    require(set(sp_grads) == set(ref_grads), "train_mesh sp: the SP backward reached other parameters")
+    require(set(sp_grads) == set(ref_grads), f"{label}: the SP backward reached other parameters")
     errors = tensor_errors(sp_grads, ref_grads)
     worst = max(errors, key=errors.get)
-    require(errors[worst] <= SP_GRAD_RTOL, f"train_mesh sp: gradient of {worst} differs by {errors[worst]}")
+    require(errors[worst] <= SP_GRAD_RTOL, f"{label}: gradient of {worst} differs by {errors[worst]}")
     result = dict(
-        seq=SP_TRAIN_SEQ, live=SP_TRAIN_LIVE, shards=SP_SHARDS, seconds=sp_s, peak_memory_gb=peak_gb,
+        seq=seq, live=live_tokens, shards=SP_SHARDS, seconds=sp_s, peak_memory_gb=peak_gb,
         single_device_seconds=single_s, grad_rtol=SP_GRAD_RTOL, grad_worst_rel=errors[worst],
         grad_worst_tensor=worst, grad_of_limit=errors[worst] / SP_GRAD_RTOL,
         input_embedding_grad_rel=errors["embeddings.word"], launches=counts,
     )
-    log("train_mesh sp", json.dumps(result))
+    log(label, json.dumps(result))
     del sp_grads, ref_grads
+    torch.cuda.empty_cache()
+    return result
+
+
+#: The train_d32 phase: the token highlighter at full MiniLM width with flash
+#: attention on (`minilm_config(use_flash_attention=True)`: hidden 384, 6
+#: layers, 12 heads of 32, intermediate 1536, absolute positions, post-LN,
+#: bf16; every layer global), 4 `Trainer` steps at batch 8 and S=512 (the
+#: position table's end) on examples of 300-480 context tokens, then its
+#: checkpoint served sequence-parallel and the model trained
+#: sequence-parallel (`run_sp_backward` at S=512, 500 live tokens).
+D32_STEPS = 4
+D32_BATCH = 8
+D32_SEQ = 512
+D32_TOKENS = (300, 480)
+D32_SP_ROWS = 4
+D32_SP_LIVE = 500
+#: Step 1's loss and gradients against the same step with the plain FA2
+#: backward (same weights, batch and forward kernel, so the loss is the same
+#: number): per tensor ‖g − g_plain‖ / ‖g_plain‖ (`tensor_errors`) within the
+#: flash checks' bf16 limit (the kernels round P and dS to bf16 for the
+#: second products, the plain version keeps them float32).
+D32_LOSS_RTOL = 1e-6
+D32_GRAD_RTOL = FLASH_RTOL
+
+
+def run_train_d32(seed: int, card: str) -> dict:
+    """The MiniLM-width highlighter with flash on: trained through `Trainer`
+    (the flash forward with lse and the FA2 backward at D = 32), step 1
+    held to the plain backward with a planted fault; its checkpoint served
+    by `ModelSpanExtractor(model_path=..., sp_mesh=...)` (every layer ring
+    attention: the partial kernel at D = 32) and held to the single-device
+    extractor; then `run_sp_backward` at S=512."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.models import (
+        HashTokenizer,
+        ModelSpanExtractor,
+        init_highlighter_params,
+        minilm_config,
+        select_spans_from_token_probs,
+    )
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig
+    from verbatim_rag_tpu_torch.models.tokenizer import bucket_length
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.token_dataset import TokenDatasetEncoder
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
+
+    config = minilm_config(use_flash_attention=True)
+    require(
+        config.head_dim == 32 and config.position_embedding_type == "absolute" and config.use_flash_attention,
+        f"train_d32: config {config}",
+    )
+    tokenizer = HashTokenizer(vocab_size=config.vocab_size)
+    examples = train_examples((D32_STEPS + 1) * D32_BATCH, seed, tokenizer, D32_TOKENS)
+    encoder = TokenDatasetEncoder(tokenizer, max_length=D32_SEQ, doc_stride=128)
+    batches = list(encoder.iter_batches(examples, D32_BATCH))
+    require(
+        len(batches) >= D32_STEPS + 1 and all(b.input_ids.shape == (D32_BATCH, D32_SEQ) for b in batches),
+        f"train_d32: batch shapes {[b.input_ids.shape for b in batches]}",
+    )
+    lengths = [int(n) for b in batches[:D32_STEPS] for n in b.attention_mask.sum(1)]
+    require(len(set(lengths)) > 1, f"train_d32: rows not ragged: {lengths}")
+    out_dir = ROOT / "build" / "chip_smoke_train_d32"
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    model = init_highlighter_params(config, seed=seed, device="cuda")
+    tc = TrainingConfig(batch_size=D32_BATCH, max_seq_length=D32_SEQ, seed=seed)
+    trainer = Trainer(model, config, tc, output_dir=str(out_dir), loss_fn=token_loss, tokenizer=tokenizer)
+
+    # Step 1 against the same step with the plain backward, and with a
+    # planted fault (both kernels with delta replaced by 0) that must fail.
+    def delta_zero_bwd(q, k, v, lengths_, out, lse, g, window=None):
+        return fa._launch_bwd(q, k, v, lengths_, lse, torch.zeros_like(lse), g.to(q.dtype).contiguous(), window)
+
+    def grads_with(bwd):
+        kept, fa.flash_attention_bwd_cuda = fa.flash_attention_bwd_cuda, bwd
+        try:
+            return step_grads(trainer, batches[0], token_loss)
+        finally:
+            fa.flash_attention_bwd_cuda = kept
+
+    reset_counts()
+    loss, grads = step_grads(trainer, batches[0], token_loss)
+    step1_counts = read_counts()
+    require(
+        step1_counts["flash_bwd_dq_d32"] == config.num_layers and step1_counts["flash_bwd_dkv_d32"] == config.num_layers,
+        f"train_d32: step 1 launches {step1_counts}",
+    )
+    ref_loss, ref_grads = grads_with(fa.flash_attention_bwd_reference)
+    limits = dict(loss_rtol=D32_LOSS_RTOL, grad_rtol=D32_GRAD_RTOL)
+    held = held_to_single(loss, grads, ref_loss, ref_grads, **limits)
+    require(held["worst"] <= 1.0, f"train_d32: step 1 differs from the plain backward's: {held}")
+    fault = held_to_single(*grads_with(delta_zero_bwd), ref_loss, ref_grads, **limits)
+    require(fault["worst"] > 1.0, f"train_d32: planted fault 'delta replaced by 0' passes the check: {fault}")
+    held["planted_fault_worst_of_limit"] = fault["worst"]
+    log("train_d32 held", json.dumps(held))
+    trainer.optimizer.zero_grad()
+    del grads, ref_grads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(batches[:D32_STEPS], num_epochs=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers = config.num_layers * D32_STEPS
+    require(
+        all(train_counts[k] == layers for k in (
+            "flash_attention", "flash_attention_d32", "flash_bwd_dq", "flash_bwd_dq_d32",
+            "flash_bwd_dkv", "flash_bwd_dkv_d32",
+        )) and train_counts["flash_attention_partial"] == 0,
+        f"train_d32: launches {train_counts}, expected {layers} of each flash kernel at D = 32",
+    )
+    require(trainer.oom_skips == 0 and len(trainer.steps) == D32_STEPS, f"train_d32: steps {trainer.steps}")
+    require(
+        all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in trainer.steps),
+        f"train_d32: a loss or gradient norm is not finite: {trainer.steps}",
+    )
+    step_s = [st["seconds"] for st in trainer.steps]
+    losses = [st["loss"] for st in trainer.steps]
+    grad_norms = [st["grad_norm"] for st in trainer.steps]
+    log("train_d32 steps", json.dumps(dict(step_s=step_s, peak_memory_gb=peak_gb, launches=train_counts)))
+    profile_batch = trainer.batch_to_device(batches[D32_STEPS])
+    profile = device_profile(lambda: train_step(model, trainer.optimizer, profile_batch, token_loss), top=8)
+    log("train_d32 profile", json.dumps(profile))
+    del trainer, profile_batch
+
+    # Serving sequence-parallel from the checkpoint: one pass of D32_SP_ROWS
+    # contexts at S=512 in SP_SHARDS shards, every layer ring attention.
+    final = out_dir / "final"
+    mesh = make_mesh(dp=1, tp=SP_SHARDS, devices=[torch.device("cuda")] * SP_SHARDS)
+    sp = ModelSpanExtractor(model_path=str(final), sp_mesh=mesh, device="cuda")
+    single = ModelSpanExtractor(model_path=str(final), max_length=D32_SEQ, device="cuda")
+    question = examples[0].question
+    contexts = [ex.context for ex in examples[:D32_SP_ROWS]]
+    plans = [sp._plan(question, c) for c in contexts]
+    rows = [plan["rows"][0] for plan in plans]
+    require(
+        all(len(plan["rows"]) == 1 for plan in plans) and bucket_length(max(len(r) for r in rows)) == D32_SEQ,
+        f"train_d32: SP rows {[len(r) for r in rows]} do not make one pass at S={D32_SEQ}",
+    )
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    span_lists = sp.process_batch(question, contexts)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_counts = read_counts()
+    expected = config.num_layers * SP_SHARDS**2
+    require(
+        serve_counts["flash_attention_partial"] == expected and serve_counts["flash_attention_partial_d32"] == expected
+        and serve_counts["flash_attention"] == 0,
+        f"train_d32 sp: launches {serve_counts}, expected {expected} partial at D = 32 and no forward launch",
+    )
+    ids = np.full((len(rows), D32_SEQ), sp.tokenizer.pad_id, np.int32)
+    mask = np.zeros((len(rows), D32_SEQ), np.int32)
+    for i, row in enumerate(rows):
+        ids[i, : len(row)] = row
+        mask[i, : len(row)] = 1
+    sp_probs = sp._forward_probs(ids, mask)
+    single_probs = single._forward_probs(ids, mask)
+    probs_diff = float(np.abs(sp_probs - single_probs)[mask.astype(bool)].max())
+    require(probs_diff <= SP_PROBS_ATOL, f"train_d32 sp: probabilities differ by {probs_diff}")
+    near, equal = 0, 0
+    for i, (plan, spans) in enumerate(zip(plans, span_lists)):
+        starts = {a for a, _ in plan["offsets"]}
+        ends = {b for _, b in plan["offsets"]}
+        require(all(a in starts and b in ends for a, b in spans), "train_d32 sp: a span is off the token boundaries")
+        start, length, tok_offset = plan["layout"][0]
+        agg = single_probs[i, tok_offset : tok_offset + length]
+        single_spans = select_spans_from_token_probs(
+            agg, plan["offsets"], threshold=sp.threshold, min_span_chars=sp.min_span_chars,
+            merge_gap_chars=sp.merge_gap_chars,
+        )
+        row_near = int((np.abs(agg - sp.threshold) <= SP_PROBS_ATOL).sum())
+        require(
+            spans == single_spans or row_near > 0,
+            "train_d32 sp: spans differ from the single-device extractor's with no probability near the threshold",
+        )
+        near += row_near
+        equal += spans == single_spans
+    sp_serve = dict(
+        rows=len(rows), seq=D32_SEQ, shards=SP_SHARDS, row_tokens=[len(r) for r in rows], seconds=serve_s,
+        spans=sum(len(x) for x in span_lists), rows_with_spans_equal_single_device=equal,
+        tokens_within_tol_of_threshold=near, probs_max_abs_diff_vs_single_device=probs_diff,
+        launches=serve_counts,
+    )
+    log("train_d32 sp serve", json.dumps(sp_serve))
+    del sp, single
+
+    sp_train = run_sp_backward(model, seed, seq=D32_SEQ, live_tokens=D32_SP_LIVE, label="train_d32 sp backward")
+    launches = {k: train_counts[k] + serve_counts[k] + sp_train["launches"][k] for k in train_counts}
+    median_s = float(np.median(step_s[1:]))
+    result = dict(
+        card=card, config="minilm_config(use_flash_attention=True)", hidden=config.hidden_size,
+        layers=config.num_layers, heads=config.num_heads, head_dim=config.head_dim, batch=D32_BATCH,
+        seq=D32_SEQ, live_tokens_per_step=sum(lengths) / D32_STEPS, losses=losses, grad_norms=grad_norms,
+        step_s=step_s,
+        step_s_median_2_to_4=median_s, tokens_per_s=D32_BATCH * D32_SEQ / median_s,
+        peak_memory_gb=peak_gb, train_s_with_checkpoint=train_s, idle_share=profile["idle_share"],
+        limits=limits, held=held, worst_of_limit=held["worst"], sp_serve=sp_serve, sp_backward=sp_train,
+        launches=launches,
+    )
+    log("train_d32", json.dumps(result))
+    del model
+    shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     return result
 
@@ -5233,8 +5544,10 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen, 64)
     flash_d32 = check_flash(gen, 32)
-    flash_bwd = check_flash_bwd(gen)
-    partial = check_flash_partial(gen)
+    flash_bwd = check_flash_bwd(gen, 64)
+    flash_bwd_d32 = check_flash_bwd(gen, 32)
+    partial = check_flash_partial(gen, 64)
+    partial_d32 = check_flash_partial(gen, 32)
     rescore = check_rescore(gen)
     rescore["bm25_width"] = check_rescore_bm25(gen)
     torch.cuda.empty_cache()
@@ -5272,6 +5585,7 @@ def main() -> None:
     train_mesh = run_train_mesh(train_batches, args.seed, card, train)
     del train_batches
     torch.cuda.empty_cache()
+    train_d32 = run_train_d32(args.seed, card)
     checkpoints = run_checkpoints(
         serve_index, serve_questions(), ROOT / "build" / "chip_smoke_train" / "final", args.seed, card
     )
@@ -5280,11 +5594,14 @@ def main() -> None:
 
     phases = (
         flow, serve, http, doc, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
-        train_mesh, checkpoints,
+        train_mesh, train_d32, checkpoints,
     )
     by_program = mesh["launches_by_program"]
     per_shard = mesh["per_shard"]
     launches = {k: sum(p["launches"][k] for p in phases) for k in flow["launches"]}
+    d32_bwd = launches["flash_bwd_dq_d32"] + launches["flash_bwd_dkv_d32"]
+    for name in ("flash_bwd_dq_d32", "flash_bwd_dkv_d32", "flash_attention_partial_d32"):
+        require(train_d32["launches"][name] > 0, f"train_d32: no {name} launch")
     kernels = [
         dict(
             name="flash_attention_fwd",
@@ -5311,23 +5628,45 @@ def main() -> None:
             source="verbatim_rag_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces="verbatim_rag_tpu/ops/flash_attention.py:245",
             replaces_dkv="verbatim_rag_tpu/ops/flash_attention.py:312",
-            launches=launches["flash_bwd_dq"] + launches["flash_bwd_dkv"],
-            launches_dq=launches["flash_bwd_dq"],
-            launches_dkv=launches["flash_bwd_dkv"],
-            registers_dq=build.get("flash_bwd_dq_wgmma_kernel", {}).get("registers"),
-            registers_dkv=build.get("flash_bwd_dkv_wgmma_kernel", {}).get("registers"),
+            launches=launches["flash_bwd_dq"] + launches["flash_bwd_dkv"] - d32_bwd,
+            launches_dq=launches["flash_bwd_dq"] - launches["flash_bwd_dq_d32"],
+            launches_dkv=launches["flash_bwd_dkv"] - launches["flash_bwd_dkv_d32"],
+            registers_dq=build.get("flash_bwd_dq_wgmma_kernelILi64E", {}).get("registers"),
+            registers_dkv=build.get("flash_bwd_dkv_wgmma_kernelILi64E", {}).get("registers"),
             train_mesh=train_mesh["kernels"]["flash_attention_bwd"],
             **flash_bwd,
+        ),
+        dict(
+            name="flash_attention_bwd_d32",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:245",
+            replaces_dkv="verbatim_rag_tpu/ops/flash_attention.py:312",
+            launches=d32_bwd,
+            launches_dq=launches["flash_bwd_dq_d32"],
+            launches_dkv=launches["flash_bwd_dkv_d32"],
+            registers_dq=build.get("flash_bwd_dq_wgmma_kernelILi32E", {}).get("registers"),
+            registers_dkv=build.get("flash_bwd_dkv_wgmma_kernelILi32E", {}).get("registers"),
+            **flash_bwd_d32,
         ),
         dict(
             name="flash_attention_partial",
             route="cuda",
             source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
             replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
-            launches=launches["flash_attention_partial"],
-            registers=build.get("flash_partial_wgmma_kernel", {}).get("registers"),
+            launches=launches["flash_attention_partial"] - launches["flash_attention_partial_d32"],
+            registers=build.get("flash_partial_wgmma_kernelILi64E", {}).get("registers"),
             train_mesh=train_mesh["kernels"]["flash_attention_partial"],
             **partial,
+        ),
+        dict(
+            name="flash_attention_partial_d32",
+            route="cuda",
+            source="verbatim_rag_tpu_torch/csrc/flash_attention.cu",
+            replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
+            launches=launches["flash_attention_partial_d32"],
+            registers=build.get("flash_partial_wgmma_kernelILi32E", {}).get("registers"),
+            **partial_d32,
         ),
         dict(
             name="sparse_rescore",

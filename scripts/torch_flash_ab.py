@@ -9,7 +9,10 @@ ModernBERT-base heads (B=8, H=12, D=64, bf16) with the ragged lengths of
 backward (dq + dk/dv) at S=4096 and 8192, each global and with window 128;
 and the ring step's partial at long_sp's block shape (B=1, Sq=Sk=6144, a row
 of 22,830 tokens) at k_offset 0 (every key live), 18432 (4,398 live keys)
-and 24576 (a dead block). Beside each time it prints the bound (the larger of
+and 24576 (a dead block); then the forward at head dim 32 at the neural
+providers' shape (B=64, S=256, H=12, global, `chip_smoke.flash_lengths`),
+by events and by its device time from `torch.profiler` (a call is about as
+short as its wrapper's host time). Beside each time it prints the bound (the larger of
 the bytes over 3.35 TB/s and the least FLOP over 989 TFLOP/s, as
 `chip_smoke.py` counts them), the backward's FLOP in the dq + dk/dv split
 (14·D a live pair and head against the least 10·D), and the time of
@@ -154,6 +157,27 @@ def main() -> None:
                 case["library_ms"], case["library_note"] = smoke.efficient_attention_ms(qt, kt, vt, live)
             del qt, kt, vt, mask
         result["cases"].append(case)
+    del q, k, v
+
+    # The forward at head dim 32: the providers' encode batch.
+    B32, S32 = 64, 256
+    lengths = smoke.flash_lengths(B32, S32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn(B32, S32, H, 32, generator=gen, device="cuda", dtype=torch.bfloat16) for _ in range(3))
+
+    def forward_d32():
+        return fa.flash_attention_cuda(q, k, v, lens, None)
+
+    q_rows, kv_rows = smoke.attention_rows(lengths, S32)
+    b_ms, b_by = smoke.bound(
+        (q_rows + 2 * kv_rows + B32 * S32) * H * 32 * 2 + 4 * B32,
+        4 * H * 32 * smoke.attention_pairs(lengths, S32, None), smoke.PEAK_BF16_FLOPS,
+    )
+    device_ms, records = smoke.kernel_device_ms(forward_d32, 10, "flash_fwd_wgmma_kernel<32>")
+    result["cases"].append(dict(
+        kernel="fwd_d32", batch=B32, seq=S32, ms=smoke.cuda_ms(forward_d32, reps=50),
+        device_ms=device_ms, device_records=records, bound_ms=b_ms, bound_by=b_by,
+    ))
     print(json.dumps(result), flush=True)
 
 

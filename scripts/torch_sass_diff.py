@@ -1,7 +1,7 @@
 """Compare the SASS of one CUDA source of the PyTorch port between two trees.
 
     python3 scripts/torch_sass_diff.py --base DIR [--tree DIR] [--source section]
-        [--kernels REGEX]
+        [--kernels REGEX] [--instance ILi64E]
 
 Compiles ``csrc/<source>.cu`` of each tree (``--tree`` defaults to the
 checkout holding this script) with this checkout's ``cuda_build.NVCC_FLAGS``
@@ -10,8 +10,11 @@ into this checkout's ``build/sass_diff/``, disassembles both libraries with
 match ``--kernels``, all by default). A kernel is identical when its whole
 listing, instruction words included, is the same in both. For one that is
 not, it counts the instructions of each and the instructions that differ
-once operands are dropped (opcodes alone, by `difflib`). Prints one JSON
-line; needs ``nvcc`` and ``cuobjdump``, not a GPU.
+once operands are dropped (opcodes alone, by `difflib`). A kernel that is a
+template in one tree and a plain function in the other is compared with its
+``--instance`` (for example ``ILi64E``, the head-dim-64 instance): the two
+names then differ, the listings need not. Prints one JSON line; needs
+``nvcc`` and ``cuobjdump``, not a GPU.
 
 To set a change against its parent:
 
@@ -32,10 +35,14 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(HERE))
 
+from chip_smoke import kernel_name  # noqa: E402
 from verbatim_rag_tpu_torch.ops import cuda_build  # noqa: E402
 
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
 _ANONYMOUS = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+#: The anonymous namespace of a `split_sass` name (its hash dropped, so its
+#: length prefix no longer holds): ``_ZN<n>_GLOBAL__N__<file>_cu_<8 hex>``.
+_NAMESPACE = re.compile(r"^_ZN\d+_GLOBAL__N__\w*?_cu_[0-9a-f]{8}")
 
 
 def build(tree: Path, source: str, out: Path) -> Path:
@@ -79,34 +86,62 @@ def opcodes(lines: list[str]) -> list[str]:
     return ops
 
 
+def pair_instances(base: dict, tree: dict, instance: str) -> dict[str, str]:
+    """{tree name: base name} for kernels found in only one tree whose short
+    names (`chip_smoke.kernel_name`) differ by ``instance`` alone: a plain
+    kernel in one tree, its template's instance in the other. Either side
+    may hold the template."""
+    pairs = {}
+    if not instance:
+        return pairs
+
+    def short(name: str) -> str:
+        return kernel_name(_NAMESPACE.sub("_Z", name))
+
+    only_base = {short(n): n for n in base if n not in tree}
+    only_tree = {short(n): n for n in tree if n not in base}
+    for short, name in only_tree.items():
+        if short.endswith(instance) and short[: -len(instance)] in only_base:
+            pairs[name] = only_base[short[: -len(instance)]]
+        elif short + instance in only_base:
+            pairs[name] = only_base[short + instance]
+    return pairs
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path, required=True)
     parser.add_argument("--tree", type=Path, default=HERE)
     parser.add_argument("--source", default="section")
     parser.add_argument("--kernels", default="")
+    parser.add_argument("--instance", default="")
     args = parser.parse_args()
 
     out_dir = HERE / "build" / "sass_diff"
     base = functions(build(args.base.resolve(), args.source, out_dir / f"base-{args.source}.so"))
     tree = functions(build(args.tree.resolve(), args.source, out_dir / f"tree-{args.source}.so"))
     pattern = re.compile(args.kernels)
+    pairs = pair_instances(base, tree, args.instance)
+    paired = set(pairs.values())
     result = {}
     for name in sorted(set(base) | set(tree)):
-        if not pattern.search(name):
+        if not pattern.search(name) or (name in paired and name not in tree):
             continue
-        if name not in base or name not in tree:
+        base_name = pairs.get(name, name)
+        if base_name not in base or name not in tree:
             result[name] = dict(only_in="tree" if name in tree else "base")
             continue
-        a, b = opcodes(base[name]), opcodes(tree[name])
+        a, b = opcodes(base[base_name]), opcodes(tree[name])
         changed = sum(
             max(i2 - i1, j2 - j1)
             for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(None, a, b, autojunk=False).get_opcodes()
             if tag != "equal"
         )
         result[name] = dict(
-            identical=base[name] == tree[name], instructions=[len(a), len(b)], opcodes_differing=changed
+            identical=base[base_name] == tree[name], instructions=[len(a), len(b)], opcodes_differing=changed
         )
+        if base_name != name:
+            result[name]["base_kernel"] = base_name
     print(json.dumps(dict(source=args.source, base=str(args.base), tree=str(args.tree), kernels=result)))
 
 

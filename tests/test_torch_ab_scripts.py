@@ -97,3 +97,23 @@ def test_sass_diff_reads_kernels_and_opcodes():
     assert list(kernels) == [section, "_Z24bucket_v1_wgmma_kernel10WalkParams"]  # the file's hash dropped
     assert module.opcodes(kernels[section]) == ["LDC", "BRA", "UTMALDG.2D", "EXIT"]
     assert module.opcodes(kernels["_Z24bucket_v1_wgmma_kernel10WalkParams"]) == ["S2R", "EXIT"]
+
+
+def test_sass_diff_pairs_a_kernel_with_its_template_instance():
+    """A kernel templated on the head dim in one tree is compared with the
+    plain kernel of the other through ``--instance``; other names stay
+    unpaired."""
+    spec = importlib.util.spec_from_file_location("sass_diff", ROOT / "scripts" / "torch_sass_diff.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    # As `split_sass` leaves them: the namespace's hash dropped, its length
+    # prefix (counted with the hash) kept.
+    ns = "_ZN53_GLOBAL__N__22_flash_attention_bwd_cu_0a1b2c3d"
+    plain = f"{ns}25flash_bwd_dq_wgmma_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_PKiP13__nv_bfloat16iiif"
+    d64 = f"{ns}25flash_bwd_dq_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PKiP13__nv_bfloat16iiif"
+    d32 = d64.replace("ILi64E", "ILi32E")
+    base = {plain: ["a"], "_Z5otheri": ["b"]}
+    tree = {d64: ["a"], d32: ["c"], "_Z5otheri": ["b"]}
+    assert module.pair_instances(base, tree, "ILi64E") == {d64: plain}
+    assert module.pair_instances(tree, base, "ILi64E") == {plain: d64}
+    assert module.pair_instances(base, tree, "") == {}

@@ -29,6 +29,8 @@ FWD = f"_ZN{len(NS)}{NS}22flash_fwd_wgmma_kernelE14CUtensorMap_stS0_S0_PKiP13__n
 F32 = f"_ZN{len(NS)}{NS}16flash_fwd_kernelILb1EEEvPKfS2_S2_PKiPfS4_S4_S4_iiiiif"
 PARTIAL = f"_ZN{len(NS)}{NS}24flash_partial_mma_kernelEPK13__nv_bfloat16S2_S2_PKiPfS4_S4_iiiif"
 PARTIAL_WGMMA = f"_ZN{len(NS)}{NS}26flash_partial_wgmma_kernelE14CUtensorMap_stS0_S0_PKiPfS3_S3_iiiif"
+BWD = "_GLOBAL__N__9e1f20aa_22_flash_attention_bwd_cu_41c3d5e7"
+BWD_DQ_D32 = f"_ZN{len(BWD)}{BWD}25flash_bwd_dq_wgmma_kernelILi32EEEv14CUtensorMap_stS0_S0_S0_PKfS2_PKiP13__nv_bfloat16iiif"
 SEC = "_GLOBAL__N__7c2e91d4_10_section_cu_5b0e1a7d"
 V2_INT8 = f"_ZN{len(SEC)}{SEC}22bucket_v2_wgmma_kernelILb1EEEv14CUtensorMap_stS0_PKfS3_PKhPfPiiiiiii"
 V2_BF16 = f"_ZN{len(SEC)}{SEC}22bucket_v2_wgmma_kernelILb0EEEv14CUtensorMap_stS0_PKfS3_PKhPfPiiiiiii"
@@ -72,7 +74,7 @@ SASS = f"""
      (PARTIAL, "flash_partial_mma_kernel"), ("_Z12plain_kerneli", "plain_kernel"),
      (PARTIAL_WGMMA, "flash_partial_wgmma_kernel"), (V2_INT8, "bucket_v2_wgmma_kernelILb1E"),
      (V2_BF16, "bucket_v2_wgmma_kernelILb0E"), (FMA_V1, "fma_walk_kernelILi2E"),
-     (RESCORE_I32, "rescore_kernel")],
+     (RESCORE_I32, "rescore_kernel"), (BWD_DQ_D32, "flash_bwd_dq_wgmma_kernelILi32E")],
 )
 def test_kernel_name_reads_length_prefixed_symbols(mangled, name):
     assert chip_smoke.kernel_name(mangled) == name

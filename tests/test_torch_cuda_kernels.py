@@ -99,9 +99,9 @@ def test_flash_lse_kernel_matches_plain(cuda, dtype, window):
     assert (lse[1] == 0).all()
 
 
-def _bwd_inputs(cuda, dtype, seq, lengths, seed, heads=3):
+def _bwd_inputs(cuda, dtype, seq, lengths, seed, heads=3, head_dim=64):
     q, k, v, g = (
-        torch.from_numpy(np.random.default_rng(seed + i).normal(size=(len(lengths), seq, heads, 64)))
+        torch.from_numpy(np.random.default_rng(seed + i).normal(size=(len(lengths), seq, heads, head_dim)))
         .to(cuda, dtype) for i in range(4)
     )
     return q, k, v, g, torch.tensor(lengths, dtype=torch.int32, device=cuda)
@@ -262,23 +262,99 @@ def test_flash_kernel_head_dim_32_matches_plain(cuda, dtype, seq, window):
     torch.testing.assert_close(lse, fa.attention_lse_reference(q, k, v, lens, window)[1], rtol=1e-5, atol=1e-4)
 
 
-def test_head_dim_32_refused_by_the_backward_and_the_partial(cuda):
-    """The backward and the ring step's partial are compiled for D = 64 only:
-    at D = 32 each raises ValueError, a differentiable forward included
-    (before any launch), instead of running another path."""
-    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _qkv(2, 40, 3, 32, 5))
-    lens = torch.tensor([40, 9], dtype=torch.int32, device=cuda)
-    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens)
-    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.partial_launches)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, torch.ones_like(q))
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_partial(q, k, v, lens, 0)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 128, 7])
+@pytest.mark.parametrize(
+    "seq,lengths", [(333, [333, 0, 200, 17]), (130, [129, 65]), (512, [512, 300, 1, 0, 511, 64])]
+)
+def test_flash_bwd_kernels_head_dim_32_match_plain(cuda, dtype, window, seq, lengths):
+    """The backward's D = 32 arm (64-byte rows and swizzle, m64n32 products
+    for dq, dk and dv) against the plain FA2 backward on the kernel
+    forward's out and lse, MiniLM's 12 heads, ragged lengths with a
+    zero-length row: the tolerances of the D = 64 test above; its launches
+    count at D = 32 and rows with no live key get zero gradients."""
+    q, k, v, g, lens = _bwd_inputs(cuda, dtype, seq, lengths, seed=seq + 32, heads=12, head_dim=32)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens, window)
+    before = (fa.bwd_dq_launches_d32, fa.bwd_dkv_launches_d32)
+    got = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    torch.cuda.synchronize()
+    assert (fa.bwd_dq_launches_d32, fa.bwd_dkv_launches_d32) == (before[0] + 1, before[1] + 1)
+    expected = fa.flash_attention_bwd_reference(q, k, v, lens, out, lse, g, window)
+    live = torch.arange(seq, device=cuda)[None, :] < lens[:, None]
+    for name, a, e in zip(("dq", "dk", "dv"), got, expected):
+        assert a.dtype == dtype and a.shape == q.shape, name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, e, rtol=1e-4, atol=1e-4, msg=name)
+        else:
+            assert _bf16_row_ratio(a, e.float(), live, floor=1e-3) <= 1.0, name
+        dead = ~live if name != "dq" else lens[:, None].expand_as(live) == 0
+        assert (a[dead] == 0).all(), name
+    again = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g, window)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "seq_q,seq_k,k_offset",
+    [(128, 128, 0), (128, 128, 128), (128, 128, 256), (128, 128, 384), (200, 333, 150), (64, 0, 0)],
+)
+def test_flash_partial_kernel_head_dim_32_matches_plain(cuda, dtype, seq_q, seq_k, k_offset):
+    """The partial's D = 32 arm at each offset of a 4-shard ring over 512
+    tokens (the SP block of a MiniLM-width highlighter) and off the tiles:
+    rows 0 and 1 live up to their lengths, row 2 empty; dead rows exactly
+    (-1e30, 0, 0); the tolerances of the D = 64 test; its launches count at
+    D = 32."""
+    rng = np.random.default_rng(seq_q + seq_k + k_offset)
+    q, k, v = (
+        torch.from_numpy(rng.normal(size=(3, s, 12, 32)).astype(np.float32)).to(cuda, dtype)
+        for s in (seq_q, seq_k, seq_k)
+    )
+    lens = torch.tensor([512, 300, 0], dtype=torch.int32, device=cuda)
+    before = (fa.partial_launches, fa.partial_launches_d32)
+    numer, m, l = fa.flash_attention_partial(q, k, v, lens, k_offset)
+    torch.cuda.synchronize()
+    assert (fa.partial_launches, fa.partial_launches_d32) == (before[0] + 1, before[1] + 1)
+    dead = ((lens <= k_offset) | (seq_k == 0))[:, None, None].expand_as(m)
+    live = ~dead
+    assert (m[dead] == fa.NEG_INF).all() and (l[dead] == 0).all()
+    assert (numer.transpose(1, 2)[dead] == 0).all()
+    if live.any():
+        e_numer, e_m, e_l = fa.flash_attention_partial_reference(q, k, v, lens, k_offset)
+        assert bool(((m - e_m).abs() <= 1e-5 * e_m.abs() + 1e-6)[live].all())
+        torch.testing.assert_close(l[live], e_l[live], rtol=1e-4, atol=0)
+        if dtype == torch.float32:
+            rows = live.transpose(1, 2)
+            torch.testing.assert_close(numer[rows], e_numer[rows], rtol=1e-5, atol=1e-5)
+        else:
+            assert _bf16_row_ratio(numer, e_numer, live.transpose(1, 2)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_head_dim_32_runs_the_kernels(cuda, dtype):
+    """A differentiable flash call at D = 32 on the card: one forward (with
+    lse), one dq and one dk/dv launch, all at D = 32, no plain path; its
+    gradients those of the plain backward on the same out and lse (float32
+    rtol/atol 1e-4 against the CPU autograd; bf16 rows as the backward test)."""
+    q, k, v, g, lens = _bwd_inputs(cuda, dtype, 200, [200, 77, 0], seed=7, heads=12, head_dim=32)
+    live = torch.arange(200, device=cuda)[None, :] < lens[:, None]
+    g = g * live[..., None, None]
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(*leaves, lens)
-    after = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.partial_launches)
-    assert after == before
+    counts = (fa.launches_d32, fa.bwd_dq_launches_d32, fa.bwd_dkv_launches_d32)
+    out = fa.flash_attention(*leaves, lens, None)
+    out.backward(g)
+    torch.cuda.synchronize()
+    after = (fa.launches_d32, fa.bwd_dq_launches_d32, fa.bwd_dkv_launches_d32)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 1, 1)
+    if dtype == torch.float32:
+        cpu = [x.detach().cpu().requires_grad_() for x in (q, k, v)]
+        fa.flash_attention(*cpu, lens.cpu(), None).backward(g.cpu())
+        for a, e in zip(leaves, cpu):
+            torch.testing.assert_close(a.grad.cpu(), e.grad, rtol=1e-4, atol=1e-4)
+    else:
+        o, lse = fa.flash_attention_lse_cuda(q, k, v, lens, None)
+        expected = fa.flash_attention_bwd_reference(q, k, v, lens, o, lse, g, None)
+        for a, e in zip(leaves, expected):
+            assert _bf16_row_ratio(a.grad, e.float(), live, floor=1e-3) <= 1.0
 
 
 def test_flash_kernel_refuses_unsupported_head_dim(cuda):

@@ -84,6 +84,14 @@ MODERNBERT = dict(
 )
 #: BERT-style (biases, GELU, absolute positions, post-norm) and ModernBERT-style.
 CONFIGS = {"bert": dict(vocab_size=512, max_position_embeddings=128), "modernbert": MODERNBERT}
+#: MiniLM's shape narrowed (head dim 32, flash on, every layer global: ring
+#: attention only), for the SP gradients; the port's flash path on the card
+#: runs the partial kernel at D = 32 there.
+MINILM_FLASH = dict(
+    vocab_size=512, hidden_size=64, num_heads=2, num_layers=2, intermediate_size=128,
+    max_position_embeddings=64, use_flash_attention=True,
+)
+SP_CONFIGS = {**CONFIGS, "minilm_flash": MINILM_FLASH}
 
 
 def _with_biases(params, seed: int):
@@ -100,9 +108,9 @@ def _with_biases(params, seed: int):
 
 
 def _model(name: str, seed: int = 3):
-    jax_config = jax_tiny_config(**CONFIGS[name])
+    jax_config = jax_tiny_config(**SP_CONFIGS[name])
     params = _with_biases(jax_init_highlighter(jax.random.PRNGKey(seed), jax_config), seed)
-    model = HighlighterModel(tiny_test_config(**CONFIGS[name]))
+    model = HighlighterModel(tiny_test_config(**SP_CONFIGS[name]))
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return params, jax_config, model
 
@@ -410,9 +418,10 @@ def _relative_errors(got: dict, want: dict) -> dict:
     return {k: float((got[k] - want[k]).norm()) / max(float(want[k].norm()), floor) for k in want}
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("name", sorted(SP_CONFIGS))
 def test_sp_gradients_match_single_device(name):
     _, jax_config, model = _model(name)
+    assert name != "minilm_flash" or model.config.head_dim == 32
     ids, mask = _rows(jax_config.vocab_size, n=2, seq=64, seed=4)
     mask[1, 40:] = 0
     probe = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 64, jax_config.hidden_size)).astype(np.float32))

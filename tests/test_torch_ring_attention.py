@@ -83,6 +83,29 @@ def test_partial_matches_jax_kernel_and_block_attend(case):
     assert (l[~dead] > 0).all()
 
 
+@pytest.mark.parametrize("case", sorted(PARTIAL_CASES))
+def test_partial_at_head_dim_32_matches_jax_kernel(case):
+    """MiniLM's head dim (the ring step of a MiniLM-width highlighter run or
+    trained sequence-parallel): the plain partial against JAX's partial
+    kernel in interpret mode and its block attention, at the tolerances
+    above; dead rows exactly (-1e30, 0, 0)."""
+    k_offset, lengths = PARTIAL_CASES[case]
+    q, k, v = _arrays([(3, 32, 2, 32), (3, 48, 2, 32), (3, 48, 2, 32)], seed=k_offset + 32)
+    lens = np.asarray(lengths, np.int32)
+    interp = jax_partial(*map(jnp.asarray, (q, k, v, lens)), jnp.int32(k_offset), interpret=True)
+    block = _block_attend(*map(jnp.asarray, (q, k, v)), k_offset, jnp.asarray(lens), seq_len=10**6)
+    got = fa.flash_attention_partial(*map(torch.from_numpy, (q, k, v, lens)), k_offset)
+    for expected in (interp, block):
+        for name, g, e, tol in zip(
+            ("numer", "m", "l"), got, expected, ((1e-4, 1e-5), (1e-5, 1e-6), (1e-5, 1e-6))
+        ):
+            assert g.shape == e.shape == ((3, 32, 2, 32) if name == "numer" else (3, 2, 32)), name
+            np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=tol[0], atol=tol[1], err_msg=name)
+    numer, m, l = got
+    dead = k_offset >= lens
+    assert (m[dead] == fa.NEG_INF).all() and (l[dead] == 0).all() and (numer[dead] == 0).all()
+
+
 def test_partial_bf16_inputs_match_jax_block_attend():
     """bf16 q, k, v: both sides multiply the (exact) bf16 values in float32."""
     q, k, v = _arrays([(2, 24, 2, 16), (2, 40, 2, 16), (2, 40, 2, 16)], seed=5)

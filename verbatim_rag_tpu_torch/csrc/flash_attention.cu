@@ -28,16 +28,17 @@
 // no live key in the block writes exactly m = -1e30, l = 0, numer = 0, so the
 // merge never meets -inf − -inf.
 //
-// Inputs and outputs are contiguous, q, k, v in bfloat16 or float32. The
-// forward takes head dims D = 64 (ModernBERT's 12 × 64 heads, the extractor)
-// and D = 32 (MiniLM's 12 × 32 heads, the dense and SPLADE providers), each
-// its own instantiation of the same kernels; the partial takes D = 64.
+// Inputs and outputs are contiguous, q, k, v in bfloat16 or float32. Both
+// entries take head dims D = 64 (ModernBERT's 12 × 64 heads, the extractor)
+// and D = 32 (MiniLM's 12 × 32 heads: the dense and SPLADE providers, the
+// cross-encoder, and a MiniLM-width highlighter trained or run sequence-
+// parallel), each its own instantiation of the same kernels.
 // Scores, softmax statistics and accumulators are float32. Any S is taken:
 // the ragged edge is masked here, nothing is padded by the caller. Key
 // tiles past the live keys, or outside the band on local layers, are never
 // loaded, so local layers cost O(S·window) and a dead KV block costs nothing.
 //
-// Three kernels (the forward's two at each head dim):
+// Three kernels, each instantiated at both head dims:
 //
 //   bf16 forward and bf16 partial — wgmma fed by TMA (Hopper's own path to
 //          the tensor cores), one body (`wgmma_attention`) for both entries.
@@ -532,6 +533,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             0, scale);
 }
 
+template <int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_partial_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -539,20 +541,19 @@ flash_partial_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const int* __restrict__ lengths, float* __restrict__ numer,
                            float* __restrict__ m, float* __restrict__ l, int seq_q, int seq_k,
                            int heads, int k_offset, float scale) {
-  wgmma_attention<true, 64>(&q_map, &k_map, &v_map, lengths,
-                            FwdOut{nullptr, nullptr, numer, m, l}, seq_q, seq_k, heads, -1,
-                            k_offset, scale);
+  wgmma_attention<true, D>(&q_map, &k_map, &v_map, lengths,
+                           FwdOut{nullptr, nullptr, numer, m, l}, seq_q, seq_k, heads, -1,
+                           k_offset, scale);
 }
 
 // The bf16 forward (k_offset < 0) or one ring step's partial (k_offset >= 0,
-// numer/m/l given; D = 64 only): tensor maps over q (seq_q) and k, v
-// (seq_k), then one CTA per (128-row q tile, b·h).
+// numer/m/l given): tensor maps over q (seq_q) and k, v (seq_k), then one
+// CTA per (128-row q tile, b·h).
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths, FwdOut res,
                  int batch, int seq_q, int seq_k, int heads, int window, int k_offset, float scale,
                  cudaStream_t stream) {
   const bool partial = k_offset >= 0;
-  if (partial && D != 64) return (int)cudaErrorInvalidValue;
   constexpr int kSmem = FwdSmem<D>::kBytes;
   // An empty KV block is never loaded (no key is live); its maps span q.
   const void* kv_k = seq_k > 0 ? k : q;
@@ -562,20 +563,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* lengths
   if (int rc = hopper::make_tile_map<D>(&q_map, q, batch, seq_q, heads, kFwdRows)) return rc;
   if (int rc = hopper::make_tile_map<D>(&k_map, kv_k, batch, kv_seq, heads, kFwdKeys)) return rc;
   if (int rc = hopper::make_tile_map<D>(&v_map, kv_v, batch, kv_seq, heads, kFwdKeys)) return rc;
-  const void* kernel = reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>);
-  if constexpr (D == 64)
-    if (partial) kernel = reinterpret_cast<const void*>(flash_partial_wgmma_kernel);
+  const void* kernel = partial ? reinterpret_cast<const void*>(flash_partial_wgmma_kernel<D>)
+                               : reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>);
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq_q + kFwdRows - 1) / kFwdRows, batch * heads);
-  if constexpr (D == 64) {
-    if (partial) {
-      flash_partial_wgmma_kernel<<<grid, kFwdThreads, kSmem, stream>>>(
-          q_map, k_map, v_map, lengths, res.numer, res.m, res.l, seq_q, seq_k, heads, k_offset,
-          scale);
-      return (int)cudaGetLastError();
-    }
+  if (partial) {
+    flash_partial_wgmma_kernel<D><<<grid, kFwdThreads, kSmem, stream>>>(
+        q_map, k_map, v_map, lengths, res.numer, res.m, res.l, seq_q, seq_k, heads, k_offset,
+        scale);
+    return (int)cudaGetLastError();
   }
   flash_fwd_wgmma_kernel<D><<<grid, kFwdThreads, kSmem, stream>>>(
       q_map, k_map, v_map, lengths, res.out, res.lse, seq_q, heads, window, scale);
@@ -601,6 +599,24 @@ int launch_forward(const void* q, const void* k, const void* v, const int* len, 
   return (int)cudaGetLastError();
 }
 
+// One ring step's partial at head dim D: the wgmma body for bf16, the FMA
+// kernel for float32; the scale is the forward's.
+template <int D>
+int launch_partial(const void* q, const void* k, const void* v, const int* len, float* numer,
+                   float* m, float* l, int batch, int seq_q, int seq_k, int heads, int k_offset,
+                   int dtype, cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)D);
+  if (dtype == 1)
+    return launch_wgmma<D>(q, k, v, len, FwdOut{nullptr, nullptr, numer, m, l}, batch, seq_q, seq_k,
+                           heads, -1, k_offset, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
+  flash_fwd_kernel<true, D><<<grid, kThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      len, numer, nullptr, m, l, seq_q, seq_k, heads, -1, k_offset, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window < 0 means global attention.
@@ -623,28 +639,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 // One KV block's unnormalised contribution: q [B, seq_q, H, D], k and v
 // [B, seq_k, H, D] (dtype 0 = float32, 1 = bfloat16), lengths [B] int32 global,
 // k_offset >= 0 the global position of the block's first key. Writes numer
-// [B, seq_q, H, D] float32, m and l [B, H, seq_q] float32. head_dim must be 64.
-// Returns the CUDA error code of the launch (0 on success).
+// [B, seq_q, H, D] float32, m and l [B, H, seq_q] float32. head_dim must be 32
+// or 64. Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_attention_partial(const void* q, const void* k, const void* v,
                                        const void* lengths, void* numer, void* m, void* l,
                                        int batch, int seq_q, int seq_k, int heads, int head_dim,
                                        int k_offset, int dtype, void* stream) {
-  constexpr int D = 64;
-  if (seq_k < 0 || k_offset < 0 || head_dim != D) return (int)cudaErrorInvalidValue;
+  if (seq_k < 0 || k_offset < 0 || (head_dim != 32 && head_dim != 64))
+    return (int)cudaErrorInvalidValue;
   if (batch <= 0 || seq_q <= 0 || heads <= 0) return (int)cudaSuccess;
   if ((long long)batch * heads > 65535) return (int)cudaErrorInvalidConfiguration;
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)D);
+  float* no = static_cast<float*>(numer);
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
-  if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, len, FwdOut{nullptr, nullptr, static_cast<float*>(numer), mo, lo},
-                        batch, seq_q, seq_k, heads, -1, k_offset, scale, s);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((seq_q + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_fwd_kernel<true, D><<<grid, kThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      len, static_cast<float*>(numer), nullptr, mo, lo, seq_q, seq_k, heads, -1, k_offset, scale);
-  return (int)cudaGetLastError();
+  if (head_dim == 32)
+    return launch_partial<32>(q, k, v, len, no, mo, lo, batch, seq_q, seq_k, heads, k_offset, dtype, s);
+  return launch_partial<64>(q, k, v, len, no, mo, lo, batch, seq_q, seq_k, heads, k_offset, dtype, s);
 }

@@ -27,8 +27,6 @@
 
 namespace hopper {
 
-constexpr int kHeadDim = 64;            // the backward's head dim: ModernBERT's 12 × 64 heads
-constexpr int kRowBytes = kHeadDim * 2;  // bf16: one 128-byte swizzle span
 constexpr int kWarpgroup = 128;
 
 // Bytes of one bf16 head row of dim D: 128 (D = 64) or 64 (D = 32), each one
@@ -45,7 +43,7 @@ __host__ __device__ constexpr int head_row_bytes() {
 // `rows` consecutive positions of one (batch, head): coordinates (0, h, s, b),
 // swizzled by the row's own width (128 bytes for D = 64, 64 for D = 32).
 // Rows past seq are zero-filled. Returns 0 or a CUDA error code.
-template <int D = kHeadDim>
+template <int D>
 inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
                          int rows) {
   constexpr int kBytes = head_row_bytes<D>();
@@ -198,7 +196,6 @@ template <int kBytes>
 __host__ __device__ constexpr uint64_t desc_row_step() {  // MN-major: next 16 rows
   return (16 * kBytes) >> 4;
 }
-constexpr uint64_t kDescRowStep = desc_row_step<kRowBytes>();
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -4,14 +4,16 @@ Port of `verbatim_rag_tpu/ops/flash_attention.py`. The kernels replace the
 TPU kernels of that module:
 
 - `csrc/flash_attention.cu` (tensor cores for bf16, FMA for float32) the
-  forward `_flash_kernel` at head dims 32 (the MiniLM-shaped providers) and
-  64 (the ModernBERT extractor), with the logsumexp output of
-  `flash_attention_tpu_lse` on request, and, at head dim 64, the ring step
+  forward `_flash_kernel`, with the logsumexp output of
+  `flash_attention_tpu_lse` on request, and the ring step
   `_flash_partial_kernel` (:func:`flash_attention_partial`: one KV block's
   unnormalised numerator, row max and denominator);
 - `csrc/flash_attention_bwd.cu` the FlashAttention-2 backward
-  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`, at head dim 64.
+  `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel`.
 
+Every kernel is compiled at head dims 32 (MiniLM's 12 × 32 heads: the
+providers, the cross-encoder, a MiniLM-width highlighter trained or run
+sequence-parallel) and 64 (ModernBERT's 12 × 64 heads: the extractor).
 Each entry takes the head dims of its kernel (:data:`FORWARD_HEAD_DIMS`,
 :data:`PARTIAL_HEAD_DIMS`, :data:`BACKWARD_HEAD_DIMS`); on CUDA any other
 raises ``ValueError``, a differentiable call included (its backward would
@@ -44,22 +46,24 @@ from . import cuda_build
 
 NEG_INF = -1e30
 
-#: Head dims each kernel is compiled for: the forward at MiniLM's 32 and
-#: ModernBERT's 64; the ring step's partial and the backward at 64.
+#: Head dims each kernel is compiled for: MiniLM's 32 and ModernBERT's 64.
 FORWARD_HEAD_DIMS = (32, 64)
-PARTIAL_HEAD_DIMS = (64,)
-BACKWARD_HEAD_DIMS = (64,)
+PARTIAL_HEAD_DIMS = (32, 64)
+BACKWARD_HEAD_DIMS = (32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Kernel launches since the last reset (the main path's proof of use): the
-#: forward (with or without lse; ``launches_d32`` counts those at head dim
-#: 32 among them), the backward's dq and its dk/dv kernel, and the ring
-#: step's partial kernel.
+#: forward (with or without lse), the backward's dq and its dk/dv kernel, and
+#: the ring step's partial kernel; each ``*_d32`` counts those at head dim 32
+#: among them.
 launches = 0
 launches_d32 = 0
 bwd_dq_launches = 0
+bwd_dq_launches_d32 = 0
 bwd_dkv_launches = 0
+bwd_dkv_launches_d32 = 0
 partial_launches = 0
+partial_launches_d32 = 0
 
 
 def _scale(head_dim: int) -> float:
@@ -206,7 +210,7 @@ def flash_attention_lse_cuda(q, k, v, lengths, window=None):
 def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
     """Launch the backward kernels with a given delta; (dq, dk, dv), each
     None when its kernel was not asked for."""
-    global bwd_dq_launches, bwd_dkv_launches
+    global bwd_dq_launches, bwd_dq_launches_d32, bwd_dkv_launches, bwd_dkv_launches_d32
     batch, seq, heads, head_dim = q.shape
     lib = cuda_build.load("flash_attention_bwd")
     win = -1 if window is None else int(window)
@@ -223,6 +227,7 @@ def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
         with torch.cuda.device(q.device):
             cuda_build.check(fn(*common, dq.data_ptr(), *shape), "flash_bwd_dq")
         bwd_dq_launches += 1
+        bwd_dq_launches_d32 += head_dim == 32
     if "dkv" in kernels:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         fn = lib.flash_bwd_dkv
@@ -231,6 +236,7 @@ def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
         with torch.cuda.device(q.device):
             cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape), "flash_bwd_dkv")
         bwd_dkv_launches += 1
+        bwd_dkv_launches_d32 += head_dim == 32
     return dq, dk, dv
 
 
@@ -277,7 +283,7 @@ def flash_attention_partial_reference(q, k, v, lengths, k_offset: int):
 def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
     """Launch the partial kernel: (numer [B, Sq, H, D], m [B, H, Sq],
     l [B, H, Sq]) float32, as :func:`flash_attention_partial_reference`."""
-    global partial_launches
+    global partial_launches, partial_launches_d32
     _check_inputs(q, k, v, lengths, "flash_attention_partial_cuda", PARTIAL_HEAD_DIMS, same_seq=False)
     k_offset = int(k_offset)
     if not 0 <= k_offset < 2**31:
@@ -300,6 +306,7 @@ def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
         )
     cuda_build.check(rc, "flash_attention_partial")
     partial_launches += 1
+    partial_launches_d32 += head_dim == 32
     return numer, m, l
 
 
