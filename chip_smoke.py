@@ -257,14 +257,21 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
 7a. train_mesh — the same weights and batches through
              `Trainer(mesh=make_mesh(dp=2, tp=2, devices=[cuda] * 4))` (each
              shard 6 heads and a quarter of every batch's rows, 4 shards in
-             turn on the one card), 3 steps: step 1 on a batch whose rows are
+             turn on the one card; each of the 4 positions holds its slices,
+             its copies of the replicated parameters, their gradients and
+             AdamW state as resident leaves, the unsharded module on the
+             host), 3 steps: step 1 on a batch whose rows are
              ordered by live labels (dp shards with different counts) held to
              the single-device step on the same weights and batch: loss within
-             `MESH_LOSS_RTOL`, every gradient before clipping per tensor within
-             `MESH_GRAD_RTOL` (`tensor_errors`), every updated parameter within
-             `MESH_PARAM_RTOL`; two planted faults (wi's GEGLU output cut into
-             contiguous blocks; the loss as the mean of the dp shards' means)
-             must fail that check; 88 (22 × 4) forward-with-lse, dq and dk/dv
+             `MESH_LOSS_RTOL`, every synced gradient before clipping per tensor
+             and the global norm within `MESH_GRAD_RTOL` (`tensor_errors`),
+             every updated parameter within `MESH_PARAM_RTOL`; four planted
+             faults (wi's GEGLU output cut into contiguous blocks; the loss as
+             the mean of the dp shards' means; a gradient sync that skips one
+             copy; the global norm over every copy) must fail that check;
+             every copy bit-equal to its owner after step 3; GB of leaves,
+             gradients and AdamW state per position; 88 (22 × 4)
+             forward-with-lse, dq and dk/dv
              launches each step; step seconds (median of steps 2-3),
              tokens/s, peak GB and a profiled step's idle share beside the
              train phase's single-device numbers; kernels 1, 4 and 5 at the
@@ -4603,28 +4610,58 @@ def tensor_errors(got: dict, want: dict) -> dict:
 def step_grads(trainer, batch, loss_fn) -> tuple[float, dict]:
     """The loss and the gradient before clipping of every parameter the loss
     reaches (ModernBERT's layer 0 has no attention norm), of one batch
-    through ``trainer``'s model (no update)."""
+    through ``trainer``'s model (no update). On a mesh the gradients are
+    synced as the train step syncs them (`trainer.sync_grads`: every copy
+    holds the sum) and read unsharded on the mesh's first device."""
+    from verbatim_rag_tpu_torch.parallel.mesh import ShardedModel
+    from verbatim_rag_tpu_torch.training.trainer import sync_grads
+
     trainer.optimizer.zero_grad()
     loss, _ = loss_fn(trainer.model, trainer.batch_to_device(batch))
     loss.backward()
-    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
+    sync_grads(trainer.model, trainer.optimizer)
+    if isinstance(trainer.model, ShardedModel):
+        grads = trainer.model.logical_grads(trainer.model.mesh.devices[0][0])
+    else:
+        grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters() if p.grad is not None}
     return float(loss.detach()), grads
 
 
 def held_to_single(
     loss: float, grads: dict, ref_loss: float, ref_grads: dict,
     loss_rtol: float = MESH_LOSS_RTOL, grad_rtol: float = MESH_GRAD_RTOL,
+    norm: float | None = None, ref_norm: float | None = None,
 ) -> dict:
     """Step 1's loss and gradients against a reference step's (by default
     the single-device step's, at the mesh limits), each as its ratio to its
-    limit (`worst` above 1 fails)."""
+    limit (`worst` above 1 fails); with ``norm`` and ``ref_norm`` also the
+    global gradient norm that clipping divides by, at ``grad_rtol``."""
     loss_ratio = abs(loss - ref_loss) / abs(ref_loss) / loss_rtol
     errors = tensor_errors(grads, ref_grads)
     name = max(errors, key=errors.get)
-    return dict(
+    held = dict(
         loss=loss, loss_of_limit=loss_ratio, grad_worst_rel=errors[name], grad_worst_tensor=name,
         grad_of_limit=errors[name] / grad_rtol, worst=max(loss_ratio, errors[name] / grad_rtol),
     )
+    if norm is not None:
+        held.update(grad_norm=norm, ref_grad_norm=ref_norm, norm_of_limit=abs(norm - ref_norm) / ref_norm / grad_rtol)
+        held["worst"] = max(held["worst"], held["norm_of_limit"])
+    return held
+
+
+def mesh_step_grads(trainer, batch, loss_fn) -> dict:
+    """`step_grads` on a mesh trainer with its global norm, as keyword
+    arguments of `held_to_single`."""
+    loss, grads = step_grads(trainer, batch, loss_fn)
+    return dict(loss=loss, grads=grads, norm=float(trainer.optimizer.global_norm()))
+
+
+def resident_gb(sharded, optimizer) -> list[dict]:
+    """Per mesh position: GB of its leaves, their gradients and their AdamW
+    state (`ShardedModel.resident_bytes`)."""
+    rows = sharded.resident_bytes(optimizer.adamw.state)
+    keys = ("params", "grads", "optimizer_state")
+    return [dict(r, **{f"{k}_gb": r[k] / 1e9 for k in keys}, total_gb=sum(r[k] for k in keys) / 1e9) for r in rows]
 
 
 def shards_by_live_labels(batch):
@@ -4748,10 +4785,18 @@ def mean_of_shard_means(model, batch):
     return sum(m.to(means[0].device) for m in means) / len(means), {}
 
 
+def skipping_a_copy(grad_sum):
+    """The planted sync fault: ``grad_sum`` with one copy's gradient left
+    out of the sum."""
+    return lambda grads, device: grad_sum(grads[:-1] or grads, device)
+
+
 def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
     """The train phase's weights and batches on a dp=2 × tp=2 mesh of the
-    card through `Trainer(mesh=...)`, 3 steps, step 1 held to the
-    single-device step (with two planted faults that must fail); then the
+    card through `Trainer(mesh=...)` (each position's slices, replicated
+    copies, gradients and AdamW state resident at the position), 3 steps,
+    step 1 held to the single-device step (with four planted faults that
+    must fail), every copy bit-equal after step 3; then the
     sequence-parallel forward under grad (`run_sp_backward`)."""
     import numpy as np
     import torch
@@ -4773,6 +4818,7 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
 
     single = Trainer(model, config, tc, loss_fn=token_loss)
     ref_loss, ref_grads = step_grads(single, first, token_loss)
+    ref_norm = float(single.optimizer.global_norm())
     single.optimizer.step()
     ref_params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del single
@@ -4782,15 +4828,41 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
 
     mesh = make_mesh(dp=MESH_TRAIN_DP, tp=MESH_TRAIN_TP, devices=[torch.device("cuda")] * 4)
     trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
+    sharded = trainer.model
+    require(
+        all(p.device.type == "cpu" for p in model.parameters())
+        and all(leaf.is_cuda for leaf in sharded.parameters()),
+        "train_mesh: the unsharded module holds device memory or a leaf is off the card",
+    )
+    placed = resident_gb(sharded, trainer.optimizer)
     faults = {}
     mesh_module.wi_columns, kept = contiguous_wi, mesh_module.wi_columns
     try:
-        faults["wi cut contiguously"] = held_to_single(*step_grads(trainer, first, token_loss), ref_loss, ref_grads)
+        sharded.load_state_dict(model.state_dict())  # placed again with the faulty cut
+        faults["wi cut contiguously"] = held_to_single(ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm,
+                                                       **mesh_step_grads(trainer, first, token_loss))
     finally:
         mesh_module.wi_columns = kept
+        sharded.load_state_dict(model.state_dict())
     faults["loss as the mean of the dp shards' means"] = held_to_single(
-        *step_grads(trainer, first, mean_of_shard_means), ref_loss, ref_grads
+        ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm, **mesh_step_grads(trainer, first, mean_of_shard_means)
     )
+    kept = mesh_module.grad_sum
+    mesh_module.grad_sum = skipping_a_copy(kept)
+    try:
+        faults["sync skips a copy"] = held_to_single(
+            ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm, **mesh_step_grads(trainer, first, token_loss)
+        )
+    finally:
+        mesh_module.grad_sum = kept
+    step = mesh_step_grads(trainer, first, token_loss)
+    kept_norm, trainer.optimizer.norm_params = trainer.optimizer.norm_params, trainer.optimizer.params
+    try:
+        step["norm"] = float(trainer.optimizer.global_norm())
+    finally:
+        trainer.optimizer.norm_params = kept_norm
+    faults["norm over every copy"] = held_to_single(ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm, **step)
+    del step
     trainer.optimizer.zero_grad()
     for name, h in faults.items():
         require(h["worst"] > 1.0, f"train_mesh: planted fault '{name}' passes the check: {h}")
@@ -4804,7 +4876,8 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
         reset_counts()
         t0 = time.perf_counter()
         if i == 0:  # step 1 by hand, to read its gradients before clipping
-            loss, grads = step_grads(trainer, batch, token_loss)
+            step1 = mesh_step_grads(trainer, batch, token_loss)
+            loss = step1["loss"]
             trainer.optimizer.step()
         else:
             loss = float(train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)[0])
@@ -4820,8 +4893,9 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
         per_step.append(counts)
         launches = counts if launches is None else {k: launches[k] + counts[k] for k in counts}
         if i == 0:
-            held = held_to_single(loss, grads, ref_loss, ref_grads)
-            param_errors = tensor_errors(model.state_dict(), ref_params)
+            held = held_to_single(ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm, **step1)
+            gathered = {k: v.to("cuda") for k, v in sharded.state_dict().items()}
+            param_errors = tensor_errors(gathered, ref_params)
             worst_param = max(param_errors, key=param_errors.get)
             held.update(
                 param_worst_rel=param_errors[worst_param], param_worst_tensor=worst_param,
@@ -4830,12 +4904,17 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
             held["worst"] = max(held["worst"], held["param_of_limit"])
             require(held["worst"] <= 1.0, f"train_mesh: step 1 differs from the single-device step: {held}")
             log("train_mesh held", json.dumps(held))
-            del grads, ref_grads, ref_params
+            del step1, ref_grads, ref_params, gathered
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    unequal = sharded.unequal_copies()
+    require(not unequal, f"train_mesh: copies differ after step {MESH_TRAIN_STEPS}: {unequal[:8]}")
+    resident = resident_gb(sharded, trainer.optimizer)
+    log("train_mesh resident", json.dumps(resident))
     profile_batch = trainer.batch_to_device(batches[MESH_TRAIN_STEPS])
     profile = device_profile(lambda: train_step(trainer.model, trainer.optimizer, profile_batch, token_loss), top=12)
     log("train_mesh profile", json.dumps(profile))
-    del trainer, profile_batch
+    sharded.gather().to("cuda")  # the trained tree, for the SP backward
+    del trainer, sharded, profile_batch
     torch.cuda.empty_cache()
 
     kernels = mesh_kernel_rows([int(n) for n in first.attention_mask[: TRAIN_BATCH // MESH_TRAIN_DP].sum(1)], torch.Generator(device="cuda").manual_seed(seed))
@@ -4850,6 +4929,8 @@ def run_train_mesh(batches, seed: int, card: str, train: dict) -> dict:
         layers=config.num_layers, live_labels_per_dp_shard=per_shard, step_s=step_s,
         step_s_median_2_to_3=median_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / median_s,
         peak_memory_gb=peak_gb, idle_share=profile["idle_share"],
+        copies_bit_equal_after_step=MESH_TRAIN_STEPS, resident_per_position=resident,
+        resident_at_placement_gb=[r["total_gb"] for r in placed],
         single_device=dict(
             step_s_median_2_to_4=train["step_s_median_2_to_4"], tokens_per_s=train["tokens_per_s"],
             peak_memory_gb=train["peak_memory_gb"], idle_share=train["idle_share"],

@@ -6,19 +6,26 @@ Needs four cards: without them it exits with code 2 and prints no result.
 It prints the cards' name and power limit, then one JSON line a part:
 
 - ``cards``: one process, `Trainer(mesh=make_mesh(dp=2, tp=2))` over the four
-  cards (shard (d, t) on card 2d + t, so activations, tp partial sums and the
-  parameters' replicas cross cards), ModernBERT-base at full width with
-  `chip_smoke.py`'s train batches (batch 8, S=4096); step 1 held to the
-  single-device step on card 0 on the same weights and batch with
-  `chip_smoke.py`'s limits (loss, every gradient before clipping, every
-  updated parameter), steps 2-3 timed, 88 launches of each flash kernel a
-  step, peak memory per card.
+  cards (position (d, t) on card 2d + t holds its slices, its copies of the
+  replicated parameters, their gradients and AdamW state; activations, tp
+  partial sums and the gradient sync cross cards; the unsharded module stays
+  on the host), ModernBERT-base at full width with `chip_smoke.py`'s train
+  batches (batch 8, S=4096); step 1 held to the single-device step on card
+  0 on the same weights and batch with `chip_smoke.py`'s limits (loss, every
+  gradient before clipping and the global norm, every updated parameter),
+  steps 2-3 timed beside the single-device steps 2-3 on card 0, 88 launches
+  of each flash kernel a step, every copy bit-equal after step 3, peak
+  memory and resident bytes (leaves, gradients, AdamW state) per card; no
+  card may hold the whole model's AdamW state, and cards 0 and 2 (the rows'
+  first positions), and cards 1 and 3, must peak within 10% of each other
+  (checked after the JSON lines are printed).
 - ``processes``: four processes, one card each, joined by
   `parallel.distributed.initialize` (NCCL over the loopback interface), each
   a 1 × 1 mesh on its card fed its `process_local_batch_slice` of the same
-  batch: step 1's gradients (summed over the group) and updated parameters
+  batches: step 1's gradients (summed over the group) and updated parameters
   on every rank equal to each other and held, with the same limits, to one
-  process's dp = 4 step on card 0 (a ``[cuda:0] * 4`` mesh).
+  process's dp = 4 step on card 0 (a ``[cuda:0] * 4`` mesh); steps 2-3
+  timed on every rank.
 
 Any check that fails exits nonzero.
 """
@@ -36,6 +43,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 CARDS = 4
+#: Cards 0 and 2 (each data row's first position), and cards 1 and 3, hold
+#: the same leaves and activations: their peaks may differ by this share.
+MAX_PEAK_SPREAD = 0.10
 
 
 def batches_and_config(seed: int):
@@ -62,19 +72,32 @@ def held_update(model, ref_params: dict) -> dict:
     return dict(param_worst_rel=errors[name], param_worst_tensor=name, param_of_limit=errors[name] / cs.MESH_PARAM_RTOL)
 
 
-def single_step(config, tc, batch, seed: int, mesh=None):
+def single_step(config, tc, batches, seed: int, mesh=None):
     """Step 1 from the seeded weights on card 0, alone or on ``mesh``:
-    (loss, gradients before clipping, updated parameters)."""
+    (loss, gradients before clipping, their global norm, updated parameters,
+    the seconds of each later step on ``batches[1:]``); the tensors on the
+    host, so that no card's peak holds them."""
+    import torch
+
     import chip_smoke as cs
     from verbatim_rag_tpu_torch.models import init_highlighter_params
     from verbatim_rag_tpu_torch.training.model import token_loss
-    from verbatim_rag_tpu_torch.training.trainer import Trainer
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
 
     model = init_highlighter_params(config, seed=seed, device="cuda:0")
     trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
-    loss, grads = cs.step_grads(trainer, batch, token_loss)
+    loss, grads = cs.step_grads(trainer, batches[0], token_loss)
+    grads = {k: v.cpu() for k, v in grads.items()}
+    norm = float(trainer.optimizer.global_norm())
     trainer.optimizer.step()
-    return loss, grads, {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = {k: v.detach().to("cpu", copy=True) for k, v in trainer.model.state_dict().items()}
+    step_s = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)
+        torch.cuda.synchronize(0)
+        step_s.append(time.perf_counter() - t0)
+    return loss, grads, norm, params, step_s
 
 
 def synchronize() -> None:
@@ -95,11 +118,23 @@ def run_cards(config, tc, batches, seed: int) -> dict:
     from verbatim_rag_tpu_torch.training.model import token_loss
     from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
 
-    ref_loss, ref_grads, ref_params = single_step(config, tc, batches[0], seed)
+    ref_loss, ref_grads, ref_norm, ref_params, single_s = single_step(
+        config, tc, batches[: cs.MESH_TRAIN_STEPS], seed
+    )
     torch.cuda.empty_cache()
     model = init_highlighter_params(config, seed=seed, device="cuda:0")
     mesh = make_mesh(dp=2, tp=2, devices=[torch.device("cuda", i) for i in range(CARDS)])
     trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
+    sharded = trainer.model
+    placement = {
+        f"{d},{t}": sorted({leaf.device.index for leaf in sharded.leaves[d][t].values()})
+        for d in range(2) for t in range(2)
+    }
+    cs.require(
+        all(placement[f"{d},{t}"] == [2 * d + t] for d in range(2) for t in range(2))
+        and all(p.device.type == "cpu" for p in model.parameters()),
+        f"cards: leaves by position on cards {placement}, or the module holds device memory",
+    )
     for i in range(CARDS):
         torch.cuda.reset_peak_memory_stats(i)
     step_s, held = [], None
@@ -108,7 +143,9 @@ def run_cards(config, tc, batches, seed: int) -> dict:
         cs.reset_counts()
         t0 = time.perf_counter()
         if step == 0:
-            loss, grads = cs.step_grads(trainer, batch, token_loss)
+            step1 = cs.mesh_step_grads(trainer, batch, token_loss)
+            step1["grads"] = {k: v.cpu() for k, v in step1["grads"].items()}
+            loss = step1["loss"]
             trainer.optimizer.step()
         else:
             loss = float(train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)[0])
@@ -121,25 +158,36 @@ def run_cards(config, tc, batches, seed: int) -> dict:
             f"cards: step {step + 1} launches {counts}, expected {layers} of each flash kernel",
         )
         if step == 0:
-            held = cs.held_to_single(loss, grads, ref_loss, ref_grads)
-            held.update(held_update(model, ref_params))
+            held = cs.held_to_single(ref_loss=ref_loss, ref_grads=ref_grads, ref_norm=ref_norm, **step1)
+            held.update(held_update(sharded, ref_params))
             held["worst"] = max(held["worst"], held["param_of_limit"])
             cs.require(held["worst"] <= 1.0, f"cards: step 1 differs from the single-device step: {held}")
-            del grads, ref_grads, ref_params
-    replica_cards = sorted({key[2].index for key in trainer.model.replicas.buffers})
-    cs.require(replica_cards == [1, 2, 3], f"cards: replicas on cards {replica_cards}, expected 1-3")
+            del step1, ref_grads, ref_params
+    unequal = sharded.unequal_copies()
+    cs.require(not unequal, f"cards: copies differ after step {len(step_s)}: {unequal[:8]}")
+    peaks = [torch.cuda.max_memory_allocated(i) / 1e9 for i in range(CARDS)]
+    resident = cs.resident_gb(sharded, trainer.optimizer)
+    whole_adamw = 2 * 4 * sum(p.numel() for p in model.parameters())
+    spread = {"0,2": abs(peaks[0] - peaks[2]) / max(peaks[0], peaks[2]), "1,3": abs(peaks[1] - peaks[3]) / max(peaks[1], peaks[3])}
+    memory_faults = [f"card {i} holds the whole model's AdamW state" for i, r in enumerate(resident)
+                     if r["optimizer_state"] >= whole_adamw]
+    memory_faults += [f"cards {pair} peak {v:.3f} apart" for pair, v in spread.items() if v > MAX_PEAK_SPREAD]
     median_s = float(np.median(step_s[1:]))
     return dict(
         dp=2, tp=2, cards=CARDS, batch=cs.TRAIN_BATCH, seq=cs.TRAIN_SEQ, step_s=step_s,
         step_s_median_2_to_3=median_s, tokens_per_s=cs.TRAIN_BATCH * cs.TRAIN_SEQ / median_s,
-        peak_memory_gb_per_card=[torch.cuda.max_memory_allocated(i) / 1e9 for i in range(CARDS)],
-        held=held, worst_of_limit=held["worst"], replica_cards=replica_cards,
+        single_card_step_s_2_to_3=single_s, single_card_step_s_median=float(np.median(single_s)),
+        peak_memory_gb_per_card=peaks, peak_pair_spread=spread, resident_per_card=resident,
+        memory_faults=memory_faults,
+        whole_model_adamw_gb=whole_adamw / 1e9, copies_bit_equal=True,
+        held=held, worst_of_limit=held["worst"],
     )
 
 
 def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
-    """One process of the group: its card, its rows, one step; writes its
-    gradients (after the group's sum) and updated parameters."""
+    """One process of the group: its card, its rows, step 1, then steps 2-3
+    timed; writes step 1's gradients (after the group's sum) and updated
+    parameters and the later steps' seconds."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -148,7 +196,7 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
     from verbatim_rag_tpu_torch.parallel import distributed
     from verbatim_rag_tpu_torch.training.model import token_loss
     from verbatim_rag_tpu_torch.training.token_dataset import TokenBatch
-    from verbatim_rag_tpu_torch.training.trainer import Trainer
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, sync_grads, train_step
 
     torch.cuda.set_device(rank)
     cs.require(distributed.initialize(f"127.0.0.1:{port}", CARDS, rank), "processes: no process group")
@@ -158,19 +206,30 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
     cs.require(float(probe) == CARDS, "processes: a CPU collective did not run on gloo")
     config, tc, batches = batches_and_config(seed)
     rows = distributed.process_local_batch_slice(batches[0].input_ids.shape[0])
-    local = TokenBatch(**{name: getattr(batches[0], name)[rows] for name in TokenBatch.__dataclass_fields__})
+    local = [
+        TokenBatch(**{name: getattr(b, name)[rows] for name in TokenBatch.__dataclass_fields__})
+        for b in batches[: cs.MESH_TRAIN_STEPS]
+    ]
     model = init_highlighter_params(config, seed=seed, device=f"cuda:{rank}")
     mesh = distributed.global_mesh(dp=1, tp=1, devices=[torch.device("cuda", rank)])
     trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
     trainer.optimizer.zero_grad()
-    loss, _ = token_loss(trainer.model, trainer.batch_to_device(local))
+    loss, _ = token_loss(trainer.model, trainer.batch_to_device(local[0]))
     loss.backward()
-    distributed.all_reduce_grads(trainer.optimizer.params)
-    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+    sync_grads(trainer.model, trainer.optimizer)
+    grads = trainer.model.logical_grads()
     total = distributed.all_reduce_sum({"loss": loss.detach()})["loss"]
     trainer.optimizer.step()
+    params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    step_s = []
+    for batch in local[1:]:
+        torch.cuda.synchronize(rank)
+        t0 = time.perf_counter()
+        train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)
+        torch.cuda.synchronize(rank)
+        step_s.append(time.perf_counter() - t0)
     torch.save(
-        dict(loss=float(total), grads=grads, params={k: v.detach().cpu() for k, v in model.state_dict().items()}),
+        dict(loss=float(total), grads=grads, params=params, step_s=step_s),
         os.path.join(out_dir, f"rank{rank}.pt"),
     )
     torch.distributed.destroy_process_group()
@@ -183,6 +242,7 @@ def free_port() -> int:
 
 
 def run_processes(config, tc, batches, seed: int) -> dict:
+    import numpy as np
     import torch
     import torch.multiprocessing as mp
 
@@ -196,9 +256,7 @@ def run_processes(config, tc, batches, seed: int) -> dict:
         group_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(CARDS)]
     mesh = make_mesh(dp=CARDS, tp=1, devices=[torch.device("cuda", 0)] * CARDS)
-    ref_loss, ref_grads, ref_params = single_step(config, tc, batches[0], seed, mesh)
-    ref_grads = {k: v.cpu() for k, v in ref_grads.items()}
-    ref_params = {k: v.cpu() for k, v in ref_params.items()}
+    ref_loss, ref_grads, _, ref_params, _ = single_step(config, tc, batches[:1], seed, mesh)
     for r in ranks[1:]:
         cs.require(
             all(torch.equal(r["params"][k], ranks[0]["params"][k]) for k in ranks[0]["params"]),
@@ -210,8 +268,10 @@ def run_processes(config, tc, batches, seed: int) -> dict:
     held.update(param_worst_rel=errors[name], param_worst_tensor=name, param_of_limit=errors[name] / cs.MESH_PARAM_RTOL)
     held["worst"] = max(held["worst"], held["param_of_limit"])
     cs.require(held["worst"] <= 1.0, f"processes: the group's step differs from one dp=4 process: {held}")
+    step_s = [r["step_s"] for r in ranks]
     return dict(processes=CARDS, backend="nccl", group_s_with_start=group_s, ranks_equal=True, held=held,
-                worst_of_limit=held["worst"])
+                worst_of_limit=held["worst"], step_s_2_to_3_by_rank=step_s,
+                step_s_median=float(np.median([max(s) for s in zip(*step_s)])))
 
 
 def main() -> None:
@@ -238,6 +298,7 @@ def main() -> None:
     print(card)
     print(json.dumps({"cards": cards}))
     print(json.dumps({"processes": processes}))
+    cs.require(not cards["memory_faults"], f"cards: {cards['memory_faults']}")
 
 
 if __name__ == "__main__":

@@ -474,19 +474,19 @@ def test_ring_gradients_on_cuda_match_cpu(cuda):
 
 
 def test_tp_mesh_across_cuda_and_cpu_trains_like_one_device(cuda):
-    """A tp = 2 mesh of two distinct devices (the card and the CPU): shard 1
-    reads kept replicas on the CPU, its gradients reach the parameters on the
-    card, and after each fused AdamW update (which moves no version counter)
-    the replicas are refreshed. Two steps (float32, plain attention): each
-    step's gradients, before clipping, equal the single-device step's per
-    tensor within 1e-4 of the tensor's norm (floored at 1e-4 of the largest:
-    a key bias's true gradient is 0); stale replicas in step 2 would miss by
-    far more (the first update moves every weight by ≈ lr = 1e-3)."""
+    """A tp = 2 mesh of two distinct devices (the card and the CPU): position
+    (0, 0)'s leaves live on the card, position (0, 1)'s on the CPU, and the
+    unsharded module on the host. Two steps (float32, plain attention): each
+    step's synced gradients, before clipping and gathered, equal the
+    single-device step's per tensor within 1e-4 of the tensor's norm (floored
+    at 1e-4 of the largest: a key bias's true gradient is 0); a copy left
+    stale by the first update would miss by far more (it moves every weight
+    by ≈ lr = 1e-3)."""
     from verbatim_rag_tpu_torch.models.config import TrainingConfig, tiny_test_config
     from verbatim_rag_tpu_torch.models.highlighter import HighlighterModel
     from verbatim_rag_tpu_torch.parallel import make_mesh
     from verbatim_rag_tpu_torch.training.model import token_loss
-    from verbatim_rag_tpu_torch.training.trainer import Trainer, batch_to_device
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, batch_to_device, sync_grads
     from verbatim_rag_tpu_torch.training.token_dataset import TokenBatch
 
     config = tiny_test_config()
@@ -503,20 +503,25 @@ def test_tp_mesh_across_cuda_and_cpu_trains_like_one_device(cuda):
     models = [HighlighterModel(config, torch.Generator().manual_seed(0)).to(cuda) for _ in range(2)]
     meshed = Trainer(models[0], config, tc, mesh=make_mesh(dp=1, tp=2, devices=["cuda", "cpu"]), loss_fn=token_loss)
     single = Trainer(models[1], config, tc, loss_fn=token_loss)
+    assert {leaf.device.type for leaf in meshed.model.leaves[0][0].values()} == {"cuda"}
+    assert {leaf.device.type for leaf in meshed.model.leaves[0][1].values()} == {"cpu"}
+    assert {p.device.type for p in models[0].parameters()} == {"cpu"}
     for step, batch in enumerate(batches):
         grads = []
         for trainer, placed in ((meshed, meshed.batch_to_device(batch)), (single, batch_to_device(batch, cuda))):
             trainer.optimizer.zero_grad()
             token_loss(trainer.model, placed)[0].backward()
-            grads.append({n: p.grad.clone() for n, p in trainer.model.named_parameters() if p.grad is not None})
+            sync_grads(trainer.model, trainer.optimizer)
+            if trainer is meshed:
+                grads.append(trainer.model.logical_grads(cuda))
+            else:
+                grads.append({n: p.grad.clone() for n, p in trainer.model.named_parameters() if p.grad is not None})
             trainer.optimizer.step()
         assert set(grads[0]) == set(grads[1])
         floor = 1e-4 * max(float(g.norm()) for g in grads[1].values())
         for name, want in grads[1].items():
             err = float((grads[0][name] - want).norm()) / max(float(want.norm()), floor)
             assert err <= 1e-4, (step, name, err)
-    assert {key[2].type for key in meshed.model.replicas.buffers} == {"cpu"}
-
 
 
 def test_ring_attention_on_cuda_matches_cpu(cuda):

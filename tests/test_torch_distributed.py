@@ -5,8 +5,9 @@ machine included. JAX's rules (`verbatim_rag_tpu/parallel/distributed.py`)
 are restated here: a single process initializes nothing, and a global batch
 that does not divide over the processes raises. The group's step: n
 processes, each on its `process_local_batch_slice` of an 8-row batch over a
-``["cpu"] * 2`` mesh, end with equal parameters, within 1e-6 of one process's
-dp = 2·n step on the whole batch (their sums run in another order). The
+``["cpu"] * 2`` mesh, end with equal parameters (the gathered tree of each
+mesh), within 1e-6 of one process's dp = 2·n step on the whole batch (their
+sums run in another order), and every parameter moved by the step. The
 `cuda`-marked case runs the same gloo step where a card is visible, so the
 group holds NCCL as well and must still send CPU tensors to gloo.
 """
@@ -110,7 +111,7 @@ WORKER = textwrap.dedent(
     loss, _ = port_trainer.train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(local), token_loss)
     np.savez(out_path, loss=float(loss), grad_norm=trainer.optimizer.grad_norm,
              backend=str(torch.distributed.get_backend()), card_visible=torch.cuda.is_available(),
-             **{k: v.detach().numpy() for k, v in model.state_dict().items()})
+             **{k: v.detach().numpy() for k, v in trainer.model.state_dict().items()})
     torch.distributed.destroy_process_group()
     """
 )
@@ -149,6 +150,7 @@ def _step_in_processes(tmp_path, n_proc: int) -> list:
 
     config = tiny_test_config(**BERT)
     model = HighlighterModel(config, torch.Generator().manual_seed(7))
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
     trainer = port_trainer.Trainer(model, config, TrainingConfig(learning_rate=1e-3, max_grad_norm=0.05),
                                    mesh=make_mesh(dp=2 * n_proc, tp=1, devices=["cpu"] * (2 * n_proc)),
                                    loss_fn=port_model.token_loss,
@@ -156,10 +158,11 @@ def _step_in_processes(tmp_path, n_proc: int) -> list:
     loss, _ = port_trainer.train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch),
                                       port_model.token_loss)
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(n_proc)]
-    for name, value in model.state_dict().items():
+    for name, value in trainer.model.state_dict().items():
         for other in ranks[1:]:
             np.testing.assert_array_equal(ranks[0][name], other[name], err_msg=name)
         np.testing.assert_allclose(ranks[0][name], value.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+        assert not np.array_equal(value.numpy(), initial[name].numpy()), name
     for r in ranks:
         np.testing.assert_allclose(float(r["loss"]), float(loss), rtol=1e-6)
         np.testing.assert_allclose(float(r["grad_norm"]), trainer.optimizer.grad_norm, rtol=1e-5)

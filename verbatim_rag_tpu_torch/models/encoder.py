@@ -25,7 +25,8 @@ Numerics follow the JAX forward:
 The forward is written once over parameter mappings (name → tensor, the
 ``state_dict`` names). :func:`encoder_forward_tp` runs it for one data row
 of a mesh whose ``tp`` shards each hold their slices of the attention and
-MLP weights (`parallel.mesh.shard_params`): each shard runs its heads and its
+MLP weights as resident leaves on their own devices (`parallel.mesh.shard_params`),
+so only activations cross devices: each shard runs its heads and its
 part of the MLP, and the partial o- and wo-projections are summed over the
 shards in order, their biases added once after the sum. ``Encoder.forward``
 is the same function with one shard holding everything.
@@ -375,13 +376,13 @@ class _Replicate(torch.autograd.Function):
 
 
 class ReplicaBuffers:
-    """Kept copies of parameters (or their tp slices) on devices other than
-    their own, by key, each made at its first use.
+    """Kept copies of parameters on devices other than their own, by key,
+    each made at its first use (`shard_replicas`).
 
     :meth:`refresh` starts a new forward: each buffer is copied from its
     source again at its first use after it, and once only, so that the
-    forward's users of one buffer (the dp rows of a mesh on one device)
-    share one copy. Parameters change in place under an optimizer (and
+    forward's users of one buffer (the sequence shards on one device) share
+    one copy. Parameters change in place under an optimizer (and
     torch's fused AdamW moves no version counter), so a copy is never
     trusted across forwards."""
 

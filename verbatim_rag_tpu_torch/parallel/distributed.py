@@ -8,7 +8,8 @@ process group: each process drives the mesh over its own devices
 (:func:`global_mesh`) on its slice of every global batch
 (:func:`process_local_batch_slice`), and the trainer sums the data-parallel
 gradients, loss denominators and metric counts over the group as well
-(:func:`all_reduce_sum`, :func:`all_reduce_grads`). That is the port's form
+(:func:`all_reduce_sum`, :func:`all_reduce_grads`, fed each logical
+tensor's owner copy on the process's mesh). That is the port's form
 of JAX's ``dp`` axis across processes.
 
 Every process runs the same program::
@@ -147,7 +148,10 @@ def all_reduce_sum(values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 
 
 def all_reduce_grads(params) -> None:
-    """Each parameter's gradient summed over the process group, in place."""
+    """Each parameter's gradient summed over the process group, in place.
+    On a mesh the trainer passes each logical tensor's owner copy
+    (`parallel.mesh.ShardedModel.sync_grads`), before the sum is copied to
+    the other copies."""
     if process_count() == 1:
         return
     for p in params:

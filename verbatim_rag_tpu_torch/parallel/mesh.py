@@ -20,16 +20,16 @@ device (`models.encoder.encoder_forward_tp`), so the cut must give each shard
 a self-contained part: heads for attention, and for a GEGLU MLP the same
 block of the gate half and of the value half of wi (JAX splits the global
 gate from the global value), with the matching row block of wo.
-:func:`shard_params` returns a :class:`ShardedModel` whose logical
-parameters stay the model's own: each shard reads its slices of them
-(views on the parameters' own device, kept copies on another:
-`models.encoder.ReplicaBuffers`), and gradients flow back into the model's parameters,
-summed over ``dp``.
+:func:`shard_params` places the model as JAX does: each mesh position holds
+its slices and its copies of the replicated parameters as resident leaves
+on its own device (:class:`ShardedModel`), the train step sums each logical
+tensor's gradient over its copies and updates every copy alike, and the
+unsharded tree is gathered only when it is asked for.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Mapping
+from typing import Iterator
 
 import torch
 
@@ -248,53 +248,45 @@ def wi_columns(config, tp: int, t: int) -> list[slice]:
     return [slice(h * inter + t * block, h * inter + (t + 1) * block) for h in range(halves)]
 
 
-def tp_slice(name: str, value: torch.Tensor, spec: tuple, config, tp: int, t: int) -> torch.Tensor:
-    """Shard t's part of a parameter with a ``"tp"`` spec: a contiguous block
-    of the sharded dim, or wi's :func:`wi_columns` (a view of the parameter,
-    or for GEGLU the concatenation of two)."""
-    dim = spec.index("tp")
+def tp_columns(name: str, value: torch.Tensor, spec: tuple, config, tp: int, t: int) -> list[slice]:
+    """Shard t's blocks of a ``"tp"``-spec parameter's sharded dim, in the
+    order its slice holds them: one contiguous block, or wi's
+    :func:`wi_columns`."""
     if ".mlp.wi." in f".{name}":
-        parts = [value.narrow(dim, s.start, s.stop - s.start) for s in wi_columns(config, tp, t)]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
-    block = value.shape[dim] // tp
-    return value.narrow(dim, t * block, block)
+        return wi_columns(config, tp, t)
+    block = value.shape[spec.index("tp")] // tp
+    return [slice(t * block, (t + 1) * block)]
 
 
-class ShardParams(Mapping):
-    """Shard ``(d, t)``'s parameters (name → tensor on ``mesh.devices[d][t]``):
-    its slice of each tp-sharded parameter, each replicated one whole."""
+def tp_slice(name: str, value: torch.Tensor, spec: tuple, config, tp: int, t: int) -> torch.Tensor:
+    """Shard t's part of a parameter with a ``"tp"`` spec (:func:`tp_columns`
+    of the sharded dim): a view of the parameter, or for GEGLU's wi the
+    concatenation of two."""
+    dim = spec.index("tp")
+    parts = [value.narrow(dim, s.start, s.stop - s.start) for s in tp_columns(name, value, spec, config, tp, t)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
-    def __init__(self, sharded: "ShardedModel", d: int, t: int):
-        self.sharded, self.t = sharded, t
-        self.device = sharded.mesh.devices[d][t]
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        sm = self.sharded
-        value, spec = sm.params[name], sm.specs[name]
-        part = None
-        if "tp" in spec and sm.tp > 1:
-            part = self.t
-            value = tp_slice(name, value, spec, sm.config, sm.tp, self.t)
-        return sm.replicas.get(value, self.device, (name, part, self.device))
-
-    def __iter__(self) -> Iterator[str]:
-        return iter(self.sharded.params)
-
-    def __len__(self) -> int:
-        return len(self.sharded.params)
+def grad_sum(grads: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The copies' gradients summed in list order on ``device``."""
+    total = grads[0].to(device)
+    for g in grads[1:]:
+        total = total + g.to(device)
+    return total
 
 
 class DPShard:
     """One data row of a :class:`ShardedModel`, called like the model:
     ``shard(input_ids, attention_mask)`` → hidden states on the row's first
-    device (`models.encoder.encoder_forward_tp` over its tp shards). A dense
-    head of the model (``classifier``, ``sentence_classifier``) is an
-    attribute ``(x, dtype) → logits``, as on the model."""
+    device (`models.encoder.encoder_forward_tp` over its tp positions'
+    leaves). A dense head of the model (``classifier``,
+    ``sentence_classifier``) is an attribute ``(x, dtype) → logits``, as on
+    the model, on the row's ``(d, 0)`` copy."""
 
     def __init__(self, sharded: "ShardedModel", d: int):
         self.config = sharded.config
         self.devices = list(sharded.mesh.devices[d])
-        self.params = [ShardParams(sharded, d, t) for t in range(sharded.tp)]
+        self.params = sharded.leaves[d]
 
     def __call__(self, input_ids, attention_mask) -> torch.Tensor:
         from verbatim_rag_tpu_torch.models.encoder import encoder_forward_tp
@@ -311,45 +303,176 @@ class DPShard:
 
 
 class ShardedModel:
-    """A model placed on a ``[dp, tp]`` mesh (:func:`shard_params`).
+    """A model placed on a ``[dp, tp]`` mesh as JAX places it (:func:`shard_params`).
 
-    The model's own parameters, on ``mesh.devices[0][0]``, are the logical
-    ones: ``parameters()``, ``state_dict()`` and a checkpoint are the
-    unsharded model's, and an optimizer over them updates each once. Shard
-    ``(d, t)`` reads its slices through a :class:`ShardParams`; the forward
-    of data row d is :meth:`dp_shards`' d-th entry.
+    Mesh position ``(d, t)`` owns resident leaves on ``mesh.devices[d][t]``
+    (:attr:`leaves`): its :func:`tp_slice` of every ``"tp"``-spec parameter
+    and its own copy of every replicated one, each a tensor with
+    ``requires_grad``. Leaves are keyed by position, not by device, so a
+    mesh that repeats a device holds real copies there too. The forward of
+    data row d is :meth:`dp_shards`' d-th entry, on row d's leaves.
+
+    One logical tensor (a tp slice, or a replicated parameter) has a copy at
+    each position of its group (:attr:`groups`): a slice at ``(d, t)`` for
+    every d, a replicated parameter at every position. :meth:`sync_grads`
+    sums each group's gradients and writes the sum to every copy, so that an
+    optimizer over :meth:`parameters` updates every copy alike; the global
+    norm is over :meth:`logical_parameters`, each logical tensor once.
+
+    The unsharded module (:attr:`module`) lives on the host and is written
+    only when asked: :meth:`gather` (also under :meth:`state_dict` and
+    :meth:`named_parameters`); :meth:`load_state_dict` places again.
     """
 
     def __init__(self, model: torch.nn.Module, mesh: Mesh):
-        from verbatim_rag_tpu_torch.models.encoder import ReplicaBuffers
-
         self.module = model
         self.mesh = mesh
         self.config = model.config
-        self.tp = mesh.shape["tp"]
-        self.params = dict(model.named_parameters())
-        self.specs = encoder_param_specs(self.params)
-        #: kept copies on devices other than the parameters' own, by
-        #: (name, tp index or None, device)
-        self.replicas = ReplicaBuffers()
+        self.dp, self.tp = mesh.shape["dp"], mesh.shape["tp"]
+        self.specs = encoder_param_specs(model)
+        positions = [(d, t) for d in range(self.dp) for t in range(self.tp)]
+        #: (name, positions holding its copies, the owner first, dp-major)
+        self.groups: list[tuple[str, list[tuple[int, int]]]] = []
+        for name in self.specs:
+            if self._sliced(name):
+                self.groups += [(name, [(d, t) for d in range(self.dp)]) for t in range(self.tp)]
+            else:
+                self.groups.append((name, positions))
+        #: position (d, t)'s leaves, name → tensor on ``mesh.devices[d][t]``
+        self.leaves: list[list[dict[str, torch.Tensor]]] = [
+            [{} for _ in range(self.tp)] for _ in range(self.dp)
+        ]
+        self._place()
+        model.to("cpu")
 
-    def parameters(self):
-        return self.module.parameters()
+    def _sliced(self, name: str) -> bool:
+        return "tp" in self.specs[name] and self.tp > 1
+
+    def _place(self) -> None:
+        """Each position's leaves from the module's parameters: made at the
+        first placement, written in place after it (an optimizer holds them)."""
+        with torch.no_grad():
+            for name, value in self.module.named_parameters():
+                for d, row in enumerate(self.leaves):
+                    for t, leaves in enumerate(row):
+                        src = value
+                        if self._sliced(name):
+                            src = tp_slice(name, value, self.specs[name], self.config, self.tp, t)
+                        if name in leaves:
+                            leaves[name].copy_(src)
+                            continue
+                        leaf = torch.empty(src.shape, dtype=src.dtype, device=self.mesh.devices[d][t])
+                        leaves[name] = leaf.copy_(src).requires_grad_(value.requires_grad)
+
+    def _assemble(self, into: dict[str, torch.Tensor], of=lambda leaf: leaf) -> None:
+        """Write the unsharded tensors into ``into`` (name → tensor of the
+        parameter's full shape): ``of`` of each tp slice at d = 0 put back at
+        its :func:`tp_columns`, and of each replicated parameter's (0, 0)
+        copy."""
+        with torch.no_grad():
+            for name, dst in into.items():
+                if not self._sliced(name):
+                    dst.copy_(of(self.leaves[0][0][name]))
+                    continue
+                dim = self.specs[name].index("tp")
+                for t in range(self.tp):
+                    src, offset = of(self.leaves[0][t][name]), 0
+                    for s in tp_columns(name, dst, self.specs[name], self.config, self.tp, t):
+                        width = s.stop - s.start
+                        dst.narrow(dim, s.start, width).copy_(src.narrow(dim, offset, width))
+                        offset += width
+
+    def gather(self) -> torch.nn.Module:
+        """The shards written back into the unsharded module (on the host),
+        which is returned."""
+        self._assemble(dict(self.module.named_parameters()))
+        return self.module
+
+    def logical_grads(self, device="cpu") -> dict[str, torch.Tensor]:
+        """The unsharded gradient of every parameter whose owner copy holds
+        one (after :meth:`sync_grads`, the summed gradient), on ``device``."""
+        owners = {name: self.leaves[0][0][name] for name in self.specs}
+        shapes = {name: p.shape for name, p in self.module.named_parameters()}
+        into = {
+            name: torch.empty(shapes[name], dtype=leaf.dtype, device=device)
+            for name, leaf in owners.items()
+            if leaf.grad is not None
+        }
+        self._assemble(into, lambda leaf: leaf.grad)
+        return into
+
+    def parameters(self) -> Iterator[torch.Tensor]:
+        """Every position's leaves: what an optimizer updates."""
+        return (leaf for row in self.leaves for leaves in row for leaf in leaves.values())
+
+    def logical_parameters(self) -> list[torch.Tensor]:
+        """Each logical tensor once, its owner copy (each tp slice at d = 0,
+        each replicated parameter at (0, 0)): what the global norm counts."""
+        return [self.leaves[d][t][name] for name, ((d, t), *_) in self.groups]
 
     def named_parameters(self):
-        return self.module.named_parameters()
+        return self.gather().named_parameters()
 
     def state_dict(self):
-        return self.module.state_dict()
+        return self.gather().state_dict()
 
     def load_state_dict(self, state):
-        return self.module.load_state_dict(state)
+        result = self.module.load_state_dict(state)
+        self._place()
+        return result
+
+    def sync_grads(self, reduce=None) -> None:
+        """After a backward: each group's gradients (of the copies that
+        received one) summed in position order (:func:`grad_sum`) on the
+        owner's device; ``reduce`` (e.g. `distributed.all_reduce_grads`) then
+        takes the owners; the owner's gradient is copied to every other copy,
+        so every copy holds the same bits."""
+        owners = []
+        for name, positions in self.groups:
+            copies = [self.leaves[d][t][name] for d, t in positions]
+            grads = [leaf.grad for leaf in copies if leaf.grad is not None]
+            if grads:
+                copies[0].grad = grad_sum(grads, copies[0].device)
+                owners.append(copies)
+        if reduce is not None:
+            reduce([copies[0] for copies in owners])
+        for copies in owners:
+            for leaf in copies[1:]:
+                leaf.grad = copies[0].grad.to(leaf.device, copy=True)
+
+    def unequal_copies(self) -> list[str]:
+        """``name@(d, t)`` of every copy whose bits differ from its owner's."""
+        out = []
+        for name, positions in self.groups:
+            (d0, t0), *_ = positions
+            owner = self.leaves[d0][t0][name].detach()
+            for d, t in positions[1:]:
+                if not torch.equal(self.leaves[d][t][name].detach().to(owner.device), owner):
+                    out.append(f"{name}@({d}, {t})")
+        return out
+
+    def resident_bytes(self, optimizer_state=None) -> list[dict]:
+        """Per position: the bytes of its leaves, their gradients and their
+        optimizer state (``optimizer_state``: a ``torch.optim`` state,
+        leaf → dict of tensors)."""
+        state = optimizer_state or {}
+
+        def nbytes(tensors) -> int:
+            return sum(x.numel() * x.element_size() for x in tensors if x is not None)
+
+        rows = []
+        for d, row in enumerate(self.leaves):
+            for t, leaves in enumerate(row):
+                kept = [v for leaf in leaves.values() for v in state.get(leaf, {}).values() if torch.is_tensor(v)]
+                rows.append(dict(
+                    d=d, t=t, device=str(self.mesh.devices[d][t]), params=nbytes(leaves.values()),
+                    grads=nbytes(leaf.grad for leaf in leaves.values()), optimizer_state=nbytes(kept),
+                ))
+        return rows
 
     def dp_shards(self) -> list[DPShard]:
-        """The data rows' forwards, for one forward of the whole batch (the
-        kept copies are refreshed from the parameters)."""
-        self.replicas.refresh()
-        return [DPShard(self, d) for d in range(self.mesh.shape["dp"])]
+        """The data rows' forwards, for one forward of the whole batch."""
+        return [DPShard(self, d) for d in range(self.dp)]
 
     def __call__(self, input_ids, attention_mask) -> torch.Tensor:
         """The whole batch: rows split over dp (:func:`data_sharding`), each
@@ -362,8 +485,9 @@ class ShardedModel:
 
 def shard_params(model: torch.nn.Module, mesh: Mesh) -> ShardedModel:
     """Place an encoder-family model on the mesh per
-    :func:`encoder_param_specs` (JAX's ``shard_params``). The model moves to
-    ``mesh.devices[0][0]`` and stays the holder of the parameters.
+    :func:`encoder_param_specs` (JAX's ``shard_params``): each position's
+    slices and replicated copies become its resident leaves
+    (:class:`ShardedModel`), and the model itself moves to the host.
 
     Raises ``ValueError`` when the heads, the hidden width or the
     intermediate width does not divide over ``tp``, as JAX's placement
@@ -373,5 +497,4 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> ShardedModel:
     for what in ("num_heads", "hidden_size", "intermediate_size"):
         if getattr(config, what) % tp:
             raise ValueError(f"{what} ({getattr(config, what)}) does not divide evenly over tp={tp}")
-    model.to(mesh.devices[0][0])
     return ShardedModel(model, mesh)

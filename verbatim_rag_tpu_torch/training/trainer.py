@@ -15,14 +15,18 @@ torch parameters (:class:`Optimizer`):
   warmup the first update has rate 0.
 
 On a ``[dp, tp]`` mesh (``Trainer(mesh=...)``, JAX's sharded train step)
-the model is placed by `parallel.mesh.shard_params` and each batch split by
-rows over ``dp`` (:func:`batch_to_mesh`); the loss is the global masked
-mean over the rows (`model.masked_loss`), so one backward gives each
-parameter its gradient summed over ``dp``, with each tp slice's gradient in
-its own block of the parameter. Clipping and AdamW then run over the
-unsharded parameters, each once. Under a process group of more than one
-process (`parallel.distributed`) the gradients are summed over the group too
-before clipping, and only rank 0 writes checkpoints.
+the model is placed by `parallel.mesh.shard_params` (each mesh position's
+slices and replicated copies resident on its own device, the unsharded
+module on the host) and each batch split by rows over ``dp``
+(:func:`batch_to_mesh`); the loss is the global masked mean over the rows
+(`model.masked_loss`). After the backward, :func:`sync_grads` sums each
+logical tensor's gradient over its copies (over ``dp`` for a tp slice, over
+every position for a replicated parameter) and, under a process group of
+more than one process (`parallel.distributed`), over the group, and writes
+the sum to every copy. Clipping takes the global norm of the logical set
+(each tensor once) and AdamW updates every copy alike, so the copies stay
+bit-equal. The unsharded tree is gathered for a checkpoint and at the end of
+:meth:`Trainer.train`; only rank 0 writes checkpoints.
 
 Checkpoints are the JAX package's layout (`models/hf_convert.py`), so either
 package loads the other's; orbax checkpoints are not ported.
@@ -44,7 +48,7 @@ import torch
 from verbatim_rag_tpu_torch.models.config import EncoderConfig, TrainingConfig
 from verbatim_rag_tpu_torch.models.hf_convert import load_params_npz, save_params_npz
 from verbatim_rag_tpu_torch.parallel import distributed
-from verbatim_rag_tpu_torch.parallel.mesh import data_sharding, shard_params
+from verbatim_rag_tpu_torch.parallel.mesh import ShardedModel, data_sharding, shard_params
 
 from .dataset import EncodedBatch
 from .model import sentence_loss
@@ -70,11 +74,29 @@ def warmup_cosine_schedule(tc: TrainingConfig, total_steps: int = 10_000):
     return rate
 
 
-class Optimizer:
-    """Global-norm clipping, then one AdamW update at the schedule's rate."""
+def by_device(tensors: Iterable[torch.Tensor]) -> dict[torch.device, list[torch.Tensor]]:
+    """Tensors grouped by device, each group in the given order (a
+    ``torch._foreach_*`` call takes the tensors of one device)."""
+    groups: dict[torch.device, list[torch.Tensor]] = {}
+    for x in tensors:
+        groups.setdefault(x.device, []).append(x)
+    return groups
 
-    def __init__(self, params: Iterable[torch.nn.Parameter], tc: TrainingConfig, total_steps: int):
+
+class Optimizer:
+    """Global-norm clipping, then one AdamW update at the schedule's rate.
+
+    ``norm_params`` (default: every parameter) are the tensors the global
+    norm counts: on a mesh each logical tensor once, while clipping and
+    AdamW take every copy (`parallel.mesh.ShardedModel.logical_parameters`).
+    """
+
+    def __init__(
+        self, params: Iterable[torch.nn.Parameter], tc: TrainingConfig, total_steps: int,
+        norm_params: Iterable[torch.Tensor] | None = None,
+    ):
         self.params = [p for p in params if p.requires_grad]
+        self.norm_params = self.params if norm_params is None else [p for p in norm_params if p.requires_grad]
         self.max_grad_norm = tc.max_grad_norm
         self.schedule = warmup_cosine_schedule(tc, total_steps)
         self.adamw = torch.optim.AdamW(
@@ -97,6 +119,15 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def global_norm(self) -> torch.Tensor:
+        """The global norm of the ``norm_params``' gradients (a missing one
+        counts as 0), on the first one's device: the per-tensor norms of
+        each device, then the norm of them all."""
+        grads = [p.grad for p in self.norm_params if p.grad is not None]
+        home = grads[0].device
+        norms = [n.to(home) for group in by_device(grads).values() for n in torch._foreach_norm(group)]
+        return torch.linalg.vector_norm(torch.stack(norms))
+
     def step(self) -> float:
         """Clip, update, count; returns the global gradient norm."""
         self.stepping = True
@@ -105,11 +136,12 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm()
         self.grad_norm = float(norm)
         if not self.grad_norm < self.max_grad_norm:  # as optax: NaN clips too
-            torch._foreach_div_(grads, norm)
-            torch._foreach_mul_(grads, self.max_grad_norm)
+            for device, group in by_device(grads).items():
+                torch._foreach_div_(group, norm.to(device))
+                torch._foreach_mul_(group, self.max_grad_norm)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
@@ -119,22 +151,34 @@ class Optimizer:
 
 
 def make_optimizer(
-    tc: TrainingConfig, params: Iterable[torch.nn.Parameter], total_steps: int = 10_000
+    tc: TrainingConfig, params: Iterable[torch.nn.Parameter], total_steps: int = 10_000,
+    norm_params: Iterable[torch.Tensor] | None = None,
 ) -> Optimizer:
-    return Optimizer(params, tc, total_steps)
+    return Optimizer(params, tc, total_steps, norm_params)
+
+
+def sync_grads(model, optimizer: Optimizer) -> None:
+    """One backward's gradients made whole before clipping: on a mesh each
+    logical tensor's copies summed and the sum written to every copy
+    (`parallel.mesh.ShardedModel.sync_grads`), and under a process group
+    summed over the group."""
+    if isinstance(model, ShardedModel):
+        model.sync_grads(distributed.all_reduce_grads)
+    else:
+        distributed.all_reduce_grads(optimizer.params)
 
 
 def train_step(model, optimizer: Optimizer, batch, loss_fn=sentence_loss):
-    """One optimization step in place: loss → grads (summed over the
-    process group, if any) → clipped AdamW update. ``batch`` is a dict of
-    tensors, or for a `parallel.mesh.ShardedModel` its rows' dicts.
+    """One optimization step in place: loss → grads (:func:`sync_grads`) →
+    clipped AdamW update. ``batch`` is a dict of tensors, or for a
+    `parallel.mesh.ShardedModel` its rows' dicts.
 
     :return: (loss, aux) as tensors; the loss summed over the process group.
     """
     optimizer.zero_grad()
     loss, aux = loss_fn(model, batch)
     loss.backward()
-    distributed.all_reduce_grads(optimizer.params)
+    sync_grads(model, optimizer)
     optimizer.step()
     return _group_loss(loss), {k: v.detach() for k, v in aux.items()}
 
@@ -186,8 +230,9 @@ class Trainer:
 
     ``model`` (a `QAModel` or `HighlighterModel`) is trained in place on its
     own device, or with ``mesh`` on a ``[dp, tp]`` mesh (:attr:`model` is
-    then its `parallel.mesh.ShardedModel`; the model's own parameters are the
-    ones updated and saved). Each optimization step is logged in
+    then its `parallel.mesh.ShardedModel`: the mesh positions' leaves are
+    updated, and ``model`` itself, on the host, receives the gathered tree
+    for each checkpoint and at the end of :meth:`train`). Each optimization step is logged in
     :attr:`steps` (loss, global gradient norm, host seconds); a batch that
     runs out of device memory before the update is skipped with its
     gradients dropped and counted in :attr:`oom_skips`.
@@ -214,7 +259,10 @@ class Trainer:
         #: same tokenizer (None → hash tokenizer at the config vocab)
         self.tokenizer = tokenizer
         # Size the (warmup+cosine) schedule to the actual run.
-        self.optimizer = make_optimizer(self.tc, self.model.parameters(), total_steps or 10_000)
+        self.optimizer = make_optimizer(
+            self.tc, self.model.parameters(), total_steps or 10_000,
+            None if mesh is None else self.model.logical_parameters(),
+        )
         self.best_f1 = -1.0
         self.history: list[dict] = []
         self.steps: list[dict] = []
@@ -283,6 +331,8 @@ class Trainer:
             self.history.append(record)
             logger.info("epoch %d: %s", epoch, record)
 
+        if self.mesh is not None:
+            self.model.gather()
         self.save_checkpoint(os.path.join(self.output_dir, "final"))
         if distributed.process_index() == 0:
             with open(os.path.join(self.output_dir, "metrics.json"), "w") as f:
@@ -306,7 +356,8 @@ class Trainer:
     def save_checkpoint(self, path: str, format: str = "npz") -> None:
         """Persist the parameters as ``params.npz`` (the JAX package's tree
         layout) beside ``verbatim_config.json``: the whole unsharded tree,
-        also after training on a mesh; under a process group, rank 0 writes."""
+        also after training on a mesh (gathered from the positions' leaves);
+        under a process group, rank 0 writes."""
         if format != "npz":
             raise NotImplementedError(f"checkpoint format {format!r} is not ported (npz only)")
         if distributed.process_index() != 0:
