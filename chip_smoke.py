@@ -18,6 +18,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              (`FMA_KERNELS`, its three modes) must hold UTMALDG and no
              tensor-core instruction (HGMMA, IGMMA, HMMA, IMMA: never TF32)
              and spill nothing, and the rescore kernel must spill nothing;
+             then the port's C++ host runtime (`csrc/host/`, g++ with the JAX
+             package's `native/Makefile` flags; `engine/native.py`): the
+             compiler's version and the build seconds;
 2. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes, with timings, bounds and the library
              yardstick:
@@ -233,7 +236,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              `VerbatimIndex.load` + `VerbatimRAG.query` (whose launches,
              the extractor's flash forward among them, are counted);
 6. long    — one ~20k-token document through the full-width extractor
-             (3 windows at S=8192 through all 22 layers);
+             (3 windows at S=8192 through all 22 layers); its tokenization
+             must take the host scanner;
 6b. long_sp — the same document and weights through
              `ModelSpanExtractor(sp_mesh=make_mesh(dp=1, tp=4, devices=[cuda] * 4))`:
              one row at S=24576 in 4 shards of 6144 on the one card, ring
@@ -370,6 +374,19 @@ head, the bound's count), the work of the dq + dk/dv split (14·D) and the
 exps' own bound (`exp_bound_ms`). The D=32 arm is held the same way at
 S ∈ {512, 4096} (the train_d32 phase's S=512 its headline), global and
 window=128, the planted faults at S=4096 global.
+
+The host scanner (`engine/native.py`, the C++ host runtime under the hash
+tokenizer and the BM25 analyzer; no device code): phases long, serve and
+full_text count its calls on their main path (the tokenizer's scans; in
+full_text every one of the 1M texts at ingest and one analyzer call a text
+batch) and must find them above 0. Each then holds it, on the phase's own
+texts (the long document, the serve corpus's chunk texts, the first 65,536
+full_text texts), against the Python paths it replaces, each called
+directly: the scan's ids and offsets bit-equal to the regex loop's on every
+ASCII text, the batch analyzer's slots, counts, offsets and lengths equal to
+its plain numpy version's, with host ms of both beside the phase's wall,
+kernel ms and idle share (one JSON line `host_runtime` before the card's
+name).
 
 Each main-path phase (3-7, 3a-3d, 5a-5d, 6b, 7a-7c) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
@@ -2034,10 +2051,101 @@ def kernel_counters() -> dict:
 def reset_counts() -> None:
     for module, attr in kernel_counters().values():
         setattr(module, attr, 0)
+    from verbatim_rag_tpu_torch.engine import native
+
+    native.tokenize_calls = native.analyze_calls = native.analyze_texts = 0
+
+
+def scanner_counts() -> dict:
+    """The host scanner's counters (`engine/native.py`): calls whose result
+    the tokenizer took, and the analyzer's calls and texts."""
+    from verbatim_rag_tpu_torch.engine import native
+
+    return dict(
+        tokenize_calls=native.tokenize_calls, analyze_calls=native.analyze_calls,
+        analyze_texts=native.analyze_texts,
+    )
+
+
+#: The host scanner's parity and timing check (`check_scanner`): the BM25
+#: vocabulary (the store's default) the analyzer runs at.
+SCANNER_FT_VOCAB = 1 << 17
+
+
+def host_ms(fn, reps: int):
+    """(fn's first result, median host-clock ms of ``reps`` calls)."""
+    import numpy as np
+
+    times, first = [], None
+    for i in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = out
+    return first, float(np.median(times))
+
+
+def check_scanner(texts, tokenizer, what: str, reps: int) -> dict:
+    """A phase's own texts through the compiled host scanner and through
+    the Python paths it replaces, each called directly: the tokenizer's scan
+    (`native.hash_tokenize`) against its regex loop (`_regex_arrays`), ids
+    and offsets bit-equal on every ASCII text (the scan declines the others,
+    as in the JAX package); the batch analyzer (`analyzer.analyze_texts`)
+    against its plain numpy version, every array equal. Host ms of each
+    (median of ``reps`` calls over all ``texts``). Runs after the phase has
+    read its counters: these calls are the comparison's, not the path's."""
+    import numpy as np
+
+    from verbatim_rag_tpu_torch.engine import analyzer, native
+
+    vocab, reserved = tokenizer.vocab_size, tokenizer._reserved
+    scanned, scan_ms = host_ms(lambda: [native.hash_tokenize(t, vocab, reserved, 1 << 62) for t in texts], reps)
+    python, python_ms = host_ms(lambda: [tokenizer._regex_arrays(t, None) for t in texts], reps)
+    n_ascii = sum(t.isascii() for t in texts)
+    require(sum(s is not None for s in scanned) == n_ascii, f"{what}: the scan declined an ASCII text")
+    differ = [
+        i for i, (s, p) in enumerate(zip(scanned, python))
+        if s is not None and not (np.array_equal(s[0], p[0]) and np.array_equal(s[1], p[1]))
+    ]
+    require(not differ, f"{what}: the scan's ids or offsets differ from the regex loop's on texts {differ[:8]}")
+    analyzed, analyze_ms = host_ms(lambda: analyzer.analyze_texts(texts, SCANNER_FT_VOCAB), reps)
+    plain, plain_ms = host_ms(lambda: analyzer.analyze_texts_plain(texts, SCANNER_FT_VOCAB), reps)
+    require(
+        all(np.array_equal(a, b) for a, b in zip(analyzed, plain)),
+        f"{what}: the batch analyzer differs from its plain version",
+    )
+    result = dict(
+        texts=len(texts), ascii_texts=n_ascii, tokens=int(sum(p[0].size for p in python)),
+        tokenize_ms=scan_ms, tokenize_python_ms=python_ms, analyze_ms=analyze_ms,
+        analyze_plain_ms=plain_ms, analyzer_slots=int(analyzed[0].size), reps=reps,
+    )
+    log(f"{what} host scanner", json.dumps(result))
+    return result
 
 
 def read_counts() -> dict:
     return {name: getattr(module, attr) for name, (module, attr) in kernel_counters().items()}
+
+
+def build_host_runtime() -> dict:
+    """Build (or find) and load the port's C++ host runtime
+    (`engine/native.py`: g++ with `native/Makefile`'s flags, from
+    `csrc/host/`); the compiler's version and the seconds it took."""
+    from verbatim_rag_tpu_torch.engine import native
+
+    version = subprocess.run(
+        [native._compiler(), "--version"], capture_output=True, text=True, check=True
+    ).stdout.splitlines()[0]
+    built = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.load()
+    result = dict(
+        compiler=version, flags=" ".join(native.CXX_FLAGS), library=native.library_path().name,
+        built=built, seconds=time.perf_counter() - t0,
+    )
+    log("host runtime", json.dumps(result))
+    return result
 
 
 def run_flow(seed: int, card: str):
@@ -2399,12 +2507,14 @@ def run_serve(extractor, seed: int, card: str):
         "serve: query_async answered otherwise than query",
     )
     counts = read_counts()
+    scanner = scanner_counts()
     require(
         counts["flash_attention_d32"] > 0
         and counts["flash_attention"] > counts["flash_attention_d32"]
         and counts["rescore"] > 0,
         f"serve: launches {counts}",
     )
+    require(scanner["tokenize_calls"] > 0, f"serve: the tokenizer never took the host scanner {scanner}")
     for name in ("_dense", "_sp_ids", "_sp_w", "_sp_proj"):
         require(getattr(index.store, name).is_cuda, f"serve: store.{name} not on cuda")
     require(
@@ -2418,6 +2528,7 @@ def run_serve(extractor, seed: int, card: str):
     log("serve split", json.dumps(split))
     profile = device_profile(lambda: rag.query_batch(questions), top=10)
     log("serve profile", json.dumps(profile))
+    host = check_scanner(list(index.store._enhanced), dense.tokenizer, "serve", reps=2)
     result = dict(
         card=card, documents=len(docs), chunks=n_chunks, ingest_s=ingest_s, warmup_s=warmup_s,
         questions=len(questions), k=rag.k, extractor_window=extractor.max_length,
@@ -2427,6 +2538,8 @@ def run_serve(extractor, seed: int, card: str):
         async_queries=SERVE_ASYNC, async_s=async_s, providers=providers, split=split,
         launches=counts, launches_flash_d32=counts["flash_attention_d32"],
         launches_flash_d64=counts["flash_attention"] - counts["flash_attention_d32"],
+        scanner=scanner, host_scanner=host, profile_wall_ms=profile["wall_ms"],
+        kernel_ms=profile["kernel_ms"], idle_share=profile["idle_share"],
         phase_s=time.perf_counter() - t_phase,
     )
     log("serve", json.dumps(result))
@@ -3958,6 +4071,7 @@ FT_EXACT_ROWS = 196_608
 FT_EXACT_BATCH = 64
 FT_EXACT_CHECKED = 8
 FT_BUCKET_BATCHES = 2
+FT_SCANNER_TEXTS = 65_536
 
 
 def text_corpus(seed: int, n: int) -> list[str]:
@@ -4060,6 +4174,7 @@ def run_full_text(data, card: str, seed: int) -> dict:
     from verbatim_rag_tpu_torch.engine import analyzer
     from verbatim_rag_tpu_torch.engine import store as store_mod
     from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+    from verbatim_rag_tpu_torch.models import HashTokenizer
 
     t_phase = time.perf_counter()
     top_k, n_batches = 10, STORE_BATCHES
@@ -4090,6 +4205,11 @@ def run_full_text(data, card: str, seed: int) -> dict:
         "full_text: not the default full-text shape",
     )
     ingest_counts = read_counts()
+    ingest_scanner = scanner_counts()
+    require(
+        ingest_scanner["analyze_texts"] == STORE_ROWS,
+        f"full_text: the ingest's analyzer did not take the host scanner {ingest_scanner}",
+    )
     log(f"full_text: {STORE_ROWS} records ingested in {ingest_s:.1f} s (analyzer {analyzer_s[0]:.1f} s)")
 
     # 3-way batches: one untimed, then timed by the host clock and CUDA events.
@@ -4111,12 +4231,18 @@ def run_full_text(data, card: str, seed: int) -> dict:
         event_ms.append(start.elapsed_time(end))
         require(len(out) == data["batch"], "full_text: batch size")
     counts = read_counts()
+    scanner = scanner_counts()
+    require(
+        scanner["analyze_calls"] == n_batches + 1,
+        f"full_text: the text queries did not take the host scanner once a batch {scanner}",
+    )
     per_batch = {k: v / (n_batches + 1) for k, v in counts.items() if v}
     require(
         counts["section"] == n_batches + 1 and counts["rescore"] == 2 * (n_batches + 1),
         f"full_text: launches {counts} (one section launch and two rescores a batch)",
     )
     same_rows_with_plain_tables(store, data, top_k, first, "full_text", text_queries=first_text)
+    host = check_scanner(texts[:FT_SCANNER_TEXTS], HashTokenizer(), "full_text", reps=2)
     q_dense, q_sparse, src1 = data["queries"](1)
     text1 = text_queries(texts, src1, 1001)
     profile = device_profile(
@@ -4240,7 +4366,9 @@ def run_full_text(data, card: str, seed: int) -> dict:
         batch_ms_median=ms, batch_ms=host_ms, batch_event_ms=event_ms,
         batch_event_ms_median=float(np.median(event_ms)), qps=data["batch"] / ms * 1e3,
         source_row_in_top10=hit, launches_per_batch=per_batch, ingest_launches=ingest_counts,
-        idle_share=profile["idle_share"], text_query_prep_ms=text_prep_ms, bucket_batch_ms=bucket_ms,
+        idle_share=profile["idle_share"], profile_wall_ms=profile["wall_ms"], kernel_ms=profile["kernel_ms"],
+        text_query_prep_ms=text_prep_ms, bucket_batch_ms=bucket_ms,
+        ingest_scanner=ingest_scanner, scanner=scanner, host_scanner=host,
         housekeeping=dict(
             rows=n_small, ingest_s=small_ingest_s, deleted=len(dead), compact_s=compact_s,
             save_s=save_s, load_s=load_s,
@@ -4340,13 +4468,17 @@ def run_long(extractor, seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = read_counts()
+    scanner = scanner_counts()
     require(counts["flash_attention"] == extractor.config.num_layers, f"long: launches {counts}")
+    require(scanner["tokenize_calls"] > 0, f"long: the tokenizer never took the host scanner {scanner}")
     profile = device_profile(lambda: extractor.process(LONG_QUESTION, text))
     log("long profile", json.dumps(profile))
     require(all(0 <= s < e <= len(text) for s, e in spans), "long: span offsets")
+    host = check_scanner([text], extractor.tokenizer, "long", reps=5)
     result = dict(
         card=card, tokens=plan["n_tokens"], windows=len(plan["rows"]), seconds=seconds,
-        spans=len(spans), launches=counts,
+        spans=len(spans), launches=counts, scanner=scanner, host_scanner=host,
+        profile_wall_ms=profile["wall_ms"], kernel_ms=profile["kernel_ms"], idle_share=profile["idle_share"],
     )
     log("long", json.dumps(result))
     return result
@@ -5621,6 +5753,7 @@ def main() -> None:
     build_logs = cuda_build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
     build = check_build(build_logs)
+    host_runtime = build_host_runtime()
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flash = check_flash(gen, 64)
@@ -5816,6 +5949,18 @@ def main() -> None:
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']}: no launch on the main path")
     require(launches["flash_bwd_dq"] > 0 and launches["flash_bwd_dkv"] > 0, f"flash bwd launches {launches}")
+    host_runtime["phases"] = {
+        name: dict(
+            scanner=p["scanner"], **{k: p[k] for k in ("profile_wall_ms", "kernel_ms", "idle_share")},
+            **{k: p["host_scanner"][k] for k in ("texts", "tokenize_ms", "tokenize_python_ms", "analyze_ms",
+                                                 "analyze_plain_ms")},
+        )
+        for name, p in (("long", long_ctx), ("serve", serve), ("full_text", full_text))
+    }
+    host_runtime["phases"]["full_text"].update(
+        ingest_scanner=full_text["ingest_scanner"], ingest_analyzer_s=full_text["analyzer_s"]
+    )
+    log(json.dumps({"host_runtime": host_runtime}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(

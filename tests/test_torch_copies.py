@@ -9,6 +9,7 @@ import datetime
 import enum
 import json
 import os
+import re
 from pathlib import Path
 
 import numpy as np
@@ -687,3 +688,34 @@ def test_rag_shims_reexport_the_ports_own_objects(shim):
         obj = getattr(ours, name)
         assert obj.__module__.startswith("verbatim_rag_tpu_torch."), (shim, name)
         assert obj.__name__ == getattr(theirs, name).__name__
+
+
+# -- the C++ host runtime: the JAX package's source, byte for byte ---------------------
+
+REPO = Path(__file__).resolve().parent.parent
+HOST_FUNCTIONS = (
+    "native_threads", "parallel_rows", "project_rows", "exact_rescore", "fnv1a", "analyze_text",
+    "word_hash", "hash_tokenize",
+)
+
+
+def _cpp_function(source: str, name: str) -> str:
+    """The definition of ``name``: from its signature's line to the first
+    closing brace at the start of a line."""
+    match = re.search(rf"^[^\n;/]*\b{name}\(.*?^}}", source, re.M | re.S)
+    assert match, name
+    return match.group(0)
+
+
+@pytest.mark.parametrize("name", HOST_FUNCTIONS)
+def test_host_runtime_functions_equal_the_original(name):
+    """`csrc/host/verbatim_host.cpp` is `native/verbatim_host.cpp` byte for
+    byte, and its batch file includes it and redefines none of its
+    functions."""
+    original = (REPO / "native" / "verbatim_host.cpp").read_text()
+    copy = (REPO / "verbatim_rag_tpu_torch" / "csrc" / "host" / "verbatim_host.cpp").read_text()
+    assert copy == original
+    assert _cpp_function(copy, name) == _cpp_function(original, name)
+    batch = (REPO / "verbatim_rag_tpu_torch" / "csrc" / "host" / "verbatim_host_batch.cpp").read_text()
+    assert '#include "verbatim_host.cpp"' in batch
+    assert not re.search(rf"^\S[^\n;]*\b{name}\(", batch, re.M)

@@ -20,9 +20,6 @@ LEFT_OUT = {
         "flash_attention": "the name is the module (its launch counters live there); "
         "the function is ops.flash_attention.flash_attention",
         "flash_attention_tpu": "the TPU's Pallas entry has no CUDA meaning",
-        "dense_topk": "folded into ops.dense.topk / candidate_topk",
-        "hybrid_candidates": "no port: only the JAX package's own tests call it",
-        "rrf_merge_host": "no port: only the JAX package's own tests call it",
     },
     "models": {
         "encoder_forward": "the port's forward is Encoder.forward (an nn.Module)",

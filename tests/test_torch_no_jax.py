@@ -21,8 +21,10 @@ the loaders, serves a sentence-head checkpoint through
 `SentenceModelExtractor`, and answers a question with a cross-encoder
 reranker. A fifth ingests HTML pages and a fetched URL, indexes them
 through a remote embedding provider served on 127.0.0.1, and runs
-`VerbatimDOC` and `verbatim_enhance` over the saved index. The same holds
-for every module of the port imported on its own.
+`VerbatimDOC` and `verbatim_enhance` over the saved index. A sixth builds the
+port's C++ host runtime into a directory of its own, tokenizes a long ASCII
+document through its scanner and ingests and queries full text through its
+analyzer. The same holds for every module of the port imported on its own.
 """
 
 from __future__ import annotations
@@ -373,6 +375,43 @@ print(json.dumps({
 }))
 """
 
+NATIVE = """
+import json, os, sys, tempfile
+from pathlib import Path
+import numpy as np
+build = tempfile.mkdtemp()
+os.environ["VERBATIM_TORCH_BUILD_DIR"] = build
+from verbatim_rag_tpu_torch.engine import HashedBowDenseProvider, HashedSparseProvider, VerbatimIndex, native
+from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.models import HashTokenizer
+
+words = Path("examples/example_docs/solar.md").read_text().split() + Path("examples/example_docs/wind.md").read_text().split()
+doc = " ".join(np.random.default_rng(0).choice(words, size=19000))
+tokenizer = HashTokenizer()
+batch = tokenizer.encode_batch([doc], max_length=32768, with_offsets=True)
+ids, offsets = tokenizer._regex_arrays(doc, None)
+n = int(batch.attention_mask.sum()) - 2
+index = VerbatimIndex(
+    dense_provider=HashedBowDenseProvider(), sparse_provider=HashedSparseProvider(), device="cpu",
+    enable_full_text=True, full_text_vocab=4096,
+)
+index.add_documents([DocumentSchema.from_file(str(p)) for p in sorted(Path("examples/example_docs").glob("*.md"))])
+hits = index.query_batch(["solar panels", "wind"], k=3, hybrid_weights={"dense": 1.0, "sparse": 1.0, "full_text": 1.0})
+maps = Path("/proc/self/maps").read_text()
+print(json.dumps({
+    "tokens": n,
+    "same_ids": bool(np.array_equal(batch.input_ids[0, 1 : n + 1], ids)),
+    "same_offsets": batch.offsets[0][1 : n + 1] == [tuple(o) for o in offsets.tolist()],
+    "tokenize_calls": native.tokenize_calls,
+    "analyze_calls": native.analyze_calls,
+    "hits": [len(r) for r in hits],
+    "library_in_build": str(native.library_path()).startswith(build) and native.library_path().exists(),
+    "native_dir_loaded": "libverbatim_host" in maps,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -464,3 +503,18 @@ def test_doc_path_runs_without_jax():
     assert result["provider"] == "OpenAIEmbeddingProvider" and result["impl"] == "section"
     assert result["spliced"] and result["citations"] > 0 and result["stream_done"]
     assert result["enhanced_docs"] == 2
+
+
+def test_host_scanner_runs_without_jax():
+    """A fresh interpreter builds the port's host library into its own
+    directory (never `native/`), tokenizes a ≈ 22.8k-token ASCII document
+    through the scanner (ids and offsets equal to the regex loop) and
+    ingests and queries full text through the batch analyzer: no ``jax``
+    and no ``verbatim_rag_tpu`` module gets loaded, nor the JAX package's
+    library."""
+    result = _run(NATIVE)
+    assert result["jax"] == [] and result["reference"] == []
+    assert result["tokens"] > 20000 and result["same_ids"] and result["same_offsets"]
+    assert result["tokenize_calls"] >= 1 and result["analyze_calls"] >= 2
+    assert result["hits"] == [3, 3]
+    assert result["library_in_build"] and not result["native_dir_loaded"]

@@ -5,7 +5,8 @@ scanner of `native/verbatim_host.cpp::analyze_text` when that library loads,
 and a Python fallback otherwise; the two order the terms differently (first
 occurrence against ascending id), and the ingest's "heaviest
 ``full_text_max_nnz`` terms" cut depends on that order when counts tie. This
-module returns, in numpy and with no compiled code, what the JAX store's
+module runs the same scanner, compiled from the port's own copy
+(`engine/native.py`, `csrc/host/`), and returns what the JAX store's
 analyzer returns on a machine where the scanner loads:
 
 - the text's UTF-8 bytes (undecodable characters dropped), ASCII-lowercased;
@@ -19,8 +20,11 @@ analyzer returns on a machine where the scanner loads:
   ``str.lower()``, unique slots ascending), and so does this module
   (:func:`analyze_fallback`, a copy of it).
 
-:func:`analyze_texts` analyzes many texts at once (one vectorized pass over
-their concatenated bytes); :func:`analyze` is one text.
+:func:`analyze_texts` analyzes many texts in one scanner call (the batch
+entry, in parallel over texts); :func:`analyze` is one text.
+:func:`analyze_texts_plain` is the scanner's plain numpy version (one
+vectorized pass over the concatenated bytes), which the tests and the card's
+smoke run hold the scanner to.
 """
 
 from __future__ import annotations
@@ -30,12 +34,14 @@ from typing import Sequence
 
 import numpy as np
 
+from . import native
+
 #: Bytes of a token that the scanner hashes (its token buffer).
 TOKEN_BYTES = 256
 #: Unique slots at which the scanner's buffer is full and the JAX store falls
 #: back to the Python analyzer (`engine/native.py::analyze_text_native`).
 SCANNER_MAX_TERMS = 4096
-#: Texts analyzed per vectorized pass (bounds the pass's temporaries).
+#: Texts analyzed per scanner call or vectorized pass (bounds their buffers).
 CHUNK_TEXTS = 65536
 
 _FNV_OFFSET = np.uint32(2166136261)
@@ -108,8 +114,25 @@ def _scan(texts: Sequence[str], vocab_size: int):
 def analyze_texts(texts: Sequence[str], vocab_size: int):
     """Analyze many texts: (slots int32, counts int32, offsets int64 [n+1],
     lengths int64 [n]); text i's unique slots are ``slots[offsets[i]:
-    offsets[i+1]]``, in the order :func:`analyze` gives them."""
+    offsets[i+1]]``, in the order :func:`analyze` gives them. One scanner
+    call per CHUNK_TEXTS texts."""
+    parts = [
+        native.analyze_batch(texts[s : s + CHUNK_TEXTS], vocab_size, SCANNER_MAX_TERMS)
+        for s in range(0, len(texts), CHUNK_TEXTS)
+    ]
+    return _gather(parts, texts, vocab_size)
+
+
+def analyze_texts_plain(texts: Sequence[str], vocab_size: int):
+    """The plain version of :func:`analyze_texts` (numpy, no compiled
+    code): the same four arrays."""
     parts = [_scan(texts[s : s + CHUNK_TEXTS], vocab_size) for s in range(0, len(texts), CHUNK_TEXTS)]
+    return _gather(parts, texts, vocab_size)
+
+
+def _gather(parts, texts: Sequence[str], vocab_size: int):
+    """Concatenate per-chunk results; texts at SCANNER_MAX_TERMS or more
+    unique slots take the JAX store's Python fallback."""
     if not parts:
         return np.zeros(0, np.int32), np.zeros(0, np.int32), np.zeros(1, np.int64), np.zeros(0, np.int64)
     slots = np.concatenate([p[0] for p in parts])

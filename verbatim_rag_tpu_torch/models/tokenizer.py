@@ -2,7 +2,9 @@
 
 Copy of `verbatim_rag_tpu/models/tokenizer.py`: the file-free
 :class:`HashTokenizer` (word-level hashing into the configured vocab with
-BERT-style special ids, its Python regex scanner) and :class:`HFTokenizer`,
+BERT-style special ids; ASCII text through the compiled scan of
+`engine/native.py`, other text through its Python regex loop) and
+:class:`HFTokenizer`,
 which wraps a checkpoint's ``tokenizer.json`` through the ``tokenizers``
 library (imported in its constructor, so nothing on the offline path needs
 it). Ids, offsets and the padded batch layout are identical to the original
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from verbatim_rag_tpu_torch.engine import native
 from verbatim_rag_tpu_torch.engine.filters import stable_hash64
 
 _WORD_RE = re.compile(r"[a-z0-9]+|[^\w\s]")
@@ -96,24 +99,23 @@ class HashTokenizer(Tokenizer):
     def _tokenize_arrays(
         self, text: str, max_tokens: int | None
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Tokenize to ``(ids int32[n], offsets int32[n, 2])``; ``max_tokens``
-        stops the scan early."""
+        """Tokenize to ``(ids int32[n], offsets int32[n, 2])``: the compiled
+        scan (`engine/native.py::hash_tokenize`, bit-exact for ASCII), the
+        Python regex loop for other text. ``max_tokens`` stops the scan
+        early."""
         key = (self.vocab_size, max_tokens, text)
         cache = HashTokenizer._text_cache
         hit = cache.get(key)
         if hit is not None:
             return hit
-        ids_l: list[int] = []
-        offs_l: list[tuple[int, int]] = []
-        for m in _WORD_RE.finditer(text.lower()):
-            ids_l.append(self._word_id(m.group(0)))
-            offs_l.append((m.start(), m.end()))
-            if max_tokens is not None and len(ids_l) >= max_tokens:
-                break
-        out = (
-            np.asarray(ids_l, np.int32),
-            np.asarray(offs_l, np.int32).reshape(len(offs_l), 2),
+        out = native.hash_tokenize(
+            text,
+            self.vocab_size,
+            self._reserved,
+            max_tokens if max_tokens is not None else (1 << 62),
         )
+        if out is None:
+            out = self._regex_arrays(text, max_tokens)
         if (
             out[0].size <= self._TEXT_CACHE_MAX_TOKENS
             and len(text) <= self._TEXT_CACHE_MAX_CHARS
@@ -122,6 +124,23 @@ class HashTokenizer(Tokenizer):
                 cache.clear()
             cache[key] = out
         return out
+
+    def _regex_arrays(
+        self, text: str, max_tokens: int | None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The Python regex loop: what the compiled scan computes for ASCII
+        text, and the path for every other text."""
+        ids_l: list[int] = []
+        offs_l: list[tuple[int, int]] = []
+        for m in _WORD_RE.finditer(text.lower()):
+            ids_l.append(self._word_id(m.group(0)))
+            offs_l.append((m.start(), m.end()))
+            if max_tokens is not None and len(ids_l) >= max_tokens:
+                break
+        return (
+            np.asarray(ids_l, np.int32),
+            np.asarray(offs_l, np.int32).reshape(len(offs_l), 2),
+        )
 
     def tokenize_with_offsets(
         self, text: str, max_tokens: int | None = None

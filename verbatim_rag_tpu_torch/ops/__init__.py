@@ -8,10 +8,10 @@ module is ``sys.modules["verbatim_rag_tpu_torch.ops.ring_attention"]``.
 the function is ``ops.flash_attention.flash_attention``.
 """
 
-from .dense import normalize_rows
+from .dense import dense_topk, normalize_rows
 from .flash_attention import attention_reference, flash_attention_partial
-from .fusion import rrf_fuse_device, rrf_fuse_np
-from .hybrid import hybrid_topk
+from .fusion import rrf_fuse_device, rrf_fuse_np, rrf_merge_host
+from .hybrid import hybrid_candidates, hybrid_topk
 from .ring_attention import halo_attention, ring_attention, shard_sequence
 from .sparse import bm25_idf, bm25_saturate, densify_queries, sparse_topk
 from .sparse_projected import (
@@ -25,10 +25,12 @@ __all__ = [
     "attention_reference",
     "bm25_idf",
     "bm25_saturate",
+    "dense_topk",
     "densify_queries",
     "exact_rescore",
     "flash_attention_partial",
     "halo_attention",
+    "hybrid_candidates",
     "hybrid_topk",
     "normalize_rows",
     "project_rows",
@@ -37,6 +39,7 @@ __all__ = [
     "ring_attention",
     "rrf_fuse_device",
     "rrf_fuse_np",
+    "rrf_merge_host",
     "shard_sequence",
     "sparse_topk",
 ]

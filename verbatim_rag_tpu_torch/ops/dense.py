@@ -290,3 +290,13 @@ def candidate_topk(
     if mask is not None:
         scores = torch.where(mask[None, :], scores, NEG_INF)
     return topk(scores, k)
+
+
+def dense_topk(corpus, queries, k: int, mask=None, exact_topk: bool = True, corpus_scale=None):
+    """Cosine top-k: (scores [B, k], row indices [B, k]); masked rows score
+    -1e30. Selection is exact whatever ``exact_topk`` says (the port has no
+    ``approx_max_k``)."""
+    scores = dense_scores(corpus, queries, corpus_scale)
+    if mask is not None:
+        scores = torch.where(mask[None, :], scores, NEG_INF)
+    return topk(scores, k)

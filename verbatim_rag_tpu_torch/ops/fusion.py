@@ -4,6 +4,8 @@
 score(id) = Σ_methods w_m / (rrf_k + rank_m(id) + 1); results ordered by
 fused score, ties to the smaller id.
 
+- :func:`rrf_merge_host` — host merge over hit dicts (``distance = 1 −
+  fused score``), with :func:`sanitize_hybrid_weights` for user weights;
 - :func:`rrf_fuse_np` — host fusion over candidate rows already on the host;
 - :func:`rrf_fuse_device` — the same math on the tensors' device: sort by id
   (stable), segmented sum of each id's run, exact top-k.
@@ -12,6 +14,7 @@ fused score, ties to the smaller id.
 from __future__ import annotations
 
 import logging
+from typing import Any
 
 import numpy as np
 import torch
@@ -19,6 +22,26 @@ import torch
 from .dense import topk
 
 logger = logging.getLogger(__name__)
+
+ALLOWED_METHODS = {"dense", "sparse", "full_text"}
+
+
+def sanitize_hybrid_weights(hybrid_weights: dict[str, float]) -> dict[str, float]:
+    """Drop unknown methods and non-positive weights; error if nothing remains."""
+    if not hybrid_weights:
+        raise ValueError("hybrid_weights must be a non-empty dict")
+    cleaned: dict[str, float] = {}
+    for method, weight in hybrid_weights.items():
+        if method not in ALLOWED_METHODS:
+            logger.warning("Ignoring unsupported hybrid method %r", method)
+            continue
+        if not isinstance(weight, (int, float)) or weight <= 0:
+            logger.warning("Ignoring non-positive weight for %r: %s", method, weight)
+            continue
+        cleaned[method] = float(weight)
+    if not cleaned:
+        raise ValueError("No valid hybrid_weights after validation")
+    return cleaned
 
 
 def normalize_weights(
@@ -34,6 +57,49 @@ def normalize_weights(
         )
         return {m: 1.0 / len(results_by_method) for m in results_by_method}
     return {m: w / total for m, w in available.items()}
+
+
+def rrf_merge_host(
+    results_by_method: dict[str, list[dict[str, Any]]],
+    top_k: int,
+    weights: dict[str, float],
+    rrf_k: int = 60,
+    log_label: str = "",
+) -> list[dict[str, Any]]:
+    """Weighted RRF over hit dicts ({'id': ..., ...}); returns merged hits with
+    ``distance = 1 - fused_score``."""
+    normalized = normalize_weights(results_by_method, weights)
+    if log_label:
+        logger.info(
+            "Hybrid merge (%s): methods=%s weights=%s rrf_k=%s top_k=%s",
+            log_label,
+            list(results_by_method),
+            normalized,
+            rrf_k,
+            top_k,
+        )
+
+    fused: dict[Any, float] = {}
+    hit_by_id: dict[Any, dict] = {}
+    for method, hits in results_by_method.items():
+        weight = normalized.get(method, 0.0)
+        for rank, hit in enumerate(hits):
+            hit_id = hit.get("id")
+            if hit_id is None:
+                # `is None`, not falsy: integer row id 0 and empty-string
+                # ids are legal and must participate in fusion.
+                continue
+            fused.setdefault(hit_id, 0.0)
+            hit_by_id.setdefault(hit_id, hit)
+            fused[hit_id] += weight / (rrf_k + rank + 1)
+
+    ranked = sorted(fused, key=lambda hid: fused[hid], reverse=True)[:top_k]
+    merged = []
+    for hit_id in ranked:
+        hit = dict(hit_by_id[hit_id])
+        hit["distance"] = 1.0 - fused[hit_id]
+        merged.append(hit)
+    return merged
 
 
 def rrf_fuse_np(

@@ -59,6 +59,24 @@ def validate_candidate_impl(impl: str) -> str:
     return impl
 
 
+def hybrid_candidates(
+    dense_corpus, sketch_corpus, dense_q, sketch_q, fetch_k: int, depth: int, mask=None,
+    exact_topk: bool = True, dense_scale=None, sketch_scale=None, candidate_impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both hybrid candidate generations: (dense candidate rows [B, fetch_k],
+    sparse candidate rows [B, depth]; −1 where masked out)."""
+    impl = validate_candidate_impl(candidate_impl)
+    d_top, d_rows = candidate_topk(
+        dense_corpus, dense_q, fetch_k, mask, dense_scale, exact_topk, impl
+    )
+    s_top, s_rows = candidate_topk(
+        sketch_corpus, sketch_q, depth, mask, sketch_scale, exact_topk, impl
+    )
+    d_rows = torch.where(d_top > NEG_INF / 2, d_rows, -1)
+    s_rows = torch.where(s_top > NEG_INF / 2, s_rows, -1)
+    return d_rows, s_rows
+
+
 def projected_sparse_topk(
     sketch_corpus, sp_ids, sp_w, sketch_q, q_ids, q_w, k: int, depth: int,
     mask=None, exact_topk: bool = True, sketch_scale=None, rescore_impl: str = "scan",
