@@ -174,6 +174,25 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              every query against the same store with the plain table
              versions (int8 tables are bit-equal, so no difference is
              allowed);
+5e. ragged — the int8 store at 300 dense columns (GloVe 6B's width:
+             300 int8 bytes a row, which TMA cannot take as a row stride),
+             the first 300 columns of the store phase's rows, sketch 768,
+             "auto" → section, kept at a 16-byte row pitch: one 512-query
+             batch (top-10, depth 256) held bit-equal (ids and scores) to a
+             twin store of the same rows zero-padded to 304 columns; the
+             batch's section launches (above 0), the corpus pointers the
+             launch received (the store's own buffers: no corpus copied),
+             its ms by CUDA events beside the twin's and store_int8's, the
+             state GB of both. Then kernels 3, 6 and 7 at ragged widths at
+             B=512, N=1,048,576 (`check_ragged_tables`: int8 300, bf16
+             300, float32 301, and the streamed int8 3000 and bf16 1500;
+             rows at the store's pitch, the aligned checks' planted faults,
+             int8 bit-equal, each timed beside its bound, plain version and
+             zero-padded aligned twin), and launches past the grid's 65,535
+             rows on y (`check_grid_flash`: the flash forward, backward and
+             partial at B=5,462, H=12, D=32, S=128, two launches each;
+             `check_grid_rescore`: B=65,600, C=16), each against its plain
+             version with two planted faults on the split;
 5a. int4   — the same records in an int4 store (dense 384 and sketch 768
              packed two codes a byte, `candidate_impl="auto"` → "xla": the
              rescore kernel, no table kernel), one batch and 8 timed by the
@@ -388,7 +407,7 @@ its plain numpy version's, with host ms of both beside the phase's wall,
 kernel ms and idle share (one JSON line `host_runtime` before the card's
 name).
 
-Each main-path phase (3-7, 3a-3d, 5a-5d, 6b, 7a-7c) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3d, 5a-5e, 6b, 7a-7c) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -1196,16 +1215,17 @@ def efficient_attention_ms(qt, kt, vt, live) -> tuple[float | None, str]:
     )
 
 
-def rescore_inputs(gen, m: int = 128, qm: int = 32, vocab: int = 30522):
-    """The rescore's serving point: B=512 queries of ``qm`` terms, C=256
-    candidates each (some missing, -1) over a 1M-row forward index of ``m``
+def rescore_inputs(gen, m: int = 128, qm: int = 32, vocab: int = 30522, batch: int = 512,
+                   cands: int = 256):
+    """The rescore's serving point: B=512 queries (``batch``) of ``qm`` terms,
+    C=256 candidates each (``cands``; some missing, -1) over a 1M-row forward index of ``m``
     int32 / float32 slots (1-m live, pads id 0 / weight 0) over ``vocab``
     ids; half of each query's terms come from its candidate rows so that
     scores are not all 0. The defaults are the SPLADE arm's shape; the BM25
     arm's is m=256, qm=64 over 2^17 ids."""
     import torch
 
-    B, C, N = 512, 256, 1_000_000
+    B, C, N = batch, cands, 1_000_000
     sp_ids = torch.randint(1, vocab, (N, m), generator=gen, device="cuda", dtype=torch.int32)
     sp_w = torch.rand((N, m), generator=gen, device="cuda")
     nnz = torch.randint(1, m + 1, (N, 1), generator=gen, device="cuda")
@@ -3336,6 +3356,8 @@ def fill_store(data, records=None, **kwargs):
 
     from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
 
+    from verbatim_rag_tpu_torch.ops.fused_topk import resident_bytes
+
     store = DeviceVectorStore(
         dense_dim=data["dim"], sparse_vocab=data["vocab"], sparse_max_nnz=data["nnz"], **kwargs
     )
@@ -3349,7 +3371,7 @@ def fill_store(data, records=None, **kwargs):
         "_dense", "_dense_scale", "_sp_ids", "_sp_w", "_sp_proj", "_sp_proj_scale", "_valid_dev",
         "_ft_ids", "_ft_tf", "_ft_w", "_ft_proj", "_ft_proj_scale",
     )
-    state_gb = sum(t.nbytes for t in (getattr(store, a) for a in arrays) if t is not None) / 1e9
+    state_gb = sum(resident_bytes(t) for t in (getattr(store, a) for a in arrays) if t is not None) / 1e9
     return store, ingest_s, state_gb
 
 
@@ -3518,10 +3540,13 @@ def run_store_int8(data, card: str) -> dict:
             lambda: store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
         )
         log(f"store_int8 {impl} profile", json.dumps(profiles[impl]))
+    store.candidate_impl = "section"
+    _, event_ms = event_batches(store, data, 1, 3, top_k)  # beside the ragged phase's
     ms = float(np.median(times))
     result = dict(
         card=card, rows=STORE_ROWS, capacity=store._capacity, state_gb=state_gb, ingest_s=ingest_s,
         batch=data["batch"], batch_ms_median=ms, batch_ms=times, qps=data["batch"] / ms * 1e3,
+        batch_event_ms=event_ms, batch_event_ms_median=float(np.median(event_ms)),
         gc_full_ms=gc_ms, source_row_in_top10=hit, bucket_batch_ms=bucket_times,
         bucket_gc_full_ms=bucket_gc_ms, bucket_source_row_in_top10=bucket_hit, launches=counts,
     )
@@ -3531,11 +3556,532 @@ def run_store_int8(data, card: str) -> dict:
     return result
 
 
+# -- phase 5e: ragged -------------------------------------------------------------------
+
+#: Phase ragged: rows whose width is not a multiple of 16 bytes, which TMA
+#: cannot take as a row stride. The store keeps such rows at a 16-byte pitch
+#: (`fused_topk.pitched_zeros`). `RAGGED_DIM` is the width of
+#: sentence-transformers/average_word_embeddings_glove.6B.300d.
+RAGGED_DIM = 300
+#: The kernel arms at ragged widths, each against its plain version at B=512,
+#: N=1,048,576 (blocks of 16384): (columns, row dtype); v1 takes the bf16 and
+#: float32 ones. The streamed arms' rows are 3000 bytes, past 2944.
+RAGGED_ROWS = ((300, "int8"), (300, "bfloat16"), (301, "float32"))
+RAGGED_STREAMED = ((3000, "int8"), (1500, "bfloat16"))
+RAGGED_N, RAGGED_BLOCK, RAGGED_BATCH = 64 * 16384, 16384, 512
+#: Launches whose batch passes the grid's 65,535 rows on y: the flash
+#: kernels at MiniLM's 12 heads of 32 (batch × heads = 65,544: one past the
+#: limit plus eight) and the rescore at 65,600 queries of 16 candidates.
+GRID_FLASH = dict(batch=5462, heads=12, head_dim=32, seq=128)
+GRID_RESCORE = dict(batch=65_600, cands=16)
+#: Batch rows the plain versions of the grid checks take at a time.
+GRID_PLAIN_ROWS = 1024
+
+
+def pad_columns(t, cols: int):
+    """``t`` [n, d] zero-padded to [n, cols], contiguous."""
+    import torch
+
+    out = torch.zeros((t.shape[0], cols), dtype=t.dtype, device=t.device)
+    out[:, : t.shape[1]] = t
+    return out
+
+
+def ragged_arm(gen, d: int, dtype: str):
+    """One arm at a ragged width (`table_arm`), its rows at the store's
+    16-byte pitch, and its aligned twin: the same rows and queries padded
+    with zero columns to the next 16-byte multiple, read in place."""
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+
+    c, q, s = table_arm(gen, RAGGED_N, RAGGED_BATCH, d, dtype)
+    pitched = ft.pitched(c)
+    require(not ft.is_pitched(c) and ft.is_pitched(pitched), f"ragged {dtype} d={d}: not a ragged width")
+    cols = ft.pitch_columns(d, c.element_size())
+    require(pitched.stride(0) == cols, f"ragged {dtype} d={d}: pitch {pitched.stride(0)}, not {cols}")
+    del c
+    return (pitched, q, s), (pad_columns(pitched, cols), pad_columns(q, cols), s)
+
+
+def check_ragged_tables(gen) -> dict:
+    """Kernels 3, 6 and 7 at ragged widths (`RAGGED_ROWS`, `RAGGED_STREAMED`)
+    on rows at the store's 16-byte pitch, each against its plain version
+    with the planted faults of the aligned checks (section: two arms of the
+    width, the mask ignored, the last position dropped, arm 1 reading arm
+    0's rows; v2: the first two; v1: the mask ignored): int8 bit-equal,
+    bf16 and float32 within the aligned checks' limits. Each is timed beside
+    its bound, its plain version and its aligned twin (zero columns up to
+    the next 16-byte multiple), and for int8 the twin's tables must be the
+    ragged ones, bit for bit. No corpus may be copied."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    n, block, batch = RAGGED_N, RAGGED_BLOCK, RAGGED_BATCH
+    width = n // block * 128
+    out = {"section": [], "bucket_max_v2": [], "bucket_max_v1": []}
+    copies = ft.corpus_copies
+    for d, dtype in RAGGED_ROWS + RAGGED_STREAMED:
+        int8 = dtype == "int8"
+        peak = {"int8": PEAK_INT8_OPS, "bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_FP32_OPS}[dtype]
+        (c, q, s), (tc, tq, _) = ragged_arm(gen, d, dtype)
+        (c1, q1, s1), _ = ragged_arm(gen, d, dtype)
+        mask = table_mask(gen, n)
+        row_bytes = d * c.element_size()
+        streamed = dtype != "float32" and ft.walk_streams(row_bytes)
+        info = dict(n=n, block=block, batch=batch, d=d, dtype=dtype, row_bytes=row_bytes,
+                    pitch_bytes=ft.row_pitch_bytes(c), streamed=streamed)
+        what = f"ragged {dtype} d={d}"
+
+        corpora, queries, scales = (c, c1), (q, q1), (s, s1)
+        before = sec.launches_streamed
+        got = sec.section_tables_cuda(corpora, queries, mask, scales, block)
+        torch.cuda.synchronize()
+        require(sec.launches_streamed == before + streamed, f"{what}: section streamed count")
+        ref = sec.section_tables_reference(corpora, queries, mask, scales, block)
+        err = max(
+            check_table(sec_decode(g, block, n), sec_decode(e, block, n), cc, qq, int8)
+            for g, e, cc, qq in zip(got, ref, corpora, queries)
+        )
+        if int8:
+            twin = sec.section_tables_cuda((tc,), (tq,), mask, (s,), block)[0]
+            require(torch.equal(twin.view(torch.int32), got[0].view(torch.int32)),
+                    f"{what}: section tables differ from the zero-padded twin's")
+            del twin
+        del got
+        faults = section_planted_faults(corpora, queries, mask, scales, block, ref, int8)
+        del ref
+        one = lambda: sec.section_tables_cuda((c,), (q,), mask, (s,), block)  # noqa: E731
+        case = dict(
+            info, arms=2, max_abs_err=err, planted_faults_caught=faults,
+            ms=cuda_ms(one, reps=10),
+            aligned_ms=cuda_ms(lambda: sec.section_tables_cuda((tc,), (tq,), mask, (s,), block), reps=10),
+            plain_ms=cuda_ms(lambda: sec.section_tables_reference((c,), (q,), mask, (s,), block), reps=1),
+        )
+        case["bound_ms"], case["bound_by"] = bound(
+            table_bytes([(c, q, s)], n, batch, width, 4), 2.0 * batch * n * d, peak
+        )
+        log("section ragged", json.dumps(case))
+        out["section"].append(case)
+        del c1, q1, s1
+
+        got = ft.matmul_bucket_max_v2_cuda(c, q, mask, s)
+        torch.cuda.synchronize()
+        ref = ft.matmul_bucket_max_v2_reference(c, q, mask, s)
+        err = check_table(got, ref, c, q, int8)
+        if int8:
+            twin = ft.matmul_bucket_max_v2_cuda(tc, tq, mask, s)
+            require(torch.equal(twin[0].view(torch.int32), got[0].view(torch.int32))
+                    and torch.equal(twin[1], got[1]), f"{what}: v2 table differs from the twin's")
+            del twin
+        del got
+        faults = v2_planted_faults(c, q, mask, s, ref, int8)
+        del ref
+        case = dict(
+            info, max_abs_err=err, planted_faults_caught=faults,
+            ms=cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(c, q, mask, s), reps=10),
+            aligned_ms=cuda_ms(lambda: ft.matmul_bucket_max_v2_cuda(tc, tq, mask, s), reps=10),
+            plain_ms=cuda_ms(lambda: ft.matmul_bucket_max_v2_reference(c, q, mask, s), reps=1),
+        )
+        case["bound_ms"], case["bound_by"] = bound(
+            table_bytes([(c, q, s)], n, batch, width, 8), 2.0 * batch * n * d, peak
+        )
+        log("bucket_max_v2 ragged", json.dumps(case))
+        out["bucket_max_v2"].append(case)
+
+        if not int8:  # v1 reads bf16 and float32 rows
+            got = ft.matmul_bucket_max_cuda(c, q, mask)
+            torch.cuda.synchronize()
+            ref = ft.matmul_bucket_max_reference(c, q, mask)
+            why = v1_fails(got, ref, q, c, mask, V1_LIMITS[dtype])
+            require(why is None, f"{what}: bucket v1 {why}")
+            live = ref[0] > -1e29
+            err = float((got[0] - ref[0]).abs()[live].max())
+            del got
+            fault = v1_fails(ft.matmul_bucket_max_cuda(c, q, torch.ones_like(mask)), ref, q, c, mask,
+                             V1_LIMITS[dtype])
+            require(fault is not None, f"{what}: bucket v1's mask-ignored fault passes the check")
+            del ref
+            case = dict(
+                info, max_abs_err=err, fault_mask_ignored=fault,
+                ms=cuda_ms(lambda: ft.matmul_bucket_max_cuda(c, q, mask), reps=10),
+                aligned_ms=cuda_ms(lambda: ft.matmul_bucket_max_cuda(tc, tq, mask), reps=10),
+                plain_ms=cuda_ms(lambda: ft.matmul_bucket_max_reference(c, q, mask), reps=1),
+            )
+            case["bound_ms"], case["bound_by"] = v1_bound(n, batch, d, c.dtype)
+            log("bucket_max_v1 ragged", json.dumps(case))
+            out["bucket_max_v1"].append(case)
+        del c, q, s, tc, tq, mask
+        torch.cuda.empty_cache()
+    require(ft.corpus_copies == copies, f"ragged: {ft.corpus_copies - copies} corpus copies")
+    return out
+
+
+def grid_lengths(batch: int, seq: int, gen):
+    """Random lengths in [1, seq], a zero-length row, and the last row (the
+    second launch's) at full length."""
+    import torch
+
+    lens = torch.randint(1, seq + 1, (batch,), generator=gen, device="cuda", dtype=torch.int32)
+    lens[1] = 0
+    lens[-1] = seq
+    return lens
+
+
+def grid_flash_check(outs, plain, live, floor: float = 0.0) -> tuple[float, dict]:
+    """Each output set in ``outs`` (name → tuple of [B, S, H, D] tensors)
+    against ``plain(sl)`` (the plain outputs of batch rows ``sl``), slice by
+    slice, each live row held to `row_check`: (max abs error of the
+    kernel's, worst row of its limit per name)."""
+    import torch
+
+    B = live.shape[0]
+    n_out = len(next(iter(outs.values())))
+    scales = [torch.zeros(live.shape + (GRID_FLASH["heads"],), device="cuda") for _ in range(n_out)]
+    errs = {name: [torch.zeros_like(x) for x in scales] for name in outs}
+    for b0 in range(0, B, GRID_PLAIN_ROWS):
+        sl = slice(b0, b0 + GRID_PLAIN_ROWS)
+        for i, ref in enumerate(plain(sl)):
+            ref = ref.float()
+            scales[i][sl] = ref.abs().amax(dim=-1)
+            for name, got in outs.items():
+                errs[name][i][sl] = (got[i][sl].float() - ref).abs().amax(dim=-1)
+    ratio, err = {}, 0.0
+    for name in outs:
+        checks = [row_check(errs[name][i], scales[i], live, floor) for i in range(n_out)]
+        ratio[name] = max(c[1] for c in checks)
+        if name == "kernel":
+            err = max(c[0] for c in checks)
+    return err, ratio
+
+
+def check_grid_flash(gen) -> dict:
+    """The flash forward (with lse), its FA2 backward and the ring step's
+    partial at `GRID_FLASH` (batch × heads = 65,544): two launches each, the
+    second holding the one batch row past the grid's limit. Each output
+    against its plain version, every live row held as the kernels phase
+    holds it, and two planted faults on the launch split (the last slice's
+    rows left as zeros; the last slice fed the first slice's rows) must fail
+    that check. The autograd path (`FlashAttention`) is one call whose
+    backward gives the same gradients. Times beside the bound and the plain
+    version."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import flash_attention as fa
+
+    B, H, D, S = (GRID_FLASH[k] for k in ("batch", "heads", "head_dim", "seq"))
+    last = 65535 // H  # the first batch row of the second launch
+    require(B * H > 65535 and last == B - 1, "grid: the shape does not split in two")
+    lens = grid_lengths(B, S, gen)
+    q, k, v, g = (torch.randn(B, S, H, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+                  for _ in range(4))
+    live = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+    lengths = lens.tolist()
+    pairs = attention_pairs(lengths, S, None)
+    q_rows, kv_rows = attention_rows(lengths, S)
+
+    def faults(x):
+        """The planted split faults of one output tensor."""
+        zeros, first = x.clone(), x.clone()
+        zeros[last:] = 0
+        first[last:] = x[:1]
+        return zeros, first
+
+    result = {}
+    counts = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches, fa.partial_launches)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, lens)
+    torch.cuda.synchronize()
+    require(fa.launches == counts[0] + 2, "grid: the forward did not launch twice")
+    zeros, first = faults(out)
+    err, ratio = grid_flash_check(
+        {"kernel": (out,), "fault: last slice left as zeros": (zeros,),
+         "fault: last slice fed the first slice's rows": (first,)},
+        lambda sl: (fa.attention_reference(q[sl], k[sl], v[sl], lens[sl]),), live,
+    )
+    lse_gap = max(
+        float(((lse[sl] - fa.attention_lse_reference(q[sl], k[sl], v[sl], lens[sl])[1]).abs()
+               - 1e-5 * lse[sl].abs()).max())
+        for sl in (slice(b0, b0 + GRID_PLAIN_ROWS) for b0 in range(0, B, GRID_PLAIN_ROWS))
+    )
+    worst = ratio.pop("kernel")
+    require(worst <= 1.0 and lse_gap <= 1e-4, f"grid flash forward: worst row {worst}, lse {lse_gap}")
+    for name, r in ratio.items():
+        require(r > 1.0, f"grid flash forward: planted {name} passes the check ({r})")
+    b_ms, b_by = bound((q_rows + 2 * kv_rows + B * S) * H * D * 2 + 4 * B, 4 * H * D * pairs,
+                       PEAK_BF16_FLOPS)
+
+    def plain_fwd():
+        for b0 in range(0, B, GRID_PLAIN_ROWS):
+            sl = slice(b0, b0 + GRID_PLAIN_ROWS)
+            fa.attention_reference(q[sl], k[sl], v[sl], lens[sl])
+
+    result["forward"] = dict(
+        GRID_FLASH, grid_rows=B * H, launches=2, max_abs_err=err, worst_row_of_limit=worst,
+        lse_max_excess=lse_gap, planted_faults_worst_row_of_limit=ratio,
+        ms=cuda_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, lens), reps=10),
+        plain_ms=cuda_ms(plain_fwd, reps=1), bound_ms=b_ms, bound_by=b_by,
+    )
+    log("grid flash forward", json.dumps(result["forward"]))
+
+    grads = fa.flash_attention_bwd_cuda(q, k, v, lens, out, lse, g)
+    torch.cuda.synchronize()
+    require(fa.bwd_dq_launches == counts[1] + 2 and fa.bwd_dkv_launches == counts[2] + 2,
+            "grid: the backward did not launch twice")
+    outs = {"kernel": grads}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        zeros, first = faults(grads[i])
+        for fault, x in (("last slice left as zeros", zeros), ("last slice fed the first slice's rows", first)):
+            outs[f"fault: {name} {fault}"] = tuple(x if j == i else grads[j] for j in range(3))
+    err, ratio = grid_flash_check(
+        outs, lambda sl: fa.flash_attention_bwd_reference(
+            q[sl], k[sl], v[sl], lens[sl], out[sl], lse[sl], g[sl]), live, floor=1e-3,
+    )
+    worst = ratio.pop("kernel")
+    require(worst <= 1.0, f"grid flash backward: worst row {worst}")
+    for name, r in ratio.items():
+        require(r > 1.0, f"grid flash backward: planted {name} passes the check ({r})")
+    # One autograd call over the whole batch: its forward and backward each
+    # launch twice, and its gradients are the direct backward's.
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    o = fa.FlashAttention.apply(*leaves, lens, None)
+    auto = torch.autograd.grad(o, leaves, g)
+    require((fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(x + 2 for x in before),
+            "grid: the autograd call did not launch each kernel twice")
+    require(all(torch.equal(a, b) for a, b in zip(auto, grads)), "grid: autograd gradients differ")
+    del o, auto, leaves, outs
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    b_ms, b_by = bound(
+        (2 * q_rows + 2 * kv_rows + 3 * B * S) * H * D * 2 + 2 * H * q_rows * 4 + 4 * B,
+        10 * H * D * pairs, PEAK_BF16_FLOPS,
+    )
+
+    def plain_bwd():
+        for b0 in range(0, B, GRID_PLAIN_ROWS):
+            sl = slice(b0, b0 + GRID_PLAIN_ROWS)
+            fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], lens[sl], out[sl], lse[sl], g[sl])
+
+    result["backward"] = dict(
+        GRID_FLASH, grid_rows=B * H, launches_dq=2, launches_dkv=2, max_abs_err=err,
+        worst_row_of_limit=worst, planted_faults_worst_row_of_limit=ratio,
+        ms=cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, None), reps=10),
+        plain_ms=cuda_ms(plain_bwd, reps=1), bound_ms=b_ms, bound_by=b_by,
+    )
+    log("grid flash backward", json.dumps(result["backward"]))
+    del grads, delta, out, lse
+
+    # The partial: the same rows as one KV block at k_offset 0.
+    numer, m, l = fa.flash_attention_partial_cuda(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    require(fa.partial_launches == counts[3] + 2, "grid: the partial did not launch twice")
+    zeros, first = faults(numer)
+    err, ratio = grid_flash_check(
+        {"kernel": (numer,), "fault: last slice left as zeros": (zeros,),
+         "fault: last slice fed the first slice's rows": (first,)},
+        lambda sl: fa.flash_attention_partial_reference(q[sl], k[sl], v[sl], lens[sl], 0)[:1], live,
+    )
+    ml_gap = 0.0
+    for b0 in range(0, B, GRID_PLAIN_ROWS):
+        sl = slice(b0, b0 + GRID_PLAIN_ROWS)
+        _, ref_m, ref_l = fa.flash_attention_partial_reference(q[sl], k[sl], v[sl], lens[sl], 0)
+        rows_live = (lens[sl] > 0)[:, None, None].expand_as(ref_m)
+        ml_gap = max(ml_gap, float(((m[sl] - ref_m).abs() / (1e-5 * ref_m.abs() + 1e-6))[rows_live].max()),
+                     float(((l[sl] - ref_l).abs() / (PARTIAL_L_RTOL * ref_l))[rows_live].max()))
+    worst = ratio.pop("kernel")
+    require(worst <= 1.0 and ml_gap <= 1.0, f"grid partial: worst row {worst}, m/l {ml_gap} of the limit")
+    for name, r in ratio.items():
+        require(r > 1.0, f"grid partial: planted {name} passes the check ({r})")
+    # Bytes: q of the live rows, k and v up to each row's length; numer, m
+    # and l written whole, in float32.
+    b_ms, b_by = bound((q_rows + 2 * kv_rows) * H * D * 2 + B * S * H * D * 4 + 2 * B * H * S * 4 + 4 * B,
+                       4 * H * D * pairs, PEAK_BF16_FLOPS)
+
+    def plain_partial():
+        for b0 in range(0, B, GRID_PLAIN_ROWS):
+            sl = slice(b0, b0 + GRID_PLAIN_ROWS)
+            fa.flash_attention_partial_reference(q[sl], k[sl], v[sl], lens[sl], 0)
+
+    result["partial"] = dict(
+        GRID_FLASH, grid_rows=B * H, launches=2, max_abs_err=err, worst_row_of_limit=worst,
+        m_l_worst_of_limit=ml_gap, planted_faults_worst_row_of_limit=ratio,
+        ms=cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, 0), reps=10),
+        plain_ms=cuda_ms(plain_partial, reps=1), bound_ms=b_ms, bound_by=b_by,
+    )
+    log("grid flash partial", json.dumps(result["partial"]))
+    del q, k, v, g, numer, m, l
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_grid_rescore(gen) -> dict:
+    """The rescore at `GRID_RESCORE` (65,600 queries: two launches, the
+    second holding 65 queries past the grid's limit) over the serving
+    point's 1M-row forward index, against its plain version slice by slice
+    (`rescore_fault`), with two planted faults on the split (the last
+    slice's scores left as -1e30; the last slice scored with the first
+    slice's queries) that must fail it; time beside its bound and the plain
+    version."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import rescore as rs
+
+    B = GRID_RESCORE["batch"]
+    cand, sp_ids, sp_w, q_ids, q_w = rescore_inputs(gen, batch=B, cands=GRID_RESCORE["cands"])
+    before = rs.launches
+    got = rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w)
+    torch.cuda.synchronize()
+    require(rs.launches == before + 2, "grid: the rescore did not launch twice")
+    last = 65535
+    empty, first = got.clone(), got.clone()
+    empty[last:] = -1e30
+    first[last:] = rs.exact_rescore_cuda(cand[last:], sp_ids, sp_w, q_ids[: B - last], q_w[: B - last])
+    found = {"last slice left as -1e30": None, "last slice scored with the first slice's queries": None}
+    err, rel, rows = 0.0, 0.0, 4096
+    for b0 in range(0, B, rows):
+        sl = slice(b0, b0 + rows)
+        ref = rs.exact_rescore_oneshot(cand[sl], sp_ids, sp_w, q_ids[sl], q_w[sl])
+        valid = cand[sl] >= 0
+        why = rescore_fault(got[sl], ref, valid)
+        require(why is None, f"grid rescore rows {b0}+: {why}")
+        err = max(err, float((got[sl] - ref)[valid].abs().max()))
+        rel = max(rel, float(((got[sl] - ref).abs() / ref.abs().clamp(min=1e-6))[valid].max()))
+        for name, x in (("last slice left as -1e30", empty), ("last slice scored with the first slice's queries", first)):
+            found[name] = found[name] or rescore_fault(x[sl], ref, valid)
+    for name, why in found.items():
+        require(why is not None, f"grid rescore: planted fault '{name}' passes the check")
+    b_ms, b_by = rescore_bound(cand, sp_ids, sp_w, q_ids.shape[1])
+
+    def plain():
+        for b0 in range(0, B, rows):
+            sl = slice(b0, b0 + rows)
+            rs.exact_rescore_oneshot(cand[sl], sp_ids, sp_w, q_ids[sl], q_w[sl])
+
+    result = dict(
+        GRID_RESCORE, m=sp_ids.shape[1], qm=q_ids.shape[1], launches=2, max_abs_err=err,
+        max_rel_err=rel, planted_faults_caught=found,
+        ms=cuda_ms(lambda: rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w), reps=10),
+        plain_ms=cuda_ms(plain, reps=1), bound_ms=b_ms, bound_by=b_by,
+    )
+    log("grid rescore", json.dumps(result))
+    del cand, sp_ids, sp_w, q_ids, q_w, got, empty, first
+    torch.cuda.empty_cache()
+    return result
+
+
+def ragged_data(data, cols: int) -> dict:
+    """`bench_data`'s records and queries with their dense rows cut to the
+    first `RAGGED_DIM` columns, rounded to multiples of 1/16, then
+    zero-padded to ``cols``. The rounding makes every sum of squares of a
+    row exact in float32, so a row's norm does not depend on the order in
+    which the host's BLAS or a torch reduction adds its terms, which the
+    zero columns of the twin may change: the twin's rows then normalize and
+    quantize to the same values bit for bit."""
+    import numpy as np
+
+    dense = data["arrays"]["dense"]
+    rows = np.zeros((dense.shape[0], cols), np.float32)
+    rows[:, :RAGGED_DIM] = np.round(dense[:, :RAGGED_DIM] * 16) / 16
+    records = [
+        {"id": r["id"], "dense": rows[i], "sparse_arrays": r["sparse_arrays"]}
+        for i, r in enumerate(data["records"])
+    ]
+
+    def queries(i):
+        q_dense, q_sparse, src = data["queries"](i)
+        padded = np.zeros((q_dense.shape[0], cols), np.float32)
+        padded[:, :RAGGED_DIM] = np.round(q_dense[:, :RAGGED_DIM] * 16) / 16
+        return padded, q_sparse, src
+
+    return dict(data, dim=cols, records=records, queries=queries)
+
+
+def run_ragged(data, card: str, gen, int8_event_ms: float) -> dict:
+    """The int8 store at `RAGGED_DIM` (300 int8 bytes a row, sketch 768),
+    "auto" → section: one 512-query batch (top-10, depth 256) held bit-equal
+    (ids and scores) to a twin store filled with the same rows zero-padded to
+    304 columns, which the aligned path serves; the batch's launches, the
+    corpus pointers the section launch received (the store's own buffers),
+    its ms by CUDA events beside the twin's and store_int8's 384-d batch's
+    (``int8_event_ms``) and the state bytes of both.
+    Then the kernels at ragged widths (`check_ragged_tables`) and the
+    launches past the grid limit (`check_grid_flash`, `check_grid_rescore`)."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops import fused_topk as ft
+    from verbatim_rag_tpu_torch.ops import section as sec
+
+    t0 = time.perf_counter()
+    top_k = 10
+    result = dict(card=card, rows=STORE_ROWS, dense_dim=RAGGED_DIM,
+                  store_int8_batch_event_ms_median=int8_event_ms)
+    answers, passed = {}, []
+    record = sec.kernel_operands
+
+    def recording(corpus, q, what):
+        operands = record(corpus, q, what)
+        passed.append((corpus.data_ptr(), operands[0].data_ptr()))
+        return operands
+
+    for name, cols in (("ragged", RAGGED_DIM), ("twin", 304)):
+        rdata = ragged_data(data, cols)
+        store, ingest_s, state_gb = fill_store(
+            rdata, dense_dtype="int8", sketch_dtype="int8", projection_dim=768
+        )
+        require(store.candidate_impl == "section", f"ragged {name}: impl {store.candidate_impl}")
+        require(store.rescore_depth == 256, f"ragged {name}: depth {store.rescore_depth}")
+        q_dense, q_sparse, _ = rdata["queries"](0)
+        store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)  # warm
+        reset_counts()
+        copies = ft.corpus_copies
+        passed.clear()
+        sec.kernel_operands = recording
+        try:
+            first = store.query_batch(dense_queries=q_dense, sparse_queries=q_sparse, top_k=top_k)
+        finally:
+            sec.kernel_operands = record
+        counts = read_counts()
+        require(counts["section"] > 0, f"ragged {name}: no section launch in the batch {counts}")
+        require(ft.corpus_copies == copies, f"ragged {name}: the batch copied a corpus")
+        buffers = {store._dense.data_ptr(), store._sp_proj.data_ptr()}
+        require(all(got == given and given in buffers for given, got in passed) and len(passed) == 2,
+                f"ragged {name}: the section launch did not read the store's buffers {passed}")
+        answers[name] = [[(h.id, h.score) for h in r] for r in first]
+        _, event_ms = event_batches(store, rdata, 1, 3, top_k)
+        result[name] = dict(
+            dense_columns=cols, dense_pitch_bytes=ft.row_pitch_bytes(store._dense),
+            dense_shape=list(store._dense.shape), capacity=store._capacity, state_gb=state_gb,
+            state_gb_unpitched=sum(
+                t.numel() * t.element_size() for t in (
+                    store._dense, store._dense_scale, store._sp_ids, store._sp_w, store._sp_proj,
+                    store._sp_proj_scale, store._valid_dev,
+                )
+            ) / 1e9,
+            ingest_s=ingest_s, batch_event_ms=event_ms, batch_event_ms_median=sorted(event_ms)[1],
+            section_reads_store_buffers=True, launches=counts,
+        )
+        log(f"ragged store {name}", json.dumps(result[name]))
+        if name == "ragged":
+            result["launches"] = counts
+        del store, rdata, first
+        torch.cuda.empty_cache()
+    same = answers["ragged"] == answers["twin"]
+    require(same, "ragged: the 300-d store's answers differ from its zero-padded twin's")
+    require(all(len(r) == top_k for r in answers["ragged"]), "ragged: result shape")
+    result["bit_equal_to_twin"] = same
+    result["tables"] = check_ragged_tables(gen)
+    result["grid"] = dict(check_grid_flash(gen), rescore=check_grid_rescore(gen))
+    result["phase_s"] = time.perf_counter() - t0
+    log("ragged", json.dumps({k: v for k, v in result.items() if k not in ("tables", "grid")}))
+    return result
+
+
 def matrix_bytes(store) -> dict:
     """Resident bytes of a store's dense and sketch matrices, each with its
-    scale column."""
+    scale column (rows at their pitch)."""
+    from verbatim_rag_tpu_torch.ops.fused_topk import resident_bytes
+
     def nbytes(*arrays):
-        return sum(a.nbytes for a in arrays if a is not None)
+        return sum(resident_bytes(a) for a in arrays if a is not None)
 
     return dict(
         dense=nbytes(store._dense, store._dense_scale),
@@ -5785,6 +6331,7 @@ def main() -> None:
     data = bench_data(args.seed)
     store = run_store(data, card)
     store_int8 = run_store_int8(data, card)
+    ragged = run_ragged(data, card, gen, store_int8["batch_event_ms_median"])
     int4 = run_int4(data, card, args.seed)
     mesh = run_mesh(data, card, args.seed)
     full_text = run_full_text(data, card, args.seed)
@@ -5807,8 +6354,8 @@ def main() -> None:
     del serve_index
 
     phases = (
-        flow, serve, http, doc, bucket_ab, store, store_int8, int4, mesh, full_text, cli, long_ctx, long_sp, train,
-        train_mesh, train_d32, checkpoints,
+        flow, serve, http, doc, bucket_ab, store, store_int8, ragged, int4, mesh, full_text, cli, long_ctx, long_sp,
+        train, train_mesh, train_d32, checkpoints,
     )
     by_program = mesh["launches_by_program"]
     per_shard = mesh["per_shard"]
@@ -5834,6 +6381,7 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/flash_attention.py:54",
             launches=launches["flash_attention_d32"],
             registers=build.get("flash_fwd_wgmma_kernelILi32E", {}).get("registers"),
+            grid_split=ragged["grid"]["forward"],
             **flash_d32,
         ),
         dict(
@@ -5861,6 +6409,7 @@ def main() -> None:
             launches_dkv=launches["flash_bwd_dkv_d32"],
             registers_dq=build.get("flash_bwd_dq_wgmma_kernelILi32E", {}).get("registers"),
             registers_dkv=build.get("flash_bwd_dkv_wgmma_kernelILi32E", {}).get("registers"),
+            grid_split=ragged["grid"]["backward"],
             **flash_bwd_d32,
         ),
         dict(
@@ -5880,6 +6429,7 @@ def main() -> None:
             replaces="verbatim_rag_tpu/ops/flash_attention.py:581",
             launches=launches["flash_attention_partial_d32"],
             registers=build.get("flash_partial_wgmma_kernelILi32E", {}).get("registers"),
+            grid_split=ragged["grid"]["partial"],
             **partial_d32,
         ),
         dict(
@@ -5894,6 +6444,7 @@ def main() -> None:
                 shard_ms=per_shard["rescore_ms"], shard_plain_ms=per_shard["rescore_plain_ms"],
                 shard_candidates=per_shard["candidates"],
             ),
+            grid_split=ragged["grid"]["rescore"],
             **rescore,
         ),
         dict(
@@ -5913,6 +6464,7 @@ def main() -> None:
                 shard_rows=per_shard["shard_rows"], shard_ms=per_shard["section_ms"],
                 shard_plain_ms=per_shard["section_plain_ms"],
             ),
+            ragged=ragged["tables"]["section"],
             **section,
         ),
         dict(
@@ -5929,6 +6481,7 @@ def main() -> None:
                 shard_rows=per_shard["shard_rows"], shard_ms=per_shard["bucket_max_v2_ms"],
                 shard_plain_ms=per_shard["bucket_max_v2_plain_ms"],
             ),
+            ragged=ragged["tables"]["bucket_max_v2"],
             **bucket,
         ),
         dict(
@@ -5943,6 +6496,7 @@ def main() -> None:
                 f"d{d}": {arm: bucket_ab[f"d{d}"][arm]["overlap"] for arm in ("v1", "v2_onedot")}
                 for d in (384, 768)
             },
+            ragged=ragged["tables"]["bucket_max_v1"],
             **bucket_v1,
         ),
     ]

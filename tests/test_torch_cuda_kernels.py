@@ -1064,9 +1064,18 @@ def test_table_kernels_refuse_other_row_types(cuda):
         sec.section_bucket_tables((half,), (q,), None, block_cols=256)
     with pytest.raises(TypeError, match="float32 rows"):
         ft.matmul_bucket_max_v2(half, q, mask)
-    ragged = torch.zeros(256, 1484, device=cuda, dtype=torch.bfloat16)  # 2968 bytes
+    # Rows of 2968 bytes, off a 16-byte multiple: taken now (the op copies a
+    # packed corpus to a 16-byte pitch once); only a view whose rows the
+    # kernels cannot read in place is refused by the launch check.
+    ((ragged, q_ragged, _),) = _rows_and_queries(256, (1484,), 2, seed=9, dtype="bfloat16", device=cuda)
+    got = ft.matmul_bucket_max_v2(ragged, q_ragged, mask)
+    expected = ft.matmul_bucket_max_v2_reference(ragged, q_ragged, mask)
+    _assert_tables_match(
+        got, expected, q_ragged, lambda: q_ragged.to(ragged.dtype).float() @ ragged.float().T, 256,
+        exact=False,
+    )
     with pytest.raises(ValueError, match="16-byte multiple"):
-        ft.matmul_bucket_max_v2(ragged, torch.zeros(2, 1484, device=cuda), mask)
+        ft.check_kernel_rows(ragged, "bucket")
     with pytest.raises(ValueError, match="no\\s+scale in v1"):
         ft.matmul_bucket_max(torch.zeros(256, 32, dtype=torch.int8, device=cuda), q, mask)
 
@@ -1613,3 +1622,257 @@ def test_row_quantization_on_cuda_is_bit_equal_to_cpu(cuda, tier):
     x = torch.from_numpy(np.random.default_rng(5).normal(size=(65536, 384)).astype(np.float32))
     for got, want in zip(quantize(x.to(cuda)), quantize(x)):
         assert torch.equal(got.cpu(), want)
+
+
+# -- rows of any width (a 16-byte row pitch) and batches past the grid ------------------
+
+#: Widths off a 16-byte multiple: int8 300 (GloVe's 300 dims), bf16 300,
+#: float32 301, and rows past 2944 bytes that stream the query tile (int8
+#: 3000, bf16 1500).
+RAGGED_WIDTHS = [("int8", 300), ("bfloat16", 300), ("float32", 301), ("int8", 3000), ("bfloat16", 1500)]
+
+
+def _pitched_arms(n, dims, b, seed, dtype, device, layout):
+    """`_rows_and_queries` with each arm's rows at the store's 16-byte pitch
+    (``layout="pitched"``) or packed."""
+    arms = _rows_and_queries(n, dims, b, seed=seed, dtype=dtype, device=device)
+    if layout == "packed":
+        return arms
+    out = []
+    for c, q, s in arms:
+        view = ft.pitched_zeros(c.shape[0], c.shape[1], c.dtype, device)
+        view.copy_(c)
+        assert ft.is_pitched(view) and not view.is_contiguous()
+        out.append((view, q, s))
+    return out
+
+
+@pytest.mark.parametrize("layout", ["pitched", "packed"])
+@pytest.mark.parametrize("dtype,d", RAGGED_WIDTHS)
+def test_section_kernel_at_ragged_widths(cuda, dtype, d, layout):
+    """Two arms of a ragged width in one launch against the plain version
+    (int8 bit-equal), a ragged batch of 200, a dead lane; a pitched corpus
+    is read in place, a packed one copied once; the planted fault (the mask
+    ignored) fails the check."""
+    n, block, b = 2 * 8192, 8192, 200
+    arms = _pitched_arms(n, (d, d), b, d + 7, dtype, cuda, layout)
+    corpora, queries, scales = zip(*arms)
+    scales = scales if dtype == "int8" else (None, None)
+    mask = _test_mask(n, cuda)
+    copies, before = ft.corpus_copies, sec.launches
+    got = sec.section_bucket_tables(corpora, queries, mask, scales=scales, block_cols=block)
+    torch.cuda.synchronize()
+    assert sec.launches == before + 1
+    assert ft.corpus_copies == copies + (2 if layout == "packed" else 0)
+    expected = sec.section_tables_reference(corpora, queries, mask, scales, block)
+    for g, e, c, q in zip(got, expected, corpora, queries):
+        def scores(c=c, q=q):
+            return torch.where(mask, q.to(c.dtype).float() @ c.float().T, -1e30)
+
+        _assert_tables_match(_decode(g, block), _decode(e, block), q, scores, block, dtype == "int8")
+        assert (g[:, 5::128] <= -1e29).all()
+    faulty = sec.section_tables_cuda(corpora, queries, None, scales, block)
+    torch.cuda.synchronize()
+    _planted_mask_fault_fails(lambda: _assert_tables_match(
+        _decode(faulty[0], block), _decode(expected[0], block), queries[0],
+        lambda: torch.where(mask, queries[0].to(corpora[0].dtype).float() @ corpora[0].float().T, -1e30),
+        block, dtype == "int8",
+    ))
+
+
+@pytest.mark.parametrize("layout", ["pitched", "packed"])
+@pytest.mark.parametrize("dtype,d", RAGGED_WIDTHS)
+def test_bucket_v2_kernel_at_ragged_widths(cuda, dtype, d, layout):
+    """v2 on a ragged width against the plain version (int8 bit-equal) at 4
+    blocks of 16384, a ragged batch of 130; the planted fault (the mask
+    ignored) fails."""
+    n = 4 * 16384
+    ((corpus, q, scale),) = _pitched_arms(n, (d,), 130, d + 8, dtype, cuda, layout)
+    mask = _test_mask(n, cuda)
+    before = ft.launches
+    got = ft.matmul_bucket_max_v2(corpus, q, mask, scale=scale)
+    torch.cuda.synchronize()
+    assert ft.launches == before + 1
+    expected = ft.matmul_bucket_max_v2_reference(corpus, q, mask, scale)
+
+    def scores():
+        return torch.where(mask, q.to(corpus.dtype).float() @ corpus.float().T, -1e30)
+
+    _assert_tables_match(got, expected, q, scores, 16384, exact=dtype == "int8")
+    faulty = ft.matmul_bucket_max_v2_cuda(corpus, q, torch.ones_like(mask), scale)
+    torch.cuda.synchronize()
+    _planted_mask_fault_fails(
+        lambda: _assert_tables_match(faulty, expected, q, scores, 16384, exact=dtype == "int8")
+    )
+
+
+@pytest.mark.parametrize("layout", ["pitched", "packed"])
+@pytest.mark.parametrize("dtype,d", [w for w in RAGGED_WIDTHS if w[0] != "int8"])
+def test_bucket_v1_kernel_at_ragged_widths(cuda, dtype, d, layout):
+    """v1 on bf16 and float32 rows of a ragged width against the plain
+    version, a dead bucket; the planted fault (the mask ignored) fails."""
+    n = 2 * 16384
+    ((corpus, q, _),) = _pitched_arms(n, (d,), 70, d + 9, dtype, cuda, layout)
+    mask = _v1_mask(n, cuda)
+    before = ft.launches_v1
+    got = ft.matmul_bucket_max(corpus, q, mask)
+    torch.cuda.synchronize()
+    assert ft.launches_v1 == before + 1
+    expected = ft.matmul_bucket_max_reference(corpus, q, mask)
+    assert _v1_check(got, expected, q, corpus, mask, V1_LIMITS[dtype])
+    assert (got[0][:, 5] == -1e30).all()
+    faulty = ft.matmul_bucket_max_cuda(corpus, q, torch.ones_like(mask))
+    torch.cuda.synchronize()
+    assert not _v1_check(faulty, expected, q, corpus, mask, V1_LIMITS[dtype])
+
+
+def test_pitched_rows_reach_the_kernels_without_a_copy(cuda, monkeypatch):
+    """The corpus pointer each wrapper hands its launch is the pitched view's
+    own (no copy), for section, v2 and v1."""
+    passed = []
+    for module in (sec, ft):
+        original = module.kernel_operands
+
+        def recording(corpus, q, what, original=original):
+            operands = original(corpus, q, what)
+            passed.append((corpus.data_ptr(), operands[0].data_ptr()))
+            return operands
+
+        monkeypatch.setattr(module, "kernel_operands", recording)
+    ((c8, q8, s8),) = _pitched_arms(16384, (300,), 20, 1, "int8", cuda, "pitched")
+    ((cb, qb, _),) = _pitched_arms(16384, (300,), 20, 2, "bfloat16", cuda, "pitched")
+    mask = _test_mask(16384, cuda)
+    copies = ft.corpus_copies
+    sec.section_tables_cuda((c8, cb), (q8, qb), mask, (s8, None), 8192)
+    ft.matmul_bucket_max_v2_cuda(c8, q8, mask, s8)
+    ft.matmul_bucket_max_cuda(cb, qb, mask)
+    torch.cuda.synchronize()
+    assert ft.corpus_copies == copies
+    assert passed == [(c8.data_ptr(),) * 2, (cb.data_ptr(),) * 2, (c8.data_ptr(),) * 2, (cb.data_ptr(),) * 2]
+
+
+def test_ragged_store_on_the_card_equals_its_zero_padded_twin(cuda):
+    """A 300-d int8 store on the card ("auto" → section) answers as its twin
+    at 304 columns, bit for bit, and its query batch copies no corpus."""
+    from verbatim_rag_tpu_torch.engine.store import DeviceVectorStore
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    rows = (rng.integers(-16, 17, size=(n, 300)) / 16).astype(np.float32)  # exact norms
+    ids = rng.integers(1, 4096, size=(n, 8)).astype(np.int32)
+    w = rng.random((n, 8), dtype=np.float32)
+    q = (rng.integers(-16, 17, size=(64, 300)) / 16).astype(np.float32)
+    q_ids = np.ascontiguousarray(ids[:64, :6])
+    q_w = rng.random((64, 6), dtype=np.float32)
+    answers = []
+    for cols in (300, 304):
+        store = DeviceVectorStore(dense_dim=cols, sparse_vocab=4096, sparse_max_nnz=8, projection_dim=100,
+                                  dense_dtype="int8", sketch_dtype="int8")
+        padded = np.zeros((n, cols), np.float32)
+        padded[:, :300] = rows
+        store.add_vectors([
+            {"id": str(i), "dense": padded[i], "sparse_arrays": (ids[i], w[i])} for i in range(n)
+        ])
+        store.flush()
+        assert store.candidate_impl == "section" and store._dense.is_cuda
+        qp = np.zeros((64, cols), np.float32)
+        qp[:, :300] = q
+        copies, before = ft.corpus_copies, sec.launches
+        out = store.query_batch(dense_queries=qp, sparse_queries=(q_ids, q_w), top_k=10)
+        assert sec.launches == before + 1 and ft.corpus_copies == copies
+        answers.append([[(h.id, h.score) for h in r] for r in out])
+    assert answers[0] == answers[1] and all(len(r) == 10 for r in answers[0])
+
+
+def test_int8_dots_on_a_pitched_view(cuda):
+    """The "xla" path's int8 product (`torch._int_mm` where its shape rules
+    hold) on a pitched view of 24 columns (rows of 32 bytes) equals the
+    product on the packed rows."""
+    from verbatim_rag_tpu_torch.ops.dense import int8_dots
+
+    rng = np.random.default_rng(4)
+    codes = torch.from_numpy(rng.integers(-127, 128, size=(4096, 24)).astype(np.int8)).to(cuda)
+    qi = torch.from_numpy(rng.integers(-127, 128, size=(64, 24)).astype(np.int8)).to(cuda)
+    view = ft.pitched_zeros(4096, 24, torch.int8, cuda)
+    view.copy_(codes)
+    assert view.stride(0) == 32
+    assert torch.equal(int8_dots(qi, view), int8_dots(qi, codes))
+
+
+#: batch × heads = 65,544 at MiniLM's 12 heads of 32: one past the grid's
+#: 65,535 rows on y plus eight, so two launches, the second of one row.
+GRID_BATCH, GRID_HEADS, GRID_SEQ = 5462, 12, 64
+
+
+def _grid_inputs(cuda, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v, g = (
+        torch.randn(GRID_BATCH, GRID_SEQ, GRID_HEADS, 32, generator=gen, device=cuda, dtype=torch.bfloat16)
+        for _ in range(4)
+    )
+    lens = torch.randint(1, GRID_SEQ + 1, (GRID_BATCH,), generator=gen, device=cuda, dtype=torch.int32)
+    lens[1] = 0
+    lens[-1] = GRID_SEQ
+    return q, k, v, g, lens
+
+
+#: Batch rows checked against the plain versions: both sides of the split.
+GRID_ROWS = slice(GRID_BATCH - 70, GRID_BATCH)
+
+
+def test_flash_forward_and_backward_past_the_grid_limit(cuda):
+    """The forward (with lse) and the FA2 backward at batch × heads = 65,544
+    launch twice each, inside one autograd call; the rows on both sides of
+    the split hold to the plain versions as the bf16 checks hold them."""
+    q, k, v, g, lens = _grid_inputs(cuda)
+    live = torch.arange(GRID_SEQ, device=cuda)[None, :] < lens[:, None]
+    before = (fa.launches, fa.launches_d32, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, lens)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_d32, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        x + 2 for x in before
+    )
+    sl = GRID_ROWS
+    ref = fa.attention_reference(q[sl], k[sl], v[sl], lens[sl])
+    assert _bf16_row_ratio(out[sl].detach(), ref, live[sl]) <= 1.0
+    _, lse = fa.attention_lse_reference(q[sl], k[sl], v[sl], lens[sl])
+    refs = fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], lens[sl], out[sl].detach(), lse, g[sl])
+    for got, exp in zip(grads, refs):
+        assert _bf16_row_ratio(got[sl], exp.float(), live[sl], floor=1e-3) <= 1.0
+    assert (out[1] == 0).all()
+
+
+def test_flash_partial_past_the_grid_limit(cuda):
+    """The ring step's partial at batch × heads = 65,544: two launches, the
+    rows on both sides of the split as the plain version's."""
+    q, k, v, _, lens = _grid_inputs(cuda, seed=1)
+    before = fa.partial_launches
+    numer, m, l = fa.flash_attention_partial_cuda(q, k, v, lens, 0)
+    torch.cuda.synchronize()
+    assert fa.partial_launches == before + 2
+    sl = GRID_ROWS
+    r_numer, r_m, r_l = fa.flash_attention_partial_reference(q[sl], k[sl], v[sl], lens[sl], 0)
+    rows = (lens[sl] > 0)[:, None, None].expand_as(r_m)
+    assert bool(((m[sl] - r_m).abs() <= 1e-5 * r_m.abs() + 1e-6)[rows].all())
+    assert bool(((l[sl] - r_l).abs() <= 1e-4 * r_l)[rows].all())
+    live = torch.arange(GRID_SEQ, device=cuda)[None, :] < lens[sl][:, None]
+    assert _bf16_row_ratio(numer[sl], r_numer, live & (lens[sl] > 0)[:, None]) <= 1.0
+
+
+def test_rescore_past_the_grid_limit(cuda):
+    """The rescore at 65,600 queries: two launches, the queries on both
+    sides of the split as the plain version's (rtol 1e-5, -1e30 where
+    missing)."""
+    cand, sp_ids, sp_w, q_ids, q_w = (
+        torch.from_numpy(x).to(cuda) for x in _rescore_inputs(65_600, 16, 5000, 32, 8, seed=5)
+    )
+    before = rs.launches
+    got = rs.exact_rescore_cuda(cand, sp_ids, sp_w, q_ids, q_w)
+    torch.cuda.synchronize()
+    assert rs.launches == before + 2
+    for sl in (slice(0, 64), slice(65_535 - 64, 65_600)):
+        expected = rs.exact_rescore_oneshot(cand[sl], sp_ids, sp_w, q_ids[sl], q_w[sl])
+        torch.testing.assert_close(got[sl], expected, rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[sl] <= -1e29, cand[sl] < 0)

@@ -61,16 +61,21 @@ inline int make_tile_map(CUtensorMap* map, const void* base, int batch, int seq,
   return rc == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// A TMA map over a row-major [n_rows, row_bytes] matrix whose box is 128
-// bytes of `rows` consecutive rows: int8 codes or bf16 values as bytes
-// (coordinates (byte, row)), or, with `f32`, float32 values (coordinates
-// (column, row), a box of 32 columns). Bytes past a row and rows past n_rows
-// are zero-filled. Returns 0 or a CUDA error code.
+// A TMA map over a row-major [n_rows, row_bytes] matrix whose rows start
+// `pitch` bytes apart (a multiple of 16, TMA's stride rule; any row width),
+// whose box is 128 bytes of `rows` consecutive rows: int8 codes or bf16
+// values as bytes (coordinates (byte, row)), or, with `f32`, float32 values
+// (coordinates (column, row), a box of 32 columns). Bytes past a row (the
+// pitch's padding included: it is never read) and rows past n_rows are
+// zero-filled. Returns 0 or a CUDA error code.
 inline int make_rows_map(CUtensorMap* map, const void* base, long long n_rows, int row_bytes,
-                         int rows, bool f32 = false) {
+                         long long pitch, int rows, bool f32 = false) {
   const int elt = f32 ? 4 : 1;
+  if (row_bytes <= 0 || row_bytes % elt != 0 || pitch < row_bytes || pitch % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cuuint64_t dims[2] = {(cuuint64_t)(row_bytes / elt), (cuuint64_t)n_rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
   const cuuint32_t box[2] = {128u / elt, (cuuint32_t)rows};
   const cuuint32_t elem_strides[2] = {1u, 1u};
   const CUresult rc = cuTensorMapEncodeTiled(

@@ -109,8 +109,10 @@ __device__ __forceinline__ void keep_best(float& v, int& l, float ov, int ol) {
 //     [128 rows][128 B] then [queries][128 B] (32 KB at 128 queries), both
 //     TMA boxes counted against the stage's full barrier, as the FMA walk
 //     streams its float32 queries. The query tile is read again from L2 at
-//     every position; the A operand's descriptor is the stage's. Any row
-//     that is a 16-byte multiple fits: the ring is counted in whole stages.
+//     every position; the A operand's descriptor is the stage's. A row of
+//     any width fits: the ring is counted in whole stages, and TMA fills a
+//     ragged last chunk past the row's end with zeros, which add nothing to
+//     a dot.
 //     On an H100 SXM at 700 W (B=512, N=1,048,576, one int8 arm) the
 //     streamed 3072-byte rows took 3.1 ms, 53% of their bound, and the
 //     resident 2944-byte ones (64 queries, 2 stages) 9.3 ms.
@@ -193,8 +195,8 @@ static_assert(walk_smem_bytes(kSection, 128, kWalkResidentChunks + 1, 6) <= kMax
               "a streamed 128-query tile beside a 6-stage ring");
 
 struct WalkArm {
-  CUtensorMap q_map;    // queries [batch, row_bytes]: boxes of 128 B × `queries` rows
-  CUtensorMap x_map;    // rows [n_rows, row_bytes]: boxes of 128 B × 128 rows
+  CUtensorMap q_map;    // queries [batch, row_bytes] at their pitch: boxes of 128 B × `queries` rows
+  CUtensorMap x_map;    // rows [n_rows, row_bytes] at their pitch: boxes of 128 B × 128 rows
   const float* qscale;  // [batch] (int8)
   const float* cscale;  // [n_rows] (int8)
   float* out;           // section, v2: [batch, n_blocks·128]; v1: [batch, n_rows/128]
@@ -539,7 +541,10 @@ int start_walk(const WalkParams& prm, dim3 grid, int smem, cudaStream_t stream, 
                   : start_walk<kMode, kInt8, false>(prm, grid, smem, stream);
 }
 
-// One arm of a walk launch as the C entries receive it.
+// One arm of a walk launch as the C entries receive it. A row's width
+// (row_bytes) and the distance between rows (q_pitch, x_pitch: multiples of
+// 16 bytes, as TMA takes strides) are apart, so rows of any width run; the
+// pitches reach the tensor maps only.
 struct WalkArgs {
   const void* q;
   const void* corpus;
@@ -548,6 +553,8 @@ struct WalkArgs {
   void* out;
   void* out_pos;
   int row_bytes;
+  long long q_pitch;
+  long long x_pitch;
   int queries;
   int stages;
 };
@@ -573,7 +580,7 @@ int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, i
     const WalkArgs& w = args[a];
     const int n_chunks = (w.row_bytes + kChunk - 1) / kChunk;
     const int bytes = walk_smem_bytes(kMode, w.queries, n_chunks, w.stages);
-    if (w.row_bytes <= 0 || w.row_bytes % 16 != 0 || (w.queries != 64 && w.queries != 128) ||
+    if (w.row_bytes <= 0 || (w.queries != 64 && w.queries != 128) ||
         w.stages < 2 || w.stages > kWalkMaxStages || bytes > kMaxSmem ||
         walk_streams(n_chunks) != streamed ||  // one layout a launch
         (int8 && (w.qscale == nullptr || w.cscale == nullptr))) {
@@ -584,8 +591,9 @@ int launch_walk(const WalkArgs* args, int n_arms, bool int8, const void* mask, i
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
     WalkArm& arm = prm.arm[a];
-    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, w.queries)) return rc;
-    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, kLanes))
+    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, w.q_pitch, w.queries))
+      return rc;
+    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, w.x_pitch, kLanes))
       return rc;
     arm.qscale = static_cast<const float*>(w.qscale);
     arm.cscale = static_cast<const float*>(w.cscale);
@@ -859,13 +867,16 @@ fma_walk_kernel(const __grid_constant__ FmaParams prm) {
   }
 }
 
-// One arm of an FMA walk launch as the C entries receive it.
+// One arm of an FMA walk launch as the C entries receive it (the pitches as
+// in WalkArgs).
 struct FmaArgs {
   const void* q;
   const void* corpus;
   void* out;
   void* out_pos;
   int row_bytes;
+  long long q_pitch;
+  long long x_pitch;
 };
 
 template <int kMode>
@@ -882,14 +893,16 @@ int launch_fma(const FmaArgs* args, int n_arms, const void* mask, int batch, lon
   FmaParams prm = {};
   for (int a = 0; a < n_arms; ++a) {
     const FmaArgs& w = args[a];
-    if (w.row_bytes <= 0 || w.row_bytes % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (w.row_bytes <= 0 || w.row_bytes % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
     if ((reinterpret_cast<uintptr_t>(w.q) | reinterpret_cast<uintptr_t>(w.corpus)) % 16 != 0) {
       return static_cast<int>(cudaErrorMisalignedAddress);
     }
     FmaArm& arm = prm.arm[a];
-    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, kFmaQueries, true))
+    if (int rc = hopper::make_rows_map(&arm.q_map, w.q, batch, w.row_bytes, w.q_pitch, kFmaQueries,
+                                       true))
       return rc;
-    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, kLanes, true))
+    if (int rc = hopper::make_rows_map(&arm.x_map, w.corpus, n_rows, w.row_bytes, w.x_pitch, kLanes,
+                                       true))
       return rc;
     arm.out = static_cast<float*>(w.out);
     arm.out_pos = static_cast<int*>(w.out_pos);
@@ -912,19 +925,22 @@ int launch_fma(const FmaArgs* args, int n_arms, const void* mask, int batch, lon
 // Row kinds: 0 = bf16, 1 = int8 codes, 2 = float32.
 //
 // Arms a < n_arms, all of row kind `kind`: q[a] [batch, d_a] and corpus[a]
-// [n_rows, d_a], qscale[a] [batch] and cscale[a] [n_rows] float32 for int8,
-// out[a] [batch, n_rows/block·128] float32; mask_add [n_rows] float32 or
-// null. int8 and bf16 arms run on the wgmma walk, each with its tile of
-// queries[a] (64 or 128) and ring of stages[a] (2-8), all arms resident or
-// all streamed (rows past 2944 bytes); q, corpus, cscale and mask_add
-// 16-byte aligned. float32 arms take the FMA walk, whose tile and
-// ring are its own (queries and stages are not read); q and corpus 16-byte
-// aligned. All contiguous. Returns the CUDA error code of the launch.
+// [n_rows, d_a] (rows of row_bytes[a] bytes, any width, starting q_pitch[a]
+// and x_pitch[a] bytes apart: multiples of 16), qscale[a] [batch] and
+// cscale[a] [n_rows] float32 for int8, out[a] [batch, n_rows/block·128]
+// float32; mask_add [n_rows] float32 or null. int8 and bf16 arms run on the
+// wgmma walk, each with its tile of queries[a] (64 or 128) and ring of
+// stages[a] (2-8), all arms resident or all streamed (rows past 2944 bytes);
+// q, corpus, cscale and mask_add 16-byte aligned. float32 arms take the FMA
+// walk, whose tile and ring are its own (queries and stages are not read); q
+// and corpus 16-byte aligned. Everything but the rows contiguous. Returns
+// the CUDA error code of the launch.
 extern "C" int section_tables(int n_arms, const void* const* q, const void* const* corpus,
                               const void* const* qscale, const void* const* cscale,
-                              void* const* out, const int* row_bytes, const int* queries,
-                              const int* stages, int kind, const void* mask_add, int batch,
-                              long long n_rows, int block, void* stream) {
+                              void* const* out, const int* row_bytes, const long long* q_pitch,
+                              const long long* x_pitch, const int* queries, const int* stages,
+                              int kind, const void* mask_add, int batch, long long n_rows,
+                              int block, void* stream) {
   if (n_arms < 1 || n_arms > kMaxArms || kind < kBf16 || kind > kF32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -932,21 +948,22 @@ extern "C" int section_tables(int n_arms, const void* const* q, const void* cons
   if (kind == kF32) {
     FmaArgs args[kMaxArms];
     for (int a = 0; a < n_arms; ++a) {
-      args[a] = FmaArgs{q[a], corpus[a], out[a], nullptr, row_bytes[a]};
+      args[a] = FmaArgs{q[a], corpus[a], out[a], nullptr, row_bytes[a], q_pitch[a], x_pitch[a]};
     }
     return launch_fma<kSection>(args, n_arms, mask_add, batch, n_rows, block,
                                 static_cast<cudaStream_t>(stream));
   }
   WalkArgs args[kMaxArms];
   for (int a = 0; a < n_arms; ++a) {
-    args[a] = WalkArgs{q[a],      corpus[a],    qscale[a], cscale[a], out[a],
-                       nullptr,   row_bytes[a], queries[a], stages[a]};
+    args[a] = WalkArgs{q[a],       corpus[a],  qscale[a], cscale[a],  out[a],   nullptr,
+                       row_bytes[a], q_pitch[a], x_pitch[a], queries[a], stages[a]};
   }
   return launch_walk<kSection>(args, n_arms, kind == kInt8, mask_add, batch, n_rows, block,
                                static_cast<cudaStream_t>(stream));
 }
 
-// q [batch, d], corpus [n_rows, d] of `kind`, qscale [batch] / cscale
+// q [batch, d], corpus [n_rows, d] of `kind` (rows of row_bytes, q_pitch and
+// x_pitch bytes apart: multiples of 16), qscale [batch] / cscale
 // [n_rows] float32 for int8, mask [n_rows] bool; out_val [batch,
 // n_rows/block·128] float32 (low 7 bits cleared), out_pos the same shape
 // int32 (position in the bucket). int8 and bf16 rows run on the wgmma walk
@@ -955,21 +972,24 @@ extern "C" int section_tables(int n_arms, const void* const* q, const void* cons
 // (`queries` and `stages` not read). Returns the CUDA error code.
 extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qscale,
                              const void* cscale, const void* mask, void* out_val, void* out_pos,
-                             int row_bytes, int kind, int batch, long long n_rows, int block,
-                             int queries, int stages, void* stream) {
+                             int row_bytes, long long q_pitch, long long x_pitch, int kind,
+                             int batch, long long n_rows, int block, int queries, int stages,
+                             void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   if (kind == kInt8 || kind == kBf16) {
-    const WalkArgs args{q, corpus, qscale, cscale, out_val, out_pos, row_bytes, queries, stages};
+    const WalkArgs args{q,         corpus,  qscale,  cscale,  out_val, out_pos,
+                        row_bytes, q_pitch, x_pitch, queries, stages};
     return launch_walk<kBucketV2>(&args, 1, kind == kInt8, mask, batch, n_rows, block,
                                   static_cast<cudaStream_t>(stream));
   }
   if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
-  const FmaArgs args{q, corpus, out_val, out_pos, row_bytes};
+  const FmaArgs args{q, corpus, out_val, out_pos, row_bytes, q_pitch, x_pitch};
   return launch_fma<kBucketV2>(&args, 1, mask, batch, n_rows, block,
                                static_cast<cudaStream_t>(stream));
 }
 
-// q [batch, d], corpus [n_rows, d] bf16 (kind 0) or float32 (kind 2), mask
+// q [batch, d], corpus [n_rows, d] bf16 (kind 0) or float32 (kind 2) (rows
+// of row_bytes, q_pitch and x_pitch bytes apart: multiples of 16), mask
 // [n_rows] bool; out_val [batch, n_rows/128] float32 (each bucket's
 // maximum, -1e30 where all its rows are masked), out_row the same shape int32
 // (global row of the highest lane holding it). `block` (a 128-multiple that
@@ -978,16 +998,18 @@ extern "C" int bucket_max_v2(const void* q, const void* corpus, const void* qsca
 // aligned; float32 rows take the FMA walk (`queries` and `stages` not read).
 // Returns the CUDA error code.
 extern "C" int bucket_max_v1(const void* q, const void* corpus, const void* mask, void* out_val,
-                             void* out_row, int row_bytes, int kind, int batch, long long n_rows,
-                             int block, int queries, int stages, void* stream) {
+                             void* out_row, int row_bytes, long long q_pitch, long long x_pitch,
+                             int kind, int batch, long long n_rows, int block, int queries,
+                             int stages, void* stream) {
   if (batch <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   if (kind == kBf16) {
-    const WalkArgs args{q, corpus, nullptr, nullptr, out_val, out_row, row_bytes, queries, stages};
+    const WalkArgs args{q,         corpus,  nullptr, nullptr, out_val, out_row,
+                        row_bytes, q_pitch, x_pitch, queries, stages};
     return launch_walk<kBucketV1>(&args, 1, false, mask, batch, n_rows, block,
                                   static_cast<cudaStream_t>(stream));
   }
   if (kind != kF32) return static_cast<int>(cudaErrorInvalidValue);
-  const FmaArgs args{q, corpus, out_val, out_row, row_bytes};
+  const FmaArgs args{q, corpus, out_val, out_row, row_bytes, q_pitch, x_pitch};
   return launch_fma<kBucketV1>(&args, 1, mask, batch, n_rows, block,
                                static_cast<cudaStream_t>(stream));
 }

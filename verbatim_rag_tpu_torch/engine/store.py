@@ -22,6 +22,13 @@ Layout on the store's device (a CUDA device unless ``device="cpu"``):
 - validity: ``[cap] bool`` — deletes flip it (tombstones); `compact`
             rebuilds the arrays without them.
 
+The dense and sketch matrices (and their int8 / int4 codes) are ``[cap, d]``
+views of buffers whose rows start a 16-byte multiple apart
+(`ops/fused_topk.py::pitched_zeros`: 304 bytes for 300 int8 columns), so the
+table kernels read rows of any width in place, through TMA, without a copy
+per query; every other op reads the views as any tensor. Saved files hold
+``[n, d]``, as the JAX store writes them.
+
 Text and metadata stay on the host. Writes queue in a host buffer; `flush()`
 writes them into the device arrays, whose capacity grows geometrically from
 ``block``. Unlike the JAX store (immutable arrays, a fresh buffer per
@@ -550,8 +557,8 @@ class DeviceVectorStore(VectorStore):
         pad_rows = -(-n_new // pad_unit) * pad_unit
         new_cap = self._target_capacity(offset + pad_rows, first_flush=offset == 0)
 
-        def _write(arr, new_rows, width, dtype):
-            arr = self._grow_capacity(arr, new_cap, width, dtype)
+        def _write(arr, new_rows, width, dtype, pitched=False):
+            arr = self._grow_capacity(arr, new_cap, width, dtype, pitched)
             arr[offset : offset + n_new] = torch.as_tensor(new_rows).to(self.device, dtype)
             return arr
 
@@ -567,19 +574,20 @@ class DeviceVectorStore(VectorStore):
             if self._sketch_quantized:
                 codes, scale = _quantize(proj_new, self.sketch_dtype)
                 return (
-                    _write(arr, codes, self._sketch_width, torch.int8),
+                    _write(arr, codes, self._sketch_width, torch.int8, pitched=True),
                     _write(scale_arr, scale, 1, torch.float32),
                 )
-            return _write(arr, proj_new, self.projection_dim, self._sketch_store_dtype), scale_arr
+            sketch = _write(arr, proj_new, self.projection_dim, self._sketch_store_dtype, pitched=True)
+            return sketch, scale_arr
 
         if dense_new is not None:
             if self._dense_quantized:
                 codes, scale = _quantize(torch.from_numpy(dense_new).to(self.device), self.dense_dtype)
-                self._dense = _write(self._dense, codes, self._dense_width, torch.int8)
+                self._dense = _write(self._dense, codes, self._dense_width, torch.int8, pitched=True)
                 self._dense_scale = _write(self._dense_scale, scale, 1, torch.float32)
             else:
                 self._dense = _write(
-                    self._dense, dense_new, self.dense_dim, self._dense_store_dtype
+                    self._dense, dense_new, self.dense_dim, self._dense_store_dtype, pitched=True
                 )
         if sp_ids_new is not None:
             from verbatim_rag_tpu_torch.ops.sparse_projected import project_rows
@@ -682,24 +690,31 @@ class DeviceVectorStore(VectorStore):
             cap *= 2
         return cap
 
-    def _grow_capacity(self, old, cap: int, width: int, dtype):
-        """Allocate [cap, width] zeros and copy the old rows into the prefix.
+    def _grow_capacity(self, old, cap: int, width: int, dtype, pitched: bool = False):
+        """Allocate [cap, width] zeros and copy the old rows into the prefix;
+        ``pitched`` (the dense and sketch matrices) at a 16-byte row pitch.
 
         On a mesh each shard's row range moves with the capacity, so the old
         rows are re-placed, shard by shard, into the new array's shards."""
+        from verbatim_rag_tpu_torch.ops.fused_topk import pitched_zeros
+
         if old is not None and old.shape[0] >= cap:
             return old
+
+        def zeros(rows, device):
+            if pitched:
+                return pitched_zeros(rows, width, dtype, device)
+            return torch.zeros((rows, width), dtype=dtype, device=device)
+
         if self.mesh is None:
-            fresh = torch.zeros((cap, width), dtype=dtype, device=self.device)
+            fresh = zeros(cap, self.device)
             if old is not None:
                 fresh[: old.shape[0]] = old
             return fresh
         from verbatim_rag_tpu_torch.parallel.mesh import RowSharded
 
         m = cap // self.mesh.size
-        fresh = RowSharded(
-            [torch.zeros((m, width), dtype=dtype, device=d) for d in self.mesh.flat_devices]
-        )
+        fresh = RowSharded([zeros(m, d) for d in self.mesh.flat_devices])
         if old is not None:
             for i, shard in enumerate(old.shards):
                 fresh[i * old.rows_per_shard : (i + 1) * old.rows_per_shard] = shard
@@ -809,7 +824,9 @@ class DeviceVectorStore(VectorStore):
         cap = max(-(-n_rows // self.block) * self.block, self.block)
         grow = self._grow_capacity
         if self.dense_dim:
-            self._dense = grow(self._dense, cap, self._dense_width, self._dense_store_dtype)
+            self._dense = grow(
+                self._dense, cap, self._dense_width, self._dense_store_dtype, pitched=True
+            )
             if self._dense_quantized:
                 self._dense_scale = grow(self._dense_scale, cap, 1, torch.float32)
         sketches = []
@@ -825,7 +842,8 @@ class DeviceVectorStore(VectorStore):
         if self.sparse_mode == "projected":
             for proj, scale in sketches:
                 setattr(self, proj, grow(
-                    getattr(self, proj), cap, self._sketch_width, self._sketch_store_dtype
+                    getattr(self, proj), cap, self._sketch_width, self._sketch_store_dtype,
+                    pitched=True,
                 ))
                 if self._sketch_quantized:
                     setattr(self, scale, grow(getattr(self, scale), cap, 1, torch.float32))

@@ -125,3 +125,18 @@ def check(rc: int, what: str) -> None:
     """Raise when a kernel's C entry point returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+#: The largest ``gridDim.y`` (and ``gridDim.z``) a CUDA launch may have.
+GRID_Y_MAX = 65535
+
+
+def grid_chunks(rows: int, per_row: int = 1) -> list[tuple[int, int]]:
+    """``[start, stop)`` slices of ``rows`` leading rows, each small enough
+    that ``(stop − start) · per_row`` fits ``gridDim.y``: a kernel that puts
+    batch × heads (or batch) there runs once per slice. One slice when the
+    whole fits; none for no rows."""
+    if per_row < 1 or per_row > GRID_Y_MAX:
+        raise ValueError(f"{per_row} grid rows per leading row do not fit gridDim.y ({GRID_Y_MAX})")
+    step = GRID_Y_MAX // per_row
+    return [(start, min(start + step, rows)) for start in range(0, rows, step)]

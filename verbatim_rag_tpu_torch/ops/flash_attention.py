@@ -31,7 +31,9 @@ takes the plain versions, a CUDA tensor launches the kernels or raises. When
 an input requires grad it runs through :class:`FlashAttention`, whose forward
 also keeps the logsumexp and whose backward is the FA2 backward (kernels on
 CUDA); otherwise it runs the forward alone. The kernels take any sequence
-length and mask the ragged edge themselves. Rows with no live key (a
+length and mask the ragged edge themselves, and any batch: a batch whose
+batch × heads passes the grid's 65,535 rows on y runs in slices, one launch
+a slice (`cuda_build.grid_chunks`), inside the one call autograd sees. Rows with no live key (a
 zero-length row, or a padded query of a local layer whose band holds no live
 key) get zero gradients, as in the JAX package's kernel backward.
 """
@@ -156,8 +158,6 @@ def _check_inputs(q, k, v, lengths, what: str, head_dims, same_seq: bool = True)
         raise ValueError(f"q, k, v must be [B, S, H, D] alike, got {q.shape}, {k.shape}, {v.shape}")
     batch, _, heads, head_dim = q.shape
     _check_head_dim(head_dim, head_dims, what)
-    if batch * heads > 65535:
-        raise ValueError(f"batch*heads={batch * heads} exceeds the kernel grid (65535)")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous and 16-byte aligned")
     if lengths.shape != (batch,) or lengths.dtype != torch.int32 or not lengths.is_contiguous():
@@ -183,16 +183,20 @@ def _forward(q, k, v, lengths, window, with_lse: bool):
     fn = lib.flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            batch, seq, heads, head_dim, -1 if window is None else int(window),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    cuda_build.check(rc, "flash_attention_fwd")
-    launches += 1
-    launches_d32 += head_dim == 32
+    # The kernel's grid holds batch × heads on y: one launch per slice of
+    # the batch that fits it.
+    for b0, b1 in cuda_build.grid_chunks(batch, heads):
+        with torch.cuda.device(q.device):
+            rc = fn(
+                q[b0:b1].data_ptr(), k[b0:b1].data_ptr(), v[b0:b1].data_ptr(),
+                lengths[b0:b1].data_ptr(), out[b0:b1].data_ptr(),
+                None if lse is None else lse[b0:b1].data_ptr(),
+                b1 - b0, seq, heads, head_dim, -1 if window is None else int(window),
+                _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        cuda_build.check(rc, "flash_attention_fwd")
+        launches += 1
+        launches_d32 += head_dim == 32
     return out, lse
 
 
@@ -209,34 +213,35 @@ def flash_attention_lse_cuda(q, k, v, lengths, window=None):
 
 def _launch_bwd(q, k, v, lengths, lse, delta, g, window, kernels=("dq", "dkv")):
     """Launch the backward kernels with a given delta; (dq, dk, dv), each
-    None when its kernel was not asked for."""
+    None when its kernel was not asked for. Each kernel's grid holds batch ×
+    heads on y: one launch per slice of the batch that fits it."""
     global bwd_dq_launches, bwd_dq_launches_d32, bwd_dkv_launches, bwd_dkv_launches_d32
     batch, seq, heads, head_dim = q.shape
     lib = cuda_build.load("flash_attention_bwd")
     win = -1 if window is None else int(window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-              delta.data_ptr(), lengths.data_ptr())
-    shape = (batch, seq, heads, head_dim, win, _DTYPE_CODES[q.dtype], stream)
-    dq = dk = dv = None
-    if "dq" in kernels:
-        dq = torch.empty_like(q)
-        fn = lib.flash_bwd_dq
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        with torch.cuda.device(q.device):
-            cuda_build.check(fn(*common, dq.data_ptr(), *shape), "flash_bwd_dq")
-        bwd_dq_launches += 1
-        bwd_dq_launches_d32 += head_dim == 32
-    if "dkv" in kernels:
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        fn = lib.flash_bwd_dkv
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        with torch.cuda.device(q.device):
-            cuda_build.check(fn(*common, dk.data_ptr(), dv.data_ptr(), *shape), "flash_bwd_dkv")
-        bwd_dkv_launches += 1
-        bwd_dkv_launches_d32 += head_dim == 32
+    dq = torch.empty_like(q) if "dq" in kernels else None
+    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if "dkv" in kernels else (None, None)
+    fn_dq, fn_dkv = lib.flash_bwd_dq, lib.flash_bwd_dkv
+    fn_dq.restype = fn_dkv.restype = ctypes.c_int
+    fn_dq.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn_dkv.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    for b0, b1 in cuda_build.grid_chunks(batch, heads):
+        common = tuple(
+            t[b0:b1].data_ptr() for t in (q, k, v, g, lse, delta, lengths)
+        )
+        shape = (b1 - b0, seq, heads, head_dim, win, _DTYPE_CODES[q.dtype], stream)
+        if dq is not None:
+            with torch.cuda.device(q.device):
+                cuda_build.check(fn_dq(*common, dq[b0:b1].data_ptr(), *shape), "flash_bwd_dq")
+            bwd_dq_launches += 1
+            bwd_dq_launches_d32 += head_dim == 32
+        if dk is not None:
+            with torch.cuda.device(q.device):
+                rc = fn_dkv(*common, dk[b0:b1].data_ptr(), dv[b0:b1].data_ptr(), *shape)
+                cuda_build.check(rc, "flash_bwd_dkv")
+            bwd_dkv_launches += 1
+            bwd_dkv_launches_d32 += head_dim == 32
     return dq, dk, dv
 
 
@@ -298,15 +303,17 @@ def flash_attention_partial_cuda(q, k, v, lengths, k_offset: int):
     fn = lib.flash_attention_partial
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    with torch.cuda.device(q.device):
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), numer.data_ptr(),
-            m.data_ptr(), l.data_ptr(), batch, seq_q, k.shape[1], heads, head_dim, k_offset,
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    cuda_build.check(rc, "flash_attention_partial")
-    partial_launches += 1
-    partial_launches_d32 += head_dim == 32
+    # batch × heads on the grid's y, as the forward's: one launch a slice.
+    for b0, b1 in cuda_build.grid_chunks(batch, heads):
+        with torch.cuda.device(q.device):
+            rc = fn(
+                *(t[b0:b1].data_ptr() for t in (q, k, v, lengths, numer, m, l)),
+                b1 - b0, seq_q, k.shape[1], heads, head_dim, k_offset,
+                _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        cuda_build.check(rc, "flash_attention_partial")
+        partial_launches += 1
+        partial_launches_d32 += head_dim == 32
     return numer, m, l
 
 

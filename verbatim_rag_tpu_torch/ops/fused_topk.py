@@ -30,11 +30,15 @@ kernel's oracle. :func:`matmul_bucket_max_v2_cuda` launches
 TPU variants compute the same function and are both served by the one CUDA
 kernel; :func:`matmul_bucket_max_v2` dispatches on the tensors' device.
 
-The kernels read int8 (v2 only), bf16 or float32 rows of any 16-byte
-multiple (`check_kernel_rows`). int8 and bf16 rows run on the wgmma walk of
-`csrc/section.cu` (one main loop for section, v2 and v1, each with its
-epilogue) with the query tile and ring depth of :func:`walk_geometry`; rows
-past 2944 bytes stream their query tile through the ring
+The kernels read int8 (v2 only), bf16 or float32 rows of any width whose
+starts lie a 16-byte multiple apart (`check_kernel_rows`): TMA takes such a
+row stride, and fills the bytes past a row's end with zeros. The store keeps
+its rows at that pitch (`pitched_zeros`); a caller's packed rows of another
+width are copied to it once a call (`pitched`). int8 and bf16 rows run on
+the wgmma walk of `csrc/section.cu` (one main loop for section, v2 and v1,
+each with its epilogue) with the query tile and ring depth of
+:func:`walk_geometry`; rows past 2944 bytes stream their query tile through
+the ring
 (:func:`walk_streams`). float32 rows run on the FMA walk (128-query tiles,
 queries and rows streamed by TMA; :func:`table_geometry`).
 """
@@ -64,6 +68,15 @@ PLAIN_CHUNK_ROWS = 131072
 #: bucket_max_v2, and bucket_max_v1.
 launches = 0
 launches_v1 = 0
+
+#: Row pitch of the table kernels' operands: TMA reads rows whose starts lie
+#: a multiple of 16 bytes apart. A row itself may be of any width.
+ROW_ALIGN = 16
+
+#: Corpora the kernel wrappers (section, v2, v1) copied to a 16-byte pitch
+#: since the last reset: a caller's packed rows of another width. The
+#: store's rows are kept at that pitch and are never copied.
+corpus_copies = 0
 
 
 def choose_block_rows(n: int) -> int | None:
@@ -213,35 +226,102 @@ def tile_queries(dtype, row_bytes: int, mode: str = "v2") -> int:
     return table_geometry(dtype, row_bytes, mode)[0]
 
 
-def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
-    """Row width in bytes that `csrc/section.cu` takes for ``corpus`` under
-    epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows of a
-    16-byte multiple (TMA boxes), of any width (the wgmma walk streams the
-    query tile of rows past 2944 bytes, the FMA walk always streams its
-    float32 queries)."""
+def pitch_columns(cols: int, element_size: int) -> int:
+    """Columns of a row buffer that holds ``cols`` values of
+    ``element_size`` bytes at a pitch rounded up to 16 bytes."""
+    step = ROW_ALIGN // element_size
+    return -(-cols // step) * step
+
+
+def pitched_zeros(rows: int, cols: int, dtype, device=None) -> torch.Tensor:
+    """[rows, cols] zeros whose rows start a 16-byte multiple apart: the
+    [rows, cols] view of a [rows, `pitch_columns`] buffer (the buffer itself
+    when the width is already a 16-byte multiple). The table kernels read it
+    in place, as cuBLAS and every torch op do."""
+    pitch = pitch_columns(cols, torch.empty((), dtype=dtype).element_size())
+    buf = torch.zeros((rows, pitch), dtype=dtype, device=device)
+    return buf if pitch == cols else buf[:, :cols]
+
+
+def row_pitch_bytes(t: torch.Tensor) -> int:
+    """Bytes between the starts of two rows of a [n, d] tensor."""
+    return t.stride(0) * t.element_size()
+
+
+def is_pitched(t: torch.Tensor) -> bool:
+    """Whether the table kernels read the rows of a [n, d] tensor in place:
+    unit column stride, rows a 16-byte multiple apart (and not overlapping),
+    a 16-byte aligned base."""
+    pitch = row_pitch_bytes(t)
+    return (
+        t.dim() == 2
+        and (t.shape[1] <= 1 or t.stride(1) == 1)
+        and pitch % ROW_ALIGN == 0
+        and pitch >= t.shape[1] * t.element_size()
+        and t.data_ptr() % ROW_ALIGN == 0
+    )
+
+
+def pitched(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when the kernels read it in place (`is_pitched`), else a copy
+    at a 16-byte pitch."""
+    if is_pitched(t):
+        return t
+    out = pitched_zeros(t.shape[0], t.shape[1], t.dtype, t.device)
+    out.copy_(t)
+    return out
+
+
+def resident_bytes(t) -> int:
+    """Device bytes a [n, ...] array holds: its rows at their pitch (a
+    pitched view counts its buffer's padding, ``nbytes`` does not); a
+    row-sharded array (`parallel.mesh.RowSharded`) its shards'."""
+    shards = getattr(t, "shards", None)
+    if shards is not None:
+        return sum(resident_bytes(s) for s in shards)
+    if t.dim() >= 2 and t.shape[0]:
+        return t.shape[0] * row_pitch_bytes(t)
+    return t.numel() * t.element_size()
+
+
+def _check_kind(corpus, what: str) -> None:
     if corpus.dtype not in KERNEL_KINDS:
         raise TypeError(
             f"the {what} kernel reads int8, bfloat16 or float32 rows, got {corpus.dtype}"
         )
+
+
+def check_kernel_rows(corpus, what: str, mode: str = "v2") -> int:
+    """Row width in bytes that `csrc/section.cu` takes for ``corpus`` under
+    epilogue ``mode``, or a raise: int8, bfloat16 or float32 rows of any
+    width (the wgmma walk streams the query tile of rows past 2944 bytes, the
+    FMA walk always streams its float32 queries) read in place, so their
+    starts must lie a 16-byte multiple apart on a 16-byte aligned base, as
+    TMA takes them (`is_pitched`)."""
+    _check_kind(corpus, what)
     row_bytes = corpus.shape[1] * corpus.element_size()
-    if row_bytes % 16:
+    if not is_pitched(corpus):
         raise ValueError(
-            f"the {what} kernel takes rows of a 16-byte multiple, got "
-            f"{corpus.shape[1]} × {corpus.element_size()} bytes"
+            f"the {what} kernel reads rows whose starts lie a 16-byte multiple apart "
+            f"on a 16-byte aligned base, got {corpus.shape[1]} × {corpus.element_size()} "
+            f"bytes at strides {tuple(corpus.stride())} (`pitched` copies them)"
         )
     return row_bytes
 
 
 def kernel_operands(corpus, q, what: str):
-    """(contiguous corpus, prepared queries, their int8 scales or None) for a
-    launch. The kernels copy rows in 16-byte pieces (TMA boxes),
-    so rows must start 16-byte aligned: a corpus view that does not raises,
-    queries are copied."""
-    corpus = corpus.contiguous()
-    if corpus.data_ptr() % 16:
-        raise ValueError(f"the {what} kernel reads corpus rows in 16-byte pieces: align them")
+    """(corpus, prepared queries, their int8 scales or None, row bytes) for
+    a launch. The kernels load rows by TMA, whose row stride is a multiple of
+    16 bytes: a corpus read in place (the store's rows, `pitched_zeros`) is
+    passed as it is, any other is copied to a 16-byte pitch once
+    (`corpus_copies`); queries are prepared and copied likewise."""
+    global corpus_copies
+    _check_kind(corpus, what)
+    if not is_pitched(corpus):
+        corpus = pitched(corpus)
+        corpus_copies += 1
     qp, q_scale = prepare_queries(q, corpus)
-    return corpus, _aligned(qp), q_scale
+    return corpus, pitched(qp), q_scale, check_kernel_rows(corpus, what)
 
 
 def globalize_rows(pos: torch.Tensor, block_rows: int, n: int) -> torch.Tensor:
@@ -283,10 +363,9 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
     block_rows = choose_block_rows(n)
     if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
         raise ValueError("matmul_bucket_max_v2_cuda needs CUDA tensors")
-    row_bytes = check_kernel_rows(corpus, "bucket", "v2")
     if mask.dtype != torch.bool or mask.shape != (n,):
         raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
-    corpus, qp, q_scale = kernel_operands(corpus, q, "bucket")
+    corpus, qp, q_scale, row_bytes = kernel_operands(corpus, q, "bucket")
     c_scale = None
     if corpus.dtype == torch.int8:
         c_scale = _aligned(scale.reshape(-1).float().contiguous())
@@ -299,14 +378,16 @@ def matmul_bucket_max_v2_cuda(corpus, q, mask, scale=None):
     if vals.numel():
         fn = lib.bucket_max_v2
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         with torch.cuda.device(corpus.device):
             rc = fn(
                 qp.data_ptr(), corpus.data_ptr(), _ptr(q_scale), _ptr(c_scale), mask.data_ptr(),
-                vals.data_ptr(), pos.data_ptr(), row_bytes,
-                KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows, queries, stages,
+                vals.data_ptr(), pos.data_ptr(), row_bytes, row_pitch_bytes(qp),
+                row_pitch_bytes(corpus), KERNEL_KINDS[corpus.dtype], qp.shape[0], n, block_rows,
+                queries, stages,
                 torch.cuda.current_stream(corpus.device).cuda_stream,
             )
         cuda_build.check(rc, "bucket_max_v2")
@@ -320,7 +401,7 @@ def _ptr(t) -> int | None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data is not 16-byte aligned (the
-    wgmma walk loads queries by TMA and bulk-copies the mask and scales)."""
+    walks bulk-copy the mask and scales)."""
     return t.clone() if t.data_ptr() % 16 else t
 
 
@@ -434,12 +515,11 @@ def matmul_bucket_max_cuda(corpus, q, mask):
     if not (corpus.is_cuda and q.is_cuda and mask.is_cuda):
         raise ValueError("matmul_bucket_max_cuda needs CUDA tensors")
     n, d = corpus.shape
-    row_bytes = check_kernel_rows(corpus, "bucket v1", "v1")
     if q.dim() != 2 or q.shape[1] != d:
         raise ValueError(f"queries must be [B, {d}], got {tuple(q.shape)}")
     if mask.dtype != torch.bool or mask.shape != (n,):
         raise ValueError(f"mask must be bool [{n}], got {mask.dtype} {tuple(mask.shape)}")
-    corpus, qp, _ = kernel_operands(corpus, q, "bucket v1")
+    corpus, qp, _, row_bytes = kernel_operands(corpus, q, "bucket v1")
     mask = _aligned(mask.contiguous())
     batch = qp.shape[0]
     vals = torch.empty((batch, n // BUCKET), dtype=torch.float32, device=corpus.device)
@@ -450,13 +530,15 @@ def matmul_bucket_max_cuda(corpus, q, mask):
         queries, stages = table_geometry(corpus.dtype, row_bytes, "v1")
         fn = cuda_build.load("section").bucket_max_v1
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
         ]
         with torch.cuda.device(corpus.device):
             rc = fn(
                 qp.data_ptr(), corpus.data_ptr(), mask.data_ptr(), vals.data_ptr(), rows.data_ptr(),
-                row_bytes, KERNEL_KINDS[corpus.dtype], batch, n, block, queries, stages,
+                row_bytes, row_pitch_bytes(qp), row_pitch_bytes(corpus), KERNEL_KINDS[corpus.dtype],
+                batch, n, block, queries, stages,
                 torch.cuda.current_stream(corpus.device).cuda_stream,
             )
         cuda_build.check(rc, "bucket_max_v1")

@@ -8,7 +8,8 @@ replaces the TPU kernel `_rescore_kernel` and reads candidate rows straight
 from the [N, m] forward index, looking each slot up in a shared-memory hash
 table of the query's terms. :func:`exact_rescore_dispatch` is the store's
 "pallas" rescore impl: the plain version for CPU tensors, the kernel for
-CUDA tensors, for any m and qm.
+CUDA tensors, for any m, qm and batch (past the grid's 65,535 rows on y the
+kernel runs once a slice of queries, `cuda_build.grid_chunks`).
 
 The forward index holds int32 or int16 ids and float32 or float16 weights
 (the store's ``sparse_ids_dtype`` / ``sparse_weight_dtype``). Both versions
@@ -79,8 +80,6 @@ def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
             f"shape mismatch: cand {tuple(cand_rows.shape)}, sp_ids {tuple(sp_ids.shape)}, "
             f"sp_w {tuple(sp_w.shape)}, q_ids {tuple(q_ids.shape)}, q_w {tuple(q_w.shape)}"
         )
-    if batch > 65535:
-        raise ValueError(f"batch {batch} exceeds the kernel grid (65535)")
     out = torch.empty((batch, cands), dtype=torch.float32, device=cand_rows.device)
     if out.numel() == 0:
         return out
@@ -92,15 +91,18 @@ def exact_rescore_cuda(cand_rows, sp_ids, sp_w, q_ids, q_w):
         + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4
         + [ctypes.c_void_p]
     )
-    with torch.cuda.device(cand_rows.device):
-        rc = fn(
-            cand_rows.data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(), q_ids.data_ptr(),
-            q_w.data_ptr(), out.data_ptr(), batch, cands, n_rows, m, qm,
-            _ID_BYTES[sp_ids.dtype], _WEIGHT_BYTES[sp_w.dtype],
-            torch.cuda.current_stream(cand_rows.device).cuda_stream,
-        )
-    cuda_build.check(rc, "sparse_rescore")
-    launches += 1
+    # The kernel's grid holds the batch on y: one launch per slice of
+    # queries that fits it.
+    for b0, b1 in cuda_build.grid_chunks(batch):
+        with torch.cuda.device(cand_rows.device):
+            rc = fn(
+                cand_rows[b0:b1].data_ptr(), sp_ids.data_ptr(), sp_w.data_ptr(),
+                q_ids[b0:b1].data_ptr(), q_w[b0:b1].data_ptr(), out[b0:b1].data_ptr(),
+                b1 - b0, cands, n_rows, m, qm, _ID_BYTES[sp_ids.dtype], _WEIGHT_BYTES[sp_w.dtype],
+                torch.cuda.current_stream(cand_rows.device).cuda_stream,
+            )
+        cuda_build.check(rc, "sparse_rescore")
+        launches += 1
     return out
 
 

@@ -45,9 +45,9 @@ from .fused_topk import (
     _positions,
     _ptr,
     block_scores,
-    check_kernel_rows,
     kernel_operands,
     prepare_queries,
+    row_pitch_bytes,
     table_geometry,
     walk_streams,
 )
@@ -148,8 +148,7 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
         raise ValueError("section_tables_cuda needs CUDA tensors")
     arms = []
     for corpus, q, scale in zip(corpora, queries, scales):
-        row_bytes = check_kernel_rows(corpus, "section", "section")
-        corpus, qp, q_scale = kernel_operands(corpus, q, "section")
+        corpus, qp, q_scale, row_bytes = kernel_operands(corpus, q, "section")
         c_scale = None if scale is None else _aligned(scale.reshape(-1).float().contiguous())
         arms.append((corpus, qp, q_scale, c_scale, row_bytes))
     batch = queries[0].shape[0]
@@ -165,12 +164,12 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
     def pointers(values):
         return (ctypes.c_void_p * MAX_ARMS)(*values, *([None] * (MAX_ARMS - len(values))))
 
-    def ints(values):
-        return (ctypes.c_int * MAX_ARMS)(*values, *([0] * (MAX_ARMS - len(values))))
+    def ints(values, kind=ctypes.c_int):
+        return (kind * MAX_ARMS)(*values, *([0] * (MAX_ARMS - len(values))))
 
     fn = cuda_build.load("section").section_tables
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_void_p,
     ]
@@ -186,6 +185,8 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
                 pointers([_ptr(a[3]) for a in group]),
                 pointers([tables[i].data_ptr() for i in idx]),
                 ints([a[4] for a in group]),
+                ints([row_pitch_bytes(a[1]) for a in group], ctypes.c_longlong),
+                ints([row_pitch_bytes(a[0]) for a in group], ctypes.c_longlong),
                 ints([g[0] for g in geometries]),
                 ints([g[1] for g in geometries]),
                 KERNEL_KINDS[dtype], _ptr(mask_add), batch, n, block_cols, stream,
@@ -200,7 +201,9 @@ def section_tables_cuda(corpora, queries, mask, scales, block_cols: int):
 def section_bucket_tables(corpora, queries, mask, scales=(), block_cols: int = BLOCK_COLS):
     """One packed bucket table [B, (N/block_cols)·128] f32 per arm.
 
-    ``corpora``: per arm [N, d_a] rows (int8, bf16 or float32);
+    ``corpora``: per arm [N, d_a] rows (int8, bf16 or float32; any d_a: on
+    CUDA rows whose starts are not a 16-byte multiple apart are copied to
+    such a pitch once a call, `fused_topk.kernel_operands`);
     ``queries``: per arm [B, d_a] float32 (quantized per row on the fly for
     int8 arms, cast to the arm's dtype otherwise); ``mask``: [N] bool or None
     (every row live); ``scales``: per arm [N, 1] float32 for int8 arms, else

@@ -128,7 +128,10 @@ class RowSharded:
 
     @property
     def nbytes(self) -> int:
-        return sum(s.numel() * s.element_size() for s in self.shards)
+        """Device bytes of the shards, rows at their pitch (`resident_bytes`)."""
+        from verbatim_rag_tpu_torch.ops.fused_topk import resident_bytes
+
+        return sum(resident_bytes(s) for s in self.shards)
 
     def map(self, fn, *others: "RowSharded") -> "RowSharded":
         """``fn`` applied shard by shard (to this array's shard and each of
