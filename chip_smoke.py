@@ -190,7 +190,9 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              int8 bit-equal, each timed beside its bound, plain version and
              zero-padded aligned twin), and launches past the grid's 65,535
              rows on y (`check_grid_flash`: the flash forward, backward and
-             partial at B=5,462, H=12, D=32, S=128, two launches each;
+             partial at B=5,462, H=12, D=32, S=128, two launches each,
+             timed beside SDPA with the boolean mask, its backward and the
+             memory-efficient kernel with its logsumexp;
              `check_grid_rescore`: B=65,600, C=16), each against its plain
              version with two planted faults on the split;
 5a. int4   — the same records in an int4 store (dense 384 and sketch 768
@@ -229,6 +231,24 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              (f) a `sparse_mode="exact"` mesh store at 196,608 rows, 64
              sparse-only queries equal to the unsharded scan's (ties within
              1e-6). Median batch ms by CUDA events, sharded and unsharded;
+5f. processes — the sharded searches across processes
+             (`parallel/sharded_search.py`'s group path, JAX's DCN path): 2
+             worker processes on the one card joined in a gloo group (NCCL
+             refuses two ranks on one device, so the CUDA pairs go through
+             host memory), started after the build so that they load the
+             built kernels; 1,048,576 rows in the store phases' shapes
+             (dense 384 and sketch 768 int8 with row scales, a 128-slot
+             forward index), each rank making its own 524,288 on the card
+             from the seed and holding them in 2 positions
+             (`shard_process_rows`); one 512-query batch, top-10, depth 256,
+             through `sharded_hybrid_section_topk` (the section and rescore
+             kernels), `sharded_hybrid_topk` on "xla" (the rescore kernel)
+             and `sharded_dense_topk`, each once, 3 times by CUDA events and
+             once with its pair all_gathers timed: scores and rows on every
+             rank bit-equal to one process's 4-position `[cuda] * 4` mesh
+             over the same rows (the mesh phase's layout), a planted fault
+             (rank 1's global offsets shifted by a shard) failing that;
+             launches and gathers per rank and program;
 5b. full_text — the store phase's records with synthetic texts (16-64
              words drawn Zipf-like, weight r^-1.1, from a 30,000-word
              vocabulary; all from the seed) in an int8 store with
@@ -407,7 +427,7 @@ its plain numpy version's, with host ms of both beside the phase's wall,
 kernel ms and idle share (one JSON line `host_runtime` before the card's
 name).
 
-Each main-path phase (3-7, 3a-3d, 5a-5e, 6b, 7a-7c) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3d, 5a-5f, 6b, 7a-7c) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -1197,13 +1217,14 @@ def check_flash_partial(gen, head_dim: int) -> dict:
 def efficient_attention_ms(qt, kt, vt, live) -> tuple[float | None, str]:
     """Time of `aten::_scaled_dot_product_efficient_attention` with
     compute_log_sumexp=True on [B, H, S, D] inputs, the key mask ``live``
-    [Sk] as an additive bias broadcast over rows and heads: (ms, note), or
-    (None, why) where the library refuses the inputs."""
+    ([Sk], or [B, Sk] a batch row) as an additive bias broadcast over rows
+    and heads: (ms, note), or (None, why) where the library refuses the
+    inputs."""
     import torch
 
-    bias = torch.zeros(live.shape[0], dtype=qt.dtype, device=qt.device)
-    bias = bias.masked_fill(~live, float("-inf"))[None, None, None, :]
-    bias = bias.expand(qt.shape[0], qt.shape[1], qt.shape[2], live.shape[0])
+    bias = torch.zeros(live.shape, dtype=qt.dtype, device=qt.device).masked_fill(~live, float("-inf"))
+    bias = bias.reshape(-1 if live.dim() == 2 else 1, 1, 1, live.shape[-1])
+    bias = bias.expand(qt.shape[0], qt.shape[1], qt.shape[2], live.shape[-1])
     op = torch.ops.aten._scaled_dot_product_efficient_attention
     try:
         ms = cuda_ms(lambda: op(qt, kt, vt, bias, True), reps=10)
@@ -3763,9 +3784,11 @@ def check_grid_flash(gen) -> dict:
     holds it, and two planted faults on the launch split (the last slice's
     rows left as zeros; the last slice fed the first slice's rows) must fail
     that check. The autograd path (`FlashAttention`) is one call whose
-    backward gives the same gradients. Times beside the bound and the plain
-    version."""
+    backward gives the same gradients. Times beside the bound, the plain
+    version and the library's call (SDPA with the boolean mask, its
+    backward, the memory-efficient kernel with its logsumexp)."""
     import torch
+    import torch.nn.functional as F
 
     from verbatim_rag_tpu_torch.ops import flash_attention as fa
 
@@ -3815,11 +3838,18 @@ def check_grid_flash(gen) -> dict:
             sl = slice(b0, b0 + GRID_PLAIN_ROWS)
             fa.attention_reference(q[sl], k[sl], v[sl], lens[sl])
 
+    # Library yardsticks at this shape (the kernels phase's): SDPA with the
+    # equivalent boolean mask, its backward, and the memory-efficient
+    # kernel with its logsumexp for the partial.
+    mask = sdpa_mask(lens, S, None)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     result["forward"] = dict(
         GRID_FLASH, grid_rows=B * H, launches=2, max_abs_err=err, worst_row_of_limit=worst,
         lse_max_excess=lse_gap, planted_faults_worst_row_of_limit=ratio,
         ms=cuda_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, lens), reps=10),
         plain_ms=cuda_ms(plain_fwd, reps=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps=10),
+        library_note="scaled_dot_product_attention, boolean mask",
     )
     log("grid flash forward", json.dumps(result["forward"]))
 
@@ -3861,14 +3891,18 @@ def check_grid_flash(gen) -> dict:
             sl = slice(b0, b0 + GRID_PLAIN_ROWS)
             fa.flash_attention_bwd_reference(q[sl], k[sl], v[sl], lens[sl], out[sl], lse[sl], g[sl])
 
+    o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    go = g.transpose(1, 2).contiguous()
     result["backward"] = dict(
         GRID_FLASH, grid_rows=B * H, launches_dq=2, launches_dkv=2, max_abs_err=err,
         worst_row_of_limit=worst, planted_faults_worst_row_of_limit=ratio,
         ms=cuda_ms(lambda: fa._launch_bwd(q, k, v, lens, lse, delta, g, None), reps=10),
         plain_ms=cuda_ms(plain_bwd, reps=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), go, retain_graph=True), reps=5),
+        library_note="scaled_dot_product_attention backward, boolean mask",
     )
     log("grid flash backward", json.dumps(result["backward"]))
-    del grads, delta, out, lse
+    del grads, delta, out, lse, o, go, mask
 
     # The partial: the same rows as one KV block at k_offset 0.
     numer, m, l = fa.flash_attention_partial_cuda(q, k, v, lens, 0)
@@ -3901,14 +3935,16 @@ def check_grid_flash(gen) -> dict:
             sl = slice(b0, b0 + GRID_PLAIN_ROWS)
             fa.flash_attention_partial_reference(q[sl], k[sl], v[sl], lens[sl], 0)
 
+    library_ms, library_note = efficient_attention_ms(*(x.detach() for x in (qt, kt, vt)), live)
     result["partial"] = dict(
         GRID_FLASH, grid_rows=B * H, launches=2, max_abs_err=err, worst_row_of_limit=worst,
         m_l_worst_of_limit=ml_gap, planted_faults_worst_row_of_limit=ratio,
         ms=cuda_ms(lambda: fa.flash_attention_partial_cuda(q, k, v, lens, 0), reps=10),
         plain_ms=cuda_ms(plain_partial, reps=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, library_note=library_note,
     )
     log("grid flash partial", json.dumps(result["partial"]))
-    del q, k, v, g, numer, m, l
+    del q, k, v, g, numer, m, l, qt, kt, vt
     torch.cuda.empty_cache()
     return result
 
@@ -4595,6 +4631,311 @@ def run_mesh(data, card: str, seed: int) -> dict:
         launches_by_program=launches, phase_s=time.perf_counter() - t_phase,
     )
     log("mesh", json.dumps(result))
+    return result
+
+
+#: The processes phase: ranks sharing the card in one gloo group (NCCL
+#: refuses two ranks on one device), mesh positions a rank, the group's rows
+#: (the store phases' shapes), timed batches a program, the programs it runs,
+#: and each program's arms (one pair all_gather each) and its section and
+#: rescore launches a position and batch.
+PROC_RANKS, PROC_POSITIONS = 2, 2
+PROC_ROWS = 1 << 20
+PROC_TIMED = 3
+PROC_TOP_K, PROC_FETCH_K, PROC_DEPTH = 10, 20, 256
+PROC_VOCAB, PROC_NNZ, PROC_QM = 30522, 128, 32
+#: The sparse scan's queries (`sharded_sparse_topk` gathers every row's
+#: slots for each query: 64 keeps it to milliseconds at 1M rows a shard).
+PROC_SCAN_QUERIES = 64
+PROC_PROGRAMS = {  # name: (arms, section launches, rescore launches)
+    "section": (2, 1, 1), "xla": (2, 0, 1), "dense": (1, 0, 0), "projected": (1, 0, 1), "sparse": (1, 0, 0),
+}
+PROC_PHASE_PROGRAMS = ("section", "xla", "dense")
+#: A run of a program: once for its result, `PROC_TIMED` times by events,
+#: once with its gathers timed.
+PROC_BATCHES = 1 + PROC_TIMED + 1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def process_projection():
+    """The store's SPLADE projection matrix [30522, 768] on the card."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.sparse_projected import projection_matrix
+
+    return torch.from_numpy(projection_matrix(PROC_VOCAB, 768, 0)).cuda()
+
+
+def process_block(seed: int, block: int, rows: int, projection) -> dict:
+    """Block ``block`` of the processes phase's rows, made on the current
+    card from the seed in the store phases' shapes: dense 384 and the
+    forward index's 768-d sketch (`project_rows` through the store's
+    projection), both int8 with row scales (`quantize_rows_int8`), a
+    128-slot forward index over 30,522 ids, one row in 13 dead. Any process
+    makes the same block."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.dense import normalize_rows, quantize_rows_int8
+    from verbatim_rag_tpu_torch.ops.sparse_projected import project_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(seed * 7919 + block)
+    dense = torch.randn(rows, 384, generator=gen, device="cuda")
+    ids = torch.randint(1, PROC_VOCAB, (rows, PROC_NNZ), generator=gen, device="cuda", dtype=torch.int32)
+    w = torch.rand(rows, PROC_NNZ, generator=gen, device="cuda")
+    dense, dense_scale = quantize_rows_int8(normalize_rows(dense))
+    sketch, sketch_scale = quantize_rows_int8(project_rows(ids, w, projection))
+    mask = (torch.arange(rows, device="cuda") + block * rows) % 13 != 0
+    return dict(dense=dense, dense_scale=dense_scale, sketch=sketch, sketch_scale=sketch_scale, ids=ids, w=w,
+                mask=mask)
+
+
+def process_programs(placed: dict, mesh, seed: int, projection) -> dict:
+    """The sharded searches over ``placed`` (name → row-sharded array) on
+    one 512-query batch made from the seed: the section program with the
+    rescore kernel, the hybrid program on "xla", dense top-k, the projected
+    sparse search (rescore kernel) and the exact scan (its first
+    `PROC_SCAN_QUERIES` queries)."""
+    import torch
+
+    from verbatim_rag_tpu_torch.ops.dense import normalize_rows
+    from verbatim_rag_tpu_torch.ops.sparse_projected import project_query_arrays
+    from verbatim_rag_tpu_torch.parallel import sharded_search as ss
+
+    gen = torch.Generator(device="cuda").manual_seed(seed * 7919 + 999)
+    dq = normalize_rows(torch.randn(512, 384, generator=gen, device="cuda"))
+    q_ids = torch.randint(1, PROC_VOCAB, (512, PROC_QM), generator=gen, device="cuda", dtype=torch.int32)
+    q_w = torch.rand(512, PROC_QM, generator=gen, device="cuda")
+    sq = project_query_arrays(q_ids, q_w, projection)
+    q_scan = torch.zeros(PROC_SCAN_QUERIES, PROC_VOCAB, device="cuda")
+    q_scan.scatter_add_(1, q_ids[:PROC_SCAN_QUERIES].long(), q_w[:PROC_SCAN_QUERIES])
+    p = placed
+    common = (p["dense"], p["sketch"], p["ids"], p["w"], dq, sq, q_ids, q_w)
+    hybrid = dict(k=PROC_TOP_K, fetch_k=PROC_FETCH_K, depth=PROC_DEPTH, mask=p["mask"], mesh=mesh,
+                  dense_scale=p["dense_scale"], sketch_scale=p["sketch_scale"], rescore_impl="pallas")
+    return {
+        "section": lambda: ss.sharded_hybrid_section_topk(*common, block_cols=16384, **hybrid),
+        "xla": lambda: ss.sharded_hybrid_topk(*common, candidate_impl="xla", **hybrid),
+        "dense": lambda: ss.sharded_dense_topk(p["dense"], dq, PROC_TOP_K, p["mask"], mesh,
+                                               corpus_scale=p["dense_scale"]),
+        "projected": lambda: ss.sharded_projected_sparse_topk(
+            p["sketch"], p["ids"], p["w"], sq, q_ids, q_w, PROC_TOP_K, PROC_DEPTH, p["mask"], mesh,
+            sketch_scale=p["sketch_scale"], rescore_impl="pallas"),
+        "sparse": lambda: ss.sharded_sparse_topk(p["ids"], p["w"], q_scan, PROC_TOP_K, p["mask"], mesh),
+    }
+
+
+def run_programs(programs: dict, names) -> dict:
+    """Each named program once (its result kept), `PROC_TIMED` times by
+    CUDA events on the current card's stream (a call ends in its layout
+    check's readback and the merges' selections), and once with each pair
+    all_gather timed by the host clock between synchronizations (that time
+    includes the wait for the slowest rank); the kernels' launches and the
+    pair gathers counted over those `PROC_BATCHES` runs."""
+    import numpy as np
+    import torch
+
+    from verbatim_rag_tpu_torch.parallel import sharded_search as ss
+
+    plain_gather, out = ss._gather_pairs, {}
+    for name in names:
+        run = programs[name]
+        reset_counts()
+        gathers = ss.gathers
+        scores, rows = run()
+        events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROC_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROC_TIMED
+        gather_ms = []
+
+        def timed_gather(s, r):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pairs = plain_gather(s, r)
+            torch.cuda.synchronize()
+            gather_ms.append((time.perf_counter() - t) * 1e3)
+            return pairs
+
+        ss._gather_pairs = timed_gather
+        try:
+            run()
+        finally:
+            ss._gather_pairs = plain_gather
+        event_ms = [s.elapsed_time(e) for s, e in events]
+        out[name] = dict(
+            scores=scores.cpu(), rows=rows.cpu(), launches=read_counts(), gathers=ss.gathers - gathers,
+            batch_event_ms=event_ms, batch_event_ms_median=float(np.median(event_ms)), batch_wall_ms=wall_ms,
+            gather_ms_by_arm=gather_ms,
+        )
+    return out
+
+
+def plant_offset_fault(rank: int) -> None:
+    """Rank 1's global offsets shifted by one shard (a planted fault)."""
+    from verbatim_rag_tpu_torch.parallel import sharded_search as ss
+
+    if rank == 1:
+        ss._Layout.offset = lambda self, i: (self.first + i + 1) * self.n_local
+
+
+def held_to_one_process(ranks: list, oracle: dict, names, positions: int, what: str) -> dict:
+    """Every rank's results (`run_programs`, with ``planted_rows``: the
+    section program's rows with `plant_offset_fault`) against ``oracle``
+    (name → one process's (scores, rows) over the same shards): bit-equal,
+    the launches and gathers of `PROC_PROGRAMS` on each rank, and the
+    planted fault failing the comparison. The per-program record."""
+    import torch
+
+    programs = {}
+    for name in names:
+        scores, rows = oracle[name]
+        require(
+            bool(torch.isfinite(scores).all()) and bool((rows >= 0).all()) and scores.shape[1] == PROC_TOP_K,
+            f"{what} {name}: the one-process result is malformed",
+        )
+        arms, sections, rescores = PROC_PROGRAMS[name]
+        for r in ranks:
+            got = r["programs"][name]
+            require(
+                torch.equal(got["rows"], rows) and torch.equal(got["scores"], scores),
+                f"{what} {name}: rank {r['rank']} differs from one process's mesh over the same rows",
+            )
+            launches = got["launches"]
+            require(
+                (launches["section"], launches["rescore"])
+                == (PROC_BATCHES * positions * sections, PROC_BATCHES * positions * rescores)
+                and got["gathers"] == PROC_BATCHES * arms,
+                f"{what} {name}: rank {r['rank']} launches {launches}, {got['gathers']} gathers",
+            )
+        programs[name] = dict(
+            bit_equal_on_every_rank=True, queries=scores.shape[0],
+            batch_event_ms_by_rank=[r["programs"][name]["batch_event_ms"] for r in ranks],
+            batch_event_ms_median_by_rank=[r["programs"][name]["batch_event_ms_median"] for r in ranks],
+            batch_wall_ms_by_rank=[r["programs"][name]["batch_wall_ms"] for r in ranks],
+            gather_ms_by_rank=[r["programs"][name]["gather_ms_by_arm"] for r in ranks],
+            section_launches_by_rank=[r["programs"][name]["launches"]["section"] for r in ranks],
+            rescore_launches_by_rank=[r["programs"][name]["launches"]["rescore"] for r in ranks],
+        )
+    for r in ranks:
+        require(
+            not torch.equal(r["planted_rows"], oracle["section"][1]),
+            f"{what}: rank {r['rank']}'s result with a planted offset on rank 1 passes the check",
+        )
+    return programs
+
+
+def serve_rank(rank: int, seed: int, rows: int, mesh, names, out_dir: str) -> None:
+    """One rank of a group already up: its block of ``rows`` rows over
+    ``mesh`` (`process_block`, `shard_process_rows`), `run_programs` of
+    ``names``, then the section program once with `plant_offset_fault`;
+    written to ``out_dir``/rank<r>.pt."""
+    import torch
+
+    from verbatim_rag_tpu_torch.parallel import sharded_search as ss
+
+    projection = process_projection()
+    t0 = time.perf_counter()
+    block = process_block(seed, rank, rows, projection)
+    placed = {name: ss.shard_process_rows(x, mesh) for name, x in block.items()}
+    del block
+    torch.cuda.synchronize()
+    rows_made_s = time.perf_counter() - t0
+    programs = process_programs(placed, mesh, seed, projection)
+    out = dict(rank=rank, rows_made_s=rows_made_s, placed_rows=placed["dense"].shape[0],
+               programs=run_programs(programs, names))
+    plant_offset_fault(rank)
+    out["planted_rows"] = programs["section"]()[1].cpu()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def one_process_oracle(seed: int, blocks: int, rows: int, mesh, names) -> dict:
+    """``names``' (scores, rows) on the host from one process's ``mesh``
+    over the group's rows: blocks 0 .. ``blocks`` − 1 of ``rows`` rows made
+    on the current card and laid end to end, so that rank b's position i is
+    shard b·P + i, as in the group."""
+    import torch
+
+    from verbatim_rag_tpu_torch.parallel import row_sharding
+
+    projection = process_projection()
+    made = [process_block(seed, b, rows, projection) for b in range(blocks)]
+    placed = {name: row_sharding(torch.cat([b[name] for b in made]), mesh) for name in made[0]}
+    del made
+    programs = process_programs(placed, mesh, seed, projection)
+    oracle = {name: tuple(x.cpu() for x in programs[name]()) for name in names}
+    del placed, programs
+    torch.cuda.empty_cache()
+    return oracle
+
+
+def process_worker(rank: int, port: int, seed: int, out_dir: str) -> None:
+    """One rank of the processes phase: a gloo group, `PROC_POSITIONS`
+    positions on the card, `serve_rank`."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from verbatim_rag_tpu_torch.parallel import distributed, make_mesh
+
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=PROC_RANKS, rank=rank
+    )
+    require(distributed.process_count() == PROC_RANKS, "processes: the group is not up")
+    mesh = make_mesh(dp=1, tp=PROC_POSITIONS, devices=[torch.device("cuda")] * PROC_POSITIONS)
+    serve_rank(rank, seed, PROC_ROWS // PROC_RANKS, mesh, PROC_PHASE_PROGRAMS, out_dir)
+    torch.distributed.destroy_process_group()
+
+
+def run_processes(seed: int, card: str) -> dict:
+    """The group path of the sharded searches (see the module docstring,
+    5f): `PROC_RANKS` processes on the one card, held to one process's
+    4-position mesh over the same rows (the mesh phase's layout)."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(process_worker, args=(free_port(), seed, out_dir), nprocs=PROC_RANKS, join=True)
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(PROC_RANKS)]
+    mesh = make_mesh(dp=2, tp=2, devices=[torch.device("cuda")] * (PROC_RANKS * PROC_POSITIONS))
+    oracle = one_process_oracle(seed, PROC_RANKS, PROC_ROWS // PROC_RANKS, mesh, PROC_PHASE_PROGRAMS)
+    held = held_to_one_process(ranks, oracle, PROC_PHASE_PROGRAMS, PROC_POSITIONS, "processes")
+    launches = {
+        k: sum(r["programs"][name]["launches"][k] for r in ranks for name in PROC_PHASE_PROGRAMS)
+        for k in kernel_counters()
+    }
+    result = dict(
+        card=card, group="gloo, 2 ranks on one card (NCCL refuses two ranks on one device): "
+        "the CUDA pairs go through host memory", ranks=PROC_RANKS, positions_a_rank=PROC_POSITIONS,
+        rows=PROC_ROWS, rows_a_rank=[r["placed_rows"] for r in ranks], batch=512, top_k=PROC_TOP_K,
+        depth=PROC_DEPTH, batches_a_program=PROC_BATCHES, rows_made_s_by_rank=[r["rows_made_s"] for r in ranks],
+        group_s_with_start=group_s, planted_offset_caught=True, programs=held, launches=launches,
+        launches_by_rank={
+            k: [sum(r["programs"][n]["launches"][k] for n in PROC_PHASE_PROGRAMS) for r in ranks]
+            for k in ("section", "rescore")
+        },
+        phase_s=time.perf_counter() - t_phase,
+    )
+    log("processes", json.dumps(result))
     return result
 
 
@@ -6334,6 +6675,7 @@ def main() -> None:
     ragged = run_ragged(data, card, gen, store_int8["batch_event_ms_median"])
     int4 = run_int4(data, card, args.seed)
     mesh = run_mesh(data, card, args.seed)
+    processes = run_processes(args.seed, card)
     full_text = run_full_text(data, card, args.seed)
     del data
     torch.cuda.empty_cache()
@@ -6354,8 +6696,8 @@ def main() -> None:
     del serve_index
 
     phases = (
-        flow, serve, http, doc, bucket_ab, store, store_int8, ragged, int4, mesh, full_text, cli, long_ctx, long_sp,
-        train, train_mesh, train_d32, checkpoints,
+        flow, serve, http, doc, bucket_ab, store, store_int8, ragged, int4, mesh, processes, full_text, cli,
+        long_ctx, long_sp, train, train_mesh, train_d32, checkpoints,
     )
     by_program = mesh["launches_by_program"]
     per_shard = mesh["per_shard"]
@@ -6444,6 +6786,10 @@ def main() -> None:
                 shard_ms=per_shard["rescore_ms"], shard_plain_ms=per_shard["rescore_plain_ms"],
                 shard_candidates=per_shard["candidates"],
             ),
+            processes=dict(
+                launches_by_rank=processes["launches_by_rank"]["rescore"], ranks=PROC_RANKS,
+                positions_a_rank=PROC_POSITIONS,
+            ),
             grid_split=ragged["grid"]["rescore"],
             **rescore,
         ),
@@ -6463,6 +6809,11 @@ def main() -> None:
                 launches=sum(c["section"] for c in by_program.values()), shards=MESH_SHARDS,
                 shard_rows=per_shard["shard_rows"], shard_ms=per_shard["section_ms"],
                 shard_plain_ms=per_shard["section_plain_ms"],
+            ),
+            processes=dict(
+                launches_by_rank=processes["launches_by_rank"]["section"], ranks=PROC_RANKS,
+                positions_a_rank=PROC_POSITIONS,
+                batch_event_ms_median_by_rank=processes["programs"]["section"]["batch_event_ms_median_by_rank"],
             ),
             ragged=ragged["tables"]["section"],
             **section,

@@ -35,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import sys
 import tempfile
 import time
@@ -235,12 +234,6 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_processes(config, tc, batches, seed: int) -> dict:
     import numpy as np
     import torch
@@ -252,7 +245,7 @@ def run_processes(config, tc, batches, seed: int) -> dict:
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
         t0 = time.perf_counter()
-        mp.spawn(worker, args=(free_port(), seed, out_dir), nprocs=CARDS, join=True)
+        mp.spawn(worker, args=(cs.free_port(), seed, out_dir), nprocs=CARDS, join=True)
         group_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(CARDS)]
     mesh = make_mesh(dp=CARDS, tp=1, devices=[torch.device("cuda", 0)] * CARDS)

@@ -24,7 +24,9 @@ through a remote embedding provider served on 127.0.0.1, and runs
 `VerbatimDOC` and `verbatim_enhance` over the saved index. A sixth builds the
 port's C++ host runtime into a directory of its own, tokenizes a long ASCII
 document through its scanner and ingests and queries full text through its
-analyzer. The same holds for every module of the port imported on its own.
+analyzer. Two gloo processes search an index whose rows they share (the
+group path of `parallel/sharded_search.py`). The same holds for every
+module of the port imported on its own.
 """
 
 from __future__ import annotations
@@ -412,6 +414,40 @@ print(json.dumps({
 }))
 """
 
+GROUP = """
+import json, sys
+import torch
+from verbatim_rag_tpu_torch.parallel import distributed, make_mesh
+from verbatim_rag_tpu_torch.parallel import sharded_search as ss
+
+assert distributed.initialize() is True
+mesh = make_mesh(dp=1, tp=2, devices=["cpu"] * 2)
+g = torch.Generator().manual_seed(0)
+n, d, m = 1024, 16, 8
+dense = torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=1)
+sketch = torch.randn(n, 32, generator=g)
+ids = torch.stack([torch.randperm(300, generator=g)[:m] + 1 for _ in range(n)]).int()
+w = torch.rand(n, m, generator=g) + 0.1
+mask = torch.ones(n, dtype=torch.bool)
+q = torch.nn.functional.normalize(torch.randn(4, d, generator=g), dim=1)
+q_ids, q_w, sq = ids[:4, :4].contiguous(), w[:4, :4].contiguous(), sketch[:4] + 0.1
+place = lambda x: ss.shard_rows(x, mesh)
+scores, rows = ss.sharded_hybrid_topk(
+    place(dense), place(sketch), place(ids), place(w), q, sq, q_ids, q_w, k=5, fetch_k=10, depth=64,
+    mask=place(mask), mesh=mesh,
+)
+dense_rows = ss.sharded_dense_topk(place(dense), q, 5, place(mask), mesh)[1]
+print(json.dumps({
+    "rank": distributed.process_index(),
+    "rows": rows.tolist(),
+    "dense_rows": dense_rows.tolist(),
+    "gathers": ss.gathers,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
+}))
+torch.distributed.destroy_process_group()
+"""
+
 IMPORT_ALL = """
 import importlib, json, pkgutil, sys
 import verbatim_rag_tpu_torch as pkg
@@ -482,6 +518,39 @@ def test_checkpoints_extractors_and_rerank_load_no_jax():
     assert result["sentence_class"] == "SentenceModelExtractor" and result["sentence_verbatim"]
     assert result["reranked_docs"] == 4 and result["batch_equal"] and result["async_equal"]
     assert result["stream_stages"] == ["retrieve", "rerank", "extract", "highlight", "template"]
+
+
+def test_group_search_runs_without_jax():
+    """Two gloo processes search the rows they share (`sharded_search`'s
+    group path: each rank's block, pair ``all_gather``\\ s, RRF on every
+    rank): both return the same rows, from both halves of the index, and
+    neither loads a ``jax`` or ``verbatim_rag_tpu`` module."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(REPO), MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+               OMP_NUM_THREADS="1")
+    procs = [
+        subprocess.Popen([sys.executable, "-c", GROUP], cwd=REPO, env=dict(env, RANK=str(rank)),
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)
+    ]
+    try:
+        outputs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], [err[-2000:] for _, err in outputs]
+    results = [json.loads(out.strip().splitlines()[-1]) for out, _ in outputs]
+    assert [r["rank"] for r in results] == [0, 1]
+    for r in results:
+        assert r["jax"] == [] and r["reference"] == []
+        assert r["gathers"] == 3 and r["rows"] == results[0]["rows"]
+    rows = {x for row in results[0]["rows"] + results[0]["dense_rows"] for x in row if x >= 0}
+    assert min(rows) < 512 <= max(rows)
 
 
 def test_every_port_module_imports_without_jax():

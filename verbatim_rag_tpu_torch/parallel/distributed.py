@@ -10,7 +10,10 @@ process group: each process drives the mesh over its own devices
 gradients, loss denominators and metric counts over the group as well
 (:func:`all_reduce_sum`, :func:`all_reduce_grads`, fed each logical
 tensor's owner copy on the process's mesh). That is the port's form
-of JAX's ``dp`` axis across processes.
+of JAX's ``dp`` axis across processes. The row-sharded searches of
+`sharded_search` span the group too: each rank holds its block of the
+index over its mesh, and each arm's (score, row) pairs are gathered over
+the group, as JAX's ``all_gather`` over a mesh of every process's devices.
 
 Every process runs the same program::
 

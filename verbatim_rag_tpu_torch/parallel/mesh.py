@@ -106,13 +106,19 @@ class RowSharded:
     and global rows (a slice, or an index list or tensor) are written in
     place into the shards that hold them; that is all the store needs of a
     placed array besides its per-shard programs.
+
+    In a process group the array may be one rank's block of rows that span
+    the group (`sharded_search.shard_rows`): ``rank`` of ``ranks`` blocks,
+    in rank order. Its shards, shape and row indices are then the block's
+    own; the searches of `sharded_search` place it in the group's order.
     """
 
-    def __init__(self, shards: list[torch.Tensor]):
+    def __init__(self, shards: list[torch.Tensor], rank: int = 0, ranks: int = 1):
         self.shards = list(shards)
         self.rows_per_shard = self.shards[0].shape[0]
         if any(s.shape[0] != self.rows_per_shard for s in self.shards):
             raise ValueError("every shard must hold the same number of rows")
+        self.rank, self.ranks = rank, ranks
 
     @property
     def shape(self) -> tuple[int, ...]:
@@ -137,7 +143,8 @@ class RowSharded:
         """``fn`` applied shard by shard (to this array's shard and each of
         ``others``' shard at the same index)."""
         return RowSharded(
-            [fn(s, *(o.shards[i] for o in others)) for i, s in enumerate(self.shards)]
+            [fn(s, *(o.shards[i] for o in others)) for i, s in enumerate(self.shards)],
+            self.rank, self.ranks,
         )
 
     def __getitem__(self, rows: slice) -> torch.Tensor:
