@@ -101,7 +101,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              must launch the flash forward at both head dims and log no
              failure); 64 questions through `query_batch` (median of 5 after
              one untimed call, its peak device memory printed; the flow
-             phase's extractor at its 8192-token windows), each response's
+             extractor's width and seed at `SERVE_LAYERS` of its 22 layers,
+             8192-token windows), each response's
              retrieved chunks, highlights and answer equal to `query`'s for
              the question; 8 concurrent `query_async` calls, each equal to
              `query`; then the card's provider encodings of 512 chunk
@@ -153,8 +154,8 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              those of the main path's runs (ingest, process, stream_process,
              enhance), each counted from zero; the stub's seconds and the
              idle share of the report's first batch under `torch.profiler`
-             printed. The flow phase's extractor (full width, flash on)
-             answers;
+             printed. The serve phase's extractor (full width,
+             `SERVE_LAYERS` layers) answers;
 3b. bucket_ab — the port's counterpart of `benchmarks/bench_fused_bucket.py`:
              candidate top-k (k=256) of 512 unit queries over 999,424 normal
              bf16 rows at d ∈ {384, 768} by exact top-k over the score
@@ -288,6 +289,24 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              round P and the attention output to bf16, at different points),
              spans equal unless a probability lies within 1e-2 of the
              threshold;
+6c. sp_processes — the same document and weights across processes: 2
+             worker processes on the one card joined in a gloo group (as
+             phase 5f: NCCL refuses two ranks on one device, so every
+             hand-off is staged through host memory), each holding 2
+             positions of a `distributed.global_mesh(dp=1, tp=4, devices=[cuda] * 2)`
+             (one ring hand-off inside a rank, one across), each building
+             the long extractor's weights from the seed and running
+             `ModelSpanExtractor(sp_mesh=<global mesh>)` once untimed and
+             once timed: its 2 shards of 6144, K/V handed to the other rank
+             by `exchange.ring_shift`, halos by `exchange.halo_swap`, the
+             probability shards gathered in axis order; exactly 64 partial
+             launches a rank (8 global layers × 2 shards × 4 steps), no
+             forward launch; probabilities bit-equal to phase 6b's
+             one-process pass on the same row (or, failing that, within
+             `SP_PROBS_ATOL`, the largest difference printed), spans equal
+             on both ranks and to phase 6b's unless a probability lies
+             within that of the threshold; each rank's seconds, hand-offs
+             and their host ms;
 7. train   — the token highlighter at full ModernBERT-base width trained
              through `Trainer` with the CLI defaults (batch 8, max_seq_length
              4096: synthetic examples of 2.2k-4k tokens, so every batch pads
@@ -325,6 +344,21 @@ Phases (any failure exits nonzero; nothing is caught and passed over):
              the forward; its backward is the plain VJP, as in JAX): every
              parameter's gradient, the input embedding's among them, within
              `SP_GRAD_RTOL` of the single-device flash backward's;
+7d. tp_processes — tensor parallelism across processes: 2 worker
+             processes on the one card in a gloo group, one position each
+             of a `distributed.global_mesh(dp=1, tp=2, devices=[cuda])`, the
+             train phase's width and weights from the seed, `token_loss`,
+             2 steps at batch 2 × 1024 (synthetic examples of 600-950
+             context tokens): rank 0 (the root) runs embeddings, norms and
+             the residual stream, each rank its 6 heads (`FlashAttention`:
+             kernels 1 and 4 at H=6) and half the MLP, the sublayer inputs
+             broadcast and the partials gathered back through host memory
+             (`exchange.TPRow`); step 1's loss, global norm and updated
+             parameters held to a one-process `make_mesh(dp=1, tp=2,
+             devices=[cuda] * 2)` step and to the single-device step with
+             train_mesh's limits, loss and norm equal on both ranks, 22
+             forward, 22 dq and 22 dk/dv launches a rank a step, step
+             seconds and hand-offs a rank;
 7c. train_d32 — the token highlighter at full MiniLM width with flash on
              (`minilm_config(use_flash_attention=True)`: hidden 384, 6
              layers, 12 heads of 32, absolute positions, post-LN, bf16; every
@@ -427,7 +461,7 @@ its plain numpy version's, with host ms of both beside the phase's wall,
 kernel ms and idle share (one JSON line `host_runtime` before the card's
 name).
 
-Each main-path phase (3-7, 3a-3d, 5a-5f, 6b, 7a-7c) sets the kernels' launch counts to 0 just
+Each main-path phase (3-7, 3a-3d, 5a-5f, 6b-6c, 7a-7d) sets the kernels' launch counts to 0 just
 before it and reads them just after; a kernel of the path launched no time fails.
 Phases 4-7 and 6b then run one more call under `torch.profiler` (store_int8 one
 batch of each candidate path) and print the
@@ -2283,6 +2317,12 @@ def run_flow(seed: int, card: str):
 #: SPLADE providers at MiniLM width, `max_length=256`, batches of 64 and 32,
 #: 64 terms a text; the repo's markdown repeated 16 times) and its
 #: micro-batcher's largest batch (64 questions) through `query_batch`.
+#: Layers of the extractor the serve, http and doc phases run (the flow
+#: extractor's width and seed; layers 0, 3 and 6 global): a served batch pads
+#: its rows to 8192 tokens, and at all 22 layers these three phases took
+#: 282 s of the script's limit on the card (PR 22's final run), which the
+#: later phases need.
+SERVE_LAYERS = 7
 SERVE_REPEAT = 16
 SERVE_DIRS = ("docs", "benchmarks", "examples")
 SERVE_QUESTIONS = 64
@@ -5448,8 +5488,99 @@ def run_long_sp(extractor, seed: int, card: str) -> dict:
         peak_memory_gb=peak_gb, launches=counts,
     )
     log("long_sp", json.dumps(result))
+    result.update(probs=sp_probs[: len(row)], span_list=spans, threshold=sp.threshold)  # for sp_processes
     del sp
     torch.cuda.empty_cache()
+    return result
+
+
+#: The sp_processes phase: gloo ranks on the one card, positions a rank.
+SP_PROC_RANKS, SP_PROC_POSITIONS = 2, 2
+
+
+def sp_process_worker(rank: int, port: int, seed: int, out_dir: str) -> None:
+    """One rank of the sp_processes phase: a gloo group, its
+    `SP_PROC_POSITIONS` positions of the global sequence axis on the card,
+    the long extractor's weights from the seed; one untimed pass, one timed
+    (its probabilities kept), written to ``out_dir``/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor, modernbert_base_config
+    from verbatim_rag_tpu_torch.parallel import distributed, exchange
+
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=SP_PROC_RANKS, rank=rank
+    )
+    mesh = distributed.global_mesh(dp=1, tp=SP_SHARDS, devices=[torch.device("cuda")] * SP_PROC_POSITIONS)
+    line = mesh.line("tp")
+    require(line.group is not None and line.count == SP_PROC_POSITIONS, "sp_processes: the line does not span ranks")
+    sp = ModelSpanExtractor(config=modernbert_base_config(), seed=seed, sp_mesh=mesh)
+    text = long_document(seed)
+    sp.process(LONG_QUESTION, text)
+    probs, forward = [], sp._forward_probs
+    sp._forward_probs = lambda ids, mask: probs.append(forward(ids, mask)) or probs[-1]
+    reset_counts()
+    exchange.handoffs, exchange.handoff_s = 0, 0.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    spans = sp.process(LONG_QUESTION, text)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = dict(
+        rank=rank, first=line.first, seconds=seconds, spans=spans, launches=read_counts(),
+        probs=probs[0][0][: len(sp._plan(LONG_QUESTION, text)["rows"][0])], handoffs=exchange.handoffs,
+        handoff_ms=exchange.handoff_s * 1e3, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_sp_processes(seed: int, card: str, long_sp: dict) -> dict:
+    """Phase 6c: long_sp's row across `SP_PROC_RANKS` processes on the
+    card, held to long_sp's one-process pass."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from verbatim_rag_tpu_torch.models import modernbert_base_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        mp.spawn(sp_process_worker, args=(free_port(), seed, out_dir), nprocs=SP_PROC_RANKS, join=True)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SP_PROC_RANKS)]
+    config = modernbert_base_config()
+    expected = sum(config.is_global_layer(i) for i in range(config.num_layers)) * SP_PROC_POSITIONS * SP_SHARDS
+    for r in ranks:
+        require(
+            r["launches"]["flash_attention_partial"] == expected and r["launches"]["flash_attention"] == 0,
+            f"sp_processes: rank {r['rank']} launches {r['launches']}, expected {expected} partial, no forward",
+        )
+    ref = long_sp["probs"]
+    diffs = [float(np.abs(r["probs"] - ref).max()) for r in ranks]
+    bit_equal = all(np.array_equal(r["probs"], ref) for r in ranks)
+    require(max(diffs) <= SP_PROBS_ATOL, f"sp_processes: probabilities differ from one process's by {diffs}")
+    require(all(r["spans"] == ranks[0]["spans"] for r in ranks), "sp_processes: the ranks decode different spans")
+    near = int((np.abs(ref - long_sp["threshold"]) <= max(diffs)).sum()) if not bit_equal else 0
+    same = ranks[0]["spans"] == long_sp["span_list"]
+    require(same or near > 0, "sp_processes: spans differ from one process's with no probability near the threshold")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in kernel_counters()}
+    result = dict(
+        card=card, group="gloo, 2 ranks on one card: every hand-off staged through host memory",
+        ranks=SP_PROC_RANKS, positions_a_rank=SP_PROC_POSITIONS, seq=long_sp["seq"], shards=SP_SHARDS,
+        probs_bit_equal_one_process=bit_equal, probs_max_abs_diff_by_rank=diffs, spans=len(ranks[0]["spans"]),
+        spans_equal_on_every_rank=True, spans_equal_one_process=same, tokens_within_diff_of_threshold=near,
+        seconds_by_rank=[r["seconds"] for r in ranks], one_process_seconds=long_sp["seconds"],
+        partial_launches_by_rank=[r["launches"]["flash_attention_partial"] for r in ranks],
+        handoffs_by_rank=[r["handoffs"] for r in ranks], handoff_ms_by_rank=[r["handoff_ms"] for r in ranks],
+        peak_memory_gb_by_rank=[r["peak_memory_gb"] for r in ranks], launches=launches,
+        phase_s=time.perf_counter() - t_phase,
+    )
+    log("sp_processes", json.dumps(result))
     return result
 
 
@@ -6059,6 +6190,152 @@ D32_LOSS_RTOL = 1e-6
 D32_GRAD_RTOL = FLASH_RTOL
 
 
+#: The tp_processes phase: gloo ranks on the one card, one tp position
+#: each, `token_loss` at batch 2 × 1024, 2 steps.
+TP_PROC_RANKS, TP_PROC_BATCH, TP_PROC_SEQ, TP_PROC_STEPS = 2, 2, 1024, 2
+
+
+def tp_batches(seed: int, tokenizer) -> list:
+    """`TP_PROC_STEPS` token batches of `TP_PROC_BATCH` × `TP_PROC_SEQ`
+    (`train_examples` of 600-950 context tokens, one window each)."""
+    from verbatim_rag_tpu_torch.training.token_dataset import TokenDatasetEncoder
+
+    examples = train_examples(TP_PROC_STEPS * TP_PROC_BATCH, seed, tokenizer, context_tokens=(600, 950))
+    encoder = TokenDatasetEncoder(tokenizer, max_length=TP_PROC_SEQ, doc_stride=128)
+    batches = list(encoder.iter_batches(examples, TP_PROC_BATCH))[:TP_PROC_STEPS]
+    require(
+        len(batches) == TP_PROC_STEPS and all(b.input_ids.shape == (TP_PROC_BATCH, TP_PROC_SEQ) for b in batches),
+        f"tp_processes: batch shapes {[b.input_ids.shape for b in batches]}",
+    )
+    return batches
+
+
+def tp_process_worker(rank: int, port: int, seed: int, batches, out_dir: str) -> None:
+    """One rank of the tp_processes phase: a gloo group, its position of a
+    dp = 1 × tp = 2 global mesh on the card, the train phase's weights from
+    the seed, `TP_PROC_STEPS` steps; rank 0 writes the tree gathered after
+    step 1."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from verbatim_rag_tpu_torch.models import init_highlighter_params, modernbert_base_config
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig
+    from verbatim_rag_tpu_torch.parallel import distributed, exchange
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
+
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=TP_PROC_RANKS, rank=rank
+    )
+    config = modernbert_base_config()
+    mesh = distributed.global_mesh(dp=1, tp=TP_PROC_RANKS, devices=[torch.device("cuda")])
+    require(mesh.axis_group("tp", 0) is not None, "tp_processes: the tp row does not span ranks")
+    tc = TrainingConfig(batch_size=TP_PROC_BATCH, max_seq_length=TP_PROC_SEQ, seed=seed)
+    trainer = Trainer(init_highlighter_params(config, seed=seed, device="cuda"), config, tc, mesh=mesh,
+                      loss_fn=token_loss)
+    steps = []
+    for i, batch in enumerate(batches):
+        reset_counts()
+        exchange.handoffs, exchange.handoff_s = 0, 0.0
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        loss = float(train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)[0])
+        torch.cuda.synchronize()
+        steps.append(dict(seconds=time.perf_counter() - t0, loss=loss, grad_norm=trainer.optimizer.grad_norm,
+                          launches=read_counts(), handoffs=exchange.handoffs, handoff_ms=exchange.handoff_s * 1e3))
+        if i == 0:
+            state = trainer.model.state_dict()  # a collective: the tree on rank 0
+            if rank == 0:
+                torch.save({k: v.detach().clone() for k, v in state.items()}, os.path.join(out_dir, "after1.pt"))
+    resident = trainer.model.resident_bytes(trainer.optimizer.adamw.state)
+    torch.save(dict(rank=rank, steps=steps, resident_gb=sum(r[k] for r in resident for k in ("params", "grads",
+                    "optimizer_state")) / 1e9), os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_tp_processes(seed: int, card: str) -> dict:
+    """Phase 7d: the mesh train step with its tp row across
+    `TP_PROC_RANKS` processes on the card, step 1 held to a one-process
+    dp = 1 × tp = 2 mesh and to the single-device step."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from verbatim_rag_tpu_torch.models import HashTokenizer, init_highlighter_params, modernbert_base_config
+    from verbatim_rag_tpu_torch.models.config import TrainingConfig
+    from verbatim_rag_tpu_torch.parallel import make_mesh
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, train_step
+
+    t_phase = time.perf_counter()
+    config = modernbert_base_config()
+    batches = tp_batches(seed, HashTokenizer(vocab_size=config.vocab_size))
+    tc = TrainingConfig(batch_size=TP_PROC_BATCH, max_seq_length=TP_PROC_SEQ, seed=seed)
+    refs = {}
+    for name, mesh in (("single_device", None),
+                       ("one_process_mesh", make_mesh(dp=1, tp=TP_PROC_RANKS, devices=[torch.device("cuda")] * 2))):
+        trainer = Trainer(init_highlighter_params(config, seed=seed, device="cuda"), config, tc, mesh=mesh,
+                          loss_fn=token_loss)
+        loss = float(train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batches[0]), token_loss)[0])
+        refs[name] = dict(loss=loss, grad_norm=trainer.optimizer.grad_norm,
+                          params={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()})
+        del trainer
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(tp_process_worker, args=(free_port(), seed, batches, out_dir), nprocs=TP_PROC_RANKS, join=True)
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(TP_PROC_RANKS)]
+        after1 = torch.load(os.path.join(out_dir, "after1.pt"))
+    layers = config.num_layers
+    for r in ranks:
+        for i, step in enumerate(r["steps"]):
+            c = step["launches"]
+            require(
+                (c["flash_attention"], c["flash_bwd_dq"], c["flash_bwd_dkv"], c["flash_attention_partial"])
+                == (layers, layers, layers, 0),
+                f"tp_processes: rank {r['rank']} step {i + 1} launches {c}, expected {layers} of each flash kernel",
+            )
+        require(
+            [(s["loss"], s["grad_norm"]) for s in r["steps"]] == [(s["loss"], s["grad_norm"]) for s in ranks[0]["steps"]],
+            "tp_processes: the ranks report different losses or norms",
+        )
+    step1 = ranks[0]["steps"][0]
+    held = {}
+    for name, ref in refs.items():
+        errors = tensor_errors(after1, ref["params"])
+        worst = max(errors, key=errors.get)
+        h = dict(
+            loss=step1["loss"], ref_loss=ref["loss"], loss_bit_equal=step1["loss"] == ref["loss"],
+            loss_of_limit=abs(step1["loss"] - ref["loss"]) / abs(ref["loss"]) / MESH_LOSS_RTOL,
+            grad_norm=step1["grad_norm"], ref_grad_norm=ref["grad_norm"],
+            norm_of_limit=abs(step1["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"] / MESH_GRAD_RTOL,
+            param_worst_rel=errors[worst], param_worst_tensor=worst, param_of_limit=errors[worst] / MESH_PARAM_RTOL,
+        )
+        h["worst"] = max(h["loss_of_limit"], h["norm_of_limit"], h["param_of_limit"])
+        require(h["worst"] <= 1.0, f"tp_processes: step 1 differs from the {name} step: {h}")
+        held[name] = h
+    launches = {k: sum(s["launches"][k] for r in ranks for s in r["steps"]) for k in kernel_counters()}
+    result = dict(
+        card=card, group="gloo, 2 ranks on one card: every hand-off staged through host memory",
+        dp=1, tp=TP_PROC_RANKS, batch=TP_PROC_BATCH, seq=TP_PROC_SEQ, steps=TP_PROC_STEPS, layers=layers,
+        heads_a_rank=config.num_heads // TP_PROC_RANKS, held=held,
+        limits=dict(loss_rtol=MESH_LOSS_RTOL, grad_rtol=MESH_GRAD_RTOL, param_rtol=MESH_PARAM_RTOL),
+        losses=[s["loss"] for s in ranks[0]["steps"]], equal_on_every_rank=True,
+        step_s_by_rank=[[s["seconds"] for s in r["steps"]] for r in ranks],
+        handoffs_a_step_by_rank=[[s["handoffs"] for s in r["steps"]] for r in ranks],
+        handoff_ms_a_step_by_rank=[[s["handoff_ms"] for s in r["steps"]] for r in ranks],
+        resident_gb_by_rank=[r["resident_gb"] for r in ranks], group_s_with_start=group_s,
+        launches_by_rank={k: [sum(s["launches"][k] for s in r["steps"]) for r in ranks]
+                          for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv")},
+        launches=launches, phase_s=time.perf_counter() - t_phase,
+    )
+    log("tp_processes", json.dumps(result))
+    return result
+
+
 def run_train_d32(seed: int, card: str) -> dict:
     """The MiniLM-width highlighter with flash on: trained through `Trainer`
     (the flash forward with lse and the FA2 backward at D = 32), step 1
@@ -6632,6 +6909,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import dataclasses
+
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor
     from verbatim_rag_tpu_torch.ops import cuda_build
 
     card = gpu_name_and_limit()
@@ -6662,11 +6942,12 @@ def main() -> None:
     bucket_v1["wide"] = wide["bucket_max_v1"]
 
     extractor, flow = run_flow(args.seed, card)
-    serve, rag, singles = run_serve(extractor, args.seed, card)
-    http = run_http(rag, extractor, singles, card)
-    doc = run_doc(extractor, args.seed, card)
+    serving = ModelSpanExtractor(config=dataclasses.replace(extractor.config, num_layers=SERVE_LAYERS), seed=args.seed)
+    serve, rag, singles = run_serve(serving, args.seed, card)
+    http = run_http(rag, serving, singles, card)
+    doc = run_doc(serving, args.seed, card)
     serve_index = rag.index
-    del rag, singles
+    del rag, singles, serving
     torch.cuda.empty_cache()
     bucket_ab = run_bucket_ab(gen, card)
     data = bench_data(args.seed)
@@ -6684,10 +6965,12 @@ def main() -> None:
     long_sp = run_long_sp(extractor, args.seed, card)
     del extractor
     torch.cuda.empty_cache()
+    sp_processes = run_sp_processes(args.seed, card, long_sp)
     train, train_batches = run_train(args.seed, card)
     train_mesh = run_train_mesh(train_batches, args.seed, card, train)
     del train_batches
     torch.cuda.empty_cache()
+    tp_processes = run_tp_processes(args.seed, card)
     train_d32 = run_train_d32(args.seed, card)
     checkpoints = run_checkpoints(
         serve_index, serve_questions(), ROOT / "build" / "chip_smoke_train" / "final", args.seed, card
@@ -6697,7 +6980,7 @@ def main() -> None:
 
     phases = (
         flow, serve, http, doc, bucket_ab, store, store_int8, ragged, int4, mesh, processes, full_text, cli,
-        long_ctx, long_sp, train, train_mesh, train_d32, checkpoints,
+        long_ctx, long_sp, sp_processes, train, train_mesh, tp_processes, train_d32, checkpoints,
     )
     by_program = mesh["launches_by_program"]
     per_shard = mesh["per_shard"]
@@ -6714,6 +6997,7 @@ def main() -> None:
             launches=launches["flash_attention"] - launches["flash_attention_d32"],
             registers=build.get("flash_fwd_wgmma_kernelILi64E", {}).get("registers"),
             train_mesh=train_mesh["kernels"]["flash_attention_fwd"],
+            tp_processes=dict(launches_by_rank=tp_processes["launches_by_rank"]["flash_attention"]),
             **flash,
         ),
         dict(
@@ -6738,6 +7022,9 @@ def main() -> None:
             registers_dq=build.get("flash_bwd_dq_wgmma_kernelILi64E", {}).get("registers"),
             registers_dkv=build.get("flash_bwd_dkv_wgmma_kernelILi64E", {}).get("registers"),
             train_mesh=train_mesh["kernels"]["flash_attention_bwd"],
+            tp_processes=dict(launches_by_rank=[
+                dq + dkv for dq, dkv in zip(*(tp_processes["launches_by_rank"][k] for k in ("flash_bwd_dq", "flash_bwd_dkv")))
+            ]),
             **flash_bwd,
         ),
         dict(
@@ -6762,6 +7049,7 @@ def main() -> None:
             launches=launches["flash_attention_partial"] - launches["flash_attention_partial_d32"],
             registers=build.get("flash_partial_wgmma_kernelILi64E", {}).get("registers"),
             train_mesh=train_mesh["kernels"]["flash_attention_partial"],
+            sp_processes=dict(launches_by_rank=sp_processes["partial_launches_by_rank"]),
             **partial,
         ),
         dict(

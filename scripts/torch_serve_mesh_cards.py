@@ -4,7 +4,8 @@
 
 Needs four cards: without them it exits with code 2 and prints no result.
 It prints the cards' name and power limit, then one JSON line a part as the
-part ends (``processes`` first, while the cards are still empty):
+part ends (``processes`` first, while the cards are still empty; then
+``cards``, then ``sp_processes``):
 
 - ``cards``: one process, ``make_mesh(dp=2, tp=2)`` over the four cards.
   (a) The mesh store (`DeviceVectorStore(mesh=...)`, int8 dense and sketch,
@@ -25,6 +26,19 @@ part ends (``processes`` first, while the cards are still empty):
   probabilities within `chip_smoke.SP_PROBS_ATOL`, spans equal unless a
   probability lies within that of the threshold, 128 partial launches each,
   seconds of both and the four cards' overlap.
+- ``sp_processes``: the same extraction across four processes, one card
+  each (NCCL over the loopback interface): one position a rank of
+  `distributed.global_mesh(dp=1, tp=4)` (6144 tokens a rank), each rank
+  building the seeded weights, one untimed pass, one timed, one under
+  `torch.profiler`: every rank's probabilities within
+  `chip_smoke.SP_PROBS_ATOL` of the ``cards`` pass (bit-equality recorded),
+  spans equal on every rank (and to the ``cards`` pass's unless a
+  probability lies within that of the threshold), 32 partial launches a
+  rank (8 global layers × 4 ring steps), no forward launch; each rank's
+  seconds, hand-offs and their host ms (`parallel.exchange`), its card's
+  busy ms and NCCL kernel ms, and across the four traces (their clocks
+  joined by the traces' base time) the ms two or more cards were busy at
+  once.
 - ``processes``: four processes, one card each, joined by
   `parallel.distributed.initialize` (NCCL for CUDA tensors over the
   loopback interface), each making its 1,048,576 rows of
@@ -59,37 +73,48 @@ TIMED = 3
 STORE_PROGRAMS = {"xla": ("rescore", 1), "section": ("section", 1), "bucket": ("bucket_max_v2", 2)}
 
 
-def synchronize() -> None:
+def synchronize(cards=range(CARDS)) -> None:
     import torch
 
-    for i in range(CARDS):
+    for i in cards:
         torch.cuda.synchronize(i)
 
 
-def card_overlap(fn) -> dict:
-    """``fn`` once under `torch.profiler`: wall ms, the span from the first
-    kernel's start to the last one's end, each card's busy ms (the union of
-    its kernel intervals), the ms two or more cards were busy at once and
-    the most cards busy at once."""
+def kernel_trace(fn, cards=range(CARDS)) -> tuple[float, dict, dict]:
+    """``fn`` once under `torch.profiler`: its wall ms, each card's kernel
+    intervals in µs (from the trace's base time where the trace states it,
+    so that the traces of several processes share a clock) and each card's
+    NCCL kernel ms."""
     from torch.profiler import ProfilerActivity, profile
 
-    synchronize()
+    synchronize(cards)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
-        synchronize()
+        synchronize(cards)
         wall_ms = (time.perf_counter() - t0) * 1e3
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as fh:
-            events = json.load(fh)["traceEvents"]
+            trace = json.load(fh)
+    base = float(trace.get("baseTimeNanoseconds", 0)) / 1e3
     by_card: dict[int, list] = {}
-    for e in events:
+    nccl_us: dict[int, float] = {}
+    for e in trace["traceEvents"]:
         if e.get("cat") == "kernel" and e.get("ph") == "X":
-            start = float(e["ts"])
-            card = e.get("args", {}).get("device", e.get("pid"))
-            by_card.setdefault(int(card), []).append((start, start + float(e["dur"])))
+            start = base + float(e["ts"])
+            card = int(e.get("args", {}).get("device", e.get("pid")))
+            by_card.setdefault(card, []).append((start, start + float(e["dur"])))
+            if "nccl" in e.get("name", "").lower():
+                nccl_us[card] = nccl_us.get(card, 0.0) + float(e["dur"])
+    return wall_ms, by_card, {card: us / 1e3 for card, us in sorted(nccl_us.items())}
+
+
+def overlap(by_card: dict) -> dict:
+    """From each card's kernel intervals: the span from the first start to
+    the last end, each card's busy ms (the union of its intervals), the ms
+    two or more cards were busy at once and the most cards busy at once."""
     unions = {}
     for card, intervals in by_card.items():
         merged = []
@@ -109,12 +134,19 @@ def card_overlap(fn) -> dict:
         last = t
     span_us = edges[-1][0] - edges[0][0] if edges else 0.0
     return dict(
-        wall_ms=wall_ms, span_ms=span_us / 1e3,
+        span_ms=span_us / 1e3,
         busy_ms_by_card={card: sum(b - a for a, b in u) / 1e3 for card, u in sorted(unions.items())},
         kernels_by_card={card: len(by_card[card]) for card in sorted(by_card)},
         concurrent_ms=concurrent_us / 1e3, concurrent_share_of_span=concurrent_us / span_us if span_us else 0.0,
         most_cards_busy_at_once=most,
     )
+
+
+def card_overlap(fn) -> dict:
+    """``fn`` once under `torch.profiler` over the four cards: wall ms and
+    `overlap` of the cards' kernels."""
+    wall_ms, by_card, _ = kernel_trace(fn)
+    return dict(wall_ms=wall_ms, **overlap(by_card))
 
 
 def run_store(data, seed: int) -> dict:
@@ -219,8 +251,97 @@ def run_sp(seed: int) -> dict:
         partial_launches={w: r["partial_launches"] for w, r in runs.items()}, cards_profile=profile,
     )
     cs.log("cards sp", json.dumps(result))
+    cards = dict(probs=runs["cards"]["probs"], spans=runs["cards"]["spans"], threshold=sp.threshold,
+                 seconds=runs["cards"]["seconds"])
     del runs, sp
     torch.cuda.empty_cache()
+    return result, cards
+
+
+def sp_worker(rank: int, port: int, seed: int, out_dir: str) -> None:
+    """One rank of ``sp_processes``: its card, an NCCL group, its position
+    of the global sequence axis, the seeded weights; written to
+    ``out_dir``/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from verbatim_rag_tpu_torch.models import ModelSpanExtractor, modernbert_base_config
+    from verbatim_rag_tpu_torch.parallel import distributed, exchange
+
+    torch.cuda.set_device(rank)
+    cs.require(distributed.initialize(f"127.0.0.1:{port}", CARDS, rank), "sp_processes: no process group")
+    cs.require("cuda:nccl" in torch.distributed.get_backend(), "sp_processes: CUDA collectives do not run on NCCL")
+    card = torch.device("cuda", rank)
+    mesh = distributed.global_mesh(dp=1, tp=CARDS, devices=[card])
+    sp = ModelSpanExtractor(config=modernbert_base_config(), seed=seed, sp_mesh=mesh, device=card)
+    text = cs.long_document(seed)
+    sp.process(cs.LONG_QUESTION, text)
+    probs, forward = [], sp._forward_probs
+    sp._forward_probs = lambda ids, mask: probs.append(forward(ids, mask)) or probs[-1]
+    cs.reset_counts()
+    exchange.handoffs, exchange.handoff_s = 0, 0.0
+    synchronize([rank])
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    spans = sp.process(cs.LONG_QUESTION, text)
+    synchronize([rank])
+    seconds = time.perf_counter() - t0
+    launches, handoffs, handoff_ms = cs.read_counts(), exchange.handoffs, exchange.handoff_s * 1e3
+    torch.distributed.barrier()
+    wall_ms, by_card, nccl_ms = kernel_trace(lambda: sp.process(cs.LONG_QUESTION, text), [rank])
+    out = dict(
+        rank=rank, seconds=seconds, spans=spans, launches=launches, handoffs=handoffs, handoff_ms=handoff_ms,
+        probs=probs[0][0][: len(sp._plan(cs.LONG_QUESTION, text)["rows"][0])], profile_wall_ms=wall_ms,
+        intervals=by_card, nccl_ms_by_card=nccl_ms,
+    )
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_sp_processes(seed: int, cards: dict) -> dict:
+    """Part ``sp_processes``: four NCCL ranks, one card each, against the
+    ``cards`` pass (one process, four cards)."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import chip_smoke as cs
+    from verbatim_rag_tpu_torch.models import modernbert_base_config
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        t0 = time.perf_counter()
+        mp.spawn(sp_worker, args=(cs.free_port(), seed, out_dir), nprocs=CARDS, join=True)
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(CARDS)]
+    config = modernbert_base_config()
+    expected = sum(config.is_global_layer(i) for i in range(config.num_layers)) * CARDS
+    for r in ranks:
+        cs.require(
+            r["launches"]["flash_attention_partial"] == expected and r["launches"]["flash_attention"] == 0,
+            f"sp_processes: rank {r['rank']} launches {r['launches']}, expected {expected} partial, no forward",
+        )
+    diffs = [float(np.abs(r["probs"] - cards["probs"]).max()) for r in ranks]
+    cs.require(max(diffs) <= cs.SP_PROBS_ATOL, f"sp_processes: probabilities differ from the cards pass by {diffs}")
+    cs.require(all(r["spans"] == ranks[0]["spans"] for r in ranks), "sp_processes: the ranks decode different spans")
+    bit_equal = all(np.array_equal(r["probs"], cards["probs"]) for r in ranks)
+    near = 0 if bit_equal else int((np.abs(cards["probs"] - cards["threshold"]) <= max(diffs)).sum())
+    same = ranks[0]["spans"] == cards["spans"]
+    cs.require(same or near > 0, "sp_processes: spans differ from the cards pass with no probability near the threshold")
+    by_card = {card: iv for r in ranks for card, iv in r["intervals"].items()}
+    windows = [(min(a for a, _ in iv), max(b for _, b in iv)) for iv in by_card.values()]
+    result = dict(
+        processes=CARDS, backend="nccl", tokens=int(cards["probs"].shape[0]),
+        probs_bit_equal_cards_pass=bit_equal, probs_max_abs_diff_by_rank=diffs, spans_equal_on_every_rank=True,
+        spans_equal_cards_pass=same, partial_launches_by_rank=[r["launches"]["flash_attention_partial"] for r in ranks],
+        seconds_by_rank=[r["seconds"] for r in ranks], cards_pass_seconds=cards["seconds"],
+        handoffs_by_rank=[r["handoffs"] for r in ranks], handoff_ms_by_rank=[r["handoff_ms"] for r in ranks],
+        nccl_kernel_ms_by_rank=[r["nccl_ms_by_card"] for r in ranks],
+        profile_wall_ms_by_rank=[r["profile_wall_ms"] for r in ranks], group_s_with_start=group_s,
+        traces_share_a_clock=max(a for a, _ in windows) < min(b for _, b in windows), overlap=overlap(by_card),
+    )
+    cs.log("sp_processes", json.dumps(result))
     return result
 
 
@@ -285,7 +406,9 @@ def main() -> None:
     data = cs.bench_data(args.seed)
     store = run_store(data, args.seed)
     del data
-    print(json.dumps({"cards": dict(store=store, sp=run_sp(args.seed))}), flush=True)
+    sp, cards = run_sp(args.seed)
+    print(json.dumps({"cards": dict(store=store, sp=sp)}), flush=True)
+    print(json.dumps({"sp_processes": run_sp_processes(args.seed, cards)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,16 @@ It prints the cards' name and power limit, then one JSON line a part:
   on every rank equal to each other and held, with the same limits, to one
   process's dp = 4 step on card 0 (a ``[cuda:0] * 4`` mesh); steps 2-3
   timed on every rank.
+- ``tp_processes``: four NCCL processes, one card each, as one dp = 2 ×
+  tp = 2 mesh across them (`distributed.global_mesh`: rank 2d + t holds
+  position (d, t), so each tp row spans two ranks and the encoder's root
+  design hands its sublayer inputs and partials between them,
+  `parallel.exchange.TPRow`), each rank passing the global batches: step 1's
+  loss, gradients (gathered on rank 0), global norm and updated parameters
+  held to the single-device step with the same limits; loss and norm equal
+  on every rank; 22 forward, dq and dk/dv launches a rank a step; every
+  copy equal across ranks (by its sum) after step 3; steps 2-3 timed on
+  every rank, with their hand-offs.
 
 Any check that fails exits nonzero.
 """
@@ -99,10 +109,10 @@ def single_step(config, tc, batches, seed: int, mesh=None):
     return loss, grads, norm, params, step_s
 
 
-def synchronize() -> None:
+def synchronize(cards=range(CARDS)) -> None:
     import torch
 
-    for i in range(CARDS):
+    for i in cards:
         torch.cuda.synchronize(i)
 
 
@@ -192,7 +202,7 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from verbatim_rag_tpu_torch.models import init_highlighter_params
-    from verbatim_rag_tpu_torch.parallel import distributed
+    from verbatim_rag_tpu_torch.parallel import distributed, make_mesh
     from verbatim_rag_tpu_torch.training.model import token_loss
     from verbatim_rag_tpu_torch.training.token_dataset import TokenBatch
     from verbatim_rag_tpu_torch.training.trainer import Trainer, sync_grads, train_step
@@ -210,14 +220,14 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
         for b in batches[: cs.MESH_TRAIN_STEPS]
     ]
     model = init_highlighter_params(config, seed=seed, device=f"cuda:{rank}")
-    mesh = distributed.global_mesh(dp=1, tp=1, devices=[torch.device("cuda", rank)])
+    mesh = make_mesh(dp=1, tp=1, devices=[torch.device("cuda", rank)])  # joined along dp by the group
     trainer = Trainer(model, config, tc, mesh=mesh, loss_fn=token_loss)
     trainer.optimizer.zero_grad()
     loss, _ = token_loss(trainer.model, trainer.batch_to_device(local[0]))
     loss.backward()
     sync_grads(trainer.model, trainer.optimizer)
     grads = trainer.model.logical_grads()
-    total = distributed.all_reduce_sum({"loss": loss.detach()})["loss"]
+    total = distributed.all_reduce_sum({"loss": loss.detach()}, distributed.world())["loss"]
     trainer.optimizer.step()
     params = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
     step_s = []
@@ -232,6 +242,122 @@ def worker(rank: int, port: int, seed: int, out_dir: str) -> None:
         os.path.join(out_dir, f"rank{rank}.pt"),
     )
     torch.distributed.destroy_process_group()
+
+
+def tp_worker(rank: int, port: int, seed: int, out_dir: str) -> None:
+    """One rank of ``tp_processes``: its card, an NCCL group, its position
+    (d, t) = (rank // 2, rank % 2) of a dp = 2 × tp = 2 global mesh; step 1
+    by hand (the gradients gathered on rank 0 before clipping), steps 2-3
+    timed; rank 0 holds step 1 to the single-device step in
+    ``out_dir``/ref.pt."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from verbatim_rag_tpu_torch.models import init_highlighter_params
+    from verbatim_rag_tpu_torch.parallel import distributed, exchange
+    from verbatim_rag_tpu_torch.training.model import token_loss
+    from verbatim_rag_tpu_torch.training.trainer import Trainer, _group_loss, sync_grads, train_step
+
+    torch.cuda.set_device(rank)
+    cs.require(distributed.initialize(f"127.0.0.1:{port}", CARDS, rank), "tp_processes: no process group")
+    config, tc, batches = batches_and_config(seed)
+    card = torch.device("cuda", rank)
+    mesh = distributed.global_mesh(dp=2, tp=2, devices=[card])
+    cs.require(mesh.axis_group("tp", rank // 2) is not None, "tp_processes: the tp row does not span ranks")
+    trainer = Trainer(init_highlighter_params(config, seed=seed, device=card), config, tc, mesh=mesh,
+                      loss_fn=token_loss)
+    torch.cuda.reset_peak_memory_stats(rank)
+    layers = config.num_layers
+    cs.reset_counts()
+    trainer.optimizer.zero_grad()
+    loss, _ = token_loss(trainer.model, trainer.batch_to_device(batches[0]))
+    loss.backward()
+    sync_grads(trainer.model, trainer.optimizer)
+    grads = trainer.model.logical_grads()  # a collective: the tree on rank 0
+    total = float(_group_loss(loss, trainer.model))
+    norm = float(trainer.optimizer.global_norm())
+    trainer.optimizer.step()
+    params = trainer.model.state_dict()  # a collective
+    out = dict(rank=rank, loss=total, norm=norm, launches=[cs.read_counts()], step_s=[], handoffs=[], handoff_ms=[])
+    if rank == 0:
+        ref = torch.load(os.path.join(out_dir, "ref.pt"), weights_only=False)
+        held = cs.held_to_single(total, {k: v.cpu() for k, v in grads.items()}, ref["loss"], ref["grads"],
+                                 norm=norm, ref_norm=ref["norm"])
+        errors = cs.tensor_errors({k: v.detach().cpu() for k, v in params.items()}, ref["params"])
+        name = max(errors, key=errors.get)
+        held.update(param_worst_rel=errors[name], param_worst_tensor=name,
+                    param_of_limit=errors[name] / cs.MESH_PARAM_RTOL)
+        held["worst"] = max(held["worst"], held["param_of_limit"])
+        out["held"] = held
+    del grads, params
+    for batch in batches[1 : cs.MESH_TRAIN_STEPS]:
+        cs.reset_counts()
+        exchange.handoffs, exchange.handoff_s = 0, 0.0
+        synchronize([rank])
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        train_step(trainer.model, trainer.optimizer, trainer.batch_to_device(batch), token_loss)
+        synchronize([rank])
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(cs.read_counts())
+        out["handoffs"].append(exchange.handoffs)
+        out["handoff_ms"].append(exchange.handoff_s * 1e3)
+    for i, c in enumerate(out["launches"]):
+        cs.require(
+            (c["flash_attention"], c["flash_bwd_dq"], c["flash_bwd_dkv"]) == (layers, layers, layers),
+            f"tp_processes: rank {rank} step {i + 1} launches {c}, expected {layers} of each flash kernel",
+        )
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(rank) / 1e9
+    out["unequal_local"] = trainer.model.unequal_copies()
+    out["leaf_sums"] = {f"{n}@{d},{t}": float(leaf.detach().double().sum()) for d, t in mesh.local_positions()
+                        for n, leaf in trainer.model.leaves[d][t].items()}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def run_tp_processes(config, tc, batches, seed: int) -> dict:
+    """Part ``tp_processes``: dp = 2 × tp = 2 over four NCCL ranks, the tp
+    rows across ranks, held to the single-device step."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    import chip_smoke as cs
+
+    ref_loss, ref_grads, ref_norm, ref_params, _ = single_step(config, tc, batches[:1], seed)
+    torch.cuda.empty_cache()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out_dir:
+        torch.save(dict(loss=ref_loss, grads=ref_grads, norm=ref_norm, params=ref_params),
+                   os.path.join(out_dir, "ref.pt"))
+        del ref_grads, ref_params
+        t0 = time.perf_counter()
+        mp.spawn(tp_worker, args=(cs.free_port(), seed, out_dir), nprocs=CARDS, join=True)
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(CARDS)]
+    held = ranks[0]["held"]
+    cs.require(held["worst"] <= 1.0, f"tp_processes: step 1 differs from the single-device step: {held}")
+    cs.require(all((r["loss"], r["norm"]) == (ranks[0]["loss"], ranks[0]["norm"]) for r in ranks),
+               "tp_processes: the ranks report different losses or norms")
+    cs.require(not any(r["unequal_local"] for r in ranks), "tp_processes: a rank's copies differ")
+    copies: dict = {}
+    for r in ranks:
+        for key, value in r["leaf_sums"].items():
+            name, position = key.split("@")
+            sliced = any(s in f".{name}" for s in (".attn.q.", ".attn.k.", ".attn.v.", ".attn.o.", ".mlp.w"))
+            copies.setdefault((name, position.split(",")[1] if sliced else "all"), set()).add(value)
+    unequal = [k for k, v in copies.items() if len(v) > 1]
+    cs.require(not unequal, f"tp_processes: copies differ across ranks after step 3: {unequal[:8]}")
+    step_s = [r["step_s"] for r in ranks]
+    return dict(
+        processes=CARDS, backend="nccl", dp=2, tp=2, tp_across_ranks=True, batch=cs.TRAIN_BATCH, seq=cs.TRAIN_SEQ,
+        group_s_with_start=group_s, held=held, worst_of_limit=held["worst"], ranks_equal=True,
+        copies_equal_across_ranks=True, step_s_2_to_3_by_rank=step_s,
+        step_s_median=float(np.median([max(s) for s in zip(*step_s)])),
+        handoffs_a_step_by_rank=[r["handoffs"] for r in ranks], handoff_ms_a_step_by_rank=[r["handoff_ms"] for r in ranks],
+        peak_memory_gb_by_rank=[r["peak_memory_gb"] for r in ranks],
+    )
 
 
 def run_processes(config, tc, batches, seed: int) -> dict:
@@ -288,9 +414,12 @@ def main() -> None:
     cards = run_cards(config, tc, batches, args.seed)
     torch.cuda.empty_cache()
     processes = run_processes(config, tc, batches, args.seed)
+    torch.cuda.empty_cache()
+    tp_processes = run_tp_processes(config, tc, batches, args.seed)
     print(card)
     print(json.dumps({"cards": cards}))
     print(json.dumps({"processes": processes}))
+    print(json.dumps({"tp_processes": tp_processes}))
     cs.require(not cards["memory_faults"], f"cards: {cards['memory_faults']}")
 
 

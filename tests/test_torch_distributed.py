@@ -5,7 +5,9 @@ machine included. JAX's rules (`verbatim_rag_tpu/parallel/distributed.py`)
 are restated here: a single process initializes nothing, and a global batch
 that does not divide over the processes raises. The group's step: n
 processes, each on its `process_local_batch_slice` of an 8-row batch over a
-``["cpu"] * 2`` mesh, end with equal parameters (the gathered tree of each
+``["cpu"] * 2`` mesh of its own (`make_mesh`: the group joins the meshes
+along dp; `global_mesh`'s mesh across ranks is tested in
+`test_torch_tp_sp_processes.py`), end with equal parameters (the gathered tree of each
 mesh), within 1e-6 of one process's dp = 2·n step on the whole batch (their
 sums run in another order), and every parameter moved by the step. The
 `cuda`-marked case runs the same gloo step where a card is visible, so the
@@ -93,7 +95,7 @@ WORKER = textwrap.dedent(
     import torch
     from verbatim_rag_tpu_torch.models.config import TrainingConfig, tiny_test_config
     from verbatim_rag_tpu_torch.models.highlighter import HighlighterModel
-    from verbatim_rag_tpu_torch.parallel import distributed
+    from verbatim_rag_tpu_torch.parallel import distributed, make_mesh
     from verbatim_rag_tpu_torch.training import trainer as port_trainer
     from verbatim_rag_tpu_torch.training.model import token_loss
     from verbatim_rag_tpu_torch.training.token_dataset import TokenBatch
@@ -102,7 +104,7 @@ WORKER = textwrap.dedent(
     assert distributed.initialize() is True
     config = tiny_test_config(**overrides)
     model = HighlighterModel(config, torch.Generator().manual_seed(7))
-    mesh = distributed.global_mesh(dp=2, tp=1, devices=["cpu"] * 2)
+    mesh = make_mesh(dp=2, tp=1, devices=["cpu"] * 2)  # this process's mesh, joined along dp by the group
     trainer = port_trainer.Trainer(model, config, TrainingConfig(learning_rate=1e-3, max_grad_norm=0.05),
                                    mesh=mesh, loss_fn=token_loss, total_steps=8)
     arrays = np.load(batch_path)

@@ -437,11 +437,26 @@ scores, rows = ss.sharded_hybrid_topk(
     mask=place(mask), mesh=mesh,
 )
 dense_rows = ss.sharded_dense_topk(place(dense), q, 5, place(mask), mesh)[1]
+
+# The SP group path: one extraction over a global mesh of both ranks' devices.
+from verbatim_rag_tpu_torch.models import ModelSpanExtractor
+from verbatim_rag_tpu_torch.models.config import tiny_test_config
+from verbatim_rag_tpu_torch.parallel import exchange
+sp_mesh = distributed.global_mesh(dp=1, tp=4, devices=["cpu"] * 2)
+config = tiny_test_config(position_embedding_type="rope", norm_location="pre", activation="geglu", use_bias=False,
+                          final_norm=True, type_vocab_size=0, global_attn_every_n_layers=2,
+                          local_attention_window=16, max_position_embeddings=1024)
+extractor = ModelSpanExtractor(config=config, seed=0, sp_mesh=sp_mesh, threshold=0.0, min_span_chars=1, device="cpu")
+context = " ".join(f"word{i} noteworthy item{i}." for i in range(40))
 print(json.dumps({
     "rank": distributed.process_index(),
     "rows": rows.tolist(),
     "dense_rows": dense_rows.tolist(),
     "gathers": ss.gathers,
+    "spans": extractor.process("what is noteworthy?", context),
+    "context": len(context),
+    "sp_line": [sp_mesh.line("tp").first, sp_mesh.line("tp").count],
+    "handoffs": exchange.handoffs,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules if m == "verbatim_rag_tpu" or m.startswith("verbatim_rag_tpu.")),
 }))
@@ -523,8 +538,11 @@ def test_checkpoints_extractors_and_rerank_load_no_jax():
 def test_group_search_runs_without_jax():
     """Two gloo processes search the rows they share (`sharded_search`'s
     group path: each rank's block, pair ``all_gather``\\ s, RRF on every
-    rank): both return the same rows, from both halves of the index, and
-    neither loads a ``jax`` or ``verbatim_rag_tpu`` module."""
+    rank) and extract spans over a global SP mesh of both ranks' devices
+    (`distributed.global_mesh`: two shards a rank, ring and halo hand-offs
+    across them): both return the same rows, from both halves of the index,
+    and the same spans, and neither loads a ``jax`` or ``verbatim_rag_tpu``
+    module."""
     import socket
 
     with socket.socket() as sock:
@@ -549,6 +567,8 @@ def test_group_search_runs_without_jax():
     for r in results:
         assert r["jax"] == [] and r["reference"] == []
         assert r["gathers"] == 3 and r["rows"] == results[0]["rows"]
+        assert r["spans"] == [[0, r["context"]]] and r["handoffs"] > 0
+    assert [r["sp_line"] for r in results] == [[0, 2], [2, 2]]
     rows = {x for row in results[0]["rows"] + results[0]["dense_rows"] for x in row if x >= 0}
     assert min(rows) < 512 <= max(rows)
 

@@ -49,6 +49,7 @@ from torch import nn
 from verbatim_rag_tpu_torch.ops.dense import matmul_f32
 from verbatim_rag_tpu_torch.ops.flash_attention import flash_attention
 from verbatim_rag_tpu_torch.ops.ring_attention import halo_attention, ring_attention
+from verbatim_rag_tpu_torch.parallel import distributed
 
 from .config import EncoderConfig
 
@@ -243,9 +244,19 @@ def tp_reduce(partials: Sequence[torch.Tensor], bias, device) -> torch.Tensor:
     return out if bias is None else out + bias
 
 
+def _attn_partial(p: Mapping, pre: str, x, config: EncoderConfig, i: int, t: int, heads: int, position, length, mask):
+    """Shard t's part of layer i's attention: its ``heads`` heads (q/k/v,
+    RoPE, attention) and their rows of the o-projection, without o's bias."""
+    dtype = compute_dtype(config)
+    width = heads * config.head_dim
+    q, k, v = _qkv(p, pre, x, dtype, heads, config.head_dim, slice(t * width, (t + 1) * width))
+    ctx = _attend(q, k, v, config, config.is_global_layer(i), position, length, mask)
+    return dense(ctx.reshape(*x.shape[:2], width), p[f"{pre}attn.o.kernel"], None, dtype)
+
+
 def encoder_forward_tp(
     params: Sequence[Mapping], devices, config: EncoderConfig, input_ids, attention_mask,
-    token_type_ids=None,
+    token_type_ids=None, row=None,
 ) -> torch.Tensor:
     """The encoder forward for one data row of a ``[dp, tp]`` mesh:
     ``params[t]`` maps the ``state_dict`` names to shard t's tensors on
@@ -257,12 +268,18 @@ def encoder_forward_tp(
     shard runs its ``num_heads / tp`` heads (q/k/v, RoPE, attention, its part
     of the o-projection) and its part of the MLP; :func:`tp_reduce` sums the
     partials. One shard holding every parameter is the single-device forward.
+
+    Where the row's positions lie on several ranks, ``row`` is its
+    `parallel.exchange.TPRow` and this is the root's side: ``params`` and
+    ``devices`` are the root's own positions (0 .. k − 1), each sublayer's
+    input goes to the other ranks by a broadcast (`TPRow.share`) and their
+    partials come back (`TPRow.gather`), summed with the root's in shard
+    order; the other ranks run :func:`encoder_follow_tp`.
     """
-    tp = len(params)
+    tp = len(params) if row is None else row.tp
     dtype = compute_dtype(config)
     batch, seq_len = input_ids.shape
-    heads, head_dim = config.num_heads // tp, config.head_dim
-    width = heads * head_dim
+    heads = config.num_heads // tp
     pre_ln = config.norm_location == "pre"
     eps = config.layer_norm_eps
     home = params[0]
@@ -271,28 +288,60 @@ def encoder_forward_tp(
     lengths = [lengths.to(d) for d in devices]
     masks = [attention_mask.to(d) for d in devices]
 
+    def reduce(x, partials, bias):
+        if row is not None:
+            partials = row.gather(x, partials)
+        return tp_reduce(partials, bias, devices[0])
+
     h = embed(home, config, input_ids.long(), token_type_ids)
     for i in range(config.num_layers):
         pre = f"layers.{i}."
-        is_global = config.is_global_layer(i)
         a_in = _attn_in(home, config, i, h)
-        partials = []
-        for t, (p, dev) in enumerate(zip(params, devices)):
-            q, k, v = _qkv(p, pre, a_in.to(dev), dtype, heads, head_dim, slice(t * width, (t + 1) * width))
-            ctx = _attend(q, k, v, config, is_global, positions[t], lengths[t], masks[t])
-            partials.append(dense(ctx.reshape(batch, seq_len, width), p[f"{pre}attn.o.kernel"], None, dtype))
-        h = h + tp_reduce(partials, home.get(f"{pre}attn.o.bias"), devices[0])
+        a_in = a_in if row is None else row.share(a_in)
+        partials = [
+            _attn_partial(p, pre, a_in.to(dev), config, i, t, heads, positions[t], lengths[t], masks[t])
+            for t, (p, dev) in enumerate(zip(params, devices))
+        ]
+        h = h + reduce(a_in, partials, home.get(f"{pre}attn.o.bias"))
         if not pre_ln:
             h = _norm(home, f"{pre}attn_ln", h, eps)
         m_in = _norm(home, f"{pre}mlp_ln", h, eps) if pre_ln else h
+        m_in = m_in if row is None else row.share(m_in)
         partials = [_mlp(p, pre, m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)]
-        h = h + tp_reduce(partials, home.get(f"{pre}mlp.wo.bias"), devices[0])
+        h = h + reduce(m_in, partials, home.get(f"{pre}mlp.wo.bias"))
         if not pre_ln:
             h = _norm(home, f"{pre}mlp_ln", h, eps)
 
     if config.final_norm:
         h = _norm(home, "final_ln", h, eps)
     return h.float()
+
+
+def encoder_follow_tp(params: Sequence[Mapping], devices, config: EncoderConfig, attention_mask, row) -> torch.Tensor:
+    """A non-root rank's side of :func:`encoder_forward_tp` on a tp row
+    across ranks (``row``, a `parallel.exchange.TPRow`): ``params[j]`` and
+    ``devices[j]`` are its positions ``row.local[j]``. Each sublayer it
+    receives the root's input (`TPRow.receive`), runs its positions' heads
+    or MLP part and sends the partials (`TPRow.send`). Returns the last
+    token of the chain, which `TPRow.receive` of the row's logits takes."""
+    dtype = compute_dtype(config)
+    heads = config.num_heads // row.tp
+    batch, seq_len = attention_mask.shape
+    shape = (batch, seq_len, config.hidden_size)
+    positions = [torch.arange(seq_len, device=d) for d in devices]
+    lengths = [attention_mask.sum(dim=1).to(torch.int32).to(d) for d in devices]
+    masks = [attention_mask.to(d) for d in devices]
+    token = row.start(devices[0])
+    for i in range(config.num_layers):
+        pre = f"layers.{i}."
+        a_in = row.receive(token, shape, devices[0])
+        token = row.send([
+            _attn_partial(p, pre, a_in.to(dev), config, i, t, heads, positions[j], lengths[j], masks[j])
+            for j, (t, p, dev) in enumerate(zip(row.local, params, devices))
+        ])
+        m_in = row.receive(token, shape, devices[0])
+        token = row.send([_mlp(p, pre, m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)])
+    return token
 
 
 class Encoder(nn.Module):
@@ -461,6 +510,12 @@ def encoder_forward_sp(
     differentiable: every shard's gradient reaches ``model``'s parameters.
     ``params`` are the shards' :func:`shard_replicas` when the caller uses
     them after the forward too (a head on the hidden states).
+
+    On a mesh that spans processes the lists are this rank's run of the
+    axis's shards (`mesh.AxisLine`): positions are global from the line's
+    ``first`` index, ``lengths`` is summed over the line's ranks, and ring
+    and halo attention hand K/V across the rank boundaries; each rank's
+    gradients are its shards' share.
     """
     config = model.config
     dtype = compute_dtype(config)
@@ -471,8 +526,12 @@ def encoder_forward_sp(
     devices = [ids.device for ids in ids_shards]
     params = params or shard_replicas(model, devices)
     shard_len = ids_shards[0].shape[1]
-    positions = [my * shard_len + torch.arange(shard_len, device=d) for my, d in enumerate(devices)]
-    lengths = sum(m.to(devices[0]).sum(dim=1) for m in mask_shards).to(torch.int32)
+    line = mesh.line(axis)
+    positions = [(line.first + j) * shard_len + torch.arange(shard_len, device=d) for j, d in enumerate(devices)]
+    lengths = sum(m.to(devices[0]).sum(dim=1) for m in mask_shards)
+    if line.group is not None:
+        lengths = distributed.all_reduce_(lengths, line.group)
+    lengths = lengths.to(torch.int32)
 
     h = [embed(p, config, ids.long(), None, pos) for p, ids, pos in zip(params, ids_shards, positions)]
     for i in range(config.num_layers):

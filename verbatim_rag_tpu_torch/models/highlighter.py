@@ -28,6 +28,7 @@ from torch import nn
 from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
 from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.ops.ring_attention import shard_sequence
+from verbatim_rag_tpu_torch.parallel import exchange
 
 from .config import EncoderConfig, demo_highlighter_config
 
@@ -252,7 +253,11 @@ class ModelSpanExtractor(SpanExtractor):
     sequence-sharded pass over the devices of its ``sp_axis`` (no sliding
     windows, no ``max_length`` cap): global layers run ring attention, local
     layers halo attention. The JAX program computes the same result on every
-    dp row of the mesh; the port computes it once, on the first dp row.
+    dp row of the mesh; the port computes it once, on the first dp row. On
+    a mesh that spans processes (`parallel.distributed.global_mesh`) every
+    rank plans the same row, scores its own run of shards and gathers the
+    probability shards of the line in axis order, so every rank decodes the
+    same spans.
     """
 
     def __init__(
@@ -429,7 +434,9 @@ class ModelSpanExtractor(SpanExtractor):
                     self.sp_mesh,
                     self.sp_axis,
                 )
-            return np.concatenate([p.cpu().numpy() for p in shards], axis=1)
+            probs = torch.cat([p.cpu() for p in shards], dim=1)
+            group = self.sp_mesh.line(self.sp_axis).group
+            return (probs if group is None else exchange.gather_sequence(probs, group)).numpy()
         with torch.no_grad():
             probs = token_relevance_probs(
                 self.model,

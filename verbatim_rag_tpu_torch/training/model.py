@@ -24,6 +24,7 @@ from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.models.config import EncoderConfig
 from verbatim_rag_tpu_torch.models.encoder import Dense, Encoder, compute_dtype
 from verbatim_rag_tpu_torch.parallel import distributed
+from verbatim_rag_tpu_torch.parallel.mesh import ShardedModel
 
 
 class QAModel(Encoder):
@@ -90,17 +91,29 @@ def masked_loss(model, batch, logits_fn, mask_key: str):
     first row's device, over the global mask count (never a mean of the
     shards' means: rows carry different numbers of live labels). Counts sum
     over the rows; under a process group of more than one process they and
-    the denominator also sum over the group (`parallel.distributed`), so each
-    process's loss is its share of the global mean.
+    the denominator also sum over :func:`loss_group` (`parallel.distributed`),
+    so each process's loss is its share of the global mean. On a mesh that
+    spans processes every rank of a tp row holds the row's logits
+    (`DPShard.logits`) and the sum runs over the rank's dp column, which
+    holds each dp row once.
     """
-    pairs = [(model, batch)] if isinstance(batch, dict) else list(zip(model.dp_shards(), batch))
-    sums = [masked_sums(logits_fn(m, b), b["labels"], b[mask_key]) for m, b in pairs]
+    if isinstance(batch, dict):
+        parts = [(logits_fn(model, batch), batch)]
+    else:
+        parts = [(shard.logits(logits_fn, b), b) for shard, b in zip(model.dp_shards(), batch)]
+    sums = [masked_sums(logits, b["labels"], b[mask_key]) for logits, b in parts]
     nll, counts = sums[0]
     for part, part_counts in sums[1:]:
         nll = nll + part.to(nll.device)
         counts = {k: v + part_counts[k].to(nll.device) for k, v in counts.items()}
-    counts = {k: v.to(nll.device) for k, v in distributed.all_reduce_sum(counts).items()}
+    counts = {k: v.to(nll.device) for k, v in distributed.all_reduce_sum(counts, loss_group(model)).items()}
     return nll / torch.clamp(counts["n_sentences"], min=1.0), counts
+
+
+def loss_group(model):
+    """The process group a loss's counts and value sum over: a mesh model's
+    `ShardedModel.dp_group`, else the whole group (None: no sum)."""
+    return model.dp_group() if isinstance(model, ShardedModel) else distributed.world()
 
 
 def _sentence_logits(model, batch):

@@ -28,6 +28,13 @@ the sum to every copy. Clipping takes the global norm of the logical set
 bit-equal. The unsharded tree is gathered for a checkpoint and at the end of
 :meth:`Trainer.train`; only rank 0 writes checkpoints.
 
+On a mesh across processes (`parallel.distributed.global_mesh`) a rank
+holds its own positions, takes the global batch and feeds its dp rows; a tp
+row across ranks runs the encoder's root design (`parallel.exchange.TPRow`),
+the loss's counts and value sum over the rank's dp column
+(`model.loss_group`), a group's copies sum over the ranks that hold them
+and the global norm over the whole mesh.
+
 Checkpoints are the JAX package's layout (`models/hf_convert.py`), so either
 package loads the other's; orbax checkpoints are not ported.
 """
@@ -51,7 +58,7 @@ from verbatim_rag_tpu_torch.parallel import distributed
 from verbatim_rag_tpu_torch.parallel.mesh import ShardedModel, data_sharding, shard_params
 
 from .dataset import EncodedBatch
-from .model import sentence_loss
+from .model import loss_group, sentence_loss
 
 logger = logging.getLogger(__name__)
 
@@ -89,14 +96,17 @@ class Optimizer:
     ``norm_params`` (default: every parameter) are the tensors the global
     norm counts: on a mesh each logical tensor once, while clipping and
     AdamW take every copy (`parallel.mesh.ShardedModel.logical_parameters`).
+    With ``norm_group`` (a mesh across processes) each rank passes the
+    logical tensors it owns and the squares are summed over the group.
     """
 
     def __init__(
         self, params: Iterable[torch.nn.Parameter], tc: TrainingConfig, total_steps: int,
-        norm_params: Iterable[torch.Tensor] | None = None,
+        norm_params: Iterable[torch.Tensor] | None = None, norm_group=None,
     ):
         self.params = [p for p in params if p.requires_grad]
         self.norm_params = self.params if norm_params is None else [p for p in norm_params if p.requires_grad]
+        self.norm_group = norm_group
         self.max_grad_norm = tc.max_grad_norm
         self.schedule = warmup_cosine_schedule(tc, total_steps)
         self.adamw = torch.optim.AdamW(
@@ -122,11 +132,17 @@ class Optimizer:
     def global_norm(self) -> torch.Tensor:
         """The global norm of the ``norm_params``' gradients (a missing one
         counts as 0), on the first one's device: the per-tensor norms of
-        each device, then the norm of them all."""
+        each device, then the norm of them all. With a ``norm_group`` the
+        ranks' sums of squares (float64) are summed over it first, so
+        every rank gets the same norm."""
         grads = [p.grad for p in self.norm_params if p.grad is not None]
-        home = grads[0].device
+        home = grads[0].device if grads else self.params[0].device
         norms = [n.to(home) for group in by_device(grads).values() for n in torch._foreach_norm(group)]
-        return torch.linalg.vector_norm(torch.stack(norms))
+        if self.norm_group is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        squares = torch.stack(norms).double().square().sum() if norms else torch.zeros((), dtype=torch.float64)
+        squares = distributed.all_reduce_(squares.cpu(), self.norm_group)
+        return squares.sqrt().float().to(home)
 
     def step(self) -> float:
         """Clip, update, count; returns the global gradient norm."""
@@ -152,18 +168,19 @@ class Optimizer:
 
 def make_optimizer(
     tc: TrainingConfig, params: Iterable[torch.nn.Parameter], total_steps: int = 10_000,
-    norm_params: Iterable[torch.Tensor] | None = None,
+    norm_params: Iterable[torch.Tensor] | None = None, norm_group=None,
 ) -> Optimizer:
-    return Optimizer(params, tc, total_steps, norm_params)
+    return Optimizer(params, tc, total_steps, norm_params, norm_group)
 
 
 def sync_grads(model, optimizer: Optimizer) -> None:
     """One backward's gradients made whole before clipping: on a mesh each
     logical tensor's copies summed and the sum written to every copy
-    (`parallel.mesh.ShardedModel.sync_grads`), and under a process group
-    summed over the group."""
+    (`parallel.mesh.ShardedModel.sync_grads`, over the ranks of a mesh that
+    spans processes), and on a mesh of this process or a plain model under
+    a process group summed over the group."""
     if isinstance(model, ShardedModel):
-        model.sync_grads(distributed.all_reduce_grads)
+        model.sync_grads(None if model.mesh.spans_processes else distributed.all_reduce_grads)
     else:
         distributed.all_reduce_grads(optimizer.params)
 
@@ -180,18 +197,19 @@ def train_step(model, optimizer: Optimizer, batch, loss_fn=sentence_loss):
     loss.backward()
     sync_grads(model, optimizer)
     optimizer.step()
-    return _group_loss(loss), {k: v.detach() for k, v in aux.items()}
+    return _group_loss(loss, model), {k: v.detach() for k, v in aux.items()}
 
 
 def eval_step(model, batch, loss_fn=sentence_loss):
     with torch.no_grad():
         loss, aux = loss_fn(model, batch)
-    return _group_loss(loss), aux
+    return _group_loss(loss, model), aux
 
 
-def _group_loss(loss: torch.Tensor) -> torch.Tensor:
-    """The global loss: each process's loss is its share (`model.masked_loss`)."""
-    return distributed.all_reduce_sum({"loss": loss.detach()})["loss"].to(loss.device)
+def _group_loss(loss: torch.Tensor, model) -> torch.Tensor:
+    """The global loss: each process's loss is its share (`model.masked_loss`),
+    summed over `model.loss_group`."""
+    return distributed.all_reduce_sum({"loss": loss.detach()}, loss_group(model))["loss"].to(loss.device)
 
 
 def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
@@ -206,10 +224,12 @@ def batch_to_device(batch, device) -> dict[str, torch.Tensor]:
 def batch_to_mesh(batch, mesh) -> list[dict[str, torch.Tensor]]:
     """A dataclass batch split by rows over the mesh's ``dp`` axis
     (`parallel.mesh.data_sharding`, JAX's ``P("dp")``): one dict of tensors
-    per data row. Raises ``ValueError`` when the rows do not divide."""
+    per data row (on a mesh that spans processes, ``batch`` is the global
+    batch and the dicts are this rank's dp rows'). Raises ``ValueError``
+    when the rows do not divide."""
     fields = batch_to_device(batch, "cpu")
     shards = {name: data_sharding(value, mesh) for name, value in fields.items()}
-    return [{name: parts[d] for name, parts in shards.items()} for d in range(mesh.shape["dp"])]
+    return [{name: parts[i] for name, parts in shards.items()} for i in range(len(mesh.local_rows()))]
 
 
 def metrics_from_counts(counts: dict[str, float]) -> dict[str, float]:
@@ -262,6 +282,7 @@ class Trainer:
         self.optimizer = make_optimizer(
             self.tc, self.model.parameters(), total_steps or 10_000,
             None if mesh is None else self.model.logical_parameters(),
+            None if mesh is None else self.model.process_group(),
         )
         self.best_f1 = -1.0
         self.history: list[dict] = []
@@ -356,14 +377,15 @@ class Trainer:
     def save_checkpoint(self, path: str, format: str = "npz") -> None:
         """Persist the parameters as ``params.npz`` (the JAX package's tree
         layout) beside ``verbatim_config.json``: the whole unsharded tree,
-        also after training on a mesh (gathered from the positions' leaves);
-        under a process group, rank 0 writes."""
+        also after training on a mesh (gathered from the positions' leaves,
+        on a mesh across processes by every rank into rank 0's); under a
+        process group, rank 0 writes."""
         if format != "npz":
             raise NotImplementedError(f"checkpoint format {format!r} is not ported (npz only)")
+        state = self.model.state_dict()
         if distributed.process_index() != 0:
             return
         os.makedirs(path, exist_ok=True)
-        state = self.model.state_dict()
         save_params_npz(state, path)
         meta = {
             "format": "verbatim-native",
