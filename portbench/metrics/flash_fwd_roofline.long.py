@@ -1,0 +1,6 @@
+"""% of the flash forward's least time that its kernels took
+(``harness/readers.py::flash_fwd_roofline``).
+
+In the long-document cell; moves ``long_answers_per_s``."""
+
+from portbench.harness.readers import flash_fwd_roofline as read  # noqa: F401
