@@ -220,7 +220,10 @@ async def test_route_matches_jax(servers, method, path, body):
     assert status == j_status
     assert headers == j_headers
     assert headers["Access-Control-Allow-Origin"] == "*"
-    assert_close(parse(text, headers["Content-Type"]), parse(j_text, j_headers["Content-Type"]))
+    got = parse(text, headers["Content-Type"])
+    if isinstance(got, dict) and "micro_batching" in got:
+        _pop_queue_wait(got["micro_batching"])
+    assert_close(got, parse(j_text, j_headers["Content-Type"]))
 
 
 async def test_query_answers_are_verbatim_and_stream_in_order(servers):
@@ -268,9 +271,21 @@ async def test_debug_trace_brackets_a_query(servers, monkeypatch, tmp_path):
         ]
     assert bodies["port"][1][1].pop("module_wall_ms") is None
     assert bodies["jax"][1][1].pop("module_wall_ms") == 0.0
+    spans, counters = bodies["port"][1][1].pop("spans"), bodies["port"][1][1].pop("counters")
     assert bodies["port"] == bodies["jax"]
     trace = json.loads((tmp_path / "port" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # The query ran in the micro-batcher's worker thread; its spans are in
+    # the trace and in the stop response.
+    annotated = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    stages = {"rag.query_batch", "rag.respond", "index.query_batch", "store.query_batch", "store.program",
+              "store.readback", "store.materialize", "extract.plan", "extract.forward", "extract.decode"}
+    assert {"vrag." + s for s in stages} <= annotated
+    assert stages <= set(spans)
+    assert spans["rag.query_batch"]["count"] == 1
+    assert spans["rag.query_batch"]["total_ms"] >= spans["rag.query_batch"]["self_ms"] >= 0.0
+    assert counters["rag.questions"] == 1 and counters["store.queries"] == 1
+    assert counters["extract.rows"] >= 1
 
 
 async def test_warmup_task_runs_on_startup(servers, caplog):
@@ -363,6 +378,17 @@ def test_server_loads_the_saved_index_on_its_device(rags, monkeypatch, tmp_path)
 
 # -- the micro-batcher, held to the JAX one --------------------------------------------
 
+#: The port's micro-batcher statistics that the JAX one does not keep.
+QUEUE_WAIT = ("queue_wait_ms", "queue_wait_max_ms")
+
+
+def _pop_queue_wait(stats: dict) -> dict:
+    """Take the port's queue-wait statistics out of ``stats`` (so the rest
+    compares with the JAX batcher's) and check they are waits."""
+    waits = {key: stats.pop(key) for key in QUEUE_WAIT}
+    assert 0.0 <= waits["queue_wait_ms"] <= waits["queue_wait_max_ms"]
+    return waits
+
 
 async def _batched(module, arrivals, fail_on=None, max_batch=4):
     """Submit (question, params) pairs concurrently; record the batches."""
@@ -392,6 +418,7 @@ ARRIVALS = {
 async def test_micro_batcher_matches_jax(case):
     ours = await _batched(batching, ARRIVALS[case])
     theirs = await _batched(jax_batching, ARRIVALS[case])
+    _pop_queue_wait(ours[2])
     assert ours == theirs
     results, seen, stats = ours
     assert stats["requests"] == len(ARRIVALS[case]) and stats["batches"] < len(ARRIVALS[case])
@@ -400,9 +427,30 @@ async def test_micro_batcher_matches_jax(case):
         assert all(results[int(q[1:])].endswith(f"|{params.get('k')}") for q in questions if q[0] == "q")
 
 
+async def test_micro_batcher_reports_how_long_requests_queued():
+    """Three requests one a batch behind a run_batch that takes 50 ms: the
+    first waits the gathering window (20 ms), the second and third also the
+    runs before theirs."""
+    import time as clock
+
+    def run_batch(questions, params):
+        clock.sleep(0.05)
+        return list(questions)
+
+    batcher = batching.MicroBatcher(run_batch, max_batch=1, max_wait_ms=20.0)
+    assert batcher.stats()["queue_wait_ms"] == 0.0
+    got = await asyncio.gather(*(batcher.submit(q, {"k": 3}) for q in ("a", "b", "c")))
+    stats = batcher.stats()
+    assert got == ["a", "b", "c"] and stats["batches"] == 3
+    # Waits ≈ 20, 70 and 120 ms: mean ≈ 70, the longest ≈ 120.
+    assert 100.0 <= stats["queue_wait_max_ms"] < 1000.0
+    assert 60.0 <= stats["queue_wait_ms"] < stats["queue_wait_max_ms"]
+
+
 async def test_micro_batch_failure_reaches_every_waiter_like_jax():
     ours = await _batched(batching, ARRIVALS["same"], fail_on="q1", max_batch=8)
     theirs = await _batched(jax_batching, ARRIVALS["same"], fail_on="q1", max_batch=8)
+    _pop_queue_wait(ours[2])
     assert ours == theirs
     assert all("bad question q1" in r for r in ours[0])
 

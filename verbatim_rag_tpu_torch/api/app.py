@@ -24,7 +24,7 @@ from aiohttp import web
 
 from . import dependencies as deps
 from ..engine.filters import FilterExpressionError
-from ..utils.profiling import DeviceTrace, trace_device_busy_ms
+from ..utils.profiling import DeviceTrace, counters, summary, trace_device_busy_ms
 
 logger = logging.getLogger(__name__)
 
@@ -65,10 +65,13 @@ async def handle_debug_trace(request: web.Request) -> web.Response:
 
     Device-profiling hooks for load benchmarks: a client brackets a load
     window with start/stop; "start" runs `torch.profiler` over the server's
-    device, and "stop" writes the Chrome trace into the logdir and returns
-    {"module_wall_ms": ...}: the milliseconds the card was busy in the
-    window (the union of its kernel intervals), independent of HTTP round
-    trips; null on a CPU server, which has no device time.
+    device and host threads, and "stop" writes the Chrome trace (kernels
+    and the program's ``vrag.*`` spans on one timeline) into the logdir and
+    returns {"module_wall_ms": ..., "spans": ..., "counters": ...}: the
+    milliseconds the card was busy in the window (the union of its kernel
+    intervals), independent of HTTP round trips, null on a CPU server,
+    which has no device time; each span name's count, total and self ms
+    (`profiling.summary`); and the program's counters.
     Debug-only surface: enabled by API_DEBUG_TRACE=1 (never in default
     deployments — a trace can be multi-MB per second of load)."""
     import os
@@ -96,7 +99,8 @@ async def handle_debug_trace(request: web.Request) -> web.Response:
         if trace.device.type == "cuda":
             wall = round(trace_device_busy_ms(logdir), 3)
         return web.json_response({"status": "stopped", "logdir": logdir,
-                                  "module_wall_ms": wall})
+                                  "module_wall_ms": wall, "spans": summary(),
+                                  "counters": counters()})
     return web.json_response({"error": "action must be start|stop"}, status=400)
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import time
 from typing import Any, Callable
 
 logger = logging.getLogger(__name__)
@@ -44,19 +45,23 @@ class MicroBatcher:
         self.run_batch = run_batch
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
-        self._queues: dict[str, list[tuple[str, asyncio.Future]]] = {}
+        #: Per parameter key: (question, future, submit time) in arrival order.
+        self._queues: dict[str, list[tuple[str, asyncio.Future, float]]] = {}
         self._workers: dict[str, asyncio.Task] = {}
         self._lock = asyncio.Lock()
         #: batches dispatched / requests served (observability)
         self.batches = 0
         self.requests = 0
+        #: Seconds the served requests waited from submit to dispatch: sum, max.
+        self.queue_wait_s = 0.0
+        self.queue_wait_max_s = 0.0
 
     async def submit(self, question: str, params: dict[str, Any]) -> Any:
         key = _params_key(params)
         loop = asyncio.get_running_loop()
         future: asyncio.Future = loop.create_future()
         async with self._lock:
-            self._queues.setdefault(key, []).append((question, future))
+            self._queues.setdefault(key, []).append((question, future, time.perf_counter()))
             if key not in self._workers:
                 # Detached worker: if THIS request's handler is cancelled
                 # (client disconnect, shutdown) mid-batch, the rest of the
@@ -89,7 +94,7 @@ class MicroBatcher:
         except BaseException:
             # Shutdown / hard interrupt: fail stranded waiters, not hang them.
             leftovers = self._queues.pop(key, [])
-            for _q, future in leftovers:
+            for _q, future, _t in leftovers:
                 if not future.done():
                     future.set_exception(RuntimeError("batcher shut down"))
             raise
@@ -98,21 +103,25 @@ class MicroBatcher:
             self._workers.pop(key, None)
 
     async def _run_one(self, batch, params: dict[str, Any]) -> None:
-        questions = [q for q, _ in batch]
+        dispatched = time.perf_counter()
+        questions = [q for q, _, _ in batch]
         self.batches += 1
         self.requests += len(batch)
+        waits = [dispatched - t for _, _, t in batch]
+        self.queue_wait_s += sum(waits)
+        self.queue_wait_max_s = max(self.queue_wait_max_s, *waits)
         try:
             results = await asyncio.to_thread(self.run_batch, questions, params)
             if len(results) != len(batch):
                 raise RuntimeError(
                     f"run_batch returned {len(results)} results for {len(batch)} questions"
                 )
-            for (_q, future), result in zip(batch, results):
+            for (_q, future, _t), result in zip(batch, results):
                 if not future.done():
                     future.set_result(result)
         except BaseException as exc:  # incl. CancelledError: never strand waiters
             logger.error("micro-batch of %d failed: %r", len(batch), exc)
-            for _q, future in batch:
+            for _q, future, _t in batch:
                 if not future.done():
                     future.set_exception(
                         exc if isinstance(exc, Exception) else RuntimeError(repr(exc))
@@ -121,8 +130,12 @@ class MicroBatcher:
                 raise
 
     def stats(self) -> dict[str, float]:
+        """Batches and requests so far, and how long a request waited from
+        ``submit`` to its batch's dispatch: the mean and the longest, ms."""
         return {
             "batches": self.batches,
             "requests": self.requests,
             "avg_batch_size": self.requests / self.batches if self.batches else 0.0,
+            "queue_wait_ms": 1e3 * self.queue_wait_s / self.requests if self.requests else 0.0,
+            "queue_wait_max_ms": 1e3 * self.queue_wait_max_s,
         }

@@ -30,6 +30,7 @@ import numpy as np
 from verbatim_rag_tpu_torch.ingestion.chunkers import ChunkerProvider, MarkdownChunkerProvider
 from verbatim_rag_tpu_torch.ingestion.document import Chunk, Document
 from verbatim_rag_tpu_torch.ingestion.schema import DocumentSchema
+from verbatim_rag_tpu_torch.utils import profiling
 
 from .embedding_providers import (
     DenseEmbeddingProvider,
@@ -252,65 +253,72 @@ class VerbatimIndex:
         - explicit ``search_type`` in {dense, sparse, hybrid, full_text};
         - otherwise auto: hybrid when both providers exist, else whichever
           single provider is configured.
+
+        While a profiler records, the call is the span ``index.query_batch``
+        and the providers' query encodings are ``encode.dense`` and
+        ``encode.sparse``.
         """
-        if texts is None:
-            return self.store.query_batch(top_k=k, filter=filter)
+        with profiling.span("index.query_batch"):
+            if texts is None:
+                return self.store.query_batch(top_k=k, filter=filter)
 
-        resolved = self._resolve_search_type(search_type, hybrid_weights)
-        methods = (
-            set(hybrid_weights)
-            if hybrid_weights
-            else {"dense", "sparse"}
-            if resolved == "hybrid"
-            else {resolved}
-        )
-        if hybrid_weights or search_type == "hybrid":
-            # An explicit hybrid request must not silently degrade.
-            available = {
-                "dense": self.dense_provider is not None,
-                "sparse": self.sparse_provider is not None,
-                "full_text": self.enable_full_text,
-            }
-            missing = sorted(m for m in methods if not available.get(m, False))
-            if missing:
-                raise ValueError(
-                    f"Hybrid query requests {missing} but this index has no "
-                    "matching provider/full-text config; configure the "
-                    "provider or drop the method from the request"
-                )
+            resolved = self._resolve_search_type(search_type, hybrid_weights)
+            methods = (
+                set(hybrid_weights)
+                if hybrid_weights
+                else {"dense", "sparse"}
+                if resolved == "hybrid"
+                else {resolved}
+            )
+            if hybrid_weights or search_type == "hybrid":
+                # An explicit hybrid request must not silently degrade.
+                available = {
+                    "dense": self.dense_provider is not None,
+                    "sparse": self.sparse_provider is not None,
+                    "full_text": self.enable_full_text,
+                }
+                missing = sorted(m for m in methods if not available.get(m, False))
+                if missing:
+                    raise ValueError(
+                        f"Hybrid query requests {missing} but this index has no "
+                        "matching provider/full-text config; configure the "
+                        "provider or drop the method from the request"
+                    )
 
-        # Device handoff (on by default): the neural providers' query
-        # encodings stay on the device into the store's search.
-        # VERBATIM_DEVICE_HANDOFF=0 materializes them on the host first (the
-        # path providers without device outputs always take).
-        handoff = os.environ.get("VERBATIM_DEVICE_HANDOFF", "1") != "0" and getattr(
-            self.store, "accepts_query_arrays", False
-        )
-        dense_q = None
-        if "dense" in methods and self.dense_provider is not None:
-            if handoff and hasattr(self.dense_provider, "embed_batch_device"):
-                dense_q = self.dense_provider.embed_batch_device(list(texts))
-            else:
-                dense_q = np.asarray(self.dense_provider.embed_batch(list(texts)), np.float32)
-        sparse_q = None
-        if "sparse" in methods and self.sparse_provider is not None:
-            if handoff and hasattr(self.sparse_provider, "embed_query_arrays_device"):
-                sparse_q = self.sparse_provider.embed_query_arrays_device(list(texts))
-            else:
-                sparse_q = self.sparse_provider.embed_batch(list(texts))
-        text_q = list(texts) if "full_text" in methods and self.enable_full_text else None
+            # Device handoff (on by default): the neural providers' query
+            # encodings stay on the device into the store's search.
+            # VERBATIM_DEVICE_HANDOFF=0 materializes them on the host first (the
+            # path providers without device outputs always take).
+            handoff = os.environ.get("VERBATIM_DEVICE_HANDOFF", "1") != "0" and getattr(
+                self.store, "accepts_query_arrays", False
+            )
+            dense_q = None
+            if "dense" in methods and self.dense_provider is not None:
+                with profiling.span("encode.dense"):
+                    if handoff and hasattr(self.dense_provider, "embed_batch_device"):
+                        dense_q = self.dense_provider.embed_batch_device(list(texts))
+                    else:
+                        dense_q = np.asarray(self.dense_provider.embed_batch(list(texts)), np.float32)
+            sparse_q = None
+            if "sparse" in methods and self.sparse_provider is not None:
+                with profiling.span("encode.sparse"):
+                    if handoff and hasattr(self.sparse_provider, "embed_query_arrays_device"):
+                        sparse_q = self.sparse_provider.embed_query_arrays_device(list(texts))
+                    else:
+                        sparse_q = self.sparse_provider.embed_batch(list(texts))
+            text_q = list(texts) if "full_text" in methods and self.enable_full_text else None
 
-        return self.store.query_batch(
-            dense_queries=dense_q,
-            sparse_queries=sparse_q,
-            text_queries=text_q,
-            top_k=k,
-            filter=filter,
-            search_type=None if len(methods) > 1 else next(iter(methods)),
-            hybrid_weights=hybrid_weights,
-            rrf_k=rrf_k,
-            search_params=search_params,
-        )
+            return self.store.query_batch(
+                dense_queries=dense_q,
+                sparse_queries=sparse_q,
+                text_queries=text_q,
+                top_k=k,
+                filter=filter,
+                search_type=None if len(methods) > 1 else next(iter(methods)),
+                hybrid_weights=hybrid_weights,
+                rrf_k=rrf_k,
+                search_params=search_params,
+            )
 
     def _resolve_search_type(
         self, search_type: str | None, hybrid_weights: Mapping[str, float] | None

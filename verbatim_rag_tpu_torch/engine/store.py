@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from verbatim_rag_tpu_torch.device import resolve_device
+from verbatim_rag_tpu_torch.utils import profiling
 
 from .analyzer import analyze_texts
 from .filters import PROMOTED_FIELDS, FilterSpec, compile_filter, stable_hash64
@@ -1061,69 +1062,94 @@ class DeviceVectorStore(VectorStore):
         query, bucketed to a power of two in [64, 4096]); ``approx_topk``
         overrides the store's setting for this call (False sends the query
         to the exact "xla" program whatever ``candidate_impl`` is).
+
+        While a profiler records, the call is the span ``store.query_batch``
+        with the stages ``store.flush``, ``store.prepare`` (mask, method
+        choice, the queries on the device), ``store.program`` (the
+        candidate, rescore and RRF program), ``store.readback`` (the wait
+        for it and the copy) and ``store.materialize`` (the
+        `SearchResult` lists), the same on every route; it counts
+        ``store.queries`` and ``store.hits``.
         """
-        self.flush()
-        params = dict(search_params or {})
-        depth_override = params.pop("rescore_depth", None)
-        approx_override = params.pop("approx_topk", None)
-        if params:
-            logger.warning("Ignoring unknown search_params keys: %s", sorted(params))
-        if depth_override:
-            d = max(64, min(int(depth_override), 4096))
-            depth_override = 1 << (d - 1).bit_length()
-        else:
-            depth_override = None
-        exact_topk = not (
-            self.approx_topk if approx_override is None else bool(approx_override)
-        )
-        n = len(self._ids)
-        if n == 0:
-            batch = self._batch_size(dense_queries, sparse_queries, text_queries)
-            return [[] for _ in range(max(batch, 1))]
-
-        mask = self._build_mask(filter)
-
-        methods: dict[str, Any] = {}
-        if dense_queries is not None and self._dense is not None:
-            methods["dense"] = (
-                dense_queries
-                if isinstance(dense_queries, torch.Tensor)
-                else np.asarray(dense_queries, np.float32)
+        with profiling.span("store.query_batch"):
+            out = self._query_batch(
+                dense_queries, sparse_queries, text_queries, top_k, filter,
+                search_type, hybrid_weights, rrf_k, search_params,
             )
-        if sparse_queries is not None and self._sp_ids is not None:
-            methods["sparse"] = sparse_queries
-        if text_queries is not None and self.enable_full_text:
-            methods["full_text"] = text_queries
+        if profiling.tracing():
+            profiling.count("store.queries", len(out))
+            profiling.count("store.hits", sum(map(len, out)))
+        return out
 
-        if search_type in ("dense", "sparse", "full_text"):
-            if search_type not in methods:
-                raise ValueError(
-                    f"search_type={search_type!r} requested but that method is "
-                    f"unavailable here (available: {sorted(methods) or 'none'})"
+    def _query_batch(
+        self, dense_queries, sparse_queries, text_queries, top_k, filter,
+        search_type, hybrid_weights, rrf_k, search_params,
+    ) -> list[list[SearchResult]]:
+        with profiling.span("store.flush"):
+            self.flush()
+        with profiling.span("store.prepare"):
+            params = dict(search_params or {})
+            depth_override = params.pop("rescore_depth", None)
+            approx_override = params.pop("approx_topk", None)
+            if params:
+                logger.warning("Ignoring unknown search_params keys: %s", sorted(params))
+            if depth_override:
+                d = max(64, min(int(depth_override), 4096))
+                depth_override = 1 << (d - 1).bit_length()
+            else:
+                depth_override = None
+            exact_topk = not (
+                self.approx_topk if approx_override is None else bool(approx_override)
+            )
+            n = len(self._ids)
+            if n == 0:
+                batch = self._batch_size(dense_queries, sparse_queries, text_queries)
+                return [[] for _ in range(max(batch, 1))]
+
+            mask = self._build_mask(filter)
+
+            methods: dict[str, Any] = {}
+            if dense_queries is not None and self._dense is not None:
+                methods["dense"] = (
+                    dense_queries
+                    if isinstance(dense_queries, torch.Tensor)
+                    else np.asarray(dense_queries, np.float32)
                 )
-            methods = {search_type: methods[search_type]}
+            if sparse_queries is not None and self._sp_ids is not None:
+                methods["sparse"] = sparse_queries
+            if text_queries is not None and self.enable_full_text:
+                methods["full_text"] = text_queries
 
+            if search_type in ("dense", "sparse", "full_text"):
+                if search_type not in methods:
+                    raise ValueError(
+                        f"search_type={search_type!r} requested but that method is "
+                        f"unavailable here (available: {sorted(methods) or 'none'})"
+                    )
+                methods = {search_type: methods[search_type]}
+
+            if not methods:
+                asked = [
+                    name
+                    for name, q in (
+                        ("dense", dense_queries),
+                        ("sparse", sparse_queries),
+                        ("full_text", text_queries),
+                    )
+                    if q is not None
+                ]
+                if asked:
+                    raise ValueError(
+                        f"Query supplied for {asked} but the store has no matching "
+                        "index (dense requires dense vectors at ingest; sparse a "
+                        "sparse index; full_text enable_full_text=True)"
+                    )
+                if search_type not in (None, "filter"):
+                    raise ValueError(
+                        f"Unknown or unavailable search_type {search_type!r} "
+                        "(expected 'dense', 'sparse', 'full_text', or None)"
+                    )
         if not methods:
-            asked = [
-                name
-                for name, q in (
-                    ("dense", dense_queries),
-                    ("sparse", sparse_queries),
-                    ("full_text", text_queries),
-                )
-                if q is not None
-            ]
-            if asked:
-                raise ValueError(
-                    f"Query supplied for {asked} but the store has no matching "
-                    "index (dense requires dense vectors at ingest; sparse a "
-                    "sparse index; full_text enable_full_text=True)"
-                )
-            if search_type not in (None, "filter"):
-                raise ValueError(
-                    f"Unknown or unavailable search_type {search_type!r} "
-                    "(expected 'dense', 'sparse', 'full_text', or None)"
-                )
             return self._filter_only(mask, top_k, dense_queries, sparse_queries, text_queries)
 
         if len(methods) == 1 and not hybrid_weights:
@@ -1163,10 +1189,11 @@ class DeviceVectorStore(VectorStore):
             all_rows.append(np.where(scores > -1e29, rows, -1))
             w_list.append(weights.get(name, 0.0))
 
-        fused_scores, fused_rows = rrf_fuse_np(
-            np.stack(all_rows), np.asarray(w_list, np.float32),
-            k=min(top_k, fetch_k), rrf_k=rrf_k,
-        )
+        with profiling.span("store.program"):  # this route's RRF runs on the host
+            fused_scores, fused_rows = rrf_fuse_np(
+                np.stack(all_rows), np.asarray(w_list, np.float32),
+                k=min(top_k, fetch_k), rrf_k=rrf_k,
+            )
         return self._materialize(fused_scores, fused_rows)
 
     # -- internals -------------------------------------------------------------------
@@ -1235,17 +1262,19 @@ class DeviceVectorStore(VectorStore):
 
         k = min(k, self._capacity)
         if name == "dense":
-            q = normalize_rows(self._dense_queries(payload))
-            dense_c, dense_s = self._dense_scoring_args()
-            if self.mesh is not None:
-                from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_dense_topk
+            with profiling.span("store.prepare"):
+                q = normalize_rows(self._dense_queries(payload))
+                dense_c, dense_s = self._dense_scoring_args()
+            with profiling.span("store.program"):
+                if self.mesh is not None:
+                    from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_dense_topk
 
-                scores, rows = sharded_dense_topk(
-                    dense_c, q, k, mask, self.mesh, exact_topk=exact_topk, corpus_scale=dense_s
-                )
-            else:
-                scores, rows = candidate_topk(dense_c, q, k, mask, scale=dense_s)
-            return scores.cpu().numpy(), rows.cpu().numpy()
+                    scores, rows = sharded_dense_topk(
+                        dense_c, q, k, mask, self.mesh, exact_topk=exact_topk, corpus_scale=dense_s
+                    )
+                else:
+                    scores, rows = candidate_topk(dense_c, q, k, mask, scale=dense_s)
+            return self._readback(scores, rows)
         if name == "sparse":
             if self.sparse_mode == "projected":
                 return self._projected_search(
@@ -1253,17 +1282,20 @@ class DeviceVectorStore(VectorStore):
                     k, mask, exact_topk=exact_topk, depth_override=depth_override,
                     scale_dev=self._sp_proj_scale,
                 )
-            q_dense = self._densify_host(self._sparse_payload_dicts(payload), self.sparse_vocab)
+            with profiling.span("store.prepare"):
+                q_dense = self._densify_host(self._sparse_payload_dicts(payload), self.sparse_vocab)
             return self._exact_sparse_topk(self._sp_ids, self._sp_w, q_dense, k, mask)
         if name == "full_text":
-            q_sparse = self._bm25_query_sparse(payload)
+            with profiling.span("store.prepare"):
+                q_sparse = self._bm25_query_sparse(payload)
             if self.sparse_mode == "projected":
                 return self._projected_search(
                     q_sparse, self._ft_proj, self._ft_ids, self._ft_w, self.full_text_vocab,
                     k, mask, exact_topk=exact_topk, depth_override=depth_override,
                     scale_dev=self._ft_proj_scale,
                 )
-            q_dense = self._densify_host(q_sparse, self.full_text_vocab)
+            with profiling.span("store.prepare"):
+                q_dense = self._densify_host(q_sparse, self.full_text_vocab)
             return self._exact_sparse_topk(self._ft_ids, self._ft_w, q_dense, k, mask)
         raise ValueError(f"Unknown method {name!r}")
 
@@ -1286,14 +1318,23 @@ class DeviceVectorStore(VectorStore):
                 "sparse_mode='projected' at this scale. Use projected mode, "
                 "or pass allow_exact_at_scale=True for validation runs."
             )
-        q = torch.from_numpy(q_dense).to(self.device)
-        if self.mesh is not None:
-            from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_sparse_topk
+        with profiling.span("store.prepare"):
+            q = torch.from_numpy(q_dense).to(self.device)
+        with profiling.span("store.program"):
+            if self.mesh is not None:
+                from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_sparse_topk
 
-            scores, rows = sharded_sparse_topk(ids_dev, w_dev, q, k, mask, self.mesh, block=self.block)
-        else:
-            scores, rows = sparse_topk(ids_dev, w_dev, q, k, mask, block=self.block)
-        return scores.cpu().numpy(), rows.cpu().numpy()
+                scores, rows = sharded_sparse_topk(ids_dev, w_dev, q, k, mask, self.mesh, block=self.block)
+            else:
+                scores, rows = sparse_topk(ids_dev, w_dev, q, k, mask, block=self.block)
+        return self._readback(scores, rows)
+
+    @staticmethod
+    def _readback(scores: torch.Tensor, rows: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """A program's (scores, rows) on the host: the wait for the device
+        and the copy, as the span ``store.readback``."""
+        with profiling.span("store.readback"):
+            return scores.cpu().numpy(), rows.cpu().numpy()
 
     @staticmethod
     def _sparse_payload_dicts(payload) -> list[dict[int, float]]:
@@ -1378,86 +1419,88 @@ class DeviceVectorStore(VectorStore):
         `sharded_hybrid_topk`, with the BM25 arm as their ``ft_arm``)."""
         from verbatim_rag_tpu_torch.ops.dense import normalize_rows
 
-        depth = min(max(depth_override or self.rescore_depth, fetch_k), self._capacity)
-        if isinstance(dense_q, torch.Tensor):
-            q = normalize_rows(dense_q.to(self.device))
-        else:
-            q = np.asarray(dense_q, np.float32)
-            q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
-            q = torch.from_numpy(q).to(self.device)
-        q_ids, q_w, q_proj = self._sparse_query_device(sparse_q, self.sparse_vocab)
-        dense_c, dense_s = self._dense_scoring_args()
-        sketch_c, sketch_s = self._sketch_scoring_args(self._sp_proj, self._sp_proj_scale)
-        section = self.candidate_impl == "section" and self._section_serves(exact_topk)
-        common = dict(
-            k=min(top_k, fetch_k),
-            fetch_k=fetch_k,
-            depth=depth,
-            mask=mask,
-            rrf_k=rrf_k,
-            dense_scale=dense_s,
-            sketch_scale=sketch_s,
-            rescore_impl=self.rescore_impl,
-        )
-        if section:
-            shard_rows = self._capacity // (self.mesh.size if self.mesh is not None else 1)
-            common["block_cols"] = 16384 if shard_rows % 16384 == 0 else 8192
-        else:
-            common.update(exact_topk=exact_topk, candidate_impl=self._per_stage_candidate_impl)
-        ft = None
-        if text_q is not None:
-            ft_ids, ft_w, ft_proj = self._sparse_query_device(
-                self._bm25_query_sparse(text_q), self.full_text_vocab
+        with profiling.span("store.prepare"):
+            depth = min(max(depth_override or self.rescore_depth, fetch_k), self._capacity)
+            if isinstance(dense_q, torch.Tensor):
+                q = normalize_rows(dense_q.to(self.device))
+            else:
+                q = np.asarray(dense_q, np.float32)
+                q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+                q = torch.from_numpy(q).to(self.device)
+            q_ids, q_w, q_proj = self._sparse_query_device(sparse_q, self.sparse_vocab)
+            dense_c, dense_s = self._dense_scoring_args()
+            sketch_c, sketch_s = self._sketch_scoring_args(self._sp_proj, self._sp_proj_scale)
+            section = self.candidate_impl == "section" and self._section_serves(exact_topk)
+            common = dict(
+                k=min(top_k, fetch_k),
+                fetch_k=fetch_k,
+                depth=depth,
+                mask=mask,
+                rrf_k=rrf_k,
+                dense_scale=dense_s,
+                sketch_scale=sketch_s,
+                rescore_impl=self.rescore_impl,
             )
-            ft_sketch, ft_scale = self._sketch_scoring_args(self._ft_proj, self._ft_proj_scale)
-            ft = (ft_sketch, self._ft_ids, self._ft_w, ft_proj, ft_ids, ft_w, ft_scale)
+            if section:
+                shard_rows = self._capacity // (self.mesh.size if self.mesh is not None else 1)
+                common["block_cols"] = 16384 if shard_rows % 16384 == 0 else 8192
+            else:
+                common.update(exact_topk=exact_topk, candidate_impl=self._per_stage_candidate_impl)
+            ft = None
+            if text_q is not None:
+                ft_ids, ft_w, ft_proj = self._sparse_query_device(
+                    self._bm25_query_sparse(text_q), self.full_text_vocab
+                )
+                ft_sketch, ft_scale = self._sketch_scoring_args(self._ft_proj, self._ft_proj_scale)
+                ft = (ft_sketch, self._ft_ids, self._ft_w, ft_proj, ft_ids, ft_w, ft_scale)
 
-        if self.mesh is not None:
-            from verbatim_rag_tpu_torch.parallel.sharded_search import (
-                sharded_hybrid_section_topk,
-                sharded_hybrid_topk,
-            )
+        with profiling.span("store.program"):
+            if self.mesh is not None:
+                from verbatim_rag_tpu_torch.parallel.sharded_search import (
+                    sharded_hybrid_section_topk,
+                    sharded_hybrid_topk,
+                )
 
-            program = sharded_hybrid_section_topk if section else sharded_hybrid_topk
-            ft_arm = None
-            if ft is not None:
-                ft_arm = (*ft[:6], float(weights.get("full_text", 0.5)), ft[6])
-            scores, rows = program(
-                dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
-                mesh=self.mesh,
-                dense_weight=float(weights.get("dense", 0.5)),
-                sparse_weight=float(weights.get("sparse", 0.5)),
-                ft_arm=ft_arm,
-                **common,
-            )
-        elif ft is not None:
-            from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk_3way
-            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk_3way
+                program = sharded_hybrid_section_topk if section else sharded_hybrid_topk
+                ft_arm = None
+                if ft is not None:
+                    ft_arm = (*ft[:6], float(weights.get("full_text", 0.5)), ft[6])
+                scores, rows = program(
+                    dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
+                    mesh=self.mesh,
+                    dense_weight=float(weights.get("dense", 0.5)),
+                    sparse_weight=float(weights.get("sparse", 0.5)),
+                    ft_arm=ft_arm,
+                    **common,
+                )
+            elif ft is not None:
+                from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk_3way
+                from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk_3way
 
-            ft_sketch, ft_ids_dev, ft_w_dev, ft_proj, ft_ids, ft_w, ft_scale = ft
-            program = hybrid_section_topk_3way if section else hybrid_fused_topk_3way
-            scores, rows = program(
-                dense_c, sketch_c, self._sp_ids, self._sp_w,
-                ft_sketch, ft_ids_dev, ft_w_dev,
-                q, q_proj, q_ids, q_w, ft_proj, ft_ids, ft_w,
-                dense_weight=float(weights.get("dense", 1 / 3)),
-                sparse_weight=float(weights.get("sparse", 1 / 3)),
-                ft_weight=float(weights.get("full_text", 1 / 3)),
-                ft_scale=ft_scale,
-                **common,
-            )
-        else:
-            from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk
-            from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk
+                ft_sketch, ft_ids_dev, ft_w_dev, ft_proj, ft_ids, ft_w, ft_scale = ft
+                program = hybrid_section_topk_3way if section else hybrid_fused_topk_3way
+                scores, rows = program(
+                    dense_c, sketch_c, self._sp_ids, self._sp_w,
+                    ft_sketch, ft_ids_dev, ft_w_dev,
+                    q, q_proj, q_ids, q_w, ft_proj, ft_ids, ft_w,
+                    dense_weight=float(weights.get("dense", 1 / 3)),
+                    sparse_weight=float(weights.get("sparse", 1 / 3)),
+                    ft_weight=float(weights.get("full_text", 1 / 3)),
+                    ft_scale=ft_scale,
+                    **common,
+                )
+            else:
+                from verbatim_rag_tpu_torch.ops.hybrid import hybrid_fused_topk
+                from verbatim_rag_tpu_torch.ops.section import hybrid_section_topk
 
-            program = hybrid_section_topk if section else hybrid_fused_topk
-            scores, rows = program(
-                dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
-                dense_weight=float(weights.get("dense", 0.5)),
-                sparse_weight=float(weights.get("sparse", 0.5)),
-                **common,
-            )
-        return scores.cpu().numpy(), rows.cpu().numpy()
+                program = hybrid_section_topk if section else hybrid_fused_topk
+                scores, rows = program(
+                    dense_c, sketch_c, self._sp_ids, self._sp_w, q, q_proj, q_ids, q_w,
+                    dense_weight=float(weights.get("dense", 0.5)),
+                    sparse_weight=float(weights.get("sparse", 0.5)),
+                    **common,
+                )
+        return self._readback(scores, rows)
 
     def _section_serves(self, exact_topk: bool = False) -> bool:
         """Whether the section tables can serve this query.
@@ -1501,43 +1544,48 @@ class DeviceVectorStore(VectorStore):
         top-k (per shard and merged on a mesh)."""
         from verbatim_rag_tpu_torch.ops.hybrid import projected_sparse_topk
 
-        depth = min(max(depth_override or self.rescore_depth, 2 * k), self._capacity)
-        q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, vocab)
-        proj_corpus, scale_dev = self._sketch_scoring_args(proj_corpus, scale_dev)
+        with profiling.span("store.prepare"):
+            depth = min(max(depth_override or self.rescore_depth, 2 * k), self._capacity)
+            q_ids, q_w, q_proj = self._sparse_query_device(q_sparse, vocab)
+            proj_corpus, scale_dev = self._sketch_scoring_args(proj_corpus, scale_dev)
         program = projected_sparse_topk
         if self.mesh is not None:
             from verbatim_rag_tpu_torch.parallel.sharded_search import sharded_projected_sparse_topk
 
             program = functools.partial(sharded_projected_sparse_topk, mesh=self.mesh)
-        top_scores, top_rows = program(
-            proj_corpus, ids_dev, weights_dev, q_proj, q_ids, q_w,
-            min(k, self._capacity), depth, mask,
-            exact_topk=exact_topk,
-            sketch_scale=scale_dev,
-            rescore_impl=self.rescore_impl,
-            candidate_impl=self._per_stage_candidate_impl,
-        )
-        return top_scores.cpu().numpy(), top_rows.cpu().numpy()
+        with profiling.span("store.program"):
+            top_scores, top_rows = program(
+                proj_corpus, ids_dev, weights_dev, q_proj, q_ids, q_w,
+                min(k, self._capacity), depth, mask,
+                exact_topk=exact_topk,
+                sketch_scale=scale_dev,
+                rescore_impl=self.rescore_impl,
+                candidate_impl=self._per_stage_candidate_impl,
+            )
+        return self._readback(top_scores, top_rows)
 
     def _filter_only(self, mask, top_k, *query_args) -> list[list[SearchResult]]:
         batch = self._batch_size(*query_args)
-        rows = np.flatnonzero(mask[: len(self._ids)].cpu().numpy())[:top_k]
-        hits = [self._result_for(int(r), 0.0) for r in rows]
-        return [list(hits) for _ in range(max(batch, 1))]
+        with profiling.span("store.readback"):
+            rows = np.flatnonzero(mask[: len(self._ids)].cpu().numpy())[:top_k]
+        with profiling.span("store.materialize"):
+            hits = [self._result_for(int(r), 0.0) for r in rows]
+            return [list(hits) for _ in range(max(batch, 1))]
 
     def _materialize(self, scores, rows) -> list[list[SearchResult]]:
-        scores = np.asarray(scores)
-        rows = np.asarray(rows)
-        out: list[list[SearchResult]] = []
-        n = len(self._ids)
-        for b in range(rows.shape[0]):
-            hits = []
-            for score, row in zip(scores[b], rows[b]):
-                if row < 0 or row >= n or score <= -1e29:
-                    continue
-                hits.append(self._result_for(int(row), float(score)))
-            out.append(hits)
-        return out
+        with profiling.span("store.materialize"):
+            scores = np.asarray(scores)
+            rows = np.asarray(rows)
+            out: list[list[SearchResult]] = []
+            n = len(self._ids)
+            for b in range(rows.shape[0]):
+                hits = []
+                for score, row in zip(scores[b], rows[b]):
+                    if row < 0 or row >= n or score <= -1e29:
+                        continue
+                    hits.append(self._result_for(int(row), float(score)))
+                out.append(hits)
+            return out
 
     def _result_for(self, row: int, score: float) -> SearchResult:
         return SearchResult(

@@ -29,6 +29,7 @@ from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
 from verbatim_rag_tpu_torch.device import resolve_device
 from verbatim_rag_tpu_torch.ops.ring_attention import shard_sequence
 from verbatim_rag_tpu_torch.parallel import exchange
+from verbatim_rag_tpu_torch.utils import profiling
 
 from .config import EncoderConfig, demo_highlighter_config
 
@@ -357,65 +358,83 @@ class ModelSpanExtractor(SpanExtractor):
     def _process_pairs(
         self, pairs: list[tuple[str, str]]
     ) -> list[list[tuple[int, int]]]:
-        plans = [self._plan(q, c) for q, c in pairs]
-        rows: list[list[int]] = []
-        for plan in plans:
-            if plan is not None:
-                rows.extend(plan["rows"])
+        """Spans of each (question, context) pair: plan every pair's windows,
+        pad them into one array, score it in slices, decode each pair.
+
+        While a profiler records, the stages are the spans ``extract.plan``,
+        ``extract.pad``, ``extract.forward`` (one a slice) and
+        ``extract.decode``, and the call counts ``extract.rows`` (real
+        rows), ``extract.padded_rows``, ``extract.slots`` (padded rows ×
+        length), ``extract.live_slots`` (tokens), ``extract.row_pad_slots``
+        (the slots of the rows added to reach the row bucket) and
+        ``extract.slices``."""
+        with profiling.span("extract.plan"):
+            plans = [self._plan(q, c) for q, c in pairs]
+            rows: list[list[int]] = []
+            for plan in plans:
+                if plan is not None:
+                    rows.extend(plan["rows"])
         if not rows:
             return [[] for _ in pairs]
 
-        longest = bucket_length(max(len(r) for r in rows))
-        seq = longest if self.sp_mesh is not None else min(longest, self.max_length)
-        # Row counts are bucketed to powers of two (then multiples of 512),
-        # as in the JAX package; pad rows are all-pad and sliced off.
-        n_real = len(rows)
-        n_padded = next(
-            (b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512) if b >= n_real),
-            -(-n_real // 512) * 512,
-        )
-        ids = np.full((n_padded, seq), self.tokenizer.pad_id, np.int32)
-        mask = np.zeros((n_padded, seq), np.int32)
-        for i, row in enumerate(rows):
-            row = row[:seq]
-            ids[i, : len(row)] = row
-            mask[i, : len(row)] = 1
+        with profiling.span("extract.pad"):
+            longest = bucket_length(max(len(r) for r in rows))
+            seq = longest if self.sp_mesh is not None else min(longest, self.max_length)
+            # Row counts are bucketed to powers of two (then multiples of 512),
+            # as in the JAX package; pad rows are all-pad and sliced off.
+            n_real = len(rows)
+            n_padded = next(
+                (b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512) if b >= n_real),
+                -(-n_real // 512) * 512,
+            )
+            ids = np.full((n_padded, seq), self.tokenizer.pad_id, np.int32)
+            mask = np.zeros((n_padded, seq), np.int32)
+            for i, row in enumerate(rows):
+                row = row[:seq]
+                ids[i, : len(row)] = row
+                mask[i, : len(row)] = 1
 
         # Bursts are scored in slices to bound the activation memory.
         step = max(1, min(512, SLICE_TOKENS // seq))
-        probs = np.concatenate(
-            [
-                self._forward_probs(ids[i : i + step], mask[i : i + step])
-                for i in range(0, n_padded, step)
-            ],
-            axis=0,
-        )
+        if profiling.tracing():
+            profiling.count("extract.rows", n_real)
+            profiling.count("extract.padded_rows", n_padded)
+            profiling.count("extract.slots", n_padded * seq)
+            profiling.count("extract.live_slots", sum(min(len(r), seq) for r in rows))
+            profiling.count("extract.row_pad_slots", (n_padded - n_real) * seq)
+            profiling.count("extract.slices", -(-n_padded // step))
+        scored = []
+        for i in range(0, n_padded, step):
+            with profiling.span("extract.forward"):
+                scored.append(self._forward_probs(ids[i : i + step], mask[i : i + step]))
 
-        out: list[list[tuple[int, int]]] = []
-        cursor = 0
-        for plan in plans:
-            if plan is None:
-                out.append([])
-                continue
-            n_windows = len(plan["rows"])
-            doc_probs = probs[cursor : cursor + n_windows]
-            cursor += n_windows
-            # Max-aggregate across overlapping windows.
-            agg = np.zeros(plan["n_tokens"], np.float32)
-            for w, (ctx_start, ctx_len, tok_offset) in enumerate(plan["layout"]):
-                window = doc_probs[w, tok_offset : tok_offset + ctx_len]
-                agg[ctx_start : ctx_start + ctx_len] = np.maximum(
-                    agg[ctx_start : ctx_start + ctx_len], window
+        with profiling.span("extract.decode"):
+            probs = np.concatenate(scored, axis=0)
+            out: list[list[tuple[int, int]]] = []
+            cursor = 0
+            for plan in plans:
+                if plan is None:
+                    out.append([])
+                    continue
+                n_windows = len(plan["rows"])
+                doc_probs = probs[cursor : cursor + n_windows]
+                cursor += n_windows
+                # Max-aggregate across overlapping windows.
+                agg = np.zeros(plan["n_tokens"], np.float32)
+                for w, (ctx_start, ctx_len, tok_offset) in enumerate(plan["layout"]):
+                    window = doc_probs[w, tok_offset : tok_offset + ctx_len]
+                    agg[ctx_start : ctx_start + ctx_len] = np.maximum(
+                        agg[ctx_start : ctx_start + ctx_len], window
+                    )
+                spans = select_spans_from_token_probs(
+                    agg,
+                    plan["offsets"],
+                    threshold=self.threshold,
+                    min_span_chars=self.min_span_chars,
+                    merge_gap_chars=self.merge_gap_chars,
                 )
-            spans = select_spans_from_token_probs(
-                agg,
-                plan["offsets"],
-                threshold=self.threshold,
-                min_span_chars=self.min_span_chars,
-                merge_gap_chars=self.merge_gap_chars,
-            )
-            out.append(self._postprocess_spans(pairs[len(out)][1], spans))
-        return out
+                out.append(self._postprocess_spans(pairs[len(out)][1], spans))
+            return out
 
     def _postprocess_spans(
         self, context: str, spans: list[tuple[int, int]]

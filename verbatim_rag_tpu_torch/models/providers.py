@@ -29,6 +29,7 @@ from verbatim_rag_tpu_torch.engine.embedding_providers import (
     DenseEmbeddingProvider,
     SparseEmbeddingProvider,
 )
+from verbatim_rag_tpu_torch.utils import profiling
 
 from .config import EncoderConfig, minilm_config
 from .encoder import Encoder, embed_texts
@@ -59,6 +60,9 @@ def _dispatch_chunks(texts, batch_size, tokenizer, max_length, forward, device):
       restore after one readback;
     - ``perm``: ``perm[original_row] = device_row``, for a device-side order
       restore (one gather).
+
+    While a profiler records, each chunk's tokenization is the span
+    ``encode.tokenize`` and its upload and forward ``encode.forward``.
     """
     pending, idx_groups = [], []
     perm = np.empty(len(texts), np.int64)
@@ -67,11 +71,13 @@ def _dispatch_chunks(texts, batch_size, tokenizer, max_length, forward, device):
         perm[idx] = g * batch_size + np.arange(len(idx), dtype=np.int64)
         if len(chunk) < batch_size:
             chunk += [""] * (batch_size - len(chunk))
-        enc = tokenizer.encode_batch(chunk, max_length=max_length)
-        ids = torch.from_numpy(enc.input_ids).to(device)
-        mask = torch.from_numpy(enc.attention_mask).to(device)
-        with torch.inference_mode():
-            pending.append(forward(ids, mask))
+        with profiling.span("encode.tokenize"):
+            enc = tokenizer.encode_batch(chunk, max_length=max_length)
+        with profiling.span("encode.forward"):
+            ids = torch.from_numpy(enc.input_ids).to(device)
+            mask = torch.from_numpy(enc.attention_mask).to(device)
+            with torch.inference_mode():
+                pending.append(forward(ids, mask))
     return pending, idx_groups, perm
 
 

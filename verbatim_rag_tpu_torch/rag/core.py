@@ -26,6 +26,7 @@ from verbatim_rag_tpu_torch.core.extractors import SpanExtractor
 from verbatim_rag_tpu_torch.core.models import QueryResponse, StructuredAnswer
 from verbatim_rag_tpu_torch.core.response_builder import ResponseBuilder
 from verbatim_rag_tpu_torch.core.templates import TemplateManager
+from verbatim_rag_tpu_torch.utils import profiling
 
 
 logger = logging.getLogger(__name__)
@@ -191,55 +192,62 @@ class VerbatimRAG:
         :meth:`query`'s for its question: intent short-circuits apply and keep
         their positions, and structured template mode (its extraction is
         template-driven, not batchable) falls back to per-question queries.
+
+        While a profiler records, the call is the root span
+        ``rag.query_batch`` (templates and responses: ``rag.respond``) and
+        counts ``rag.questions``.
         """
-        if self.template_manager.resolve_mode(template_mode) == "structured":
-            return [
-                self.query(
-                    q, k=k, filter=filter, hybrid_weights=hybrid_weights,
-                    rrf_k=rrf_k, search_params=search_params,
-                    search_type=search_type, template_mode=template_mode,
-                )
-                for q in questions
-            ]
+        profiling.count("rag.questions", len(questions))
+        with profiling.span("rag.query_batch"):
+            if self.template_manager.resolve_mode(template_mode) == "structured":
+                return [
+                    self.query(
+                        q, k=k, filter=filter, hybrid_weights=hybrid_weights,
+                        rrf_k=rrf_k, search_params=search_params,
+                        search_type=search_type, template_mode=template_mode,
+                    )
+                    for q in questions
+                ]
 
-        short_circuits: dict[int, QueryResponse] = {}
-        if self.intent_detector is not None:
-            for i, q in enumerate(questions):
-                decision = self._detect_intent(q)
-                if decision is not None and decision.route != "continue":
-                    short_circuits[i] = self._short_circuit_response(q, decision)
-        live = [i for i in range(len(questions)) if i not in short_circuits]
-        if not live:
-            return [short_circuits[i] for i in range(len(questions))]
-        questions = [questions[i] for i in live]
+            short_circuits: dict[int, QueryResponse] = {}
+            if self.intent_detector is not None:
+                for i, q in enumerate(questions):
+                    decision = self._detect_intent(q)
+                    if decision is not None and decision.route != "continue":
+                        short_circuits[i] = self._short_circuit_response(q, decision)
+            live = [i for i in range(len(questions)) if i not in short_circuits]
+            if not live:
+                return [short_circuits[i] for i in range(len(questions))]
+            questions = [questions[i] for i in live]
 
-        results_per_q = self.index.query_batch(
-            list(questions),
-            k=k or self.k,
-            filter=filter,
-            search_type=search_type,
-            hybrid_weights=hybrid_weights,
-            rrf_k=rrf_k,
-            search_params=search_params,
-        )
-        reranked = [self._apply_reranker(q, r) for q, r in zip(questions, results_per_q)]
-        if hasattr(self.extractor, "extract_spans_multi"):
-            spans_per_q = self.extractor.extract_spans_multi(list(zip(questions, reranked)))
-        else:
-            spans_per_q = [
-                self.extractor.extract_spans(q, r) for q, r in zip(questions, reranked)
-            ]
-        responses = [
-            self._respond(question, results, relevant_spans, template_mode)
-            for question, results, relevant_spans in zip(questions, reranked, spans_per_q)
-        ]
-        if not short_circuits:
-            return responses
-        # Re-interleave intent short-circuits at their original positions.
-        merged, live_iter = [], iter(responses)
-        for i in range(len(short_circuits) + len(responses)):
-            merged.append(short_circuits[i] if i in short_circuits else next(live_iter))
-        return merged
+            results_per_q = self.index.query_batch(
+                list(questions),
+                k=k or self.k,
+                filter=filter,
+                search_type=search_type,
+                hybrid_weights=hybrid_weights,
+                rrf_k=rrf_k,
+                search_params=search_params,
+            )
+            reranked = [self._apply_reranker(q, r) for q, r in zip(questions, results_per_q)]
+            if hasattr(self.extractor, "extract_spans_multi"):
+                spans_per_q = self.extractor.extract_spans_multi(list(zip(questions, reranked)))
+            else:
+                spans_per_q = [
+                    self.extractor.extract_spans(q, r) for q, r in zip(questions, reranked)
+                ]
+            with profiling.span("rag.respond"):
+                responses = [
+                    self._respond(question, results, relevant_spans, template_mode)
+                    for question, results, relevant_spans in zip(questions, reranked, spans_per_q)
+                ]
+            if not short_circuits:
+                return responses
+            # Re-interleave intent short-circuits at their original positions.
+            merged, live_iter = [], iter(responses)
+            for i in range(len(short_circuits) + len(responses)):
+                merged.append(short_circuits[i] if i in short_circuits else next(live_iter))
+            return merged
 
     def warmup(self) -> None:
         """Run one query at serving start-up (kernel builds, library
