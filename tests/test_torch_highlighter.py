@@ -85,6 +85,29 @@ def test_token_probs_match_jax(jax_params):
         got = token_relevance_probs(model, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, expected, rtol=5e-4, atol=5e-4)
     assert (got[mask == 0] == 0).all()
+    # The extractor's forward on the live tokens alone, flash on and off, on
+    # weights spread so that attention and RoPE move the probabilities.
+    spread = _spread(params)
+    expected = np.asarray(jax_probs(spread, jax_tiny_config(**OVERRIDES), jnp.asarray(ids), jnp.asarray(mask)))
+    assert np.ptp(expected[mask == 1]) > 0.3
+    for flash in (True, False):
+        config = tiny_test_config(**dict(OVERRIDES, use_flash_attention=flash))
+        extractor = ModelSpanExtractor(params=params_from_jax(jax.tree.map(np.asarray, spread)), config=config, device="cpu")
+        packed = extractor._forward_probs(ids, mask)
+        np.testing.assert_allclose(packed, expected * mask, rtol=5e-4, atol=5e-4, err_msg=f"flash={flash}")
+        assert (packed[mask == 0] == 0).all()
+
+
+def _spread(params, std: float = 0.3, seed: int = 5):
+    """JAX ``params`` redrawn at ``std`` about their init means (norm scales
+    about 1), so that the probabilities spread over (0, 1)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        mean = 1.0 if jax.tree_util.keystr(path).endswith("['scale']") else 0.0
+        return jnp.asarray(rng.normal(mean, std, size=leaf.shape).astype(np.float32))
+
+    return jax.tree_util.tree_map_with_path(draw, params)
 
 
 def _threshold_in_gap(extractor, question, contexts):
@@ -186,6 +209,84 @@ def test_extract_spans_returns_verbatim_substrings(jax_params):
     assert spans[""] == []
     for text in docs:
         assert all(span in text for span in spans[text])
+
+
+#: Encoder shapes of the packed forward's cases: ModernBERT's (RoPE, a
+#: global layer then local ones in a band of 16, GEGLU, pre-norm, the
+#: prediction head) and BERT's (absolute positions, token type 0, post-norm),
+#: each with the spread of its random weights.
+PACKED_CONFIGS = {
+    "modernbert": (dict(OVERRIDES, max_position_embeddings=256), (False, True), 0.3),
+    "bert": (dict(max_position_embeddings=256), None, 0.1),
+}
+
+#: Live lengths of each batch's rows at S = 256: mixed lengths, an all-pad
+#: row, a one-token row and a row at full length (view of 256 slots); or the
+#: same kinds below one kernel key tile (view of 128 slots).
+PACKED_BATCHES = {"full": [256, 0, 37, 1, 129, 200], "short": [100, 1, 0, 64, 17]}
+
+
+def _packed_case(config_name, flash, lengths, seed=3):
+    """An extractor over random weights scaled up so that probabilities
+    spread over (0, 1), and padded ids / prefix mask for ``lengths``."""
+    overrides, head, std = PACKED_CONFIGS[config_name]
+    config = tiny_test_config(**dict(overrides, use_flash_attention=flash))
+    generator = torch.Generator().manual_seed(seed)
+    model = HighlighterModel(config, generator, cls_head_biases=head)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            param.normal_(1.0 if name.endswith(".scale") else 0.0, std, generator=generator)
+    extractor = ModelSpanExtractor(params=model.state_dict(), config=config, device="cpu")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(3, config.vocab_size, size=(len(lengths), 256)).astype(np.int32)
+    mask = (np.arange(256)[None, :] < np.array(lengths)[:, None]).astype(np.int32)
+    return extractor, np.where(mask == 1, ids, 0).astype(np.int32), mask
+
+
+@pytest.mark.parametrize("batch", sorted(PACKED_BATCHES))
+@pytest.mark.parametrize("flash", [True, False], ids=["flash", "plain"])
+@pytest.mark.parametrize("config_name", sorted(PACKED_CONFIGS))
+def test_packed_forward_matches_padded(config_name, flash, batch):
+    """The extractor's forward on live tokens alone equals the padded
+    forward on every live slot, and writes exactly 0 on every pad slot."""
+    extractor, ids, mask = _packed_case(config_name, flash, PACKED_BATCHES[batch])
+    got = extractor._forward_probs(ids, mask)
+    with torch.no_grad():
+        expected = token_relevance_probs(extractor.model, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
+    live = mask == 1
+    assert got.shape == mask.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got[live], expected[live], rtol=5e-4, atol=5e-4)
+    assert (got[~live] == 0).all()
+    assert np.ptp(expected[live]) > 0.3
+
+
+@pytest.mark.parametrize("batch", sorted(PACKED_BATCHES))
+def test_packed_forward_launches_flash_once_a_layer_on_the_view(batch, monkeypatch):
+    """One launch a layer through ``models.encoder.flash_attention`` (the
+    name the benchmark's launch recorder wraps), on the [rows with a live
+    token, view length, H, D] view with the rows' live lengths as int32."""
+    from verbatim_rag_tpu_torch.models import encoder
+
+    extractor, ids, mask = _packed_case("modernbert", True, PACKED_BATCHES[batch])
+    config = extractor.config
+    launches = []
+    flash = encoder.flash_attention
+
+    def recording(q, k, v, lengths, window=None):
+        launches.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), lengths.clone(), window))
+        return flash(q, k, v, lengths, window)
+
+    monkeypatch.setattr(encoder, "flash_attention", recording)
+    extractor._forward_probs(ids, mask)
+    live = mask.sum(axis=1)
+    live = live[live > 0]
+    view = (len(live), 256 if live.max() > 128 else 128, config.num_heads, config.head_dim)
+    assert len(launches) == config.num_layers
+    windows = [None if config.is_global_layer(i) else config.local_attention_window for i in range(config.num_layers)]
+    assert [w for *_, w in launches] == windows
+    for q, k, v, lengths, _ in launches:
+        assert q == k == v == view
+        assert lengths.dtype == torch.int32 and lengths.tolist() == live.tolist()
 
 
 def test_default_config_is_the_demo_highlighter():

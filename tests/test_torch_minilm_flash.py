@@ -127,6 +127,13 @@ def test_params_from_jax_carries_a_bert_style_highlighter(highlighter):
     with torch.no_grad():
         got = token_relevance_probs(model, torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, expected, rtol=F32_RTOL, atol=F32_RTOL)
+    # The extractor's forward on the live tokens alone (absolute positions
+    # gathered a token, token type 0, post-LN), with flash on and off.
+    for flash in (True, False):
+        config = dataclasses.replace(model.config, use_flash_attention=flash)
+        packed = ModelSpanExtractor(params=state, config=config, device="cpu")._forward_probs(ids, mask)
+        np.testing.assert_allclose(packed, expected * mask, rtol=F32_RTOL, atol=F32_RTOL, err_msg=f"flash={flash}")
+        assert (packed[mask == 0] == 0).all()
 
 
 def _token_batch(seed: int = 0):

@@ -6,8 +6,9 @@ store, the extractor and the RAG record nothing. Under `torch.profiler`
 the same calls record their stages with their parents and one call id a
 root, the Chrome trace holds them as ``vrag.*`` user annotations, the
 extractor's counters equal the padding arithmetic of the arrays its forward
-receives, and results are the same as without the profiler. JAX-free: the
-port's hashed providers and narrow encoders.
+receives and the tokens and attention slots its packed forward runs, and
+results are the same as without the profiler. JAX-free: the port's hashed
+providers and narrow encoders.
 """
 
 from __future__ import annotations
@@ -170,11 +171,18 @@ def test_extractor_counts_its_padding(extractor):
     live_rows = int((mask.sum(axis=1) > 0).sum())
     assert len(rows) == live_rows == 7
     seq = min(bucket_length(max(map(len, rows))), extractor.max_length)
+    # The forward runs the live tokens alone; attention takes each slice's
+    # live rows at its longest row rounded up to a key tile, at most seq.
+    attn_slots = sum(
+        int((m.sum(axis=1) > 0).sum()) * min(seq, -(-int(m.sum(axis=1).max()) // 128) * 128) for m in seen
+    )
     assert counters == {
         "extract.rows": 7, "extract.padded_rows": 8, "extract.slots": mask.size,
         "extract.live_slots": int(mask.sum()), "extract.row_pad_slots": (8 - 7) * seq,
-        "extract.slices": len(seen),
+        "extract.slices": len(seen), "extract.packed_tokens": int(mask.sum()), "extract.attn_slots": attn_slots,
     }
+    assert counters["extract.packed_tokens"] == counters["extract.live_slots"]
+    assert counters["extract.attn_slots"] <= counters["extract.slots"]
     assert mask.shape == (8, seq)
     assert [s.name for s in spans] == list(EXTRACT[:2]) + ["extract.forward"] * len(seen) + ["extract.decode"]
     assert names == {profiling.SPAN_PREFIX + s for s in EXTRACT}

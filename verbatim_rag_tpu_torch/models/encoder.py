@@ -30,7 +30,9 @@ so only activations cross devices: each shard runs its heads and its
 part of the MLP, and the partial o- and wo-projections are summed over the
 shards in order, their biases added once after the sum. ``Encoder.forward``
 is the same function with one shard holding everything.
-:func:`encoder_forward_sp` is the sequence-parallel forward over a mesh: ring
+:func:`encoder_forward_packed` is the single-device forward over the live
+tokens of prefix-masked rows alone (:func:`pack_rows`), attention on a
+zeroed padded view. :func:`encoder_forward_sp` is the sequence-parallel forward over a mesh: ring
 attention on global layers, halo attention on local ones.
 
 :func:`embed_texts` is the dense provider's forward (masked mean pooling,
@@ -40,8 +42,9 @@ then L2 normalisation).
 from __future__ import annotations
 
 import weakref
-from typing import Iterator, Mapping, Sequence
+from typing import Iterator, Mapping, NamedTuple, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -101,17 +104,26 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.scale, self.bias, eps)
 
 
-def rope(x: torch.Tensor, theta: float, positions: torch.Tensor) -> torch.Tensor:
-    """Rotary embedding over head_dim of [B, S, H, D] (half-split convention)."""
-    head_dim = x.shape[-1]
+def rope_tables(theta: float, positions: torch.Tensor, head_dim: int, dtype: torch.dtype):
+    """cos and sin [S, 1, D/2] of :func:`rope` at ``positions`` [S]: float32
+    angles, cast to ``dtype``."""
     half = head_dim // 2
-    exponent = torch.arange(0, half, dtype=torch.float32, device=x.device) * 2.0 / head_dim
-    denom = torch.tensor(theta, dtype=torch.float32, device=x.device) ** exponent
+    exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) * 2.0 / head_dim
+    denom = torch.tensor(theta, dtype=torch.float32, device=positions.device) ** exponent
     freq = positions[:, None].float() / denom  # [S, half]
-    cos = torch.cos(freq).to(x.dtype)[None, :, None, :]
-    sin = torch.sin(freq).to(x.dtype)[None, :, None, :]
+    return torch.cos(freq).to(dtype)[:, None, :], torch.sin(freq).to(dtype)[:, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate [..., S, H, D] by tables of :func:`rope_tables` (half-split)."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope(x: torch.Tensor, theta: float, positions: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding over head_dim of [B, S, H, D] (half-split convention)."""
+    return apply_rope(x, *rope_tables(theta, positions, x.shape[-1], x.dtype))
 
 
 #: Additive bias of masked-out keys (the JAX encoder's ``NEG_INF``).
@@ -212,15 +224,26 @@ def _attend(q, k, v, config: EncoderConfig, is_global: bool, positions, lengths,
         theta = config.global_rope_theta if is_global else config.local_rope_theta
         q = rope(q.to(dtype), theta, positions)
         k = rope(k.to(dtype), theta, positions)
+    bias = None
+    if not config.use_flash_attention:
+        bias = build_bias(
+            attention_mask, q.shape[1], is_global or not use_rope, config.local_attention_window
+        )
+    return _attention(q, k, v, config, is_global, lengths, bias)
+
+
+def _attention(q, k, v, config: EncoderConfig, is_global: bool, lengths, bias):
+    """Flash attention over [B, S, H, D] with the rows' ``lengths`` (through
+    the module's name ``flash_attention``), or with flash off plain
+    attention over ``bias`` (:func:`build_bias`)."""
+    dtype = compute_dtype(config)
     if config.use_flash_attention:
+        use_rope = config.position_embedding_type == "rope"
         window = None if is_global or not use_rope else config.local_attention_window
         return flash_attention(
             q.to(dtype).contiguous(), k.to(dtype).contiguous(), v.to(dtype).contiguous(),
             lengths, window,
         )
-    bias = build_bias(
-        attention_mask, q.shape[1], is_global or not use_rope, config.local_attention_window
-    )
     return attention(q.to(dtype), k.to(dtype), v.to(dtype), bias)
 
 
@@ -280,8 +303,6 @@ def encoder_forward_tp(
     dtype = compute_dtype(config)
     batch, seq_len = input_ids.shape
     heads = config.num_heads // tp
-    pre_ln = config.norm_location == "pre"
-    eps = config.layer_norm_eps
     home = params[0]
     positions = [torch.arange(seq_len, device=d) for d in devices]
     lengths = attention_mask.sum(dim=1).to(torch.int32)
@@ -293,27 +314,40 @@ def encoder_forward_tp(
             partials = row.gather(x, partials)
         return tp_reduce(partials, bias, devices[0])
 
-    h = embed(home, config, input_ids.long(), token_type_ids)
-    for i in range(config.num_layers):
-        pre = f"layers.{i}."
-        a_in = _attn_in(home, config, i, h)
+    def attend(i: int, a_in):
         a_in = a_in if row is None else row.share(a_in)
         partials = [
-            _attn_partial(p, pre, a_in.to(dev), config, i, t, heads, positions[t], lengths[t], masks[t])
+            _attn_partial(p, f"layers.{i}.", a_in.to(dev), config, i, t, heads, positions[t], lengths[t], masks[t])
             for t, (p, dev) in enumerate(zip(params, devices))
         ]
-        h = h + reduce(a_in, partials, home.get(f"{pre}attn.o.bias"))
-        if not pre_ln:
-            h = _norm(home, f"{pre}attn_ln", h, eps)
-        m_in = _norm(home, f"{pre}mlp_ln", h, eps) if pre_ln else h
-        m_in = m_in if row is None else row.share(m_in)
-        partials = [_mlp(p, pre, m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)]
-        h = h + reduce(m_in, partials, home.get(f"{pre}mlp.wo.bias"))
-        if not pre_ln:
-            h = _norm(home, f"{pre}mlp_ln", h, eps)
+        return reduce(a_in, partials, home.get(f"layers.{i}.attn.o.bias"))
 
+    def mlp(i: int, m_in):
+        m_in = m_in if row is None else row.share(m_in)
+        partials = [_mlp(p, f"layers.{i}.", m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)]
+        return reduce(m_in, partials, home.get(f"layers.{i}.mlp.wo.bias"))
+
+    return _layers(home, config, embed(home, config, input_ids.long(), token_type_ids), attend, mlp)
+
+
+def _layers(p: Mapping, config: EncoderConfig, h, attend, mlp) -> torch.Tensor:
+    """The residual layer stack from the embeddings ``h`` → hidden states
+    float32: ``p``'s norms (pre- or post-norm, then the final norm) around
+    ``attend(i, a_in)`` and ``mlp(i, m_in)``, layer i's attention and MLP
+    outputs with their o- and wo-biases."""
+    pre_ln = config.norm_location == "pre"
+    eps = config.layer_norm_eps
+    for i in range(config.num_layers):
+        pre = f"layers.{i}."
+        h = h + attend(i, _attn_in(p, config, i, h))
+        if not pre_ln:
+            h = _norm(p, f"{pre}attn_ln", h, eps)
+        m_in = _norm(p, f"{pre}mlp_ln", h, eps) if pre_ln else h
+        h = h + mlp(i, m_in)
+        if not pre_ln:
+            h = _norm(p, f"{pre}mlp_ln", h, eps)
     if config.final_norm:
-        h = _norm(home, "final_ln", h, eps)
+        h = _norm(p, "final_ln", h, eps)
     return h.float()
 
 
@@ -342,6 +376,90 @@ def encoder_follow_tp(params: Sequence[Mapping], devices, config: EncoderConfig,
         m_in = row.receive(token, shape, devices[0])
         token = row.send([_mlp(p, pre, m_in.to(dev), config.activation, dtype) for p, dev in zip(params, devices)])
     return token
+
+
+#: Keys a tile of the flash forward kernel (``kFwdKeys`` in
+#: `csrc/flash_attention.cu`): the packed forward's attention view is its
+#: longest row rounded up to it.
+VIEW_TILE = 128
+
+
+class PackedRows(NamedTuple):
+    """The live tokens of [B, S] rows under a prefix mask (:func:`pack_rows`)."""
+
+    flat: np.ndarray  #: [T] the live slots' flat indices in [B, S]
+    positions: np.ndarray  #: [T] each token's position in its row
+    slots: np.ndarray  #: [T] its slot ``row × view_len + position`` in the attention view
+    lengths: np.ndarray  #: [R] int32 live lengths of the R rows with a live token
+    view_len: int  #: the longest row rounded up to VIEW_TILE, at most S
+
+
+def pack_rows(mask: np.ndarray) -> PackedRows:
+    """Pack the prefix ``mask`` [B, S] on the host (no device ``nonzero``)."""
+    seq = mask.shape[1]
+    flat = np.flatnonzero(mask)
+    lengths = mask.sum(axis=1)
+    live = lengths > 0
+    lengths = lengths[live].astype(np.int32)
+    view_len = min(seq, -(-int(lengths.max(initial=0)) // VIEW_TILE) * VIEW_TILE)
+    positions = flat % seq
+    view_rows = (np.cumsum(live) - 1)[flat // seq]
+    return PackedRows(flat, positions, view_rows * view_len + positions, lengths, view_len)
+
+
+def encoder_forward_packed(p: Mapping, config: EncoderConfig, input_ids: np.ndarray, rows: PackedRows) -> torch.Tensor:
+    """The single-device forward over the live tokens alone: padded
+    ``input_ids`` [B, S] and their :func:`pack_rows` (at least one token) →
+    hidden states [T, hidden] float32 on ``p``'s device.
+
+    Embeddings (each token's own position, token type 0), norms,
+    projections, the MLP and the float32 residual stream run on the T tokens
+    with the padded forward's arithmetic a token. For attention q, k and v
+    are scattered into [R, view_len, H, D] views, attended with the rows'
+    lengths (flash through the module's name ``flash_attention``, or plain
+    attention over :func:`build_bias`) and the output gathered back at the
+    live slots. The views are zeroed once and every layer writes the same
+    slots, so their pad stays zero: the kernel loads whole key tiles, and a
+    masked score times NaN in V is NaN.
+    """
+    dtype = compute_dtype(config)
+    heads, head_dim = config.num_heads, config.head_dim
+    device = p["embeddings.word"].device
+    packed = np.stack([input_ids.reshape(-1)[rows.flat], rows.positions, rows.slots])
+    tokens, positions, slots = torch.from_numpy(packed).to(device)
+    lengths = torch.from_numpy(rows.lengths).to(device)
+    count, view_len = len(rows.lengths), rows.view_len
+    use_rope = config.position_embedding_type == "rope"
+    views = [torch.zeros(count * view_len, heads, head_dim, dtype=dtype, device=device) for _ in range(3)]
+    is_global = [config.is_global_layer(i) for i in range(config.num_layers)]
+    thetas = {config.global_rope_theta if g else config.local_rope_theta for g in is_global}
+    tables = {theta: rope_tables(theta, positions, head_dim, dtype) for theta in thetas} if use_rope else {}
+    biases = {}
+    if not config.use_flash_attention:
+        mask = torch.arange(view_len, device=device)[None] < lengths[:, None]
+        for full in {g or not use_rope for g in is_global}:
+            biases[full] = build_bias(mask, view_len, full, config.local_attention_window)
+
+    def attend(i: int, x):
+        """Layer i's attention over ``x`` [1, T, hidden] with its o-projection;
+        its temporaries are freed before the MLP runs."""
+        pre = f"layers.{i}."
+        qkv = _qkv(p, pre, x, dtype, heads, head_dim, slice(None))
+        if use_rope:
+            cos, sin = tables[config.global_rope_theta if is_global[i] else config.local_rope_theta]
+            qkv[0], qkv[1] = (apply_rope(y.to(dtype), cos, sin) for y in qkv[:2])
+        for view, y in zip(views, qkv):
+            view.index_copy_(0, slots, y[0].to(dtype))
+        del qkv
+        q, k, v = (view.view(count, view_len, heads, head_dim) for view in views)
+        out = _attention(q, k, v, config, is_global[i], lengths, biases.get(is_global[i] or not use_rope))
+        ctx = out.reshape(count * view_len, heads * head_dim)[slots][None]
+        return dense(ctx, p[f"{pre}attn.o.kernel"], p.get(f"{pre}attn.o.bias"), dtype)
+
+    def mlp(i: int, m_in):
+        return _mlp(p, f"layers.{i}.", m_in, config.activation, dtype, wo_bias=True)
+
+    return _layers(p, config, embed(p, config, tokens[None].long(), positions=positions), attend, mlp)[0]
 
 
 class Encoder(nn.Module):

@@ -5,9 +5,10 @@ A token-classification head on the encoder scores every context token for
 relevance to the question; char spans are cut where the token probability
 crosses a threshold, merged across small gaps, and length-filtered. Long
 contexts use sliding windows with stride overlap; overlapping probabilities
-are max-aggregated. Windows of every document run in one padded forward
+are max-aggregated. Windows of every document are padded into one array
 (row counts bucketed to powers of two, bursts scored in slices of at most
-512 rows and `SLICE_TOKENS` tokens).
+512 rows and `SLICE_TOKENS` tokens); on one device each slice's forward
+runs on its live tokens alone (:func:`token_relevance_probs_packed`).
 
 The host-side planning, batching and decode are the JAX package's, unchanged;
 :meth:`ModelSpanExtractor._forward_probs` is the one model seam. With
@@ -37,17 +38,21 @@ from .config import EncoderConfig, demo_highlighter_config
 #: package slices bursts by 512 rows alone; with windows of 4096 tokens such
 #: a slice is 2.1M tokens, and ModernBERT-base's float32 MLP product for it
 #: alone takes 18 GiB, more than an 80 GB card had left in a served burst.
-#: Each row's probabilities depend on that row only, so the slicing changes
-#: no result.
+#: The packed forward holds live tokens alone in its token-wise tensors, but
+#: its attention views still take rows × length slots. Each row's
+#: probabilities depend on that row only, so the slicing changes no result.
 SLICE_TOKENS = 512 * 2048
 from .encoder import (
     Dense,
     Encoder,
     LayerNorm,
+    PackedRows,
     compute_dtype,
     dense,
+    encoder_forward_packed,
     encoder_forward_sp,
     layer_norm,
+    pack_rows,
     shard_replicas,
 )
 from .tokenizer import HashTokenizer, Tokenizer, bucket_length
@@ -105,6 +110,14 @@ def token_relevance_probs(model: HighlighterModel, input_ids, attention_mask) ->
     logits = model.classifier_logits(hidden)
     probs = torch.softmax(logits.float(), dim=-1)[..., 1]
     return probs * attention_mask.float()
+
+
+def token_relevance_probs_packed(model: HighlighterModel, input_ids: np.ndarray, rows: PackedRows) -> torch.Tensor:
+    """:func:`token_relevance_probs` over the live tokens alone — [T]
+    float32; the arguments are `models.encoder.encoder_forward_packed`'s."""
+    p = dict(model.named_parameters())
+    hidden = encoder_forward_packed(p, model.config, input_ids, rows)
+    return torch.softmax(classifier_logits(p, model.config, hidden).float(), dim=-1)[..., 1]
 
 
 def token_relevance_probs_sp(
@@ -367,7 +380,7 @@ class ModelSpanExtractor(SpanExtractor):
         rows), ``extract.padded_rows``, ``extract.slots`` (padded rows ×
         length), ``extract.live_slots`` (tokens), ``extract.row_pad_slots``
         (the slots of the rows added to reach the row bucket) and
-        ``extract.slices``."""
+        ``extract.slices``; :meth:`_forward_probs` adds its own two."""
         with profiling.span("extract.plan"):
             plans = [self._plan(q, c) for q, c in pairs]
             rows: list[list[int]] = []
@@ -443,7 +456,10 @@ class ModelSpanExtractor(SpanExtractor):
         return spans
 
     def _forward_probs(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """[B, S] padded token ids/mask → [B, S] relevance probabilities."""
+        """[B, S] padded token ids/mask → [B, S] relevance probabilities, 0
+        on pad slots. On one device only the live tokens run (while a
+        profiler records, counted as ``extract.packed_tokens``, and the
+        attention views' rows × length as ``extract.attn_slots``)."""
         if self.sp_mesh is not None:
             with torch.no_grad():
                 shards = token_relevance_probs_sp(
@@ -456,13 +472,17 @@ class ModelSpanExtractor(SpanExtractor):
             probs = torch.cat([p.cpu() for p in shards], dim=1)
             group = self.sp_mesh.line(self.sp_axis).group
             return (probs if group is None else exchange.gather_sequence(probs, group)).numpy()
+        # One device: the live tokens alone (token_relevance_probs_packed).
+        probs = np.zeros(mask.shape, np.float32)
+        rows = pack_rows(mask)
+        if rows.flat.size == 0:
+            return probs
+        if profiling.tracing():
+            profiling.count("extract.packed_tokens", rows.flat.size)
+            profiling.count("extract.attn_slots", len(rows.lengths) * rows.view_len)
         with torch.no_grad():
-            probs = token_relevance_probs(
-                self.model,
-                torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device),
-            )
-        return probs.cpu().numpy()
+            probs.reshape(-1)[rows.flat] = token_relevance_probs_packed(self.model, ids, rows).cpu().numpy()
+        return probs
 
     def _plan(self, question: str, context: str) -> dict | None:
         """Tokenize one document and lay out its windows (host-only work)."""
